@@ -1,0 +1,182 @@
+"""ACT over point clouds (port of
+``pointcloudmatters_tpu/models/components/act/act.py:59-396``), inference
+side.
+
+Call protocol as in JAX: ``policy(data_dict, train=False)`` returns a new
+dict with ``a_hat`` (B, num_queries, action_dim) and ``is_pad_hat`` merged
+in. Without actions the CVAE latent is zero (JAX ``act.py:152-155``), so the
+posterior ``encoder`` is built, for its parameters, but not run. Training,
+the posterior with actions, and the image and state-only observation paths
+come with later slices and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from pointcloudmatters_tpu_torch.models.components.act.positional_encoding import (
+    coord_embedding_sine,
+)
+from pointcloudmatters_tpu_torch.models.components.act.transformer import (
+    Transformer,
+    TransformerEncoder,
+)
+from pointcloudmatters_tpu_torch.models.components.nn_utils import GroupedBNReluMax
+from pointcloudmatters_tpu_torch.ops.pointops import (
+    farthest_point_sampling_padded,
+    knn_query_padded,
+)
+
+__all__ = ["ACT", "ACTPCD"]
+
+
+class ACT(nn.Module):
+    """Action Chunking Transformer: the parameters and the CVAE / decoder /
+    head stages shared by the observation variants. Parameter names are the
+    JAX module's."""
+
+    def __init__(self, backbone: Optional[nn.Module], transformer: Transformer,
+                 encoder: Optional[TransformerEncoder], hidden_dim: int,
+                 num_queries: int, action_dim: int = 8, qpos_dim: int = 9,
+                 latent_dim: int = 32, kl_weight: float = 20.0,
+                 goal_cond_dim: int = 0):
+        super().__init__()
+        if backbone is None:
+            raise NotImplementedError(
+                "the state-only ACT path is not ported yet; pass a backbone"
+            )
+        D = hidden_dim
+        n_add = 2 + int(goal_cond_dim > 0)
+        self.backbone = backbone
+        self.transformer = transformer
+        self.encoder = encoder
+        self.hidden_dim = hidden_dim
+        self.num_queries = num_queries
+        self.latent_dim = latent_dim
+        self.kl_weight = kl_weight  # of the training loss
+        self.goal_cond_dim = goal_cond_dim
+        self.input_proj_robot_state = nn.Linear(qpos_dim, D)
+        self.cls_embed = nn.Parameter(torch.zeros(1, D))
+        self.encoder_action_proj = nn.Linear(action_dim, D)
+        self.encoder_joint_proj = nn.Linear(qpos_dim, D)
+        self.latent_proj = nn.Linear(D, latent_dim * 2)
+        if goal_cond_dim > 0:
+            self.proj_goal_cond_emb = nn.Linear(goal_cond_dim, D)
+        self.action_head = nn.Linear(D, action_dim)
+        self.is_pad_head = nn.Linear(D, 1)
+        self.query_embed = nn.Parameter(torch.zeros(num_queries, D))
+        self.latent_out_proj = nn.Linear(latent_dim, D)
+        self.additional_pos_embed = nn.Parameter(torch.zeros(n_add, D))
+
+    def forward_encoder(self, data_dict: dict, train: bool) -> dict:
+        """CVAE latent; without actions a zero latent (JAX ``act.py:152-155``)."""
+        qpos = data_dict["qpos"]
+        if data_dict.get("actions") is not None:
+            raise NotImplementedError(
+                "the CVAE posterior over actions comes with the training step; "
+                "predict takes observations without actions"
+            )
+        latent_sample = qpos.new_zeros((qpos.shape[0], self.latent_dim))
+        return dict(data_dict, mu=None, logvar=None,
+                    latent_input=self.latent_out_proj(latent_sample),
+                    is_training=False)
+
+    def _goal_embed(self, data_dict: dict) -> Optional[torch.Tensor]:
+        if self.goal_cond_dim <= 0:
+            return None
+        goal = data_dict["goal_cond"]
+        if goal.ndim > 2:
+            goal = goal.reshape(goal.shape[0], -1)
+        return self.proj_goal_cond_emb(goal)
+
+    def forward_obs_embed(self, data_dict: dict, train: bool) -> dict:
+        raise NotImplementedError(
+            "the image-observation ACT path is not ported yet; use ACTPCD"
+        )
+
+    def _decode(self, data_dict: dict, train: bool) -> torch.Tensor:
+        hs = self.transformer(
+            data_dict["src"], self.query_embed, pos=data_dict["pos"],
+            latent_input=data_dict["latent_input"],
+            proprio_input=data_dict["proprio_input"],
+            additional_pos_embed=(
+                self.additional_pos_embed
+                if data_dict["latent_input"] is not None else None
+            ),
+            deterministic=not train,
+        )
+        return hs[0]  # first decoder layer's intermediate, the reference quirk
+
+    def forward_decoder(self, data_dict: dict, train: bool) -> dict:
+        hs = self._decode(data_dict, train)
+        return dict(data_dict, a_hat=self.action_head(hs),
+                    is_pad_hat=self.is_pad_head(hs))
+
+    def forward(self, data_dict: dict, train: bool = False) -> dict:
+        if train:
+            raise NotImplementedError("the ACT training step is not ported yet")
+        data_dict = self.forward_encoder(data_dict, train)
+        data_dict = self.forward_obs_embed(data_dict, train)
+        return self.forward_decoder(data_dict, train)
+
+
+class ACTPCD(ACT):
+    """ACT over point-cloud tokens: backbone features of the whole cloud,
+    FPS to ``pcd_npoints`` token centres, kNN groups of ``pcd_nsample``,
+    and the ``GroupedBNReluMax`` token builder. The backbone maps
+    ``{"coord", "feat", "valid"}`` to (B, N, C) per-point features and has a
+    ``num_channels`` property."""
+
+    def __init__(self, backbone: nn.Module, transformer: Transformer,
+                 encoder: Optional[TransformerEncoder], hidden_dim: int,
+                 num_queries: int, pcd_nsample: int = 16,
+                 pcd_npoints: int = 1024, use_mask: bool = False,
+                 pre_sample: bool = False, **kwargs):
+        super().__init__(backbone, transformer, encoder, hidden_dim,
+                         num_queries, **kwargs)
+        if use_mask or pre_sample:
+            raise NotImplementedError(
+                "ACTPCD use_mask and pre_sample are not ported yet"
+            )
+        self.pcd_nsample = pcd_nsample
+        self.pcd_npoints = pcd_npoints
+        self.pcd_linear = nn.Linear(3 + backbone.num_channels, hidden_dim,
+                                    bias=False)
+        self.pcd_bn = GroupedBNReluMax(hidden_dim)
+
+    def pcd_sampling(self, coord: torch.Tensor, feat: torch.Tensor,
+                     valid: torch.Tensor, train: bool = False):
+        """-> (new_xyz (B, m, 3), tokens (B, m, D), idx (B, m)).
+
+        ``pcd_linear`` is bias-free, so projecting each gathered neighbour
+        ``[xyz[nn] - new_xyz, feat[nn]]`` equals
+        ``pcd_linear([xyz, feat])[nn] - pcd_linear([new_xyz, 0])``: the N
+        source points are projected once (JAX ``act.py:305-350``)."""
+        idx = farthest_point_sampling_padded(coord, valid, self.pcd_npoints)
+        new_xyz = torch.gather(
+            coord, 1, idx.to(torch.long)[..., None].expand(-1, -1, 3))
+        nn_idx, _ = knn_query_padded(new_xyz, coord, valid, self.pcd_nsample)
+        zeros_f = feat.new_zeros(new_xyz.shape[:-1] + (feat.shape[-1],))
+        h = self.pcd_linear(torch.cat([new_xyz, zeros_f], dim=-1))
+        g = self.pcd_linear(torch.cat([coord, feat], dim=-1))
+        x = self.pcd_bn(g, h, nn_idx, use_running_average=not train)
+        return new_xyz, x, idx
+
+    def forward_pcd_embed(self, pcd_dict: dict, train: bool):
+        coord = pcd_dict["coord"]
+        valid = pcd_dict["valid"].to(torch.bool)
+        features = self.backbone(pcd_dict, train=train)
+        coords_out, features, _ = self.pcd_sampling(coord, features, valid,
+                                                    train=train)
+        return features, coord_embedding_sine(coords_out, self.hidden_dim)
+
+    def forward_obs_embed(self, data_dict: dict, train: bool) -> dict:
+        src, pos = self.forward_pcd_embed(data_dict["pcds"], train)
+        proprio = self.input_proj_robot_state(data_dict["qpos"])[:, None, :]
+        goal_cond = self._goal_embed(data_dict)
+        if goal_cond is not None:
+            proprio = torch.cat([proprio, goal_cond[:, None, :]], dim=1)
+        return dict(data_dict, src=src, pos=pos, proprio_input=proprio)

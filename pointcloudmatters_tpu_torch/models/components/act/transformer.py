@@ -1,0 +1,308 @@
+"""DETR-style transformer for ACT, batch-first (port of
+``pointcloudmatters_tpu/models/components/act/transformer.py:261-622``),
+inference side.
+
+- ``(B, L, D)`` tokens throughout; positions are added to queries and keys
+  only, never to values; LayerNorm eps 1e-5; post-norm unless
+  ``normalize_before``.
+- Attention modules keep flax ``MultiHeadDotProductAttention``'s
+  ``query``/``key``/``value``/``out`` projections, each a ``Linear(D, D)``.
+- The encoder self-attention runs the oneshot core (``ops/attention.py``);
+  the decoder's attentions are dense, as in JAX.
+- The decoder holds all ``num_layers`` layers, so a converted checkpoint maps
+  one to one, but with ``return_intermediate`` computes only the first
+  ``live_layers`` (ACT reads ``hs[0]``).
+
+The ``flash`` and ``fused`` attention backends are not ported yet (their
+kernels are on ROADMAP.md's list) and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from pointcloudmatters_tpu_torch.models.components.nn_utils import (
+    BitsDropout,
+    activation_fn,
+)
+from pointcloudmatters_tpu_torch.ops.attention import (
+    dot_product_attention,
+    make_oneshot_attention_fn,
+)
+
+__all__ = [
+    "MultiHeadAttention",
+    "TransformerEncoderLayer",
+    "TransformerDecoderLayer",
+    "TransformerEncoder",
+    "TransformerDecoder",
+    "Transformer",
+]
+
+_ATTENTION_IMPLS = ("dense", "flash", "oneshot", "fused")
+
+
+def _attention_fn(impl: str):
+    """The attention core of backend ``impl``."""
+    if impl not in _ATTENTION_IMPLS:
+        raise ValueError(
+            f"attention_impl must be one of {_ATTENTION_IMPLS}, got {impl!r}"
+        )
+    if impl in ("flash", "fused"):
+        raise NotImplementedError(
+            f"attention_impl={impl!r}: its CUDA kernels are not ported yet "
+            f"(see ROADMAP.md); use 'oneshot' or 'dense'"
+        )
+    return make_oneshot_attention_fn() if impl == "oneshot" else dot_product_attention
+
+
+def _attention_mask(key_padding_mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """(B, L) True=PAD -> (B, 1, 1, L) True=attend, or None."""
+    if key_padding_mask is None:
+        return None
+    return ~key_padding_mask[:, None, None, :]
+
+
+def _with_pos(x: torch.Tensor, pos: Optional[torch.Tensor]) -> torch.Tensor:
+    return x if pos is None else x + pos.to(x.dtype)
+
+
+class MultiHeadAttention(nn.Module):
+    """Multi-head attention with flax's projection layout and math."""
+
+    def __init__(self, d_model: int, nhead: int, dropout_rate: float = 0.0,
+                 attention_impl: str = "dense"):
+        super().__init__()
+        self.nhead = nhead
+        self.dropout_rate = dropout_rate
+        self.attention_fn = _attention_fn(attention_impl)
+        self.query = nn.Linear(d_model, d_model)
+        self.key = nn.Linear(d_model, d_model)
+        self.value = nn.Linear(d_model, d_model)
+        self.out = nn.Linear(d_model, d_model)
+
+    def forward(self, inputs_q: torch.Tensor, inputs_k: torch.Tensor,
+                inputs_v: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                deterministic: bool = True) -> torch.Tensor:
+        B, Lq, D = inputs_q.shape
+        heads = lambda x: x.view(x.shape[0], x.shape[1], self.nhead, -1)  # noqa: E731
+        o = self.attention_fn(
+            heads(self.query(inputs_q)), heads(self.key(inputs_k)),
+            heads(self.value(inputs_v)), mask=mask,
+            dropout_rate=self.dropout_rate, deterministic=deterministic,
+        )
+        return self.out(o.reshape(B, Lq, D))
+
+
+class TransformerEncoderLayer(nn.Module):
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
+                 dropout: float = 0.1, activation: str = "relu",
+                 normalize_before: bool = False, attention_impl: str = "oneshot"):
+        super().__init__()
+        self.normalize_before = normalize_before
+        self.self_attn = MultiHeadAttention(d_model, nhead, dropout, attention_impl)
+        self.linear1 = nn.Linear(d_model, dim_feedforward)
+        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.act = activation_fn(activation)
+        self.drop = BitsDropout(dropout)
+
+    def forward(self, src: torch.Tensor, pos: Optional[torch.Tensor] = None,
+                key_padding_mask: Optional[torch.Tensor] = None,
+                deterministic: bool = True) -> torch.Tensor:
+        mask = _attention_mask(key_padding_mask)
+        drop = lambda x: self.drop(x, deterministic)  # noqa: E731
+
+        def ffn(x):
+            return self.linear2(drop(self.act(self.linear1(x))))
+
+        if self.normalize_before:
+            x = self.norm1(src)
+            qk = _with_pos(x, pos)
+            src = src + drop(self.self_attn(qk, qk, x, mask=mask,
+                                            deterministic=deterministic))
+            return src + drop(ffn(self.norm2(src)))
+        qk = _with_pos(src, pos)
+        src = src + drop(self.self_attn(qk, qk, src, mask=mask,
+                                        deterministic=deterministic))
+        src = self.norm1(src)
+        return self.norm2(src + drop(ffn(src)))
+
+
+class TransformerDecoderLayer(nn.Module):
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
+                 dropout: float = 0.1, activation: str = "relu",
+                 normalize_before: bool = False, attention_impl: str = "dense"):
+        super().__init__()
+        if attention_impl == "fused":
+            raise ValueError(
+                "attention_impl='fused' is encoder-self-attention only; use "
+                "dense/oneshot for the decoder"
+            )
+        self.normalize_before = normalize_before
+        self.self_attn = MultiHeadAttention(d_model, nhead, dropout, "dense")
+        self.multihead_attn = MultiHeadAttention(d_model, nhead, dropout,
+                                                 attention_impl)
+        self.linear1 = nn.Linear(d_model, dim_feedforward)
+        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
+        self.act = activation_fn(activation)
+        self.drop = BitsDropout(dropout)
+
+    def forward(self, tgt: torch.Tensor, memory: torch.Tensor,
+                pos: Optional[torch.Tensor] = None,
+                query_pos: Optional[torch.Tensor] = None,
+                memory_key_padding_mask: Optional[torch.Tensor] = None,
+                deterministic: bool = True) -> torch.Tensor:
+        mem_mask = _attention_mask(memory_key_padding_mask)
+        drop = lambda x: self.drop(x, deterministic)  # noqa: E731
+        mem_k = _with_pos(memory, pos)
+
+        def ffn(x):
+            return self.linear2(drop(self.act(self.linear1(x))))
+
+        if self.normalize_before:
+            x = self.norm1(tgt)
+            qk = _with_pos(x, query_pos)
+            tgt = tgt + drop(self.self_attn(qk, qk, x, deterministic=deterministic))
+            x = self.norm2(tgt)
+            tgt = tgt + drop(self.multihead_attn(
+                _with_pos(x, query_pos), mem_k, memory, mask=mem_mask,
+                deterministic=deterministic))
+            return tgt + drop(ffn(self.norm3(tgt)))
+        qk = _with_pos(tgt, query_pos)
+        tgt = tgt + drop(self.self_attn(qk, qk, tgt, deterministic=deterministic))
+        tgt = self.norm1(tgt)
+        tgt = tgt + drop(self.multihead_attn(
+            _with_pos(tgt, query_pos), mem_k, memory, mask=mem_mask,
+            deterministic=deterministic))
+        tgt = self.norm2(tgt)
+        return self.norm3(tgt + drop(ffn(tgt)))
+
+
+class TransformerEncoder(nn.Module):
+    """Stack of encoder layers plus a final norm when pre-norm; also the CVAE
+    posterior encoder of ACT."""
+
+    def __init__(self, d_model: int = 256, nhead: int = 8,
+                 dim_feedforward: int = 2048, dropout: float = 0.1,
+                 activation: str = "relu", normalize_before: bool = False,
+                 num_layers: int = 4, attention_impl: str = "oneshot"):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            TransformerEncoderLayer(d_model, nhead, dim_feedforward, dropout,
+                                    activation, normalize_before, attention_impl)
+            for _ in range(num_layers)
+        )
+        self.norm = nn.LayerNorm(d_model, eps=1e-5) if normalize_before else None
+
+    def forward(self, src: torch.Tensor, pos: Optional[torch.Tensor] = None,
+                key_padding_mask: Optional[torch.Tensor] = None,
+                deterministic: bool = True) -> torch.Tensor:
+        for layer in self.layers:
+            src = layer(src, pos, key_padding_mask, deterministic)
+        return src if self.norm is None else self.norm(src)
+
+
+class TransformerDecoder(nn.Module):
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
+                 dropout: float = 0.1, activation: str = "relu",
+                 normalize_before: bool = False, num_layers: int = 6,
+                 return_intermediate: bool = False, attention_impl: str = "dense",
+                 live_layers: Optional[int] = None):
+        super().__init__()
+        self.return_intermediate = return_intermediate
+        self.live_layers = live_layers
+        self.layers = nn.ModuleList(
+            TransformerDecoderLayer(d_model, nhead, dim_feedforward, dropout,
+                                    activation, normalize_before, attention_impl)
+            for _ in range(num_layers)
+        )
+        self.norm = nn.LayerNorm(d_model, eps=1e-5)
+
+    def forward(self, tgt: torch.Tensor, memory: torch.Tensor,
+                pos: Optional[torch.Tensor] = None,
+                query_pos: Optional[torch.Tensor] = None,
+                memory_key_padding_mask: Optional[torch.Tensor] = None,
+                deterministic: bool = True) -> torch.Tensor:
+        """-> (n_run, B, nq, D) normed intermediates, or (1, B, nq, D)."""
+        n_run = len(self.layers)
+        if self.live_layers is not None and self.return_intermediate:
+            n_run = min(self.live_layers, n_run)
+        intermediate = []
+        out = tgt
+        for layer in self.layers[:n_run]:
+            out = layer(out, memory, pos=pos, query_pos=query_pos,
+                        memory_key_padding_mask=memory_key_padding_mask,
+                        deterministic=deterministic)
+            if self.return_intermediate:
+                intermediate.append(self.norm(out))
+        if self.return_intermediate:
+            return torch.stack(intermediate)
+        return self.norm(out)[None]
+
+
+class Transformer(nn.Module):
+    """ACT encoder-decoder over observation tokens.
+
+    ``forward`` prepends ``[latent, proprio...]`` to ``src`` (with
+    ``additional_pos_embed`` positions), encodes, then decodes
+    ``num_queries`` zero targets against the learned query embeddings and
+    returns (num_intermediate, B, num_queries, D)."""
+
+    def __init__(self, d_model: int = 512, nhead: int = 8,
+                 num_encoder_layers: int = 6, num_decoder_layers: int = 6,
+                 dim_feedforward: int = 2048, dropout: float = 0.1,
+                 activation: str = "relu", normalize_before: bool = False,
+                 return_intermediate_dec: bool = False,
+                 attention_impl: str = "oneshot",
+                 decoder_live_layers: Optional[int] = 1):
+        super().__init__()
+        self.d_model = d_model
+        self.encoder = TransformerEncoder(
+            d_model, nhead, dim_feedforward, dropout, activation,
+            normalize_before, num_encoder_layers, attention_impl=attention_impl,
+        )
+        self.decoder = TransformerDecoder(
+            d_model, nhead, dim_feedforward, dropout, activation,
+            normalize_before, num_decoder_layers,
+            return_intermediate=return_intermediate_dec,
+            live_layers=decoder_live_layers,
+        )
+
+    def forward(self, src: torch.Tensor, query_embed: torch.Tensor,
+                pos: Optional[torch.Tensor] = None,
+                latent_input: Optional[torch.Tensor] = None,
+                proprio_input: Optional[torch.Tensor] = None,
+                additional_pos_embed: Optional[torch.Tensor] = None,
+                key_padding_mask: Optional[torch.Tensor] = None,
+                deterministic: bool = True) -> torch.Tensor:
+        B = src.shape[0]
+        if latent_input is not None:
+            extra = [latent_input[:, None, :]]
+            if proprio_input is not None:
+                extra.append(proprio_input)
+            addition = torch.cat(extra, dim=1)  # (B, n_add, D)
+            src = torch.cat([addition, src], dim=1)
+            if pos is not None and additional_pos_embed is not None:
+                pos = pos.expand((B,) + pos.shape[1:])
+                add_pos = additional_pos_embed[None].expand(
+                    (B,) + additional_pos_embed.shape)
+                pos = torch.cat([add_pos, pos], dim=1)
+            if key_padding_mask is not None:
+                no_pad = key_padding_mask.new_zeros((B, addition.shape[1]))
+                key_padding_mask = torch.cat([no_pad, key_padding_mask], dim=1)
+
+        memory = self.encoder(src, pos=pos, key_padding_mask=key_padding_mask,
+                              deterministic=deterministic)
+        query_pos = query_embed[None].expand(B, -1, -1)
+        tgt = torch.zeros_like(query_pos)
+        return self.decoder(tgt, memory, pos=pos, query_pos=query_pos,
+                            memory_key_padding_mask=key_padding_mask,
+                            deterministic=deterministic)

@@ -1,0 +1,234 @@
+"""Parity of the port's ACT + PointNet inference slice with the JAX modules,
+in eval, on the CPU.
+
+JAX modules are built at tiny width, their variables randomised (biases,
+norm scales of both signs, running statistics) so that every parameter
+matters, converted with ``flax_to_torch`` and loaded into the port. Inputs
+come from numpy seeds. Tolerances: atol 1e-5 for single modules (f32, only
+summation order differs), atol/rtol 1e-4 for the whole policy (a dozen f32
+layers deep).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import __graft_entry__ as jentry
+from pointcloudmatters_tpu.models.bc_module import BCModule as JBCModule
+from pointcloudmatters_tpu.models.components import nn_utils as jnn
+from pointcloudmatters_tpu.models.components.act import transformer as jtr
+from pointcloudmatters_tpu.models.components.act.positional_encoding import (
+    coord_embedding_sine as jax_coord_embedding_sine,
+)
+from pointcloudmatters_tpu.models.components.pcd_encoder.pointnet import (
+    PointNet as JPointNet,
+)
+from pointcloudmatters_tpu_torch import entry as tentry
+from pointcloudmatters_tpu_torch.models.bc_module import BCModule
+from pointcloudmatters_tpu_torch.models.components import nn_utils as tnn
+from pointcloudmatters_tpu_torch.models.components.act import transformer as ttr
+from pointcloudmatters_tpu_torch.models.components.act.positional_encoding import (
+    coord_embedding_sine,
+)
+from pointcloudmatters_tpu_torch.models.components.pcd_encoder.pointnet import (
+    PointNet,
+)
+from pointcloudmatters_tpu_torch.utils.flax_to_torch import flax_to_torch
+
+ATOL = 1e-5
+FLAGSHIP_PARAMS = 24_124_456
+
+
+def _randomize(variables, seed):
+    """Random biases, norm scales (either sign), means and positive
+    variances; kernels and embeddings keep their initialisation."""
+    rng = np.random.RandomState(seed)
+
+    def leaf(path, x):
+        name = path[-1].key
+        shape = np.shape(x)
+        if name == "var":
+            return rng.uniform(0.5, 2.0, shape).astype(np.float32)
+        if name == "scale":
+            return (rng.uniform(0.5, 1.5, shape)
+                    * rng.choice([-1.0, 1.0], shape)).astype(np.float32)
+        if name in ("bias", "mean"):
+            return (rng.randn(*shape) * 0.2).astype(np.float32)
+        return np.asarray(x)
+
+    return jax.tree_util.tree_map_with_path(leaf, variables)
+
+
+def _load(module, variables):
+    module.load_state_dict(flax_to_torch(variables, module.state_dict()), strict=True)
+    return module.eval()
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x))
+
+
+def test_pointnet():
+    rng = np.random.RandomState(0)
+    feat = rng.randn(2, 50, 6).astype(np.float32)
+    valid = np.arange(50)[None] < np.array([[50], [31]])
+    jm = JPointNet(in_channels=6)
+    inp = {"feat": jnp.asarray(feat), "valid": jnp.asarray(valid)}
+    variables = _randomize(jm.init(jax.random.PRNGKey(0), inp), 1)
+    ref = jm.apply(variables, inp, train=False)
+    tm = _load(PointNet(in_channels=6), variables)
+    got = tm({"feat": _t(feat), "valid": _t(valid)})
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+
+
+def test_grouped_bn_relu_max_with_holes():
+    rng = np.random.RandomState(1)
+    B, N, M, K, D = 2, 40, 12, 5, 24
+    g = rng.randn(B, N, D).astype(np.float32)
+    h = rng.randn(B, M, D).astype(np.float32)
+    nn_idx = rng.randint(0, N, (B, M, K)).astype(np.int32)
+    nn_idx[0, :4, 3:] = -1   # a few holes
+    nn_idx[1, 5, :] = -1     # a token with holes only
+    jm = jnn.GroupedBNReluMax()
+    args = (jnp.asarray(g), jnp.asarray(h), jnp.asarray(nn_idx))
+    variables = _randomize(jm.init(jax.random.PRNGKey(0), *args), 2)
+    assert (np.asarray(variables["params"]["scale"]) < 0).any()  # min branch
+    ref = jm.apply(variables, *args, use_running_average=True)
+    tm = _load(tnn.GroupedBNReluMax(D), variables)
+    got = tm(_t(g), _t(h), _t(nn_idx))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("hidden", [32, 48])
+def test_coord_embedding_sine(hidden):
+    coord = (np.random.RandomState(hidden).rand(2, 20, 3) * 0.4 - 0.2).astype(np.float32)
+    ref = jax_coord_embedding_sine(jnp.asarray(coord), hidden)
+    got = coord_embedding_sine(_t(coord), hidden)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+
+
+def test_sinusoid_table():
+    np.testing.assert_allclose(tnn.get_sinusoid_encoding_table(12, 32).numpy(),
+                               np.asarray(jnn.get_sinusoid_encoding_table(12, 32)),
+                               atol=ATOL, rtol=0)
+
+
+def _seq(seed, B, L, D):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(B, L, D).astype(np.float32),
+            rng.randn(B, L, D).astype(np.float32))
+
+
+@pytest.mark.parametrize("L,pad", [(20, False), (20, True), (520, False)])
+@pytest.mark.parametrize("normalize_before", [False, True])
+def test_encoder_layer(L, pad, normalize_before):
+    # L=520 takes the oneshot route in the port; pad adds a key-padding mask
+    D, H = 32, 4
+    src, pos = _seq(L, 2, L, D)
+    kpm = None
+    if pad:
+        kpm = np.zeros((2, L), bool)
+        kpm[1, L - 6:] = True
+    jm = jtr.TransformerEncoderLayer(D, H, dim_feedforward=16,
+                                     normalize_before=normalize_before)
+    jargs = (jnp.asarray(src), jnp.asarray(pos),
+             None if kpm is None else jnp.asarray(kpm))
+    variables = _randomize(jm.init(jax.random.PRNGKey(0), *jargs), 3)
+    ref = jm.apply(variables, *jargs, deterministic=True)
+    tm = _load(ttr.TransformerEncoderLayer(D, H, dim_feedforward=16,
+                                           normalize_before=normalize_before),
+               variables)
+    got = tm(_t(src), _t(pos), None if kpm is None else _t(kpm))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("normalize_before", [False, True])
+def test_decoder_layer(normalize_before):
+    D, H, nq, L = 32, 4, 5, 30
+    rng = np.random.RandomState(4)
+    tgt = rng.randn(2, nq, D).astype(np.float32)
+    qpos = rng.randn(2, nq, D).astype(np.float32)
+    memory, pos = _seq(5, 2, L, D)
+    jm = jtr.TransformerDecoderLayer(D, H, dim_feedforward=16,
+                                     normalize_before=normalize_before)
+    jargs = [jnp.asarray(a) for a in (tgt, memory, pos, qpos)]
+    variables = _randomize(jm.init(jax.random.PRNGKey(0), *jargs), 5)
+    ref = jm.apply(variables, *jargs, deterministic=True)
+    tm = _load(ttr.TransformerDecoderLayer(D, H, dim_feedforward=16,
+                                           normalize_before=normalize_before),
+               variables)
+    got = tm(*[_t(a) for a in (tgt, memory, pos, qpos)])
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("npoints,n_points", [(16, 256), (512, 1024)])
+def test_actpcd_predict(npoints, n_points):
+    """The whole predict path at hidden 32, 4 heads, 2 encoder layers, 3
+    decoder layers (1 live), chunk 5, k 4. With 512 tokens the encoder's
+    2+1+512 >= 512 keys take the oneshot route in the port."""
+    dims = dict(hidden_dim=32, npoints=npoints, nsample=4, chunk=5,
+                enc_layers=2, dec_layers=3, nhead=4)
+    train_batch = jentry.build_batch(batch_size=2, n_points=n_points, chunk=5)
+    policy = jentry.build_flagship(**dims)
+    rng = jax.random.PRNGKey(0)
+    # jitted, as the JAX BCModule.initial_state does: eager init dispatches
+    # thousands of small ops
+    variables = jax.jit(lambda b: policy.init(
+        {"params": rng, "vae": rng, "dropout": rng}, b, train=True))(
+        jax.tree.map(jnp.asarray, train_batch))
+    variables = _randomize(variables, 6)
+    obs = tentry.build_batch(batch_size=2, n_points=n_points, chunk=5,
+                             with_actions=False)
+    assert "actions" not in obs
+    ref = np.asarray(JBCModule(policy).predict(
+        variables, jax.tree.map(jnp.asarray, obs)))
+
+    module = BCModule(tentry.build_flagship(**dims))
+    module.load_variables(variables)
+    got = module.predict(obs)
+    assert got.shape == (2, 5, 7)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-4, rtol=1e-4)
+
+
+def test_full_width_state_dict():
+    """The published-scale JAX tree (abstract, no compute) converts onto the
+    port's flagship state dict key for key and shape."""
+    batch = jax.tree.map(jnp.asarray, jentry.build_batch(batch_size=1, n_points=4096))
+    rng = jax.random.PRNGKey(0)
+    abstract = jax.eval_shape(lambda: jentry.build_flagship().init(
+        {"params": rng, "vae": rng, "dropout": rng}, batch, train=True))
+    variables = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), abstract)
+    n_jax = sum(int(np.prod(p.shape)) for p in jax.tree.leaves(variables["params"]))
+    assert n_jax == FLAGSHIP_PARAMS
+
+    model = tentry.build_flagship()
+    target = model.state_dict()
+    state = flax_to_torch(variables, target)
+    assert set(state) == set(target)
+    assert all(state[k].shape == target[k].shape for k in state)
+    assert sum(p.numel() for p in model.parameters()) == FLAGSHIP_PARAMS
+
+
+def test_converter_refuses_unmapped_and_missing():
+    jm = JPointNet(in_channels=6)
+    inp = {"feat": jnp.zeros((1, 4, 6)), "valid": jnp.ones((1, 4), bool)}
+    variables = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0), inp))
+    target = PointNet(in_channels=6).state_dict()
+    extra = {"params": dict(variables["params"], odd={"thing": np.zeros(3)}),
+             "batch_stats": variables["batch_stats"]}
+    with pytest.raises(KeyError, match="unmapped"):
+        flax_to_torch(extra, target)
+    fewer = {"params": {k: v for k, v in variables["params"].items() if k != "conv5"},
+             "batch_stats": variables["batch_stats"]}
+    with pytest.raises(KeyError, match="missing"):
+        flax_to_torch(fewer, target)
+
+
+def test_unported_backends_raise():
+    for impl in ("flash", "fused"):
+        with pytest.raises(NotImplementedError):
+            ttr.TransformerEncoderLayer(32, 4, attention_impl=impl)
+    with pytest.raises(ValueError):
+        ttr.TransformerEncoderLayer(32, 4, attention_impl="flashh")

@@ -1,0 +1,55 @@
+"""The port runs without JAX: with ``jax`` and ``flax`` blocked from import,
+the package and every module of the inference slice import, and a tiny
+``predict`` runs (the GPU machine has no JAX)."""
+
+import subprocess
+import sys
+import textwrap
+
+import pathlib
+
+REPO_ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+SLICE_MODULES = (
+    "pointcloudmatters_tpu_torch",
+    "pointcloudmatters_tpu_torch._build",
+    "pointcloudmatters_tpu_torch.ops",
+    "pointcloudmatters_tpu_torch.ops.pointops",
+    "pointcloudmatters_tpu_torch.ops.fps",
+    "pointcloudmatters_tpu_torch.ops.knn",
+    "pointcloudmatters_tpu_torch.ops.oneshot_attention",
+    "pointcloudmatters_tpu_torch.ops.attention",
+    "pointcloudmatters_tpu_torch.models.components.nn_utils",
+    "pointcloudmatters_tpu_torch.models.components.pcd_encoder.pointnet",
+    "pointcloudmatters_tpu_torch.models.components.act.positional_encoding",
+    "pointcloudmatters_tpu_torch.models.components.act.transformer",
+    "pointcloudmatters_tpu_torch.models.components.act.act",
+    "pointcloudmatters_tpu_torch.utils.flax_to_torch",
+    "pointcloudmatters_tpu_torch.models.bc_module",
+    "pointcloudmatters_tpu_torch.entry",
+)
+
+
+def test_port_imports_and_predicts_without_jax():
+    script = textwrap.dedent(f"""
+        import importlib, sys
+        sys.modules["jax"] = None
+        sys.modules["flax"] = None
+        for name in {SLICE_MODULES!r}:
+            importlib.import_module(name)
+        from pointcloudmatters_tpu_torch.entry import build_batch, build_flagship
+        from pointcloudmatters_tpu_torch.models.bc_module import BCModule
+        module = BCModule(build_flagship(hidden_dim=32, npoints=8, nsample=4,
+                                         chunk=5, enc_layers=1, dec_layers=2,
+                                         nhead=4))
+        a_hat = module.predict(build_batch(batch_size=1, n_points=64, chunk=5,
+                                           with_actions=False))
+        assert tuple(a_hat.shape) == (1, 5, 7), a_hat.shape
+        assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "flax")
+                    and sys.modules[m] is not None]
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO_ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")

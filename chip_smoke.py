@@ -8,23 +8,42 @@ Phases, each of which raises on failure (exit code non-zero, no result):
 1. Needs ``torch.cuda.is_available()``; prints the card's name and power
    limit as ``nvidia-smi`` reports them.
 2. Builds the hand-written CUDA kernels from ``pointcloudmatters_tpu_torch/
-   csrc`` (nvcc, sm_90a) and prints the build time and ptxas's resource use.
+   csrc`` (nvcc, sm_90a, one process a source, all at once) and prints the
+   build time and ptxas's resource use.
 3. Holds each kernel against its plain PyTorch version on the card at the
    flagship's shapes, and times both:
    FPS B=4, N=10240 -> 2048 (index-exact); kNN B=4, M=2048, N=10240, k=16
-   (indices exact, d2 within 1e-6 relative); attention B=4, H=8, L=2051,
-   dh=64, f32 (max abs error <= 1e-4; also dh=128 and a masked key tail).
+   (indices exact, d2 within 1e-6 relative); attention forward B=4, H=8,
+   L=2051, dh=64, f32, at dropout rate 0 and 0.1 (max abs error <= 1e-4;
+   also dh=128 and a masked key tail); the dropout mask read back from the
+   forward bit for bit (q = 0, v = I); the attention backward at rate 0,
+   0.1 and a masked key tail (each of dQ, dK, dV within
+   1e-4 * max(1, max |plain|)), two identical launches bit-identical.
 4. Serves the flagship ACT + PointNet policy (24,124,456 parameters, seeded
    random weights) through ``BCModule.predict``: 3 requests at B=1 and 1 at
    B=32, N=10240, no actions. Checks a_hat's shape and finiteness, that each
-   kernel was launched in that run, that the B=32 answer matches the same
-   predict with every kernel swapped for its plain version (1e-3 abs), and
-   that a small policy on the card matches itself on the CPU (1e-4).
+   kernel of the path was launched in that run, that the B=32 answer matches
+   the same predict with every kernel swapped for its plain version (1e-3
+   abs), and that a small policy on the card matches itself on the CPU
+   (1e-4).
+5. Trains the flagship ("32-true", dropout 0.1, AdamW + OneCycleLR of
+   ``configs/model/maniskill2_act_pcd_model.yaml``, 10,000 total steps) at
+   B=32, N=10240: one warm-up step, then 5 steps under
+   ``torch.cuda.set_sync_debug_mode("error")`` timed by the host clock to
+   ``torch.cuda.synchronize()``. Checks finite loss and grad_norm, changed
+   parameters and each kernel of the path launched; prints the peak device
+   memory. Then one B=4 step with every kernel against every plain version
+   from the same generator states (loss within 1e-5 relative, each
+   gradient within 1e-5 * max(1, max |g|)), and one step of a small policy
+   (dropout 0) on the card against the CPU (loss within 1e-5 relative,
+   gradients within 1e-4 * max(1, max |g|)).
 
 Prints a JSON line of the kernels (route, source, the TPU kernel each
-replaces, launches on the main path, error and times), then as its last line
-``{"ok": true, "device": {...}}``. Times are CUDA-event or synchronised
-host-clock milliseconds on the card named above.
+replaces, launches on the serving and training paths, error and times; one
+``attention_bwd`` launch is one call of the three-kernel backward: the
+``rowsum(dO * O)`` pre-pass, dK/dV and dQ, timed together), then
+as its last line ``{"ok": true, "device": {...}}``. Times are CUDA-event or
+synchronised host-clock milliseconds on the card named above.
 """
 
 from __future__ import annotations
@@ -40,6 +59,16 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 N_POINTS = 10240  # points a cloud
 BIG_BATCH = 32    # the bench batch
+ATTN_DROPOUT = 0.1  # the flagship's dropout rate
+TRAIN_STEPS = 5
+# configs/model/maniskill2_act_pcd_model.yaml:11-25; total steps as bench.py
+FLAGSHIP_OPT = {"type": "AdamW", "lr": 5e-5, "weight_decay": 0.05}
+FLAGSHIP_SCHED = {"scheduler": {"type": "OneCycleLR", "max_lr": 5e-5, "pct_start": 0.1,
+                                "anneal_strategy": "cos", "div_factor": 100.0,
+                                "final_div_factor": 1000.0}}
+TOTAL_STEPS = 10_000
+SMALL = dict(hidden_dim=32, npoints=64, nsample=4, chunk=5, enc_layers=2,
+             dec_layers=3, nhead=4)
 KERNELS = {
     "fps": ("pointcloudmatters_tpu_torch/csrc/fps.cu",
             "pointcloudmatters_tpu/ops/pallas_fps.py:30"),
@@ -47,7 +76,10 @@ KERNELS = {
             "pointcloudmatters_tpu/ops/pallas_knn3.py:46"),
     "attention_fwd": ("pointcloudmatters_tpu_torch/csrc/attention_fwd.cu",
                       "pointcloudmatters_tpu/ops/oneshot_attention.py:68"),
+    "attention_bwd": ("pointcloudmatters_tpu_torch/csrc/attention_bwd.cu",
+                      "pointcloudmatters_tpu/ops/oneshot_attention.py:97"),
 }
+PREDICT_KERNELS = ("fps", "knn", "attention_fwd")  # serving runs no backward
 
 
 def log(msg: str) -> None:
@@ -86,27 +118,27 @@ def plain_kernels():
     from pointcloudmatters_tpu_torch.ops import fps, knn, oneshot_attention
     from pointcloudmatters_tpu_torch.ops import pointops
 
+    one = oneshot_attention
     saved = (fps.farthest_point_sampling_padded_cuda, knn.knn_query_padded_cuda,
-             oneshot_attention.oneshot_attention_cuda)
+             one.oneshot_attention_cuda, one.oneshot_attention_bwd_cuda)
     fps.farthest_point_sampling_padded_cuda = pointops.farthest_point_sampling_padded_plain
     knn.knn_query_padded_cuda = pointops.knn_query_padded_plain
-    oneshot_attention.oneshot_attention_cuda = oneshot_attention.oneshot_attention_plain
+    one.oneshot_attention_cuda = one.oneshot_attention_plain
+    one.oneshot_attention_bwd_cuda = one.oneshot_attention_plain_bwd
     try:
         yield
     finally:
         (fps.farthest_point_sampling_padded_cuda, knn.knn_query_padded_cuda,
-         oneshot_attention.oneshot_attention_cuda) = saved
+         one.oneshot_attention_cuda, one.oneshot_attention_bwd_cuda) = saved
 
 
 def check_kernels(dev) -> dict:
     """Phase 3: each kernel against its plain version; returns per-kernel
     max_abs_err, ms and plain_ms."""
-    import numpy as np
     import torch
 
     from pointcloudmatters_tpu_torch.entry import build_batch
     from pointcloudmatters_tpu_torch.ops import fps, knn
-    from pointcloudmatters_tpu_torch.ops import oneshot_attention as one
     from pointcloudmatters_tpu_torch.ops import pointops
 
     res = {}
@@ -150,38 +182,123 @@ def check_kernels(dev) -> dict:
         f"{rel:.3e}; kernel {res['knn']['ms']:.3f} ms, plain "
         f"{res['knn']['plain_ms']:.3f} ms")
 
+    res.update(check_attention(dev))
+    return res
+
+
+def _max_err(got, ref) -> float:
+    return (got - ref).abs().max().item()
+
+
+def check_attention(dev) -> dict:
+    """Phase 3, attention: the forward kernel at rates 0 and 0.1 and the
+    backward kernel against their plain versions; the dropout mask read back
+    exactly; two backward launches bit-identical."""
+    import numpy as np
+    import torch
+
+    from pointcloudmatters_tpu_torch.ops import oneshot_attention as one
+
+    res = {}
     rng = np.random.RandomState(0)
 
     def qkv(B, H, L, dh):
         return [torch.from_numpy(rng.randn(B, H, L, dh).astype(np.float32)).to(dev)
                 for _ in range(3)]
 
+    # forward, rate 0 (serving) and 0.1 (training)
     for B, H, L, dh in ((4, 8, 2051, 64), (4, 4, 2051, 128)):
         q, k, v = qkv(B, H, L, dh)
         scale = dh ** -0.5
-        err = (one.oneshot_attention_cuda(q, k, v, scale)
-               - one.oneshot_attention_plain(q, k, v, scale)).abs().max().item()
-        if not err <= 1e-4:
-            raise AssertionError(f"attention kernel (dh={dh}) off by {err:.3e}")
-        log(f"attn    B={B} H={H} L={L} dh={dh} f32: max abs err {err:.3e}")
-        if dh == 64:
+        for rate in (0.0, ATTN_DROPOUT):
+            got = one.oneshot_attention_cuda(q, k, v, scale, rate=rate, seed=11)
+            err = _max_err(got, one.oneshot_attention_plain(q, k, v, scale, rate=rate,
+                                                            seed=11))
+            if not err <= 1e-4:
+                raise AssertionError(f"attention kernel (dh={dh}, rate={rate}) off "
+                                     f"by {err:.3e}")
+            log(f"attn    fwd B={B} H={H} L={L} dh={dh} rate={rate}: max abs err "
+                f"{err:.3e}")
+            if dh != 64:
+                continue
+            ms = cuda_ms(lambda: one.oneshot_attention_cuda(q, k, v, scale, rate=rate,
+                                                            seed=11), 5)
+            plain_ms = cuda_ms(lambda: one.oneshot_attention_plain(
+                q, k, v, scale, rate=rate, seed=11), 5)
+            log(f"attn    fwd rate={rate}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
             res["attention_fwd"] = dict(
-                max_abs_err=err,
-                ms=cuda_ms(lambda: one.oneshot_attention_cuda(q, k, v, scale), 5),
-                plain_ms=cuda_ms(lambda: one.oneshot_attention_plain(q, k, v, scale), 5),
-            )
-            log(f"attn    kernel {res['attention_fwd']['ms']:.3f} ms, plain "
-                f"{res['attention_fwd']['plain_ms']:.3f} ms")
+                max_abs_err=max(err, res.get("attention_fwd", {}).get("max_abs_err", 0.0)),
+                ms=ms, plain_ms=plain_ms)
     # keys padded with junk and masked by l_actual, Lq != Lk
     q = qkv(2, 8, 100, 64)[0]
     k, v = qkv(2, 8, 700, 64)[1:]
     k[:, :, 650:] *= 1e3
-    err = (one.oneshot_attention_cuda(q, k, v, 0.125, l_actual=650)
-           - one.oneshot_attention_plain(q, k[:, :, :650], v[:, :, :650], 0.125)
-           ).abs().max().item()
+    err = _max_err(one.oneshot_attention_cuda(q, k, v, 0.125, l_actual=650),
+                   one.oneshot_attention_plain(q, k[:, :, :650], v[:, :, :650], 0.125))
     if not err <= 1e-4:
         raise AssertionError(f"attention kernel with a masked key tail off by {err:.3e}")
-    log(f"attn    Lq=100 Lk=700 l_actual=650: max abs err {err:.3e}")
+    log(f"attn    fwd Lq=100 Lk=700 l_actual=650: max abs err {err:.3e}")
+
+    # the mask read back: q = 0 makes every weight 1/128, v = I picks column j
+    B, H, Lq, n = 2, 8, 300, 128
+    q = torch.zeros((B, H, Lq, n), device=dev)
+    k = qkv(B, H, n, n)[1]
+    v = torch.eye(n, device=dev).expand(B, H, n, n)
+    out = one.oneshot_attention_cuda(q, k, v, 1.0, rate=ATTN_DROPOUT, seed=12345)
+    read = torch.round(out * (n * (1.0 - ATTN_DROPOUT))).to(torch.int64)
+    mask = one.keep_mask(12345, ATTN_DROPOUT, H, Lq, n, device=dev).to(torch.int64)
+    if not torch.equal(read, mask.expand(B, H, Lq, n)):
+        raise AssertionError(f"kernel dropout mask differs from the plain mask at "
+                             f"{(read != mask).sum().item()} of {read.numel()} places")
+    log(f"attn    mask read back: {read.numel()} keep bits equal the plain mask, "
+        f"keep fraction {mask.float().mean().item():.5f} (1 - rate = "
+        f"{1 - ATTN_DROPOUT})")
+
+    # backward
+    def bwd_case(B, H, Lq, Lk, dh, rate, l_actual=None):
+        q = qkv(B, H, Lq, dh)[0]
+        k, v = qkv(B, H, Lk, dh)[1:]
+        if l_actual is not None:
+            k[:, :, l_actual:] *= 1e3
+        scale = dh ** -0.5
+        out, m, r = one.oneshot_attention_cuda(q, k, v, scale, l_actual, rate, 21,
+                                               with_stats=True)
+        dout = torch.from_numpy(rng.randn(B, H, Lq, dh).astype(np.float32)).to(dev)
+        args = (q, k, v, out, dout, m, r, scale, l_actual, rate, 21)
+        return args, one.oneshot_attention_bwd_cuda(*args), \
+            one.oneshot_attention_plain_bwd(*args)
+
+    for B, H, Lq, Lk, dh, rate, l_act in ((4, 8, 2051, 2051, 64, 0.0, None),
+                                          (4, 8, 2051, 2051, 64, ATTN_DROPOUT, None),
+                                          (2, 8, 100, 700, 64, ATTN_DROPOUT, 650),
+                                          (2, 4, 515, 515, 128, ATTN_DROPOUT, 500)):
+        args, got, ref = bwd_case(B, H, Lq, Lk, dh, rate, l_act)
+        errs, scales = [], []
+        for name, g, p in zip(("dq", "dk", "dv"), got, ref):
+            err = _max_err(g, p)
+            limit = 1e-4 * max(1.0, p.abs().max().item())
+            if not err <= limit:
+                raise AssertionError(f"attention backward {name} (B={B} Lq={Lq} "
+                                     f"Lk={Lk} dh={dh} rate={rate} l_actual={l_act}) "
+                                     f"off by {err:.3e} > {limit:.3e}")
+            errs.append(err)
+            scales.append(p.abs().max().item())
+        log(f"attn    bwd B={B} H={H} Lq={Lq} Lk={Lk} dh={dh} rate={rate} "
+            f"l_actual={l_act}: max abs err (max |plain|) dq {errs[0]:.3e} "
+            f"({scales[0]:.3e}) dk {errs[1]:.3e} ({scales[1]:.3e}) dv {errs[2]:.3e} "
+            f"({scales[2]:.3e})")
+        if (B, Lq, rate) == (4, 2051, ATTN_DROPOUT):
+            again = one.oneshot_attention_bwd_cuda(*args)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError("two identical backward launches differ")
+            log("attn    bwd: two identical launches are bit-identical")
+            res["attention_bwd"] = dict(
+                max_abs_err=max(errs),
+                ms=cuda_ms(lambda: one.oneshot_attention_bwd_cuda(*args), 5),
+                plain_ms=cuda_ms(lambda: one.oneshot_attention_plain_bwd(*args), 5))
+            log(f"attn    bwd rate={rate}: kernel {res['attention_bwd']['ms']:.3f} ms, "
+                f"plain {res['attention_bwd']['plain_ms']:.3f} ms")
+        del args, got, ref
     return res
 
 
@@ -218,10 +335,10 @@ def serve(dev) -> dict:
         answers.append(a_hat)
         log(f"predict B={B:2d} N={N_POINTS}: {ms:.2f} ms")
     launches = ops.launch_counts()
-    log(f"launches on the main path: {launches}")
-    missing = [k for k, n in launches.items() if n == 0]
+    log(f"launches on the serving path: {launches}")
+    missing = [k for k in PREDICT_KERNELS if launches[k] == 0]
     if missing:
-        raise AssertionError(f"the main path launched no {missing} kernel")
+        raise AssertionError(f"the serving path launched no {missing} kernel")
 
     with plain_kernels():
         a_plain = module.predict(big)
@@ -231,15 +348,131 @@ def serve(dev) -> dict:
         raise AssertionError(f"B={BIG_BATCH} predict with kernels vs plain: {err:.3e}")
     log(f"predict B={BIG_BATCH} kernels vs plain versions: max abs diff {err:.3e}")
 
-    small = dict(hidden_dim=32, npoints=64, nsample=4, chunk=5, enc_layers=2,
-                 dec_layers=3, nhead=4)
     obs = build_batch(batch_size=2, n_points=600, chunk=5, seed=4, with_actions=False)
-    ref = BCModule(build_flagship(**small, seed=1)).predict(obs)
-    got = BCModule(build_flagship(**small, seed=1, device=dev)).predict(obs).cpu()
+    ref = BCModule(build_flagship(**SMALL, seed=1)).predict(obs)
+    got = BCModule(build_flagship(**SMALL, seed=1, device=dev)).predict(obs).cpu()
     err_small = (got - ref).abs().max().item()
     if not err_small <= 1e-4:
         raise AssertionError(f"small policy on the card vs on the CPU: {err_small:.3e}")
     log(f"small policy on the card vs the CPU: max abs diff {err_small:.3e}")
+    return launches
+
+
+def _step_grads(module, batch, rngs):
+    """Loss and parameter gradients of one train-mode forward/backward."""
+    module.policy.zero_grad(set_to_none=True)
+    out = module.forward_train(batch, rngs)
+    out["loss"].backward()
+    grads = {n: p.grad.detach().clone() for n, p in module.policy.named_parameters()
+             if p.grad is not None}
+    return out["loss"].detach(), grads
+
+
+def _compare_step(what, loss, grads, ref_loss, ref_grads, grad_rtol) -> str:
+    """Raises unless the losses agree within 1e-5 relative and each gradient
+    within grad_rtol * max(1, max |g_ref|)."""
+    loss, ref_loss = float(loss), float(ref_loss)
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    if not rel <= 1e-5:
+        raise AssertionError(f"{what}: loss {loss} vs {ref_loss} ({rel:.3e} relative)")
+    if set(grads) != set(ref_grads):
+        raise AssertionError(f"{what}: gradients of different parameters")
+    worst, worst_name = 0.0, None
+    for name, g in grads.items():
+        ref = ref_grads[name].to(g.device)
+        err = (g - ref).abs().max().item() / max(1.0, ref.abs().max().item())
+        if not err <= grad_rtol:
+            raise AssertionError(f"{what}: gradient {name} off by {err:.3e} of "
+                                 f"max(1, max|g|) > {grad_rtol}")
+        if err >= worst:
+            worst, worst_name = err, name
+    return (f"{what}: loss rel diff {rel:.3e}; worst gradient {worst_name} "
+            f"{worst:.3e} of max(1, max|g|) ({len(grads)} tensors)")
+
+
+def train(dev) -> dict:
+    """Phase 5: the flagship training step; returns the kernels' launches on
+    the timed steps."""
+    import numpy as np
+    import torch
+
+    from pointcloudmatters_tpu_torch import ops
+    from pointcloudmatters_tpu_torch.entry import build_batch, build_flagship
+    from pointcloudmatters_tpu_torch.models.bc_module import BCModule, to_device
+    from pointcloudmatters_tpu_torch.models.components.act import act as act_module
+    from pointcloudmatters_tpu_torch.trainer import Trainer
+
+    module = BCModule(build_flagship(seed=0, dropout=ATTN_DROPOUT, device=dev),
+                      optimizer=FLAGSHIP_OPT, lr_scheduler=FLAGSHIP_SCHED)
+    trainer = Trainer(precision="32-true", device=dev, seed=0)
+    trainer.setup(module, TOTAL_STEPS)
+    # on the device before the timed steps, as a loader with pinned memory
+    # and non-blocking copies would deliver it
+    batch = to_device(build_batch(batch_size=BIG_BATCH, n_points=N_POINTS, seed=0), dev)
+    start = [p.detach().clone() for p in module.policy.parameters()]
+    trainer.train_step(module, batch)  # warm-up: cuBLAS workspaces, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    ops.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")  # any host sync in a step raises
+    try:
+        t0 = time.perf_counter()
+        steps = [trainer.train_step(module, batch) for _ in range(TRAIN_STEPS)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [float(m["loss"]) for m in steps]
+    norms = [float(m["grad_norm"]) for m in steps]
+    log(f"train   B={BIG_BATCH} N={N_POINTS} 32-true dropout {ATTN_DROPOUT}: "
+        f"{step_ms:.2f} ms/step over {TRAIN_STEPS} steps, "
+        f"{BIG_BATCH * 1e3 / step_ms:.2f} samples/s, peak device memory "
+        f"{peak / 2**30:.2f} GiB; loss {losses}; grad_norm {norms}")
+    if not all(np.isfinite(losses + norms)):
+        raise AssertionError(f"non-finite loss or grad_norm: {losses}, {norms}")
+    moved = sum(not torch.equal(a, p) for a, p in zip(start, module.policy.parameters()))
+    if moved == 0:
+        raise AssertionError("no parameter changed over the training steps")
+    log(f"train   {moved} of {len(start)} parameter tensors changed; "
+        f"launches on the training path: {launches}")
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"the training path launched no {missing} kernel")
+    del module, trainer, batch, start
+    torch.cuda.empty_cache()
+
+    # B=4: every kernel against every plain version, dropout on, the same
+    # generator states
+    module = BCModule(build_flagship(seed=0, dropout=ATTN_DROPOUT, device=dev))
+    batch = to_device(build_batch(batch_size=4, n_points=N_POINTS, seed=1), dev)
+    got = _step_grads(module, batch, module.make_rngs(5))
+    with plain_kernels():
+        ref = _step_grads(module, batch, module.make_rngs(5))
+    log("train   " + _compare_step("B=4 step, kernels vs plain versions", *got, *ref,
+                                   grad_rtol=1e-5))
+    del module, batch, got, ref
+    torch.cuda.empty_cache()
+
+    # a small policy, dropout 0, on the card against the CPU; the posterior
+    # noise is one numpy array on both (CPU and CUDA generators differ)
+    eps = torch.from_numpy(np.random.RandomState(0).randn(2, 32).astype(np.float32))
+    saved = act_module.reparametrize
+    act_module.reparametrize = (
+        lambda mu, logvar, gen: mu + torch.exp(0.5 * logvar) * eps.to(mu.device))
+    try:
+        batch = build_batch(batch_size=2, n_points=600, chunk=5, seed=4)
+        batch["is_pad"] = np.arange(5)[None].repeat(2, 0) >= 3
+        results = []
+        for device in ("cpu", dev):
+            module = BCModule(build_flagship(**SMALL, seed=1, dropout=0.0, device=device))
+            results.append(_step_grads(module, batch, module.make_rngs(5)))
+    finally:
+        act_module.reparametrize = saved
+    log("train   " + _compare_step("small policy step, card vs CPU", *results[1],
+                                   *results[0], grad_rtol=1e-4))
     return launches
 
 
@@ -269,11 +502,14 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     res = check_kernels(dev)
-    launches = serve(dev)
+    served = serve(dev)
+    trained = train(dev)
 
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=tpu,
-             launches=launches[name], **res[name])
+             launches=served[name] + trained[name],
+             launches_by_path={"predict": served[name], "train_step": trained[name]},
+             **res[name])
         for name, (src, tpu) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))

@@ -6,9 +6,10 @@ hand-written CUDA kernel for Hopper (``csrc/``, built by ``_build.py`` at
 first use) with a plain PyTorch version beside it. A CPU tensor runs the
 plain version; a CUDA tensor runs the kernel or raises.
 
-Ported so far: inference (``BCModule.predict``) of the flagship ACT +
+Ported so far: inference (``BCModule.predict``) and the ``"32-true"``
+training step (``trainer.Trainer.train_step``) of the flagship ACT +
 PointNet policy (``entry.build_flagship``). This package imports neither jax
-nor flax.
+nor flax, nor anything of the JAX package.
 """
 
 import torch

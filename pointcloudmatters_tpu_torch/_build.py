@@ -3,10 +3,11 @@
 Each ``csrc/<name>.cu`` has a plain C interface and becomes its own shared
 library, compiled by ``nvcc`` for Hopper (``sm_90a``) into ``build/`` next to
 this file at first use and loaded with :mod:`ctypes`. A library's file name
-carries a hash of its source and of the flags, so an edited kernel is rebuilt
-and a stale one is never loaded. The sources include no PyTorch header, which
-keeps a build to seconds; tensors cross the boundary as raw pointers and the
-stream as a ``cudaStream_t`` handle (see the wrappers in ``ops/``).
+carries a hash of its source, of the shared headers (``csrc/*.cuh``) and of
+the flags, so an edited kernel is rebuilt and a stale one is never loaded.
+The sources include no PyTorch header, which keeps a build to seconds;
+tensors cross the boundary as raw pointers and the stream as a
+``cudaStream_t`` handle (see the wrappers in ``ops/``).
 
 Every C entry point returns the ``cudaError_t`` of its launch, and
 :func:`check` turns a non-zero one into an exception.
@@ -26,7 +27,7 @@ __all__ = ["KERNELS", "BUILD_DIR", "build", "load", "check"]
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-KERNELS = ("fps", "knn", "attention_fwd")
+KERNELS = ("fps", "knn", "attention_fwd", "attention_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -51,8 +52,10 @@ def _library(name: str) -> tuple[str, str]:
     """(source, library) paths of kernel ``name``."""
     src = os.path.join(CSRC, f"{name}.cu")
     digest = hashlib.sha256()
-    with open(src, "rb") as f:
-        digest.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return src, os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 

@@ -1,0 +1,414 @@
+// Exact softmax attention backward, f32: dQ, dK and dV by recomputation,
+// deterministic (no atomics: every output element is summed by one thread in
+// a fixed order, so two identical launches give identical bits).
+//
+// Replaces the TPU kernel `_bwd_kernel` / `_bwd_rule`
+// (pointcloudmatters_tpu/ops/oneshot_attention.py:97-166, 233-275): q is
+// pre-scaled by `scale`, keys at column l_actual and beyond are masked, the
+// dropout keep mask is regenerated from the forward's seed (philox.cuh), and
+// dQ is chained back by `scale`. With p = exp(s - m) / denom from the
+// forward's row statistics (row max m and 1 / denom, written by
+// attention_fwd.cu) and D_i = rowsum(dO_i * O_i):
+//
+//   p_drop = keep ? p / (1 - rate) : 0        dV = p_drop^T dO
+//   dP     = dO V^T                           dS = p * (keep ? dP / (1 - rate) : 0 - D)
+//   dK     = dS^T (q * scale)                 dQ = dS K * scale
+//
+// (D equals the TPU kernel's u = r * rowsum(z * e) at :142, dropout or not.)
+//
+// What bounds it on an H100: arithmetic, as in the forward. 14 dh flops a
+// score element (S and dP recomputed in both passes below) on the FP32
+// pipes; f32 inputs and the parity limits rule out TF32 and bf16.
+//
+// What the design does about the TPU kernel's shape: that kernel holds a
+// whole key row and accumulates dK/dV in VMEM scratch across a sequential
+// q-tile grid axis. Hopper has no sequential grid axis and a block has
+// 227 KB, so the work is split three ways, each without atomics:
+//   1. one warp a query row: D = rowsum(dO * O);
+//   2. one block a (batch, head, 64-key tile), looping over the 64-query
+//      tiles: dK and dV of its 64 keys in registers (4 rows x dh/16 columns
+//      a thread);
+//   3. one block a (batch, head, 64-query tile), looping over the key tiles
+//      up to l_actual: dQ of its 64 queries in registers.
+// Tiles live in shared memory padded by one float a row; the 64x64 score
+// work uses the forward's 16x16 thread grid (4x4 elements a thread). The
+// dropout mask is applied in one pass over the probability tile, one Philox
+// call for four neighbouring key columns. Strides are passed for every
+// tensor (batch, head, row; last axis contiguous), so the (B, L, H, dh)
+// projections are read in place and dQ/dK/dV are written in the same layout.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "philox.cuh"
+
+namespace {
+
+constexpr int kBQ = 64;
+constexpr int kBK = 64;
+constexpr int kThreads = 256;
+
+struct Strides {
+  long long b, h, l;
+};
+
+struct Args {
+  const float *q, *k, *v, *o, *dout, *row_max, *row_inv;
+  float *delta, *dq, *dk, *dv;
+  Strides qs, ks, vs, os, dos, dqs, dks, dvs;
+  int H, Lq, Lk, l_actual;
+  float scale;
+  uint32_t threshold;
+  float inv_keep;
+  uint32_t seed;
+  int dropout;
+};
+
+template <int DH>
+constexpr size_t smem_floats() {
+  return 4 * (size_t)kBQ * (DH + 1) + 2 * (size_t)kBQ * (kBK + 1) + 3 * kBQ;
+}
+
+// D = rowsum(dO * O), one warp a (batch, head, query row).
+__global__ void __launch_bounds__(kThreads) attn_bwd_delta_kernel(Args a, int dh,
+                                                                    long long rows) {
+  const long long row = ((long long)blockIdx.x * kThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const int i = (int)(row % a.Lq);
+  const int bh = (int)(row / a.Lq);
+  const int b = bh / a.H, h = bh % a.H;
+  const float* o = a.o + b * a.os.b + h * a.os.h + i * a.os.l;
+  const float* d = a.dout + b * a.dos.b + h * a.dos.h + i * a.dos.l;
+  float sum = 0.f;
+  for (int c = lane; c < dh; c += 32) sum = fmaf(d[c], o[c], sum);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (lane == 0) a.delta[row] = sum;
+}
+
+// Query rows q0.. of Q (pre-scaled) and dO, and their row statistics, into
+// shared memory; rows past Lq are zero with m = +inf, so their p is 0.
+template <int DH>
+__device__ __forceinline__ void load_query_tile(const Args& a, int bh, int b, int h, int q0,
+                                                float* Qs, float* dOs, float* rm, float* rr,
+                                                float* rd) {
+  constexpr int LD = DH + 1;
+  const float* qb = a.q + b * a.qs.b + h * a.qs.h;
+  const float* dob = a.dout + b * a.dos.b + h * a.dos.h;
+  for (int e = threadIdx.x; e < kBQ * DH; e += kThreads) {
+    const int r = e / DH, c = e % DH;
+    const bool in = q0 + r < a.Lq;
+    Qs[r * LD + c] = in ? __fmul_rn(qb[(q0 + r) * a.qs.l + c], a.scale) : 0.f;
+    dOs[r * LD + c] = in ? dob[(q0 + r) * a.dos.l + c] : 0.f;
+  }
+  const long long base = (long long)bh * a.Lq + q0;
+  for (int r = threadIdx.x; r < kBQ; r += kThreads) {
+    const bool in = q0 + r < a.Lq;
+    rm[r] = in ? a.row_max[base + r] : INFINITY;
+    rr[r] = in ? a.row_inv[base + r] : 0.f;
+    rd[r] = in ? a.delta[base + r] : 0.f;
+  }
+}
+
+// Key rows k0.. of K and V into shared memory, zero past Lk.
+template <int DH>
+__device__ __forceinline__ void load_key_tile(const Args& a, int b, int h, int k0, float* Ks,
+                                              float* Vs) {
+  constexpr int LD = DH + 1;
+  const float* kb = a.k + b * a.ks.b + h * a.ks.h;
+  const float* vb = a.v + b * a.vs.b + h * a.vs.h;
+  for (int e = threadIdx.x; e < kBK * DH; e += kThreads) {
+    const int r = e / DH, c = e % DH;
+    const bool in = k0 + r < a.Lk;
+    Ks[r * LD + c] = in ? kb[(k0 + r) * a.ks.l + c] : 0.f;
+    Vs[r * LD + c] = in ? vb[(k0 + r) * a.vs.l + c] : 0.f;
+  }
+}
+
+// Recomputes the (64 query x 64 key) tile at (q0, k0) and leaves
+// p_drop in Ps and dS in dSs (row = query, column = key). Every thread of
+// the block calls it; it ends with the tiles complete.
+template <int DH>
+__device__ __forceinline__ void probs_and_ds(const Args& a, int h, int q0, int k0,
+                                             const float* Qs, const float* dOs,
+                                             const float* Ks, const float* Vs, float* Ps,
+                                             float* dSs, const float* rm, const float* rr,
+                                             const float* rd) {
+  constexpr int LD = DH + 1;
+  constexpr int LDP = kBK + 1;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float s[4][4], dp[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < DH; ++d) {
+    float aq[4], ad[4], bk[4], bv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      aq[i] = Qs[(ty + 16 * i) * LD + d];
+      ad[i] = dOs[(ty + 16 * i) * LD + d];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      bk[j] = Ks[(tx + 16 * j) * LD + d];
+      bv[j] = Vs[(tx + 16 * j) * LD + d];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = fmaf(aq[i], bk[j], s[i][j]);
+        dp[i][j] = fmaf(ad[i], bv[j], dp[i][j]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = tx + 16 * j;
+      const float p = k0 + c < a.l_actual ? expf(s[i][j] - rm[r]) * rr[r] : 0.f;
+      Ps[r * LDP + c] = p;
+      dSs[r * LDP + c] = a.dropout ? dp[i][j] : p * (dp[i][j] - rd[r]);
+    }
+  }
+  __syncthreads();
+  if (a.dropout) {
+    for (int gi = threadIdx.x; gi < kBQ * (kBK / 4); gi += kThreads) {
+      const int r = gi / (kBK / 4), c4 = (gi % (kBK / 4)) * 4;
+      const uint4 bits = pcm::keep_bits4(a.seed, h, q0 + r, (k0 + c4) >> 2);
+      const uint32_t w[4] = {bits.x, bits.y, bits.z, bits.w};
+      const float dr = rd[r];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int at = r * LDP + c4 + e;
+        const bool keep = w[e] >= a.threshold;
+        const float p = Ps[at];
+        dSs[at] = p * ((keep ? dSs[at] * a.inv_keep : 0.f) - dr);
+        Ps[at] = keep ? p * a.inv_keep : 0.f;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads) attn_bwd_dkdv_kernel(Args a) {
+  constexpr int LD = DH + 1;
+  constexpr int LDP = kBK + 1;
+  constexpr int CJ = DH / 16;  // output columns a thread
+  extern __shared__ float sm[];
+  float* Ks = sm;
+  float* Vs = Ks + kBK * LD;
+  float* Qs = Vs + kBK * LD;
+  float* dOs = Qs + kBQ * LD;
+  float* Ps = dOs + kBQ * LD;
+  float* dSs = Ps + kBQ * LDP;
+  float* rm = dSs + kBQ * LDP;
+  float* rr = rm + kBQ;
+  float* rd = rr + kBQ;
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int k0 = blockIdx.x * kBK;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+
+  float dk[4][CJ], dv[4][CJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < CJ; ++j) dk[i][j] = dv[i][j] = 0.f;
+
+  if (k0 < a.l_actual) {  // key tiles past l_actual get zero gradients
+    load_key_tile<DH>(a, b, h, k0, Ks, Vs);
+    const int n_qt = (a.Lq + kBQ - 1) / kBQ;
+    for (int qt = 0; qt < n_qt; ++qt) {
+      const int q0 = qt * kBQ;
+      __syncthreads();  // the previous query tile is consumed
+      load_query_tile<DH>(a, bh, b, h, q0, Qs, dOs, rm, rr, rd);
+      __syncthreads();
+      probs_and_ds<DH>(a, h, q0, k0, Qs, dOs, Ks, Vs, Ps, dSs, rm, rr, rd);
+      // dV += p_drop^T dO and dK += dS^T Q: key rows ty + 16 i, columns tx + 16 j
+#pragma unroll 4
+      for (int qq = 0; qq < kBQ; ++qq) {
+        float pk[4], sk[4], dov[CJ], qv[CJ];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pk[i] = Ps[qq * LDP + ty + 16 * i];
+          sk[i] = dSs[qq * LDP + ty + 16 * i];
+        }
+#pragma unroll
+        for (int j = 0; j < CJ; ++j) {
+          dov[j] = dOs[qq * LD + tx + 16 * j];
+          qv[j] = Qs[qq * LD + tx + 16 * j];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < CJ; ++j) {
+            dv[i][j] = fmaf(pk[i], dov[j], dv[i][j]);
+            dk[i][j] = fmaf(sk[i], qv[j], dk[i][j]);
+          }
+      }
+    }
+  }
+
+  float* dkb = a.dk + b * a.dks.b + h * a.dks.h;
+  float* dvb = a.dv + b * a.dvs.b + h * a.dvs.h;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kr = k0 + ty + 16 * i;
+    if (kr >= a.Lk) continue;
+#pragma unroll
+    for (int j = 0; j < CJ; ++j) {
+      dkb[kr * a.dks.l + tx + 16 * j] = dk[i][j];
+      dvb[kr * a.dvs.l + tx + 16 * j] = dv[i][j];
+    }
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads) attn_bwd_dq_kernel(Args a) {
+  constexpr int LD = DH + 1;
+  constexpr int LDP = kBK + 1;
+  constexpr int CJ = DH / 16;
+  extern __shared__ float sm[];
+  float* Ks = sm;
+  float* Vs = Ks + kBK * LD;
+  float* Qs = Vs + kBK * LD;
+  float* dOs = Qs + kBQ * LD;
+  float* Ps = dOs + kBQ * LD;
+  float* dSs = Ps + kBQ * LDP;
+  float* rm = dSs + kBQ * LDP;
+  float* rr = rm + kBQ;
+  float* rd = rr + kBQ;
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int q0 = blockIdx.x * kBQ;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+
+  load_query_tile<DH>(a, bh, b, h, q0, Qs, dOs, rm, rr, rd);
+  float dq[4][CJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < CJ; ++j) dq[i][j] = 0.f;
+
+  const int n_kt = (a.l_actual + kBK - 1) / kBK;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kBK;
+    __syncthreads();  // the previous key tile is consumed
+    load_key_tile<DH>(a, b, h, k0, Ks, Vs);
+    __syncthreads();
+    probs_and_ds<DH>(a, h, q0, k0, Qs, dOs, Ks, Vs, Ps, dSs, rm, rr, rd);
+    // dQ += dS K: query rows ty + 16 i, columns tx + 16 j
+#pragma unroll 4
+    for (int kk = 0; kk < kBK; ++kk) {
+      float sv[4], kv[CJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sv[i] = dSs[(ty + 16 * i) * LDP + kk];
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) kv[j] = Ks[kk * LD + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < CJ; ++j) dq[i][j] = fmaf(sv[i], kv[j], dq[i][j]);
+    }
+  }
+
+  float* dqb = a.dq + b * a.dqs.b + h * a.dqs.h;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qr = q0 + ty + 16 * i;
+    if (qr >= a.Lq) continue;
+#pragma unroll
+    for (int j = 0; j < CJ; ++j) dqb[qr * a.dqs.l + tx + 16 * j] = dq[i][j] * a.scale;
+  }
+}
+
+template <int DH>
+cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
+  const size_t smem = smem_floats<DH>() * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_bwd_dkdv_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(attn_bwd_dq_kernel<DH>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+
+  const long long rows = (long long)B * a.H * a.Lq;
+  const long long blocks = (rows * 32 + kThreads - 1) / kThreads;
+  attn_bwd_delta_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(a, DH, rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attn_bwd_dkdv_kernel<DH><<<dim3((a.Lk + kBK - 1) / kBK, B * a.H), kThreads, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attn_bwd_dq_kernel<DH><<<dim3((a.Lq + kBQ - 1) / kBQ, B * a.H), kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// q (B, H, Lq, dh), k and v (B, H, Lk, dh), the forward's output o and its
+// gradient dout (B, H, Lq, dh), f32 on device `device`, each given by base
+// pointer and (batch, head, row) strides in elements with the last axis
+// contiguous. `strides` holds 24 values: (b, h, l) of q, k, v, o, dout, dq,
+// dk, dv in that order. row_max and row_inv are the forward's (B, H, Lq)
+// statistics; delta is (B, H, Lq) scratch; dq, dk, dv are written. dh is 64
+// or 128; 1 <= l_actual <= Lk; dropout, threshold, inv_keep and seed as the
+// forward got them. Launches three kernels on `stream` and returns the
+// first cudaError_t that is not success.
+int pcm_attention_bwd(const float* q, const float* k, const float* v, const float* o,
+                      const float* dout, const float* row_max, const float* row_inv,
+                      float* delta, float* dq, float* dk, float* dv,
+                      const long long* strides, int B, int H, int Lq, int Lk, int dh,
+                      int l_actual, float scale, unsigned threshold, float inv_keep,
+                      unsigned seed, int dropout, int device, void* stream) {
+  if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || l_actual < 1 || l_actual > Lk ||
+      B * H > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const long long* st = strides;
+  Args a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.o = o;
+  a.dout = dout;
+  a.row_max = row_max;
+  a.row_inv = row_inv;
+  a.delta = delta;
+  a.dq = dq;
+  a.dk = dk;
+  a.dv = dv;
+  a.qs = Strides{st[0], st[1], st[2]};
+  a.ks = Strides{st[3], st[4], st[5]};
+  a.vs = Strides{st[6], st[7], st[8]};
+  a.os = Strides{st[9], st[10], st[11]};
+  a.dos = Strides{st[12], st[13], st[14]};
+  a.dqs = Strides{st[15], st[16], st[17]};
+  a.dks = Strides{st[18], st[19], st[20]};
+  a.dvs = Strides{st[21], st[22], st[23]};
+  a.H = H;
+  a.Lq = Lq;
+  a.Lk = Lk;
+  a.l_actual = l_actual;
+  a.scale = scale;
+  a.threshold = threshold;
+  a.inv_keep = inv_keep;
+  a.seed = seed;
+  a.dropout = dropout;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dh == 64) return (int)launch<64>(a, B, s);
+  if (dh == 128) return (int)launch<128>(a, B, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

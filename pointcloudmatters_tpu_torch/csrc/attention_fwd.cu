@@ -2,11 +2,15 @@
 // tile), streaming 64-key tiles with an online max and sum.
 //
 // Replaces the forward of the TPU kernel `_fwd_kernel` / `oneshot_attention`
-// (pointcloudmatters_tpu/ops/oneshot_attention.py:68-94, 176-230) at dropout
-// rate 0, the rate of every forward at inference. Semantics: q is scaled by
-// `scale` (rounded to f32, as the TPU path pre-scales q), keys at column
-// l_actual and beyond are masked out (`col < l_actual`,
-// oneshot_attention.py:82-83), o = softmax(q k^T) v with f32 accumulation.
+// (pointcloudmatters_tpu/ops/oneshot_attention.py:68-94, 176-230). Semantics:
+// q is scaled by `scale` (rounded to f32, as the TPU path pre-scales q), keys
+// at column l_actual and beyond are masked out (`col < l_actual`,
+// oneshot_attention.py:82-83), o = (e_drop v) / sum(e) with e = exp(s - max s)
+// and f32 accumulation. At dropout rate > 0, e_drop = keep ? e / (1 - rate)
+// : 0 with the keep mask of philox.cuh (one per head, shared across the
+// batch); the denominator stays the undropped sum, as in the TPU kernel
+// (oneshot_attention.py:85-94). For the backward the kernel can also write
+// each row's max and 1 / denominator, (B, H, Lq) f32 each.
 //
 // What bounds it on an H100: arithmetic. 4*B*H*Lq*Lk*dh flops (275 GFLOP a
 // layer at B=32, H=8, L=2051, dh=64) on the FP32 pipes, since f32 inputs rule
@@ -23,6 +27,10 @@
 // along a key or query row are padded by one float, so the reads are free of
 // bank conflicts. Key tiles past l_actual are not visited; rows beyond the
 // array are zero-filled. Output = acc * (1 / l), as the TPU kernel does.
+// Dropout is one more pass over the 64x64 probability tile in shared
+// memory, after the row sums and before P V: each thread draws one Philox
+// call for four neighbouring key columns (about 30 integer operations an
+// element against 2 dh FMAs).
 //
 // Strides are passed for q, k, v and o (batch, head, row; the last axis must
 // be contiguous), so (B, L, H, dh) projections are read in place.
@@ -30,6 +38,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "philox.cuh"
 
 namespace {
 
@@ -51,8 +61,11 @@ constexpr size_t smem_floats() {
 template <int DH>
 __global__ void __launch_bounds__(kThreads)
 attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, float* __restrict__ o, Strides qs, Strides ks,
-                Strides vs, Strides os, int H, int Lq, int Lk, int l_actual, float scale) {
+                const float* __restrict__ v, float* __restrict__ o,
+                float* __restrict__ row_max, float* __restrict__ row_inv, Strides qs,
+                Strides ks, Strides vs, Strides os, int H, int Lq, int Lk, int l_actual,
+                float scale, uint32_t threshold, float inv_keep, uint32_t seed,
+                int dropout) {
   constexpr int LD = DH + 1;   // padded row of Q and K tiles
   constexpr int LDP = kBK + 1; // padded row of the score tile
   constexpr int CJ = DH / 16;  // output columns a thread
@@ -153,6 +166,19 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
 
+    if (dropout) {  // P <- keep ? P / (1 - rate) : 0, four columns a draw
+      for (int gi = tid; gi < kBQ * (kBK / 4); gi += kThreads) {
+        const int r = gi / (kBK / 4), c4 = (gi % (kBK / 4)) * 4;
+        const uint4 bits = pcm::keep_bits4(seed, h, q0 + r, (k0 + c4) >> 2);
+        float* pr = Ps + r * LDP + c4;
+        pr[0] = bits.x >= threshold ? pr[0] * inv_keep : 0.f;
+        pr[1] = bits.y >= threshold ? pr[1] * inv_keep : 0.f;
+        pr[2] = bits.z >= threshold ? pr[2] * inv_keep : 0.f;
+        pr[3] = bits.w >= threshold ? pr[3] * inv_keep : 0.f;
+      }
+      __syncthreads();
+    }
+
     // acc = alpha * acc + P V
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -174,11 +200,22 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
+  __syncthreads();  // the last tile's row_alpha is read; it now holds the row max
   if (lane == 0) {
 #pragma unroll
-    for (int rr = 0; rr < 8; ++rr) row_l[warp * 8 + rr] = l_run[rr];
+    for (int rr = 0; rr < 8; ++rr) {
+      row_l[warp * 8 + rr] = l_run[rr];
+      row_alpha[warp * 8 + rr] = m_run[rr];  // the final row max
+    }
   }
   __syncthreads();
+  if (row_max != nullptr) {
+    const long long base = (long long)blockIdx.y * Lq + q0;
+    for (int r = tid; r < kBQ && q0 + r < Lq; r += kThreads) {
+      row_max[base + r] = row_alpha[r];
+      row_inv[base + r] = 1.0f / row_l[r];
+    }
+  }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
@@ -190,16 +227,18 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int DH>
-cudaError_t launch(const float* q, const float* k, const float* v, float* o, Strides qs,
-                   Strides ks, Strides vs, Strides os, int B, int H, int Lq, int Lk,
-                   int l_actual, float scale, cudaStream_t stream) {
+cudaError_t launch(const float* q, const float* k, const float* v, float* o, float* row_max,
+                   float* row_inv, Strides qs, Strides ks, Strides vs, Strides os, int B,
+                   int H, int Lq, int Lk, int l_actual, float scale, uint32_t threshold,
+                   float inv_keep, uint32_t seed, int dropout, cudaStream_t stream) {
   const size_t smem = smem_floats<DH>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       attn_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Lq + kBQ - 1) / kBQ, B * H);
-  attn_fwd_kernel<DH><<<grid, kThreads, smem, stream>>>(q, k, v, o, qs, ks, vs, os, H, Lq,
-                                                        Lk, l_actual, scale);
+  attn_fwd_kernel<DH><<<grid, kThreads, smem, stream>>>(
+      q, k, v, o, row_max, row_inv, qs, ks, vs, os, H, Lq, Lk, l_actual, scale, threshold,
+      inv_keep, seed, dropout);
   return cudaGetLastError();
 }
 
@@ -210,24 +249,31 @@ extern "C" {
 // q (B, H, Lq, dh), k and v (B, H, Lk, dh), o (B, H, Lq, dh), f32, given by
 // base pointer and (batch, head, row) strides in elements, last axis
 // contiguous, on device `device`. dh is 64 or 128; 1 <= l_actual <= Lk.
-// Returns the cudaError_t of the launch.
+// row_max and row_inv are (B, H, Lq) contiguous, or both null when the
+// statistics are not needed. With `dropout` non-zero, probabilities whose
+// keep bits are below `threshold` are dropped and the others scaled by
+// inv_keep = 1 / (1 - rate); `seed` keys the mask. Returns the cudaError_t
+// of the launch.
 int pcm_attention_fwd(const float* q, const float* k, const float* v, float* o,
-                      long long qsb, long long qsh, long long qsl, long long ksb,
-                      long long ksh, long long ksl, long long vsb, long long vsh,
-                      long long vsl, long long osb, long long osh, long long osl, int B,
-                      int H, int Lq, int Lk, int dh, int l_actual, float scale, int device,
-                      void* stream) {
+                      float* row_max, float* row_inv, long long qsb, long long qsh,
+                      long long qsl, long long ksb, long long ksh, long long ksl,
+                      long long vsb, long long vsh, long long vsl, long long osb,
+                      long long osh, long long osl, int B, int H, int Lq, int Lk, int dh,
+                      int l_actual, float scale, unsigned threshold, float inv_keep,
+                      unsigned seed, int dropout, int device, void* stream) {
   if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || l_actual < 1 || l_actual > Lk ||
-      B * H > 65535)
+      B * H > 65535 || (row_max == nullptr) != (row_inv == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const Strides qs{qsb, qsh, qsl}, ks{ksb, ksh, ksl}, vs{vsb, vsh, vsl}, os{osb, osh, osl};
   cudaStream_t s = (cudaStream_t)stream;
   if (dh == 64)
-    return (int)launch<64>(q, k, v, o, qs, ks, vs, os, B, H, Lq, Lk, l_actual, scale, s);
+    return (int)launch<64>(q, k, v, o, row_max, row_inv, qs, ks, vs, os, B, H, Lq, Lk,
+                           l_actual, scale, threshold, inv_keep, seed, dropout, s);
   if (dh == 128)
-    return (int)launch<128>(q, k, v, o, qs, ks, vs, os, B, H, Lq, Lk, l_actual, scale, s);
+    return (int)launch<128>(q, k, v, o, row_max, row_inv, qs, ks, vs, os, B, H, Lq, Lk,
+                            l_actual, scale, threshold, inv_keep, seed, dropout, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -5,7 +5,8 @@
 ``configs/model/maniskill2_act_pcd_model.yaml``: hidden 512, 8 heads, 4
 encoder layers, 7 decoder layers of which 1 is computed, feed-forward 32,
 chunk 100, FPS to 2048 tokens, kNN k=16; 24,124,456 parameters. Weights are
-drawn from a seeded ``torch.Generator``. ``build_batch()`` is the same numpy
+drawn from a seeded ``torch.Generator``; ``dropout`` is the config's 0.1
+unless given (tests build it at 0). ``build_batch()`` is the same numpy
 batch the JAX entry builds from the same seed.
 """
 
@@ -18,7 +19,6 @@ import numpy as np
 import torch
 from torch import nn
 
-from pointcloudmatters_tpu.data.collate import morton_order
 from pointcloudmatters_tpu_torch.models.components.act.act import ACTPCD
 from pointcloudmatters_tpu_torch.models.components.act.transformer import (
     Transformer,
@@ -32,7 +32,32 @@ from pointcloudmatters_tpu_torch.models.components.pcd_encoder.pointnet import (
     PointNet,
 )
 
-__all__ = ["build_flagship", "build_batch", "init_parameters"]
+__all__ = ["build_flagship", "build_batch", "init_parameters", "morton_order"]
+
+
+def _part1by2(v: np.ndarray) -> np.ndarray:
+    """Spread 10 bits over 30."""
+    v = v & 0x3FF
+    v = (v | (v << 16)) & 0x030000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    v = (v | (v << 2)) & 0x09249249
+    return v
+
+
+def morton_order(coord: np.ndarray) -> np.ndarray:
+    """Morton (Z-curve) permutation of an (N, 3) cloud quantised to a 10-bit
+    grid over its bounding box, stable on equal codes: the point order the
+    JAX collate gives (``pointcloudmatters_tpu/data/collate.py:41-61``),
+    kept here so that the port imports nothing of the JAX package."""
+    c = coord.astype(np.float32, copy=False)
+    if len(c) == 0:
+        return np.empty((0,), np.int64)
+    lo = c.min(axis=0)
+    scale = 1023.0 / np.maximum(c.max(axis=0) - lo, 1e-6)
+    q = np.clip((c - lo) * scale, 0.0, 1023.0).astype(np.int32)
+    code = _part1by2(q[:, 0]) | (_part1by2(q[:, 1]) << 1) | (_part1by2(q[:, 2]) << 2)
+    return np.argsort(code, kind="stable")
 
 
 @torch.no_grad()
@@ -61,21 +86,21 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
 
 def build_flagship(hidden_dim=512, npoints=2048, nsample=16, chunk=100,
                    enc_layers=4, dec_layers=7, ffn=32, action_dim=7,
-                   qpos_dim=9, goal_dim=3, nhead=8, seed=0,
+                   qpos_dim=9, goal_dim=3, nhead=8, seed=0, dropout=0.1,
                    device: Union[str, torch.device] = "cpu") -> ACTPCD:
     """ACTPCD + PointNet, weights from ``torch.Generator().manual_seed(seed)``,
-    on ``device`` in eval mode."""
+    on ``device`` in eval mode; ``dropout`` is the transformers' rate."""
     policy = ACTPCD(
         backbone=PointNet(in_channels=6),
         transformer=Transformer(
             d_model=hidden_dim, nhead=nhead, num_encoder_layers=enc_layers,
-            num_decoder_layers=dec_layers, dim_feedforward=ffn, dropout=0.1,
+            num_decoder_layers=dec_layers, dim_feedforward=ffn, dropout=dropout,
             normalize_before=False, return_intermediate_dec=True,
             attention_impl="oneshot",
         ),
         encoder=TransformerEncoder(
             d_model=hidden_dim, nhead=8, dim_feedforward=ffn,
-            num_layers=enc_layers, dropout=0.1,
+            num_layers=enc_layers, dropout=dropout,
         ),
         hidden_dim=hidden_dim, num_queries=chunk,
         action_dim=action_dim, qpos_dim=qpos_dim, goal_cond_dim=goal_dim,

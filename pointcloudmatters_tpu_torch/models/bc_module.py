@@ -1,18 +1,22 @@
 """Behaviour-cloning task module (port of
-``pointcloudmatters_tpu/models/bc_module.py``), serving side:
-``select_model_batch``, variable loading and ``predict``. Optimizers,
-schedules and validation come with the training step."""
+``pointcloudmatters_tpu/models/bc_module.py``): ``select_model_batch``,
+variable loading, ``predict``, and the training side the ``Trainer`` drives
+(optimizer and schedule from config dicts, the step's random streams, the
+train-mode forward). Validation comes with a later slice."""
 
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
 from torch import nn
 
 from pointcloudmatters_tpu_torch.utils.flax_to_torch import flax_to_torch
+from pointcloudmatters_tpu_torch.utils.metrics import Metrics
+from pointcloudmatters_tpu_torch.utils.optimizer import build_optimizer
+from pointcloudmatters_tpu_torch.utils.scheduler import build_scheduler
 
 __all__ = ["select_model_batch", "to_device", "BCModule"]
 
@@ -51,18 +55,74 @@ def to_device(tree, device: Union[str, torch.device]):
 
 
 class BCModule:
-    """Holds the policy on one device, in eval mode, and serves actions."""
+    """Holds the policy on one device; serves actions and, once
+    :meth:`configure_optimizers` ran, trains it (through ``Trainer``).
 
-    def __init__(self, policy: nn.Module, device: Union[str, torch.device, None] = None):
+    ``optimizer`` and ``lr_scheduler`` are the JAX module's config dicts
+    (``{"type": "AdamW", "lr": ...}``, ``{"scheduler": {"type":
+    "OneCycleLR", ...}}``)."""
+
+    # the step's random streams (JAX: vae sampling + dropout); "seed" seeds
+    # the oneshot attention kernel's mask from the host
+    train_rng_streams: tuple = ("vae", "dropout", "seed")
+
+    def __init__(self, policy: nn.Module, device: Union[str, torch.device, None] = None,
+                 optimizer: Optional[dict] = None, lr_scheduler: Optional[dict] = None,
+                 train_metrics: Optional[Metrics] = None,
+                 param_dicts: Optional[list] = None):
         if device is None:
             device = next(policy.parameters()).device
+        if param_dicts:
+            raise NotImplementedError(
+                "keyword-matched parameter groups (param_dicts) are not ported yet")
         self.device = torch.device(device)
         self.policy = policy.to(self.device).eval()
+        self.optimizer_cfg = dict(optimizer or {"type": "AdamW", "lr": 1e-4})
+        self.lr_scheduler_cfg = lr_scheduler
+        self.train_metrics = train_metrics or Metrics(
+            ["MeanMetric"] * 3, ["loss", "action_loss", "kl_loss"],
+            ["train/loss", "train/action_loss", "train/kl_loss"])
+        self.optimizer: Optional[torch.optim.Optimizer] = None
+        self.scheduler = None
+        self.gradient_clip_val: Optional[float] = None
+
+    @property
+    def train_metric_keys(self) -> list[str]:
+        return self.train_metrics.input_keys
 
     def load_variables(self, variables: Mapping) -> None:
         """Load JAX ``variables`` (params and batch_stats) into the policy."""
         state = flax_to_torch(variables, self.policy.state_dict())
         self.policy.load_state_dict(state, strict=True)
+
+    def configure_optimizers(self, total_steps: int,
+                             gradient_clip_val: Optional[float] = None) -> None:
+        """Optimizer and schedule over ``total_steps`` optimizer steps
+        (the JAX ``configure_optimizers``); a global-norm clip of the
+        gradients when ``gradient_clip_val`` is set."""
+        self.optimizer = build_optimizer(self.optimizer_cfg, self.policy.parameters())
+        self.scheduler = None
+        if self.lr_scheduler_cfg:
+            sched_cfg = self.lr_scheduler_cfg.get("scheduler", self.lr_scheduler_cfg)
+            self.scheduler = build_scheduler(self.optimizer, sched_cfg, total_steps)
+        self.gradient_clip_val = gradient_clip_val
+
+    def make_rngs(self, seed: int) -> dict[str, torch.Generator]:
+        """One generator per stream of ``train_rng_streams``, seeded from
+        ``seed``: ``"seed"`` on the CPU, the others on the policy's device."""
+        rngs = {}
+        for i, name in enumerate(self.train_rng_streams):
+            device = "cpu" if name == "seed" else self.device
+            rngs[name] = torch.Generator(device=device).manual_seed(
+                seed * len(self.train_rng_streams) + i)
+        return rngs
+
+    def forward_train(self, batch: dict, rngs: Mapping) -> dict:
+        """The train-mode forward over a batch of model inputs (and
+        collate bookkeeping, which is dropped); returns the policy's dict
+        with ``loss``, ``action_loss`` and ``kl_loss``."""
+        batch = to_device(select_model_batch(batch), self.device)
+        return self.policy(batch, train=True, rngs=rngs)
 
     @torch.inference_mode()
     def predict(self, obs: dict) -> torch.Tensor:

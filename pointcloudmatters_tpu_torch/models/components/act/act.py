@@ -1,17 +1,23 @@
 """ACT over point clouds (port of
-``pointcloudmatters_tpu/models/components/act/act.py:59-396``), inference
-side.
+``pointcloudmatters_tpu/models/components/act/act.py:59-396``).
 
-Call protocol as in JAX: ``policy(data_dict, train=False)`` returns a new
-dict with ``a_hat`` (B, num_queries, action_dim) and ``is_pad_hat`` merged
-in. Without actions the CVAE latent is zero (JAX ``act.py:152-155``), so the
-posterior ``encoder`` is built, for its parameters, but not run. Training,
-the posterior with actions, and the image and state-only observation paths
-come with later slices and raise ``NotImplementedError``.
+Call protocol as in JAX: ``policy(data_dict, train=..., rngs=...)`` returns
+a new dict with ``a_hat`` (B, num_queries, action_dim) and ``is_pad_hat``
+merged in, and when actions are present ``loss``, ``action_loss`` and
+``kl_loss``. Without actions the CVAE latent is zero (JAX
+``act.py:152-155``); with actions it comes from the posterior ``encoder``
+over ``[CLS, qpos, actions]``, sampled in training and its mean otherwise.
+
+``train=True`` needs ``rngs``, the step's random streams: ``"vae"`` (the
+posterior noise) and ``"dropout"`` (generators on the batch's device) and
+``"seed"`` (a CPU generator seeding the oneshot attention kernel's mask).
+The image and state-only observation paths come with later slices and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+from collections.abc import Mapping
 from typing import Optional
 
 import torch
@@ -24,7 +30,16 @@ from pointcloudmatters_tpu_torch.models.components.act.transformer import (
     Transformer,
     TransformerEncoder,
 )
-from pointcloudmatters_tpu_torch.models.components.nn_utils import GroupedBNReluMax
+from pointcloudmatters_tpu_torch.models.components.loss.misc import (
+    KLDivergence,
+    build_action_loss,
+    masked_action_loss,
+)
+from pointcloudmatters_tpu_torch.models.components.nn_utils import (
+    GroupedBNReluMax,
+    get_sinusoid_encoding_table,
+    reparametrize,
+)
 from pointcloudmatters_tpu_torch.ops.pointops import (
     farthest_point_sampling_padded,
     knn_query_padded,
@@ -41,7 +56,7 @@ class ACT(nn.Module):
     def __init__(self, backbone: Optional[nn.Module], transformer: Transformer,
                  encoder: Optional[TransformerEncoder], hidden_dim: int,
                  num_queries: int, action_dim: int = 8, qpos_dim: int = 9,
-                 latent_dim: int = 32, kl_weight: float = 20.0,
+                 latent_dim: int = 32, action_loss=None, kl_weight: float = 20.0,
                  goal_cond_dim: int = 0):
         super().__init__()
         if backbone is None:
@@ -56,8 +71,10 @@ class ACT(nn.Module):
         self.hidden_dim = hidden_dim
         self.num_queries = num_queries
         self.latent_dim = latent_dim
-        self.kl_weight = kl_weight  # of the training loss
+        self.kl_weight = kl_weight
         self.goal_cond_dim = goal_cond_dim
+        self._klloss = KLDivergence()
+        self._action_loss = build_action_loss(action_loss)
         self.input_proj_robot_state = nn.Linear(qpos_dim, D)
         self.cls_embed = nn.Parameter(torch.zeros(1, D))
         self.encoder_action_proj = nn.Linear(action_dim, D)
@@ -70,19 +87,41 @@ class ACT(nn.Module):
         self.query_embed = nn.Parameter(torch.zeros(num_queries, D))
         self.latent_out_proj = nn.Linear(latent_dim, D)
         self.additional_pos_embed = nn.Parameter(torch.zeros(n_add, D))
+        # positions of the posterior's [CLS, qpos, actions] tokens; a
+        # constant kept on the model's device, outside the state dict
+        self.register_buffer(
+            "encoder_pos", get_sinusoid_encoding_table(2 + num_queries, D),
+            persistent=False)
 
-    def forward_encoder(self, data_dict: dict, train: bool) -> dict:
-        """CVAE latent; without actions a zero latent (JAX ``act.py:152-155``)."""
+    def forward_encoder(self, data_dict: dict, train: bool,
+                        rngs: Optional[Mapping] = None) -> dict:
+        """CVAE latent (JAX ``act.py:121-160``): the posterior over
+        ``[CLS, qpos, actions]`` with the ``is_pad`` key mask, sampled with
+        ``rngs["vae"]`` in training and its mean otherwise; without actions
+        a zero latent."""
         qpos = data_dict["qpos"]
-        if data_dict.get("actions") is not None:
-            raise NotImplementedError(
-                "the CVAE posterior over actions comes with the training step; "
-                "predict takes observations without actions"
-            )
-        latent_sample = qpos.new_zeros((qpos.shape[0], self.latent_dim))
-        return dict(data_dict, mu=None, logvar=None,
+        actions = data_dict.get("actions")
+        bs = qpos.shape[0]
+        if actions is None:
+            latent_sample = qpos.new_zeros((bs, self.latent_dim))
+            return dict(data_dict, mu=None, logvar=None,
+                        latent_input=self.latent_out_proj(latent_sample),
+                        is_training=False)
+        is_pad = data_dict["is_pad"].to(torch.bool)
+        action_embed = self.encoder_action_proj(actions)  # (B, nq, D)
+        qpos_embed = self.encoder_joint_proj(qpos)[:, None, :]  # (B, 1, D)
+        cls = self.cls_embed[None].expand(bs, 1, self.hidden_dim).to(action_embed.dtype)
+        tokens = torch.cat([cls, qpos_embed, action_embed], dim=1)
+        pad_mask = torch.cat([is_pad.new_zeros((bs, 2)), is_pad], dim=1)
+        out = self.encoder(tokens, pos=self.encoder_pos, key_padding_mask=pad_mask,
+                           deterministic=not train, rngs=rngs)
+        latent_info = self.latent_proj(out[:, 0])  # the [CLS] output only
+        mu = latent_info[:, :self.latent_dim]
+        logvar = latent_info[:, self.latent_dim:]
+        latent_sample = reparametrize(mu, logvar, rngs["vae"]) if train else mu
+        return dict(data_dict, mu=mu, logvar=logvar,
                     latent_input=self.latent_out_proj(latent_sample),
-                    is_training=False)
+                    is_training=True)
 
     def _goal_embed(self, data_dict: dict) -> Optional[torch.Tensor]:
         if self.goal_cond_dim <= 0:
@@ -97,7 +136,8 @@ class ACT(nn.Module):
             "the image-observation ACT path is not ported yet; use ACTPCD"
         )
 
-    def _decode(self, data_dict: dict, train: bool) -> torch.Tensor:
+    def _decode(self, data_dict: dict, train: bool,
+                rngs: Optional[Mapping] = None) -> torch.Tensor:
         hs = self.transformer(
             data_dict["src"], self.query_embed, pos=data_dict["pos"],
             latent_input=data_dict["latent_input"],
@@ -106,21 +146,36 @@ class ACT(nn.Module):
                 self.additional_pos_embed
                 if data_dict["latent_input"] is not None else None
             ),
-            deterministic=not train,
+            deterministic=not train, rngs=rngs,
         )
         return hs[0]  # first decoder layer's intermediate, the reference quirk
 
-    def forward_decoder(self, data_dict: dict, train: bool) -> dict:
-        hs = self._decode(data_dict, train)
+    def forward_decoder(self, data_dict: dict, train: bool,
+                        rngs: Optional[Mapping] = None) -> dict:
+        hs = self._decode(data_dict, train, rngs)
         return dict(data_dict, a_hat=self.action_head(hs),
                     is_pad_hat=self.is_pad_head(hs))
 
-    def forward(self, data_dict: dict, train: bool = False) -> dict:
-        if train:
-            raise NotImplementedError("the ACT training step is not ported yet")
-        data_dict = self.forward_encoder(data_dict, train)
+    def forward_loss(self, data_dict: dict) -> dict:
+        """``loss = action_loss + kl * kl_weight`` (JAX ``act.py:238-249``)."""
+        total_kld = self._klloss(data_dict["mu"], data_dict["logvar"])
+        action_loss = masked_action_loss(
+            self._action_loss, data_dict["a_hat"], data_dict["actions"],
+            data_dict["is_pad"].to(torch.bool),
+        )
+        return dict(data_dict, action_loss=action_loss, kl_loss=total_kld,
+                    loss=action_loss + total_kld * self.kl_weight)
+
+    def forward(self, data_dict: dict, train: bool = False,
+                rngs: Optional[Mapping] = None) -> dict:
+        if train and rngs is None:
+            raise ValueError("ACT training needs rngs ('vae', 'dropout', 'seed')")
+        data_dict = self.forward_encoder(data_dict, train, rngs)
         data_dict = self.forward_obs_embed(data_dict, train)
-        return self.forward_decoder(data_dict, train)
+        data_dict = self.forward_decoder(data_dict, train, rngs)
+        if not data_dict["is_training"]:
+            return data_dict
+        return self.forward_loss(data_dict)
 
 
 class ACTPCD(ACT):

@@ -1,6 +1,5 @@
 """DETR-style transformer for ACT, batch-first (port of
-``pointcloudmatters_tpu/models/components/act/transformer.py:261-622``),
-inference side.
+``pointcloudmatters_tpu/models/components/act/transformer.py:261-622``).
 
 - ``(B, L, D)`` tokens throughout; positions are added to queries and keys
   only, never to values; LayerNorm eps 1e-5; post-norm unless
@@ -11,7 +10,11 @@ inference side.
   the decoder's attentions are dense, as in JAX.
 - The decoder holds all ``num_layers`` layers, so a converted checkpoint maps
   one to one, but with ``return_intermediate`` computes only the first
-  ``live_layers`` (ACT reads ``hs[0]``).
+  ``live_layers`` (ACT reads ``hs[0]``), in training too.
+- ``deterministic=False`` turns on dropout (attention weights and
+  ``BitsDropout`` on the residual streams) and needs ``rngs``, the step's
+  random streams: ``"dropout"`` (a generator on the tokens' device) and
+  ``"seed"`` (a CPU generator seeding the oneshot kernel's mask).
 
 The ``flash`` and ``fused`` attention backends are not ported yet (their
 kernels are on ROADMAP.md's list) and raise ``NotImplementedError``.
@@ -19,6 +22,7 @@ kernels are on ROADMAP.md's list) and raise ``NotImplementedError``.
 
 from __future__ import annotations
 
+from collections.abc import Mapping
 from typing import Optional
 
 import torch
@@ -70,6 +74,12 @@ def _with_pos(x: torch.Tensor, pos: Optional[torch.Tensor]) -> torch.Tensor:
     return x if pos is None else x + pos.to(x.dtype)
 
 
+def _dropper(drop: BitsDropout, deterministic: bool, rngs: Optional[Mapping]):
+    """``x -> drop(x)`` with the step's dropout generator."""
+    generator = None if deterministic or rngs is None else rngs["dropout"]
+    return lambda x: drop(x, deterministic, generator)
+
+
 class MultiHeadAttention(nn.Module):
     """Multi-head attention with flax's projection layout and math."""
 
@@ -86,13 +96,14 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, inputs_q: torch.Tensor, inputs_k: torch.Tensor,
                 inputs_v: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                deterministic: bool = True) -> torch.Tensor:
+                deterministic: bool = True,
+                rngs: Optional[Mapping] = None) -> torch.Tensor:
         B, Lq, D = inputs_q.shape
         heads = lambda x: x.view(x.shape[0], x.shape[1], self.nhead, -1)  # noqa: E731
         o = self.attention_fn(
             heads(self.query(inputs_q)), heads(self.key(inputs_k)),
             heads(self.value(inputs_v)), mask=mask,
-            dropout_rate=self.dropout_rate, deterministic=deterministic,
+            dropout_rate=self.dropout_rate, deterministic=deterministic, rngs=rngs,
         )
         return self.out(o.reshape(B, Lq, D))
 
@@ -113,22 +124,23 @@ class TransformerEncoderLayer(nn.Module):
 
     def forward(self, src: torch.Tensor, pos: Optional[torch.Tensor] = None,
                 key_padding_mask: Optional[torch.Tensor] = None,
-                deterministic: bool = True) -> torch.Tensor:
+                deterministic: bool = True,
+                rngs: Optional[Mapping] = None) -> torch.Tensor:
         mask = _attention_mask(key_padding_mask)
-        drop = lambda x: self.drop(x, deterministic)  # noqa: E731
+        drop = _dropper(self.drop, deterministic, rngs)
 
         def ffn(x):
             return self.linear2(drop(self.act(self.linear1(x))))
 
+        def attn(qk, x):
+            return self.self_attn(qk, qk, x, mask=mask, deterministic=deterministic,
+                                  rngs=rngs)
+
         if self.normalize_before:
             x = self.norm1(src)
-            qk = _with_pos(x, pos)
-            src = src + drop(self.self_attn(qk, qk, x, mask=mask,
-                                            deterministic=deterministic))
+            src = src + drop(attn(_with_pos(x, pos), x))
             return src + drop(ffn(self.norm2(src)))
-        qk = _with_pos(src, pos)
-        src = src + drop(self.self_attn(qk, qk, src, mask=mask,
-                                        deterministic=deterministic))
+        src = src + drop(attn(_with_pos(src, pos), src))
         src = self.norm1(src)
         return self.norm2(src + drop(ffn(src)))
 
@@ -159,29 +171,30 @@ class TransformerDecoderLayer(nn.Module):
                 pos: Optional[torch.Tensor] = None,
                 query_pos: Optional[torch.Tensor] = None,
                 memory_key_padding_mask: Optional[torch.Tensor] = None,
-                deterministic: bool = True) -> torch.Tensor:
+                deterministic: bool = True,
+                rngs: Optional[Mapping] = None) -> torch.Tensor:
         mem_mask = _attention_mask(memory_key_padding_mask)
-        drop = lambda x: self.drop(x, deterministic)  # noqa: E731
+        drop = _dropper(self.drop, deterministic, rngs)
         mem_k = _with_pos(memory, pos)
 
         def ffn(x):
             return self.linear2(drop(self.act(self.linear1(x))))
 
-        if self.normalize_before:
-            x = self.norm1(tgt)
+        def self_attn(x):
             qk = _with_pos(x, query_pos)
-            tgt = tgt + drop(self.self_attn(qk, qk, x, deterministic=deterministic))
-            x = self.norm2(tgt)
-            tgt = tgt + drop(self.multihead_attn(
-                _with_pos(x, query_pos), mem_k, memory, mask=mem_mask,
-                deterministic=deterministic))
+            return self.self_attn(qk, qk, x, deterministic=deterministic, rngs=rngs)
+
+        def cross_attn(x):
+            return self.multihead_attn(_with_pos(x, query_pos), mem_k, memory,
+                                       mask=mem_mask, deterministic=deterministic,
+                                       rngs=rngs)
+
+        if self.normalize_before:
+            tgt = tgt + drop(self_attn(self.norm1(tgt)))
+            tgt = tgt + drop(cross_attn(self.norm2(tgt)))
             return tgt + drop(ffn(self.norm3(tgt)))
-        qk = _with_pos(tgt, query_pos)
-        tgt = tgt + drop(self.self_attn(qk, qk, tgt, deterministic=deterministic))
-        tgt = self.norm1(tgt)
-        tgt = tgt + drop(self.multihead_attn(
-            _with_pos(tgt, query_pos), mem_k, memory, mask=mem_mask,
-            deterministic=deterministic))
+        tgt = self.norm1(tgt + drop(self_attn(tgt)))
+        tgt = tgt + drop(cross_attn(tgt))
         tgt = self.norm2(tgt)
         return self.norm3(tgt + drop(ffn(tgt)))
 
@@ -204,9 +217,10 @@ class TransformerEncoder(nn.Module):
 
     def forward(self, src: torch.Tensor, pos: Optional[torch.Tensor] = None,
                 key_padding_mask: Optional[torch.Tensor] = None,
-                deterministic: bool = True) -> torch.Tensor:
+                deterministic: bool = True,
+                rngs: Optional[Mapping] = None) -> torch.Tensor:
         for layer in self.layers:
-            src = layer(src, pos, key_padding_mask, deterministic)
+            src = layer(src, pos, key_padding_mask, deterministic, rngs)
         return src if self.norm is None else self.norm(src)
 
 
@@ -230,7 +244,8 @@ class TransformerDecoder(nn.Module):
                 pos: Optional[torch.Tensor] = None,
                 query_pos: Optional[torch.Tensor] = None,
                 memory_key_padding_mask: Optional[torch.Tensor] = None,
-                deterministic: bool = True) -> torch.Tensor:
+                deterministic: bool = True,
+                rngs: Optional[Mapping] = None) -> torch.Tensor:
         """-> (n_run, B, nq, D) normed intermediates, or (1, B, nq, D)."""
         n_run = len(self.layers)
         if self.live_layers is not None and self.return_intermediate:
@@ -240,7 +255,7 @@ class TransformerDecoder(nn.Module):
         for layer in self.layers[:n_run]:
             out = layer(out, memory, pos=pos, query_pos=query_pos,
                         memory_key_padding_mask=memory_key_padding_mask,
-                        deterministic=deterministic)
+                        deterministic=deterministic, rngs=rngs)
             if self.return_intermediate:
                 intermediate.append(self.norm(out))
         if self.return_intermediate:
@@ -282,7 +297,8 @@ class Transformer(nn.Module):
                 proprio_input: Optional[torch.Tensor] = None,
                 additional_pos_embed: Optional[torch.Tensor] = None,
                 key_padding_mask: Optional[torch.Tensor] = None,
-                deterministic: bool = True) -> torch.Tensor:
+                deterministic: bool = True,
+                rngs: Optional[Mapping] = None) -> torch.Tensor:
         B = src.shape[0]
         if latent_input is not None:
             extra = [latent_input[:, None, :]]
@@ -300,9 +316,9 @@ class Transformer(nn.Module):
                 key_padding_mask = torch.cat([no_pad, key_padding_mask], dim=1)
 
         memory = self.encoder(src, pos=pos, key_padding_mask=key_padding_mask,
-                              deterministic=deterministic)
+                              deterministic=deterministic, rngs=rngs)
         query_pos = query_embed[None].expand(B, -1, -1)
         tgt = torch.zeros_like(query_pos)
         return self.decoder(tgt, memory, pos=pos, query_pos=query_pos,
                             memory_key_padding_mask=key_padding_mask,
-                            deterministic=deterministic)
+                            deterministic=deterministic, rngs=rngs)

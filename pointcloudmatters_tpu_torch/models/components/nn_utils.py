@@ -1,11 +1,15 @@
 """Shared NN building blocks (port of
-``pointcloudmatters_tpu/models/components/nn_utils.py``), inference side.
+``pointcloudmatters_tpu/models/components/nn_utils.py``).
 
 Parameter and buffer names are the JAX package's (``scale``/``bias``
 parameters, ``mean``/``var`` running statistics), so converted checkpoints
-map one to one. Batch statistics and dropout masks come with the training
-step: here the norms use their running statistics and dropout is the
-identity, and asking for anything else raises.
+map one to one.
+
+Training follows the JAX modules exactly: batch statistics over the valid
+elements (a masked count, single-pass ``E[x^2] - mean^2`` clamped at 0),
+gradients through the statistics, running statistics updated in place with
+torch momentum and the unbiased variance. Random draws (dropout bits, VAE
+noise) come from an explicit ``torch.Generator``; no global RNG is read.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from pointcloudmatters_tpu_torch.ops.pointops import gather_rows_padded
 
 __all__ = [
     "get_sinusoid_encoding_table",
+    "reparametrize",
     "activation_fn",
     "MaskedBatchNorm",
     "GroupedBNReluMax",
@@ -35,6 +40,16 @@ def get_sinusoid_encoding_table(n_position: int, d_hid: int) -> torch.Tensor:
     angle = position / np.power(10000, 2 * (hid_j // 2) / d_hid)
     table = np.where(hid_j % 2 == 0, np.sin(angle), np.cos(angle))
     return torch.from_numpy(table[None].astype(np.float32))
+
+
+def reparametrize(mu: torch.Tensor, logvar: torch.Tensor,
+                  generator: torch.Generator) -> torch.Tensor:
+    """VAE reparameterisation ``mu + exp(logvar / 2) * eps``, eps standard
+    normal from ``generator`` (on mu's device)."""
+    std = torch.exp(0.5 * logvar)
+    eps = torch.randn(std.shape, generator=generator, device=std.device,
+                      dtype=std.dtype)
+    return mu + std * eps
 
 
 def activation_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -53,8 +68,8 @@ def activation_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
 
 class _RunningNorm(nn.Module):
     """Variables of a batch norm over the last axis: parameters
-    ``scale``/``bias``, running ``mean``/``var``. ``momentum`` (torch
-    convention, as in the JAX modules) is kept for the training step."""
+    ``scale``/``bias``, running ``mean``/``var``; ``momentum`` is the torch
+    convention (``new = (1 - m) old + m batch``), as in the JAX modules."""
 
     def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5):
         super().__init__()
@@ -65,26 +80,53 @@ class _RunningNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def eval_affine(self, use_running_average: bool
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
-        """(eff_scale, eff_bias) on the running statistics:
-        ``eff_scale = scale / sqrt(var + eps)``."""
-        if not use_running_average:
-            raise NotImplementedError(
-                f"{type(self).__name__} batch statistics come with the "
-                f"training step; only use_running_average=True is ported"
-            )
-        eff_scale = self.scale * torch.rsqrt(self.var + self.eps)
-        return eff_scale, self.bias - self.mean * eff_scale
+    def statistics(self, total: torch.Tensor, total_sq: torch.Tensor,
+                   count) -> tuple[torch.Tensor, torch.Tensor]:
+        """Batch (mean, biased var) from f32 sums over ``count`` elements;
+        updates the running statistics in place (no gradient) with the
+        unbiased variance, as ``nn_utils.py:117-127`` of the JAX package."""
+        if not torch.is_tensor(count):  # filled on the device: no host copy
+            count = torch.full((), float(count), dtype=torch.float32, device=total.device)
+        count = torch.clamp_min(count, 1.0)
+        mean = total / count
+        var = torch.clamp_min(total_sq / count - mean * mean, 0.0)
+        with torch.no_grad():
+            unbiased = var * count / torch.clamp_min(count - 1.0, 1.0)
+            self.mean.copy_((1.0 - self.momentum) * self.mean + self.momentum * mean)
+            self.var.copy_((1.0 - self.momentum) * self.var + self.momentum * unbiased)
+        return mean, var
+
+    def affine(self, mean: torch.Tensor, var: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(eff_scale, eff_bias): ``eff_scale = scale / sqrt(var + eps)``."""
+        eff_scale = self.scale * torch.rsqrt(var + self.eps)
+        return eff_scale, self.bias - mean * eff_scale
 
 
 class MaskedBatchNorm(_RunningNorm):
-    """Batch norm on running statistics, ``y = x * eff_scale + eff_bias``;
-    ``mask`` only matters to batch statistics."""
+    """Batch norm over the valid elements, ``y = x * eff_scale + eff_bias``.
+
+    ``mask`` (broadcastable to ``x.shape[:-1]``, True = valid) excludes
+    padding from the batch statistics; padded activations are normalised
+    all the same (later layers ignore them)."""
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 use_running_average: bool = True) -> torch.Tensor:
-        eff_scale, eff_bias = self.eval_affine(use_running_average)
+        if use_running_average:
+            mean, var = self.mean, self.var
+        else:
+            dims = tuple(range(x.ndim - 1))
+            if mask is None:
+                count = float(np.prod(x.shape[:-1]))
+                total = x.sum(dim=dims, dtype=torch.float32)
+                total_sq = (x * x).sum(dim=dims, dtype=torch.float32)
+            else:
+                m = mask.to(x.dtype)[..., None]
+                count = mask.to(torch.float32).sum()
+                total = (x * m).sum(dim=dims, dtype=torch.float32)
+                total_sq = ((x * m) * x).sum(dim=dims, dtype=torch.float32)
+            mean, var = self.statistics(total, total_sq, count)
+        eff_scale, eff_bias = self.affine(mean, var)
         return x * eff_scale.to(x.dtype) + eff_bias.to(x.dtype)
 
 
@@ -95,8 +137,9 @@ class GroupedBNReluMax(_RunningNorm):
     BN is one per-channel affine and ReLU is monotone, so the pool needs only
     the per-token max of the gathered rows where the effective scale is
     ``>= 0`` and their min where it is negative. A hole (``nn_idx < 0``)
-    contributes an exact-zero row to the pool. Same variables as
-    :class:`MaskedBatchNorm`."""
+    contributes an exact-zero row to the pool and to the batch statistics,
+    whose count is every (token, neighbour) slot, holes included (the
+    reference quirk). Same variables as :class:`MaskedBatchNorm`."""
 
     def forward(self, g: torch.Tensor, h: torch.Tensor, nn_idx: torch.Tensor,
                 use_running_average: bool = True, impl: str = "xla") -> torch.Tensor:
@@ -107,31 +150,49 @@ class GroupedBNReluMax(_RunningNorm):
                 f"GroupedBNReluMax impl={impl!r}: the fused builder kernels "
                 f"come with the data-source token builder; only 'xla' is ported"
             )
-        eff_scale, eff_bias = self.eval_affine(use_running_average)
         hole = (nn_idx < 0)[..., None]  # (B, M, K, 1)
         x = gather_rows_padded(g, nn_idx) - h[:, :, None, :]
         vmax = torch.where(hole, -torch.inf, x).amax(dim=2)
         vmin = torch.where(hole, torch.inf, x).amin(dim=2)
         any_hole = hole.any(dim=2)  # (B, M, 1)
-        xmax = torch.where(any_hole, torch.clamp_min(vmax, 0.0), vmax)
-        xmin = torch.where(any_hole, torch.clamp_max(vmin, 0.0), vmin)
+        # maximum/minimum against zero, not clamp: at a tie the gradient
+        # splits 0.5/0.5 as jnp.maximum's does (clamp passes all of it)
+        zero = torch.zeros((), dtype=x.dtype, device=x.device)
+        xmax = torch.where(any_hole, torch.maximum(vmax, zero), vmax)
+        xmin = torch.where(any_hole, torch.minimum(vmin, zero), vmin)
+        if use_running_average:
+            mean, var = self.mean, self.var
+        else:
+            xz = torch.where(hole, 0.0, x)
+            total = xz.sum(dim=(0, 1, 2), dtype=torch.float32)
+            total_sq = (xz * xz).sum(dim=(0, 1, 2), dtype=torch.float32)
+            mean, var = self.statistics(total, total_sq, float(np.prod(nn_idx.shape)))
+        eff_scale, eff_bias = self.affine(mean, var)
         eff_scale, eff_bias = eff_scale.to(h.dtype), eff_bias.to(h.dtype)
         sel = torch.where(eff_scale >= 0, xmax, xmin)
         return F.relu(sel * eff_scale + eff_bias)
 
 
 class BitsDropout(nn.Module):
-    """Dropout of the ACT residual streams; the identity at inference. The
-    uint8-bits mask of the JAX module comes with the training step."""
+    """Dropout from uint8 random bits (the JAX module's, ``nn_utils.py:331-368``):
+    the rate is quantised to ``threshold = max(1, round(rate * 256))`` of 256,
+    an element is kept iff its bits are ``>= threshold``, and survivors are
+    scaled by ``256 / (256 - threshold)``. The identity at inference."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.rate == 0.0 or deterministic:
             return x
-        raise NotImplementedError(
-            "BitsDropout masks come with the training step; call with "
-            "deterministic=True"
-        )
+        if generator is None:
+            raise ValueError("BitsDropout in training needs a generator")
+        threshold = max(1, int(round(self.rate * 256)))
+        if threshold >= 256:
+            return torch.zeros_like(x)
+        keep_prob = (256 - threshold) / 256.0
+        bits = torch.randint(0, 256, x.shape, generator=generator,
+                             device=x.device, dtype=torch.uint8)
+        return torch.where(bits >= threshold, x * (1.0 / keep_prob), 0.0)

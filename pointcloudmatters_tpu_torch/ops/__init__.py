@@ -5,9 +5,10 @@ its plain PyTorch version.
 |---|---|---|
 | ``pallas_fps.py`` ``_fps_kernel`` | ``fps.cu`` | ``ops/fps.py`` |
 | ``pallas_knn3.py`` ``_knn3_kernel`` | ``knn.cu`` | ``ops/knn.py`` |
-| ``oneshot_attention.py`` ``_fwd_kernel`` (rate 0) | ``attention_fwd.cu`` | ``ops/oneshot_attention.py`` |
+| ``oneshot_attention.py`` ``_fwd_kernel`` (with ``_keep_mask``) | ``attention_fwd.cu`` | ``ops/oneshot_attention.py`` |
+| ``oneshot_attention.py`` ``_bwd_kernel`` | ``attention_bwd.cu`` | ``ops/oneshot_attention.py`` |
 
-Each wrapper counts its launches in a module-level ``LAUNCHES``;
+Each wrapper counts its launches in a module-level counter;
 :func:`launch_counts` reads them and :func:`reset_launch_counts` zeroes them.
 """
 
@@ -17,14 +18,20 @@ from pointcloudmatters_tpu_torch.ops import fps, knn, oneshot_attention
 
 __all__ = ["launch_counts", "reset_launch_counts"]
 
-_COUNTED = {"fps": fps, "knn": knn, "attention_fwd": oneshot_attention}
+# kernel name -> (wrapper module, its counter)
+_COUNTED = {
+    "fps": (fps, "LAUNCHES"),
+    "knn": (knn, "LAUNCHES"),
+    "attention_fwd": (oneshot_attention, "LAUNCHES"),
+    "attention_bwd": (oneshot_attention, "BWD_LAUNCHES"),
+}
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches so far, by kernel name."""
-    return {name: mod.LAUNCHES for name, mod in _COUNTED.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in _COUNTED.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _COUNTED.values():
-        mod.LAUNCHES = 0
+    for mod, attr in _COUNTED.values():
+        setattr(mod, attr, 0)

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import __graft_entry__ as jentry
+from pointcloudmatters_tpu.data.collate import morton_order as jax_morton_order
 from pointcloudmatters_tpu.models.bc_module import BCModule as JBCModule
 from pointcloudmatters_tpu.models.components import nn_utils as jnn
 from pointcloudmatters_tpu.models.components.act import transformer as jtr
@@ -190,6 +191,40 @@ def test_actpcd_predict(npoints, n_points):
     got = module.predict(obs)
     assert got.shape == (2, 5, 7)
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-4, rtol=1e-4)
+
+
+def _cloud(kind, rng):
+    if kind == "random":
+        return (rng.rand(3000, 3) * 0.4 - 0.2).astype(np.float32)
+    if kind == "duplicates":  # equal codes: the stable order decides
+        return np.repeat(rng.rand(50, 3).astype(np.float32), 7, axis=0)[rng.permutation(350)]
+    if kind == "flat":  # zero extent on one axis
+        c = rng.rand(500, 3).astype(np.float32)
+        c[:, 1] = 0.5
+        return c
+    if kind == "single":
+        return rng.rand(1, 3).astype(np.float32)
+    return np.zeros((0, 3), np.float32)
+
+
+@pytest.mark.parametrize("kind", ["random", "duplicates", "flat", "single", "empty"])
+def test_morton_order_matches_jax_collate(kind):
+    """The port keeps its own copy of the collate's Morton order (it imports
+    nothing of the JAX package); the copy gives the same permutation."""
+    cloud = _cloud(kind, np.random.RandomState(3))
+    np.testing.assert_array_equal(tentry.morton_order(cloud), jax_morton_order(cloud))
+
+
+@pytest.mark.parametrize("batch_size,n_points", [(1, 64), (3, 1000)])
+def test_build_batch_matches_jax_entry(batch_size, n_points):
+    """The port's synthetic batch is the JAX entry's, array for array."""
+    ref = jentry.build_batch(batch_size=batch_size, n_points=n_points, chunk=5, seed=4)
+    got = tentry.build_batch(batch_size=batch_size, n_points=n_points, chunk=5, seed=4)
+    flat = lambda tree: {k: v for k, v in jax.tree_util.tree_leaves_with_path(tree)}
+    ref, got = flat(ref), flat(got)
+    assert ref.keys() == got.keys()
+    for key in ref:
+        np.testing.assert_array_equal(got[key], ref[key], err_msg=str(key))
 
 
 def test_full_width_state_dict():

@@ -79,16 +79,21 @@ def test_key_padding_mask_goes_dense():
 
 
 def test_dropout_raises():
+    """Dropout needs the step's random streams and a rate in [0, 1); at
+    deterministic=True the rate is ignored, as in JAX."""
     q, k, v = _t(*_qkv(1, 1, 8, 600, 1, 64))
-    with pytest.raises(NotImplementedError):
-        tone.oneshot_attention(q, k, v, 0.125, rate=0.1)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="rngs"):
         tatt.make_oneshot_attention_fn()(q, k, v, dropout_rate=0.1,
                                          deterministic=False)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="rngs"):
         tatt.dot_product_attention(q, k, v, dropout_rate=0.1, deterministic=False)
-    # deterministic: the rate is ignored, as in JAX
-    tatt.make_oneshot_attention_fn()(q, k, v, dropout_rate=0.1, deterministic=True)
+    with pytest.raises(ValueError, match="rate"):
+        tone.oneshot_attention(*[t.transpose(1, 2) for t in (q, k, v)], 0.125,
+                               rate=1.0)
+    got = tatt.make_oneshot_attention_fn()(q, k, v, dropout_rate=0.1,
+                                           deterministic=True)
+    np.testing.assert_allclose(got.numpy(), _jax(*(t.numpy() for t in (q, k, v))),
+                               atol=ATOL, rtol=0)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

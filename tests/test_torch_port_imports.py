@@ -1,6 +1,8 @@
 """The port runs without JAX: with ``jax`` and ``flax`` blocked from import,
-the package and every module of the inference slice import, and a tiny
-``predict`` runs (the GPU machine has no JAX)."""
+the package and every module of the serving and training slices import, a
+tiny ``predict`` and a tiny training step run, and nothing of the JAX
+package (``pointcloudmatters_tpu``) was imported (the GPU machine has no
+JAX)."""
 
 import subprocess
 import sys
@@ -26,6 +28,11 @@ SLICE_MODULES = (
     "pointcloudmatters_tpu_torch.models.components.act.act",
     "pointcloudmatters_tpu_torch.utils.flax_to_torch",
     "pointcloudmatters_tpu_torch.models.bc_module",
+    "pointcloudmatters_tpu_torch.models.components.loss.misc",
+    "pointcloudmatters_tpu_torch.utils.optimizer",
+    "pointcloudmatters_tpu_torch.utils.scheduler",
+    "pointcloudmatters_tpu_torch.utils.metrics",
+    "pointcloudmatters_tpu_torch.trainer",
     "pointcloudmatters_tpu_torch.entry",
 )
 
@@ -45,7 +52,12 @@ def test_port_imports_and_predicts_without_jax():
         a_hat = module.predict(build_batch(batch_size=1, n_points=64, chunk=5,
                                            with_actions=False))
         assert tuple(a_hat.shape) == (1, 5, 7), a_hat.shape
-        assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "flax")
+        from pointcloudmatters_tpu_torch.trainer import Trainer
+        metrics = Trainer(seed=0).train_step(
+            module, build_batch(batch_size=2, n_points=64, chunk=5))
+        assert bool(metrics["loss"].isfinite()), metrics
+        assert not [m for m in sys.modules if m.split(".")[0] in
+                    ("jax", "flax", "pointcloudmatters_tpu")
                     and sys.modules[m] is not None]
         print("ok")
     """)

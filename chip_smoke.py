@@ -18,7 +18,17 @@ Phases, each of which raises on failure (exit code non-zero, no result):
    also dh=128 and a masked key tail); the dropout mask read back from the
    forward bit for bit (q = 0, v = I); the attention backward at rate 0,
    0.1 and a masked key tail (each of dQ, dK, dV within
-   1e-4 * max(1, max |plain|)), two identical launches bit-identical.
+   1e-4 * max(1, max |plain|)), two identical launches bit-identical. The
+   bf16 attention forward and backward at the same shape, rates 0 and 0.1
+   (each output within BF16_TOL * max(1, max |plain|), row statistics
+   within 1e-5, the mask read back bit for bit, two backward launches
+   bit-identical). The data-source builder at B=4, N=10240, M=2048, K=16,
+   D=512 with holes: kernel 5's vmax, vmin and tie bitmap bit-equal, sg
+   within one bf16 ulp, totals within 1e-5 relative; kernel 6 (Cin=515)
+   within 1e-5 * max |dW|; two launches of each bit-identical. Each
+   attention shape is also timed through
+   ``torch.nn.functional.scaled_dot_product_attention`` at rate 0 (forward,
+   and forward + backward), the library yardstick.
 4. Serves the flagship ACT + PointNet policy (24,124,456 parameters, seeded
    random weights) through ``BCModule.predict``: 3 requests at B=1 and 1 at
    B=32, N=10240, no actions. Checks a_hat's shape and finiteness, that each
@@ -37,11 +47,21 @@ Phases, each of which raises on failure (exit code non-zero, no result):
    gradient within 1e-5 * max(1, max |g|)), and one step of a small policy
    (dropout 0) on the card against the CPU (loss within 1e-5 relative,
    gradients within 1e-4 * max(1, max |g|)).
+6. Trains at ``"bf16-mixed"``, as phase 5, (a) the flagship as shipped and
+   (b) its frozen-backbone variant, whose token builder takes kernels 5 and
+   6: each one's ms/step, samples/s and peak memory; finite losses, moved
+   parameters, the bf16 attention kernels launched in both, the builder
+   kernels in (b) and never in (a). Then a B=4 bf16 step of (b) with every
+   kernel against every plain version (loss and each gradient within
+   BF16_STEP_TOL of max(1, max |g|)).
 
 Prints a JSON line of the kernels (route, source, the TPU kernel each
-replaces, launches on the serving and training paths, error and times; one
+replaces, launches on each path, error, kernel, plain and library times,
+and the bound: the larger of the bytes over 3.35 TB/s and the flops over
+the peak of the inputs' type, 67 TFLOP/s f32 or 989 TFLOP/s bf16; one
 ``attention_bwd`` launch is one call of the three-kernel backward: the
-``rowsum(dO * O)`` pre-pass, dK/dV and dQ, timed together), then
+``rowsum(dO * O)`` pre-pass, dK/dV and dQ, timed together, and its library
+time is the library's forward + backward less its forward), then
 as its last line ``{"ok": true, "device": {...}}``. Times are CUDA-event or
 synchronised host-clock milliseconds on the card named above.
 """
@@ -78,8 +98,31 @@ KERNELS = {
                       "pointcloudmatters_tpu/ops/oneshot_attention.py:68"),
     "attention_bwd": ("pointcloudmatters_tpu_torch/csrc/attention_bwd.cu",
                       "pointcloudmatters_tpu/ops/oneshot_attention.py:97"),
+    "attention_fwd_bf16": ("pointcloudmatters_tpu_torch/csrc/attention_fwd.cu",
+                           "pointcloudmatters_tpu/ops/oneshot_attention.py:68"),
+    "attention_bwd_bf16": ("pointcloudmatters_tpu_torch/csrc/attention_bwd.cu",
+                           "pointcloudmatters_tpu/ops/oneshot_attention.py:97"),
+    "builder_fwd": ("pointcloudmatters_tpu_torch/csrc/fused_builder.cu",
+                    "pointcloudmatters_tpu/ops/fused_builder.py:115"),
+    "routed_dw": ("pointcloudmatters_tpu_torch/csrc/fused_builder.cu",
+                  "pointcloudmatters_tpu/ops/fused_builder.py:339"),
 }
 PREDICT_KERNELS = ("fps", "knn", "attention_fwd")  # serving runs no backward
+TRAIN_KERNELS = ("fps", "knn", "attention_fwd", "attention_bwd")  # "32-true"
+BF16_KERNELS = ("fps", "knn", "attention_fwd_bf16", "attention_bwd_bf16")
+BUILDER_KERNELS = ("builder_fwd", "routed_dw")  # frozen backbone only
+# H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
+# larger of its bytes over the memory rate and its flops over the rate of
+# its inputs' type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
+# bf16 kernels against their plain versions: both round at the same points
+# but sum in another order, which moves a rounded e, p or dS by a bf16 ulp
+# (2^-8 relative) here and there; 0.01 is ~2.5 ulps at the largest value
+BF16_TOL = 1e-2
+# a bf16 step with kernels against one with plain versions: the rounding
+# differences above, carried through the network
+BF16_STEP_TOL = 5e-2
 
 
 def log(msg: str) -> None:
@@ -112,24 +155,37 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(flops: float, nbytes: float, dtype: str) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the flops over the peak rate of ``dtype``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
 @contextlib.contextmanager
 def plain_kernels():
     """Swap every kernel of the path for its plain PyTorch version."""
-    from pointcloudmatters_tpu_torch.ops import fps, knn, oneshot_attention
+    from pointcloudmatters_tpu_torch.ops import fps, fused_builder, knn, oneshot_attention
     from pointcloudmatters_tpu_torch.ops import pointops
 
-    one = oneshot_attention
+    one, fb = oneshot_attention, fused_builder
     saved = (fps.farthest_point_sampling_padded_cuda, knn.knn_query_padded_cuda,
-             one.oneshot_attention_cuda, one.oneshot_attention_bwd_cuda)
+             one.oneshot_attention_cuda, one.oneshot_attention_bwd_cuda,
+             fb.builder_core_cuda, fb.routed_dw_cuda)
     fps.farthest_point_sampling_padded_cuda = pointops.farthest_point_sampling_padded_plain
     knn.knn_query_padded_cuda = pointops.knn_query_padded_plain
     one.oneshot_attention_cuda = one.oneshot_attention_plain
     one.oneshot_attention_bwd_cuda = one.oneshot_attention_plain_bwd
+    fb.builder_core_cuda = fb.builder_core_plain
+    fb.routed_dw_cuda = fb.routed_dw_plain
     try:
         yield
     finally:
         (fps.farthest_point_sampling_padded_cuda, knn.knn_query_padded_cuda,
-         one.oneshot_attention_cuda, one.oneshot_attention_bwd_cuda) = saved
+         one.oneshot_attention_cuda, one.oneshot_attention_bwd_cuda,
+         fb.builder_core_cuda, fb.routed_dw_cuda) = saved
 
 
 def check_kernels(dev) -> dict:
@@ -158,6 +214,10 @@ def check_kernels(dev) -> dict:
         ms=cuda_ms(lambda: fps.farthest_point_sampling_padded_cuda(xyz, mask, 2048), 5),
         plain_ms=cuda_ms(
             lambda: pointops.farthest_point_sampling_padded_plain(xyz, mask, 2048), 2),
+        library_ms=None,
+        # 2047 steps of ~8 flops a point; xyz and mask read, indices written
+        **bound(8.0 * xyz.shape[0] * N_POINTS * 2047,
+                xyz.numel() * 4 + mask.numel() + idx.numel() * 4, "f32"),
     )
     log(f"fps     B=4 N={N_POINTS}->2048: index-exact; kernel "
         f"{res['fps']['ms']:.3f} ms, plain {res['fps']['plain_ms']:.3f} ms")
@@ -177,17 +237,51 @@ def check_kernels(dev) -> dict:
         ms=cuda_ms(lambda: knn.knn_query_padded_cuda(new_xyz, xyz, mask, 16), 5),
         plain_ms=cuda_ms(
             lambda: pointops.knn_query_padded_plain(new_xyz, xyz, mask, 16), 2),
+        library_ms=None,
+        # ~8 flops a (query, point) distance; inputs read, idx and d2 written
+        **bound(8.0 * new_xyz.shape[0] * new_xyz.shape[1] * N_POINTS,
+                (new_xyz.numel() + xyz.numel()) * 4 + mask.numel() + ki.numel() * 8, "f32"),
     )
     log(f"knn     B=4 M=2048 N={N_POINTS} k=16: indices exact, d2 rel err "
         f"{rel:.3e}; kernel {res['knn']['ms']:.3f} ms, plain "
         f"{res['knn']['plain_ms']:.3f} ms")
 
     res.update(check_attention(dev))
+    res.update(check_attention_bf16(dev))
+    res.update(check_builder(dev))
     return res
 
 
 def _max_err(got, ref) -> float:
-    return (got - ref).abs().max().item()
+    return (got.float() - ref.float()).abs().max().item()
+
+
+def _attention_bounds(B, H, L, dh, dtype: str) -> tuple[dict, dict]:
+    """Bounds of the attention forward (4 B H L^2 dh flops; q, k, v read and
+    o written) and backward (10 B H L^2 dh flops with S recomputed; q, k, v,
+    o, dO read and dq, dk, dv written)."""
+    elem = 4 if dtype == "f32" else 2
+    t = B * H * L * dh * elem
+    return (bound(4.0 * B * H * L * L * dh, 4 * t, dtype),
+            bound(10.0 * B * H * L * L * dh, 8 * t, dtype))
+
+
+def sdpa_ms(q, k, v) -> tuple[float, float]:
+    """(forward, forward + backward) ms of one
+    ``torch.nn.functional.scaled_dot_product_attention`` at dropout 0 on the
+    same inputs: the library yardstick, used nowhere in the port."""
+    import torch
+    import torch.nn.functional as F
+
+    fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 5)
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    dout = torch.ones_like(q)
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(qg, kg, vg)
+        torch.autograd.grad(out, (qg, kg, vg), dout)
+
+    return fwd, cuda_ms(fwd_bwd, 5)
 
 
 def check_attention(dev) -> dict:
@@ -226,9 +320,16 @@ def check_attention(dev) -> dict:
             plain_ms = cuda_ms(lambda: one.oneshot_attention_plain(
                 q, k, v, scale, rate=rate, seed=11), 5)
             log(f"attn    fwd rate={rate}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-            res["attention_fwd"] = dict(
-                max_abs_err=max(err, res.get("attention_fwd", {}).get("max_abs_err", 0.0)),
-                ms=ms, plain_ms=plain_ms)
+            fwd = res.setdefault("attention_fwd", {})
+            fwd.update(max_abs_err=max(err, fwd.get("max_abs_err", 0.0)), ms=ms,
+                       plain_ms=plain_ms)
+            if rate == 0.0:
+                lib_fwd, lib_fb = sdpa_ms(q, k, v)
+                log(f"attn    scaled_dot_product_attention f32 B={B} H={H} L={L} dh={dh} "
+                    f"rate 0: fwd {lib_fwd:.3f} ms, fwd+bwd {lib_fb:.3f} ms")
+                fwd_bound, bwd_bound = _attention_bounds(B, H, L, dh, "f32")
+                res["attention_fwd"].update(library_ms=lib_fwd, **fwd_bound)
+                res["attention_bwd"] = dict(library_ms=lib_fb - lib_fwd, **bwd_bound)
     # keys padded with junk and masked by l_actual, Lq != Lk
     q = qkv(2, 8, 100, 64)[0]
     k, v = qkv(2, 8, 700, 64)[1:]
@@ -292,13 +393,195 @@ def check_attention(dev) -> dict:
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError("two identical backward launches differ")
             log("attn    bwd: two identical launches are bit-identical")
-            res["attention_bwd"] = dict(
+            res["attention_bwd"].update(
                 max_abs_err=max(errs),
                 ms=cuda_ms(lambda: one.oneshot_attention_bwd_cuda(*args), 5),
                 plain_ms=cuda_ms(lambda: one.oneshot_attention_plain_bwd(*args), 5))
             log(f"attn    bwd rate={rate}: kernel {res['attention_bwd']['ms']:.3f} ms, "
                 f"plain {res['attention_bwd']['plain_ms']:.3f} ms")
         del args, got, ref
+    return res
+
+
+def check_attention_bf16(dev) -> dict:
+    """Phase 3, bf16 attention: the forward and backward kernels at rates 0
+    and 0.1 against their plain versions within BF16_TOL * max(1,
+    max|plain|), the row statistics within 1e-5, the mask read back bit for
+    bit, two backward launches bit-identical."""
+    import numpy as np
+    import torch
+
+    from pointcloudmatters_tpu_torch.ops import oneshot_attention as one
+
+    bf16 = torch.bfloat16
+    res = {}
+    rng = np.random.RandomState(1)
+    B, H, L, dh = 4, 8, 2051, 64
+    scale = dh ** -0.5
+
+    def arr(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev, bf16)
+
+    def check(what, got, ref):
+        err = _max_err(got, ref)
+        limit = BF16_TOL * max(1.0, ref.float().abs().max().item())
+        if not err <= limit:
+            raise AssertionError(f"bf16 attention {what} off by {err:.3e} > {limit:.3e}")
+        return err
+
+    q, k, v = arr(B, H, L, dh), arr(B, H, L, dh), arr(B, H, L, dh)
+    dout = arr(B, H, L, dh)
+    fwd_bound, bwd_bound = _attention_bounds(B, H, L, dh, "bf16")
+    for rate in (0.0, ATTN_DROPOUT):
+        out, m, r = one.oneshot_attention_cuda(q, k, v, scale, None, rate, 11,
+                                               with_stats=True)
+        ref, m_p, r_p = one.oneshot_attention_plain(q, k, v, scale, None, rate, 11,
+                                                    with_stats=True)
+        err = check(f"fwd rate={rate}", out, ref)
+        stat_err = max(_max_err(m, m_p) / max(1.0, m_p.abs().max().item()),
+                       _max_err(r, r_p) / r_p.abs().max().item())
+        if not stat_err <= 1e-5:
+            raise AssertionError(f"bf16 attention row statistics off by {stat_err:.3e}")
+        args = (q, k, v, out, dout, m, r, scale, None, rate, 11)
+        got_b = one.oneshot_attention_bwd_cuda(*args)
+        ref_b = one.oneshot_attention_plain_bwd(*args)
+        errs = [check(f"bwd {n} rate={rate}", g, p)
+                for n, g, p in zip(("dq", "dk", "dv"), got_b, ref_b)]
+        log(f"attn    bf16 B={B} H={H} L={L} dh={dh} rate={rate}: fwd max abs err "
+            f"{err:.3e} (max |plain| {ref.float().abs().max().item():.3e}), statistics "
+            f"{stat_err:.3e}; bwd dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} "
+            f"(max |plain| {'/'.join(f'{t.float().abs().max().item():.3e}' for t in ref_b)})")
+        if rate == 0.0:
+            lib_fwd, lib_fb = sdpa_ms(q, k, v)
+            log(f"attn    scaled_dot_product_attention bf16 rate 0: fwd {lib_fwd:.3f} ms, "
+                f"fwd+bwd {lib_fb:.3f} ms")
+            continue
+        again = one.oneshot_attention_bwd_cuda(*args)
+        if not all(torch.equal(a, b) for a, b in zip(got_b, again)):
+            raise AssertionError("two identical bf16 backward launches differ")
+        res["attention_fwd_bf16"] = dict(
+            max_abs_err=err, library_ms=lib_fwd, **fwd_bound,
+            ms=cuda_ms(lambda: one.oneshot_attention_cuda(q, k, v, scale, None, rate, 11,
+                                                          with_stats=True), 5),
+            plain_ms=cuda_ms(lambda: one.oneshot_attention_plain(
+                q, k, v, scale, None, rate, 11, with_stats=True), 5))
+        res["attention_bwd_bf16"] = dict(
+            max_abs_err=max(errs), library_ms=lib_fb - lib_fwd, **bwd_bound,
+            ms=cuda_ms(lambda: one.oneshot_attention_bwd_cuda(*args), 5),
+            plain_ms=cuda_ms(lambda: one.oneshot_attention_plain_bwd(*args), 5))
+        log(f"attn    bf16 rate={rate}: fwd kernel {res['attention_fwd_bf16']['ms']:.3f} ms, "
+            f"plain {res['attention_fwd_bf16']['plain_ms']:.3f} ms; bwd kernel "
+            f"{res['attention_bwd_bf16']['ms']:.3f} ms, plain "
+            f"{res['attention_bwd_bf16']['plain_ms']:.3f} ms; two bwd launches "
+            f"bit-identical")
+
+    # the mask read back in bf16: q = 0, v = I
+    n = 128
+    q0 = torch.zeros((2, H, 300, n), device=dev, dtype=bf16)
+    k0 = arr(2, H, n, n)
+    eye = torch.eye(n, device=dev, dtype=bf16).expand(2, H, n, n)
+    out = one.oneshot_attention_cuda(q0, k0, eye, 1.0, rate=ATTN_DROPOUT, seed=12345)
+    read = torch.round(out.float() * (n * (1.0 - ATTN_DROPOUT))).to(torch.int64)
+    mask = one.keep_mask(12345, ATTN_DROPOUT, H, 300, n, device=dev).to(torch.int64)
+    if not torch.equal(read, mask.expand_as(read)):
+        raise AssertionError(f"bf16 kernel dropout mask differs from the plain mask at "
+                             f"{(read != mask).sum().item()} places")
+    log(f"attn    bf16 mask read back: {read.numel()} keep bits equal the plain mask")
+    return res
+
+
+def check_builder(dev) -> dict:
+    """Phase 3, the data-source builder at the flagship's shapes (B=4,
+    N=10240, M=2048, K=16, D=512, Cin=515) with FPS/kNN neighbourhoods plus
+    holes, all-hole queries and duplicate neighbours: kernel 5's vmax, vmin
+    and tie bitmap equal to the plain version's, sg within one bf16 ulp,
+    totals within 1e-5 relative; kernel 6 within 1e-5 * max|dW| (summation
+    order only); two launches of each bit-identical."""
+    import torch
+
+    from pointcloudmatters_tpu_torch.entry import build_batch
+    from pointcloudmatters_tpu_torch.ops import fused_builder as fb
+    from pointcloudmatters_tpu_torch.ops import pointops
+
+    bf16 = torch.bfloat16
+    B, M, K, D, Cin = 4, 2048, 16, 512, 515
+    batch = build_batch(batch_size=B, n_points=N_POINTS, seed=2, with_actions=False)
+    xyz = torch.from_numpy(batch["pcds"]["coord"]).to(dev)
+    mask = torch.from_numpy(batch["pcds"]["valid"]).to(dev)
+    idx = pointops.farthest_point_sampling_padded(xyz, mask, M).long()
+    new_xyz = torch.gather(xyz, 1, idx[..., None].expand(-1, -1, 3))
+    nn_idx, _ = pointops.knn_query_padded(new_xyz, xyz, mask, K)
+    nn_idx[:, -8:, :] = -1             # queries with holes only
+    nn_idx[:, 100:300, 9:] = -1        # partial holes
+    nn_idx[0, 3, 5:] = nn_idx[0, 3, 0]  # duplicate neighbours: exact ties
+    nn_idx = nn_idx.contiguous()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    feat = torch.relu(torch.randn((B, N_POINTS, Cin - 3), generator=gen, device=dev))
+    src = torch.cat([xyz, feat], -1).to(bf16).contiguous()
+    W = (torch.randn((Cin, D), generator=gen, device=dev) * Cin ** -0.5).to(bf16)
+    g = (src @ W).contiguous()
+    query = torch.cat([new_xyz, torch.zeros_like(feat[:, :M])], -1).to(bf16)
+    h = (query @ W).contiguous()
+
+    got = fb.builder_core_cuda(g, h, nn_idx)
+    ref = fb.builder_core_plain(g, h, nn_idx)
+    for name, a, b in zip(("vmax", "vmin"), got[:2], ref[:2]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"builder kernel {name} differs from the plain version "
+                                 f"at {(a != b).sum().item()} places")
+    if not torch.equal(got[3], ref[3]):
+        raise AssertionError(f"builder kernel tie bitmap differs at "
+                             f"{(got[3] != ref[3]).sum().item()} places")
+    sg, sg_p = got[2].float(), ref[2].float()
+    ulp = torch.exp2(torch.floor(torch.log2(sg_p.abs().clamp_min(1e-30))) - 7)
+    if not bool(((sg - sg_p).abs() <= ulp).all()):
+        raise AssertionError(f"builder kernel sg off by more than one bf16 ulp at "
+                             f"{((sg - sg_p).abs() > ulp).sum().item()} places")
+    tot_err = max(((a - b).abs() / b.abs().clamp_min(1e-30)).max().item()
+                  for a, b in zip(got[4:], ref[4:]))
+    if not tot_err <= 1e-5:
+        raise AssertionError(f"builder kernel totals off by {tot_err:.3e} relative")
+    again = fb.builder_core_cuda(g, h, nn_idx)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("two identical builder launches differ")
+    ties = (fb.popcount16(got[3]) > 1).float().mean().item()
+    res = {"builder_fwd": dict(
+        max_abs_err=_max_err(sg, sg_p), library_ms=None,
+        ms=cuda_ms(lambda: fb.builder_core_cuda(g, h, nn_idx), 5),
+        plain_ms=cuda_ms(lambda: fb.builder_core_plain(g, h, nn_idx), 5),
+        # g, h, nn read; vmax, vmin, sg (bf16), bm (int32), totals written;
+        # ~6 flops an (m, k, d)
+        **bound(6.0 * B * M * K * D,
+                (g.numel() + h.numel()) * 2 + nn_idx.numel() * 4 + B * M * D * (3 * 2 + 4)
+                + 2 * D * 4, "bf16"))}
+    log(f"builder fwd B={B} N={N_POINTS} M={M} K={K} D={D}: vmax, vmin, bitmap equal, sg "
+        f"within 1 ulp (max abs {res['builder_fwd']['max_abs_err']:.3e}), totals "
+        f"{tot_err:.3e} relative, {ties:.4f} of (m, d) with a max tie; kernel "
+        f"{res['builder_fwd']['ms']:.3f} ms, plain {res['builder_fwd']['plain_ms']:.3f} ms")
+
+    dvx = torch.randn((B, M, D), generator=gen, device=dev).to(bf16)
+    dvn = torch.randn((B, M, D), generator=gen, device=dev).to(bf16)
+    bm = got[3]
+    dw = fb.routed_dw_cuda(src, nn_idx, bm, dvx, dvn)
+    dw_p = fb.routed_dw_plain(src, nn_idx, bm, dvx, dvn)
+    err = _max_err(dw, dw_p)
+    limit = 1e-5 * dw_p.abs().max().item()
+    if not err <= limit:
+        raise AssertionError(f"routed dW kernel off by {err:.3e} > {limit:.3e}")
+    if not torch.equal(dw, fb.routed_dw_cuda(src, nn_idx, bm, dvx, dvn)):
+        raise AssertionError("two identical routed dW launches differ")
+    res["routed_dw"] = dict(
+        max_abs_err=err, library_ms=None,
+        ms=cuda_ms(lambda: fb.routed_dw_cuda(src, nn_idx, bm, dvx, dvn), 5),
+        plain_ms=cuda_ms(lambda: fb.routed_dw_plain(src, nn_idx, bm, dvx, dvn), 2),
+        # 2 B M K Cin D flops on bf16 inputs; src, nn, bm, dvx, dvn read,
+        # dW written
+        **bound(2.0 * B * M * K * Cin * D,
+                src.numel() * 2 + nn_idx.numel() * 4 + B * M * D * (4 + 2 + 2)
+                + Cin * D * 4, "bf16"))
+    log(f"routed  dW B={B} M={M} K={K} Cin={Cin} D={D}: max abs err {err:.3e} (limit "
+        f"{limit:.3e}), two launches bit-identical; kernel {res['routed_dw']['ms']:.3f} ms, "
+        f"plain {res['routed_dw']['plain_ms']:.3f} ms")
     return res
 
 
@@ -349,7 +632,7 @@ def serve(dev) -> dict:
     log(f"predict B={BIG_BATCH} kernels vs plain versions: max abs diff {err:.3e}")
 
     obs = build_batch(batch_size=2, n_points=600, chunk=5, seed=4, with_actions=False)
-    ref = BCModule(build_flagship(**SMALL, seed=1)).predict(obs)
+    ref = BCModule(build_flagship(**SMALL, seed=1, device="cpu")).predict(obs)
     got = BCModule(build_flagship(**SMALL, seed=1, device=dev)).predict(obs).cpu()
     err_small = (got - ref).abs().max().item()
     if not err_small <= 1e-4:
@@ -358,22 +641,23 @@ def serve(dev) -> dict:
     return launches
 
 
-def _step_grads(module, batch, rngs):
+def _step_grads(module, batch, rngs, compute_dtype=None):
     """Loss and parameter gradients of one train-mode forward/backward."""
     module.policy.zero_grad(set_to_none=True)
-    out = module.forward_train(batch, rngs)
-    out["loss"].backward()
+    out = module.forward_train(batch, rngs, compute_dtype)
+    out["loss"].float().backward()
     grads = {n: p.grad.detach().clone() for n, p in module.policy.named_parameters()
              if p.grad is not None}
     return out["loss"].detach(), grads
 
 
-def _compare_step(what, loss, grads, ref_loss, ref_grads, grad_rtol) -> str:
-    """Raises unless the losses agree within 1e-5 relative and each gradient
-    within grad_rtol * max(1, max |g_ref|)."""
+def _compare_step(what, loss, grads, ref_loss, ref_grads, grad_rtol,
+                  loss_rtol=1e-5) -> str:
+    """Raises unless the losses agree within loss_rtol relative and each
+    gradient within grad_rtol * max(1, max |g_ref|)."""
     loss, ref_loss = float(loss), float(ref_loss)
     rel = abs(loss - ref_loss) / abs(ref_loss)
-    if not rel <= 1e-5:
+    if not rel <= loss_rtol:
         raise AssertionError(f"{what}: loss {loss} vs {ref_loss} ({rel:.3e} relative)")
     if set(grads) != set(ref_grads):
         raise AssertionError(f"{what}: gradients of different parameters")
@@ -390,21 +674,22 @@ def _compare_step(what, loss, grads, ref_loss, ref_grads, grad_rtol) -> str:
             f"{worst:.3e} of max(1, max|g|) ({len(grads)} tensors)")
 
 
-def train(dev) -> dict:
-    """Phase 5: the flagship training step; returns the kernels' launches on
-    the timed steps."""
+def timed_steps(dev, path: str, precision: str, **flagship_kw) -> dict:
+    """The flagship at B=32: one warm-up step, then TRAIN_STEPS steps under
+    ``torch.cuda.set_sync_debug_mode("error")`` timed by the host clock to
+    ``torch.cuda.synchronize()``. Checks finite losses and grad norms and
+    moved parameters; returns the kernels' launches on the timed steps."""
     import numpy as np
     import torch
 
     from pointcloudmatters_tpu_torch import ops
     from pointcloudmatters_tpu_torch.entry import build_batch, build_flagship
     from pointcloudmatters_tpu_torch.models.bc_module import BCModule, to_device
-    from pointcloudmatters_tpu_torch.models.components.act import act as act_module
     from pointcloudmatters_tpu_torch.trainer import Trainer
 
-    module = BCModule(build_flagship(seed=0, dropout=ATTN_DROPOUT, device=dev),
+    module = BCModule(build_flagship(seed=0, dropout=ATTN_DROPOUT, device=dev, **flagship_kw),
                       optimizer=FLAGSHIP_OPT, lr_scheduler=FLAGSHIP_SCHED)
-    trainer = Trainer(precision="32-true", device=dev, seed=0)
+    trainer = Trainer(precision=precision, device=dev, seed=0)
     trainer.setup(module, TOTAL_STEPS)
     # on the device before the timed steps, as a loader with pinned memory
     # and non-blocking copies would deliver it
@@ -427,22 +712,36 @@ def train(dev) -> dict:
     peak = torch.cuda.max_memory_allocated(dev)
     losses = [float(m["loss"]) for m in steps]
     norms = [float(m["grad_norm"]) for m in steps]
-    log(f"train   B={BIG_BATCH} N={N_POINTS} 32-true dropout {ATTN_DROPOUT}: "
+    log(f"train   {path} B={BIG_BATCH} N={N_POINTS} {precision} dropout {ATTN_DROPOUT}: "
         f"{step_ms:.2f} ms/step over {TRAIN_STEPS} steps, "
         f"{BIG_BATCH * 1e3 / step_ms:.2f} samples/s, peak device memory "
         f"{peak / 2**30:.2f} GiB; loss {losses}; grad_norm {norms}")
     if not all(np.isfinite(losses + norms)):
-        raise AssertionError(f"non-finite loss or grad_norm: {losses}, {norms}")
+        raise AssertionError(f"{path}: non-finite loss or grad_norm: {losses}, {norms}")
     moved = sum(not torch.equal(a, p) for a, p in zip(start, module.policy.parameters()))
     if moved == 0:
-        raise AssertionError("no parameter changed over the training steps")
-    log(f"train   {moved} of {len(start)} parameter tensors changed; "
-        f"launches on the training path: {launches}")
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"the training path launched no {missing} kernel")
+        raise AssertionError(f"{path}: no parameter changed over the training steps")
+    log(f"train   {path}: {moved} of {len(start)} parameter tensors changed; "
+        f"launches {launches}")
     del module, trainer, batch, start
     torch.cuda.empty_cache()
+    return launches
+
+
+def train(dev) -> dict:
+    """Phase 5: the flagship's ``"32-true"`` training step; returns the
+    kernels' launches on the timed steps."""
+    import numpy as np
+    import torch
+
+    from pointcloudmatters_tpu_torch.entry import build_batch, build_flagship
+    from pointcloudmatters_tpu_torch.models.bc_module import BCModule, to_device
+    from pointcloudmatters_tpu_torch.models.components.act import act as act_module
+
+    launches = timed_steps(dev, "train_step", "32-true")
+    missing = [k for k in TRAIN_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"the training path launched no {missing} kernel")
 
     # B=4: every kernel against every plain version, dropout on, the same
     # generator states
@@ -476,6 +775,39 @@ def train(dev) -> dict:
     return launches
 
 
+def train_bf16(dev) -> dict:
+    """Phase 6: ``"bf16-mixed"`` steps at B=32 of (a) the flagship as shipped
+    and (b) its frozen-backbone variant; returns each one's kernel launches
+    on its timed steps."""
+    import torch
+
+    from pointcloudmatters_tpu_torch.entry import build_batch, build_flagship
+    from pointcloudmatters_tpu_torch.models.bc_module import BCModule, to_device
+
+    launches = {path: timed_steps(dev, path, "bf16-mixed", **kw) for path, kw in (
+        ("train_bf16", {}), ("train_bf16_frozen", {"freeze_backbone": True}))}
+    for path, counts in launches.items():
+        missing = [k for k in BF16_KERNELS if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"{path} launched no {missing} kernel")
+    if any(launches["train_bf16_frozen"][k] == 0 for k in BUILDER_KERNELS):
+        raise AssertionError("the frozen-backbone step launched no builder kernel")
+    if any(launches["train_bf16"][k] != 0 for k in BUILDER_KERNELS):
+        raise AssertionError("the shipped flagship's step launched a builder kernel")
+
+    # B=4, frozen backbone: every bf16 kernel against every plain version,
+    # dropout on, the same generator states
+    module = BCModule(build_flagship(seed=0, dropout=ATTN_DROPOUT, device=dev,
+                                     freeze_backbone=True))
+    batch = to_device(build_batch(batch_size=4, n_points=N_POINTS, seed=1), dev)
+    got = _step_grads(module, batch, module.make_rngs(5), torch.bfloat16)
+    with plain_kernels():
+        ref = _step_grads(module, batch, module.make_rngs(5), torch.bfloat16)
+    log("train   " + _compare_step("bf16 frozen B=4 step, kernels vs plain versions", *got,
+                                   *ref, grad_rtol=BF16_STEP_TOL, loss_rtol=BF16_STEP_TOL))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -502,13 +834,14 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     res = check_kernels(dev)
-    served = serve(dev)
-    trained = train(dev)
+    torch.cuda.empty_cache()  # the serving phase starts from an empty pool, as before
+    paths = {"predict": serve(dev), "train_step": train(dev)}
+    paths.update(train_bf16(dev))
 
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=tpu,
-             launches=served[name] + trained[name],
-             launches_by_path={"predict": served[name], "train_step": trained[name]},
+             launches=sum(counts[name] for counts in paths.values()),
+             launches_by_path={path: counts[name] for path, counts in paths.items()},
              **res[name])
         for name, (src, tpu) in KERNELS.items()
     ]

@@ -1,6 +1,7 @@
-// Exact softmax attention backward, f32: dQ, dK and dV by recomputation,
-// deterministic (no atomics: every output element is summed by one thread in
-// a fixed order, so two identical launches give identical bits).
+// Exact softmax attention backward, f32 or bf16: dQ, dK and dV by
+// recomputation, deterministic (no atomics: every output element is summed
+// by one thread in a fixed order, so two identical launches give identical
+// bits).
 //
 // Replaces the TPU kernel `_bwd_kernel` / `_bwd_rule`
 // (pointcloudmatters_tpu/ops/oneshot_attention.py:97-166, 233-275): q is
@@ -14,11 +15,19 @@
 //   dP     = dO V^T                           dS = p * (keep ? dP / (1 - rate) : 0 - D)
 //   dK     = dS^T (q * scale)                 dQ = dS K * scale
 //
-// (D equals the TPU kernel's u = r * rowsum(z * e) at :142, dropout or not.)
+// (D equals the TPU kernel's u / r = rowsum(z * e) at :142, dropout or not;
+// in bf16 it reads the rounded output O, where the TPU kernel sums unrounded
+// products, the one place the bf16 variant takes another route.)
+//
+// The element type T is float or bf16; tiles, statistics and accumulators
+// are f32 in both. In bf16 the kernel rounds where the TPU kernel rounds:
+// the pre-scaled q (oneshot_attention.py:238), p_drop before dV (:131), dS
+// before dQ and dK (:143), dQ before its scale (:147, :273), and the outputs.
 //
 // What bounds it on an H100: arithmetic, as in the forward. 14 dh flops a
 // score element (S and dP recomputed in both passes below) on the FP32
-// pipes; f32 inputs and the parity limits rule out TF32 and bf16.
+// pipes, f32 FMAs in both element types (tensor-core tiles are a later PR's
+// work).
 //
 // What the design does about the TPU kernel's shape: that kernel holds a
 // whole key row and accumulates dK/dV in VMEM scratch across a sequential
@@ -41,9 +50,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "elem.cuh"
 #include "philox.cuh"
 
 namespace {
+
+using pcm::round_to;
+using pcm::to_f;
 
 constexpr int kBQ = 64;
 constexpr int kBK = 64;
@@ -53,9 +66,12 @@ struct Strides {
   long long b, h, l;
 };
 
+template <typename T>
 struct Args {
-  const float *q, *k, *v, *o, *dout, *row_max, *row_inv;
-  float *delta, *dq, *dk, *dv;
+  const T *q, *k, *v, *o, *dout;
+  const float *row_max, *row_inv;
+  float* delta;
+  T *dq, *dk, *dv;
   Strides qs, ks, vs, os, dos, dqs, dks, dvs;
   int H, Lq, Lk, l_actual;
   float scale;
@@ -71,7 +87,8 @@ constexpr size_t smem_floats() {
 }
 
 // D = rowsum(dO * O), one warp a (batch, head, query row).
-__global__ void __launch_bounds__(kThreads) attn_bwd_delta_kernel(Args a, int dh,
+template <typename T>
+__global__ void __launch_bounds__(kThreads) attn_bwd_delta_kernel(Args<T> a, int dh,
                                                                     long long rows) {
   const long long row = ((long long)blockIdx.x * kThreads + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
@@ -79,10 +96,10 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_delta_kernel(Args a, int dh
   const int i = (int)(row % a.Lq);
   const int bh = (int)(row / a.Lq);
   const int b = bh / a.H, h = bh % a.H;
-  const float* o = a.o + b * a.os.b + h * a.os.h + i * a.os.l;
-  const float* d = a.dout + b * a.dos.b + h * a.dos.h + i * a.dos.l;
+  const T* o = a.o + b * a.os.b + h * a.os.h + i * a.os.l;
+  const T* d = a.dout + b * a.dos.b + h * a.dos.h + i * a.dos.l;
   float sum = 0.f;
-  for (int c = lane; c < dh; c += 32) sum = fmaf(d[c], o[c], sum);
+  for (int c = lane; c < dh; c += 32) sum = fmaf(to_f(d[c]), to_f(o[c]), sum);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
   if (lane == 0) a.delta[row] = sum;
@@ -90,18 +107,19 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_delta_kernel(Args a, int dh
 
 // Query rows q0.. of Q (pre-scaled) and dO, and their row statistics, into
 // shared memory; rows past Lq are zero with m = +inf, so their p is 0.
-template <int DH>
-__device__ __forceinline__ void load_query_tile(const Args& a, int bh, int b, int h, int q0,
-                                                float* Qs, float* dOs, float* rm, float* rr,
-                                                float* rd) {
+template <typename T, int DH>
+__device__ __forceinline__ void load_query_tile(const Args<T>& a, int bh, int b, int h,
+                                                int q0, float* Qs, float* dOs, float* rm,
+                                                float* rr, float* rd) {
   constexpr int LD = DH + 1;
-  const float* qb = a.q + b * a.qs.b + h * a.qs.h;
-  const float* dob = a.dout + b * a.dos.b + h * a.dos.h;
+  const T* qb = a.q + b * a.qs.b + h * a.qs.h;
+  const T* dob = a.dout + b * a.dos.b + h * a.dos.h;
   for (int e = threadIdx.x; e < kBQ * DH; e += kThreads) {
     const int r = e / DH, c = e % DH;
     const bool in = q0 + r < a.Lq;
-    Qs[r * LD + c] = in ? __fmul_rn(qb[(q0 + r) * a.qs.l + c], a.scale) : 0.f;
-    dOs[r * LD + c] = in ? dob[(q0 + r) * a.dos.l + c] : 0.f;
+    Qs[r * LD + c] =
+        in ? round_to<T>(__fmul_rn(to_f(qb[(q0 + r) * a.qs.l + c]), a.scale)) : 0.f;
+    dOs[r * LD + c] = in ? to_f(dob[(q0 + r) * a.dos.l + c]) : 0.f;
   }
   const long long base = (long long)bh * a.Lq + q0;
   for (int r = threadIdx.x; r < kBQ; r += kThreads) {
@@ -113,25 +131,25 @@ __device__ __forceinline__ void load_query_tile(const Args& a, int bh, int b, in
 }
 
 // Key rows k0.. of K and V into shared memory, zero past Lk.
-template <int DH>
-__device__ __forceinline__ void load_key_tile(const Args& a, int b, int h, int k0, float* Ks,
-                                              float* Vs) {
+template <typename T, int DH>
+__device__ __forceinline__ void load_key_tile(const Args<T>& a, int b, int h, int k0,
+                                              float* Ks, float* Vs) {
   constexpr int LD = DH + 1;
-  const float* kb = a.k + b * a.ks.b + h * a.ks.h;
-  const float* vb = a.v + b * a.vs.b + h * a.vs.h;
+  const T* kb = a.k + b * a.ks.b + h * a.ks.h;
+  const T* vb = a.v + b * a.vs.b + h * a.vs.h;
   for (int e = threadIdx.x; e < kBK * DH; e += kThreads) {
     const int r = e / DH, c = e % DH;
     const bool in = k0 + r < a.Lk;
-    Ks[r * LD + c] = in ? kb[(k0 + r) * a.ks.l + c] : 0.f;
-    Vs[r * LD + c] = in ? vb[(k0 + r) * a.vs.l + c] : 0.f;
+    Ks[r * LD + c] = in ? to_f(kb[(k0 + r) * a.ks.l + c]) : 0.f;
+    Vs[r * LD + c] = in ? to_f(vb[(k0 + r) * a.vs.l + c]) : 0.f;
   }
 }
 
 // Recomputes the (64 query x 64 key) tile at (q0, k0) and leaves
-// p_drop in Ps and dS in dSs (row = query, column = key). Every thread of
-// the block calls it; it ends with the tiles complete.
-template <int DH>
-__device__ __forceinline__ void probs_and_ds(const Args& a, int h, int q0, int k0,
+// p_drop in Ps and dS in dSs (row = query, column = key), both rounded to T.
+// Every thread of the block calls it; it ends with the tiles complete.
+template <typename T, int DH>
+__device__ __forceinline__ void probs_and_ds(const Args<T>& a, int h, int q0, int k0,
                                              const float* Qs, const float* dOs,
                                              const float* Ks, const float* Vs, float* Ps,
                                              float* dSs, const float* rm, const float* rr,
@@ -172,8 +190,8 @@ __device__ __forceinline__ void probs_and_ds(const Args& a, int h, int q0, int k
     for (int j = 0; j < 4; ++j) {
       const int c = tx + 16 * j;
       const float p = k0 + c < a.l_actual ? expf(s[i][j] - rm[r]) * rr[r] : 0.f;
-      Ps[r * LDP + c] = p;
-      dSs[r * LDP + c] = a.dropout ? dp[i][j] : p * (dp[i][j] - rd[r]);
+      Ps[r * LDP + c] = a.dropout ? p : round_to<T>(p);
+      dSs[r * LDP + c] = a.dropout ? dp[i][j] : round_to<T>(p * (dp[i][j] - rd[r]));
     }
   }
   __syncthreads();
@@ -188,16 +206,16 @@ __device__ __forceinline__ void probs_and_ds(const Args& a, int h, int q0, int k
         const int at = r * LDP + c4 + e;
         const bool keep = w[e] >= a.threshold;
         const float p = Ps[at];
-        dSs[at] = p * ((keep ? dSs[at] * a.inv_keep : 0.f) - dr);
-        Ps[at] = keep ? p * a.inv_keep : 0.f;
+        dSs[at] = round_to<T>(p * ((keep ? dSs[at] * a.inv_keep : 0.f) - dr));
+        Ps[at] = round_to<T>(keep ? p * a.inv_keep : 0.f);
       }
     }
     __syncthreads();
   }
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads) attn_bwd_dkdv_kernel(Args a) {
+template <typename T, int DH>
+__global__ void __launch_bounds__(kThreads) attn_bwd_dkdv_kernel(Args<T> a) {
   constexpr int LD = DH + 1;
   constexpr int LDP = kBK + 1;
   constexpr int CJ = DH / 16;  // output columns a thread
@@ -223,14 +241,14 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_dkdv_kernel(Args a) {
     for (int j = 0; j < CJ; ++j) dk[i][j] = dv[i][j] = 0.f;
 
   if (k0 < a.l_actual) {  // key tiles past l_actual get zero gradients
-    load_key_tile<DH>(a, b, h, k0, Ks, Vs);
+    load_key_tile<T, DH>(a, b, h, k0, Ks, Vs);
     const int n_qt = (a.Lq + kBQ - 1) / kBQ;
     for (int qt = 0; qt < n_qt; ++qt) {
       const int q0 = qt * kBQ;
       __syncthreads();  // the previous query tile is consumed
-      load_query_tile<DH>(a, bh, b, h, q0, Qs, dOs, rm, rr, rd);
+      load_query_tile<T, DH>(a, bh, b, h, q0, Qs, dOs, rm, rr, rd);
       __syncthreads();
-      probs_and_ds<DH>(a, h, q0, k0, Qs, dOs, Ks, Vs, Ps, dSs, rm, rr, rd);
+      probs_and_ds<T, DH>(a, h, q0, k0, Qs, dOs, Ks, Vs, Ps, dSs, rm, rr, rd);
       // dV += p_drop^T dO and dK += dS^T Q: key rows ty + 16 i, columns tx + 16 j
 #pragma unroll 4
       for (int qq = 0; qq < kBQ; ++qq) {
@@ -256,22 +274,22 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_dkdv_kernel(Args a) {
     }
   }
 
-  float* dkb = a.dk + b * a.dks.b + h * a.dks.h;
-  float* dvb = a.dv + b * a.dvs.b + h * a.dvs.h;
+  T* dkb = a.dk + b * a.dks.b + h * a.dks.h;
+  T* dvb = a.dv + b * a.dvs.b + h * a.dvs.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int kr = k0 + ty + 16 * i;
     if (kr >= a.Lk) continue;
 #pragma unroll
     for (int j = 0; j < CJ; ++j) {
-      dkb[kr * a.dks.l + tx + 16 * j] = dk[i][j];
-      dvb[kr * a.dvs.l + tx + 16 * j] = dv[i][j];
+      dkb[kr * a.dks.l + tx + 16 * j] = pcm::from_f<T>(dk[i][j]);
+      dvb[kr * a.dvs.l + tx + 16 * j] = pcm::from_f<T>(dv[i][j]);
     }
   }
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads) attn_bwd_dq_kernel(Args a) {
+template <typename T, int DH>
+__global__ void __launch_bounds__(kThreads) attn_bwd_dq_kernel(Args<T> a) {
   constexpr int LD = DH + 1;
   constexpr int LDP = kBK + 1;
   constexpr int CJ = DH / 16;
@@ -290,7 +308,7 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_dq_kernel(Args a) {
   const int q0 = blockIdx.x * kBQ;
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
 
-  load_query_tile<DH>(a, bh, b, h, q0, Qs, dOs, rm, rr, rd);
+  load_query_tile<T, DH>(a, bh, b, h, q0, Qs, dOs, rm, rr, rd);
   float dq[4][CJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -301,9 +319,9 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_dq_kernel(Args a) {
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous key tile is consumed
-    load_key_tile<DH>(a, b, h, k0, Ks, Vs);
+    load_key_tile<T, DH>(a, b, h, k0, Ks, Vs);
     __syncthreads();
-    probs_and_ds<DH>(a, h, q0, k0, Qs, dOs, Ks, Vs, Ps, dSs, rm, rr, rd);
+    probs_and_ds<T, DH>(a, h, q0, k0, Qs, dOs, Ks, Vs, Ps, dSs, rm, rr, rd);
     // dQ += dS K: query rows ty + 16 i, columns tx + 16 j
 #pragma unroll 4
     for (int kk = 0; kk < kBK; ++kk) {
@@ -319,75 +337,60 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_dq_kernel(Args a) {
     }
   }
 
-  float* dqb = a.dq + b * a.dqs.b + h * a.dqs.h;
+  T* dqb = a.dq + b * a.dqs.b + h * a.dqs.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qr = q0 + ty + 16 * i;
     if (qr >= a.Lq) continue;
 #pragma unroll
-    for (int j = 0; j < CJ; ++j) dqb[qr * a.dqs.l + tx + 16 * j] = dq[i][j] * a.scale;
+    for (int j = 0; j < CJ; ++j)
+      dqb[qr * a.dqs.l + tx + 16 * j] = pcm::from_f<T>(round_to<T>(dq[i][j]) * a.scale);
   }
 }
 
-template <int DH>
-cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
+template <typename T, int DH>
+cudaError_t launch(const Args<T>& a, int B, cudaStream_t stream) {
   const size_t smem = smem_floats<DH>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      attn_bwd_dkdv_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      attn_bwd_dkdv_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(attn_bwd_dq_kernel<DH>,
+  err = cudaFuncSetAttribute(attn_bwd_dq_kernel<T, DH>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
 
   const long long rows = (long long)B * a.H * a.Lq;
   const long long blocks = (rows * 32 + kThreads - 1) / kThreads;
-  attn_bwd_delta_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(a, DH, rows);
+  attn_bwd_delta_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(a, DH, rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_bwd_dkdv_kernel<DH><<<dim3((a.Lk + kBK - 1) / kBK, B * a.H), kThreads, smem, stream>>>(a);
+  attn_bwd_dkdv_kernel<T, DH>
+      <<<dim3((a.Lk + kBK - 1) / kBK, B * a.H), kThreads, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_bwd_dq_kernel<DH><<<dim3((a.Lq + kBQ - 1) / kBQ, B * a.H), kThreads, smem, stream>>>(a);
+  attn_bwd_dq_kernel<T, DH>
+      <<<dim3((a.Lq + kBQ - 1) / kBQ, B * a.H), kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// q (B, H, Lq, dh), k and v (B, H, Lk, dh), the forward's output o and its
-// gradient dout (B, H, Lq, dh), f32 on device `device`, each given by base
-// pointer and (batch, head, row) strides in elements with the last axis
-// contiguous. `strides` holds 24 values: (b, h, l) of q, k, v, o, dout, dq,
-// dk, dv in that order. row_max and row_inv are the forward's (B, H, Lq)
-// statistics; delta is (B, H, Lq) scratch; dq, dk, dv are written. dh is 64
-// or 128; 1 <= l_actual <= Lk; dropout, threshold, inv_keep and seed as the
-// forward got them. Launches three kernels on `stream` and returns the
-// first cudaError_t that is not success.
-int pcm_attention_bwd(const float* q, const float* k, const float* v, const float* o,
-                      const float* dout, const float* row_max, const float* row_inv,
-                      float* delta, float* dq, float* dk, float* dv,
-                      const long long* strides, int B, int H, int Lq, int Lk, int dh,
-                      int l_actual, float scale, unsigned threshold, float inv_keep,
-                      unsigned seed, int dropout, int device, void* stream) {
-  if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || l_actual < 1 || l_actual > Lk ||
-      B * H > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const long long* st = strides;
-  Args a;
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.o = o;
-  a.dout = dout;
+template <typename T>
+cudaError_t launch_typed(const void* q, const void* k, const void* v, const void* o,
+                         const void* dout, const float* row_max, const float* row_inv,
+                         float* delta, void* dq, void* dk, void* dv,
+                         const long long* st, int B, int H, int Lq, int Lk, int dh,
+                         int l_actual, float scale, uint32_t threshold, float inv_keep,
+                         uint32_t seed, int dropout, cudaStream_t s) {
+  Args<T> a;
+  a.q = (const T*)q;
+  a.k = (const T*)k;
+  a.v = (const T*)v;
+  a.o = (const T*)o;
+  a.dout = (const T*)dout;
   a.row_max = row_max;
   a.row_inv = row_inv;
   a.delta = delta;
-  a.dq = dq;
-  a.dk = dk;
-  a.dv = dv;
+  a.dq = (T*)dq;
+  a.dk = (T*)dk;
+  a.dv = (T*)dv;
   a.qs = Strides{st[0], st[1], st[2]};
   a.ks = Strides{st[3], st[4], st[5]};
   a.vs = Strides{st[6], st[7], st[8]};
@@ -405,10 +408,44 @@ int pcm_attention_bwd(const float* q, const float* k, const float* v, const floa
   a.inv_keep = inv_keep;
   a.seed = seed;
   a.dropout = dropout;
+  if (dh == 64) return launch<T, 64>(a, B, s);
+  if (dh == 128) return launch<T, 128>(a, B, s);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" {
+
+// q (B, H, Lq, dh), k and v (B, H, Lk, dh), the forward's output o and its
+// gradient dout (B, H, Lq, dh), all f32 (bf16 == 0) or all bf16 (bf16 != 0)
+// on device `device`, each given by base pointer and (batch, head, row)
+// strides in elements with the last axis contiguous. `strides` holds 24
+// values: (b, h, l) of q, k, v, o, dout, dq, dk, dv in that order. row_max
+// and row_inv are the forward's (B, H, Lq) f32 statistics; delta is
+// (B, H, Lq) f32 scratch; dq, dk, dv (of the inputs' type) are written. dh
+// is 64 or 128; 1 <= l_actual <= Lk; scale, dropout, threshold, inv_keep and
+// seed as the forward got them. Launches three kernels on `stream` and
+// returns the first cudaError_t that is not success.
+int pcm_attention_bwd(const void* q, const void* k, const void* v, const void* o,
+                      const void* dout, const float* row_max, const float* row_inv,
+                      float* delta, void* dq, void* dk, void* dv,
+                      const long long* strides, int B, int H, int Lq, int Lk, int dh,
+                      int l_actual, float scale, unsigned threshold, float inv_keep,
+                      unsigned seed, int dropout, int bf16, int device, void* stream) {
+  if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || l_actual < 1 || l_actual > Lk ||
+      B * H > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dh == 64) return (int)launch<64>(a, B, s);
-  if (dh == 128) return (int)launch<128>(a, B, s);
-  return (int)cudaErrorInvalidValue;
+  if (bf16)
+    return (int)launch_typed<pcm::bf16>(q, k, v, o, dout, row_max, row_inv, delta, dq, dk, dv,
+                                        strides, B, H, Lq, Lk, dh, l_actual, scale,
+                                        threshold, inv_keep, seed, dropout, s);
+  return (int)launch_typed<float>(q, k, v, o, dout, row_max, row_inv, delta, dq, dk, dv,
+                                  strides, B, H, Lq, Lk, dh, l_actual, scale, threshold,
+                                  inv_keep, seed, dropout, s);
 }
 
 }  // extern "C"

@@ -6,8 +6,12 @@
 encoder layers, 7 decoder layers of which 1 is computed, feed-forward 32,
 chunk 100, FPS to 2048 tokens, kNN k=16; 24,124,456 parameters. Weights are
 drawn from a seeded ``torch.Generator``; ``dropout`` is the config's 0.1
-unless given (tests build it at 0). ``build_batch()`` is the same numpy
-batch the JAX entry builds from the same seed.
+unless given (tests build it at 0). It is built on the card unless the
+caller asks for another device. ``freeze_backbone`` trains the ACT head over
+a fixed PointNet (a model field users set by override; its token builder
+takes the data-source kernels under bf16), ``pre_sample`` is the
+``scratch_pointnet_pcd_presample`` variant. ``build_batch()`` is the same
+numpy batch the JAX entry builds from the same seed.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from pointcloudmatters_tpu_torch.models.components.nn_utils import (
     MaskedBatchNorm,
 )
 from pointcloudmatters_tpu_torch.models.components.pcd_encoder.pointnet import (
+    WIDTHS,
     PointNet,
 )
 
@@ -87,11 +92,17 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
 def build_flagship(hidden_dim=512, npoints=2048, nsample=16, chunk=100,
                    enc_layers=4, dec_layers=7, ffn=32, action_dim=7,
                    qpos_dim=9, goal_dim=3, nhead=8, seed=0, dropout=0.1,
-                   device: Union[str, torch.device] = "cpu") -> ACTPCD:
+                   freeze_backbone=False, pre_sample=False,
+                   device: Union[str, torch.device] = "cuda") -> ACTPCD:
     """ACTPCD + PointNet, weights from ``torch.Generator().manual_seed(seed)``,
-    on ``device`` in eval mode; ``dropout`` is the transformers' rate."""
+    on ``device`` in eval mode; ``dropout`` is the transformers' rate.
+
+    With ``pre_sample`` the PointNet's per-token features are the
+    transformer's tokens, so below its published width of 512 a final
+    linear maps them to ``hidden_dim``."""
     policy = ACTPCD(
-        backbone=PointNet(in_channels=6),
+        backbone=PointNet(in_channels=6, num_classes=(
+            hidden_dim if pre_sample and hidden_dim != WIDTHS[-1] else 0)),
         transformer=Transformer(
             d_model=hidden_dim, nhead=nhead, num_encoder_layers=enc_layers,
             num_decoder_layers=dec_layers, dim_feedforward=ffn, dropout=dropout,
@@ -105,6 +116,7 @@ def build_flagship(hidden_dim=512, npoints=2048, nsample=16, chunk=100,
         hidden_dim=hidden_dim, num_queries=chunk,
         action_dim=action_dim, qpos_dim=qpos_dim, goal_cond_dim=goal_dim,
         kl_weight=10.0, pcd_nsample=nsample, pcd_npoints=npoints,
+        freeze_backbone=freeze_backbone, pre_sample=pre_sample,
     )
     init_parameters(policy, torch.Generator().manual_seed(seed))
     return policy.to(device).eval()

@@ -18,7 +18,7 @@ from pointcloudmatters_tpu_torch.utils.metrics import Metrics
 from pointcloudmatters_tpu_torch.utils.optimizer import build_optimizer
 from pointcloudmatters_tpu_torch.utils.scheduler import build_scheduler
 
-__all__ = ["select_model_batch", "to_device", "BCModule"]
+__all__ = ["select_model_batch", "to_device", "cast_floating", "BCModule"]
 
 _MODEL_INPUT_KEYS = (
     "qpos", "actions", "is_pad", "goal_cond", "image", "env_state", "obs",
@@ -52,6 +52,14 @@ def to_device(tree, device: Union[str, torch.device]):
     if isinstance(tree, np.ndarray):
         tree = torch.from_numpy(tree)
     return tree.to(device)
+
+
+def cast_floating(tree, dtype: torch.dtype):
+    """Every floating tensor of a nested dict cast to ``dtype``; the others
+    (indices, masks) unchanged (the JAX trainer's ``_cast_floating``)."""
+    if isinstance(tree, Mapping):
+        return {k: cast_floating(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype) if tree.is_floating_point() else tree
 
 
 class BCModule:
@@ -117,12 +125,25 @@ class BCModule:
                 seed * len(self.train_rng_streams) + i)
         return rngs
 
-    def forward_train(self, batch: dict, rngs: Mapping) -> dict:
+    def forward_train(self, batch: dict, rngs: Mapping,
+                      compute_dtype: Optional[torch.dtype] = None) -> dict:
         """The train-mode forward over a batch of model inputs (and
         collate bookkeeping, which is dropped); returns the policy's dict
-        with ``loss``, ``action_loss`` and ``kl_loss``."""
+        with ``loss``, ``action_loss`` and ``kl_loss``.
+
+        With ``compute_dtype`` (bf16 mixed precision) the forward runs on
+        copies of the floating parameters and batch arrays in that type,
+        made by differentiable casts, so gradients reach the f32 parameters
+        in f32; batch-norm running statistics stay f32 buffers (the JAX
+        trainer's step, ``trainer.py:249-266``)."""
         batch = to_device(select_model_batch(batch), self.device)
-        return self.policy(batch, train=True, rngs=rngs)
+        if compute_dtype is None:
+            return self.policy(batch, train=True, rngs=rngs)
+        params = {name: p.to(compute_dtype) if p.is_floating_point() else p
+                  for name, p in self.policy.named_parameters()}
+        return torch.func.functional_call(
+            self.policy, params, (cast_floating(batch, compute_dtype),),
+            {"train": True, "rngs": rngs})
 
     @torch.inference_mode()
     def predict(self, obs: dict) -> torch.Tensor:

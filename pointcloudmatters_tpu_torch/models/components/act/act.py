@@ -13,6 +13,9 @@ posterior noise) and ``"dropout"`` (generators on the batch's device) and
 ``"seed"`` (a CPU generator seeding the oneshot attention kernel's mask).
 The image and state-only observation paths come with later slices and
 raise ``NotImplementedError``.
+
+The module runs in the type of its parameters and inputs: f32, or bf16
+when the trainer's mixed precision casts both (``trainer.py``).
 """
 
 from __future__ import annotations
@@ -189,43 +192,80 @@ class ACTPCD(ACT):
                  encoder: Optional[TransformerEncoder], hidden_dim: int,
                  num_queries: int, pcd_nsample: int = 16,
                  pcd_npoints: int = 1024, use_mask: bool = False,
-                 pre_sample: bool = False, **kwargs):
+                 pre_sample: bool = False, freeze_backbone: bool = False,
+                 **kwargs):
         super().__init__(backbone, transformer, encoder, hidden_dim,
                          num_queries, **kwargs)
-        if use_mask or pre_sample:
-            raise NotImplementedError(
-                "ACTPCD use_mask and pre_sample are not ported yet"
-            )
+        if use_mask:
+            raise NotImplementedError("ACTPCD use_mask is not ported yet")
         self.pcd_nsample = pcd_nsample
         self.pcd_npoints = pcd_npoints
-        self.pcd_linear = nn.Linear(3 + backbone.num_channels, hidden_dim,
-                                    bias=False)
-        self.pcd_bn = GroupedBNReluMax(hidden_dim)
+        self.pre_sample = pre_sample
+        self.freeze_backbone = freeze_backbone
+        # pre_sample projects the raw cloud to the backbone's input width
+        # (JAX act.py:279-283), else the backbone's features to hidden_dim
+        proj_dim = backbone.in_channels if pre_sample else hidden_dim
+        feat_dim = backbone.in_channels if pre_sample else backbone.num_channels
+        self.pcd_linear = nn.Linear(3 + feat_dim, proj_dim, bias=False)
+        self.pcd_bn = GroupedBNReluMax(proj_dim)
 
     def pcd_sampling(self, coord: torch.Tensor, feat: torch.Tensor,
-                     valid: torch.Tensor, train: bool = False):
-        """-> (new_xyz (B, m, 3), tokens (B, m, D), idx (B, m)).
+                     valid: torch.Tensor, train: bool = False,
+                     feat_is_data: bool = False):
+        """-> (new_xyz (B, m, 3), tokens (B, m, proj_dim), idx (B, m)).
 
         ``pcd_linear`` is bias-free, so projecting each gathered neighbour
         ``[xyz[nn] - new_xyz, feat[nn]]`` equals
         ``pcd_linear([xyz, feat])[nn] - pcd_linear([new_xyz, 0])``: the N
-        source points are projected once (JAX ``act.py:305-350``)."""
+        source points are projected once (JAX ``act.py:305-350``). With
+        ``feat_is_data`` (a raw ``pre_sample`` cloud, a frozen backbone's
+        features) the builder may take the data-source kernels, as
+        ``GroupedBNReluMax.resolve_impl`` decides; learned features stay on
+        the plain chain (their backward needs the dense dg)."""
         idx = farthest_point_sampling_padded(coord, valid, self.pcd_npoints)
         new_xyz = torch.gather(
             coord, 1, idx.to(torch.long)[..., None].expand(-1, -1, 3))
         nn_idx, _ = knn_query_padded(new_xyz, coord, valid, self.pcd_nsample)
         zeros_f = feat.new_zeros(new_xyz.shape[:-1] + (feat.shape[-1],))
+        src_cat = torch.cat([coord, feat], dim=-1)
         h = self.pcd_linear(torch.cat([new_xyz, zeros_f], dim=-1))
-        g = self.pcd_linear(torch.cat([coord, feat], dim=-1))
-        x = self.pcd_bn(g, h, nn_idx, use_running_average=not train)
+        impl = GroupedBNReluMax.resolve_impl(
+            coord.shape[1], nn_idx.shape[1], nn_idx.shape[2], h.shape[-1],
+            h.dtype, h.device,
+        ) if feat_is_data else "xla"
+        if impl == "fused":
+            W = self.pcd_linear.weight.t().to(h.dtype)  # (Cin, D)
+            x = self.pcd_bn(None, h, nn_idx, use_running_average=not train,
+                            src=src_cat.detach(), W=W, impl="fused_data")
+        else:
+            g = self.pcd_linear(src_cat)
+            x = self.pcd_bn(g, h, nn_idx, use_running_average=not train)
         return new_xyz, x, idx
 
     def forward_pcd_embed(self, pcd_dict: dict, train: bool):
         coord = pcd_dict["coord"]
         valid = pcd_dict["valid"].to(torch.bool)
-        features = self.backbone(pcd_dict, train=train)
-        coords_out, features, _ = self.pcd_sampling(coord, features, valid,
-                                                    train=train)
+        if self.pre_sample:
+            # raw cloud -> tokens -> backbone over the sampled tokens
+            # (JAX act.py:357-373)
+            new_xyz, feat, idx = self.pcd_sampling(
+                coord, pcd_dict["feat"], valid, train=train, feat_is_data=True)
+            sampled = dict(pcd_dict, coord=new_xyz, feat=feat,
+                           valid=torch.ones(idx.shape, dtype=torch.bool,
+                                            device=idx.device))
+            if "grid_coord" in pcd_dict:
+                grid = pcd_dict["grid_coord"]
+                sampled["grid_coord"] = torch.gather(
+                    grid, 1, idx.to(torch.long)[..., None].expand(-1, -1, grid.shape[-1]))
+            features = self.backbone(sampled, train=train)
+            coords_out = new_xyz
+        else:
+            features = self.backbone(pcd_dict, train=train)
+            if self.freeze_backbone:
+                features = features.detach()
+            coords_out, features, _ = self.pcd_sampling(
+                coord, features, valid, train=train,
+                feat_is_data=self.freeze_backbone)
         return features, coord_embedding_sine(coords_out, self.hidden_dim)
 
     def forward_obs_embed(self, data_dict: dict, train: bool) -> dict:

@@ -10,10 +10,19 @@ elements (a masked count, single-pass ``E[x^2] - mean^2`` clamped at 0),
 gradients through the statistics, running statistics updated in place with
 torch momentum and the unbiased variance. Random draws (dropout bits, VAE
 noise) come from an explicit ``torch.Generator``; no global RNG is read.
+
+Under bf16 compute (parameters and activations in bf16, running statistics
+in f32, as the JAX trainer's mixed precision casts them) the dtype flow is
+the JAX modules': statistics summed in f32 from the bf16 values (squares
+taken in f32, as XLA takes them inside its fused reductions), the
+per-channel affine folded in f32 from the bf16 parameters and applied in
+bf16 (``nn_utils.py:129-135, 291-297`` of the JAX package), dropout scales
+by a factor rounded to the activations' type.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Optional
 
 import numpy as np
@@ -21,6 +30,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pointcloudmatters_tpu_torch.ops.fused_builder import (
+    fused_builder_supported,
+    grouped_stats_data,
+    sum_sq_f32,
+)
+from pointcloudmatters_tpu_torch.ops.oneshot_attention import rounded_scalar
 from pointcloudmatters_tpu_torch.ops.pointops import gather_rows_padded
 
 __all__ = [
@@ -119,53 +134,88 @@ class MaskedBatchNorm(_RunningNorm):
             if mask is None:
                 count = float(np.prod(x.shape[:-1]))
                 total = x.sum(dim=dims, dtype=torch.float32)
-                total_sq = (x * x).sum(dim=dims, dtype=torch.float32)
+                total_sq = sum_sq_f32(x, dims)
             else:
                 m = mask.to(x.dtype)[..., None]
                 count = mask.to(torch.float32).sum()
                 total = (x * m).sum(dim=dims, dtype=torch.float32)
-                total_sq = ((x * m) * x).sum(dim=dims, dtype=torch.float32)
+                total_sq = sum_sq_f32(x * m, dims)
             mean, var = self.statistics(total, total_sq, count)
         eff_scale, eff_bias = self.affine(mean, var)
         return x * eff_scale.to(x.dtype) + eff_bias.to(x.dtype)
 
 
 class GroupedBNReluMax(_RunningNorm):
-    """Point-token builder ``max_k(relu(BN(where(hole, 0, g[nn] - h))))``,
-    the ``"xla"`` formulation of the JAX module.
+    """Point-token builder ``max_k(relu(BN(where(hole, 0, g[nn] - h))))``.
 
     BN is one per-channel affine and ReLU is monotone, so the pool needs only
     the per-token max of the gathered rows where the effective scale is
     ``>= 0`` and their min where it is negative. A hole (``nn_idx < 0``)
     contributes an exact-zero row to the pool and to the batch statistics,
     whose count is every (token, neighbour) slot, holes included (the
-    reference quirk). Same variables as :class:`MaskedBatchNorm`."""
+    reference quirk). Same variables as :class:`MaskedBatchNorm`.
 
-    def forward(self, g: torch.Tensor, h: torch.Tensor, nn_idx: torch.Tensor,
-                use_running_average: bool = True, impl: str = "xla") -> torch.Tensor:
+    Two routes to the pooled statistics, as in the JAX module: ``"xla"``,
+    plain torch over the gathered (B, M, K, D) rows, differentiable in g and
+    h; and ``"fused_data"``, :func:`~pointcloudmatters_tpu_torch.ops.
+    fused_builder.grouped_stats_data` (kernels 5 and 6 on the card) for
+    source rows that are data. :meth:`resolve_impl` picks between them."""
+
+    @staticmethod
+    def resolve_impl(n: int, m: int, k: int, d: int, dtype: torch.dtype,
+                     device: torch.device) -> str:
+        """``"fused"`` where the data-source kernels take the call: a CUDA
+        device, bf16 activations (the kernels are bf16-native; under f32
+        they would change the precision) and shapes that pass
+        ``fused_builder_supported``; else ``"xla"`` (the CPU always, as the
+        JAX module off the TPU). ``PCM_BUILDER_IMPL=xla|fused`` overrides;
+        ``fused`` raises where the kernels cannot take the call."""
+        forced = os.environ.get("PCM_BUILDER_IMPL", "auto")
+        if forced == "xla":
+            return "xla"
+        ok = (torch.device(device).type == "cuda" and dtype == torch.bfloat16
+              and fused_builder_supported(n, m, k, d))
+        if forced == "fused":
+            if not ok:
+                raise ValueError(
+                    f"PCM_BUILDER_IMPL=fused but shapes/device unsupported: "
+                    f"N={n} M={m} K={k} D={d} dtype={dtype} device={device}")
+            return "fused"
+        return "fused" if ok else "xla"
+
+    def forward(self, g: Optional[torch.Tensor], h: torch.Tensor, nn_idx: torch.Tensor,
+                use_running_average: bool = True, *, src: Optional[torch.Tensor] = None,
+                W: Optional[torch.Tensor] = None, impl: str = "xla") -> torch.Tensor:
         """g: (B, N, D) projected source rows; h: (B, M, D) projected query
-        offsets; nn_idx: (B, M, K) into N, -1 = hole -> (B, M, D)."""
-        if impl != "xla":
-            raise NotImplementedError(
-                f"GroupedBNReluMax impl={impl!r}: the fused builder kernels "
-                f"come with the data-source token builder; only 'xla' is ported"
-            )
+        offsets; nn_idx: (B, M, K) into N, -1 = hole -> (B, M, D).
+
+        ``impl="fused_data"`` takes the unprojected data rows ``src``
+        (B, N, Cin), which get no gradient, and the projection ``W``
+        (Cin, D) instead of g (which may be None)."""
         hole = (nn_idx < 0)[..., None]  # (B, M, K, 1)
-        x = gather_rows_padded(g, nn_idx) - h[:, :, None, :]
-        vmax = torch.where(hole, -torch.inf, x).amax(dim=2)
-        vmin = torch.where(hole, torch.inf, x).amin(dim=2)
+        if impl == "fused_data":
+            vmax, vmin, total, total_sq = grouped_stats_data(src, W, h, nn_idx)
+        elif impl == "xla":
+            x = gather_rows_padded(g, nn_idx) - h[:, :, None, :]
+            vmax = torch.where(hole, -torch.inf, x).amax(dim=2)
+            vmin = torch.where(hole, torch.inf, x).amin(dim=2)
+            if not use_running_average:
+                xz = torch.where(hole, 0.0, x)
+                total = xz.sum(dim=(0, 1, 2), dtype=torch.float32)
+                total_sq = sum_sq_f32(xz, (0, 1, 2))
+        else:
+            raise NotImplementedError(
+                f"GroupedBNReluMax impl={impl!r}: the ported routes are 'xla' and "
+                f"'fused_data' (the learned-feature 'fused_core' has no call site)")
         any_hole = hole.any(dim=2)  # (B, M, 1)
         # maximum/minimum against zero, not clamp: at a tie the gradient
         # splits 0.5/0.5 as jnp.maximum's does (clamp passes all of it)
-        zero = torch.zeros((), dtype=x.dtype, device=x.device)
+        zero = torch.zeros((), dtype=vmax.dtype, device=vmax.device)
         xmax = torch.where(any_hole, torch.maximum(vmax, zero), vmax)
         xmin = torch.where(any_hole, torch.minimum(vmin, zero), vmin)
         if use_running_average:
             mean, var = self.mean, self.var
         else:
-            xz = torch.where(hole, 0.0, x)
-            total = xz.sum(dim=(0, 1, 2), dtype=torch.float32)
-            total_sq = (xz * xz).sum(dim=(0, 1, 2), dtype=torch.float32)
             mean, var = self.statistics(total, total_sq, float(np.prod(nn_idx.shape)))
         eff_scale, eff_bias = self.affine(mean, var)
         eff_scale, eff_bias = eff_scale.to(h.dtype), eff_bias.to(h.dtype)
@@ -195,4 +245,5 @@ class BitsDropout(nn.Module):
         keep_prob = (256 - threshold) / 256.0
         bits = torch.randint(0, 256, x.shape, generator=generator,
                              device=x.device, dtype=torch.uint8)
-        return torch.where(bits >= threshold, x * (1.0 / keep_prob), 0.0)
+        scale = rounded_scalar(1.0 / keep_prob, x.dtype)
+        return torch.where(bits >= threshold, x * scale, 0.0)

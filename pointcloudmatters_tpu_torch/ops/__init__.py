@@ -7,14 +7,17 @@ its plain PyTorch version.
 | ``pallas_knn3.py`` ``_knn3_kernel`` | ``knn.cu`` | ``ops/knn.py`` |
 | ``oneshot_attention.py`` ``_fwd_kernel`` (with ``_keep_mask``) | ``attention_fwd.cu`` | ``ops/oneshot_attention.py`` |
 | ``oneshot_attention.py`` ``_bwd_kernel`` | ``attention_bwd.cu`` | ``ops/oneshot_attention.py`` |
+| ``fused_builder.py`` ``_fwd_kernel`` | ``fused_builder.cu`` ``builder_fwd_kernel`` | ``ops/fused_builder.py`` |
+| ``fused_builder.py`` ``_routed_kernel`` | ``fused_builder.cu`` ``routed_dw_kernel`` | ``ops/fused_builder.py`` |
 
-Each wrapper counts its launches in a module-level counter;
+Each wrapper counts its launches in a module-level counter (the attention
+wrappers one for each element type);
 :func:`launch_counts` reads them and :func:`reset_launch_counts` zeroes them.
 """
 
 from __future__ import annotations
 
-from pointcloudmatters_tpu_torch.ops import fps, knn, oneshot_attention
+from pointcloudmatters_tpu_torch.ops import fps, fused_builder, knn, oneshot_attention
 
 __all__ = ["launch_counts", "reset_launch_counts"]
 
@@ -24,6 +27,10 @@ _COUNTED = {
     "knn": (knn, "LAUNCHES"),
     "attention_fwd": (oneshot_attention, "LAUNCHES"),
     "attention_bwd": (oneshot_attention, "BWD_LAUNCHES"),
+    "attention_fwd_bf16": (oneshot_attention, "BF16_LAUNCHES"),
+    "attention_bwd_bf16": (oneshot_attention, "BF16_BWD_LAUNCHES"),
+    "builder_fwd": (fused_builder, "LAUNCHES"),
+    "routed_dw": (fused_builder, "ROUTED_LAUNCHES"),
 }
 
 

@@ -30,7 +30,10 @@ from typing import Optional
 
 import torch
 
-from pointcloudmatters_tpu_torch.ops.oneshot_attention import oneshot_attention
+from pointcloudmatters_tpu_torch.ops.oneshot_attention import (
+    oneshot_attention,
+    rounded_scalar,
+)
 
 __all__ = ["dot_product_attention", "make_oneshot_attention_fn", "draw_seed"]
 
@@ -57,8 +60,11 @@ def dot_product_attention(
 ) -> torch.Tensor:
     """Dense ``softmax(q k^T / sqrt(dh)) v`` over (B, L, H, dh) tensors;
     ``mask`` (broadcastable to (B, H, Lq, Lk), True = attend) sets masked
-    logits to the dtype's minimum, as flax does."""
-    q = query / math.sqrt(query.shape[-1])
+    logits to the dtype's minimum, as flax does. Every step stays in the
+    inputs' type, with its constants rounded to it (flax's
+    ``dot_product_attention`` under bf16)."""
+    dt = query.dtype
+    q = query / rounded_scalar(math.sqrt(query.shape[-1]), dt)
     s = torch.matmul(q.transpose(1, 2), key.permute(0, 2, 3, 1))
     if mask is not None:
         s = torch.where(mask, s, torch.finfo(s.dtype).min)
@@ -67,7 +73,7 @@ def dot_product_attention(
         keep_prob = 1.0 - dropout_rate
         keep = torch.rand(s.shape[-2:], generator=rngs["dropout"],
                           device=s.device) < keep_prob
-        p = p * (keep.to(p.dtype) / keep_prob)
+        p = p * (keep.to(dt) / rounded_scalar(keep_prob, dt))
     return torch.matmul(p, value.transpose(1, 2)).transpose(1, 2)
 
 

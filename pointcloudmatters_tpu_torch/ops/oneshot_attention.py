@@ -1,11 +1,21 @@
 """Exact softmax attention for the ACT encoder, forward and backward (port of
 ``pointcloudmatters_tpu/ops/oneshot_attention.py:52-278``).
 
-Layout ``(B, H, L, dh)``, f32. q is scaled by ``scale`` before the product
-(the TPU path pre-scales q), keys at column ``l_actual`` and beyond are
-masked, and the output is ``(e_drop @ v) * (1 / sum(e))`` with
+Layout ``(B, H, L, dh)``, f32 or bf16. q is scaled by ``scale`` before the
+product (the TPU path pre-scales q), keys at column ``l_actual`` and beyond
+are masked, and the output is ``(e_drop @ v) * (1 / sum(e))`` with
 ``e = exp(s - max(s))``, as in the TPU kernel: dropout acts on the weights
 after the (undropped) denominator is taken.
+
+In bf16 the arithmetic is f32 (scores, row statistics, every product sum)
+and rounds to bf16 where the TPU kernel rounds
+(``oneshot_attention.py:91, 131, 143, 209, 273``): the pre-scaled q
+(``q * bf16(scale)``), ``e_drop`` before ``e @ v``, ``p_drop`` before dV,
+``ds`` before dQ and dK, dQ before its ``* bf16(scale)``, and every output.
+One difference is kept on purpose: the backward's row term
+``D = rowsum(dO * O)`` reads the bf16 output O, where the TPU kernel sums
+the unrounded ``p * dP`` (equal in exact arithmetic, within a bf16 ulp of
+O apart here).
 
 Dropout keeps the TPU kernel's structure and threshold (``_keep_mask``,
 ``oneshot_attention.py:18-26, 52-65``): one mask per head, shared across the
@@ -39,16 +49,22 @@ __all__ = [
     "oneshot_attention_bwd_cuda",
     "keep_mask",
     "philox4x32_10",
+    "rounded_scalar",
     "LAUNCHES",
     "BWD_LAUNCHES",
+    "BF16_LAUNCHES",
+    "BF16_BWD_LAUNCHES",
 ]
 
 NEG_INF = -1e30
+_DTYPES = (torch.float32, torch.bfloat16)  # the kernels' element types
 
-# launches of the forward and backward kernels in this process; a caller may
-# reset them to 0
+# launches of the forward and backward kernels in this process, f32 and bf16
+# instances apart; a caller may reset them to 0
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+BF16_LAUNCHES = 0
+BF16_BWD_LAUNCHES = 0
 
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -102,9 +118,29 @@ def keep_mask(seed: int, rate: float, heads: int, rows: int, cols: int,
     return bits >= _threshold(rate)
 
 
-def _scores(q, k, scale, l_actual):
-    s = torch.matmul(q * scale, k.transpose(-1, -2))
-    col = torch.arange(k.shape[2], device=q.device)
+def rounded_scalar(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as a host float. A tensor op with it
+    then computes as with a 0-d tensor of that type (one rounding of the
+    f32 result), without a host-to-device copy, which would wait for the
+    card."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def _pre_scaled(q: torch.Tensor, scale: float) -> torch.Tensor:
+    """``q * scale`` with the scale rounded to q's type, rounded to q's type
+    (the TPU path's ``q * jnp.asarray(scale, q.dtype)``)."""
+    return q * rounded_scalar(scale, q.dtype)
+
+
+def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """f32 ``x`` rounded to ``dtype`` and back (identity for f32)."""
+    return x.to(dtype).to(torch.float32)
+
+
+def _scores(q_pre, k, l_actual):
+    """f32 scores of the pre-scaled q against k, keys past l_actual masked."""
+    s = torch.matmul(q_pre.to(torch.float32), k.to(torch.float32).transpose(-1, -2))
+    col = torch.arange(k.shape[2], device=q_pre.device)
     return torch.where(col < l_actual, s, NEG_INF)
 
 
@@ -119,19 +155,20 @@ def oneshot_attention_plain(
     with_stats: bool = False,
 ):
     """Plain PyTorch version of the forward kernel: (B, H, Lq, dh) x
-    (B, H, Lk, dh) -> (B, H, Lq, dh); with ``with_stats`` also each row's
-    max and 1 / denominator, (B, H, Lq) each."""
+    (B, H, Lk, dh) -> (B, H, Lq, dh) in q's type; with ``with_stats`` also
+    each row's max and 1 / denominator, (B, H, Lq) f32 each."""
     _check_rate(rate)
     H, Lq, Lk = q.shape[1], q.shape[2], k.shape[2]
+    dt = q.dtype
     l_actual = Lk if l_actual is None else l_actual
-    s = _scores(q, k, scale, l_actual)
+    s = _scores(_pre_scaled(q, scale), k, l_actual)
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp(s - m)
     inv = 1.0 / e.sum(dim=-1, keepdim=True)
     if rate > 0.0:
         keep = keep_mask(seed, rate, H, Lq, Lk, device=q.device)
         e = torch.where(keep, e * (1.0 / (1.0 - rate)), 0.0)
-    out = torch.matmul(e, v) * inv
+    out = (torch.matmul(_rounded(e, dt), v.to(torch.float32)) * inv).to(dt)
     if with_stats:
         return out, m[..., 0], inv[..., 0]
     return out
@@ -143,20 +180,26 @@ def oneshot_attention_plain_bwd(
     scale: float, l_actual: Optional[int] = None, rate: float = 0.0,
     seed: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the backward kernel -> (dq, dk, dv).
+    """Plain PyTorch version of the backward kernel -> (dq, dk, dv) in q's
+    type.
 
     ``p = exp(s - row_max) * row_inv``, ``p_drop = keep ? p / (1 - rate) : 0``,
     ``D = rowsum(dout * out)``, ``ds = p * (keep ? dP / (1 - rate) : 0 - D)``;
     ``dv = p_drop^T dout``, ``dk = ds^T (q * scale)``, ``dq = ds k * scale``
-    (``csrc/attention_bwd.cu`` derives it)."""
+    (``csrc/attention_bwd.cu`` derives it). In bf16, ``p_drop`` and ``ds``
+    are rounded before their products and dQ before its scale, as in the
+    TPU kernel."""
     _check_rate(rate)
     H, Lq, Lk = q.shape[1], q.shape[2], k.shape[2]
+    dt = q.dtype
+    f32 = torch.float32
     l_actual = Lk if l_actual is None else l_actual
-    q_pre = q * scale
-    s = _scores(q, k, scale, l_actual)
+    q_pre = _pre_scaled(q, scale)
+    s = _scores(q_pre, k, l_actual)
     p = torch.exp(s - row_max[..., None]) * row_inv[..., None]
-    dp = torch.matmul(dout, v.transpose(-1, -2))
-    delta = (dout * out).sum(dim=-1, keepdim=True)
+    do = dout.to(f32)
+    dp = torch.matmul(do, v.to(f32).transpose(-1, -2))
+    delta = (do * out.to(f32)).sum(dim=-1, keepdim=True)
     if rate > 0.0:
         inv_keep = 1.0 / (1.0 - rate)
         keep = keep_mask(seed, rate, H, Lq, Lk, device=q.device)
@@ -164,11 +207,11 @@ def oneshot_attention_plain_bwd(
         dp = torch.where(keep, dp * inv_keep, 0.0)
     else:
         p_drop = p
-    ds = p * (dp - delta)
-    dv = torch.matmul(p_drop.transpose(-1, -2), dout)
-    dk = torch.matmul(ds.transpose(-1, -2), q_pre)
-    dq = torch.matmul(ds, k) * scale
-    return dq, dk, dv
+    ds = _rounded(p * (dp - delta), dt)
+    dv = torch.matmul(_rounded(p_drop, dt).transpose(-1, -2), do)
+    dk = torch.matmul(ds.transpose(-1, -2), q_pre.to(f32))
+    dq = _pre_scaled(torch.matmul(ds, k.to(f32)).to(dt), scale)
+    return dq, dk.to(dt), dv.to(dt)
 
 
 def _fwd_lib() -> ctypes.CDLL:
@@ -178,7 +221,7 @@ def _fwd_lib() -> ctypes.CDLL:
             [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 12
             + [ctypes.c_int] * 6
             + [ctypes.c_float, ctypes.c_uint32, ctypes.c_float, ctypes.c_uint32,
-               ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+               ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         )
         lib.pcm_attention_fwd.restype = ctypes.c_int
     return lib
@@ -190,7 +233,7 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.pcm_attention_bwd.argtypes = (
             [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
             + [ctypes.c_float, ctypes.c_uint32, ctypes.c_float, ctypes.c_uint32,
-               ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+               ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         )
         lib.pcm_attention_bwd.restype = ctypes.c_int
     return lib
@@ -202,9 +245,9 @@ def _check_qkv(q, k, v, l_actual, rate):
     if not q.is_cuda or k.device != dev or v.device != dev:
         raise ValueError(f"attention kernel needs q, k, v on one CUDA device, "
                          f"got {q.device}, {k.device} and {v.device}")
-    if not q.dtype == k.dtype == v.dtype == torch.float32:
-        raise TypeError(f"attention kernel takes f32, got {q.dtype}, "
-                        f"{k.dtype} and {v.dtype}")
+    if not (q.dtype == k.dtype == v.dtype and q.dtype in _DTYPES):
+        raise TypeError(f"attention kernel takes f32 or bf16 q, k, v of one "
+                        f"type, got {q.dtype}, {k.dtype} and {v.dtype}")
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"attention kernel shapes: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
@@ -225,10 +268,11 @@ def _check_qkv(q, k, v, l_actual, rate):
     return l_actual
 
 
-def _heads_view(B, L, H, dh, dev) -> torch.Tensor:
-    """A (B, H, L, dh) view of a new (B, L, H, dh) f32 buffer: merging the
-    heads afterwards copies nothing."""
-    return torch.empty((B, L, H, dh), dtype=torch.float32, device=dev).transpose(1, 2)
+def _heads_view(B, L, H, dh, like: torch.Tensor) -> torch.Tensor:
+    """A (B, H, L, dh) view of a new (B, L, H, dh) buffer of ``like``'s type
+    and device: merging the heads afterwards copies nothing."""
+    return torch.empty((B, L, H, dh), dtype=like.dtype,
+                       device=like.device).transpose(1, 2)
 
 
 def _dropout_args(rate: float, seed: int) -> tuple:
@@ -243,16 +287,17 @@ def oneshot_attention_cuda(
     l_actual: Optional[int] = None, rate: float = 0.0, seed: int = 0,
     with_stats: bool = False,
 ):
-    """The forward kernel: f32 (B, H, L, dh) tensors on one CUDA device whose
-    last axis is contiguous (any other strides are read in place), dh 64 or
-    128. Returns a (B, H, Lq, dh) view of a (B, Lq, H, dh) buffer, and with
-    ``with_stats`` the (B, H, Lq) row max and 1 / denominator."""
-    global LAUNCHES
+    """The forward kernel: f32 or bf16 (B, H, L, dh) tensors of one type on
+    one CUDA device whose last axis is contiguous (any other strides are
+    read in place), dh 64 or 128. Returns a (B, H, Lq, dh) view of a
+    (B, Lq, H, dh) buffer of the inputs' type, and with ``with_stats`` the
+    (B, H, Lq) f32 row max and 1 / denominator."""
+    global LAUNCHES, BF16_LAUNCHES
     l_actual = _check_qkv(q, k, v, l_actual, rate)
     B, H, Lq, dh = q.shape
     Lk = k.shape[2]
     dev = q.device
-    out = _heads_view(B, Lq, H, dh, dev)
+    out = _heads_view(B, Lq, H, dh, q)
     stats = [torch.empty((B, H, Lq), dtype=torch.float32, device=dev)
              for _ in range(2 if with_stats else 0)]
     if Lq > 0:
@@ -260,12 +305,15 @@ def oneshot_attention_cuda(
         stat_ptrs = [t.data_ptr() for t in stats] if with_stats else [None, None]
         err = _fwd_lib().pcm_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *stat_ptrs,
-            *strides, B, H, Lq, Lk, dh, l_actual, float(scale),
-            *_dropout_args(rate, seed), dev.index,
+            *strides, B, H, Lq, Lk, dh, l_actual, rounded_scalar(scale, q.dtype),
+            *_dropout_args(rate, seed), int(q.dtype == torch.bfloat16), dev.index,
             torch.cuda.current_stream(dev).cuda_stream,
         )
         _build.check(err, "attention_fwd")
-        LAUNCHES += 1
+        if q.dtype == torch.bfloat16:
+            BF16_LAUNCHES += 1
+        else:
+            LAUNCHES += 1
     return (out, *stats) if with_stats else out
 
 
@@ -277,18 +325,18 @@ def oneshot_attention_bwd_cuda(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernels: the forward's inputs, its output ``out`` and
     statistics, and ``dout`` -> (dq, dk, dv), each a (B, H, L, dh) view of a
-    (B, L, H, dh) buffer. Same constraints as the forward; ``out`` and
-    ``dout`` need a contiguous last axis, ``row_max``/``row_inv`` are
-    contiguous (B, H, Lq) f32."""
-    global BWD_LAUNCHES
+    (B, L, H, dh) buffer of q's type. Same constraints as the forward;
+    ``out`` and ``dout`` are of q's type with a contiguous last axis,
+    ``row_max``/``row_inv`` are contiguous (B, H, Lq) f32."""
+    global BWD_LAUNCHES, BF16_BWD_LAUNCHES
     l_actual = _check_qkv(q, k, v, l_actual, rate)
     B, H, Lq, dh = q.shape
     Lk = k.shape[2]
     dev = q.device
     for name, t in (("out", out), ("dout", dout)):
-        if t.shape != q.shape or t.device != dev or t.dtype != torch.float32 \
+        if t.shape != q.shape or t.device != dev or t.dtype != q.dtype \
                 or t.stride(-1) != 1:
-            raise ValueError(f"attention backward: {name} must be f32 "
+            raise ValueError(f"attention backward: {name} must be {q.dtype} "
                              f"{tuple(q.shape)} on {dev} with a contiguous last "
                              f"axis, got {t.dtype} {tuple(t.shape)} on {t.device}")
     for name, t in (("row_max", row_max), ("row_inv", row_inv)):
@@ -296,8 +344,8 @@ def oneshot_attention_bwd_cuda(
                 or not t.is_contiguous():
             raise ValueError(f"attention backward: {name} must be contiguous "
                              f"f32 {(B, H, Lq)} on {dev}")
-    dq, dk, dv = (_heads_view(B, Lq, H, dh, dev), _heads_view(B, Lk, H, dh, dev),
-                  _heads_view(B, Lk, H, dh, dev))
+    dq, dk, dv = (_heads_view(B, Lq, H, dh, q), _heads_view(B, Lk, H, dh, q),
+                  _heads_view(B, Lk, H, dh, q))
     if Lq == 0:
         return dq, dk.zero_(), dv.zero_()
     delta = torch.empty((B, H, Lq), dtype=torch.float32, device=dev)
@@ -307,11 +355,15 @@ def oneshot_attention_bwd_cuda(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
         row_max.data_ptr(), row_inv.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), ctypes.cast(strides, ctypes.c_void_p),
-        B, H, Lq, Lk, dh, l_actual, float(scale), *_dropout_args(rate, seed),
-        dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        B, H, Lq, Lk, dh, l_actual, rounded_scalar(scale, q.dtype),
+        *_dropout_args(rate, seed), int(q.dtype == torch.bfloat16), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "attention_bwd")
-    BWD_LAUNCHES += 1
+    if q.dtype == torch.bfloat16:
+        BF16_BWD_LAUNCHES += 1
+    else:
+        BWD_LAUNCHES += 1
     return dq, dk, dv
 
 

@@ -2,9 +2,16 @@
 forward, loss, backward, optimizer and schedule step, gradient norm and
 batch statistics, on one device.
 
-Only ``precision="32-true"`` is ported; ``"bf16-mixed"`` needs bf16
-variants of the attention kernels and raises ``NotImplementedError``. The
-step reads nothing back from the device: metrics stay device tensors
+Precisions as the JAX trainer has them: ``"32-true"`` (or ``"32"``), and the
+mixed ones (``"bf16-mixed"``, ``"16-mixed"``, ``"bf16"``, ``"16"``, all
+bf16 compute). Mixed precision is a cast, not autocast: the step runs the
+policy on bf16 copies of every floating parameter and batch array, keeps
+the batch-norm running statistics f32, takes the loss in f32 and gets f32
+gradients for the f32 master parameters, which the f32 optimizer updates
+(``trainer.py:249-268``). Under autocast, LayerNorm, softmax and reductions
+would stay f32 where JAX rounds to bf16, and elementwise ops would keep
+whatever type reaches them. The step reads nothing back from the device:
+metrics stay device tensors
 (``module.train_metrics`` accumulates them there), the oneshot kernel's
 dropout seeds come from a CPU generator, and the batch should already be on
 the device (a host batch is copied, which waits for the device). DDP,
@@ -29,7 +36,8 @@ class Trainer:
     """Drives ``BCModule`` training steps.
 
     Args:
-        precision: ``"32-true"``; the mixed precisions raise.
+        precision: ``"32-true"``/``"32"`` or a mixed precision (bf16
+            compute over f32 parameters).
         device: where the step runs (default: the module's device).
         seed: seeds the module's random streams (``BCModule.make_rngs``).
         gradient_clip_val: global-norm clip of the gradients, if set.
@@ -39,13 +47,10 @@ class Trainer:
                  device: Union[str, torch.device, None] = None, seed: int = 0,
                  gradient_clip_val: float | None = None):
         precision = str(precision)
-        if precision in _MIXED:
-            raise NotImplementedError(
-                f"precision={precision!r}: the bf16 attention kernels are not "
-                f"ported yet; only '32-true' is")
-        if precision not in ("32-true", "32"):
+        if precision not in _MIXED + ("32-true", "32"):
             raise ValueError(f"unknown precision {precision!r}")
         self.precision = precision
+        self.compute_dtype = torch.bfloat16 if precision in _MIXED else None
         self.device = None if device is None else torch.device(device)
         self.seed = seed
         self.gradient_clip_val = gradient_clip_val
@@ -69,8 +74,8 @@ class Trainer:
             self.setup(module, total_steps=1)
         params = [p for p in module.policy.parameters() if p.requires_grad]
         module.optimizer.zero_grad(set_to_none=False)
-        out = module.forward_train(batch, self.rngs)
-        out["loss"].backward()
+        out = module.forward_train(batch, self.rngs, self.compute_dtype)
+        out["loss"].to(torch.float32).backward()
         for p in params:
             # parameters off the path (the decoder's dead layers) get zero
             # gradients, as under jax.grad, so weight decay still reaches them

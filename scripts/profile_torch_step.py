@@ -2,9 +2,13 @@
 """Where the time of the port's flagship training step goes, on one GPU.
 
     python3 scripts/profile_torch_step.py [--batch 32] [--points 10240]
+        [--precision 32-true|bf16-mixed] [--freeze-backbone]
 
-Builds the flagship of ``chip_smoke.py`` phase 5 (dropout 0.1, AdamW +
-OneCycleLR over 10,000 steps, ``"32-true"``) and, after two warm-up steps:
+Builds the flagship of ``chip_smoke.py`` phases 5 and 6 (dropout 0.1,
+AdamW + OneCycleLR over 10,000 steps, ``"32-true"`` unless
+``--precision`` says otherwise; ``--freeze-backbone`` for the variant whose
+token builder takes the data-source kernels under bf16) and, after two
+warm-up steps:
 
 1. times forward, backward and the rest of the step (gradient norm, AdamW,
    schedule) with CUDA events over ``--steps`` steps, and the whole step by
@@ -52,6 +56,8 @@ def main() -> int:
     parser.add_argument("--steps", type=int, default=3, help="steps timed by events")
     parser.add_argument("--traced", type=int, default=2, help="steps traced")
     parser.add_argument("--top", type=int, default=40, help="ops listed")
+    parser.add_argument("--precision", default="32-true")
+    parser.add_argument("--freeze-backbone", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_step: no CUDA device", file=sys.stderr)
@@ -61,10 +67,11 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     _build.build()
-    module = BCModule(build_flagship(seed=0, dropout=chip_smoke.ATTN_DROPOUT, device=dev),
+    module = BCModule(build_flagship(seed=0, dropout=chip_smoke.ATTN_DROPOUT, device=dev,
+                                     freeze_backbone=args.freeze_backbone),
                       optimizer=chip_smoke.FLAGSHIP_OPT,
                       lr_scheduler=chip_smoke.FLAGSHIP_SCHED)
-    trainer = Trainer(precision="32-true", device=dev, seed=0)
+    trainer = Trainer(precision=args.precision, device=dev, seed=0)
     trainer.setup(module, chip_smoke.TOTAL_STEPS)
     batch = to_device(build_batch(batch_size=args.batch, n_points=args.points, seed=0), dev)
     for _ in range(2):
@@ -80,9 +87,9 @@ def main() -> int:
         t0 = time.perf_counter()
         events[0].record()
         module.optimizer.zero_grad(set_to_none=False)
-        out = module.forward_train(batch, trainer.rngs)
+        out = module.forward_train(batch, trainer.rngs, trainer.compute_dtype)
         events[1].record()
-        out["loss"].backward()
+        out["loss"].to(torch.float32).backward()
         events[2].record()
         for p in params:
             if p.grad is None:
@@ -95,7 +102,8 @@ def main() -> int:
         walls.append((time.perf_counter() - t0) * 1e3)
         for name, a, b in zip(phases, events[:-1], events[1:]):
             phases[name].append(a.elapsed_time(b))
-    print(f"B={args.batch} N={args.points}: step ms (host clock) "
+    print(f"B={args.batch} N={args.points} {args.precision}"
+          f"{' frozen backbone' if args.freeze_backbone else ''}: step ms (host clock) "
           f"{[round(w, 3) for w in walls]}", flush=True)
     for name, ms in phases.items():
         print(f"  {name:20s} ms (CUDA events) {[round(t, 3) for t in ms]}", flush=True)

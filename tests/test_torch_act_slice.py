@@ -186,7 +186,7 @@ def test_actpcd_predict(npoints, n_points):
     ref = np.asarray(JBCModule(policy).predict(
         variables, jax.tree.map(jnp.asarray, obs)))
 
-    module = BCModule(tentry.build_flagship(**dims))
+    module = BCModule(tentry.build_flagship(**dims, device="cpu"))
     module.load_variables(variables)
     got = module.predict(obs)
     assert got.shape == (2, 5, 7)
@@ -238,7 +238,7 @@ def test_full_width_state_dict():
     n_jax = sum(int(np.prod(p.shape)) for p in jax.tree.leaves(variables["params"]))
     assert n_jax == FLAGSHIP_PARAMS
 
-    model = tentry.build_flagship()
+    model = tentry.build_flagship(device="cpu")
     target = model.state_dict()
     state = flax_to_torch(variables, target)
     assert set(state) == set(target)

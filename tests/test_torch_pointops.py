@@ -93,8 +93,9 @@ def test_cpu_tensors_launch_no_kernel():
     idx = tpo.farthest_point_sampling_padded(x, m, 8)
     new_xyz = torch.gather(x, 1, idx.long()[..., None].expand(-1, -1, 3))
     tpo.knn_query_padded(new_xyz, x, m, 4)
-    assert tops.launch_counts() == {"fps": 0, "knn": 0, "attention_fwd": 0,
-                                    "attention_bwd": 0}
+    counts = tops.launch_counts()
+    assert {"fps", "knn", "attention_fwd", "attention_bwd"} <= set(counts)
+    assert not any(counts.values()), counts
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -1,8 +1,9 @@
 """The port runs without JAX: with ``jax`` and ``flax`` blocked from import,
 the package and every module of the serving and training slices import, a
-tiny ``predict`` and a tiny training step run, and nothing of the JAX
-package (``pointcloudmatters_tpu``) was imported (the GPU machine has no
-JAX)."""
+tiny ``predict``, a tiny f32 training step and tiny ``"bf16-mixed"`` steps
+of the frozen-backbone and ``pre_sample`` variants run, and nothing of the
+JAX package (``pointcloudmatters_tpu``) was imported (the GPU machine has
+no JAX)."""
 
 import subprocess
 import sys
@@ -20,6 +21,7 @@ SLICE_MODULES = (
     "pointcloudmatters_tpu_torch.ops.fps",
     "pointcloudmatters_tpu_torch.ops.knn",
     "pointcloudmatters_tpu_torch.ops.oneshot_attention",
+    "pointcloudmatters_tpu_torch.ops.fused_builder",
     "pointcloudmatters_tpu_torch.ops.attention",
     "pointcloudmatters_tpu_torch.models.components.nn_utils",
     "pointcloudmatters_tpu_torch.models.components.pcd_encoder.pointnet",
@@ -48,7 +50,7 @@ def test_port_imports_and_predicts_without_jax():
         from pointcloudmatters_tpu_torch.models.bc_module import BCModule
         module = BCModule(build_flagship(hidden_dim=32, npoints=8, nsample=4,
                                          chunk=5, enc_layers=1, dec_layers=2,
-                                         nhead=4))
+                                         nhead=4, device="cpu"))
         a_hat = module.predict(build_batch(batch_size=1, n_points=64, chunk=5,
                                            with_actions=False))
         assert tuple(a_hat.shape) == (1, 5, 7), a_hat.shape
@@ -56,6 +58,13 @@ def test_port_imports_and_predicts_without_jax():
         metrics = Trainer(seed=0).train_step(
             module, build_batch(batch_size=2, n_points=64, chunk=5))
         assert bool(metrics["loss"].isfinite()), metrics
+        for variant in ({{"freeze_backbone": True}}, {{"pre_sample": True}}):
+            module = BCModule(build_flagship(hidden_dim=32, npoints=8, nsample=4,
+                                             chunk=5, enc_layers=1, dec_layers=2,
+                                             nhead=4, device="cpu", **variant))
+            metrics = Trainer(precision="bf16-mixed", seed=0).train_step(
+                module, build_batch(batch_size=2, n_points=64, chunk=5))
+            assert bool(metrics["loss"].isfinite()), (variant, metrics)
         assert not [m for m in sys.modules if m.split(".")[0] in
                     ("jax", "flax", "pointcloudmatters_tpu")
                     and sys.modules[m] is not None]

@@ -241,9 +241,10 @@ def test_unported_training_options_raise():
     for kind in ("CosineAnnealingLR", "MultiStepLR", "PolyLR"):
         with pytest.raises(NotImplementedError):
             build_scheduler(opt, {"type": kind}, 10)
-    for precision in ("bf16-mixed", "16-mixed"):
-        with pytest.raises(NotImplementedError):
-            Trainer(precision=precision)
+    for precision in ("bf16-mixed", "16-mixed"):  # ported: bf16 compute
+        assert Trainer(precision=precision).compute_dtype == torch.bfloat16
+    with pytest.raises(ValueError):
+        Trainer(precision="64-true")
     with pytest.raises(NotImplementedError):
         BCModule(torch.nn.Linear(2, 2), param_dicts=[{"keyword": "w"}])
     with pytest.raises(NotImplementedError):
@@ -351,8 +352,8 @@ def test_train_step_matches_jax(monkeypatch, tmp_path):
         state, metrics = step(state, jbatch)
         jlosses.append(float(metrics["loss"]))
 
-    module = BCModule(tentry.build_flagship(**DIMS, dropout=0.0), optimizer=OPT,
-                      lr_scheduler=SCHED)
+    module = BCModule(tentry.build_flagship(**DIMS, dropout=0.0, device="cpu"),
+                      optimizer=OPT, lr_scheduler=SCHED)
     module.load_variables(variables)
     trainer = Trainer(precision="32-true", seed=0)
     trainer.setup(module, TOTAL_STEPS)

@@ -10,8 +10,10 @@ unless given (tests build it at 0). It is built on the card unless the
 caller asks for another device. ``freeze_backbone`` trains the ACT head over
 a fixed PointNet (a model field users set by override; its token builder
 takes the data-source kernels under bf16), ``pre_sample`` is the
-``scratch_pointnet_pcd_presample`` variant. ``build_batch()`` is the same
-numpy batch the JAX entry builds from the same seed.
+``scratch_pointnet_pcd_presample`` variant, and ``attention_impl`` the
+encoder's attention backend (``model.policy.transformer.attention_impl``:
+``"oneshot"`` as shipped, or ``"fused"`` or ``"dense"``). ``build_batch()``
+is the same numpy batch the JAX entry builds from the same seed.
 """
 
 from __future__ import annotations
@@ -93,6 +95,7 @@ def build_flagship(hidden_dim=512, npoints=2048, nsample=16, chunk=100,
                    enc_layers=4, dec_layers=7, ffn=32, action_dim=7,
                    qpos_dim=9, goal_dim=3, nhead=8, seed=0, dropout=0.1,
                    freeze_backbone=False, pre_sample=False,
+                   attention_impl="oneshot",
                    device: Union[str, torch.device] = "cuda") -> ACTPCD:
     """ACTPCD + PointNet, weights from ``torch.Generator().manual_seed(seed)``,
     on ``device`` in eval mode; ``dropout`` is the transformers' rate.
@@ -107,7 +110,7 @@ def build_flagship(hidden_dim=512, npoints=2048, nsample=16, chunk=100,
             d_model=hidden_dim, nhead=nhead, num_encoder_layers=enc_layers,
             num_decoder_layers=dec_layers, dim_feedforward=ffn, dropout=dropout,
             normalize_before=False, return_intermediate_dec=True,
-            attention_impl="oneshot",
+            attention_impl=attention_impl,
         ),
         encoder=TransformerEncoder(
             d_model=hidden_dim, nhead=8, dim_feedforward=ffn,

@@ -6,8 +6,9 @@
   ``normalize_before``.
 - Attention modules keep flax ``MultiHeadDotProductAttention``'s
   ``query``/``key``/``value``/``out`` projections, each a ``Linear(D, D)``.
-- The encoder self-attention runs the oneshot core (``ops/attention.py``);
-  the decoder's attentions are dense, as in JAX.
+- The encoder self-attention runs the oneshot core (``ops/attention.py``),
+  or with ``attention_impl="fused"`` :class:`FusedSelfAttention`; the
+  decoder's attentions are dense, as in JAX.
 - The decoder holds all ``num_layers`` layers, so a converted checkpoint maps
   one to one, but with ``return_intermediate`` computes only the first
   ``live_layers`` (ACT reads ``hs[0]``), in training too.
@@ -16,8 +17,8 @@
   random streams: ``"dropout"`` (a generator on the tokens' device) and
   ``"seed"`` (a CPU generator seeding the oneshot kernel's mask).
 
-The ``flash`` and ``fused`` attention backends are not ported yet (their
-kernels are on ROADMAP.md's list) and raise ``NotImplementedError``.
+The ``flash`` attention backend is not ported yet (its kernels are on
+ROADMAP.md's list) and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,9 +37,11 @@ from pointcloudmatters_tpu_torch.ops.attention import (
     dot_product_attention,
     make_oneshot_attention_fn,
 )
+from pointcloudmatters_tpu_torch.ops.fused_mha import fused_mha
 
 __all__ = [
     "MultiHeadAttention",
+    "FusedSelfAttention",
     "TransformerEncoderLayer",
     "TransformerDecoderLayer",
     "TransformerEncoder",
@@ -50,17 +53,18 @@ _ATTENTION_IMPLS = ("dense", "flash", "oneshot", "fused")
 
 
 def _attention_fn(impl: str):
-    """The attention core of backend ``impl``."""
+    """The attention core of backend ``impl``; ``"fused"`` routes what its
+    one-kernel layer does not take to the oneshot core, as in JAX."""
     if impl not in _ATTENTION_IMPLS:
         raise ValueError(
             f"attention_impl must be one of {_ATTENTION_IMPLS}, got {impl!r}"
         )
-    if impl in ("flash", "fused"):
+    if impl == "flash":
         raise NotImplementedError(
-            f"attention_impl={impl!r}: its CUDA kernels are not ported yet "
-            f"(see ROADMAP.md); use 'oneshot' or 'dense'"
+            "attention_impl='flash': its CUDA kernels are not ported yet "
+            "(see ROADMAP.md); use 'oneshot', 'fused' or 'dense'"
         )
-    return make_oneshot_attention_fn() if impl == "oneshot" else dot_product_attention
+    return dot_product_attention if impl == "dense" else make_oneshot_attention_fn()
 
 
 def _attention_mask(key_padding_mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -108,13 +112,46 @@ class MultiHeadAttention(nn.Module):
         return self.out(o.reshape(B, Lq, D))
 
 
+class FusedSelfAttention(MultiHeadAttention):
+    """The ``attention_impl="fused"`` encoder self-attention (JAX
+    ``transformer.py:156-258``), with MultiHeadAttention's parameters.
+
+    Routed as in JAX, by the same gate on every device: no mask, at least
+    ``min_seq_len`` tokens, no dropout and the key input the query input
+    itself -> the whole layer in one op, :func:`ops.fused_mha.fused_mha`
+    (kernels 7 and 8 on the card); otherwise :class:`MultiHeadAttention`'s
+    projections around the oneshot core (no mask, long rows: dropout
+    included) or the dense math."""
+
+    min_seq_len = 512
+
+    def __init__(self, d_model: int, nhead: int, dropout_rate: float = 0.0):
+        super().__init__(d_model, nhead, dropout_rate, "fused")
+
+    def forward(self, inputs_q: torch.Tensor, inputs_k: torch.Tensor,
+                inputs_v: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                rngs: Optional[Mapping] = None) -> torch.Tensor:
+        use_dropout = self.dropout_rate > 0.0 and not deterministic
+        if (mask is None and inputs_q.shape[1] >= self.min_seq_len
+                and not use_dropout and inputs_k is inputs_q):
+            dt = inputs_q.dtype
+            layers = (self.query, self.key, self.value, self.out)
+            params = [t.to(dt) for lin in layers for t in (lin.weight.t(), lin.bias)]
+            return fused_mha(inputs_q, inputs_v, *params, self.nhead)
+        return super().forward(inputs_q, inputs_k, inputs_v, mask, deterministic, rngs)
+
+
 class TransformerEncoderLayer(nn.Module):
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
                  dropout: float = 0.1, activation: str = "relu",
                  normalize_before: bool = False, attention_impl: str = "oneshot"):
         super().__init__()
         self.normalize_before = normalize_before
-        self.self_attn = MultiHeadAttention(d_model, nhead, dropout, attention_impl)
+        if attention_impl == "fused":
+            self.self_attn = FusedSelfAttention(d_model, nhead, dropout)
+        else:
+            self.self_attn = MultiHeadAttention(d_model, nhead, dropout, attention_impl)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)

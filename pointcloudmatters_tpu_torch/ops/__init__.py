@@ -9,15 +9,23 @@ its plain PyTorch version.
 | ``oneshot_attention.py`` ``_bwd_kernel`` | ``attention_bwd.cu`` | ``ops/oneshot_attention.py`` |
 | ``fused_builder.py`` ``_fwd_kernel`` | ``fused_builder.cu`` ``builder_fwd_kernel`` | ``ops/fused_builder.py`` |
 | ``fused_builder.py`` ``_routed_kernel`` | ``fused_builder.cu`` ``routed_dw_kernel`` | ``ops/fused_builder.py`` |
+| ``fused_mha.py`` ``_fwd_kernel`` | ``fused_mha.cu`` ``pcm_fused_mha_fwd`` (with ``attention_fwd.cuh``) | ``ops/fused_mha.py`` |
+| ``fused_mha.py`` ``_bwd_kernel`` | ``fused_mha.cu`` ``pcm_fused_mha_bwd`` | ``ops/fused_mha.py`` |
 
 Each wrapper counts its launches in a module-level counter (the attention
-wrappers one for each element type);
+and fused-layer wrappers one for each element type);
 :func:`launch_counts` reads them and :func:`reset_launch_counts` zeroes them.
 """
 
 from __future__ import annotations
 
-from pointcloudmatters_tpu_torch.ops import fps, fused_builder, knn, oneshot_attention
+from pointcloudmatters_tpu_torch.ops import (
+    fps,
+    fused_builder,
+    fused_mha,
+    knn,
+    oneshot_attention,
+)
 
 __all__ = ["launch_counts", "reset_launch_counts"]
 
@@ -31,6 +39,10 @@ _COUNTED = {
     "attention_bwd_bf16": (oneshot_attention, "BF16_BWD_LAUNCHES"),
     "builder_fwd": (fused_builder, "LAUNCHES"),
     "routed_dw": (fused_builder, "ROUTED_LAUNCHES"),
+    "fused_mha_fwd": (fused_mha, "LAUNCHES"),
+    "fused_mha_bwd": (fused_mha, "BWD_LAUNCHES"),
+    "fused_mha_fwd_bf16": (fused_mha, "BF16_LAUNCHES"),
+    "fused_mha_bwd_bf16": (fused_mha, "BF16_BWD_LAUNCHES"),
 }
 
 

@@ -3,19 +3,22 @@
 
     python3 scripts/profile_torch_step.py [--batch 32] [--points 10240]
         [--precision 32-true|bf16-mixed] [--freeze-backbone]
+        [--attention-impl oneshot|fused] [--dropout 0.1]
 
-Builds the flagship of ``chip_smoke.py`` phases 5 and 6 (dropout 0.1,
-AdamW + OneCycleLR over 10,000 steps, ``"32-true"`` unless
-``--precision`` says otherwise; ``--freeze-backbone`` for the variant whose
-token builder takes the data-source kernels under bf16) and, after two
-warm-up steps:
+Builds the flagship of ``chip_smoke.py`` phases 5-7 (dropout 0.1 unless
+``--dropout`` says otherwise, AdamW + OneCycleLR over 10,000 steps,
+``"32-true"`` unless ``--precision`` says otherwise; ``--freeze-backbone``
+for the variant whose token builder takes the data-source kernels under
+bf16; ``--attention-impl fused`` for the encoder whose layers run kernels 7
+and 8 at dropout 0) and, after two warm-up steps:
 
 1. times forward, backward and the rest of the step (gradient norm, AdamW,
    schedule) with CUDA events over ``--steps`` steps, and the whole step by
    the host clock to ``torch.cuda.synchronize()``;
 2. traces ``--traced`` steps with ``torch.profiler`` and prints device time
    a step by op and by kernel (the attention backward shows as its three kernels:
-   the ``D = rowsum(dO * O)`` pre-pass, dK/dV and dQ), the busy share of
+   the ``D = rowsum(dO * O)`` pre-pass, dK/dV and dQ; the fused layer as its
+   GEMM, attention and reduction kernels), the busy share of
    the kernel span (one minus the device's idle share) and the peak device
    memory.
 
@@ -58,6 +61,8 @@ def main() -> int:
     parser.add_argument("--top", type=int, default=40, help="ops listed")
     parser.add_argument("--precision", default="32-true")
     parser.add_argument("--freeze-backbone", action="store_true")
+    parser.add_argument("--attention-impl", default="oneshot", choices=("oneshot", "fused"))
+    parser.add_argument("--dropout", type=float, default=chip_smoke.ATTN_DROPOUT)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_step: no CUDA device", file=sys.stderr)
@@ -67,8 +72,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     _build.build()
-    module = BCModule(build_flagship(seed=0, dropout=chip_smoke.ATTN_DROPOUT, device=dev,
-                                     freeze_backbone=args.freeze_backbone),
+    module = BCModule(build_flagship(seed=0, dropout=args.dropout, device=dev,
+                                     freeze_backbone=args.freeze_backbone,
+                                     attention_impl=args.attention_impl),
                       optimizer=chip_smoke.FLAGSHIP_OPT,
                       lr_scheduler=chip_smoke.FLAGSHIP_SCHED)
     trainer = Trainer(precision=args.precision, device=dev, seed=0)
@@ -103,7 +109,8 @@ def main() -> int:
         for name, a, b in zip(phases, events[:-1], events[1:]):
             phases[name].append(a.elapsed_time(b))
     print(f"B={args.batch} N={args.points} {args.precision}"
-          f"{' frozen backbone' if args.freeze_backbone else ''}: step ms (host clock) "
+          f"{' frozen backbone' if args.freeze_backbone else ''} {args.attention_impl} "
+          f"dropout {args.dropout}: step ms (host clock) "
           f"{[round(w, 3) for w in walls]}", flush=True)
     for name, ms in phases.items():
         print(f"  {name:20s} ms (CUDA events) {[round(t, 3) for t in ms]}", flush=True)

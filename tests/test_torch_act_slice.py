@@ -42,6 +42,29 @@ ATOL = 1e-5
 FLAGSHIP_PARAMS = 24_124_456
 
 
+@pytest.fixture(autouse=True)
+def threefry_prng():
+    """The JAX side draws from JAX's default generator, threefry, whatever
+    ran before in the process: a JAX ``Trainer`` built with its default
+    ``prng_impl="rbg"`` (``tests/test_rlbench.py`` builds one) switches the
+    process-wide default, which would initialise other JAX weights than the
+    ones the port tests' limits were measured on. Test files that import it
+    get it too."""
+    with jax.default_prng_impl("threefry2x32"):
+        yield
+
+
+def test_jax_side_draws_threefry_whatever_ran_before():
+    """Under ``threefry_prng`` a key is threefry's even after something in
+    the process made ``rbg`` the default (a 4-word key)."""
+    before = jax.config.jax_default_prng_impl
+    jax.config.update("jax_default_prng_impl", "rbg")
+    try:
+        assert jax.random.PRNGKey(0).shape == (2,)
+    finally:
+        jax.config.update("jax_default_prng_impl", before)
+
+
 def _randomize(variables, seed):
     """Random biases, norm scales (either sign), means and positive
     variances; kernels and embeddings keep their initialisation."""
@@ -262,8 +285,14 @@ def test_converter_refuses_unmapped_and_missing():
 
 
 def test_unported_backends_raise():
-    for impl in ("flash", "fused"):
-        with pytest.raises(NotImplementedError):
-            ttr.TransformerEncoderLayer(32, 4, attention_impl=impl)
+    """``flash`` is not ported and raises; ``fused`` (ported) builds its
+    self-attention in the encoder and stays rejected by the decoder, as in
+    JAX; a typo raises."""
+    with pytest.raises(NotImplementedError):
+        ttr.TransformerEncoderLayer(32, 4, attention_impl="flash")
+    layer = ttr.TransformerEncoderLayer(32, 4, attention_impl="fused")
+    assert isinstance(layer.self_attn, ttr.FusedSelfAttention)
+    with pytest.raises(ValueError):
+        ttr.TransformerDecoderLayer(32, 4, attention_impl="fused")
     with pytest.raises(ValueError):
         ttr.TransformerEncoderLayer(32, 4, attention_impl="flashh")

@@ -59,7 +59,7 @@ from pointcloudmatters_tpu_torch.models.components.act import act as tact
 from pointcloudmatters_tpu_torch.ops import oneshot_attention as tone
 from pointcloudmatters_tpu_torch.trainer import Trainer
 from pointcloudmatters_tpu_torch.utils.flax_to_torch import flax_to_torch
-from test_torch_act_slice import _randomize
+from test_torch_act_slice import _randomize, threefry_prng  # noqa: F401
 
 BF16 = torch.bfloat16
 DIMS = dict(hidden_dim=32, npoints=16, nsample=4, chunk=5, enc_layers=1,

@@ -1,9 +1,10 @@
 """The port runs without JAX: with ``jax`` and ``flax`` blocked from import,
 the package and every module of the serving and training slices import, a
-tiny ``predict``, a tiny f32 training step and tiny ``"bf16-mixed"`` steps
-of the frozen-backbone and ``pre_sample`` variants run, and nothing of the
-JAX package (``pointcloudmatters_tpu``) was imported (the GPU machine has
-no JAX)."""
+tiny ``predict``, a tiny f32 training step, tiny ``"bf16-mixed"`` steps
+of the frozen-backbone and ``pre_sample`` variants, and a tiny ``predict``
+and dropout-0 step of the ``attention_impl="fused"`` encoder through its
+fused op run, and nothing of the JAX package (``pointcloudmatters_tpu``)
+was imported (the GPU machine has no JAX)."""
 
 import subprocess
 import sys
@@ -22,6 +23,7 @@ SLICE_MODULES = (
     "pointcloudmatters_tpu_torch.ops.knn",
     "pointcloudmatters_tpu_torch.ops.oneshot_attention",
     "pointcloudmatters_tpu_torch.ops.fused_builder",
+    "pointcloudmatters_tpu_torch.ops.fused_mha",
     "pointcloudmatters_tpu_torch.ops.attention",
     "pointcloudmatters_tpu_torch.models.components.nn_utils",
     "pointcloudmatters_tpu_torch.models.components.pcd_encoder.pointnet",
@@ -65,6 +67,19 @@ def test_port_imports_and_predicts_without_jax():
             metrics = Trainer(precision="bf16-mixed", seed=0).train_step(
                 module, build_batch(batch_size=2, n_points=64, chunk=5))
             assert bool(metrics["loss"].isfinite()), (variant, metrics)
+        from pointcloudmatters_tpu_torch.models.components.act import transformer
+        calls, op = [], transformer.fused_mha
+        transformer.fused_mha = lambda *a: calls.append(1) or op(*a)
+        module = BCModule(build_flagship(hidden_dim=32, npoints=512, nsample=4,
+                                         chunk=5, enc_layers=1, dec_layers=2,
+                                         nhead=4, dropout=0.0, attention_impl="fused",
+                                         device="cpu"))
+        a_hat = module.predict(build_batch(batch_size=1, n_points=600, chunk=5,
+                                           with_actions=False))
+        assert tuple(a_hat.shape) == (1, 5, 7) and len(calls) == 1, calls
+        metrics = Trainer(precision="bf16-mixed", seed=0).train_step(
+            module, build_batch(batch_size=2, n_points=600, chunk=5))
+        assert bool(metrics["loss"].isfinite()) and len(calls) == 2, (calls, metrics)
         assert not [m for m in sys.modules if m.split(".")[0] in
                     ("jax", "flax", "pointcloudmatters_tpu")
                     and sys.modules[m] is not None]

@@ -43,7 +43,7 @@ from pointcloudmatters_tpu_torch.utils.flax_to_torch import flax_to_torch
 from pointcloudmatters_tpu_torch.utils.metrics import MeanMetric, Metrics
 from pointcloudmatters_tpu_torch.utils.optimizer import build_optimizer
 from pointcloudmatters_tpu_torch.utils.scheduler import build_scheduler
-from test_torch_act_slice import _randomize
+from test_torch_act_slice import _randomize, threefry_prng  # noqa: F401
 
 ATOL = 1e-5
 

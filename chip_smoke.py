@@ -29,7 +29,14 @@ Phases, each of which raises on failure (exit code non-zero, no result):
    attention layer (kernels 7 and 8) at B=4, L=2051, D=512, H=8, f32 and
    bf16, rates 0 and 0.1: the output and each of the ten gradients within
    BF16_TOL * max(1, max |plain|), two launches of each bit-identical; and
-   once at dh=128. Each attention shape is also timed through
+   once at dh=128. Flash attention (kernels 9, 10 and 11) at B=4, H=8,
+   L=2051, dh=64 with the adapter's 512-row tiles, f32 and bf16, rates 0
+   and 0.1; a causal case with a bias (its gradient ds), a masked key tail,
+   a batch row whose keys are all masked and Lq != Lk; dh=128: o and every
+   gradient within 1e-4 * max(1, max |plain|) in f32 and BF16_TOL in bf16,
+   l and m within 1e-5 relative, two launches of each bit-identical, the
+   mask read back bit for bit and the same for every batch item and head.
+   Each attention shape is also timed through
    ``torch.nn.functional.scaled_dot_product_attention`` at rate 0 (forward,
    and forward + backward), and the fused layer through
    ``torch.nn.functional.multi_head_attention_forward``: the library
@@ -43,7 +50,11 @@ Phases, each of which raises on failure (exit code non-zero, no result):
    small policy on the card matches itself on the CPU (1e-4). Then the same for the flagship with ``attention_impl="fused"``:
    kernel 7 launched and kernel 3 not, the B=32 answer and a small fused
    policy (515 tokens, dh=64) within 1e-2 * max(1, max |ref|) (the fused
-   layer's bf16 roundings, whose flips carry through the network).
+   layer's bf16 roundings, whose flips carry through the network). Then
+   with ``attention_impl="flash"``: kernel 9 once in every encoder layer of
+   every request and no other attention kernel, the B=32 answer within
+   1e-3 of the plain versions, a small flash policy (1027 tokens, dh=64)
+   within 1e-4 of the CPU.
 5. Trains the flagship ("32-true", dropout 0.1, AdamW + OneCycleLR of
    ``configs/model/maniskill2_act_pcd_model.yaml``, 10,000 total steps) at
    B=32, N=10240: one warm-up step, then 5 steps under
@@ -69,6 +80,13 @@ Phases, each of which raises on failure (exit code non-zero, no result):
    kernel against every plain version (BF16_STEP_TOL), and a B=4 step at
    dropout 0.1, which the fused backend routes to the bf16 oneshot kernels
    (and no fused kernel), as JAX does.
+8. Trains the flagship with ``attention_impl="flash"`` at the shipped
+   dropout 0.1, at ``"32-true"`` and at ``"bf16-mixed"``, as phase 5 times
+   it: kernels 9, 10 and 11 of the step's type once in every encoder layer
+   of every step, and no other attention kernel; then a B=4 step of each
+   type with every kernel against every plain version from the same
+   generators (f32 FLASH_F32_STEP_TOL, bf16 BF16_STEP_TOL). Flash kernels
+   launched on any other path fail the run.
 
 Prints a JSON line of the kernels (route, source, the TPU kernel each
 replaces, launches on each path, error, kernel, plain and library times,
@@ -77,7 +95,9 @@ the peak of the inputs' type, 67 TFLOP/s f32 or 989 TFLOP/s bf16; one
 ``attention_bwd`` launch is one call of the three-kernel backward: the
 ``rowsum(dO * O)`` pre-pass, dK/dV and dQ, timed together, and its library
 time is the library's forward + backward less its forward; a fused layer's
-bound sums its products' times at their operands' peaks), then
+bound sums its products' times at their operands' peaks; flash kernels 10
+and 11 are timed apart, and the library's backward stands on kernel 10's
+row, against the two together), then
 as its last line ``{"ok": true, "device": {...}}``. Times are CUDA-event or
 synchronised host-clock milliseconds on the card named above.
 """
@@ -105,31 +125,29 @@ FLAGSHIP_SCHED = {"scheduler": {"type": "OneCycleLR", "max_lr": 5e-5, "pct_start
 TOTAL_STEPS = 10_000
 SMALL = dict(hidden_dim=32, npoints=64, nsample=4, chunk=5, enc_layers=2,
              dec_layers=3, nhead=4)
+# name -> (source, the TPU function that reaches pl.pallas_call), as PERF.md
+# section 6 names it
+_OPS = "pointcloudmatters_tpu/ops/"
+_CSRC = "pointcloudmatters_tpu_torch/csrc/"
 KERNELS = {
-    "fps": ("pointcloudmatters_tpu_torch/csrc/fps.cu",
-            "pointcloudmatters_tpu/ops/pallas_fps.py:30"),
-    "knn": ("pointcloudmatters_tpu_torch/csrc/knn.cu",
-            "pointcloudmatters_tpu/ops/pallas_knn3.py:46"),
-    "attention_fwd": ("pointcloudmatters_tpu_torch/csrc/attention_fwd.cu",
-                      "pointcloudmatters_tpu/ops/oneshot_attention.py:68"),
-    "attention_bwd": ("pointcloudmatters_tpu_torch/csrc/attention_bwd.cu",
-                      "pointcloudmatters_tpu/ops/oneshot_attention.py:97"),
-    "attention_fwd_bf16": ("pointcloudmatters_tpu_torch/csrc/attention_fwd.cu",
-                           "pointcloudmatters_tpu/ops/oneshot_attention.py:68"),
-    "attention_bwd_bf16": ("pointcloudmatters_tpu_torch/csrc/attention_bwd.cu",
-                           "pointcloudmatters_tpu/ops/oneshot_attention.py:97"),
-    "builder_fwd": ("pointcloudmatters_tpu_torch/csrc/fused_builder.cu",
-                    "pointcloudmatters_tpu/ops/fused_builder.py:115"),
-    "routed_dw": ("pointcloudmatters_tpu_torch/csrc/fused_builder.cu",
-                  "pointcloudmatters_tpu/ops/fused_builder.py:339"),
-    "fused_mha_fwd": ("pointcloudmatters_tpu_torch/csrc/fused_mha.cu",
-                      "pointcloudmatters_tpu/ops/fused_mha.py:154"),
-    "fused_mha_bwd": ("pointcloudmatters_tpu_torch/csrc/fused_mha.cu",
-                      "pointcloudmatters_tpu/ops/fused_mha.py:406"),
-    "fused_mha_fwd_bf16": ("pointcloudmatters_tpu_torch/csrc/fused_mha.cu",
-                           "pointcloudmatters_tpu/ops/fused_mha.py:154"),
-    "fused_mha_bwd_bf16": ("pointcloudmatters_tpu_torch/csrc/fused_mha.cu",
-                           "pointcloudmatters_tpu/ops/fused_mha.py:406"),
+    "fps": (_CSRC + "fps.cu", _OPS + "pallas_fps.py:74"),
+    "knn": (_CSRC + "knn.cu", _OPS + "pallas_knn3.py:105"),
+    "attention_fwd": (_CSRC + "attention_fwd.cu", _OPS + "oneshot_attention.py:203"),
+    "attention_bwd": (_CSRC + "attention_bwd.cu", _OPS + "oneshot_attention.py:233"),
+    "attention_fwd_bf16": (_CSRC + "attention_fwd.cu", _OPS + "oneshot_attention.py:203"),
+    "attention_bwd_bf16": (_CSRC + "attention_bwd.cu", _OPS + "oneshot_attention.py:233"),
+    "builder_fwd": (_CSRC + "fused_builder.cu", _OPS + "fused_builder.py:226"),
+    "routed_dw": (_CSRC + "fused_builder.cu", _OPS + "fused_builder.py:361"),
+    "fused_mha_fwd": (_CSRC + "fused_mha.cu", _OPS + "fused_mha.py:154"),
+    "fused_mha_bwd": (_CSRC + "fused_mha.cu", _OPS + "fused_mha.py:406"),
+    "fused_mha_fwd_bf16": (_CSRC + "fused_mha.cu", _OPS + "fused_mha.py:154"),
+    "fused_mha_bwd_bf16": (_CSRC + "fused_mha.cu", _OPS + "fused_mha.py:406"),
+    "flash_fwd": (_CSRC + "flash_attention.cu", _OPS + "flash_attention.py:697"),
+    "flash_dkv": (_CSRC + "flash_attention.cu", _OPS + "flash_attention.py:1068"),
+    "flash_dq": (_CSRC + "flash_attention.cu", _OPS + "flash_attention.py:1427"),
+    "flash_fwd_bf16": (_CSRC + "flash_attention.cu", _OPS + "flash_attention.py:697"),
+    "flash_dkv_bf16": (_CSRC + "flash_attention.cu", _OPS + "flash_attention.py:1068"),
+    "flash_dq_bf16": (_CSRC + "flash_attention.cu", _OPS + "flash_attention.py:1427"),
 }
 PREDICT_KERNELS = ("fps", "knn", "attention_fwd")  # serving runs no backward
 TRAIN_KERNELS = ("fps", "knn", "attention_fwd", "attention_bwd")  # "32-true"
@@ -143,10 +161,21 @@ FUSED_KERNELS = ("fused_mha_fwd", "fused_mha_bwd", "fused_mha_fwd_bf16",
 FUSED_PREDICT_KERNELS = ("fps", "knn", "fused_mha_fwd")
 FUSED_TRAIN_KERNELS = ("fps", "knn", "fused_mha_fwd", "fused_mha_bwd")
 FUSED_BF16_KERNELS = ("fps", "knn", "fused_mha_fwd_bf16", "fused_mha_bwd_bf16")
+FLASH_KERNELS = ("flash_fwd", "flash_dkv", "flash_dq", "flash_fwd_bf16", "flash_dkv_bf16",
+                 "flash_dq_bf16")
+ATTENTION_KERNELS = ONESHOT_KERNELS + FUSED_KERNELS + FLASH_KERNELS
+# attention_impl="flash": the serving path and the dropout-0.1 steps
+FLASH_PREDICT_KERNELS = ("fps", "knn", "flash_fwd")
+FLASH_TRAIN_KERNELS = ("fps", "knn", "flash_fwd", "flash_dkv", "flash_dq")
+FLASH_BF16_KERNELS = ("fps", "knn", "flash_fwd_bf16", "flash_dkv_bf16", "flash_dq_bf16")
 # a small fused policy whose encoder reaches the fused gate (515 tokens) with
 # dh = 64, which the kernels take
 SMALL_FUSED = dict(hidden_dim=128, npoints=512, nsample=4, chunk=5, enc_layers=2,
                    dec_layers=3, nhead=2)
+# a small flash policy whose encoder reaches the flash gate (1027 rows), dh 64
+SMALL_FLASH = dict(SMALL_FUSED, npoints=1024)
+ENC_LAYERS = 4  # the flagship's encoder layers
+FLASH_BLOCK = 512  # the flash adapter's tile (ops/attention.py FLASH_TILE)
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
 # larger of its bytes over the memory rate and its flops over the rate of
 # its inputs' type
@@ -159,6 +188,16 @@ BF16_TOL = 1e-2
 # a bf16 step with kernels against one with plain versions: the rounding
 # differences above, carried through the network
 BF16_STEP_TOL = 5e-2
+# an f32 flash step with kernels against one with plain versions: kernel 9
+# takes its online softmax over 64-key tiles and divides once, the plain
+# version over the TPU's 512-key blocks, dividing at each (o apart by up to
+# 6e-7 in phase 3). Four layers carry that to 2.45e-5 of max(1, max |g|)
+# (an encoder FFN weight; H100, 700 W, two runs alike), past the 1e-5 of
+# the oneshot step, whose kernel and plain version share their arithmetic;
+# and one ReLU or max-pool choice flipped by such a difference moves a
+# weight gradient by about one token's share (1/8204), which this leaves
+# room for
+FLASH_F32_STEP_TOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -204,6 +243,7 @@ def bound(flops: float, nbytes: float, dtype: str) -> dict:
 def plain_kernels():
     """Swap every kernel of the path for its plain PyTorch version."""
     from pointcloudmatters_tpu_torch.ops import (
+        flash_attention,
         fps,
         fused_builder,
         fused_mha,
@@ -212,11 +252,12 @@ def plain_kernels():
         pointops,
     )
 
-    one, fb, fm = oneshot_attention, fused_builder, fused_mha
+    one, fb, fm, fa = oneshot_attention, fused_builder, fused_mha, flash_attention
     saved = (fps.farthest_point_sampling_padded_cuda, knn.knn_query_padded_cuda,
              one.oneshot_attention_cuda, one.oneshot_attention_bwd_cuda,
              fb.builder_core_cuda, fb.routed_dw_cuda, fm.fused_mha_cuda,
-             fm.fused_mha_bwd_cuda)
+             fm.fused_mha_bwd_cuda, fa.flash_attention_cuda, fa.flash_attention_bwd_dkv_cuda,
+             fa.flash_attention_bwd_dq_cuda)
     fps.farthest_point_sampling_padded_cuda = pointops.farthest_point_sampling_padded_plain
     knn.knn_query_padded_cuda = pointops.knn_query_padded_plain
     one.oneshot_attention_cuda = one.oneshot_attention_plain
@@ -225,13 +266,17 @@ def plain_kernels():
     fb.routed_dw_cuda = fb.routed_dw_plain
     fm.fused_mha_cuda = fm.fused_mha_plain
     fm.fused_mha_bwd_cuda = fm.fused_mha_plain_bwd
+    fa.flash_attention_cuda = fa.flash_attention_plain
+    fa.flash_attention_bwd_dkv_cuda = fa.flash_attention_plain_bwd_dkv
+    fa.flash_attention_bwd_dq_cuda = fa.flash_attention_plain_bwd_dq
     try:
         yield
     finally:
         (fps.farthest_point_sampling_padded_cuda, knn.knn_query_padded_cuda,
          one.oneshot_attention_cuda, one.oneshot_attention_bwd_cuda,
          fb.builder_core_cuda, fb.routed_dw_cuda, fm.fused_mha_cuda,
-         fm.fused_mha_bwd_cuda) = saved
+         fm.fused_mha_bwd_cuda, fa.flash_attention_cuda, fa.flash_attention_bwd_dkv_cuda,
+         fa.flash_attention_bwd_dq_cuda) = saved
 
 
 def check_kernels(dev) -> dict:
@@ -296,6 +341,7 @@ def check_kernels(dev) -> dict:
     res.update(check_attention_bf16(dev))
     res.update(check_builder(dev))
     res.update(check_fused_mha(dev))
+    res.update(check_flash(dev))
     return res
 
 
@@ -676,6 +722,168 @@ def check_fused_mha(dev) -> dict:
     return res
 
 
+def _flash_bounds(B, H, Lq, Lk, dh, dtype: str) -> tuple[dict, dict, dict]:
+    """Bounds of kernels 9, 10 and 11 on the unpadded rows: 4, 8 and 6
+    B H Lq Lk dh flops (S and P V; S, dP, dV and dK; S, dP and dQ) at the
+    peak of the inputs' type, or the bytes of q, k, v (and do) read, the
+    row statistics (l and m, and di in the backward, f32) and the outputs
+    written once."""
+    elem = 4 if dtype == "f32" else 2
+    qb, kb, stats = B * H * Lq * dh * elem, B * H * Lk * dh * elem, B * H * Lq * 4
+    work = float(B * H * Lq * Lk * dh)
+    return (bound(4 * work, 2 * qb + 2 * kb + 2 * stats, dtype),
+            bound(8 * work, 2 * qb + 4 * kb + 3 * stats, dtype),
+            bound(6 * work, 3 * qb + 2 * kb + 3 * stats, dtype))
+
+
+def check_flash(dev) -> dict:
+    """Phase 3, flash attention (kernels 9, 10 and 11) against the plain
+    versions: B=4, H=8, L=2051, dh=64 at the adapter's 512-row tiles, f32
+    and bf16, rates 0 and 0.1; a small causal case with a bias (its
+    gradient ds), a masked key tail, a batch row whose keys are all masked,
+    Lq != Lk and 128-row tiles; dh=128. o, dq, dk, dv and ds within 1e-4 *
+    max(1, max |plain|) in f32 and BF16_TOL in bf16, l and m within 1e-5
+    relative; two launches of each kernel bit-identical; the mask read back
+    bit for bit, the same for every batch item and head. Kernel, plain and
+    library times at the flagship shape."""
+    import numpy as np
+    import torch
+
+    from pointcloudmatters_tpu_torch.ops import flash_attention as fa
+
+    res = {}
+    rng = np.random.RandomState(5)
+    f32, bf16, i32 = torch.float32, torch.bfloat16, torch.int32
+
+    def arr(dtype, *shape, std=1.0):
+        return torch.from_numpy((rng.randn(*shape) * std).astype(np.float32)).to(dev, dtype)
+
+    def run(q, k, v, ab, ids, do, kw):
+        """(kernels, plain versions): o, l, m, dk, dv, dq, ds; both
+        backwards from the kernel's forward. Raises unless a second launch
+        of each kernel gives the same bits."""
+        o, l, m = fa.flash_attention_cuda(q, k, v, ab, ids, **kw)
+        di = (o.float() * do.float()).sum(-1)
+        args = (q, k, v, ab, ids, l, m, do, di)
+        got = (o, l, m, *fa.flash_attention_bwd_dkv_cuda(*args, **kw),
+               *fa.flash_attention_bwd_dq_cuda(*args, **kw))
+        again = (*fa.flash_attention_cuda(q, k, v, ab, ids, **kw),
+                 *fa.flash_attention_bwd_dkv_cuda(*args, **kw),
+                 *fa.flash_attention_bwd_dq_cuda(*args, **kw))
+        if not all(a is b or torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError("two identical flash launches differ")
+        ref = (*fa.flash_attention_plain(q, k, v, ab, ids, **kw),
+               *fa.flash_attention_plain_bwd_dkv(*args, **kw),
+               *fa.flash_attention_plain_bwd_dq(*args, **kw))
+        return got, ref
+
+    def check(what, got, ref, dtype) -> dict:
+        errs, scale = {}, {}
+        for name, g, r in zip(("o", "l", "m", "dk", "dv", "dq", "ds"), got, ref):
+            if r is None:
+                continue
+            if name in ("l", "m"):
+                err = ((g - r).abs() / r.abs().clamp_min(1.0)).max().item()
+                lim = 1e-5
+            else:
+                err = _max_err(g, r)
+                lim = (1e-4 if dtype == f32 else BF16_TOL) * max(1.0, r.float().abs().max().item())
+            if not err <= lim:
+                raise AssertionError(f"flash {what}: {name} off by {err:.3e} > {lim:.3e}")
+            errs[name] = err
+            scale[name] = r.float().abs().max().item()
+        log(f"flash   {what}: max abs err (max |plain|) " + " ".join(
+            f"{n} {e:.2e} ({scale[n]:.2e})" for n, e in errs.items())
+            + "; relaunches bit-identical")
+        return errs
+
+    B, H, L, dh = 4, 8, 2051, 64
+    blocks = dict(block_q=FLASH_BLOCK, block_k=FLASH_BLOCK)
+    for dtype, tag in ((f32, "f32"), (bf16, "bf16")):
+        suffix = "" if tag == "f32" else "_bf16"
+        q, k, v, do = (arr(dtype, B, H, L, dh) for _ in range(4))
+        worst = {}
+        for rate in (0.0, ATTN_DROPOUT):
+            kw = dict(sm_scale=dh ** -0.5, dropout_rate=rate, dropout_seed=23, **blocks)
+            for n, e in check(f"{tag} B={B} H={H} L={L} dh={dh} rate={rate}",
+                              *run(q, k, v, None, None, do, kw), dtype).items():
+                worst[n] = max(worst.get(n, 0.0), e)
+        # timed at rate 0.1, as the training steps run them; the library at rate 0
+        kw = dict(sm_scale=dh ** -0.5, dropout_rate=ATTN_DROPOUT, dropout_seed=23, **blocks)
+        o, l, m = fa.flash_attention_cuda(q, k, v, **kw)
+        args = (q, k, v, None, None, l, m, do, (o.float() * do.float()).sum(-1))
+        lib_fwd, lib_fb = sdpa_ms(q, k, v)
+        fwd_b, dkv_b, dq_b = _flash_bounds(B, H, L, L, dh, tag)
+        res["flash_fwd" + suffix] = dict(
+            max_abs_err=worst["o"], library_ms=lib_fwd, **fwd_b,
+            ms=cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw), 5),
+            plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), 3))
+        res["flash_dkv" + suffix] = dict(
+            max_abs_err=max(worst["dk"], worst["dv"]), library_ms=lib_fb - lib_fwd,
+            library_of="the whole backward (fwd+bwd less fwd), against flash_dkv + flash_dq",
+            **dkv_b, ms=cuda_ms(lambda: fa.flash_attention_bwd_dkv_cuda(*args, **kw), 5),
+            plain_ms=cuda_ms(lambda: fa.flash_attention_plain_bwd_dkv(*args, **kw), 2))
+        res["flash_dq" + suffix] = dict(
+            max_abs_err=worst["dq"], library_ms=None, **dq_b,
+            ms=cuda_ms(lambda: fa.flash_attention_bwd_dq_cuda(*args, **kw), 5),
+            plain_ms=cuda_ms(lambda: fa.flash_attention_plain_bwd_dq(*args, **kw), 2))
+        log(f"flash   {tag} rate={ATTN_DROPOUT}: fwd kernel {res['flash_fwd' + suffix]['ms']:.3f} "
+            f"ms, plain {res['flash_fwd' + suffix]['plain_ms']:.3f} ms, "
+            f"scaled_dot_product_attention {lib_fwd:.3f} ms (rate 0); dkv kernel "
+            f"{res['flash_dkv' + suffix]['ms']:.3f} ms, plain "
+            f"{res['flash_dkv' + suffix]['plain_ms']:.3f} ms; dq kernel "
+            f"{res['flash_dq' + suffix]['ms']:.3f} ms, plain "
+            f"{res['flash_dq' + suffix]['plain_ms']:.3f} ms; library fwd+bwd less fwd "
+            f"{lib_fb - lib_fwd:.3f} ms")
+        del q, k, v, do, o, l, m, args
+        torch.cuda.empty_cache()
+
+    for dtype, tag in ((f32, "f32"), (bf16, "bf16")):
+        # causal with 128-row tiles, a bias, a masked key tail, batch row 1
+        # with every key masked, Lq != Lk
+        Bs, Hs, Lq, Lk = 2, 2, 700, 650
+        q, do = arr(dtype, Bs, Hs, Lq, 64), arr(dtype, Bs, Hs, Lq, 64)
+        k, v = arr(dtype, Bs, Hs, Lk, 64), arr(dtype, Bs, Hs, Lk, 64)
+        ab = arr(dtype, Bs, Hs, Lq, Lk, std=0.5)
+        kv = torch.ones((Bs, Lk), dtype=i32, device=dev)
+        kv[:, 600:] = 0
+        kv[1] = 0
+        ids = fa.SegmentIds(torch.ones((Bs, Lq), dtype=i32, device=dev), kv)
+        for rate in (0.0, ATTN_DROPOUT):
+            kw = dict(causal=True, sm_scale=0.125, dropout_rate=rate, dropout_seed=7,
+                      block_q=128, block_k=128)
+            check(f"{tag} causal, bias, masked tail and a fully masked row, Lq={Lq} "
+                  f"Lk={Lk}, rate={rate}", *run(q, k, v, ab, ids, do, kw), dtype)
+        # dh = 128, a ragged last key block
+        q, k, v, do = (arr(dtype, 2, 4, 515, 128) for _ in range(4))
+        kw = dict(sm_scale=128 ** -0.5, dropout_rate=ATTN_DROPOUT, dropout_seed=9, **blocks)
+        check(f"{tag} B=2 H=4 L=515 dh=128 rate={ATTN_DROPOUT}",
+              *run(q, k, v, None, None, do, kw), dtype)
+
+    # the mask read back: q = 0 weighs every key alike, v = Lk I in two
+    # stripes of 128 columns picks one key a column, so o != 0 where kept
+    Lq, Lk, n = 300, 256, 128
+    mask = fa.flash_keep_mask(12345, ATTN_DROPOUT, Lq, Lk, device=dev)
+    for dtype, tag in ((f32, "f32"), (bf16, "bf16")):
+        qz, kz = torch.zeros((2, H, Lq, n), device=dev, dtype=dtype), arr(dtype, 2, H, Lk, n)
+        read = []
+        for c0 in (0, n):
+            vs = torch.zeros((Lk, n), device=dev)
+            vs[c0:c0 + n] = torch.eye(n, device=dev) * Lk
+            o, _, _ = fa.flash_attention_cuda(
+                qz, kz, vs.to(dtype).expand(2, H, Lk, n), dropout_rate=ATTN_DROPOUT,
+                dropout_seed=12345, block_q=128, block_k=128)
+            read.append(o != 0)
+        read = torch.cat(read, dim=-1)
+        if not torch.equal(read, mask.expand_as(read)):
+            raise AssertionError(f"{tag} flash dropout mask differs from the plain mask at "
+                                 f"{(read != mask).sum().item()} of {read.numel()} places")
+        log(f"flash   {tag} mask read back: {read.numel()} keep bits equal the plain mask, "
+            f"one for every batch item and head; keep fraction "
+            f"{mask.float().mean().item():.5f}")
+    return res
+
+
 def check_builder(dev) -> dict:
     """Phase 3, the data-source builder at the flagship's shapes (B=4,
     N=10240, M=2048, K=16, D=512, Cin=515) with FPS/kNN neighbourhoods plus
@@ -771,17 +979,29 @@ def check_builder(dev) -> dict:
     return res
 
 
+# attention_impl -> (the serving path's kernels, the small policy's widths and
+# cloud size, the B=32 tolerance against the plain versions, the small
+# policy's against the CPU): the fused layer rounds to bf16 (kernel and
+# plain alike), whose flips carry through the network
+SERVING = {
+    "oneshot": (PREDICT_KERNELS, SMALL, 600, None, 1e-4),
+    "fused": (FUSED_PREDICT_KERNELS, SMALL_FUSED, 1024, 1e-2, 1e-2),
+    "flash": (FLASH_PREDICT_KERNELS, SMALL_FLASH, 2048, None, 1e-4),
+}
+
+
 def serve(dev, attention_impl: str = "oneshot") -> dict:
     """Phase 4: the flagship policy through BCModule.predict, with the
-    encoder's attention backend ``attention_impl`` ("oneshot" as shipped, or
-    "fused": kernel 7 in every encoder layer, and never kernel 3)."""
+    encoder's attention backend ``attention_impl`` ("oneshot" as shipped;
+    "fused": kernel 7 in every encoder layer, and never kernel 3; "flash":
+    kernel 9 in every encoder layer, and no other attention kernel)."""
     import torch
 
     from pointcloudmatters_tpu_torch import ops
     from pointcloudmatters_tpu_torch.entry import build_batch, build_flagship
     from pointcloudmatters_tpu_torch.models.bc_module import BCModule
 
-    fused = attention_impl == "fused"
+    want, small, small_points, rel_tol, small_tol = SERVING[attention_impl]
     module = BCModule(build_flagship(seed=0, attention_impl=attention_impl, device=dev))
     n_params = sum(p.numel() for p in module.policy.parameters())
     if n_params != 24_124_456:
@@ -809,21 +1029,21 @@ def serve(dev, attention_impl: str = "oneshot") -> dict:
         log(f"predict {attention_impl} B={B:2d} N={N_POINTS}: {ms:.2f} ms")
     launches = ops.launch_counts()
     log(f"launches on the {attention_impl} serving path: {launches}")
-    missing = [k for k in (FUSED_PREDICT_KERNELS if fused else PREDICT_KERNELS)
-               if launches[k] == 0]
+    missing = [k for k in want if launches[k] == 0]
     if missing:
         raise AssertionError(f"the {attention_impl} serving path launched no {missing} kernel")
-    stray = [k for k in (ONESHOT_KERNELS if fused else FUSED_KERNELS) if launches[k]]
+    stray = [k for k in ATTENTION_KERNELS if launches[k] and k not in want]
     if stray:
         raise AssertionError(f"the {attention_impl} serving path launched {stray}")
+    if attention_impl == "flash" and launches["flash_fwd"] != ENC_LAYERS * len(answers):
+        raise AssertionError(f"kernel 9 ran {launches['flash_fwd']} times over "
+                             f"{len(answers)} requests of {ENC_LAYERS} encoder layers")
 
     with plain_kernels():
         a_plain = module.predict(big)
     torch.cuda.synchronize()
     err = (answers[-1] - a_plain).abs().max().item()
-    # the fused layer rounds to bf16 (kernel and plain alike), whose flips
-    # carry through the network
-    limit = 1e-2 * max(1.0, a_plain.abs().max().item()) if fused else 1e-3
+    limit = rel_tol * max(1.0, a_plain.abs().max().item()) if rel_tol else 1e-3
     if not err <= limit:
         raise AssertionError(f"B={BIG_BATCH} {attention_impl} predict with kernels vs "
                              f"plain: {err:.3e} > {limit:.3e}")
@@ -832,13 +1052,13 @@ def serve(dev, attention_impl: str = "oneshot") -> dict:
     del module, answers, a_plain
     torch.cuda.empty_cache()
 
-    small = dict(SMALL_FUSED if fused else SMALL, attention_impl=attention_impl)
-    n_points = 1024 if fused else 600
-    obs = build_batch(batch_size=2, n_points=n_points, chunk=5, seed=4, with_actions=False)
+    small = dict(small, attention_impl=attention_impl)
+    obs = build_batch(batch_size=2, n_points=small_points, chunk=5, seed=4,
+                      with_actions=False)
     ref = BCModule(build_flagship(**small, seed=1, device="cpu")).predict(obs)
     got = BCModule(build_flagship(**small, seed=1, device=dev)).predict(obs).cpu()
     err_small = (got - ref).abs().max().item()
-    limit = 1e-2 * max(1.0, ref.abs().max().item()) if fused else 1e-4
+    limit = small_tol * max(1.0, ref.abs().max().item()) if rel_tol else small_tol
     if not err_small <= limit:
         raise AssertionError(f"small {attention_impl} policy on the card vs on the CPU: "
                              f"{err_small:.3e} > {limit:.3e}")
@@ -1062,6 +1282,48 @@ def train_fused(dev) -> dict:
     return launches
 
 
+def train_flash(dev) -> dict:
+    """Phase 8: steps of the flagship with ``attention_impl="flash"`` at the
+    shipped dropout 0.1, at ``"32-true"`` and at ``"bf16-mixed"``, timed as
+    phase 5 times them: kernels 9, 10 and 11 of the step's type in every
+    encoder layer of every step, and no other attention kernel. Then a B=4
+    step of each type with every kernel against every plain version from
+    the same generators, so the same masks (f32 FLASH_F32_STEP_TOL, bf16
+    BF16_STEP_TOL).
+    Returns each timed run's kernel launches."""
+    import torch
+
+    from pointcloudmatters_tpu_torch.entry import build_batch, build_flagship
+    from pointcloudmatters_tpu_torch.models.bc_module import BCModule, to_device
+
+    launches = {}
+    for path, precision, want in (("train_flash", "32-true", FLASH_TRAIN_KERNELS),
+                                  ("train_bf16_flash", "bf16-mixed", FLASH_BF16_KERNELS)):
+        counts = timed_steps(dev, path, precision, attention_impl="flash")
+        missing = [k for k in want if counts[k] == 0]
+        stray = [k for k in ATTENTION_KERNELS if counts[k] and k not in want]
+        uneven = [k for k in want if k.startswith("flash")
+                  and counts[k] != ENC_LAYERS * TRAIN_STEPS]
+        if missing or stray or uneven:
+            raise AssertionError(f"{path} launched no {missing} kernel, {stray}, and "
+                                 f"{uneven} not once a layer and step: {counts}")
+        launches[path] = counts
+
+    batch = to_device(build_batch(batch_size=4, n_points=N_POINTS, seed=1), dev)
+    module = BCModule(build_flagship(seed=0, dropout=ATTN_DROPOUT, attention_impl="flash",
+                                     device=dev))
+    for dtype, tag, tol in ((None, "f32", FLASH_F32_STEP_TOL),
+                            (torch.bfloat16, "bf16", BF16_STEP_TOL)):
+        got = _step_grads(module, batch, module.make_rngs(5), dtype)
+        with plain_kernels():
+            ref = _step_grads(module, batch, module.make_rngs(5), dtype)
+        log("train   " + _compare_step(
+            f"flash {tag} B=4 step at dropout {ATTN_DROPOUT}, kernels vs plain versions",
+            *got, *ref, grad_rtol=tol, loss_rtol=tol))
+        del got, ref
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1093,6 +1355,12 @@ def main() -> int:
     paths.update(train_bf16(dev))
     paths["predict_fused"] = serve(dev, "fused")
     paths.update(train_fused(dev))
+    paths["predict_flash"] = serve(dev, "flash")
+    paths.update(train_flash(dev))
+    stray = {path: [k for k in FLASH_KERNELS if counts[k]] for path, counts in paths.items()
+             if "flash" not in path and any(counts[k] for k in FLASH_KERNELS)}
+    if stray:
+        raise AssertionError(f"flash kernels launched off the flash paths: {stray}")
 
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=tpu,

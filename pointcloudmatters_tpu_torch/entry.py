@@ -12,7 +12,7 @@ a fixed PointNet (a model field users set by override; its token builder
 takes the data-source kernels under bf16), ``pre_sample`` is the
 ``scratch_pointnet_pcd_presample`` variant, and ``attention_impl`` the
 encoder's attention backend (``model.policy.transformer.attention_impl``:
-``"oneshot"`` as shipped, or ``"fused"`` or ``"dense"``). ``build_batch()``
+``"oneshot"`` as shipped, or ``"fused"``, ``"flash"`` or ``"dense"``). ``build_batch()``
 is the same numpy batch the JAX entry builds from the same seed.
 """
 

@@ -7,18 +7,20 @@
 - Attention modules keep flax ``MultiHeadDotProductAttention``'s
   ``query``/``key``/``value``/``out`` projections, each a ``Linear(D, D)``.
 - The encoder self-attention runs the oneshot core (``ops/attention.py``),
-  or with ``attention_impl="fused"`` :class:`FusedSelfAttention`; the
-  decoder's attentions are dense, as in JAX.
+  with ``attention_impl="flash"`` the flash core (kernels 9-11 at 1024 rows
+  or more, else dense), or with ``attention_impl="fused"``
+  :class:`FusedSelfAttention`; the decoder's attentions are dense, as in
+  JAX, unless its layers are built with another backend (its cross
+  attention then takes that core; its 100 queries keep the flash gate
+  dense).
 - The decoder holds all ``num_layers`` layers, so a converted checkpoint maps
   one to one, but with ``return_intermediate`` computes only the first
   ``live_layers`` (ACT reads ``hs[0]``), in training too.
 - ``deterministic=False`` turns on dropout (attention weights and
   ``BitsDropout`` on the residual streams) and needs ``rngs``, the step's
   random streams: ``"dropout"`` (a generator on the tokens' device) and
-  ``"seed"`` (a CPU generator seeding the oneshot kernel's mask).
-
-The ``flash`` attention backend is not ported yet (its kernels are on
-ROADMAP.md's list) and raises ``NotImplementedError``.
+  ``"seed"`` (a CPU generator seeding the oneshot and flash kernels'
+  masks).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from pointcloudmatters_tpu_torch.models.components.nn_utils import (
 )
 from pointcloudmatters_tpu_torch.ops.attention import (
     dot_product_attention,
+    make_flash_attention_fn,
     make_oneshot_attention_fn,
 )
 from pointcloudmatters_tpu_torch.ops.fused_mha import fused_mha
@@ -59,12 +62,9 @@ def _attention_fn(impl: str):
         raise ValueError(
             f"attention_impl must be one of {_ATTENTION_IMPLS}, got {impl!r}"
         )
-    if impl == "flash":
-        raise NotImplementedError(
-            "attention_impl='flash': its CUDA kernels are not ported yet "
-            "(see ROADMAP.md); use 'oneshot', 'fused' or 'dense'"
-        )
-    return dot_product_attention if impl == "dense" else make_oneshot_attention_fn()
+    if impl == "dense":
+        return dot_product_attention
+    return make_flash_attention_fn() if impl == "flash" else make_oneshot_attention_fn()
 
 
 def _attention_mask(key_padding_mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:

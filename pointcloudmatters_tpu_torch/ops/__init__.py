@@ -11,15 +11,19 @@ its plain PyTorch version.
 | ``fused_builder.py`` ``_routed_kernel`` | ``fused_builder.cu`` ``routed_dw_kernel`` | ``ops/fused_builder.py`` |
 | ``fused_mha.py`` ``_fwd_kernel`` | ``fused_mha.cu`` ``pcm_fused_mha_fwd`` (with ``attention_fwd.cuh``) | ``ops/fused_mha.py`` |
 | ``fused_mha.py`` ``_bwd_kernel`` | ``fused_mha.cu`` ``pcm_fused_mha_bwd`` | ``ops/fused_mha.py`` |
+| ``flash_attention.py`` ``_flash_attention_kernel`` | ``flash_attention.cu`` ``pcm_flash_fwd`` | ``ops/flash_attention.py`` |
+| ``flash_attention.py`` ``_flash_attention_dkv_kernel`` | ``flash_attention.cu`` ``pcm_flash_bwd_dkv`` | ``ops/flash_attention.py`` |
+| ``flash_attention.py`` ``_flash_attention_dq_kernel`` | ``flash_attention.cu`` ``pcm_flash_bwd_dq`` | ``ops/flash_attention.py`` |
 
-Each wrapper counts its launches in a module-level counter (the attention
-and fused-layer wrappers one for each element type);
+Each wrapper counts its launches in a module-level counter (the attention,
+fused-layer and flash wrappers one for each element type);
 :func:`launch_counts` reads them and :func:`reset_launch_counts` zeroes them.
 """
 
 from __future__ import annotations
 
 from pointcloudmatters_tpu_torch.ops import (
+    flash_attention,
     fps,
     fused_builder,
     fused_mha,
@@ -43,6 +47,12 @@ _COUNTED = {
     "fused_mha_bwd": (fused_mha, "BWD_LAUNCHES"),
     "fused_mha_fwd_bf16": (fused_mha, "BF16_LAUNCHES"),
     "fused_mha_bwd_bf16": (fused_mha, "BF16_BWD_LAUNCHES"),
+    "flash_fwd": (flash_attention, "FWD_LAUNCHES"),
+    "flash_dkv": (flash_attention, "DKV_LAUNCHES"),
+    "flash_dq": (flash_attention, "DQ_LAUNCHES"),
+    "flash_fwd_bf16": (flash_attention, "BF16_FWD_LAUNCHES"),
+    "flash_dkv_bf16": (flash_attention, "BF16_DKV_LAUNCHES"),
+    "flash_dq_bf16": (flash_attention, "BF16_DQ_LAUNCHES"),
 }
 
 

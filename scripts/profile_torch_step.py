@@ -3,14 +3,15 @@
 
     python3 scripts/profile_torch_step.py [--batch 32] [--points 10240]
         [--precision 32-true|bf16-mixed] [--freeze-backbone]
-        [--attention-impl oneshot|fused] [--dropout 0.1]
+        [--attention-impl oneshot|fused|flash] [--dropout 0.1]
 
 Builds the flagship of ``chip_smoke.py`` phases 5-7 (dropout 0.1 unless
 ``--dropout`` says otherwise, AdamW + OneCycleLR over 10,000 steps,
 ``"32-true"`` unless ``--precision`` says otherwise; ``--freeze-backbone``
 for the variant whose token builder takes the data-source kernels under
 bf16; ``--attention-impl fused`` for the encoder whose layers run kernels 7
-and 8 at dropout 0) and, after two warm-up steps:
+and 8 at dropout 0, ``--attention-impl flash`` for the one whose layers run
+kernels 9, 10 and 11) and, after two warm-up steps:
 
 1. times forward, backward and the rest of the step (gradient norm, AdamW,
    schedule) with CUDA events over ``--steps`` steps, and the whole step by
@@ -61,7 +62,8 @@ def main() -> int:
     parser.add_argument("--top", type=int, default=40, help="ops listed")
     parser.add_argument("--precision", default="32-true")
     parser.add_argument("--freeze-backbone", action="store_true")
-    parser.add_argument("--attention-impl", default="oneshot", choices=("oneshot", "fused"))
+    parser.add_argument("--attention-impl", default="oneshot",
+                        choices=("oneshot", "fused", "flash"))
     parser.add_argument("--dropout", type=float, default=chip_smoke.ATTN_DROPOUT)
     args = parser.parse_args()
     if not torch.cuda.is_available():

@@ -285,11 +285,14 @@ def test_converter_refuses_unmapped_and_missing():
 
 
 def test_unported_backends_raise():
-    """``flash`` is not ported and raises; ``fused`` (ported) builds its
-    self-attention in the encoder and stays rejected by the decoder, as in
-    JAX; a typo raises."""
-    with pytest.raises(NotImplementedError):
-        ttr.TransformerEncoderLayer(32, 4, attention_impl="flash")
+    """Every backend is ported: ``flash`` builds its core in the encoder and
+    in the decoder's cross attention; ``fused`` builds its self-attention
+    in the encoder and stays rejected by the decoder, as in JAX; a typo
+    raises."""
+    for layer in (ttr.TransformerEncoderLayer(32, 4, attention_impl="flash"),
+                  ttr.TransformerDecoderLayer(32, 4, attention_impl="flash")):
+        attn = getattr(layer, "multihead_attn", layer.self_attn)
+        assert attn.attention_fn.__qualname__.startswith("make_flash_attention_fn")
     layer = ttr.TransformerEncoderLayer(32, 4, attention_impl="fused")
     assert isinstance(layer.self_attn, ttr.FusedSelfAttention)
     with pytest.raises(ValueError):

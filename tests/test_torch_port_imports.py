@@ -1,10 +1,13 @@
 """The port runs without JAX: with ``jax`` and ``flax`` blocked from import,
 the package and every module of the serving and training slices import, a
 tiny ``predict``, a tiny f32 training step, tiny ``"bf16-mixed"`` steps
-of the frozen-backbone and ``pre_sample`` variants, and a tiny ``predict``
+of the frozen-backbone and ``pre_sample`` variants, a tiny ``predict``
 and dropout-0 step of the ``attention_impl="fused"`` encoder through its
-fused op run, and nothing of the JAX package (``pointcloudmatters_tpu``)
-was imported (the GPU machine has no JAX)."""
+fused op, and a tiny ``predict`` and dropout-0.1 step of the
+``attention_impl="flash"`` encoder through its flash op run, and nothing of
+the JAX package (``pointcloudmatters_tpu``) was imported (the GPU machine
+has no JAX). Every CUDA source under ``csrc/`` is one the build compiles,
+and none includes a PyTorch or JAX header."""
 
 import subprocess
 import sys
@@ -24,6 +27,7 @@ SLICE_MODULES = (
     "pointcloudmatters_tpu_torch.ops.oneshot_attention",
     "pointcloudmatters_tpu_torch.ops.fused_builder",
     "pointcloudmatters_tpu_torch.ops.fused_mha",
+    "pointcloudmatters_tpu_torch.ops.flash_attention",
     "pointcloudmatters_tpu_torch.ops.attention",
     "pointcloudmatters_tpu_torch.models.components.nn_utils",
     "pointcloudmatters_tpu_torch.models.components.pcd_encoder.pointnet",
@@ -80,6 +84,19 @@ def test_port_imports_and_predicts_without_jax():
         metrics = Trainer(precision="bf16-mixed", seed=0).train_step(
             module, build_batch(batch_size=2, n_points=600, chunk=5))
         assert bool(metrics["loss"].isfinite()) and len(calls) == 2, (calls, metrics)
+        from pointcloudmatters_tpu_torch.ops import attention
+        calls, op = [], attention.flash_attention
+        attention.flash_attention = lambda *a, **k: calls.append(k["dropout_rate"]) or op(*a, **k)
+        module = BCModule(build_flagship(hidden_dim=32, npoints=1024, nsample=4,
+                                         chunk=5, enc_layers=1, dec_layers=2,
+                                         nhead=4, attention_impl="flash",
+                                         device="cpu"))
+        a_hat = module.predict(build_batch(batch_size=1, n_points=1100, chunk=5,
+                                           with_actions=False))
+        assert tuple(a_hat.shape) == (1, 5, 7) and calls == [0.0], calls
+        metrics = Trainer(seed=0).train_step(
+            module, build_batch(batch_size=2, n_points=2048, chunk=5))
+        assert bool(metrics["loss"].isfinite()) and calls == [0.0, 0.1], (calls, metrics)
         assert not [m for m in sys.modules if m.split(".")[0] in
                     ("jax", "flax", "pointcloudmatters_tpu")
                     and sys.modules[m] is not None]
@@ -89,3 +106,13 @@ def test_port_imports_and_predicts_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("ok")
+
+
+def test_cuda_sources_are_built_and_stand_alone():
+    from pointcloudmatters_tpu_torch import _build
+
+    sources = sorted(p.stem for p in pathlib.Path(_build.CSRC).glob("*.cu"))
+    assert sources == sorted(_build.KERNELS)
+    for path in pathlib.Path(_build.CSRC).iterdir():
+        text = path.read_text()
+        assert "torch/" not in text and "jax" not in text.lower(), path.name

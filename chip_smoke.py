@@ -12,9 +12,15 @@ Phases, each of which raises on failure (exit code non-zero, no result):
    build time and ptxas's resource use.
 3. Holds each kernel against its plain PyTorch version on the card at the
    flagship's shapes, and times both:
-   FPS B=4, N=10240 -> 2048 (index-exact); kNN B=4, M=2048, N=10240, k=16
-   (indices exact, d2 within 1e-6 relative); attention forward B=4, H=8,
-   L=2051, dh=64, f32, at dropout rate 0 and 0.1 (max abs error <= 1e-4;
+   FPS B=4, N=10240 -> 2048 (index-exact), and at N=20480 its large-cloud
+   variant; kNN B=4, M=2048 FPS queries, N=10240 and 20480, k=16 and 128,
+   in FPS order and Morton-sorted: kernels 2 (``v3``), 12 (chunk-skip) and
+   13 (dense scan) each index-exact against its plain version, 12 and 13
+   also against kernel 2, d2 within 1e-6 relative of the plain versions and
+   bit-equal to kernel 2's, relaunches bit-identical, kernel 12's skipped
+   chunks equal to its plain version's (its share printed); kernel 2 at
+   k=96; k=160 launching no kNN kernel on any selector; attention forward
+   B=4, H=8, L=2051, dh=64, f32, at dropout rate 0 and 0.1 (max abs error <= 1e-4;
    also dh=128 and a masked key tail); the dropout mask read back from the
    forward bit for bit (q = 0, v = I); the attention backward at rate 0,
    0.1 and a masked key tail (each of dQ, dK, dV within
@@ -32,8 +38,9 @@ Phases, each of which raises on failure (exit code non-zero, no result):
    once at dh=128. Flash attention (kernels 9, 10 and 11) at B=4, H=8,
    L=2051, dh=64 with the adapter's 512-row tiles, f32 and bf16, rates 0
    and 0.1; a causal case with a bias (its gradient ds), a masked key tail,
-   a batch row whose keys are all masked and Lq != Lk; dh=128: o and every
-   gradient within 1e-4 * max(1, max |plain|) in f32 and BF16_TOL in bf16,
+   a batch row whose keys are all masked and Lq != Lk; dh=128; kernel 9's
+   1024-key blocks (scores computed again in each pass) and its single-step
+   variant: o and every gradient within 1e-4 * max(1, max |plain|) in f32 and BF16_TOL in bf16,
    l and m within 1e-5 relative, two launches of each bit-identical, the
    mask read back bit for bit and the same for every batch item and head.
    Each attention shape is also timed through
@@ -85,8 +92,18 @@ Phases, each of which raises on failure (exit code non-zero, no result):
    it: kernels 9, 10 and 11 of the step's type once in every encoder layer
    of every step, and no other attention kernel; then a B=4 step of each
    type with every kernel against every plain version from the same
-   generators (f32 FLASH_F32_STEP_TOL, bf16 BF16_STEP_TOL). Flash kernels
+   generators (f32 1e-5, as phase 5; bf16 BF16_STEP_TOL). Flash kernels
    launched on any other path fail the run.
+9. The kNN selector ``PCM_KNN_IMPL`` (phases 3-8 run with it unset,
+   whatever the caller's environment holds): the flagship served at B=1
+   and B=32 (3 warmed requests a size) under ``chunkskip`` and under
+   ``baseline``, kernel 12 or 13 in every request and kernel 2 never, the
+   B=32 answer bit-equal to the default route's; at N=20480 with the
+   variable unset, kernel 12 in every request (the automatic route above
+   16,384 points) and the B=32 answer within 1e-3 of the all-plain
+   version; ``bogus`` raising ``ValueError`` with no kNN kernel launched;
+   a warmed bf16 B=32 step under ``chunkskip`` timed as phase 5, kernel 12
+   once a step. Kernels 12 and 13 launched on any other path fail the run.
 
 Prints a JSON line of the kernels (route, source, the TPU kernel each
 replaces, launches on each path, error, kernel, plain and library times,
@@ -132,6 +149,8 @@ _CSRC = "pointcloudmatters_tpu_torch/csrc/"
 KERNELS = {
     "fps": (_CSRC + "fps.cu", _OPS + "pallas_fps.py:74"),
     "knn": (_CSRC + "knn.cu", _OPS + "pallas_knn3.py:105"),
+    "knn_chunkskip": (_CSRC + "knn_chunkskip.cu", _OPS + "pallas_knn2.py:110"),
+    "knn_baseline": (_CSRC + "knn_baseline.cu", _OPS + "pallas_knn.py:81"),
     "attention_fwd": (_CSRC + "attention_fwd.cu", _OPS + "oneshot_attention.py:203"),
     "attention_bwd": (_CSRC + "attention_bwd.cu", _OPS + "oneshot_attention.py:233"),
     "attention_fwd_bf16": (_CSRC + "attention_fwd.cu", _OPS + "oneshot_attention.py:203"),
@@ -164,6 +183,10 @@ FUSED_BF16_KERNELS = ("fps", "knn", "fused_mha_fwd_bf16", "fused_mha_bwd_bf16")
 FLASH_KERNELS = ("flash_fwd", "flash_dkv", "flash_dq", "flash_fwd_bf16", "flash_dkv_bf16",
                  "flash_dq_bf16")
 ATTENTION_KERNELS = ONESHOT_KERNELS + FUSED_KERNELS + FLASH_KERNELS
+KNN_KERNELS = ("knn", "knn_chunkskip", "knn_baseline")
+# PCM_KNN_IMPL -> the kNN kernel of its route at N <= 16,384 (phase 9)
+SELECTOR_KERNEL = {"chunkskip": "knn_chunkskip", "baseline": "knn_baseline"}
+BIG_CLOUD = 20480  # points: above 16,384 the default route takes kernel 12
 # attention_impl="flash": the serving path and the dropout-0.1 steps
 FLASH_PREDICT_KERNELS = ("fps", "knn", "flash_fwd")
 FLASH_TRAIN_KERNELS = ("fps", "knn", "flash_fwd", "flash_dkv", "flash_dq")
@@ -188,16 +211,6 @@ BF16_TOL = 1e-2
 # a bf16 step with kernels against one with plain versions: the rounding
 # differences above, carried through the network
 BF16_STEP_TOL = 5e-2
-# an f32 flash step with kernels against one with plain versions: kernel 9
-# takes its online softmax over 64-key tiles and divides once, the plain
-# version over the TPU's 512-key blocks, dividing at each (o apart by up to
-# 6e-7 in phase 3). Four layers carry that to 2.45e-5 of max(1, max |g|)
-# (an encoder FFN weight; H100, 700 W, two runs alike), past the 1e-5 of
-# the oneshot step, whose kernel and plain version share their arithmetic;
-# and one ReLU or max-pool choice flipped by such a difference moves a
-# weight gradient by about one token's share (1/8204), which this leaves
-# room for
-FLASH_F32_STEP_TOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -240,6 +253,24 @@ def bound(flops: float, nbytes: float, dtype: str) -> dict:
 
 
 @contextlib.contextmanager
+def knn_impl(value):
+    """``PCM_KNN_IMPL`` set to ``value`` (None: unset) inside, and restored
+    after, whatever the caller's environment holds."""
+    saved = os.environ.get("PCM_KNN_IMPL")
+    if value is None:
+        os.environ.pop("PCM_KNN_IMPL", None)
+    else:
+        os.environ["PCM_KNN_IMPL"] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("PCM_KNN_IMPL", None)
+        else:
+            os.environ["PCM_KNN_IMPL"] = saved
+
+
+@contextlib.contextmanager
 def plain_kernels():
     """Swap every kernel of the path for its plain PyTorch version."""
     from pointcloudmatters_tpu_torch.ops import (
@@ -248,18 +279,24 @@ def plain_kernels():
         fused_builder,
         fused_mha,
         knn,
+        knn_baseline,
+        knn_chunkskip,
         oneshot_attention,
         pointops,
     )
 
     one, fb, fm, fa = oneshot_attention, fused_builder, fused_mha, flash_attention
+    kc, kb = knn_chunkskip, knn_baseline
     saved = (fps.farthest_point_sampling_padded_cuda, knn.knn_query_padded_cuda,
+             kc.knn_query_chunkskip_cuda, kb.knn_query_baseline_cuda,
              one.oneshot_attention_cuda, one.oneshot_attention_bwd_cuda,
              fb.builder_core_cuda, fb.routed_dw_cuda, fm.fused_mha_cuda,
              fm.fused_mha_bwd_cuda, fa.flash_attention_cuda, fa.flash_attention_bwd_dkv_cuda,
              fa.flash_attention_bwd_dq_cuda)
     fps.farthest_point_sampling_padded_cuda = pointops.farthest_point_sampling_padded_plain
     knn.knn_query_padded_cuda = pointops.knn_query_padded_plain
+    kc.knn_query_chunkskip_cuda = pointops.knn_query_chunkskip_plain
+    kb.knn_query_baseline_cuda = pointops.knn_query_baseline_plain
     one.oneshot_attention_cuda = one.oneshot_attention_plain
     one.oneshot_attention_bwd_cuda = one.oneshot_attention_plain_bwd
     fb.builder_core_cuda = fb.builder_core_plain
@@ -273,7 +310,7 @@ def plain_kernels():
         yield
     finally:
         (fps.farthest_point_sampling_padded_cuda, knn.knn_query_padded_cuda,
-         one.oneshot_attention_cuda, one.oneshot_attention_bwd_cuda,
+         kc.knn_query_chunkskip_cuda, kb.knn_query_baseline_cuda, one.oneshot_attention_cuda, one.oneshot_attention_bwd_cuda,
          fb.builder_core_cuda, fb.routed_dw_cuda, fm.fused_mha_cuda,
          fm.fused_mha_bwd_cuda, fa.flash_attention_cuda, fa.flash_attention_bwd_dkv_cuda,
          fa.flash_attention_bwd_dq_cuda) = saved
@@ -285,7 +322,7 @@ def check_kernels(dev) -> dict:
     import torch
 
     from pointcloudmatters_tpu_torch.entry import build_batch
-    from pointcloudmatters_tpu_torch.ops import fps, knn
+    from pointcloudmatters_tpu_torch.ops import fps
     from pointcloudmatters_tpu_torch.ops import pointops
 
     res = {}
@@ -313,35 +350,131 @@ def check_kernels(dev) -> dict:
     log(f"fps     B=4 N={N_POINTS}->2048: index-exact; kernel "
         f"{res['fps']['ms']:.3f} ms, plain {res['fps']['plain_ms']:.3f} ms")
 
-    new_xyz = torch.gather(xyz, 1, idx.long()[..., None].expand(-1, -1, 3)).contiguous()
-    ki, kd = knn.knn_query_padded_cuda(new_xyz, xyz, mask, 16)
-    pi, pd = pointops.knn_query_padded_plain(new_xyz, xyz, mask, 16)
-    torch.cuda.synchronize()
-    if not torch.equal(ki, pi):
-        raise AssertionError(f"kNN kernel indices disagree with its plain "
-                             f"version at {(ki != pi).sum().item()} places")
-    rel = ((kd - pd).abs() / pd.abs().clamp_min(1e-30)).max().item()
-    if rel > 1e-6:
-        raise AssertionError(f"kNN kernel d2 off by {rel:.3e} relative")
-    res["knn"] = dict(
-        max_abs_err=(kd - pd).abs().max().item(),
-        ms=cuda_ms(lambda: knn.knn_query_padded_cuda(new_xyz, xyz, mask, 16), 5),
-        plain_ms=cuda_ms(
-            lambda: pointops.knn_query_padded_plain(new_xyz, xyz, mask, 16), 2),
-        library_ms=None,
-        # ~8 flops a (query, point) distance; inputs read, idx and d2 written
-        **bound(8.0 * new_xyz.shape[0] * new_xyz.shape[1] * N_POINTS,
-                (new_xyz.numel() + xyz.numel()) * 4 + mask.numel() + ki.numel() * 8, "f32"),
-    )
-    log(f"knn     B=4 M=2048 N={N_POINTS} k=16: indices exact, d2 rel err "
-        f"{rel:.3e}; kernel {res['knn']['ms']:.3f} ms, plain "
-        f"{res['knn']['plain_ms']:.3f} ms")
-
+    res.update(check_knn(dev))
     res.update(check_attention(dev))
     res.update(check_attention_bf16(dev))
     res.update(check_builder(dev))
     res.update(check_fused_mha(dev))
     res.update(check_flash(dev))
+    return res
+
+
+def check_knn(dev) -> dict:
+    """Phase 3, the kNN kernels 2, 12 and 13 at B=4, M=2048 FPS queries,
+    N=10240 and N=20480 (there FPS too, its large-cloud variant, held
+    index-exact), k = 16 and 128, on the queries in FPS order and sorted
+    along a Morton curve: indices equal to each kernel's plain version's,
+    to ``knn_query_padded_plain``'s and to kernel 2's; d2 within 1e-6
+    relative of the plain versions and bit-equal to kernel 2's (the three
+    share one distance expression); two launches bit-identical; kernel 12's
+    skipped (tile, chunk) pairs equal to its plain version's. Kernel 2 also
+    at k=96; k=160 takes the plain version on every selector and launches
+    no kNN kernel. Times at N=10240, k=16: kernel 12 on the sorted queries,
+    as its route runs it, kernels 2 and 13 on the FPS order."""
+    import torch
+
+    from pointcloudmatters_tpu_torch import ops
+    from pointcloudmatters_tpu_torch.entry import build_batch
+    from pointcloudmatters_tpu_torch.ops import fps, knn, pointops
+    from pointcloudmatters_tpu_torch.ops import knn_baseline as kb
+    from pointcloudmatters_tpu_torch.ops import knn_chunkskip as kc
+
+    def rel_err(got, ref):
+        return ((got - ref).abs() / ref.abs().clamp_min(1e-30)).max().item()
+
+    selectors = {"knn_chunkskip": (kc.knn_query_chunkskip_cuda,
+                                   pointops.knn_query_chunkskip_plain),
+                 "knn_baseline": (kb.knn_query_baseline_cuda, pointops.knn_query_baseline_plain)}
+    res = {name: dict(max_abs_err=0.0, library_ms=None) for name in ("knn",) + tuple(selectors)}
+    for N in (N_POINTS, BIG_CLOUD):
+        batch = build_batch(batch_size=4, n_points=N, seed=0, with_actions=False)
+        xyz = torch.from_numpy(batch["pcds"]["coord"]).to(dev)
+        mask = torch.from_numpy(batch["pcds"]["valid"]).to(dev)
+        idx = fps.farthest_point_sampling_padded_cuda(xyz, mask, 2048)
+        if N == BIG_CLOUD:
+            if not torch.equal(idx, pointops.farthest_point_sampling_padded_plain(xyz, mask, 2048)):
+                raise AssertionError(f"FPS kernel at N={N} disagrees with its plain version")
+            log(f"fps     B=4 N={N}->2048 (large-cloud variant): index-exact; kernel "
+                f"{cuda_ms(lambda: fps.farthest_point_sampling_padded_cuda(xyz, mask, 2048), 3):.3f} ms")
+        q = torch.gather(xyz, 1, idx.long()[..., None].expand(-1, -1, 3)).contiguous()
+        all_valid = torch.ones(q.shape[:2], dtype=torch.bool, device=dev)
+        perm = pointops.spatial_sort_order(q, all_valid).long()
+        q_sorted = torch.gather(q, 1, perm[..., None].expand(-1, -1, 3)).contiguous()
+        for k in (16, 128):
+            for order, qq in (("FPS order", q), ("Morton-sorted", q_sorted)):
+                pi, pd = pointops.knn_query_padded_plain(qq, xyz, mask, k)
+                ki, kd = knn.knn_query_padded_cuda(qq, xyz, mask, k)
+                if not torch.equal(ki, pi) or not rel_err(kd, pd) <= 1e-6:
+                    raise AssertionError(f"kNN kernel (N={N}, k={k}, {order}) disagrees with "
+                                         f"its plain version at {(ki != pi).sum().item()} "
+                                         f"indices, d2 {rel_err(kd, pd):.3e} relative")
+                res["knn"]["max_abs_err"] = max(res["knn"]["max_abs_err"], _max_err(kd, pd))
+                notes = []
+                for name, (kernel, plain) in selectors.items():
+                    gi, gd = kernel(qq, xyz, mask, k)
+                    again = kernel(qq, xyz, mask, k)
+                    si, sd = plain(qq, xyz, mask, k)
+                    if not (torch.equal(gi, si) and torch.equal(gi, pi) and torch.equal(gi, ki)):
+                        raise AssertionError(
+                            f"{name} (N={N}, k={k}, {order}): indices differ from its plain "
+                            f"version at {(gi != si).sum().item()}, from the plain kNN at "
+                            f"{(gi != pi).sum().item()}, from kernel 2 at "
+                            f"{(gi != ki).sum().item()} places")
+                    if not (rel_err(gd, sd) <= 1e-6 and torch.equal(gd, kd)):
+                        raise AssertionError(f"{name} (N={N}, k={k}, {order}): d2 "
+                                             f"{rel_err(gd, sd):.3e} relative off its plain "
+                                             f"version, or not bit-equal to kernel 2's")
+                    if not (torch.equal(gi, again[0]) and torch.equal(gd, again[1])):
+                        raise AssertionError(f"two identical {name} launches differ")
+                    res[name]["max_abs_err"] = max(res[name]["max_abs_err"], _max_err(gd, sd))
+                    if name == "knn_chunkskip":
+                        skipped = int(kernel(qq, xyz, mask, k, with_skipped=True)[2])
+                        plain_skipped = int(plain(qq, xyz, mask, k, with_skipped=True)[2])
+                        if skipped != plain_skipped:
+                            raise AssertionError(f"kernel 12 skipped {skipped} chunks, its "
+                                                 f"plain version {plain_skipped}")
+                        total = 4 * 16 * -(-N // 512)
+                        notes.append(f"kernel 12 skipped {skipped} of {total} (tile, chunk) "
+                                     f"pairs, as its plain version")
+                        if (N, k, order) == (N_POINTS, 16, "Morton-sorted"):
+                            res[name]["skipped_share"] = skipped / total
+                log(f"knn     B=4 M=2048 N={N} k={k} {order}: kernels 12 and 13 index-equal "
+                    f"to their plain versions and to kernel 2, d2 bit-equal to kernel 2's, "
+                    f"relaunches bit-identical; " + "; ".join(notes))
+        if N != N_POINTS:
+            continue
+        # the times, and kernel 2 at k=96 and k=160 at the flagship's cloud
+        runs = {"knn": (knn.knn_query_padded_cuda, pointops.knn_query_padded_plain, q),
+                "knn_chunkskip": selectors["knn_chunkskip"] + (q_sorted,),
+                "knn_baseline": selectors["knn_baseline"] + (q,)}
+        for name, (kernel, plain, qq) in runs.items():
+            res[name].update(
+                ms=cuda_ms(lambda: kernel(qq, xyz, mask, 16), 5),
+                plain_ms=cuda_ms(lambda: plain(qq, xyz, mask, 16), 2),
+                # ~8 flops a (query, point) distance, every one computed
+                # (the early-out skips insertions, not distances); inputs
+                # read, idx and d2 written
+                **bound(8.0 * q.shape[0] * q.shape[1] * N,
+                        (q.numel() + xyz.numel()) * 4 + mask.numel() + q.numel() // 3 * 16 * 8,
+                        "f32"))
+            log(f"{name} B=4 M=2048 N={N} k=16: kernel {res[name]['ms']:.3f} ms, plain "
+                f"{res[name]['plain_ms']:.3f} ms")
+        ki, kd = knn.knn_query_padded_cuda(q, xyz, mask, 96)
+        pi, pd = pointops.knn_query_padded_plain(q, xyz, mask, 96)
+        if not torch.equal(ki, pi) or not rel_err(kd, pd) <= 1e-6:
+            raise AssertionError("kNN kernel at k=96 disagrees with its plain version")
+        ref = pointops.knn_query_padded_plain(q, xyz, mask, 160)
+        for impl in (None,) + tuple(SELECTOR_KERNEL):
+            ops.reset_launch_counts()
+            with knn_impl(impl):
+                got = pointops.knn_query_padded(q, xyz, mask, 160)
+            counts = ops.launch_counts()
+            if any(counts[k] for k in KNN_KERNELS):
+                raise AssertionError(f"k=160 launched a kNN kernel: {counts}")
+            if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                raise AssertionError(f"k=160 under PCM_KNN_IMPL={impl} is not the plain kNN")
+        log(f"knn     k=96: kernel 2 index-exact; k=160: the plain version on every selector, "
+            f"no kNN kernel launched")
     return res
 
 
@@ -859,6 +992,15 @@ def check_flash(dev) -> dict:
         kw = dict(sm_scale=128 ** -0.5, dropout_rate=ATTN_DROPOUT, dropout_seed=9, **blocks)
         check(f"{tag} B=2 H=4 L=515 dh=128 rate={ATTN_DROPOUT}",
               *run(q, k, v, None, None, do, kw), dtype)
+        # kernel 9's other block routes: 1024-key blocks, whose scores do not
+        # fit shared memory (computed again in each pass), and the
+        # single-step variant (block_k >= Lk), staged and not
+        for L, bk in ((2051, 1024), (300, 512), (1100, 2048)):
+            q, k, v, do = (arr(dtype, 2, 2, L, 64) for _ in range(4))
+            kw = dict(sm_scale=0.125, dropout_rate=ATTN_DROPOUT, dropout_seed=9,
+                      block_q=min(FLASH_BLOCK, L), block_k=bk)
+            check(f"{tag} B=2 H=2 L={L} dh=64 block_k={bk} rate={ATTN_DROPOUT}",
+                  *run(q, k, v, None, None, do, kw), dtype)
 
     # the mask read back: q = 0 weighs every key alike, v = Lk I in two
     # stripes of 128 columns picks one key a column, so o != 0 where kept
@@ -1288,7 +1430,7 @@ def train_flash(dev) -> dict:
     phase 5 times them: kernels 9, 10 and 11 of the step's type in every
     encoder layer of every step, and no other attention kernel. Then a B=4
     step of each type with every kernel against every plain version from
-    the same generators, so the same masks (f32 FLASH_F32_STEP_TOL, bf16
+    the same generators, so the same masks (f32 1e-5, as phase 5; bf16
     BF16_STEP_TOL).
     Returns each timed run's kernel launches."""
     import torch
@@ -1312,7 +1454,7 @@ def train_flash(dev) -> dict:
     batch = to_device(build_batch(batch_size=4, n_points=N_POINTS, seed=1), dev)
     module = BCModule(build_flagship(seed=0, dropout=ATTN_DROPOUT, attention_impl="flash",
                                      device=dev))
-    for dtype, tag, tol in ((None, "f32", FLASH_F32_STEP_TOL),
+    for dtype, tag, tol in ((None, "f32", 1e-5),
                             (torch.bfloat16, "bf16", BF16_STEP_TOL)):
         got = _step_grads(module, batch, module.make_rngs(5), dtype)
         with plain_kernels():
@@ -1321,6 +1463,105 @@ def train_flash(dev) -> dict:
             f"flash {tag} B=4 step at dropout {ATTN_DROPOUT}, kernels vs plain versions",
             *got, *ref, grad_rtol=tol, loss_rtol=tol))
         del got, ref
+    return launches
+
+
+def serve_selectors(dev) -> dict:
+    """Phase 9, the kNN selector (``PCM_KNN_IMPL``) end to end. The flagship
+    (oneshot encoder, seeded weights) through ``BCModule.predict`` at
+    N=10240 under ``chunkskip`` and under ``baseline``: after a warm-up
+    request at each batch size, 3 requests at B=1 and 3 at B=32; the
+    selector's kernel (12 or 13) once in every request and kernel 2 never;
+    the B=32 answer bit-equal to the default route's (kernel 2, phase 4's
+    answer) on the same weights and batch. Then N=20480 with the variable
+    unset, the automatic route: kernel 12 in every request, kernel 2 never,
+    the B=32 answer within 1e-3 of the all-plain version. Then
+    ``PCM_KNN_IMPL=bogus``: ``predict`` raises ``ValueError`` and launches
+    no kNN kernel. Last, a warmed bf16 B=32 training step under
+    ``chunkskip``, timed as phase 5 times them: kernel 12 once a step,
+    kernel 2 never. Returns each run's kernel launches by path."""
+    import torch
+
+    from pointcloudmatters_tpu_torch import ops
+    from pointcloudmatters_tpu_torch.entry import build_batch, build_flagship
+    from pointcloudmatters_tpu_torch.models.bc_module import BCModule
+
+    module = BCModule(build_flagship(seed=0, device=dev))
+    launches = {}
+
+    def serve_path(path, n_points, want):
+        """3 warmed requests at B=1 and 3 at B=32; returns the B=32 batch and
+        the last answer."""
+        small = [build_batch(batch_size=1, n_points=n_points, seed=s, with_actions=False)
+                 for s in (1, 2, 3)]
+        big = build_batch(batch_size=BIG_BATCH, n_points=n_points, seed=0, with_actions=False)
+        for obs in (small[0], big):  # warm-up
+            module.predict(obs)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        answers = []
+        for obs in small + [big] * 3:
+            t0 = time.perf_counter()
+            a_hat = module.predict(obs)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            B = obs["qpos"].shape[0]
+            if tuple(a_hat.shape) != (B, 100, 7) or not torch.isfinite(a_hat).all():
+                raise AssertionError(f"{path}: a_hat {tuple(a_hat.shape)} at B={B} is not a "
+                                     f"finite (B, 100, 7)")
+            answers.append(a_hat)
+            log(f"predict {path} B={B:2d} N={n_points}: {ms:.2f} ms")
+        counts = ops.launch_counts()
+        log(f"launches on {path}: {counts}")
+        if counts[want] != len(answers) or any(counts[k] for k in KNN_KERNELS if k != want):
+            raise AssertionError(f"{path}: want {want} once a request ({len(answers)}) and "
+                                 f"no other kNN kernel, got {counts}")
+        launches[path] = counts
+        return big, answers[-1]
+
+    with knn_impl(None):
+        ref = module.predict(build_batch(batch_size=BIG_BATCH, n_points=N_POINTS, seed=0,
+                                         with_actions=False))
+    for impl, kernel in SELECTOR_KERNEL.items():
+        with knn_impl(impl):
+            _, a_hat = serve_path("predict_" + impl, N_POINTS, kernel)
+        if not torch.equal(a_hat, ref):
+            raise AssertionError(f"B={BIG_BATCH} predict under PCM_KNN_IMPL={impl} differs from "
+                                 f"the default route by {(a_hat - ref).abs().max().item():.3e}")
+        log(f"predict PCM_KNN_IMPL={impl} B={BIG_BATCH}: bit-equal to the default route")
+
+    with knn_impl(None):
+        big, a_hat = serve_path("predict_auto", BIG_CLOUD, "knn_chunkskip")
+        with plain_kernels():
+            a_plain = module.predict(big)
+    err = (a_hat - a_plain).abs().max().item()
+    if not err <= 1e-3:
+        raise AssertionError(f"B={BIG_BATCH} N={BIG_CLOUD} predict with kernels vs plain: "
+                             f"{err:.3e} > 1e-3")
+    log(f"predict N={BIG_CLOUD} B={BIG_BATCH}, variable unset: kernel 12, kernels vs plain "
+        f"versions max abs diff {err:.3e}")
+
+    ops.reset_launch_counts()
+    with knn_impl("bogus"):
+        try:
+            module.predict(build_batch(batch_size=1, n_points=N_POINTS, seed=1,
+                                       with_actions=False))
+        except ValueError as exc:
+            log(f"predict PCM_KNN_IMPL=bogus: ValueError ({exc})")
+        else:
+            raise AssertionError("PCM_KNN_IMPL=bogus did not raise")
+    if any(ops.launch_counts()[k] for k in KNN_KERNELS):
+        raise AssertionError(f"PCM_KNN_IMPL=bogus launched a kNN kernel: {ops.launch_counts()}")
+    del module, ref, a_hat, a_plain
+    torch.cuda.empty_cache()
+
+    with knn_impl("chunkskip"):
+        counts = timed_steps(dev, "train_bf16_chunkskip", "bf16-mixed")
+    if counts["knn_chunkskip"] != TRAIN_STEPS or any(
+            counts[k] for k in KNN_KERNELS if k != "knn_chunkskip"):
+        raise AssertionError(f"the chunkskip bf16 step: want kernel 12 once a step and no "
+                             f"other kNN kernel, got {counts}")
+    launches["train_bf16_chunkskip"] = counts
     return launches
 
 
@@ -1349,18 +1590,27 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    res = check_kernels(dev)
-    torch.cuda.empty_cache()  # the serving phase starts from an empty pool, as before
-    paths = {"predict": serve(dev), "train_step": train(dev)}
-    paths.update(train_bf16(dev))
-    paths["predict_fused"] = serve(dev, "fused")
-    paths.update(train_fused(dev))
-    paths["predict_flash"] = serve(dev, "flash")
-    paths.update(train_flash(dev))
+    with knn_impl(None):  # phases 3-8 on the default kNN route, whatever the caller set
+        res = check_kernels(dev)
+        torch.cuda.empty_cache()  # the serving phase starts from an empty pool, as before
+        paths = {"predict": serve(dev), "train_step": train(dev)}
+        paths.update(train_bf16(dev))
+        paths["predict_fused"] = serve(dev, "fused")
+        paths.update(train_fused(dev))
+        paths["predict_flash"] = serve(dev, "flash")
+        paths.update(train_flash(dev))
+    torch.cuda.empty_cache()
+    selector_paths = serve_selectors(dev)
+    paths.update(selector_paths)
     stray = {path: [k for k in FLASH_KERNELS if counts[k]] for path, counts in paths.items()
              if "flash" not in path and any(counts[k] for k in FLASH_KERNELS)}
     if stray:
         raise AssertionError(f"flash kernels launched off the flash paths: {stray}")
+    stray = {path: [k for k in SELECTOR_KERNEL.values() if counts[k]]
+             for path, counts in paths.items()
+             if path not in selector_paths and any(counts[k] for k in SELECTOR_KERNEL.values())}
+    if stray:
+        raise AssertionError(f"kernels 12/13 launched off the selector paths: {stray}")
 
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=tpu,

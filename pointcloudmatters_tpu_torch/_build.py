@@ -27,8 +27,8 @@ __all__ = ["KERNELS", "BUILD_DIR", "build", "load", "check"]
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-KERNELS = ("fps", "knn", "attention_fwd", "attention_bwd", "fused_builder", "fused_mha",
-           "flash_attention")
+KERNELS = ("fps", "knn", "knn_chunkskip", "knn_baseline", "attention_fwd", "attention_bwd",
+           "fused_builder", "fused_mha", "flash_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

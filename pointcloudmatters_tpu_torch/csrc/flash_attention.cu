@@ -36,13 +36,14 @@
 // bf16 (T = bf16) rounds where the TPU kernels round (:571-573, :1023-1024,
 // :1045, :1397-1399): p D before p v, p_dropped before dV, dS before dK and
 // dQ, and each output once; inputs convert to f32 on load, and tiles, row
-// statistics and accumulators are f32. One choice differs from the TPU
-// kernel and from the plain version: the forward rounds p = exp(s - m)
-// against its own running max over 64-key tiles (the plain version, like
-// the TPU, against the running max after each block_k block, or the final
-// normalised p in the single-step variant). Both are one rounding of the
-// same value against another scale; the kernel is held to the plain
-// version at the bf16 tolerance (chip_smoke.py).
+// statistics and accumulators are f32. The forward follows the TPU's update
+// rule block_k block by block_k block (:528-575), as the plain version
+// does: m_next = max(m_prev, rowmax(s)) over the whole block first, then
+// p = exp(s - m_next), l_next = rowsum(p) + exp(m_prev - m_next) l_prev, p D
+// rounded to T, and the accumulator kept normalised, acc <- acc (l_corr /
+// l_next) + (p v) / l_next with 1 / l_next = 1 where l_next is 0. With
+// block_k >= Lk it takes the single-step variant (:585, :647-665): l
+// first, then p / l before dropout and p v, and no division at the end.
 //
 // What bounds it on an H100: arithmetic. 4 B H Lq Lk dh flops forward, 8
 // for dK/dV (S, dP, dV, dK) and 6 for dQ (S, dP, dQ), all f32 FMAs on the
@@ -55,8 +56,12 @@
 // loop inside the block takes its place, as in kernels 3 and 4
 // (attention_fwd.cuh, attention_bwd.cu, whose tiling this file follows and
 // leaves untouched):
-//   9  one block a (64-query tile, batch * head); it streams 64-key tiles
-//      with an f32 online softmax and divides by l once at the end;
+//   9  one block a (64-query tile, batch * head); for each block_k block
+//      of keys it takes the row max over the block's 64-key tiles, then p
+//      and p v tile by tile, and updates m, l and the accumulators once. A
+//      block's 64 x block_k scores are staged in shared memory when they fit
+//      (128 KiB at the flagship's 512, beside the Q, K and V tiles);
+//      otherwise each pass computes them again;
 //   10 one block a (64-key tile, batch * head); it loops over the query
 //      tiles, dK and dV of its 64 keys in registers;
 //   11 one block a (64-query tile, batch * head); it loops over the key
@@ -107,6 +112,7 @@ struct Args {
   float inv_keep;
   uint32_t seed;
   int dropout;
+  int sp, staged;  // the forward's score pitch, and whether a block is staged
 };
 
 // Keep bits of key columns 4g .. 4g+3 of query row `row`, every batch item
@@ -182,30 +188,67 @@ __device__ __forceinline__ void load_ids(const int* ids, int b, int r0, int rows
     dst[r] = ids != nullptr && r0 + r < rows ? ids[(long long)b * rows + r0 + r] : 0;
 }
 
+// Dynamic shared memory of the forward at a score pitch of `sp` floats:
+// the Q, K and V tiles, 64 rows of scores (a whole block_k block when it is
+// staged, else one 64-key tile) and the segment ids.
 template <int DH>
-constexpr size_t fwd_smem_bytes() {
+constexpr size_t fwd_smem_bytes(int sp) {
   return ((size_t)kBQ * (DH + 1) + (size_t)kBK * (DH + 1) + (size_t)kBK * DH +
-          (size_t)kBQ * (kBK + 1) + 2 * kBQ) * sizeof(float) + (kBQ + kBK) * sizeof(int);
+          (size_t)kBQ * sp) * sizeof(float) + (kBQ + kBK) * sizeof(int);
+}
+
+// The 64x64 logit tile at key column k0 of a block that ends at `kend`:
+// loads the K tile (rows up to kend) and its segment ids, then s[i][j] for
+// row ty + 16 i, column tx + 16 j, -inf past kend. Every thread calls it.
+template <typename T, int DH>
+__device__ __forceinline__ void fwd_logits(const Args& a, long long bh, int b, const T* kb,
+                                           int q0, int k0, int kend, const float* Qs,
+                                           float* Ks, const int* sq, int* skv,
+                                           float (&s)[4][4]) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  __syncthreads();  // the previous K tile is consumed
+  load_rows<T, DH>(kb, a.ks.l, k0, kend, Ks, DH + 1);
+  load_ids(a.seg_kv, b, k0, a.Lk, skv);
+  __syncthreads();
+  tile_dot<DH>(Qs, Ks, s);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = ty + 16 * i, c = tx + 16 * j;
+      s[i][j] = k0 + c < kend ? logit<T>(a, bh, q0 + r, k0 + c, s[i][j], sq[r], skv[c])
+                              : -INFINITY;
+    }
+}
+
+// The sum, or the maximum, of v over the 16 threads that share a row group
+// (lanes 16 (ty & 1) + tx of warp ty / 2); a butterfly, so every one of them
+// gets the same bits.
+__device__ __forceinline__ float row_sum16(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+__device__ __forceinline__ float row_max16(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
 }
 
 template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
-  constexpr int LD = DH + 1;    // padded row of Q and K tiles
-  constexpr int LDP = kBK + 1;  // padded row of the score tile
-  constexpr int CJ = DH / 16;   // output columns a thread
+  constexpr int LD = DH + 1;   // padded row of Q and K tiles
+  constexpr int CJ = DH / 16;  // output columns a thread
   extern __shared__ float sm[];
   float* Qs = sm;
   float* Ks = Qs + kBQ * LD;
   float* Vs = Ks + kBK * LD;
-  float* Ps = Vs + kBK * DH;
-  float* row_alpha = Ps + kBQ * LDP;
-  float* row_l = row_alpha + kBQ;
-  int* sq = (int*)(row_l + kBQ);
+  float* Ss = Vs + kBK * DH;  // 64 rows of pitch a.sp: scores, then p
+  int* sq = (int*)(Ss + kBQ * a.sp);
   int* skv = sq + kBQ;
 
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
-  const int lane = tid & 31, warp = tid >> 5;
   const int q0 = blockIdx.x * kBQ;
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
   const T* kb = (const T*)a.k + b * a.ks.b + h * a.ks.h;
@@ -215,121 +258,183 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
   load_rows<T, DH>((const T*)a.q + b * a.qs.b + h * a.qs.h, a.qs.l, q0, a.Lq, Qs, LD);
   load_ids(a.seg_q, b, q0, a.Lq, sq);
 
-  float acc[4][CJ];
+  // rows ty + 16 i: the running state, the same in the row group's 16 threads
+  float acc[4][CJ], m_run[4], l_run[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
+    m_run[i] = -INFINITY;
+    l_run[i] = 0.f;
 #pragma unroll
     for (int j = 0; j < CJ; ++j) acc[i][j] = 0.f;
-  float m_run[8], l_run[8];  // rows warp*8 .. warp*8+7, same in every lane
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    m_run[r] = -INFINITY;
-    l_run[r] = 0.f;
   }
 
-  const int n_kt = (a.Lk + kBK - 1) / kBK;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kBK;
-    if (tile_skipped(a, q0, k0)) continue;  // the same for every thread
-    __syncthreads();  // the previous tile's K, V and P are consumed
-    load_rows<T, DH>(kb, a.ks.l, k0, a.Lk, Ks, LD);
-    load_rows<T, DH>(vb, a.vs.l, k0, a.Lk, Vs, DH);
-    load_ids(a.seg_kv, b, k0, a.Lk, skv);
-    __syncthreads();
+  // the TPU's single-step variant: one block, p normalised before p v
+  const bool single = a.bk >= a.Lk;
+  const int bk = single ? a.Lk : a.bk;
+  for (int kb0 = 0; kb0 < a.Lk; kb0 += bk) {
+    if (tile_skipped(a, q0, kb0)) continue;  // the same for every thread
+    const int kend = min(kb0 + bk, a.Lk);
+    const int nt = (kend - kb0 + kBK - 1) / kBK;
 
-    float s[4][4];
-    tile_dot<DH>(Qs, Ks, s);
+    // pass 1: the block's row max m_next = max(m_prev, rowmax(s)), the
+    // scores staged in Ss when the block fits
+    float m_use[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        Ps[r * LDP + c] = logit<T>(a, bh, q0 + r, k0 + c, s[i][j], sq[r], skv[c]);
-      }
-    __syncthreads();
-
-    // online softmax: warp w folds rows 8w .. 8w+7, two columns a lane
-#pragma unroll
-    for (int rr = 0; rr < 8; ++rr) {
-      const int r = warp * 8 + rr;
-      const float s0 = Ps[r * LDP + lane], s1 = Ps[r * LDP + lane + 32];
-      float mx = fmaxf(s0, s1);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_run[rr], mx);
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;  // no visited pair yet
-      const float alpha = expf(m_run[rr] - m_use);
-      const float p0 = expf(s0 - m_use), p1 = expf(s1 - m_use);
-      float sum = p0 + p1;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l_run[rr] = l_run[rr] * alpha + sum;
-      m_run[rr] = m_new;
-      // undropped p is rounded here; dropped p after its scaling below
-      Ps[r * LDP + lane] = a.dropout ? p0 : round_to<T>(p0);
-      Ps[r * LDP + lane + 32] = a.dropout ? p1 : round_to<T>(p1);
-      if (lane == 0) row_alpha[r] = alpha;
-    }
-    __syncthreads();
-
-    if (a.dropout) {  // p <- round(p D), four columns a draw
-      for (int gi = tid; gi < kBQ * (kBK / 4); gi += kThreads) {
-        const int r = gi / (kBK / 4), c4 = (gi % (kBK / 4)) * 4;
-        const uint4 bits = flash_keep_bits4(a.seed, q0 + r, (k0 + c4) >> 2);
-        float* pr = Ps + r * LDP + c4;
-        pr[0] = round_to<T>(bits.x >= a.threshold ? pr[0] * a.inv_keep : 0.f);
-        pr[1] = round_to<T>(bits.y >= a.threshold ? pr[1] * a.inv_keep : 0.f);
-        pr[2] = round_to<T>(bits.z >= a.threshold ? pr[2] * a.inv_keep : 0.f);
-        pr[3] = round_to<T>(bits.w >= a.threshold ? pr[3] * a.inv_keep : 0.f);
-      }
-      __syncthreads();
-    }
-
-    // acc = alpha * acc + P V: rows ty + 16 i, columns tx + 16 j
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float al = row_alpha[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) acc[i][j] *= al;
-    }
-#pragma unroll 8
-    for (int kk = 0; kk < kBK; ++kk) {
-      float pv[4], vv[CJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * LDP + kk];
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) vv[j] = Vs[kk * DH + tx + 16 * j];
+    for (int i = 0; i < 4; ++i) m_use[i] = -INFINITY;
+    for (int t = 0; t < nt; ++t) {
+      float s[4][4];
+      fwd_logits<T, DH>(a, bh, b, kb, q0, kb0 + t * kBK, kend, Qs, Ks, sq, skv, s);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < CJ; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+        for (int j = 0; j < 4; ++j) {
+          m_use[i] = fmaxf(m_use[i], s[i][j]);
+          if (a.staged) Ss[(ty + 16 * i) * a.sp + t * kBK + tx + 16 * j] = s[i][j];
+        }
+    }
+    float m_next[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      m_next[i] = fmaxf(m_run[i], row_max16(m_use[i]));
+      m_use[i] = m_next[i] == -INFINITY ? 0.f : m_next[i];  // no visited pair yet
+    }
+
+    // the logits of tile t: staged, or computed again
+    auto logits = [&](int t, float (&s)[4][4]) {
+      if (!a.staged) {
+        fwd_logits<T, DH>(a, bh, b, kb, q0, kb0 + t * kBK, kend, Qs, Ks, sq, skv, s);
+        return;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = Ss[(ty + 16 * i) * a.sp + t * kBK + tx + 16 * j];
+    };
+
+    // pass 2, single step only: l = rowsum(exp(s - m)) before p is formed
+    float psum[4] = {0.f, 0.f, 0.f, 0.f}, l_single[4];
+    if (single) {
+      for (int t = 0; t < nt; ++t) {
+        float s[4][4];
+        logits(t, s);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) psum[i] += expf(s[i][j] - m_use[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) l_single[i] = row_sum16(psum[i]);
+    }
+
+    // pass 3: p = exp(s - m_next) (single step: / l), l's row sum of the
+    // undropped p, p D rounded to T, and o_curr = p v over the block
+    float o_cur[4][CJ];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) o_cur[i][j] = 0.f;
+    for (int t = 0; t < nt; ++t) {
+      const int k0 = kb0 + t * kBK;
+      float s[4][4];
+      logits(t, s);  // recomputed: syncs, then loads K
+      __syncthreads();  // the previous tile's V and p are consumed
+      load_rows<T, DH>(vb, a.vs.l, k0, kend, Vs, DH);
+      float* Ps = a.staged ? Ss + t * kBK : Ss;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float p = expf(s[i][j] - m_use[i]);
+          if (single)
+            p = __fdiv_rn(p, l_single[i]);
+          else
+            psum[i] += p;
+          // undropped p is rounded here; dropped p after its scaling below
+          Ps[(ty + 16 * i) * a.sp + tx + 16 * j] = a.dropout ? p : round_to<T>(p);
+        }
+      __syncthreads();
+
+      if (a.dropout) {  // p <- round(p D), four columns a thread
+        for (int gi = tid; gi < kBQ * (kBK / 4); gi += kThreads) {
+          const int r = gi / (kBK / 4), c4 = (gi % (kBK / 4)) * 4;
+          float* pr = Ps + r * a.sp + c4;
+          uint32_t w[4];
+          if ((k0 & 3) == 0) {  // one draw holds the four columns
+            const uint4 bits = flash_keep_bits4(a.seed, q0 + r, (k0 + c4) >> 2);
+            w[0] = bits.x;
+            w[1] = bits.y;
+            w[2] = bits.z;
+            w[3] = bits.w;
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = k0 + c4 + e;
+              const uint4 bits = flash_keep_bits4(a.seed, q0 + r, col >> 2);
+              const int word = col & 3;
+              w[e] = word == 0 ? bits.x : word == 1 ? bits.y : word == 2 ? bits.z : bits.w;
+            }
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            pr[e] = round_to<T>(w[e] >= a.threshold ? pr[e] * a.inv_keep : 0.f);
+        }
+        __syncthreads();
+      }
+
+      // o_curr += P V: rows ty + 16 i, columns tx + 16 j
+#pragma unroll 8
+      for (int kk = 0; kk < kBK; ++kk) {
+        float pv[4], vv[CJ];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * a.sp + kk];
+#pragma unroll
+        for (int j = 0; j < CJ; ++j) vv[j] = Vs[kk * DH + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < CJ; ++j) o_cur[i][j] = fmaf(pv[i], vv[j], o_cur[i][j]);
+      }
+    }
+
+    // the block's update of the rows that visit it; under `causal` a row
+    // whose block_q tile does not reach this block keeps its state
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + ty + 16 * i;
+      const bool run = !a.causal || last_row(row, a.bq) > kb0;
+      const float rowsum = row_sum16(psum[i]);  // every thread of the group calls it
+      if (!run) continue;
+      if (single) {
+#pragma unroll
+        for (int j = 0; j < CJ; ++j) acc[i][j] = o_cur[i][j];
+        l_run[i] = l_single[i];
+      } else {
+        // l_next = rowsum(p) + alpha l_prev; acc <- acc (l_corr / l_next) +
+        // o_curr / l_next, with 1 / l_next taken as 1 where l_next is 0
+        const float l_corr = __fmul_rn(expf(m_run[i] - m_use[i]), l_run[i]);
+        const float l_next = __fadd_rn(rowsum, l_corr);
+        const float inv = l_next == 0.f ? 1.f : __fdiv_rn(1.0f, l_next);
+        const float corr = __fmul_rn(l_corr, inv);
+#pragma unroll
+        for (int j = 0; j < CJ; ++j)
+          acc[i][j] = __fadd_rn(__fmul_rn(acc[i][j], corr), __fmul_rn(o_cur[i][j], inv));
+        l_run[i] = l_next;
+      }
+      m_run[i] = m_next[i];
     }
   }
 
-  __syncthreads();  // row_alpha is read; it now takes the final row max
-  if (lane == 0) {
-#pragma unroll
-    for (int rr = 0; rr < 8; ++rr) {
-      row_l[warp * 8 + rr] = l_run[rr];
-      row_alpha[warp * 8 + rr] = m_run[rr];
-    }
-  }
-  __syncthreads();
-  const long long base = (long long)bh * a.Lq + q0;
-  for (int r = tid; r < kBQ && q0 + r < a.Lq; r += kThreads) {
-    a.l[base + r] = row_l[r];
-    a.m[base + r] = row_alpha[r];
-  }
+  const long long base = (long long)bh * a.Lq;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (q0 + r >= a.Lq) continue;
-    const float lr = row_l[r];
-    const float inv = lr == 0.f ? 1.f : 1.0f / lr;  // the TPU's l_next_inv_safe
+    const int row = q0 + ty + 16 * i;
+    if (row >= a.Lq) continue;
+    if (tx == 0) {
+      a.l[base + row] = l_run[i];
+      a.m[base + row] = m_run[i];
+    }
 #pragma unroll
-    for (int j = 0; j < CJ; ++j)
-      ob[(q0 + r) * a.os.l + tx + 16 * j] = pcm::from_f<T>(acc[i][j] * inv);
+    for (int j = 0; j < CJ; ++j) ob[row * a.os.l + tx + 16 * j] = pcm::from_f<T>(acc[i][j]);
   }
 }
 
@@ -566,8 +671,22 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
 enum Which { kFwd, kDkv, kDq };
 
 template <typename T, int DH>
-cudaError_t launch(Which w, const Args& a, int B, cudaStream_t stream) {
-  const size_t smem = w == kFwd ? fwd_smem_bytes<DH>() : bwd_smem_bytes<DH>();
+cudaError_t launch(Which w, const Args& args, int B, cudaStream_t stream) {
+  Args a = args;
+  size_t smem = bwd_smem_bytes<DH>();
+  if (w == kFwd) {
+    // stage a whole block_k block of scores when it fits the opt-in shared
+    // memory, else keep one 64-key tile and compute the scores again
+    int device = 0, optin = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (err != cudaSuccess) return err;
+    const int width = ((a.bk >= a.Lk ? a.Lk : a.bk) + kBK - 1) / kBK * kBK;
+    a.staged = fwd_smem_bytes<DH>(width + 1) <= (size_t)optin;
+    a.sp = a.staged ? width + 1 : kBK + 1;
+    smem = fwd_smem_bytes<DH>(a.sp);
+  }
   constexpr cudaFuncAttribute kAttr = cudaFuncAttributeMaxDynamicSharedMemorySize;
   const cudaError_t err =
       w == kFwd   ? cudaFuncSetAttribute(flash_fwd_kernel<T, DH>, kAttr, (int)smem)

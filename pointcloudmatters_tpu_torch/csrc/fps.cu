@@ -23,6 +23,13 @@
 // results redundantly in every warp from a double-buffered shared array, so
 // one barrier an iteration suffices.
 //
+// Above 16,384 points (two cameras of the shipped 16,384 each, say) the
+// coordinates no longer fit shared memory (12 bytes a point) nor the cache
+// registers, so `fps_kernel_large` keeps the min-distance cache and the
+// validity in shared memory (5 bytes a point, up to kMaxNLarge points) and
+// reads the coordinates from global memory, where the cloud stays in L2
+// (240 KB at N = 20480). Its loop, reduction and tie order are the same.
+//
 // Rounding: distances are computed with __fmul_rn/__fadd_rn/__fsub_rn in the
 // plain version's order, |x|^2 + |p|^2 - 2 (x0 p0 + x1 p1 + x2 p2), with
 // |x|^2 = x0 x0 + x1 x1 + x2 x2, so no FMA contraction changes a bit and the
@@ -37,6 +44,7 @@ namespace {
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxPPT = 16;  // points a thread: N <= 16384
 constexpr int kMaxN = kMaxThreads * kMaxPPT;
+constexpr int kMaxNLarge = 40960;  // 5 bytes a point of dynamic shared memory
 
 __device__ __forceinline__ float sqnorm(float x, float y, float z) {
   return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
@@ -140,6 +148,74 @@ fps_kernel(const float* __restrict__ xyz, const uint8_t* __restrict__ mask,
   }
 }
 
+// The same loop for kMaxN < N <= kMaxNLarge: the min-distance cache and the
+// validity in shared memory, the coordinates read from global memory. Each
+// thread touches only its own points (j = tid + i * nthreads), so the cache
+// needs no barrier of its own.
+__global__ void __launch_bounds__(kMaxThreads, 1)
+fps_kernel_large(const float* __restrict__ xyz, const uint8_t* __restrict__ mask,
+                 int32_t* __restrict__ out, int N, int npoints) {
+  extern __shared__ float smem[];
+  float* dist = smem;
+  uint8_t* valid = reinterpret_cast<uint8_t*>(dist + N);
+  __shared__ float red_v[2][32];
+  __shared__ int red_i[2][32];
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = nthreads >> 5;
+  const float* p = xyz + (size_t)b * N * 3;
+  const uint8_t* m = mask + (size_t)b * N;
+
+  for (int j = tid; j < N; j += nthreads) {
+    const bool v = m[j] != 0;
+    valid[j] = v;
+    dist[j] = v ? 1.0e10f : -1.0f;
+  }
+  if (tid == 0) out[(size_t)b * npoints] = 0;
+  __syncthreads();
+
+  int last = 0;
+  for (int it = 1; it < npoints; ++it) {
+    const float px = __ldg(p + 3 * last), py = __ldg(p + 3 * last + 1),
+                pz = __ldg(p + 3 * last + 2);
+    const float p2 = sqnorm(px, py, pz);
+    float bv = -INFINITY;
+    int bi = 0x7fffffff;
+    for (int j = tid; j < N; j += nthreads) {
+      float dj = dist[j];
+      if (valid[j]) {
+        const float x = __ldg(p + 3 * j), y = __ldg(p + 3 * j + 1), z = __ldg(p + 3 * j + 2);
+        const float dot =
+            __fadd_rn(__fadd_rn(__fmul_rn(x, px), __fmul_rn(y, py)), __fmul_rn(z, pz));
+        const float d = __fsub_rn(__fadd_rn(sqnorm(x, y, z), p2), __fmul_rn(2.0f, dot));
+        dj = fminf(dj, d);
+        dist[j] = dj;
+      }
+      // j rises, so a strict > keeps the smaller index on a tie
+      if (dj > bv) {
+        bv = dj;
+        bi = j;
+      }
+    }
+    warp_argmax(bv, bi);
+    const int buf = it & 1;
+    if (lane == 0) {
+      red_v[buf][warp] = bv;
+      red_i[buf][warp] = bi;
+    }
+    __syncthreads();
+    bv = lane < nwarps ? red_v[buf][lane] : -INFINITY;
+    bi = lane < nwarps ? red_i[buf][lane] : 0x7fffffff;
+    warp_argmax(bv, bi);
+    last = bi;
+    if (tid == 0) out[(size_t)b * npoints + it] = last;
+  }
+}
+
 template <int PPT>
 cudaError_t launch(const float* xyz, const uint8_t* mask, int32_t* out, int B, int N,
                    int npoints, int threads, cudaStream_t stream) {
@@ -156,15 +232,24 @@ cudaError_t launch(const float* xyz, const uint8_t* mask, int32_t* out, int B, i
 
 extern "C" {
 
-int pcm_fps_max_points() { return kMaxN; }
+int pcm_fps_max_points() { return kMaxNLarge; }
 
 // xyz (B, N, 3) f32, mask (B, N) bool as bytes, out (B, npoints) int32; all
 // contiguous on device `device`. Returns the cudaError_t of the launch.
 int pcm_fps(const float* xyz, const uint8_t* mask, int32_t* out, int B, int N,
             int npoints, int device, void* stream) {
-  if (N < 1 || N > kMaxN || npoints < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  if (N < 1 || N > kMaxNLarge || npoints < 1 || B < 1) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (N > kMaxN) {
+    const size_t smem = (size_t)N * (sizeof(float) + 1);
+    err = cudaFuncSetAttribute(fps_kernel_large, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)((size_t)kMaxNLarge * (sizeof(float) + 1)));
+    if (err != cudaSuccess) return (int)err;
+    fps_kernel_large<<<B, kMaxThreads, smem, (cudaStream_t)stream>>>(xyz, mask, out, N,
+                                                                      npoints);
+    return (int)cudaGetLastError();
+  }
   const int threads = N >= kMaxThreads ? kMaxThreads : ((N + 31) / 32) * 32;
   const int ppt = (N + threads - 1) / threads;
   cudaStream_t s = (cudaStream_t)stream;

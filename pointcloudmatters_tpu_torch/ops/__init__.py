@@ -5,6 +5,8 @@ its plain PyTorch version.
 |---|---|---|
 | ``pallas_fps.py`` ``_fps_kernel`` | ``fps.cu`` | ``ops/fps.py`` |
 | ``pallas_knn3.py`` ``_knn3_kernel`` | ``knn.cu`` | ``ops/knn.py`` |
+| ``pallas_knn2.py`` ``_knn2_kernel`` | ``knn_chunkskip.cu`` | ``ops/knn_chunkskip.py`` |
+| ``pallas_knn.py`` ``_knn_kernel`` | ``knn_baseline.cu`` | ``ops/knn_baseline.py`` |
 | ``oneshot_attention.py`` ``_fwd_kernel`` (with ``_keep_mask``) | ``attention_fwd.cu`` | ``ops/oneshot_attention.py`` |
 | ``oneshot_attention.py`` ``_bwd_kernel`` | ``attention_bwd.cu`` | ``ops/oneshot_attention.py`` |
 | ``fused_builder.py`` ``_fwd_kernel`` | ``fused_builder.cu`` ``builder_fwd_kernel`` | ``ops/fused_builder.py`` |
@@ -28,6 +30,8 @@ from pointcloudmatters_tpu_torch.ops import (
     fused_builder,
     fused_mha,
     knn,
+    knn_baseline,
+    knn_chunkskip,
     oneshot_attention,
 )
 
@@ -37,6 +41,8 @@ __all__ = ["launch_counts", "reset_launch_counts"]
 _COUNTED = {
     "fps": (fps, "LAUNCHES"),
     "knn": (knn, "LAUNCHES"),
+    "knn_chunkskip": (knn_chunkskip, "LAUNCHES"),
+    "knn_baseline": (knn_baseline, "LAUNCHES"),
     "attention_fwd": (oneshot_attention, "LAUNCHES"),
     "attention_bwd": (oneshot_attention, "BWD_LAUNCHES"),
     "attention_fwd_bf16": (oneshot_attention, "BF16_LAUNCHES"),

@@ -37,10 +37,9 @@ bf16 rounds where the TPU kernels round (:571-573, :1023-1024, :1045,
 running max after each ``block_k`` block (normalised first in the
 single-step variant); ``p_dropped`` before dV; dS before dK and before dQ;
 l, m, di and every accumulator stay f32 and each output rounds once. The
-plain forward reproduces the block granularity by its loop over ``block_k``
-blocks; the CUDA kernel rounds against its own running max over 64-key
-tiles and is held to the plain version at the bf16 tolerance
-(``csrc/flash_attention.cu``).
+plain forward and the CUDA kernel both reproduce the block granularity, the
+plain version by its loop over ``block_k`` blocks, the kernel by a row-max
+pass over each block before its p (``csrc/flash_attention.cu``).
 
 Dropout: the TPU mask is hardware random bits seeded by (seed, q tile, kv
 tile) (:379-394), which nothing else reproduces. The port keeps its
@@ -517,8 +516,8 @@ def flash_attention(
         dropout_seed: the mask's seed, a host integer (its low 32 bits);
             required when ``dropout_rate > 0``.
         block_q, block_k: the TPU kernels' tile, which decides the causal
-            skips (``block_q`` and ``block_k``) and, in bf16, where the
-            forward rounds against its running max (``block_k``); the
+            skips (``block_q`` and ``block_k``) and the blocks of the
+            forward's online softmax (``block_k``); the
             defaults are the TPU's ``BlockSizes.get_default``.
     """
     opts = dict(causal=bool(causal), sm_scale=float(sm_scale),

@@ -24,6 +24,8 @@ SLICE_MODULES = (
     "pointcloudmatters_tpu_torch.ops.pointops",
     "pointcloudmatters_tpu_torch.ops.fps",
     "pointcloudmatters_tpu_torch.ops.knn",
+    "pointcloudmatters_tpu_torch.ops.knn_chunkskip",
+    "pointcloudmatters_tpu_torch.ops.knn_baseline",
     "pointcloudmatters_tpu_torch.ops.oneshot_attention",
     "pointcloudmatters_tpu_torch.ops.fused_builder",
     "pointcloudmatters_tpu_torch.ops.fused_mha",

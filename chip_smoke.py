@@ -25,9 +25,11 @@ Phases, each of which raises on failure (exit code non-zero, no result):
    forward bit for bit (q = 0, v = I); the attention backward at rate 0,
    0.1 and a masked key tail (each of dQ, dK, dV within
    1e-4 * max(1, max |plain|)), two identical launches bit-identical. The
-   bf16 attention forward and backward at the same shape, rates 0 and 0.1
-   (each output within BF16_TOL * max(1, max |plain|), row statistics
-   within 1e-5, the mask read back bit for bit, two backward launches
+   bf16 attention forward and backward (the tensor-core kernels of
+   ``csrc/attention_mma.cuh``) at the same shape, rates 0 and 0.1, each
+   timed at both rates, and at dh=128, Lq=70, Lk=650, l_actual=600 (each
+   output within BF16_TOL * max(1, max |plain|), row statistics within
+   1e-5, the mask read back bit for bit, two backward launches
    bit-identical). The data-source builder at B=4, N=10240, M=2048, K=16,
    D=512 with holes: kernel 5's vmax, vmin and tie bitmap bit-equal, sg
    within one bf16 ulp, totals within 1e-5 relative; kernel 6 (Cin=515)
@@ -86,7 +88,8 @@ Phases, each of which raises on failure (exit code non-zero, no result):
    kernel; then a bf16 B=4 step with every
    kernel against every plain version (BF16_STEP_TOL), and a B=4 step at
    dropout 0.1, which the fused backend routes to the bf16 oneshot kernels
-   (and no fused kernel), as JAX does.
+   (and no fused kernel), as JAX does, against every plain version
+   (BF16_STEP_TOL).
 8. Trains the flagship with ``attention_impl="flash"`` at the shipped
    dropout 0.1, at ``"32-true"`` and at ``"bf16-mixed"``, as phase 5 times
    it: kernels 9, 10 and 11 of the step's type once in every encoder layer
@@ -111,7 +114,9 @@ and the bound: the larger of the bytes over 3.35 TB/s and the flops over
 the peak of the inputs' type, 67 TFLOP/s f32 or 989 TFLOP/s bf16; one
 ``attention_bwd`` launch is one call of the three-kernel backward: the
 ``rowsum(dO * O)`` pre-pass, dK/dV and dQ, timed together, and its library
-time is the library's forward + backward less its forward; a fused layer's
+time is the library's forward + backward less its forward; the bf16
+oneshot kernels also carry ``ms_rate0``, their time at dropout 0 beside
+``ms`` at 0.1; a fused layer's
 bound sums its products' times at their operands' peaks; flash kernels 10
 and 11 are timed apart, and the library's backward stands on kernel 10's
 row, against the two together), then
@@ -153,8 +158,8 @@ KERNELS = {
     "knn_baseline": (_CSRC + "knn_baseline.cu", _OPS + "pallas_knn.py:81"),
     "attention_fwd": (_CSRC + "attention_fwd.cu", _OPS + "oneshot_attention.py:203"),
     "attention_bwd": (_CSRC + "attention_bwd.cu", _OPS + "oneshot_attention.py:233"),
-    "attention_fwd_bf16": (_CSRC + "attention_fwd.cu", _OPS + "oneshot_attention.py:203"),
-    "attention_bwd_bf16": (_CSRC + "attention_bwd.cu", _OPS + "oneshot_attention.py:233"),
+    "attention_fwd_bf16": (_CSRC + "attention_mma.cuh", _OPS + "oneshot_attention.py:203"),
+    "attention_bwd_bf16": (_CSRC + "attention_mma.cuh", _OPS + "oneshot_attention.py:233"),
     "builder_fwd": (_CSRC + "fused_builder.cu", _OPS + "fused_builder.py:226"),
     "routed_dw": (_CSRC + "fused_builder.cu", _OPS + "fused_builder.py:361"),
     "fused_mha_fwd": (_CSRC + "fused_mha.cu", _OPS + "fused_mha.py:154"),
@@ -630,10 +635,14 @@ def check_attention(dev) -> dict:
 
 
 def check_attention_bf16(dev) -> dict:
-    """Phase 3, bf16 attention: the forward and backward kernels at rates 0
+    """Phase 3, bf16 attention (the tensor-core kernels of
+    ``csrc/attention_mma.cuh``): the forward and backward kernels at rates 0
     and 0.1 against their plain versions within BF16_TOL * max(1,
     max|plain|), the row statistics within 1e-5, the mask read back bit for
-    bit, two backward launches bit-identical."""
+    bit, two backward launches bit-identical; each kernel timed at both
+    rates; and an edge case at dh = 128, Lq = 70, Lk = 650, l_actual = 600
+    (junk keys past l_actual, a ragged last key tile), also on views whose
+    rows are not 16-byte aligned."""
     import numpy as np
     import torch
 
@@ -655,28 +664,41 @@ def check_attention_bf16(dev) -> dict:
             raise AssertionError(f"bf16 attention {what} off by {err:.3e} > {limit:.3e}")
         return err
 
-    q, k, v = arr(B, H, L, dh), arr(B, H, L, dh), arr(B, H, L, dh)
-    dout = arr(B, H, L, dh)
-    fwd_bound, bwd_bound = _attention_bounds(B, H, L, dh, "bf16")
-    for rate in (0.0, ATTN_DROPOUT):
-        out, m, r = one.oneshot_attention_cuda(q, k, v, scale, None, rate, 11,
+    def fwd_bwd_case(q, k, v, dout, scale, l_actual, rate, what):
+        """Forward (with statistics) and backward against the plain versions
+        -> (fwd err, statistics err, bwd errs, backward args, kernel grads)."""
+        out, m, r = one.oneshot_attention_cuda(q, k, v, scale, l_actual, rate, 11,
                                                with_stats=True)
-        ref, m_p, r_p = one.oneshot_attention_plain(q, k, v, scale, None, rate, 11,
+        ref, m_p, r_p = one.oneshot_attention_plain(q, k, v, scale, l_actual, rate, 11,
                                                     with_stats=True)
-        err = check(f"fwd rate={rate}", out, ref)
+        err = check(f"fwd {what}", out, ref)
         stat_err = max(_max_err(m, m_p) / max(1.0, m_p.abs().max().item()),
                        _max_err(r, r_p) / r_p.abs().max().item())
         if not stat_err <= 1e-5:
-            raise AssertionError(f"bf16 attention row statistics off by {stat_err:.3e}")
-        args = (q, k, v, out, dout, m, r, scale, None, rate, 11)
+            raise AssertionError(f"bf16 attention row statistics ({what}) off by "
+                                 f"{stat_err:.3e}")
+        args = (q, k, v, out, dout, m, r, scale, l_actual, rate, 11)
         got_b = one.oneshot_attention_bwd_cuda(*args)
         ref_b = one.oneshot_attention_plain_bwd(*args)
-        errs = [check(f"bwd {n} rate={rate}", g, p)
+        errs = [check(f"bwd {n} {what}", g, p)
                 for n, g, p in zip(("dq", "dk", "dv"), got_b, ref_b)]
-        log(f"attn    bf16 B={B} H={H} L={L} dh={dh} rate={rate}: fwd max abs err "
-            f"{err:.3e} (max |plain| {ref.float().abs().max().item():.3e}), statistics "
-            f"{stat_err:.3e}; bwd dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} "
-            f"(max |plain| {'/'.join(f'{t.float().abs().max().item():.3e}' for t in ref_b)})")
+        log(f"attn    bf16 {what}: fwd max abs err {err:.3e} (max |plain| "
+            f"{ref.float().abs().max().item():.3e}), statistics {stat_err:.3e}; bwd "
+            f"dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (max |plain| "
+            f"{'/'.join(f'{t.float().abs().max().item():.3e}' for t in ref_b)})")
+        return err, errs, args, got_b
+
+    q, k, v = arr(B, H, L, dh), arr(B, H, L, dh), arr(B, H, L, dh)
+    dout = arr(B, H, L, dh)
+    fwd_bound, bwd_bound = _attention_bounds(B, H, L, dh, "bf16")
+    ms = {}
+    for rate in (0.0, ATTN_DROPOUT):
+        err, errs, args, got_b = fwd_bwd_case(q, k, v, dout, scale, None, rate,
+                                              f"B={B} H={H} L={L} dh={dh} rate={rate}")
+        ms[rate] = (
+            cuda_ms(lambda: one.oneshot_attention_cuda(q, k, v, scale, None, rate, 11,
+                                                       with_stats=True), 5),
+            cuda_ms(lambda: one.oneshot_attention_bwd_cuda(*args), 5))
         if rate == 0.0:
             lib_fwd, lib_fb = sdpa_ms(q, k, v)
             log(f"attn    scaled_dot_product_attention bf16 rate 0: fwd {lib_fwd:.3f} ms, "
@@ -686,20 +708,32 @@ def check_attention_bf16(dev) -> dict:
         if not all(torch.equal(a, b) for a, b in zip(got_b, again)):
             raise AssertionError("two identical bf16 backward launches differ")
         res["attention_fwd_bf16"] = dict(
-            max_abs_err=err, library_ms=lib_fwd, **fwd_bound,
-            ms=cuda_ms(lambda: one.oneshot_attention_cuda(q, k, v, scale, None, rate, 11,
-                                                          with_stats=True), 5),
+            max_abs_err=err, library_ms=lib_fwd, **fwd_bound, ms=ms[rate][0],
+            ms_rate0=ms[0.0][0],
             plain_ms=cuda_ms(lambda: one.oneshot_attention_plain(
                 q, k, v, scale, None, rate, 11, with_stats=True), 5))
         res["attention_bwd_bf16"] = dict(
-            max_abs_err=max(errs), library_ms=lib_fb - lib_fwd, **bwd_bound,
-            ms=cuda_ms(lambda: one.oneshot_attention_bwd_cuda(*args), 5),
+            max_abs_err=max(errs), library_ms=lib_fb - lib_fwd, **bwd_bound, ms=ms[rate][1],
+            ms_rate0=ms[0.0][1],
             plain_ms=cuda_ms(lambda: one.oneshot_attention_plain_bwd(*args), 5))
-        log(f"attn    bf16 rate={rate}: fwd kernel {res['attention_fwd_bf16']['ms']:.3f} ms, "
-            f"plain {res['attention_fwd_bf16']['plain_ms']:.3f} ms; bwd kernel "
-            f"{res['attention_bwd_bf16']['ms']:.3f} ms, plain "
-            f"{res['attention_bwd_bf16']['plain_ms']:.3f} ms; two bwd launches "
-            f"bit-identical")
+        for name in ("attention_fwd_bf16", "attention_bwd_bf16"):
+            t = res[name]
+            log(f"attn    {name}: kernel {t['ms']:.3f} ms at rate {rate}, "
+                f"{t['ms_rate0']:.3f} ms at rate 0; plain {t['plain_ms']:.3f} ms; "
+                f"library {t['library_ms']:.3f} ms; bound {t['bound_ms']:.3f} ms "
+                f"({t['bound_by']})")
+        log("attn    bf16 bwd: two identical launches are bit-identical")
+    del args, got_b
+
+    # the ragged edge at dh = 128: junk keys past l_actual, Lq != Lk; then
+    # views whose rows are not 16-byte aligned (row stride dh + 1), which
+    # the kernels load without cp.async
+    for dh_e, pad, rate in ((128, 0, 0.0), (128, 0, ATTN_DROPOUT), (64, 1, ATTN_DROPOUT)):
+        qe, ke, ve, de = (arr(2, 4, n, dh_e + pad)[..., pad:] for n in (70, 650, 650, 70))
+        ke[:, :, 600:] *= 1e3
+        fwd_bwd_case(qe, ke, ve, de, dh_e ** -0.5, 600, rate,
+                     f"B=2 H=4 Lq=70 Lk=650 l_actual=600 dh={dh_e} rate={rate}"
+                     + (", row stride dh + 1" if pad else ""))
 
     # the mask read back in bf16: q = 0, v = I
     n = 128
@@ -1413,14 +1447,19 @@ def train_fused(dev) -> dict:
     module = BCModule(build_flagship(seed=0, dropout=ATTN_DROPOUT, attention_impl="fused",
                                      device=dev))
     ops.reset_launch_counts()
-    loss, _ = _step_grads(module, batch, module.make_rngs(5), torch.bfloat16)
+    got = _step_grads(module, batch, module.make_rngs(5), torch.bfloat16)
     counts = ops.launch_counts()
-    if not (torch.isfinite(loss) and counts["attention_fwd_bf16"] and counts["attention_bwd_bf16"]
-            and not any(counts[k] for k in FUSED_KERNELS)):
-        raise AssertionError(f"the fused dropout-{ATTN_DROPOUT} step: loss {float(loss)}, "
+    if not (torch.isfinite(got[0]) and counts["attention_fwd_bf16"]
+            and counts["attention_bwd_bf16"] and not any(counts[k] for k in FUSED_KERNELS)):
+        raise AssertionError(f"the fused dropout-{ATTN_DROPOUT} step: loss {float(got[0])}, "
                              f"launches {counts}")
     log(f"train   bf16 fused B=4 step at dropout {ATTN_DROPOUT}: the composed route, "
         f"launches {counts}")
+    with plain_kernels():
+        ref = _step_grads(module, batch, module.make_rngs(5), torch.bfloat16)
+    log("train   " + _compare_step(f"bf16 fused B=4 step at dropout {ATTN_DROPOUT}, kernels "
+                                   f"vs plain versions", *got, *ref, grad_rtol=BF16_STEP_TOL,
+                                   loss_rtol=BF16_STEP_TOL))
     return launches
 
 

@@ -19,15 +19,18 @@
 // in bf16 it reads the rounded output O, where the TPU kernel sums unrounded
 // products, the one place the bf16 variant takes another route.)
 //
-// The element type T is float or bf16; tiles, statistics and accumulators
-// are f32 in both. In bf16 the kernel rounds where the TPU kernel rounds:
-// the pre-scaled q (oneshot_attention.py:238), p_drop before dV (:131), dS
-// before dQ and dK (:143), dQ before its scale (:147, :273), and the outputs.
+// This file holds the f32 kernels and the D pre-pass of both element
+// types. In bf16 the dK/dV and dQ kernels are the tensor-core kernels of
+// attention_mma.cuh, which round where the TPU kernel rounds: the
+// pre-scaled q (oneshot_attention.py:238), p_drop before dV (:131), dS
+// before dQ and dK (:143), dQ before its scale (:147, :273), and the
+// outputs. The f32 kernels below keep tiles, statistics and accumulators f32
+// (their `T` is float; `round_to<float>` is the identity).
 //
-// What bounds it on an H100: arithmetic, as in the forward. 14 dh flops a
-// score element (S and dP recomputed in both passes below) on the FP32
-// pipes, f32 FMAs in both element types (tensor-core tiles are a later PR's
-// work).
+// What bounds the f32 kernels on an H100: arithmetic, as in the forward.
+// 14 dh flops a score element (S and dP recomputed in both passes below) on
+// the FP32 pipes, as f32 FMAs (f32 stays off TF32, which would lose the
+// 1e-5 the f32 step is held to).
 //
 // What the design does about the TPU kernel's shape: that kernel holds a
 // whole key row and accumulates dK/dV in VMEM scratch across a sequential
@@ -50,6 +53,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_mma.cuh"
 #include "elem.cuh"
 #include "philox.cuh"
 
@@ -62,9 +66,7 @@ constexpr int kBQ = 64;
 constexpr int kBK = 64;
 constexpr int kThreads = 256;
 
-struct Strides {
-  long long b, h, l;
-};
+using Strides = pcm::attn_mma::Strides;
 
 template <typename T>
 struct Args {
@@ -357,12 +359,6 @@ cudaError_t launch(const Args<T>& a, int B, cudaStream_t stream) {
   err = cudaFuncSetAttribute(attn_bwd_dq_kernel<T, DH>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-
-  const long long rows = (long long)B * a.H * a.Lq;
-  const long long blocks = (rows * 32 + kThreads - 1) / kThreads;
-  attn_bwd_delta_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(a, DH, rows);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
   attn_bwd_dkdv_kernel<T, DH>
       <<<dim3((a.Lk + kBK - 1) / kBK, B * a.H), kThreads, smem, stream>>>(a);
   err = cudaGetLastError();
@@ -408,9 +404,25 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v, const void
   a.inv_keep = inv_keep;
   a.seed = seed;
   a.dropout = dropout;
-  if (dh == 64) return launch<T, 64>(a, B, s);
-  if (dh == 128) return launch<T, 128>(a, B, s);
-  return cudaErrorInvalidValue;
+  if (dh != 64 && dh != 128) return cudaErrorInvalidValue;
+  // D = rowsum(dO * O); then dK/dV and dQ, on the FP32 pipes in f32 and on
+  // the tensor cores in bf16
+  const long long rows = (long long)B * H * Lq;
+  attn_bwd_delta_kernel<T>
+      <<<(unsigned)((rows * 32 + kThreads - 1) / kThreads), kThreads, 0, s>>>(a, dh, rows);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if constexpr (pcm::is_bf16<T>::value) {
+    namespace mm = pcm::attn_mma;
+    const mm::BwdArgs m{a.q, a.k, a.v, a.dout, a.row_max, a.row_inv, a.delta, a.dq, a.dk,
+                        a.dv, a.qs, a.ks, a.vs, a.dos, a.dqs, a.dks, a.dvs, H, Lq, Lk,
+                        l_actual, a.scale, threshold, inv_keep, seed, dropout,
+                        mm::rows_aligned(q, a.qs) && mm::rows_aligned(k, a.ks) &&
+                            mm::rows_aligned(v, a.vs) && mm::rows_aligned(dout, a.dos)};
+    return dh == 64 ? mm::launch_bwd<64>(m, B, s) : mm::launch_bwd<128>(m, B, s);
+  } else {
+    return dh == 64 ? launch<T, 64>(a, B, s) : launch<T, 128>(a, B, s);
+  }
 }
 
 }  // namespace

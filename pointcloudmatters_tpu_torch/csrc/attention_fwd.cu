@@ -1,11 +1,13 @@
 // C entry of the exact softmax attention forward (kernel 3 of the port,
-// the TPU's `oneshot_attention` `_fwd_kernel`). The kernel and its design
-// notes are in attention_fwd.cuh.
+// the TPU's `oneshot_attention` `_fwd_kernel`). The f32 kernel and its
+// design notes are in attention_fwd.cuh (FP32 FMAs); the bf16 kernel, on the
+// tensor cores, is in attention_mma.cuh.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "attention_fwd.cuh"
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -54,10 +56,18 @@ int pcm_attention_fwd(const void* q, const void* k, const void* v, void* o, floa
   if (err != cudaSuccess) return (int)err;
   const Strides qs{qsb, qsh, qsl}, ks{ksb, ksh, ksl}, vs{vsb, vsh, vsl}, os{osb, osh, osl};
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16)
-    return (int)launch_dh<pcm::bf16>(dh, q, k, v, o, row_max, row_inv, qs, ks, vs, os, B, H,
-                                     Lq, Lk, l_actual, scale, threshold, inv_keep, seed,
-                                     dropout, s);
+  if (bf16) {
+    namespace mm = pcm::attn_mma;
+    const mm::Strides ks2{ksb, ksh, ksl}, vs2{vsb, vsh, vsl};
+    const mm::FwdArgs a{(const pcm::bf16*)q, (const pcm::bf16*)k, (const pcm::bf16*)v,
+                        (pcm::bf16*)o, row_max, row_inv, mm::Strides{qsb, qsh, qsl}, ks2,
+                        vs2, mm::Strides{osb, osh, osl}, H, Lq, Lk, l_actual, scale,
+                        threshold, inv_keep, seed, dropout,
+                        mm::rows_aligned(k, ks2) && mm::rows_aligned(v, vs2)};
+    if (dh == 64) return (int)mm::launch_fwd<64>(a, B, s);
+    if (dh == 128) return (int)mm::launch_fwd<128>(a, B, s);
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)launch_dh<float>(dh, q, k, v, o, row_max, row_inv, qs, ks, vs, os, B, H, Lq,
                                Lk, l_actual, scale, threshold, inv_keep, seed, dropout, s);
 }

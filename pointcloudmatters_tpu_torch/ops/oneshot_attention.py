@@ -28,8 +28,10 @@ The seed is a host integer, so drawing it never waits for the device.
 :func:`oneshot_attention` is an autograd function. A CPU tensor runs the
 plain versions (:func:`oneshot_attention_plain`,
 :func:`oneshot_attention_plain_bwd`); a CUDA tensor the hand-written kernels
-``csrc/attention_fwd.cu`` and ``csrc/attention_bwd.cu`` (design notes in
-their sources), which raise on anything they do not take.
+behind the C entries ``csrc/attention_fwd.cu`` and ``csrc/attention_bwd.cu``,
+which raise on anything they do not take: f32 on the FP32 pipes
+(``csrc/attention_fwd.cuh``, ``csrc/attention_bwd.cu``), bf16 on the tensor
+cores (``csrc/attention_mma.cuh``; design notes in the sources).
 """
 
 from __future__ import annotations

@@ -1,0 +1,147 @@
+"""The bf16 oneshot attention of the port against the JAX package's TPU
+kernel, on the CPU, at the shapes the tensor-core kernels' tiling stresses,
+and the ctypes signatures of the attention kernels' C entries.
+
+- ``oneshot_attention`` on CPU tensors runs the plain bf16 versions
+  (``oneshot_attention_plain`` / ``oneshot_attention_plain_bwd``), which the
+  kernels of ``csrc/attention_mma.cuh`` are held to on the card. Here they
+  are held to the JAX package's ``oneshot_attention`` (its Pallas forward
+  and backward kernels, run in interpret mode: the tests hand that module a
+  ``pl`` whose ``pallas_call`` interprets), forward and ``jax.grad``
+  dq/dk/dv, within 2e-2 of each tensor's largest entry, as
+  ``tests/test_torch_bf16.py`` holds the bf16 attention: both sides take
+  bf16 operands with f32 sums and round at the same points, but in another
+  summation order, which moves a rounded e or dS by a bf16 ulp (2^-8
+  relative). Lq and Lk are not multiples of the 64-row tiles, dh is 64 or
+  128, and the port's keys carry junk past ``l_actual`` (the JAX kernel
+  gets only the first ``l_actual`` keys); the port's dk and dv there must be
+  0. Dropout has no interpret-mode lowering (``prng_seed``), so it is
+  tested at rate 0 here and on the card against the plain versions.
+- A wrong ``argtypes`` cuts a pointer to 32 bits without an error, so the
+  wrappers' ``argtypes`` are held to the ``extern "C"`` prototypes parsed
+  from ``csrc/attention_fwd.cu`` and ``csrc/attention_bwd.cu``.
+"""
+
+import ctypes
+import functools
+import os
+import re
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pointcloudmatters_tpu.ops import oneshot_attention as jone
+from pointcloudmatters_tpu_torch import _build
+from pointcloudmatters_tpu_torch.ops import oneshot_attention as tone
+
+BF16 = torch.bfloat16
+RTOL = 2e-2
+
+
+class _Module(types.ModuleType):
+    """A module with some attributes replaced."""
+
+    def __init__(self, mod, **replaced):
+        super().__init__(mod.__name__)
+        self._mod = mod
+        self.__dict__.update(replaced)
+
+    def __getattr__(self, name):
+        return getattr(self._mod, name)
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    """The JAX oneshot kernels in Pallas interpret mode."""
+    pl = jone.pl
+    monkeypatch.setattr(jone, "pl", _Module(
+        pl, pallas_call=functools.partial(pl.pallas_call, interpret=True)))
+
+
+def _rel(got, ref) -> float:
+    got = np.asarray(got.detach().float(), np.float32)
+    ref = np.asarray(ref, np.float32)
+    return float(np.abs(got - ref).max() / max(1e-12, np.abs(ref).max()))
+
+
+@pytest.mark.parametrize("Lq,Lk,l_actual", [(70, 515, 480), (130, 600, 577)])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_bf16_plain_matches_jax_tpu_kernel(interpret, Lq, Lk, l_actual, dh):
+    """Forward and dq/dk/dv of the port's bf16 oneshot attention (plain
+    versions) against ``jax.grad`` through the JAX TPU kernels, keys past
+    l_actual junk on the port's side."""
+    B, H = 2, 2
+    scale = dh ** -0.5
+    rng = np.random.RandomState(Lq + Lk + dh)
+    q, k, v = (rng.randn(B, H, L, dh).astype(np.float32) for L in (Lq, Lk, Lk))
+    g = rng.randn(B, H, Lq, dh).astype(np.float32)
+    k[:, :, l_actual:] *= 50.0
+    v[:, :, l_actual:] *= 50.0
+
+    def jloss(q, k, v):
+        out = jone.oneshot_attention(q, k, v, 0, scale, 0.0, 256)
+        return jnp.sum(out.astype(jnp.float32) * g), out
+
+    jb = [jnp.asarray(a, jnp.bfloat16) for a in (q, k[:, :, :l_actual], v[:, :, :l_actual])]
+    (_, ref), ref_grads = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(*jb)
+
+    tq, tk, tv = (torch.from_numpy(a).to(BF16).requires_grad_() for a in (q, k, v))
+    out = tone.oneshot_attention(tq, tk, tv, scale, l_actual=l_actual)
+    (out.float() * torch.from_numpy(g)).sum().backward()
+    assert out.dtype == BF16 and tq.grad.dtype == BF16
+    assert _rel(out, ref) < RTOL
+    assert _rel(tq.grad, ref_grads[0]) < RTOL, "dq"
+    for name, got, want in (("dk", tk.grad, ref_grads[1]), ("dv", tv.grad, ref_grads[2])):
+        assert _rel(got[:, :, :l_actual], want) < RTOL, name
+        assert torch.count_nonzero(got[:, :, l_actual:]) == 0, name
+
+
+_CTYPE_OF = {"long long": ctypes.c_longlong, "int": ctypes.c_int,
+             "unsigned": ctypes.c_uint32, "float": ctypes.c_float}
+
+
+def _prototype(source: str, name: str) -> list:
+    """ctypes kinds of the parameters of ``int name(...)`` in a csrc file."""
+    with open(os.path.join(_build.CSRC, source)) as f:
+        text = f.read()
+    match = re.search(r"\bint\s+" + name + r"\s*\(([^)]*)\)\s*\{", text)
+    assert match, f"no prototype of {name} in {source}"
+    kinds = []
+    for param in match.group(1).split(","):
+        param = " ".join(param.split())
+        if "*" in param:
+            kinds.append(ctypes.c_void_p)
+            continue
+        ctype = re.sub(r"\s*\w+$", "", param.replace("const ", ""))
+        kinds.append(_CTYPE_OF[ctype])
+    return kinds
+
+
+class _FakeLib:
+    """A loaded library whose entry points have no argtypes yet."""
+
+    def __init__(self, *names):
+        for n in names:
+            setattr(self, n, types.SimpleNamespace(argtypes=None, restype=None))
+
+
+@pytest.mark.parametrize("getter,source,entry", [
+    ("_fwd_lib", "attention_fwd.cu", "pcm_attention_fwd"),
+    ("_bwd_lib", "attention_bwd.cu", "pcm_attention_bwd"),
+])
+def test_wrapper_argtypes_match_c_prototypes(monkeypatch, getter, source, entry):
+    """The wrapper's argtypes have the C entry's length and, at every
+    position, its kind: a pointer is c_void_p, never an int."""
+    fake = _FakeLib(entry)
+    monkeypatch.setattr(_build, "load", lambda name: fake)
+    lib = getattr(tone, getter)()
+    fn = getattr(lib, entry)
+    want = _prototype(source, entry)
+    assert len(fn.argtypes) == len(want)
+    for i, (got, kind) in enumerate(zip(fn.argtypes, want)):
+        assert got is kind, f"{entry} argument {i}: {got.__name__} for {kind.__name__}"
+    assert fn.restype is ctypes.c_int

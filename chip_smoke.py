@@ -42,7 +42,12 @@ Phases, each of which raises on failure (exit code non-zero, no result):
    and 0.1; a causal case with a bias (its gradient ds), a masked key tail,
    a batch row whose keys are all masked and Lq != Lk; dh=128; kernel 9's
    1024-key blocks (scores computed again in each pass) and its single-step
-   variant: o and every gradient within 1e-4 * max(1, max |plain|) in f32 and BF16_TOL in bf16,
+   variant; in bf16 (kernels 10 and 11 on the tensor cores,
+   ``csrc/flash_mma.cuh``) also Lq=70, Lk=650 with a segment-masked key
+   tail, the same on views whose rows are not 16-byte aligned, and a causal
+   case whose 48- and 40-row TPU tiles straddle the 64-row mma tiles, each
+   at rate 0.1, and kernels 10 and 11 timed at rate 0 beside rate 0.1:
+   o and every gradient within 1e-4 * max(1, max |plain|) in f32 and BF16_TOL in bf16,
    l and m within 1e-5 relative, two launches of each bit-identical, the
    mask read back bit for bit and the same for every batch item and head.
    Each attention shape is also timed through
@@ -115,8 +120,8 @@ the peak of the inputs' type, 67 TFLOP/s f32 or 989 TFLOP/s bf16; one
 ``attention_bwd`` launch is one call of the three-kernel backward: the
 ``rowsum(dO * O)`` pre-pass, dK/dV and dQ, timed together, and its library
 time is the library's forward + backward less its forward; the bf16
-oneshot kernels also carry ``ms_rate0``, their time at dropout 0 beside
-``ms`` at 0.1; a fused layer's
+oneshot kernels and bf16 flash kernels 10 and 11 also carry ``ms_rate0``,
+their time at dropout 0 beside ``ms`` at 0.1; a fused layer's
 bound sums its products' times at their operands' peaks; flash kernels 10
 and 11 are timed apart, and the library's backward stands on kernel 10's
 row, against the two together), then
@@ -170,8 +175,8 @@ KERNELS = {
     "flash_dkv": (_CSRC + "flash_attention.cu", _OPS + "flash_attention.py:1068"),
     "flash_dq": (_CSRC + "flash_attention.cu", _OPS + "flash_attention.py:1427"),
     "flash_fwd_bf16": (_CSRC + "flash_attention.cu", _OPS + "flash_attention.py:697"),
-    "flash_dkv_bf16": (_CSRC + "flash_attention.cu", _OPS + "flash_attention.py:1068"),
-    "flash_dq_bf16": (_CSRC + "flash_attention.cu", _OPS + "flash_attention.py:1427"),
+    "flash_dkv_bf16": (_CSRC + "flash_mma.cuh", _OPS + "flash_attention.py:1068"),
+    "flash_dq_bf16": (_CSRC + "flash_mma.cuh", _OPS + "flash_attention.py:1427"),
 }
 PREDICT_KERNELS = ("fps", "knn", "attention_fwd")  # serving runs no backward
 TRAIN_KERNELS = ("fps", "knn", "attention_fwd", "attention_bwd")  # "32-true"
@@ -908,11 +913,13 @@ def check_flash(dev) -> dict:
     versions: B=4, H=8, L=2051, dh=64 at the adapter's 512-row tiles, f32
     and bf16, rates 0 and 0.1; a small causal case with a bias (its
     gradient ds), a masked key tail, a batch row whose keys are all masked,
-    Lq != Lk and 128-row tiles; dh=128. o, dq, dk, dv and ds within 1e-4 *
+    Lq != Lk and 128-row tiles; dh=128; bf16 Lq=70, Lk=650 with a
+    segment-masked key tail, aligned and not, and causal 48/40-row tiles.
+    o, dq, dk, dv and ds within 1e-4 *
     max(1, max |plain|) in f32 and BF16_TOL in bf16, l and m within 1e-5
     relative; two launches of each kernel bit-identical; the mask read back
     bit for bit, the same for every batch item and head. Kernel, plain and
-    library times at the flagship shape."""
+    library times at the flagship shape (bf16 10 and 11 also at rate 0)."""
     import numpy as np
     import torch
 
@@ -994,6 +1001,16 @@ def check_flash(dev) -> dict:
             max_abs_err=worst["dq"], library_ms=None, **dq_b,
             ms=cuda_ms(lambda: fa.flash_attention_bwd_dq_cuda(*args, **kw), 5),
             plain_ms=cuda_ms(lambda: fa.flash_attention_plain_bwd_dq(*args, **kw), 2))
+        if tag == "bf16":  # the share of Philox: kernels 10 and 11 at rate 0
+            kw0 = dict(kw, dropout_rate=0.0)
+            o0, l0, m0 = fa.flash_attention_cuda(q, k, v, **kw0)
+            args0 = (q, k, v, None, None, l0, m0, do, (o0.float() * do.float()).sum(-1))
+            for name, fn in (("flash_dkv_bf16", fa.flash_attention_bwd_dkv_cuda),
+                             ("flash_dq_bf16", fa.flash_attention_bwd_dq_cuda)):
+                res[name]["ms_rate0"] = cuda_ms(lambda: fn(*args0, **kw0), 5)
+                log(f"flash   {name}: kernel {res[name]['ms']:.3f} ms at rate "
+                    f"{ATTN_DROPOUT}, {res[name]['ms_rate0']:.3f} ms at rate 0")
+            del o0, l0, m0, args0
         log(f"flash   {tag} rate={ATTN_DROPOUT}: fwd kernel {res['flash_fwd' + suffix]['ms']:.3f} "
             f"ms, plain {res['flash_fwd' + suffix]['plain_ms']:.3f} ms, "
             f"scaled_dot_product_attention {lib_fwd:.3f} ms (rate 0); dkv kernel "
@@ -1035,6 +1052,28 @@ def check_flash(dev) -> dict:
                       block_q=min(FLASH_BLOCK, L), block_k=bk)
             check(f"{tag} B=2 H=2 L={L} dh=64 block_k={bk} rate={ATTN_DROPOUT}",
                   *run(q, k, v, None, None, do, kw), dtype)
+
+    # bf16 shapes that stress the tensor-core tiling of kernels 10 and 11:
+    # Lq = 70 and Lk = 650 (ragged 64-row tiles and 32-column sub-tiles)
+    # with a segment-masked key tail, also on views whose rows are not
+    # 16-byte aligned (row stride dh + 1, loaded without cp.async); and a
+    # causal case whose TPU tiles straddle the 64-row mma tiles
+    Bs, Hs, Lq, Lk = 2, 4, 70, 650
+    kv = torch.ones((Bs, Lk), dtype=i32, device=dev)
+    kv[:, 600:] = 0
+    ids = fa.SegmentIds(torch.ones((Bs, Lq), dtype=i32, device=dev), kv)
+    kw = dict(sm_scale=0.125, dropout_rate=ATTN_DROPOUT, dropout_seed=13, block_q=Lq,
+              block_k=FLASH_BLOCK)
+    for pad in (0, 1):
+        q, do = (arr(bf16, Bs, Hs, Lq, 64 + pad)[..., pad:] for _ in range(2))
+        k, v = (arr(bf16, Bs, Hs, Lk, 64 + pad)[..., pad:] for _ in range(2))
+        check(f"bf16 Lq={Lq} Lk={Lk} dh=64, segment-masked key tail, rate={ATTN_DROPOUT}"
+              + (", row stride dh + 1" if pad else ""), *run(q, k, v, None, ids, do, kw), bf16)
+    q, k, v, do = (arr(bf16, 2, 2, 300, 64) for _ in range(4))
+    kw = dict(causal=True, sm_scale=0.125, dropout_rate=ATTN_DROPOUT, dropout_seed=3,
+              block_q=48, block_k=40)
+    check(f"bf16 causal L=300 dh=64 block_q=48 block_k=40 rate={ATTN_DROPOUT}",
+          *run(q, k, v, None, None, do, kw), bf16)
 
     # the mask read back: q = 0 weighs every key alike, v = Lk I in two
     # stripes of 128 columns picks one key a column, so o != 0 where kept

@@ -35,9 +35,10 @@
 //
 // bf16 (T = bf16) rounds where the TPU kernels round (:571-573, :1023-1024,
 // :1045, :1397-1399): p D before p v, p_dropped before dV, dS before dK and
-// dQ, and each output once; inputs convert to f32 on load, and tiles, row
-// statistics and accumulators are f32. The forward follows the TPU's update
-// rule block_k block by block_k block (:528-575), as the plain version
+// dQ, and each output once. The kernels of this file convert inputs to f32
+// on load; their tiles, row statistics and accumulators are f32. The
+// forward follows the TPU's update rule block_k block by block_k block
+// (:528-575), as the plain version
 // does: m_next = max(m_prev, rowmax(s)) over the whole block first, then
 // p = exp(s - m_next), l_next = rowsum(p) + exp(m_prev - m_next) l_prev, p D
 // rounded to T, and the accumulator kept normalised, acc <- acc (l_corr /
@@ -46,9 +47,11 @@
 // first, then p / l before dropout and p v, and no division at the end.
 //
 // What bounds it on an H100: arithmetic. 4 B H Lq Lk dh flops forward, 8
-// for dK/dV (S, dP, dV, dK) and 6 for dQ (S, dP, dQ), all f32 FMAs on the
-// FP32 pipes in both element types; tensor-core tiles (mma/wgmma) are
-// later work.
+// for dK/dV (S, dP, dV, dK) and 6 for dQ (S, dP, dQ). The kernels below are
+// f32 FMAs on the FP32 pipes: kernel 9 in both element types, 10 and 11 in
+// f32. At bf16, kernels 10 and 11 are the tensor-core kernels of
+// flash_mma.cuh, which also holds what every kernel here shares: the
+// launch arguments, the mask value, the causal skips and the Philox bits.
 //
 // What the design does about the TPU kernels' shape: those carry m, l and
 // the accumulators in VMEM scratch across a sequential kv grid axis (dK/dV
@@ -78,59 +81,24 @@
 #include <stdint.h>
 
 #include "elem.cuh"
+#include "flash_mma.cuh"
 #include "philox.cuh"
 
 namespace {
 
 using pcm::round_to;
 using pcm::to_f;
+using pcm::flash::Args;
+using pcm::flash::flash_keep_bits4;
+using pcm::flash::kMaskValue;
+using pcm::flash::last_row;
+using pcm::flash::Strides;
+using pcm::flash::tile_skipped;
 
 constexpr int kBQ = 64;
 constexpr int kBK = 64;
 constexpr int kThreads = 256;
-// DEFAULT_MASK_VALUE: -0.7 times the f32 maximum, in double, then rounded
-// to f32, as the TPU kernel adds it to its f32 scores
-constexpr float kMaskValue = (float)(-0.7 * 3.4028234663852886e38);
-
-struct Strides {
-  long long b, h, l;
-};
-
-// One launch's arguments; the element pointers are of type T (float or
-// bf16), `ab` and `ds` contiguous (B, H, Lq, Lk), l, m and di contiguous
-// (B, H, Lq) f32, the segment ids contiguous (B, Lq) and (B, Lk) int32.
-struct Args {
-  const void *q, *k, *v, *ab, *dout;
-  const int *seg_q, *seg_kv;
-  void *o, *dq, *dk, *dv, *ds;
-  float *l, *m;
-  const float* di;
-  Strides qs, ks, vs, os, dos, dqs, dks, dvs;
-  int H, Lq, Lk, causal, bq, bk;
-  float scale;
-  uint32_t threshold;
-  float inv_keep;
-  uint32_t seed;
-  int dropout;
-  int sp, staged;  // the forward's score pitch, and whether a block is staged
-};
-
-// Keep bits of key columns 4g .. 4g+3 of query row `row`, every batch item
-// and head alike.
-__device__ __forceinline__ uint4 flash_keep_bits4(uint32_t seed, int row, int g) {
-  return pcm::philox4x32_10(make_uint4((uint32_t)g, (uint32_t)row, 1u, 0u),
-                            make_uint2(seed, 0u));
-}
-
-// The last row of `row`'s block_q tile: the tile at key column c is visited
-// iff that row exceeds the first column of c's block_k tile.
-__device__ __forceinline__ int last_row(int row, int bq) { return (row / bq + 1) * bq - 1; }
-
-// True when the causal kernels visit no pair of the 64x64 tile at (q0, k0).
-__device__ __forceinline__ bool tile_skipped(const Args& a, int q0, int k0) {
-  if (!a.causal) return false;
-  return last_row(min(q0 + kBQ, a.Lq) - 1, a.bq) <= (k0 / a.bk) * a.bk;
-}
+static_assert(kBQ == pcm::flash::kTileRows, "tile_skipped tests 64-row query tiles");
 
 // The logit of (row, col) from the product s = q . k, or -inf for a pair
 // out of range or not visited. sq and skv are the pair's segment ids.
@@ -672,6 +640,9 @@ enum Which { kFwd, kDkv, kDq };
 
 template <typename T, int DH>
 cudaError_t launch(Which w, const Args& args, int B, cudaStream_t stream) {
+  if constexpr (pcm::is_bf16<T>::value) {  // kernels 10 and 11 on the tensor cores
+    if (w != kFwd) return pcm::flash::launch_bwd<DH>(w == kDkv, args, B, stream);
+  }
   Args a = args;
   size_t smem = bwd_smem_bytes<DH>();
   if (w == kFwd) {
@@ -687,20 +658,16 @@ cudaError_t launch(Which w, const Args& args, int B, cudaStream_t stream) {
     a.sp = a.staged ? width + 1 : kBK + 1;
     smem = fwd_smem_bytes<DH>(a.sp);
   }
-  constexpr cudaFuncAttribute kAttr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  void (*kernel)(Args) = flash_fwd_kernel<T, DH>;
+  if constexpr (!pcm::is_bf16<T>::value) {
+    if (w == kDkv) kernel = flash_dkv_kernel<T, DH>;
+    if (w == kDq) kernel = flash_dq_kernel<T, DH>;
+  }
   const cudaError_t err =
-      w == kFwd   ? cudaFuncSetAttribute(flash_fwd_kernel<T, DH>, kAttr, (int)smem)
-      : w == kDkv ? cudaFuncSetAttribute(flash_dkv_kernel<T, DH>, kAttr, (int)smem)
-                  : cudaFuncSetAttribute(flash_dq_kernel<T, DH>, kAttr, (int)smem);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int tiles = w == kDkv ? (a.Lk + kBK - 1) / kBK : (a.Lq + kBQ - 1) / kBQ;
-  const dim3 grid(tiles, B * a.H);
-  if (w == kFwd)
-    flash_fwd_kernel<T, DH><<<grid, kThreads, smem, stream>>>(a);
-  else if (w == kDkv)
-    flash_dkv_kernel<T, DH><<<grid, kThreads, smem, stream>>>(a);
-  else
-    flash_dq_kernel<T, DH><<<grid, kThreads, smem, stream>>>(a);
+  kernel<<<dim3(tiles, B * a.H), kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 

@@ -57,7 +57,8 @@ versions and the tests.
 plain versions (:func:`flash_attention_plain`,
 :func:`flash_attention_plain_bwd_dkv`, :func:`flash_attention_plain_bwd_dq`);
 a CUDA tensor the hand-written kernels of ``csrc/flash_attention.cu``
-(kernels 9, 10 and 11), which raise on anything they do not take.
+(kernels 9, 10 and 11; at bf16, 10 and 11 are the tensor-core kernels of
+``csrc/flash_mma.cuh``), which raise on anything they do not take.
 """
 
 from __future__ import annotations

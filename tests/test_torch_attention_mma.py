@@ -19,7 +19,9 @@ and the ctypes signatures of the attention kernels' C entries.
   tested at rate 0 here and on the card against the plain versions.
 - A wrong ``argtypes`` cuts a pointer to 32 bits without an error, so the
   wrappers' ``argtypes`` are held to the ``extern "C"`` prototypes parsed
-  from ``csrc/attention_fwd.cu`` and ``csrc/attention_bwd.cu``.
+  from ``csrc/attention_fwd.cu`` and ``csrc/attention_bwd.cu``, and those of
+  the flash wrappers (``ops/flash_attention.py``) to the three entries of
+  ``csrc/flash_attention.cu``.
 """
 
 import ctypes
@@ -36,6 +38,7 @@ import torch
 
 from pointcloudmatters_tpu.ops import oneshot_attention as jone
 from pointcloudmatters_tpu_torch import _build
+from pointcloudmatters_tpu_torch.ops import flash_attention as tfa
 from pointcloudmatters_tpu_torch.ops import oneshot_attention as tone
 
 BF16 = torch.bfloat16
@@ -124,21 +127,25 @@ def _prototype(source: str, name: str) -> list:
 class _FakeLib:
     """A loaded library whose entry points have no argtypes yet."""
 
-    def __init__(self, *names):
-        for n in names:
-            setattr(self, n, types.SimpleNamespace(argtypes=None, restype=None))
+    def __getattr__(self, name):
+        fn = types.SimpleNamespace(argtypes=None, restype=None)
+        setattr(self, name, fn)
+        return fn
 
 
 @pytest.mark.parametrize("getter,source,entry", [
     ("_fwd_lib", "attention_fwd.cu", "pcm_attention_fwd"),
     ("_bwd_lib", "attention_bwd.cu", "pcm_attention_bwd"),
+    ("_lib", "flash_attention.cu", "pcm_flash_fwd"),
+    ("_lib", "flash_attention.cu", "pcm_flash_bwd_dkv"),
+    ("_lib", "flash_attention.cu", "pcm_flash_bwd_dq"),
 ])
 def test_wrapper_argtypes_match_c_prototypes(monkeypatch, getter, source, entry):
     """The wrapper's argtypes have the C entry's length and, at every
     position, its kind: a pointer is c_void_p, never an int."""
-    fake = _FakeLib(entry)
+    fake = _FakeLib()
     monkeypatch.setattr(_build, "load", lambda name: fake)
-    lib = getattr(tone, getter)()
+    lib = getattr(tfa if source == "flash_attention.cu" else tone, getter)()
     fn = getattr(lib, entry)
     want = _prototype(source, entry)
     assert len(fn.argtypes) == len(want)

@@ -118,13 +118,17 @@ def _block_sizes(bq, bk):
 
 # (B, H, L, dh, segment ids, causal, bias, block_k): a masked key tail and a
 # query whose keys are all masked (its segment has no key); the causal tile
-# skips; the bias and its gradient; the single-step variant (block_k = L)
+# skips; the bias and its gradient; the single-step variant (block_k = L);
+# the bias and segment ids at the widths the bf16 tensor-core backward takes
+# (dh 64 and 128)
 CASES = {
     "plain": (2, 2, 256, 64, False, False, False, 128),
     "segments": (2, 2, 384, 16, True, False, False, 128),
     "causal": (1, 2, 384, 64, True, True, False, 128),
     "bias": (1, 2, 256, 16, False, True, True, 128),
     "single_step": (1, 2, 256, 64, True, False, True, 256),
+    "bias_dh64": (1, 2, 256, 64, False, True, True, 128),
+    "segments_dh128": (1, 2, 256, 128, True, False, False, 128),
 }
 
 

@@ -9,7 +9,9 @@ Phases, each of which raises on failure (exit code non-zero, no result):
    limit as ``nvidia-smi`` reports them.
 2. Builds the hand-written CUDA kernels from ``pointcloudmatters_tpu_torch/
    csrc`` (nvcc, sm_90a, one process a source, all at once) and prints the
-   build time and ptxas's resource use.
+   build time and ptxas's registers and spills by kernel function; those of
+   bf16 kernel 9 (dh 64, 128) and of kernel 7's tensor-core GEMM and core go
+   into the kernels line (``ptxas``).
 3. Holds each kernel against its plain PyTorch version on the card at the
    flagship's shapes, and times both:
    FPS B=4, N=10240 -> 2048 (index-exact), and at N=20480 its large-cloud
@@ -36,17 +38,20 @@ Phases, each of which raises on failure (exit code non-zero, no result):
    within 1e-5 * max |dW|; two launches of each bit-identical. The fused
    attention layer (kernels 7 and 8) at B=4, L=2051, D=512, H=8, f32 and
    bf16, rates 0 and 0.1: the output and each of the ten gradients within
-   BF16_TOL * max(1, max |plain|), two launches of each bit-identical; and
-   once at dh=128. Flash attention (kernels 9, 10 and 11) at B=4, H=8,
-   L=2051, dh=64 with the adapter's 512-row tiles, f32 and bf16, rates 0
-   and 0.1; a causal case with a bias (its gradient ds), a masked key tail,
-   a batch row whose keys are all masked and Lq != Lk; dh=128; kernel 9's
+   BF16_TOL * max(1, max |plain|), two launches of each bit-identical; once
+   at dh=128; and at rate 0.1, f32 and bf16, with the weights as transposed
+   views (one at no unit stride, rows not 16-byte aligned) and at D=256,
+   H=4 over B L = 1551 rows (not a multiple of 64), as strictly. Flash
+   attention (kernels 9, 10 and 11) at B=4, H=8, L=2051, dh=64 with the
+   adapter's 512-row tiles, f32 and bf16, rates 0 and 0.1; a causal case
+   with a bias (its gradient ds), a masked key tail, a batch row whose keys
+   are all masked and Lq != Lk; dh=128; kernel 9's
    1024-key blocks (scores computed again in each pass) and its single-step
-   variant; in bf16 (kernels 10 and 11 on the tensor cores,
+   variant; in bf16 (kernels 9, 10 and 11 on the tensor cores,
    ``csrc/flash_mma.cuh``) also Lq=70, Lk=650 with a segment-masked key
    tail, the same on views whose rows are not 16-byte aligned, and a causal
    case whose 48- and 40-row TPU tiles straddle the 64-row mma tiles, each
-   at rate 0.1, and kernels 10 and 11 timed at rate 0 beside rate 0.1:
+   at rate 0.1, and kernels 9, 10 and 11 timed at rate 0 beside rate 0.1:
    o and every gradient within 1e-4 * max(1, max |plain|) in f32 and BF16_TOL in bf16,
    l and m within 1e-5 relative, two launches of each bit-identical, the
    mask read back bit for bit and the same for every batch item and head.
@@ -120,8 +125,10 @@ the peak of the inputs' type, 67 TFLOP/s f32 or 989 TFLOP/s bf16; one
 ``attention_bwd`` launch is one call of the three-kernel backward: the
 ``rowsum(dO * O)`` pre-pass, dK/dV and dQ, timed together, and its library
 time is the library's forward + backward less its forward; the bf16
-oneshot kernels and bf16 flash kernels 10 and 11 also carry ``ms_rate0``,
-their time at dropout 0 beside ``ms`` at 0.1; a fused layer's
+oneshot kernels and bf16 flash kernels 9, 10 and 11 also carry ``ms_rate0``,
+their time at dropout 0 beside ``ms`` at 0.1 (bf16 kernel 9 also
+``ms_single_step``, its single-step variant at rate 0.1, which takes S once
+more over every key, and ``ptxas``); a fused layer's
 bound sums its products' times at their operands' peaks; flash kernels 10
 and 11 are timed apart, and the library's backward stands on kernel 10's
 row, against the two together), then
@@ -134,6 +141,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -169,14 +177,22 @@ KERNELS = {
     "routed_dw": (_CSRC + "fused_builder.cu", _OPS + "fused_builder.py:361"),
     "fused_mha_fwd": (_CSRC + "fused_mha.cu", _OPS + "fused_mha.py:154"),
     "fused_mha_bwd": (_CSRC + "fused_mha.cu", _OPS + "fused_mha.py:406"),
-    "fused_mha_fwd_bf16": (_CSRC + "fused_mha.cu", _OPS + "fused_mha.py:154"),
+    "fused_mha_fwd_bf16": (_CSRC + "gemm_mma.cuh", _OPS + "fused_mha.py:154"),
     "fused_mha_bwd_bf16": (_CSRC + "fused_mha.cu", _OPS + "fused_mha.py:406"),
     "flash_fwd": (_CSRC + "flash_attention.cu", _OPS + "flash_attention.py:697"),
     "flash_dkv": (_CSRC + "flash_attention.cu", _OPS + "flash_attention.py:1068"),
     "flash_dq": (_CSRC + "flash_attention.cu", _OPS + "flash_attention.py:1427"),
-    "flash_fwd_bf16": (_CSRC + "flash_attention.cu", _OPS + "flash_attention.py:697"),
+    "flash_fwd_bf16": (_CSRC + "flash_mma.cuh", _OPS + "flash_attention.py:697"),
     "flash_dkv_bf16": (_CSRC + "flash_mma.cuh", _OPS + "flash_attention.py:1068"),
     "flash_dq_bf16": (_CSRC + "flash_mma.cuh", _OPS + "flash_attention.py:1427"),
+}
+# phase 2: the tensor-core kernels whose ptxas registers and spills the
+# kernels line records, by a piece of their mangled names
+PTXAS_FUNCTIONS = {
+    "flash_fwd_bf16": {"dh64": "5flash10fwd_kernelILi64E", "dh128": "5flash10fwd_kernelILi128E"},
+    "fused_mha_fwd_bf16": {"gemm": "8gemm_mma11gemm_kernel",
+                           "core_dh64": "8attn_mma10fwd_kernelILi64E",
+                           "core_dh128": "8attn_mma10fwd_kernelILi128E"},
 }
 PREDICT_KERNELS = ("fps", "knn", "attention_fwd")  # serving runs no backward
 TRAIN_KERNELS = ("fps", "knn", "attention_fwd", "attention_bwd")  # "32-true"
@@ -235,6 +251,25 @@ def card_line() -> str:
     if not out:
         raise RuntimeError("nvidia-smi reported no GPU")
     return out[0]
+
+
+def ptxas_usage(logs: dict) -> dict:
+    """Registers and spill bytes by kernel function (mangled name), from the
+    ``-Xptxas=-v`` output of phase 2's build."""
+    usage, fn = {}, None
+    for text in logs.values():
+        for line in text.splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+            if m:
+                fn = m.group(1)
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and fn:
+                usage.setdefault(fn, {}).update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn:
+                usage.setdefault(fn, {})["registers"] = int(m[1])
+    return usage
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -823,7 +858,7 @@ def check_fused_mha(dev) -> dict:
     names = ("dx_qk", "dx_v", "dwq", "dbq", "dwk", "dbk", "dwv", "dbv", "dwo", "dbo")
     B, L, D, H = 4, 2051, 512, 8
 
-    def inputs(B, L, dtype, seed):
+    def inputs(B, L, dtype, seed, D=D):
         rng = np.random.RandomState(seed)
         arr = lambda *s, std=1.0: torch.from_numpy(  # noqa: E731
             (rng.randn(*s) * std).astype(np.float32)).to(dev, dtype)
@@ -891,6 +926,46 @@ def check_fused_mha(dev) -> dict:
         fm.fused_mha_plain_bwd(*args, dout, 4, ATTN_DROPOUT, 5))]
     log(f"fmha    bf16 B=2 L=700 D=512 H=4 (dh=128) rate={ATTN_DROPOUT}: fwd {err:.3e}, "
         f"bwd worst {max(errs):.3e}")
+
+    def case(what, args, dout, H, ref_args):
+        """Forward and backward at rate 0.1 against the plain versions on
+        ``ref_args`` (the same values); a second launch of each bit-identical."""
+        rate, seed = ATTN_DROPOUT, 11
+        out = fm.fused_mha_cuda(*args, H, rate, seed)
+        err = check(f"{what} fwd", out, fm.fused_mha_plain(*ref_args, H, rate, seed))
+        got = fm.fused_mha_bwd_cuda(*args, dout, H, rate, seed)
+        errs = [check(f"{what} bwd {n}", g, p) for n, g, p in zip(
+            names, got, fm.fused_mha_plain_bwd(*ref_args, dout, H, rate, seed))]
+        again = fm.fused_mha_bwd_cuda(*args, dout, H, rate, seed)
+        if not (torch.equal(out, fm.fused_mha_cuda(*args, H, rate, seed))
+                and all(torch.equal(a, b) for a, b in zip(got, again))):
+            raise AssertionError(f"two identical fused_mha launches differ: {what}")
+        log(f"fmha    {what} rate={ATTN_DROPOUT}: fwd {err:.3e}, bwd worst {max(errs):.3e}; "
+            f"two launches of each bit-identical")
+
+    def strided(w, how):
+        """``w``'s values in a view at other strides: transposed (s_in = 1,
+        s_out = D, as ``nn.Linear.weight.t()``), or every other column of a
+        wider buffer from an odd offset (no stride 1, rows not 16-byte
+        aligned: the GEMMs' plain loads)."""
+        if how == "t":
+            return w.t().contiguous().t()
+        n = w.shape[1]
+        view = torch.zeros((w.shape[0], 2 * n + 1), dtype=w.dtype, device=w.device)[:, 1::2]
+        view.copy_(w)
+        return view
+
+    # weights as transposed views (wk at no unit stride), f32 and bf16
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        args, dout = inputs(2, 700, dtype, 6)
+        views = list(args)
+        for i, how in ((2, "t"), (4, "s"), (6, "t"), (8, "t")):  # wq, wk, wv, wo
+            views[i] = strided(args[i], how)
+        strides = [tuple(views[i].stride()) for i in (2, 4, 6, 8)]
+        case(f"{tag} B=2 L=700 D={D} H={H}, weights at strides {strides}", views, dout, H, args)
+        # D = 256, H = 4 (dh = 64), B L = 1551 rows, not a multiple of 64
+        args, dout = inputs(3, 517, dtype, 7, D=256)
+        case(f"{tag} B=3 L=517 D=256 H=4", args, dout, 4, args)
     return res
 
 
@@ -1001,8 +1076,19 @@ def check_flash(dev) -> dict:
             max_abs_err=worst["dq"], library_ms=None, **dq_b,
             ms=cuda_ms(lambda: fa.flash_attention_bwd_dq_cuda(*args, **kw), 5),
             plain_ms=cuda_ms(lambda: fa.flash_attention_plain_bwd_dq(*args, **kw), 2))
-        if tag == "bf16":  # the share of Philox: kernels 10 and 11 at rate 0
+        if tag == "bf16":  # the share of Philox: kernels 9, 10 and 11 at rate 0
             kw0 = dict(kw, dropout_rate=0.0)
+            res["flash_fwd_bf16"]["ms_rate0"] = cuda_ms(
+                lambda: fa.flash_attention_cuda(q, k, v, **kw0), 5)
+            # the price of one more pass of S over every key: the single-step
+            # variant (block_k >= Lk) takes S three times, 512-key blocks twice
+            kw1 = dict(kw, block_k=L)
+            res["flash_fwd_bf16"]["ms_single_step"] = cuda_ms(
+                lambda: fa.flash_attention_cuda(q, k, v, **kw1), 5)
+            log(f"flash   flash_fwd_bf16: kernel {res['flash_fwd_bf16']['ms']:.3f} ms at rate "
+                f"{ATTN_DROPOUT}, {res['flash_fwd_bf16']['ms_rate0']:.3f} ms at rate 0, "
+                f"{res['flash_fwd_bf16']['ms_single_step']:.3f} ms in the single-step variant "
+                f"(block_k={L}, rate {ATTN_DROPOUT})")
             o0, l0, m0 = fa.flash_attention_cuda(q, k, v, **kw0)
             args0 = (q, k, v, None, None, l0, m0, do, (o0.float() * do.float()).sum(-1))
             for name, fn in (("flash_dkv_bf16", fa.flash_attention_bwd_dkv_cuda),
@@ -1663,13 +1749,21 @@ def main() -> int:
     logs = _build.build()
     log(f"built {sorted(logs) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.1f} s")
-    for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+    usage = ptxas_usage(logs)
+    for fn, u in sorted(usage.items()):
+        log(f"  {fn}: {u.get('registers')} registers, spill stores "
+            f"{u.get('spill_stores')} B, loads {u.get('spill_loads')} B")
+    ptxas = {name: {tag: next((u for fn, u in usage.items() if piece in fn), None)
+                    for tag, piece in pieces.items()}
+             for name, pieces in PTXAS_FUNCTIONS.items()}
+    if logs and not all(all(ptxas[name].values()) for name in ptxas):
+        raise AssertionError(f"ptxas reported no usage for a tensor-core kernel: {ptxas}")
 
     with knn_impl(None):  # phases 3-8 on the default kNN route, whatever the caller set
         res = check_kernels(dev)
+        if logs:  # a cached build prints no ptxas output
+            for name, record in ptxas.items():
+                res[name]["ptxas"] = record
         torch.cuda.empty_cache()  # the serving phase starts from an empty pool, as before
         paths = {"predict": serve(dev), "train_step": train(dev)}
         paths.update(train_bf16(dev))

@@ -14,18 +14,17 @@ namespace {
 using pcm::attn::launch;
 using pcm::attn::Strides;
 
-template <typename T>
 cudaError_t launch_dh(int dh, const void* q, const void* k, const void* v, void* o,
                       float* row_max, float* row_inv, Strides qs, Strides ks, Strides vs,
                       Strides os, int B, int H, int Lq, int Lk, int l_actual, float scale,
                       uint32_t threshold, float inv_keep, uint32_t seed, int dropout,
                       cudaStream_t s) {
   if (dh == 64)
-    return launch<T, 64>(q, k, v, o, row_max, row_inv, qs, ks, vs, os, B, H, Lq, Lk,
-                         l_actual, scale, threshold, inv_keep, seed, dropout, s);
+    return launch<64>(q, k, v, o, row_max, row_inv, qs, ks, vs, os, B, H, Lq, Lk, l_actual,
+                      scale, threshold, inv_keep, seed, dropout, s);
   if (dh == 128)
-    return launch<T, 128>(q, k, v, o, row_max, row_inv, qs, ks, vs, os, B, H, Lq, Lk,
-                          l_actual, scale, threshold, inv_keep, seed, dropout, s);
+    return launch<128>(q, k, v, o, row_max, row_inv, qs, ks, vs, os, B, H, Lq, Lk, l_actual,
+                       scale, threshold, inv_keep, seed, dropout, s);
   return cudaErrorInvalidValue;
 }
 
@@ -68,8 +67,8 @@ int pcm_attention_fwd(const void* q, const void* k, const void* v, void* o, floa
     if (dh == 128) return (int)mm::launch_fwd<128>(a, B, s);
     return (int)cudaErrorInvalidValue;
   }
-  return (int)launch_dh<float>(dh, q, k, v, o, row_max, row_inv, qs, ks, vs, os, B, H, Lq,
-                               Lk, l_actual, scale, threshold, inv_keep, seed, dropout, s);
+  return (int)launch_dh(dh, q, k, v, o, row_max, row_inv, qs, ks, vs, os, B, H, Lq, Lk,
+                        l_actual, scale, threshold, inv_keep, seed, dropout, s);
 }
 
 }  // extern "C"

@@ -1,48 +1,38 @@
-// Exact softmax attention forward, f32 or bf16, one block per (batch, head,
-// 64-query tile), streaming 64-key tiles. Its C entry is attention_fwd.cu;
-// fused_mha.cu runs the bf16 instance as its attention core.
+// Exact softmax attention forward in f32, one block per (batch, head,
+// 64-query tile), streaming 64-key tiles: the f32 instance of kernel 3. Its
+// C entry is attention_fwd.cu, which sends bf16 to the tensor-core kernel of
+// attention_mma.cuh.
 //
 // Replaces the forward of the TPU kernel `_fwd_kernel` / `oneshot_attention`
 // (pointcloudmatters_tpu/ops/oneshot_attention.py:68-94, 176-230). Semantics:
-// q is scaled by `scale` (rounded to the element type, as the TPU path
-// pre-scales q), keys at column l_actual and beyond are masked out
-// (`col < l_actual`, oneshot_attention.py:82-83), o = (e_drop v) / sum(e)
-// with e = exp(s - max s) and f32 accumulation. At dropout rate > 0,
-// e_drop = keep ? e / (1 - rate) : 0 with the keep mask of philox.cuh (one
-// per head, shared across the batch); the denominator stays the undropped
-// sum, as in the TPU kernel (oneshot_attention.py:85-94). For the backward
-// the kernel can also write each row's max and 1 / denominator, (B, H, Lq)
-// f32 each.
-//
-// The element type T is float or bf16. Shared memory, scores, row statistics
-// and accumulators are f32 in both; bf16 inputs are converted on load. In
-// bf16 the kernel rounds where the TPU kernel rounds: the pre-scaled q
-// (oneshot_attention.py:209), e_drop before the P V product (:91) and the
-// output. Rounding e = exp(s - max) needs the row's final max, so a bf16
-// block makes two passes over the key tiles: the first finds each row's max,
-// the second takes e, its sum and P V with that max. f32 makes one pass with
-// an online max and sum.
+// q is scaled by `scale` (as the TPU path pre-scales q), keys at column
+// l_actual and beyond are masked out (`col < l_actual`,
+// oneshot_attention.py:82-83), o = (e_drop v) / sum(e) with e = exp(s - max
+// s) and f32 accumulation. At dropout rate > 0, e_drop = keep ? e / (1 -
+// rate) : 0 with the keep mask of philox.cuh (one per head, shared across
+// the batch); the denominator stays the undropped sum, as in the TPU kernel
+// (oneshot_attention.py:85-94). For the backward the kernel can also write
+// each row's max and 1 / denominator, (B, H, Lq) f32 each.
 //
 // What bounds it on an H100: arithmetic. 4*B*H*Lq*Lk*dh flops (275 GFLOP a
-// layer at B=32, H=8, L=2051, dh=64; 1.5x that in bf16 for the extra Q K^T
-// pass) on the FP32 pipes: the products are f32 FMAs, not tensor-core tiles
-// (a later PR's work). The TPU kernel holds a whole f32 score row (64
-// queries x 2176 keys x 4 B = 557 KB), which does not fit the 227 KB of
+// layer at B=32, H=8, L=2051, dh=64) on the FP32 pipes: the products are f32
+// FMAs, which TF32 would round. The TPU kernel holds a whole f32 score row
+// (64 queries x 2176 keys x 4 B = 557 KB), which does not fit the 227 KB of
 // shared memory a Hopper block may use.
 //
 // What the design does about it: the score row never exists. A block keeps
 // its 64 scaled query rows in shared memory and streams K and V in tiles of
 // 64 keys; each of its 256 threads computes a 4x4 register tile of the 64x64
-// scores, each warp folds 8 score rows into the row max m and sum l (expf,
-// not __expf, for parity), and each thread accumulates a 4 x dh/16 register
-// tile of the output (rescaled by exp(m_old - m_new) in the online f32
-// pass). Shared arrays that threads read along a key or query row are padded
-// by one float, so the reads are free of bank conflicts. Key tiles past
-// l_actual are not visited; rows beyond the array are zero-filled. Output =
-// acc * (1 / l), as the TPU kernel does. Dropout is one more pass over the
-// 64x64 probability tile in shared memory, after the row sums and before
-// P V: each thread draws one Philox call for four neighbouring key columns
-// (about 30 integer operations an element against 2 dh FMAs).
+// scores, each warp folds 8 score rows into the row max m and sum l with an
+// online max (expf, not __expf, for parity), and each thread accumulates a
+// 4 x dh/16 register tile of the output, rescaled by exp(m_old - m_new).
+// Shared arrays that threads read along a key or query row are padded by one
+// float, so the reads are free of bank conflicts. Key tiles past l_actual
+// are not visited; rows beyond the array are zero-filled. Output = acc *
+// (1 / l), as the TPU kernel does. Dropout is one more pass over the 64x64
+// probability tile in shared memory, after the row sums and before P V:
+// each thread draws one Philox call for four neighbouring key columns (about
+// 30 integer operations an element against 2 dh FMAs).
 //
 // Strides are passed for q, k, v and o (batch, head, row; the last axis must
 // be contiguous), so (B, L, H, dh) projections are read in place.
@@ -53,7 +43,6 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "elem.cuh"
 #include "philox.cuh"
 
 namespace pcm {
@@ -74,14 +63,14 @@ constexpr size_t smem_floats() {
          (size_t)kBQ * (kBK + 1) + 2 * kBQ;
 }
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
-attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                T* __restrict__ o, float* __restrict__ row_max, float* __restrict__ row_inv,
-                Strides qs, Strides ks, Strides vs, Strides os, int H, int Lq, int Lk,
-                int l_actual, float scale, uint32_t threshold, float inv_keep, uint32_t seed,
+attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, float* __restrict__ o,
+                float* __restrict__ row_max, float* __restrict__ row_inv, Strides qs,
+                Strides ks, Strides vs, Strides os, int H, int Lq, int Lk, int l_actual,
+                float scale, uint32_t threshold, float inv_keep, uint32_t seed,
                 int dropout) {
-  constexpr bool kTwoPass = pcm::is_bf16<T>::value;
   constexpr int LD = DH + 1;   // padded row of Q and K tiles
   constexpr int LDP = kBK + 1; // padded row of the score tile
   constexpr int CJ = DH / 16;  // output columns a thread
@@ -98,15 +87,14 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   const int lane = tid & 31, warp = tid >> 5;
   const int q0 = blockIdx.x * kBQ;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h;
-  T* ob = o + b * os.b + h * os.h;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
+  float* ob = o + b * os.b + h * os.h;
 
   for (int e = tid; e < kBQ * DH; e += kThreads) {
     const int r = e / DH, c = e % DH;
-    Qs[r * LD + c] =
-        q0 + r < Lq ? round_to<T>(__fmul_rn(to_f(qb[(q0 + r) * qs.l + c]), scale)) : 0.f;
+    Qs[r * LD + c] = q0 + r < Lq ? __fmul_rn(qb[(q0 + r) * qs.l + c], scale) : 0.f;
   }
 
   float acc[4][CJ];
@@ -122,110 +110,98 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   }
 
   const int n_kt = (l_actual + kBK - 1) / kBK;
-  // pass 0 (bf16 only): row maxima; pass 1: e, its sum and P V
-  for (int pass = kTwoPass ? 0 : 1; pass < 2; ++pass) {
-    for (int kt = 0; kt < n_kt; ++kt) {
-      const int k0 = kt * kBK;
-      __syncthreads();  // the previous tile's K, V and P are consumed
-      for (int e = tid; e < kBK * DH; e += kThreads) {
-        const int r = e / DH, c = e % DH;
-        const bool in = k0 + r < Lk;
-        Ks[r * LD + c] = in ? to_f(kb[(k0 + r) * ks.l + c]) : 0.f;
-        if (pass == 1) Vs[r * DH + c] = in ? to_f(vb[(k0 + r) * vs.l + c]) : 0.f;
-      }
-      __syncthreads();
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kBK;
+    __syncthreads();  // the previous tile's K, V and P are consumed
+    for (int e = tid; e < kBK * DH; e += kThreads) {
+      const int r = e / DH, c = e % DH;
+      const bool in = k0 + r < Lk;
+      Ks[r * LD + c] = in ? kb[(k0 + r) * ks.l + c] : 0.f;
+      Vs[r * DH + c] = in ? vb[(k0 + r) * vs.l + c] : 0.f;
+    }
+    __syncthreads();
 
-      // scores: rows ty + 16 i, key columns tx + 16 j
-      float s[4][4];
+    // scores: rows ty + 16 i, key columns tx + 16 j
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < DH; ++d) {
+      float a[4], bk[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty + 16 * i) * LD + d];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bk[j] = Ks[(tx + 16 * j) * LD + d];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < DH; ++d) {
-        float a[4], bk[4];
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
+    }
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = Qs[(ty + 16 * i) * LD + d];
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) bk[j] = Ks[(tx + 16 * j) * LD + d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
+      for (int j = 0; j < 4; ++j) {
+        const int col = k0 + tx + 16 * j;
+        Ps[(ty + 16 * i) * LDP + tx + 16 * j] = col < l_actual ? s[i][j] : kNegInf;
       }
+    __syncthreads();
+
+    // softmax rows: warp w folds rows 8w .. 8w+7, two columns a lane
+#pragma unroll
+    for (int rr = 0; rr < 8; ++rr) {
+      const int r = warp * 8 + rr;
+      const float s0 = Ps[r * LDP + lane], s1 = Ps[r * LDP + lane + 32];
+      float mx = fmaxf(s0, s1);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m_run[rr], mx);
+      const float alpha = expf(m_run[rr] - m_new);
+      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
+      float sum = p0 + p1;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      l_run[rr] = l_run[rr] * alpha + sum;
+      m_run[rr] = m_new;
+      Ps[r * LDP + lane] = p0;
+      Ps[r * LDP + lane + 32] = p1;
+      if (lane == 0) row_alpha[r] = alpha;
+    }
+    __syncthreads();
+
+    if (dropout) {  // P <- keep ? P / (1 - rate) : 0, four columns a draw
+      for (int gi = tid; gi < kBQ * (kBK / 4); gi += kThreads) {
+        const int r = gi / (kBK / 4), c4 = (gi % (kBK / 4)) * 4;
+        const uint4 bits = pcm::keep_bits4(seed, h, q0 + r, (k0 + c4) >> 2);
+        float* pr = Ps + r * LDP + c4;
+        pr[0] = bits.x >= threshold ? pr[0] * inv_keep : 0.f;
+        pr[1] = bits.y >= threshold ? pr[1] * inv_keep : 0.f;
+        pr[2] = bits.z >= threshold ? pr[2] * inv_keep : 0.f;
+        pr[3] = bits.w >= threshold ? pr[3] * inv_keep : 0.f;
+      }
+      __syncthreads();
+    }
+
+    // acc = alpha * acc + P V
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float al = row_alpha[ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) acc[i][j] *= al;
+    }
+#pragma unroll 8
+    for (int kk = 0; kk < kBK; ++kk) {
+      float pv[4], vv[CJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * LDP + kk];
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) vv[j] = Vs[kk * DH + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = k0 + tx + 16 * j;
-          Ps[(ty + 16 * i) * LDP + tx + 16 * j] = col < l_actual ? s[i][j] : kNegInf;
-        }
-      __syncthreads();
-
-      // softmax rows: warp w folds rows 8w .. 8w+7, two columns a lane
-#pragma unroll
-      for (int rr = 0; rr < 8; ++rr) {
-        const int r = warp * 8 + rr;
-        const float s0 = Ps[r * LDP + lane], s1 = Ps[r * LDP + lane + 32];
-        float m_new = m_run[rr], alpha = 1.f;
-        if (!kTwoPass || pass == 0) {
-          float mx = fmaxf(s0, s1);
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-          m_new = fmaxf(m_run[rr], mx);
-          if (kTwoPass) {  // pass 0 only finds the max
-            m_run[rr] = m_new;
-            continue;
-          }
-          alpha = expf(m_run[rr] - m_new);
-        }
-        const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
-        float sum = p0 + p1;
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-        l_run[rr] = l_run[rr] * alpha + sum;
-        m_run[rr] = m_new;
-        // undropped e is rounded here; dropped e after its scaling below
-        Ps[r * LDP + lane] = dropout ? p0 : round_to<T>(p0);
-        Ps[r * LDP + lane + 32] = dropout ? p1 : round_to<T>(p1);
-        if (lane == 0) row_alpha[r] = alpha;
-      }
-      if (pass == 0) continue;  // the next tile's first barrier orders Ps
-      __syncthreads();
-
-      if (dropout) {  // P <- keep ? P / (1 - rate) : 0, four columns a draw
-        for (int gi = tid; gi < kBQ * (kBK / 4); gi += kThreads) {
-          const int r = gi / (kBK / 4), c4 = (gi % (kBK / 4)) * 4;
-          const uint4 bits = pcm::keep_bits4(seed, h, q0 + r, (k0 + c4) >> 2);
-          float* pr = Ps + r * LDP + c4;
-          pr[0] = round_to<T>(bits.x >= threshold ? pr[0] * inv_keep : 0.f);
-          pr[1] = round_to<T>(bits.y >= threshold ? pr[1] * inv_keep : 0.f);
-          pr[2] = round_to<T>(bits.z >= threshold ? pr[2] * inv_keep : 0.f);
-          pr[3] = round_to<T>(bits.w >= threshold ? pr[3] * inv_keep : 0.f);
-        }
-        __syncthreads();
-      }
-
-      // acc = alpha * acc + P V
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float al = row_alpha[ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < CJ; ++j) acc[i][j] *= al;
-      }
-#pragma unroll 8
-      for (int kk = 0; kk < kBK; ++kk) {
-        float pv[4], vv[CJ];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * LDP + kk];
-#pragma unroll
-        for (int j = 0; j < CJ; ++j) vv[j] = Vs[kk * DH + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < CJ; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-      }
+        for (int j = 0; j < CJ; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
     }
   }
 
@@ -252,23 +228,23 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     const float inv = 1.0f / row_l[r];
 #pragma unroll
     for (int j = 0; j < CJ; ++j)
-      ob[(q0 + r) * os.l + tx + 16 * j] = pcm::from_f<T>(acc[i][j] * inv);
+      ob[(q0 + r) * os.l + tx + 16 * j] = acc[i][j] * inv;
   }
 }
 
-template <typename T, int DH>
+template <int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* row_max,
                    float* row_inv, Strides qs, Strides ks, Strides vs, Strides os, int B,
                    int H, int Lq, int Lk, int l_actual, float scale, uint32_t threshold,
                    float inv_keep, uint32_t seed, int dropout, cudaStream_t stream) {
   const size_t smem = smem_floats<DH>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      attn_fwd_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      attn_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Lq + kBQ - 1) / kBQ, B * H);
-  attn_fwd_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, row_max, row_inv, qs, ks, vs, os, H, Lq,
-      Lk, l_actual, scale, threshold, inv_keep, seed, dropout);
+  attn_fwd_kernel<DH><<<grid, kThreads, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, row_max, row_inv, qs, ks,
+      vs, os, H, Lq, Lk, l_actual, scale, threshold, inv_keep, seed, dropout);
   return cudaGetLastError();
 }
 

@@ -33,25 +33,25 @@
 // two streams apart. Every kernel regenerates the mask of the pairs it
 // visits, so the backward drops exactly what the forward dropped.
 //
-// bf16 (T = bf16) rounds where the TPU kernels round (:571-573, :1023-1024,
-// :1045, :1397-1399): p D before p v, p_dropped before dV, dS before dK and
-// dQ, and each output once. The kernels of this file convert inputs to f32
-// on load; their tiles, row statistics and accumulators are f32. The
-// forward follows the TPU's update rule block_k block by block_k block
-// (:528-575), as the plain version
-// does: m_next = max(m_prev, rowmax(s)) over the whole block first, then
-// p = exp(s - m_next), l_next = rowsum(p) + exp(m_prev - m_next) l_prev, p D
-// rounded to T, and the accumulator kept normalised, acc <- acc (l_corr /
-// l_next) + (p v) / l_next with 1 / l_next = 1 where l_next is 0. With
+// bf16 rounds where the TPU kernels round (:571-573, :1023-1024, :1045,
+// :1397-1399): p D before p v, p_dropped before dV, dS before dK and dQ,
+// and each output once (flash_mma.cuh). The kernels of this file hold their
+// tiles, row statistics and accumulators in f32. The forward follows the
+// TPU's update rule block_k block by block_k block (:528-575), as the plain
+// version does: m_next = max(m_prev, rowmax(s)) over the whole block first,
+// then p = exp(s - m_next), l_next = rowsum(p) + exp(m_prev - m_next)
+// l_prev, and the accumulator kept normalised, acc <- acc (l_corr / l_next)
+// + (p v) / l_next with 1 / l_next = 1 where l_next is 0. With
 // block_k >= Lk it takes the single-step variant (:585, :647-665): l
 // first, then p / l before dropout and p v, and no division at the end.
 //
 // What bounds it on an H100: arithmetic. 4 B H Lq Lk dh flops forward, 8
 // for dK/dV (S, dP, dV, dK) and 6 for dQ (S, dP, dQ). The kernels below are
-// f32 FMAs on the FP32 pipes: kernel 9 in both element types, 10 and 11 in
-// f32. At bf16, kernels 10 and 11 are the tensor-core kernels of
-// flash_mma.cuh, which also holds what every kernel here shares: the
-// launch arguments, the mask value, the causal skips and the Philox bits.
+// the f32 instances, f32 FMAs on the FP32 pipes (TF32 would round their
+// operands). At bf16 the C entries dispatch to the tensor-core kernels of
+// flash_mma.cuh (kernels 9, 10 and 11), which also holds what every kernel
+// here shares: the launch arguments, the mask value, the causal skips and
+// the Philox bits.
 //
 // What the design does about the TPU kernels' shape: those carry m, l and
 // the accumulators in VMEM scratch across a sequential kv grid axis (dK/dV
@@ -59,15 +59,15 @@
 // loop inside the block takes its place, as in kernels 3 and 4
 // (attention_fwd.cuh, attention_bwd.cu, whose tiling this file follows and
 // leaves untouched):
-//   9  one block a (64-query tile, batch * head); for each block_k block
+//   9  (f32) one block a (64-query tile, batch * head); for each block_k block
 //      of keys it takes the row max over the block's 64-key tiles, then p
 //      and p v tile by tile, and updates m, l and the accumulators once. A
 //      block's 64 x block_k scores are staged in shared memory when they fit
 //      (128 KiB at the flagship's 512, beside the Q, K and V tiles);
 //      otherwise each pass computes them again;
-//   10 one block a (64-key tile, batch * head); it loops over the query
+//   10 (f32) one block a (64-key tile, batch * head); it loops over the query
 //      tiles, dK and dV of its 64 keys in registers;
-//   11 one block a (64-query tile, batch * head); it loops over the key
+//   11 (f32) one block a (64-query tile, batch * head); it loops over the key
 //      tiles, dQ of its 64 queries in registers, and writes its ds tiles.
 // 256 threads a block, each a 4x4 register tile of the 64x64 score work;
 // shared tiles padded by one float a row. Tail tiles are bounds-checked:
@@ -640,35 +640,35 @@ enum Which { kFwd, kDkv, kDq };
 
 template <typename T, int DH>
 cudaError_t launch(Which w, const Args& args, int B, cudaStream_t stream) {
-  if constexpr (pcm::is_bf16<T>::value) {  // kernels 10 and 11 on the tensor cores
-    if (w != kFwd) return pcm::flash::launch_bwd<DH>(w == kDkv, args, B, stream);
-  }
-  Args a = args;
-  size_t smem = bwd_smem_bytes<DH>();
-  if (w == kFwd) {
-    // stage a whole block_k block of scores when it fits the opt-in shared
-    // memory, else keep one 64-key tile and compute the scores again
-    int device = 0, optin = 0;
-    cudaError_t err = cudaGetDevice(&device);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-    if (err != cudaSuccess) return err;
-    const int width = ((a.bk >= a.Lk ? a.Lk : a.bk) + kBK - 1) / kBK * kBK;
-    a.staged = fwd_smem_bytes<DH>(width + 1) <= (size_t)optin;
-    a.sp = a.staged ? width + 1 : kBK + 1;
-    smem = fwd_smem_bytes<DH>(a.sp);
-  }
-  void (*kernel)(Args) = flash_fwd_kernel<T, DH>;
-  if constexpr (!pcm::is_bf16<T>::value) {
+  if constexpr (pcm::is_bf16<T>::value) {  // kernels 9, 10 and 11 on the tensor cores
+    if (w == kFwd) return pcm::flash::launch_fwd<DH>(args, B, stream);
+    return pcm::flash::launch_bwd<DH>(w == kDkv, args, B, stream);
+  } else {
+    Args a = args;
+    size_t smem = bwd_smem_bytes<DH>();
+    if (w == kFwd) {
+      // stage a whole block_k block of scores when it fits the opt-in shared
+      // memory, else keep one 64-key tile and compute the scores again
+      int device = 0, optin = 0;
+      cudaError_t err = cudaGetDevice(&device);
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+      if (err != cudaSuccess) return err;
+      const int width = ((a.bk >= a.Lk ? a.Lk : a.bk) + kBK - 1) / kBK * kBK;
+      a.staged = fwd_smem_bytes<DH>(width + 1) <= (size_t)optin;
+      a.sp = a.staged ? width + 1 : kBK + 1;
+      smem = fwd_smem_bytes<DH>(a.sp);
+    }
+    void (*kernel)(Args) = flash_fwd_kernel<T, DH>;
     if (w == kDkv) kernel = flash_dkv_kernel<T, DH>;
     if (w == kDq) kernel = flash_dq_kernel<T, DH>;
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const int tiles = w == kDkv ? (a.Lk + kBK - 1) / kBK : (a.Lq + kBQ - 1) / kBQ;
+    kernel<<<dim3(tiles, B * a.H), kThreads, smem, stream>>>(a);
+    return cudaGetLastError();
   }
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int tiles = w == kDkv ? (a.Lk + kBK - 1) / kBK : (a.Lq + kBQ - 1) / kBQ;
-  kernel<<<dim3(tiles, B * a.H), kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
 }
 
 template <typename T>

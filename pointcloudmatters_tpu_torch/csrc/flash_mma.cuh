@@ -1,31 +1,42 @@
-// The flash attention backward on the bf16 tensor cores: kernels 10 (dK, dV)
-// and 11 (dQ, and the bias gradient ds) at bf16, and what they share with
-// the kernels of flash_attention.cu (the launch arguments, the mask value,
-// the causal skips, the Philox bits), whose C entries `pcm_flash_bwd_dkv` /
-// `pcm_flash_bwd_dq` dispatch here when the element type is bf16. The f32 instances of 10 and 11, and kernel 9 in both
-// types, stay on the FP32 pipes in flash_attention.cu.
+// Flash attention on the bf16 tensor cores: kernels 9 (the forward, o and
+// the row statistics l and m), 10 (dK, dV) and 11 (dQ, and the bias
+// gradient ds) at bf16, and what they share with the f32 kernels of
+// flash_attention.cu (the launch arguments, the mask value, the causal
+// skips, the Philox bits), whose C entries `pcm_flash_fwd`,
+// `pcm_flash_bwd_dkv` and `pcm_flash_bwd_dq` dispatch here when the element
+// type is bf16. The f32 instances stay on the FP32 pipes in
+// flash_attention.cu.
 //
 // Replaces the TPU kernels of pointcloudmatters_tpu/ops/flash_attention.py
-// at bf16: `_flash_attention_bwd_dkv` (:1068; pallas_call :1253, body
+// at bf16: `_flash_attention_impl` (:697; pallas_call :869, bodies
+// `_flash_attention_kernel_single_batch` :430 and the single-step variant
+// :585), `_flash_attention_bwd_dkv` (:1068; :1253, body
 // `_flash_attention_dkv_kernel` :907) and `_flash_attention_bwd_dq` (:1427;
 // :1601, body :1278). Their arithmetic is kept exactly as flash_attention.cu
 // states it: s = (q k^T + ab) * sm_scale in f32 with q not pre-scaled, the
 // mask value added where segment ids differ or a key is after the query
 // under `causal`, pairs of causal TPU-grid tiles above the diagonal not
-// visited (logit -inf, weight 0), p = exp(s - m) * (1 / l) from the
-// forward's f32 row statistics, p_dropped = bf16(p D) before dV += p_dropped^T
-// dO, dP = dO v^T, dS = bf16(((dP D) - di) * p * sm_scale) before dK += dS^T q
-// and dQ += dS k, f32 accumulators and each output rounded once. Every
-// product takes bf16 operands with f32 sums, as the TPU kernels' dots do
-// (`preferred_element_type=jnp.float32`, :1023-1024, :1045, :1397-1400), and
-// the two rounding points are exactly where the mma needs bf16 operands.
+// visited (logit -inf, weight 0). Forward, block_k block by block_k block:
+// the block's row max m_next = max(m_prev, rowmax(s)), p = exp(s - m_next),
+// l_next = rowsum(p) + exp(m_prev - m_next) l_prev over the undropped p,
+// bf16(p D) before P V and the accumulator kept normalised; the single-step
+// variant (block_k >= Lk) takes l first and p / l. Backward:
+// p = exp(s - m) * (1 / l) from the forward's f32 row statistics,
+// p_dropped = bf16(p D) before dV += p_dropped^T dO, dP = dO v^T,
+// dS = bf16(((dP D) - di) * p * sm_scale) before dK += dS^T q and
+// dQ += dS k, f32 accumulators and each output rounded once. Every product
+// takes bf16 operands with f32 sums, as the TPU kernels' dots do
+// (`preferred_element_type=jnp.float32`, :571-573, :1023-1024, :1045,
+// :1397-1400), and the rounding points are exactly where the mma needs bf16
+// operands.
 //
-// What bounds them on an H100: the tensor cores in principle (8 B H Lq Lk dh
-// flops for dK/dV, 6 for dQ, at 989 TFLOP/s bf16 dense). In practice
-// `mma.sync` fed from shared memory, exp and the score function on the FP32
-// pipes and Philox on the integer pipes (one call a four scores, each score
-// drawn once a kernel, for every one of the B H (batch, head) pairs that
-// share the mask) keep them several times above it.
+// What bounds them on an H100: the tensor cores in principle (4 B H Lq Lk dh
+// flops forward, 6 with its second S; 8 for dK/dV, 6 for dQ; at 989
+// TFLOP/s bf16 dense). In practice `mma.sync` fed from shared memory, exp
+// and the score function on the FP32 pipes and Philox on the integer pipes
+// (one call a four scores, each score drawn once a kernel, for every one of
+// the B H (batch, head) pairs that share the mask) keep them several times
+// above it.
 //
 // What the design does about it, as attention_mma.cuh does for the oneshot
 // backward (its fragment helpers, tiles and cp.async ring are reused):
@@ -34,7 +45,17 @@
 //   operands dO, q and k). Streamed tiles come through `cp.async` into a
 //   two-stage ring; views whose rows are not 16-byte aligned load by plain
 //   loads.
-// - A block is 4 warps x 16 rows = 64 rows. dK/dV: one block a (64-key
+// - A block is 4 warps x 16 rows = 64 rows. Forward: one block a
+//   (64-query tile, batch * head); its q rows stay A fragments across the
+//   walk over the block_k blocks it visits: per block a pass of S and the
+//   row max over the 64-key tiles the block overlaps, then S again with p,
+//   its row sum and P V (the single step: a pass for l between them).
+//   S is computed again, not staged: a 64 x 512 block of f32 scores would
+//   take 128 KiB of shared memory and leave room for one block an SM. The
+//   normalised update is folded into acc: scaled by l_corr once m_next is
+//   known, P V added, times 1 / l_next at the block's end (f32 rounding
+//   apart, the TPU's rule, with one accumulator instead of two, which at
+//   dh = 128 would not fit the registers). dK/dV: one block a (64-key
 //   tile, batch * head), looping over the query tiles; it computes
 //   S^T = K Q^T and dP^T = V dO^T, so that p_dropped^T and dS^T go from C
 //   fragments straight into the A fragments of dV += p_dropped^T dO and
@@ -492,6 +513,266 @@ __global__ void __launch_bounds__(mm::kThreads, DH == 64 ? 4 : 1) dq_kernel(Args
       if (r < a.Lq) dqb[(long long)r * a.dqs.l + c + (e & 1)] = __float2bfloat16_rn(acc[j][e]);
     }
   }
+}
+
+// ---- the bf16 forward on the tensor cores ---------------------------------------
+
+// Shared memory of the forward: the 64-row Q tile held for the whole block,
+// the two-stage rings of K and V tiles, and two stages of key segment ids.
+template <int DH>
+__host__ __device__ constexpr size_t fwd_smem() {
+  return (size_t)(mm::kRows + 4 * mm::kTile) * mm::ld<DH>() * sizeof(bf16) +
+         2 * mm::kTile * sizeof(int);
+}
+
+// A step of the forward's walk: 64-key tile t (absolute: keys 64 t ..
+// 64 t + 63) of pass `pass` over the block_k block [kb0, kend). Pass 0 takes
+// the row max, pass 1 (single step only) the row sum, pass 2 p, its sum and
+// P V. The tiles of a block are those it overlaps, so every tile starts at a
+// multiple of 64 (the lane-shared Philox draws need a multiple of 4); keys
+// of a tile outside the block are masked.
+struct FwdStep {
+  int kb0, kend, pass, t;
+};
+
+// The step after `s`, or false at the end of the walk: the passes of a
+// block, then the next block, up to Lk or, under `causal`, up to the first
+// block this query tile does not visit (the visited blocks are a prefix).
+__device__ __forceinline__ bool next_step(const Args& a, int q0, int bk, bool single,
+                                          FwdStep& s) {
+  if (++s.t <= (s.kend - 1) / mm::kTile) return true;
+  s.pass += single ? 1 : 2;  // 0 -> 1 -> 2 in the single step, 0 -> 2 otherwise
+  if (s.pass > 2) {
+    s.kb0 += bk;
+    s.pass = 0;
+    if (s.kb0 >= a.Lk || tile_skipped(a, q0, s.kb0)) return false;
+    s.kend = min(s.kb0 + bk, a.Lk);
+  }
+  s.t = s.kb0 / mm::kTile;
+  return true;
+}
+
+// The sum, or the maximum, over the four lanes that hold a row's columns.
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+// One block a (batch, head, 64-query tile), walking the block_k blocks it
+// visits: per block S and the row max m_next, S again and p = exp(s - m_use)
+// with its undropped row sum, bf16(p D) into A fragments and acc += P V.
+// The TPU's normalised update acc <- acc (l_corr / l_next) + (p v) / l_next
+// is folded: acc is scaled by l_corr once m_next is known, P V added, and
+// the sum multiplied by 1 / l_next (1 where l_next is 0) at the block's end,
+// which differs from the TPU's order in f32 rounding only and spares a
+// second accumulator. The single-step variant (block_k >= Lk) takes the row
+// sum l in a pass of its own, then p / l, and no division at the end. `vec`:
+// q, k and v rows 16-byte aligned.
+template <int DH>
+__global__ void __launch_bounds__(mm::kThreads, DH == 64 ? 4 : 1) fwd_kernel(Args a, int vec) {
+  constexpr int LD = mm::ld<DH>();
+  constexpr int T = mm::kTile;
+  constexpr int NT = mm::kSub / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = Qs + mm::kRows * LD;  // two stages
+  bf16* Vs = Ks + 2 * T * LD;      // two stages
+  int* kids = reinterpret_cast<int*>(Vs + 2 * T * LD);  // [stage][64] key segment ids
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int q0 = blockIdx.x * mm::kRows;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const bf16* kb = (const bf16*)a.k + b * a.ks.b + h * a.ks.h;
+  const bf16* vb = (const bf16*)a.v + b * a.vs.b + h * a.vs.h;
+  const int row = q0 + warp * 16 + (lane >> 2);  // and row + 8
+  const int cq = 2 * (lane & 3);
+  // the keep threshold and the scale of a kept score; without dropout every
+  // score is kept (its bits stay 0) and scaled by 1
+  const uint32_t thr = a.dropout ? a.threshold : 0u;
+  const float kept = a.dropout ? a.inv_keep : 1.f;
+  int sq[2];  // the segment ids of rows row and row + 8 (0 past Lq or without ids)
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    sq[i] = a.seg_q != nullptr && row + 8 * i < a.Lq
+                ? a.seg_q[(long long)b * a.Lq + row + 8 * i] : 0;
+  // the key tile at step s into stage st: K, V in pass 2, the segment ids
+  auto load = [&](const FwdStep& s, int st) {
+    mm::load_tile<DH>(Ks + st * T * LD, kb, a.ks.l, s.t * T, a.Lk, vec);
+    if (s.pass == 2) mm::load_tile<DH>(Vs + st * T * LD, vb, a.vs.l, s.t * T, a.Lk, vec);
+    for (int r = threadIdx.x; r < T; r += mm::kThreads)
+      kids[st * T + r] = a.seg_kv != nullptr && s.t * T + r < a.Lk
+                             ? a.seg_kv[(long long)b * a.Lk + s.t * T + r] : 0;
+  };
+
+  const bool single = a.bk >= a.Lk;
+  const int bk = single ? a.Lk : a.bk;
+  FwdStep cur{0, min(bk, a.Lk), 0, 0};  // block 0 is visited by every row (block_q >= 2)
+  mm::load_tile<DH>(Qs, (const bf16*)a.q + b * a.qs.b + h * a.qs.h, a.qs.l, q0, a.Lq, vec);
+  load(cur, 0);
+  mm::cp_async_commit();
+  mm::cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[DH / 16][4];
+  mm::load_a_frags<DH>(qf, Qs, warp * 16);
+
+  // rows row and row + 8: the running state, and the current block's terms
+  float acc[DH / 8][4];
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  float mx[2] = {-INFINITY, -INFINITY}, psum[2] = {0.f, 0.f};
+  float m_next[2], m_use[2], l_corr[2], l_single[2];
+  bool run[2];
+
+  for (int st = 0;; st ^= 1) {
+    FwdStep nxt = cur;
+    const bool more = next_step(a, q0, bk, single, nxt);
+    if (more) load(nxt, st ^ 1);
+    mm::cp_async_commit();
+    mm::cp_async_wait<1>();
+    __syncthreads();
+    const bf16* Kt = Ks + st * T * LD;
+    const bf16* Vt = Vs + st * T * LD;
+    const int* ids = kids + st * T;
+    const int k0 = cur.t * T;
+    const bool edge = k0 < cur.kb0 || k0 + T > cur.kend;  // the tile straddles the block
+#pragma unroll 1
+    for (int sc = 0; sc < T; sc += mm::kSub) {
+      float s[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      mm::mma_abt<DH, NT>(s, qf, Kt, sc);
+      logits<NT>(a, bh, s, [&](int j, int e) {
+        const int kc = sc + 8 * j + cq + (e & 1);  // key column in the tile
+        return make_int4(row + (e >> 1) * 8, k0 + kc, sq[e >> 1], ids[kc]);
+      });
+      if (edge) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = k0 + sc + 8 * j + cq + (e & 1);
+            if (c < cur.kb0 || c >= cur.kend) s[j][e] = -INFINITY;
+          }
+      }
+      if (cur.pass == 0) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      } else if (cur.pass == 1) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) psum[e >> 1] += expf(s[j][e] - m_use[e >> 1]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          uint32_t keep[4] = {0u, 0u, 0u, 0u};
+          if (a.dropout) keep_rows(keep, a.seed, row, k0 + sc + 8 * j + cq);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1;
+            float p = expf(s[j][e] - m_use[i]);
+            if (single)
+              p = __fdiv_rn(p, l_single[i]);
+            else
+              psum[i] += p;
+            s[j][e] = __fmul_rn(p, keep[e] >= thr ? kept : 0.f);  // p D
+          }
+        }
+        uint32_t pf[NT / 2][4];
+        mm::to_a_frags<NT>(pf, s);  // p D rounded to bf16
+        mm::mma_pv<DH, NT / 2>(acc, pf, Vt, sc);
+      }
+    }
+
+    if (cur.t == (cur.kend - 1) / T) {  // the pass's last tile: the same in every thread
+      if (cur.pass == 0) {
+        // m_next = max(m_prev, rowmax(s)); a row whose block_q tile does not
+        // reach this block (under `causal`) keeps its state
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          m_next[i] = fmaxf(m_run[i], quad_max(mx[i]));
+          m_use[i] = m_next[i] == -INFINITY ? 0.f : m_next[i];  // no visited pair yet
+          run[i] = !a.causal || last_row(row + 8 * i, a.bq) > cur.kb0;
+          l_corr[i] = run[i] && !single ? __fmul_rn(expf(m_run[i] - m_use[i]), l_run[i]) : 1.f;
+        }
+#pragma unroll
+        for (int j = 0; j < DH / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[j][e] = __fmul_rn(acc[j][e], l_corr[e >> 1]);
+      } else if (cur.pass == 1) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) l_single[i] = quad_sum(psum[i]);
+      } else {
+        float inv[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float rowsum = quad_sum(psum[i]);
+          inv[i] = 1.f;
+          if (run[i]) {
+            if (single) {
+              l_run[i] = l_single[i];
+            } else {
+              // l_next = rowsum(p) + alpha l_prev; 1 / l_next taken as 1 where 0
+              const float l_next = __fadd_rn(rowsum, l_corr[i]);
+              inv[i] = l_next == 0.f ? 1.f : __fdiv_rn(1.0f, l_next);
+              l_run[i] = l_next;
+            }
+            m_run[i] = m_next[i];
+          }
+          mx[i] = -INFINITY;
+          psum[i] = 0.f;
+        }
+#pragma unroll
+        for (int j = 0; j < DH / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[j][e] = __fmul_rn(acc[j][e], inv[e >> 1]);
+      }
+    }
+    __syncthreads();  // stage st is consumed before it is refilled
+    if (!more) break;
+    cur = nxt;
+  }
+
+  const long long sb = (long long)bh * a.Lq;
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (row + 8 * i < a.Lq) {
+        a.l[sb + row + 8 * i] = l_run[i];
+        a.m[sb + row + 8 * i] = m_run[i];
+      }
+  }
+  bf16* ob = (bf16*)a.o + b * a.os.b + h * a.os.h;
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j) {
+    const int c = 8 * j + cq;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = row + (e >> 1) * 8;
+      if (r < a.Lq) ob[(long long)r * a.os.l + c + (e & 1)] = __float2bfloat16_rn(acc[j][e]);
+    }
+  }
+}
+
+// Kernel 9 at bf16 on `stream`, dh 64 or 128.
+template <int DH>
+cudaError_t launch_fwd(const Args& a, int B, cudaStream_t stream) {
+  const int vec = mm::rows_aligned(a.q, a.qs) && mm::rows_aligned(a.k, a.ks) &&
+                  mm::rows_aligned(a.v, a.vs);
+  const size_t smem = fwd_smem<DH>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  fwd_kernel<DH><<<dim3((a.Lq + mm::kRows - 1) / mm::kRows, B * a.H), mm::kThreads, smem,
+                   stream>>>(a, vec);
+  return cudaGetLastError();
 }
 
 // Kernel 10 (dkv) or 11 at bf16 on `stream`, dh 64 or 128.

@@ -25,12 +25,15 @@
 // The keep mask is the oneshot kernels' (philox.cuh): one per head, shared
 // across the batch, a function of (seed, head, query row, key column).
 //
-// What bounds it on an H100: arithmetic on the FP32 pipes (every product here
-// is an f32 FMA; tensor-core tiles are a later PR's work). At B=4, L=2051,
-// D=512, 8 heads: the forward is 17.2 GFLOP of projections and 34.5 of
-// attention, the backward ~47 of projection-type products and ~103 of
-// attention as the TPU kernel counts them (this design recomputes S three
-// and dP twice more: 11 L^2 dh products a head against the forward's 3).
+// What bounds it on an H100: arithmetic. At B=4, L=2051, D=512, 8 heads:
+// the forward is 17.2 GFLOP of projections and 34.5 of attention, the
+// backward ~47 of projection-type products and ~103 of attention as the TPU
+// kernel counts them (this design recomputes S three and dP twice more: 11
+// L^2 dh products a head against the forward's 3). The forward's attention
+// core and, at bf16, its projections and the backward's recomputed q, k, v
+// run on the tensor cores (`mma.sync` bf16 -> f32); the rest of the
+// backward, and every f32 projection, on the FP32 pipes (f32 FMAs; TF32 or
+// bf16 products would round the f32 operands).
 //
 // What the design does about the TPU kernel's shape. That kernel keeps K, V
 // and all eight weight-gradient accumulators in VMEM across a sequential
@@ -38,15 +41,18 @@
 // each product is its own pass, every launch is free of atomics, and every
 // sum has a fixed order (two launches are bit-identical):
 //
+//   - `project_qkv`, the q, k and v projections of both directions, one
+//     launch of three problems: at bf16 gemm_mma.cuh's tensor-core GEMM, at
+//     f32 `gemm_kernel`; the forward's out projection likewise;
 //   - `gemm_kernel`: a tiled f32 FMA GEMM (64x64 tile, 16-deep k steps, 4x4
 //     register tile a thread) over strided operands of either type, with a
 //     bias, scale and f32-addend epilogue and the output rounded to its type.
 //     Up to three problems of one shape share a launch; a long reduction
 //     (the weight gradients, B*L rows) is split into `splits` row ranges
-//     whose f32 partials `reduce_kernel` sums in split order.
-//   - the forward's attention core is the oneshot forward kernel
-//     (attention_fwd.cuh, bf16, scale 1: q is already scaled and rounded),
-//     whose two passes round e against the row's final max;
+//     whose f32 partials `reduce_kernel` sums in split order;
+//   - the forward's attention core is bf16 kernel 3's tensor-core forward
+//     (attention_mma.cuh, scale 1: q is already scaled and rounded), whose
+//     two passes round e against the row's final max;
 //   - `bwd_rows_kernel`, a block a (batch, head, 64-query tile): three passes
 //     over the key tiles give the row max m; then e, denom, sum(keep dp e)
 //     and the recomputed head; then ds and dQ. It writes m, r, u, the head
@@ -65,8 +71,9 @@
 
 #include <initializer_list>
 
-#include "attention_fwd.cuh"
+#include "attention_mma.cuh"
 #include "elem.cuh"
+#include "gemm_mma.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -636,26 +643,49 @@ cudaError_t gemm(const Launch& l, std::initializer_list<Gemm> probs, int M, int 
   return cudaGetLastError();
 }
 
+// (rows, D) x W (D, D) -> C on the tensor cores (bf16 only)
+pcm::gemm_mma::Problem mma_times_w(const bf16* x, const Weight& w, const bf16* bias, bf16* c,
+                                   long long D, float scale) {
+  return pcm::gemm_mma::problem(x, D, (const bf16*)w.w, w.s_in, w.s_out, bias, c, D, scale);
+}
+
+// q, k, v into the bf16 (3, B, L, D) buffer qkv: the forward's and the
+// backward's projections, one launch; at bf16 on the tensor cores
+// (gemm_mma.cuh), at f32 by the FMA GEMM.
 template <typename T>
 cudaError_t project_qkv(const Launch& l, const T* x_qk, const T* x_v, const Weight* w,
                         const T* const* bias, bf16* qkv) {
   const long long rows = (long long)l.B * l.L, D = l.D;
-  Gemm q = times_w(x_qk, w[0], qkv, D), k = times_w(x_qk, w[1], qkv + rows * D, D),
-       v = times_w(x_v, w[2], qkv + 2 * rows * D, D);
-  q.bias = bias[0];
-  q.scale = l.scale;
-  k.bias = bias[1];
-  v.bias = bias[2];
-  return gemm<T, T, bf16>(l, {q, k, v}, (int)rows, l.D, l.D);
+  if constexpr (pcm::is_bf16<T>::value) {
+    const pcm::gemm_mma::Problem p[3] = {
+        mma_times_w(x_qk, w[0], bias[0], qkv, D, l.scale),
+        mma_times_w(x_qk, w[1], bias[1], qkv + rows * D, D, 1.f),
+        mma_times_w(x_v, w[2], bias[2], qkv + 2 * rows * D, D, 1.f)};
+    return pcm::gemm_mma::gemm(p, 3, (int)rows, l.D, l.D, l.stream);
+  } else {
+    Gemm q = times_w(x_qk, w[0], qkv, D), k = times_w(x_qk, w[1], qkv + rows * D, D),
+         v = times_w(x_v, w[2], qkv + 2 * rows * D, D);
+    q.bias = bias[0];
+    q.scale = l.scale;
+    k.bias = bias[1];
+    v.bias = bias[2];
+    return gemm<T, T, bf16>(l, {q, k, v}, (int)rows, l.D, l.D);
+  }
 }
 
+// The heads of every head from q, k, v: bf16 kernel 3's tensor-core forward
+// (attention_mma.cuh) with scale 1 (q is already scaled and rounded), all
+// L keys, one keep mask per head shared across the batch, no row statistics.
 template <int DH>
 cudaError_t attention_core(const Launch& l, const bf16* qkv, bf16* heads) {
+  namespace mm = pcm::attn_mma;
   const long long rows = (long long)l.B * l.L, D = l.D;
-  const pcm::attn::Strides st{l.L * D, DH, D};
-  return pcm::attn::launch<bf16, DH>(qkv, qkv + rows * D, qkv + 2 * rows * D, heads, nullptr,
-                                     nullptr, st, st, st, st, l.B, l.H, l.L, l.L, l.L, 1.0f,
-                                     l.threshold, l.inv_keep, l.seed, l.dropout, l.stream);
+  const mm::Strides st{l.L * D, DH, D};
+  const bf16 *q = qkv, *k = qkv + rows * D, *v = qkv + 2 * rows * D;
+  const mm::FwdArgs a{q, k, v, heads, nullptr, nullptr, st, st, st, st, l.H, l.L, l.L, l.L,
+                      1.0f, l.threshold, l.inv_keep, l.seed, l.dropout,
+                      mm::rows_aligned(k, st) && mm::rows_aligned(v, st)};
+  return mm::launch_fwd<DH>(a, l.B, l.stream);
 }
 
 template <typename T>
@@ -671,9 +701,14 @@ cudaError_t fwd(void* const* ptrs, const Weight* w, const Launch& l) {
   PCM_TRY(project_qkv<T>(l, x_qk, x_v, w, bias, qkv));
   PCM_TRY(l.D / l.H == 64 ? attention_core<64>(l, qkv, heads)
                           : attention_core<128>(l, qkv, heads));
-  Gemm o = times_w(heads, w[3], out, D);
-  o.bias = bias[3];
-  return gemm<bf16, T, T>(l, {o}, (int)rows, l.D, l.D);
+  if constexpr (pcm::is_bf16<T>::value) {
+    const pcm::gemm_mma::Problem o = mma_times_w(heads, w[3], bias[3], out, D, 1.f);
+    return pcm::gemm_mma::gemm(&o, 1, (int)rows, l.D, l.D, l.stream);
+  } else {
+    Gemm o = times_w(heads, w[3], out, D);
+    o.bias = bias[3];
+    return gemm<bf16, T, T>(l, {o}, (int)rows, l.D, l.D);
+  }
 }
 
 template <int DH>

@@ -21,7 +21,8 @@ and the ctypes signatures of the attention kernels' C entries.
   wrappers' ``argtypes`` are held to the ``extern "C"`` prototypes parsed
   from ``csrc/attention_fwd.cu`` and ``csrc/attention_bwd.cu``, and those of
   the flash wrappers (``ops/flash_attention.py``) to the three entries of
-  ``csrc/flash_attention.cu``.
+  ``csrc/flash_attention.cu``, and those of the fused layer's wrappers
+  (``ops/fused_mha.py``) to the two entries of ``csrc/fused_mha.cu``.
 """
 
 import ctypes
@@ -39,6 +40,7 @@ import torch
 from pointcloudmatters_tpu.ops import oneshot_attention as jone
 from pointcloudmatters_tpu_torch import _build
 from pointcloudmatters_tpu_torch.ops import flash_attention as tfa
+from pointcloudmatters_tpu_torch.ops import fused_mha as tfm
 from pointcloudmatters_tpu_torch.ops import oneshot_attention as tone
 
 BF16 = torch.bfloat16
@@ -139,13 +141,16 @@ class _FakeLib:
     ("_lib", "flash_attention.cu", "pcm_flash_fwd"),
     ("_lib", "flash_attention.cu", "pcm_flash_bwd_dkv"),
     ("_lib", "flash_attention.cu", "pcm_flash_bwd_dq"),
+    ("_lib", "fused_mha.cu", "pcm_fused_mha_fwd"),
+    ("_lib", "fused_mha.cu", "pcm_fused_mha_bwd"),
 ])
 def test_wrapper_argtypes_match_c_prototypes(monkeypatch, getter, source, entry):
     """The wrapper's argtypes have the C entry's length and, at every
     position, its kind: a pointer is c_void_p, never an int."""
     fake = _FakeLib()
     monkeypatch.setattr(_build, "load", lambda name: fake)
-    lib = getattr(tfa if source == "flash_attention.cu" else tone, getter)()
+    module = {"flash_attention.cu": tfa, "fused_mha.cu": tfm}.get(source, tone)
+    lib = getattr(module, getter)()
     fn = getattr(lib, entry)
     want = _prototype(source, entry)
     assert len(fn.argtypes) == len(want)

@@ -111,12 +111,14 @@ def _op_inputs(B, L, D, seed):
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("B,L", [(1, 300), (2, 600)])
-@pytest.mark.parametrize("D,H", [(64, 4), (128, 2)])
+@pytest.mark.parametrize("D,H,B,L", [
+    (64, 4, 1, 300), (64, 4, 2, 600), (128, 2, 1, 300), (128, 2, 2, 600),
+    (256, 2, 1, 300),  # dh = 128, which the kernels take beside 64
+])
 def test_plain_matches_jax_kernels(D, H, B, L, dtype, jax_kernel_route):
     """The plain forward and all ten gradients of the plain backward against
     ``jax.vjp`` through the JAX op's TPU kernels (L = 300: two query tiles
-    and padded keys there; L = 600 at B = 2)."""
+    and padded keys there; L = 600 at B = 2), at dh 16, 64 and 128."""
     args, g = _op_inputs(B, L, D, seed=L + D)
     jdt, tdt = (jnp.float32, torch.float32) if dtype == "f32" else (jnp.bfloat16, torch.bfloat16)
     fwd_tol, grad_tol = (2e-3, 2e-3) if dtype == "f32" else (1e-2, 2e-2)

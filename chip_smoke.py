@@ -10,8 +10,9 @@ Phases, each of which raises on failure (exit code non-zero, no result):
 2. Builds the hand-written CUDA kernels from ``pointcloudmatters_tpu_torch/
    csrc`` (nvcc, sm_90a, one process a source, all at once) and prints the
    build time and ptxas's registers and spills by kernel function; those of
-   bf16 kernel 9 (dh 64, 128) and of kernel 7's tensor-core GEMM and core go
-   into the kernels line (``ptxas``).
+   the tensor-core kernels (bf16 kernel 9, the bf16 oneshot backward, kernel
+   7's and 8's GEMM instantiations and attention kernels at dh 64 and 128)
+   and of the FP32 GEMM go into the kernels line (``ptxas``).
 3. Holds each kernel against its plain PyTorch version on the card at the
    flagship's shapes, and times both:
    FPS B=4, N=10240 -> 2048 (index-exact), and at N=20480 its large-cloud
@@ -40,8 +41,9 @@ Phases, each of which raises on failure (exit code non-zero, no result):
    bf16, rates 0 and 0.1: the output and each of the ten gradients within
    BF16_TOL * max(1, max |plain|), two launches of each bit-identical; once
    at dh=128; and at rate 0.1, f32 and bf16, with the weights as transposed
-   views (one at no unit stride, rows not 16-byte aligned) and at D=256,
-   H=4 over B L = 1551 rows (not a multiple of 64), as strictly. Flash
+   views (one at no unit stride, rows not 16-byte aligned), at D=256,
+   H=4 over B L = 1551 rows (not a multiple of 64) and at L=513 (a ragged
+   one-row last tile), as strictly. Flash
    attention (kernels 9, 10 and 11) at B=4, H=8, L=2051, dh=64 with the
    adapter's 512-row tiles, f32 and bf16, rates 0 and 0.1; a causal case
    with a bias (its gradient ds), a masked key tail, a batch row whose keys
@@ -95,8 +97,9 @@ Phases, each of which raises on failure (exit code non-zero, no result):
 7. Trains the flagship with ``attention_impl="fused"`` at dropout 0, at
    ``"32-true"`` and at ``"bf16-mixed"``, as phase 5 times it: kernels 7 and
    8 of the step's type launched in every encoder layer and no oneshot
-   kernel; then a bf16 B=4 step with every
-   kernel against every plain version (BF16_STEP_TOL), and a B=4 step at
+   kernel; then an f32 and a bf16 B=4 step, each with every
+   kernel against every plain version (BF16_STEP_TOL: the fused layer
+   rounds to bf16 in both types), and a B=4 step at
    dropout 0.1, which the fused backend routes to the bf16 oneshot kernels
    (and no fused kernel), as JAX does, against every plain version
    (BF16_STEP_TOL).
@@ -189,10 +192,24 @@ KERNELS = {
 # phase 2: the tensor-core kernels whose ptxas registers and spills the
 # kernels line records, by a piece of their mangled names
 PTXAS_FUNCTIONS = {
+    "attention_bwd_bf16": {"dkdv_dh64": "8attn_mma11dkdv_kernelILi64ENS0_7OneshotE",
+                           "dq_dh64": "8attn_mma9dq_kernelILi64ENS0_7OneshotE"},
     "flash_fwd_bf16": {"dh64": "5flash10fwd_kernelILi64E", "dh128": "5flash10fwd_kernelILi128E"},
-    "fused_mha_fwd_bf16": {"gemm": "8gemm_mma11gemm_kernel",
-                           "core_dh64": "8attn_mma10fwd_kernelILi64E",
-                           "core_dh128": "8attn_mma10fwd_kernelILi128E"},
+    "fused_mha_fwd": {"gemm_qkv": "16fp32_gemm_kernelIff13__nv_bfloat16E",
+                      "gemm_out": "16fp32_gemm_kernelI13__nv_bfloat16ffE"},
+    "fused_mha_fwd_bf16": {"gemm": "8gemm_mma11gemm_kernelILb0ELi0E",
+                           "core_dh64": "8attn_mma10fwd_kernelILi64ENS0_7OneshotE",
+                           "core_dh128": "8attn_mma10fwd_kernelILi128ENS0_7OneshotE"},
+    "fused_mha_bwd": {"gemm_wgrad": "16fp32_gemm_kernelIf13__nv_bfloat16fE",
+                      "stats_dh64": "8attn_mma10fwd_kernelILi64ENS0_5FusedE",
+                      "stats_dh128": "8attn_mma10fwd_kernelILi128ENS0_5FusedE",
+                      "dkdv_dh64": "8attn_mma11dkdv_kernelILi64ENS0_5FusedE",
+                      "dkdv_dh128": "8attn_mma11dkdv_kernelILi128ENS0_5FusedE",
+                      "dq_dh64": "8attn_mma9dq_kernelILi64ENS0_5FusedE",
+                      "dq_dh128": "8attn_mma9dq_kernelILi128ENS0_5FusedE"},
+    "fused_mha_bwd_bf16": {"gemm_f32": "8gemm_mma11gemm_kernelILb0ELi1E",
+                           "gemm_addend": "8gemm_mma11gemm_kernelILb0ELi2E",
+                           "gemm_wgrad": "8gemm_mma11gemm_kernelILb1ELi1E"},
 }
 PREDICT_KERNELS = ("fps", "knn", "attention_fwd")  # serving runs no backward
 TRAIN_KERNELS = ("fps", "knn", "attention_fwd", "attention_bwd")  # "32-true"
@@ -966,6 +983,9 @@ def check_fused_mha(dev) -> dict:
         # D = 256, H = 4 (dh = 64), B L = 1551 rows, not a multiple of 64
         args, dout = inputs(3, 517, dtype, 7, D=256)
         case(f"{tag} B=3 L=517 D=256 H=4", args, dout, 4, args)
+        # L = 513: a last 64-row tile of one row, in every kernel of 7 and 8
+        args, dout = inputs(2, 513, dtype, 8)
+        case(f"{tag} B=2 L=513 D={D} H={H}", args, dout, H, args)
     return res
 
 
@@ -1540,9 +1560,11 @@ def train_fused(dev) -> dict:
     dropout 0, at ``"32-true"`` and at ``"bf16-mixed"`` (each encoder
     layer's forward by kernel 7 and backward by kernel 8 of the step's type,
     no oneshot kernel); returns each one's kernel launches on its timed
-    steps. Then a bf16 B=4 step with every kernel against every plain
-    version, and a bf16 B=4 step at dropout 0.1, which the fused backend
-    routes to the oneshot kernels and no fused kernel."""
+    steps. Then an f32 and a bf16 B=4 step, each with every kernel against
+    every plain version (BF16_STEP_TOL in both: the fused layer rounds to
+    bf16 whatever the step's type), and a bf16 B=4 step at dropout 0.1,
+    which the fused backend routes to the oneshot kernels and no fused
+    kernel."""
     import torch
 
     from pointcloudmatters_tpu_torch import ops
@@ -1561,12 +1583,15 @@ def train_fused(dev) -> dict:
 
     batch = to_device(build_batch(batch_size=4, n_points=N_POINTS, seed=1), dev)
     module = BCModule(build_flagship(seed=0, dropout=0.0, attention_impl="fused", device=dev))
-    got = _step_grads(module, batch, module.make_rngs(5), torch.bfloat16)
-    with plain_kernels():
-        ref = _step_grads(module, batch, module.make_rngs(5), torch.bfloat16)
-    log("train   " + _compare_step("bf16 fused B=4 step, kernels vs plain versions", *got,
-                                   *ref, grad_rtol=BF16_STEP_TOL, loss_rtol=BF16_STEP_TOL))
-    del module, got, ref
+    for dtype, tag in ((None, "f32"), (torch.bfloat16, "bf16")):
+        got = _step_grads(module, batch, module.make_rngs(5), dtype)
+        with plain_kernels():
+            ref = _step_grads(module, batch, module.make_rngs(5), dtype)
+        log("train   " + _compare_step(f"{tag} fused B=4 step, kernels vs plain versions",
+                                       *got, *ref, grad_rtol=BF16_STEP_TOL,
+                                       loss_rtol=BF16_STEP_TOL))
+        del got, ref
+    del module
     torch.cuda.empty_cache()
 
     module = BCModule(build_flagship(seed=0, dropout=ATTN_DROPOUT, attention_impl="fused",
@@ -1756,12 +1781,14 @@ def main() -> int:
     ptxas = {name: {tag: next((u for fn, u in usage.items() if piece in fn), None)
                     for tag, piece in pieces.items()}
              for name, pieces in PTXAS_FUNCTIONS.items()}
-    if logs and not all(all(ptxas[name].values()) for name in ptxas):
+    # only a build of every library prints every kernel's usage
+    full_build = set(logs) == set(_build.KERNELS)
+    if full_build and not all(all(ptxas[name].values()) for name in ptxas):
         raise AssertionError(f"ptxas reported no usage for a tensor-core kernel: {ptxas}")
 
     with knn_impl(None):  # phases 3-8 on the default kNN route, whatever the caller set
         res = check_kernels(dev)
-        if logs:  # a cached build prints no ptxas output
+        if full_build:  # a build that found libraries cached prints no record of theirs
             for name, record in ptxas.items():
                 res[name]["ptxas"] = record
         torch.cuda.empty_cache()  # the serving phase starts from an empty pool, as before

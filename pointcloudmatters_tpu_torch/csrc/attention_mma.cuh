@@ -57,6 +57,14 @@
 //   dh = 64 the forward and dK/dV are held to 128 registers, four blocks an
 //   SM (dK/dV then spills 12 bytes a thread; measured faster than three
 //   blocks at 158 registers without a spill).
+//
+// The fused layer's backward (kernel 8, fused_mha.cu) takes these kernels
+// in another statistics form (`Fused`): the forward kernel as its rows'
+// statistics pass (it also computes dP = dheads V^T, a 32-key sub-tile at a
+// time beside S, and u = r sum(z e)), then dK/dV and dQ with e = exp(s - m)
+// and u where the oneshot kernels take p = e r and D, q already scaled,
+// outputs in f32 and bf16. The oneshot instantiations (`Oneshot`) keep the
+// code paths that kernels 3 and 4 had.
 
 #pragma once
 
@@ -74,6 +82,7 @@ namespace attn_mma {
 constexpr int kRows = 64;    // rows a block: queries (forward, dQ) or keys (dK/dV)
 constexpr int kTile = 64;    // rows of a streamed tile
 constexpr int kThreads = 128;  // 4 warps, 16 rows each
+constexpr int kSub = 32;       // score columns a sub-tile in the backward
 constexpr float kNegInf = -1.0e30f;  // NEG_INF of the TPU kernel
 
 struct Strides {
@@ -350,15 +359,40 @@ __device__ __forceinline__ void keep_keys(uint32_t (&k)[4], uint32_t seed, int h
   xor_permute(k, j);  // k[e] = word j of call e
 }
 
+// ---- statistics forms ------------------------------------------------------------
+
+// The oneshot kernels (3 and 4): the forward's o and row statistics; in the
+// backward p = exp(s - m) / l, dS = p (dP_kept - D), q scaled and rounded
+// as it loads, bf16 dQ = bf16(bf16(dQ) scale), dK, dV.
+struct Oneshot {
+  static constexpr bool kFused = false;
+};
+
+// The fused layer's backward (kernel 8, q already scaled and rounded). The
+// forward kernel in this form is its statistics pass: it also reads
+// dheads (at q's strides) and sums w = sum keep dP e beside l, and writes
+// m, r = 1 / l (FwdArgs' row statistics), u = r (w (inv_keep r)) (= r sum
+// z e) and the heads (FwdArgs' o). dK/dV and dQ then take e = exp(s - m),
+// z = keep ? dP (inv_keep r) : 0, dS = e (z - u) and p_drop = keep ? e
+// (inv_keep r) : 0, with BwdArgs' delta holding u (the oneshot D = u / r);
+// dQ is dQ scale, unrounded, and dQ, dK, dV are written in f32 here and
+// rounded to bf16 at BwdArgs' outputs.
+struct Fused {
+  static constexpr bool kFused = true;
+  const bf16* dheads;
+  float* u;              // (B, H, Lq)
+  float *dq, *dk, *dv;   // at the strides of BwdArgs' dq, dk, dv
+};
+
 // ---- forward -------------------------------------------------------------------
 
-template <int DH>
+template <int DH, class Form>
 __host__ __device__ constexpr size_t fwd_smem() {
-  return (size_t)(kRows + 4 * kTile) * ld<DH>() * sizeof(bf16);
+  return (size_t)((Form::kFused ? 2 : 1) * kRows + 4 * kTile) * ld<DH>() * sizeof(bf16);
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads, DH == 64 ? 4 : 1) fwd_kernel(FwdArgs a) {
+template <int DH, class Form>
+__global__ void __launch_bounds__(kThreads, DH == 64 ? 4 : 1) fwd_kernel(FwdArgs a, Form f) {
   constexpr int LD = ld<DH>();
   constexpr int NT = kTile / 8;  // 8-column score tiles
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -375,12 +409,17 @@ __global__ void __launch_bounds__(kThreads, DH == 64 ? 4 : 1) fwd_kernel(FwdArgs
   const int cq = 2 * (lane & 3);                 // first column of a thread in a tile
 
   load_q_scaled<DH>(Qs, a.q + b * a.qs.b + h * a.qs.h, a.qs.l, q0, a.Lq, a.scale);
+  bf16* dOs = Vs + 2 * kTile * LD;  // the fused form's dheads rows
+  if constexpr (Form::kFused)
+    load_tile<DH>(dOs, f.dheads + b * a.qs.b + h * a.qs.h, a.qs.l, q0, a.Lq, 0);
   __syncthreads();
-  uint32_t qf[DH / 16][4];
+  uint32_t qf[DH / 16][4], df[Form::kFused ? DH / 16 : 1][4];
   load_a_frags<DH>(qf, Qs, warp * 16);
+  if constexpr (Form::kFused) load_a_frags<DH>(df, dOs, warp * 16);
 
   const int n_kt = (a.l_actual + kTile - 1) / kTile;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  float w0 = 0.f, w1 = 0.f;  // the fused form's sum keep dP e
   float acc[DH / 8][4];
 #pragma unroll
   for (int j = 0; j < DH / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
@@ -401,12 +440,55 @@ __global__ void __launch_bounds__(kThreads, DH == 64 ? 4 : 1) fwd_kernel(FwdArgs
       cp_async_commit();
       cp_async_wait<1>();
       __syncthreads();
+      const int k0 = kt * kTile;
+      if constexpr (Form::kFused) {
+        if (pass == 1) {  // S and dP = dheads V^T a 32-key sub-tile at a time
+          const bf16* Kt = Ks + st * kTile * LD;
+          const bf16* Vt = Vs + st * kTile * LD;
+#pragma unroll 1
+          for (int sc = 0; sc < kTile; sc += kSub) {
+            float s[kSub / 8][4], dp[kSub / 8][4];
+#pragma unroll
+            for (int j = 0; j < kSub / 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+            mma_abt<DH, kSub / 8>(s, qf, Kt, sc);
+            mma_abt<DH, kSub / 8>(dp, df, Vt, sc);
+#pragma unroll
+            for (int j = 0; j < kSub / 8; ++j) {
+              const int col = k0 + sc + 8 * j + cq;
+              uint32_t keep[4];
+              if (a.dropout) keep_rows(keep, a.seed, h, row, col);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const bool hi = e >= 2;
+                float ev = 0.f;
+                if (col + (e & 1) < a.l_actual) {
+                  ev = expf(s[j][e] - (hi ? m1 : m0));
+                  if (hi) l1 += ev; else l0 += ev;
+                  if (!a.dropout || keep[e] >= a.threshold) {
+                    if (hi) w1 = fmaf(dp[j][e], ev, w1); else w0 = fmaf(dp[j][e], ev, w0);
+                    if (a.dropout) ev *= a.inv_keep;
+                  } else {
+                    ev = 0.f;
+                  }
+                }
+                s[j][e] = ev;  // e_drop, rounded by to_a_frags
+              }
+            }
+            uint32_t p[kSub / 16][4];
+            to_a_frags<kSub / 8>(p, s);
+            mma_pv<DH, kSub / 16>(acc, p, Vt, sc);
+          }
+          __syncthreads();  // stage st is consumed before it is refilled
+          continue;
+        }
+      }
 
       float s[NT][4];
 #pragma unroll
       for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
       mma_abt<DH, NT>(s, qf, Ks + st * kTile * LD, 0);
-      const int k0 = kt * kTile;
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         const int col = k0 + 8 * j + cq;
@@ -419,7 +501,7 @@ __global__ void __launch_bounds__(kThreads, DH == 64 ? 4 : 1) fwd_kernel(FwdArgs
           m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
           m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
         }
-      } else {
+      } else if constexpr (!Form::kFused) {
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
           s[j][0] = expf(s[j][0] - m0);
@@ -454,6 +536,10 @@ __global__ void __launch_bounds__(kThreads, DH == 64 ? 4 : 1) fwd_kernel(FwdArgs
   for (int off = 1; off <= 2; off <<= 1) {
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    if constexpr (Form::kFused) {
+      w0 += __shfl_xor_sync(0xffffffffu, w0, off);
+      w1 += __shfl_xor_sync(0xffffffffu, w1, off);
+    }
   }
   const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
   if (a.row_max != nullptr && (lane & 3) == 0) {
@@ -461,10 +547,12 @@ __global__ void __launch_bounds__(kThreads, DH == 64 ? 4 : 1) fwd_kernel(FwdArgs
     if (row < a.Lq) {
       a.row_max[base + row] = m0;
       a.row_inv[base + row] = inv0;
+      if constexpr (Form::kFused) f.u[base + row] = inv0 * (w0 * (a.inv_keep * inv0));
     }
     if (row + 8 < a.Lq) {
       a.row_max[base + row + 8] = m1;
       a.row_inv[base + row + 8] = inv1;
+      if constexpr (Form::kFused) f.u[base + row + 8] = inv1 * (w1 * (a.inv_keep * inv1));
     }
   }
   bf16* ob = a.o + b * a.os.b + h * a.os.h;
@@ -482,20 +570,25 @@ __global__ void __launch_bounds__(kThreads, DH == 64 ? 4 : 1) fwd_kernel(FwdArgs
   }
 }
 
-template <int DH>
-cudaError_t launch_fwd(const FwdArgs& a, int B, cudaStream_t stream) {
-  const size_t smem = fwd_smem<DH>();
+// The forward (or, in the fused form, kernel 8's statistics pass) on `stream`.
+template <int DH, class Form = Oneshot>
+cudaError_t launch_fwd(const FwdArgs& a, int B, cudaStream_t stream, const Form& f = Form{}) {
+  const size_t smem = fwd_smem<DH, Form>();
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fwd_kernel<DH, Form>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Lq + kRows - 1) / kRows, B * a.H);
-  fwd_kernel<DH><<<grid, kThreads, smem, stream>>>(a);
+  fwd_kernel<DH, Form><<<grid, kThreads, smem, stream>>>(a, f);
   return cudaGetLastError();
 }
 
-// ---- backward: dQ --------------------------------------------------------------
-
-constexpr int kSub = 32;  // score columns a sub-tile in the backward
+// Two f32 values (columns c, c + 1 of a row; `at` even) into a bf16 tensor
+// and an f32 tensor at the same element offset.
+__device__ __forceinline__ void store_pair(bf16* o, float* o32, long long at, float x0,
+                                           float x1) {
+  *reinterpret_cast<__nv_bfloat162*>(o + at) = __floats2bfloat162_rn(x0, x1);
+  *reinterpret_cast<float2*>(o32 + at) = make_float2(x0, x1);
+}
 
 template <int DH>
 __host__ __device__ constexpr size_t bwd_smem() {
@@ -503,10 +596,12 @@ __host__ __device__ constexpr size_t bwd_smem() {
          2 * 3 * kTile * sizeof(float);
 }
 
+// ---- backward: dQ --------------------------------------------------------------
+
 // One block a (batch, head, 64-query tile): dQ = (dS K) over the key tiles
-// up to l_actual, rounded, times scale.
-template <int DH>
-__global__ void __launch_bounds__(kThreads) dq_kernel(BwdArgs a) {
+// up to l_actual, times scale (rounded as the form says).
+template <int DH, class Form>
+__global__ void __launch_bounds__(kThreads) dq_kernel(BwdArgs a, Form f) {
   constexpr int LD = ld<DH>();
   constexpr int SC = kSub;
   constexpr int NT = SC / 8;
@@ -528,7 +623,10 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(BwdArgs a) {
   load_tile<DH>(Ks, kb, a.ks.l, 0, a.Lk, a.vec);
   load_tile<DH>(Vs, vb, a.vs.l, 0, a.Lk, a.vec);
   cp_async_commit();
-  load_q_scaled<DH>(Qs, a.q + b * a.qs.b + h * a.qs.h, a.qs.l, q0, a.Lq, a.scale);
+  if constexpr (Form::kFused)
+    load_tile<DH>(Qs, a.q + b * a.qs.b + h * a.qs.h, a.qs.l, q0, a.Lq, 0);
+  else
+    load_q_scaled<DH>(Qs, a.q + b * a.qs.b + h * a.qs.h, a.qs.l, q0, a.Lq, a.scale);
   load_tile<DH>(dOs, a.dout + b * a.dos.b + h * a.dos.h, a.dos.l, q0, a.Lq, 0);
   // rows past Lq: m = +inf and 1/l = 0, so their p is 0
   const long long sb = (long long)bh * a.Lq;
@@ -538,6 +636,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(BwdArgs a) {
   const float r1 = row + 8 < a.Lq ? a.row_inv[sb + row + 8] : 0.f;
   const float d0 = row < a.Lq ? a.delta[sb + row] : 0.f;
   const float d1 = row + 8 < a.Lq ? a.delta[sb + row + 8] : 0.f;
+  const float zr0 = a.inv_keep * r0, zr1 = a.inv_keep * r1;  // the fused form's z factor
   __syncthreads();
   uint32_t qf[DH / 16][4], df[DH / 16][4];
   load_a_frags<DH>(qf, Qs, warp * 16);
@@ -571,21 +670,36 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(BwdArgs a) {
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         const int col = c0 + 8 * j + cq;
-        float p[4];
-        p[0] = col < a.l_actual ? expf(s[j][0] - m0) * r0 : 0.f;
-        p[1] = col + 1 < a.l_actual ? expf(s[j][1] - m0) * r0 : 0.f;
-        p[2] = col < a.l_actual ? expf(s[j][2] - m1) * r1 : 0.f;
-        p[3] = col + 1 < a.l_actual ? expf(s[j][3] - m1) * r1 : 0.f;
-        if (a.dropout) {
+        if constexpr (Form::kFused) {
           uint32_t keep[4];
-          keep_rows(keep, a.seed, h, row, col);
+          if (a.dropout) keep_rows(keep, a.seed, h, row, col);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) dp[j][e] = keep[e] >= a.threshold ? dp[j][e] * a.inv_keep : 0.f;
+          for (int e = 0; e < 4; ++e) {
+            const bool hi = e >= 2;
+            const float ev =
+                col + (e & 1) < a.l_actual ? expf(s[j][e] - (hi ? m1 : m0)) : 0.f;
+            const bool kp = !a.dropout || keep[e] >= a.threshold;
+            const float z = kp ? dp[j][e] * (hi ? zr1 : zr0) : 0.f;
+            s[j][e] = ev * (z - (hi ? d1 : d0));  // dS, rounded by to_a_frags
+          }
+        } else {
+          float p[4];
+          p[0] = col < a.l_actual ? expf(s[j][0] - m0) * r0 : 0.f;
+          p[1] = col + 1 < a.l_actual ? expf(s[j][1] - m0) * r0 : 0.f;
+          p[2] = col < a.l_actual ? expf(s[j][2] - m1) * r1 : 0.f;
+          p[3] = col + 1 < a.l_actual ? expf(s[j][3] - m1) * r1 : 0.f;
+          if (a.dropout) {
+            uint32_t keep[4];
+            keep_rows(keep, a.seed, h, row, col);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              dp[j][e] = keep[e] >= a.threshold ? dp[j][e] * a.inv_keep : 0.f;
+          }
+          s[j][0] = p[0] * (dp[j][0] - d0);  // dS, rounded by to_a_frags
+          s[j][1] = p[1] * (dp[j][1] - d0);
+          s[j][2] = p[2] * (dp[j][2] - d1);
+          s[j][3] = p[3] * (dp[j][3] - d1);
         }
-        s[j][0] = p[0] * (dp[j][0] - d0);  // dS, rounded by to_a_frags
-        s[j][1] = p[1] * (dp[j][1] - d0);
-        s[j][2] = p[2] * (dp[j][2] - d1);
-        s[j][3] = p[3] * (dp[j][3] - d1);
       }
       uint32_t ds[NT / 2][4];
       to_a_frags<NT>(ds, s);
@@ -594,16 +708,27 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(BwdArgs a) {
     __syncthreads();  // stage st is consumed before it is refilled
   }
 
-  bf16* qb = a.dq + b * a.dqs.b + h * a.dqs.h;
+  const long long qo = b * a.dqs.b + h * a.dqs.h;
+  bf16* qb = a.dq + qo;
 #pragma unroll
   for (int j = 0; j < DH / 8; ++j) {
     const int c = 8 * j + cq;
+    if constexpr (Form::kFused) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = row + (e >> 1) * 8;
-      if (r < a.Lq)
-        qb[(long long)r * a.dqs.l + c + (e & 1)] =
-            __float2bfloat16_rn(pcm::round_to<bf16>(acc[j][e]) * a.scale);
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = row + hh * 8;
+        if (r < a.Lq)
+          store_pair(qb, f.dq + qo, (long long)r * a.dqs.l + c, acc[j][2 * hh] * a.scale,
+                     acc[j][2 * hh + 1] * a.scale);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = row + (e >> 1) * 8;
+        if (r < a.Lq)
+          qb[(long long)r * a.dqs.l + c + (e & 1)] =
+              __float2bfloat16_rn(pcm::round_to<bf16>(acc[j][e]) * a.scale);
+      }
     }
   }
 }
@@ -612,8 +737,8 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(BwdArgs a) {
 
 // One block a (batch, head, 64-key tile), looping over the query tiles:
 // S^T = K Q^T and dP^T = V dO^T, then dV += P_drop^T dO and dK += dS^T Q.
-template <int DH>
-__global__ void __launch_bounds__(kThreads, DH == 64 ? 4 : 1) dkdv_kernel(BwdArgs a) {
+template <int DH, class Form>
+__global__ void __launch_bounds__(kThreads, DH == 64 ? 4 : 1) dkdv_kernel(BwdArgs a, Form f) {
   constexpr int LD = ld<DH>();
   constexpr int SC = kSub;
   constexpr int NT = SC / 8;
@@ -671,7 +796,7 @@ __global__ void __launch_bounds__(kThreads, DH == 64 ? 4 : 1) dkdv_kernel(BwdArg
       }
       cp_async_commit();
       cp_async_wait<1>();
-      scale_own_chunks<DH>(Qt, a.scale);  // q -> bf16(q * scale)
+      if constexpr (!Form::kFused) scale_own_chunks<DH>(Qt, a.scale);  // q -> bf16(q * scale)
       __syncthreads();
       const float* sm_m = stats + st * 3 * kTile;
       const float* sm_r = sm_m + kTile;
@@ -695,15 +820,23 @@ __global__ void __launch_bounds__(kThreads, DH == 64 ? 4 : 1) dkdv_kernel(BwdArg
           for (int e = 0; e < 4; ++e) {
             const int qc = c + (e & 1);
             const bool live = key + (e >> 1) * 8 < a.l_actual;
-            const float p = live ? expf(s[j][e] - sm_m[qc]) * sm_r[qc] : 0.f;
-            float pd = p, dpk = dp[j][e];
-            if (a.dropout) {
-              const bool kp = keep[e] >= a.threshold;
-              pd = kp ? p * a.inv_keep : 0.f;
-              dpk = kp ? dpk * a.inv_keep : 0.f;
+            if constexpr (Form::kFused) {
+              const float ev = live ? expf(s[j][e] - sm_m[qc]) : 0.f;
+              const float zr = a.inv_keep * sm_r[qc];
+              const bool kp = !a.dropout || keep[e] >= a.threshold;
+              s[j][e] = kp ? ev * zr : 0.f;                               // p_drop
+              dp[j][e] = ev * ((kp ? dp[j][e] * zr : 0.f) - sm_d[qc]);  // dS
+            } else {
+              const float p = live ? expf(s[j][e] - sm_m[qc]) * sm_r[qc] : 0.f;
+              float pd = p, dpk = dp[j][e];
+              if (a.dropout) {
+                const bool kp = keep[e] >= a.threshold;
+                pd = kp ? p * a.inv_keep : 0.f;
+                dpk = kp ? dpk * a.inv_keep : 0.f;
+              }
+              s[j][e] = pd;                     // p_drop, rounded by to_a_frags
+              dp[j][e] = p * (dpk - sm_d[qc]);  // dS, likewise
             }
-            s[j][e] = pd;                   // p_drop, rounded by to_a_frags
-            dp[j][e] = p * (dpk - sm_d[qc]);  // dS, likewise
           }
         }
         uint32_t pf[NT / 2][4], dsf[NT / 2][4];
@@ -716,17 +849,31 @@ __global__ void __launch_bounds__(kThreads, DH == 64 ? 4 : 1) dkdv_kernel(BwdArg
     }
   }
 
-  bf16* dkb = a.dk + b * a.dks.b + h * a.dks.h;
-  bf16* dvb = a.dv + b * a.dvs.b + h * a.dvs.h;
+  const long long ko = b * a.dks.b + h * a.dks.h, vo = b * a.dvs.b + h * a.dvs.h;
+  bf16* dkb = a.dk + ko;
+  bf16* dvb = a.dv + vo;
 #pragma unroll
   for (int j = 0; j < DH / 8; ++j) {
     const int c = 8 * j + cq;
+    if constexpr (Form::kFused) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = key + (e >> 1) * 8;
-      if (r < a.Lk) {
-        dkb[(long long)r * a.dks.l + c + (e & 1)] = __float2bfloat16_rn(dk[j][e]);
-        dvb[(long long)r * a.dvs.l + c + (e & 1)] = __float2bfloat16_rn(dv[j][e]);
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = key + hh * 8;
+        if (r < a.Lk) {
+          store_pair(dkb, f.dk + ko, (long long)r * a.dks.l + c, dk[j][2 * hh],
+                     dk[j][2 * hh + 1]);
+          store_pair(dvb, f.dv + vo, (long long)r * a.dvs.l + c, dv[j][2 * hh],
+                     dv[j][2 * hh + 1]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = key + (e >> 1) * 8;
+        if (r < a.Lk) {
+          dkb[(long long)r * a.dks.l + c + (e & 1)] = __float2bfloat16_rn(dk[j][e]);
+          dvb[(long long)r * a.dvs.l + c + (e & 1)] = __float2bfloat16_rn(dv[j][e]);
+        }
       }
     }
   }
@@ -737,15 +884,40 @@ template <int DH>
 cudaError_t launch_bwd(const BwdArgs& a, int B, cudaStream_t stream) {
   const size_t smem = bwd_smem<DH>();
   cudaError_t err = cudaFuncSetAttribute(
-      dkdv_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      dkdv_kernel<DH, Oneshot>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(dq_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(dq_kernel<DH, Oneshot>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
-  dkdv_kernel<DH><<<dim3((a.Lk + kRows - 1) / kRows, B * a.H), kThreads, smem, stream>>>(a);
+  dkdv_kernel<DH, Oneshot>
+      <<<dim3((a.Lk + kRows - 1) / kRows, B * a.H), kThreads, smem, stream>>>(a, Oneshot{});
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dq_kernel<DH><<<dim3((a.Lq + kRows - 1) / kRows, B * a.H), kThreads, smem, stream>>>(a);
+  dq_kernel<DH, Oneshot>
+      <<<dim3((a.Lq + kRows - 1) / kRows, B * a.H), kThreads, smem, stream>>>(a, Oneshot{});
+  return cudaGetLastError();
+}
+
+// The fused layer's attention backward on `stream`: the statistics pass
+// (fa: m, r, u and the heads), then dK/dV and dQ in the fused form (ba
+// reads m, r and u as row_max, row_inv and delta; Lq = Lk = l_actual).
+template <int DH>
+cudaError_t launch_fused_bwd(const FwdArgs& fa, const BwdArgs& ba, const Fused& f, int B,
+                             cudaStream_t stream) {
+  cudaError_t err = launch_fwd<DH, Fused>(fa, B, stream, f);
+  if (err != cudaSuccess) return err;
+  const size_t smem = bwd_smem<DH>();
+  err = cudaFuncSetAttribute(dkdv_kernel<DH, Fused>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(dq_kernel<DH, Fused>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((ba.Lq + kRows - 1) / kRows, B * ba.H);
+  dkdv_kernel<DH, Fused><<<grid, kThreads, smem, stream>>>(ba, f);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dq_kernel<DH, Fused><<<grid, kThreads, smem, stream>>>(ba, f);
   return cudaGetLastError();
 }
 

@@ -26,14 +26,21 @@
 // across the batch, a function of (seed, head, query row, key column).
 //
 // What bounds it on an H100: arithmetic. At B=4, L=2051, D=512, 8 heads:
-// the forward is 17.2 GFLOP of projections and 34.5 of attention, the
-// backward ~47 of projection-type products and ~103 of attention as the TPU
-// kernel counts them (this design recomputes S three and dP twice more: 11
-// L^2 dh products a head against the forward's 3). The forward's attention
-// core and, at bf16, its projections and the backward's recomputed q, k, v
-// run on the tensor cores (`mma.sync` bf16 -> f32); the rest of the
-// backward, and every f32 projection, on the FP32 pipes (f32 FMAs; TF32 or
-// bf16 products would round the f32 operands).
+// the forward is 17.2 GFLOP of projections and 34.5 of attention; the
+// backward 47.3 of projection-type products (q, k, v recomputed, dheads,
+// three input and four weight gradients) and 189 of attention as this
+// design computes it (11 L^2 dh products a head: S three times and dP
+// twice, e V, dQ, dV and dK; the TPU kernel counts 6). Every attention
+// product, in both instances, is `mma.sync` bf16 -> f32 on the tensor cores
+// (the TPU kernel rounds q, k, v, e, dheads and the heads to bf16 whatever
+// T is, so no rounding moves): 0.19 ms at 989 TFLOP/s. At bf16 every other
+// product is on the tensor cores too (gemm_mma.cuh, 0.05 ms); at f32 those
+// take an f32 operand and run on the FP32 pipes (the FP32 GEMM below, 0.71
+// ms at 67 TFLOP/s; TF32 or bf16 products would round the f32 operands).
+// What holds it back now: `mma.sync` fed from shared memory and exp on the
+// FP32 pipes in the attention kernels (bf16 #3/#4 reach 130-150 TFLOP/s at
+// rate 0), the FP32 GEMM's share of the FP32 peak at f32, and some twenty
+// launches of which the reductions are small.
 //
 // What the design does about the TPU kernel's shape. That kernel keeps K, V
 // and all eight weight-gradient accumulators in VMEM across a sequential
@@ -43,27 +50,26 @@
 //
 //   - `project_qkv`, the q, k and v projections of both directions, one
 //     launch of three problems: at bf16 gemm_mma.cuh's tensor-core GEMM, at
-//     f32 `gemm_kernel`; the forward's out projection likewise;
-//   - `gemm_kernel`: a tiled f32 FMA GEMM (64x64 tile, 16-deep k steps, 4x4
-//     register tile a thread) over strided operands of either type, with a
-//     bias, scale and f32-addend epilogue and the output rounded to its type.
-//     Up to three problems of one shape share a launch; a long reduction
-//     (the weight gradients, B*L rows) is split into `splits` row ranges
-//     whose f32 partials `reduce_kernel` sums in split order;
+//     f32 the FP32 GEMM; the forward's out projection likewise;
 //   - the forward's attention core is bf16 kernel 3's tensor-core forward
 //     (attention_mma.cuh, scale 1: q is already scaled and rounded), whose
 //     two passes round e against the row's final max;
-//   - `bwd_rows_kernel`, a block a (batch, head, 64-query tile): three passes
-//     over the key tiles give the row max m; then e, denom, sum(keep dp e)
-//     and the recomputed head; then ds and dQ. It writes m, r, u, the head
-//     and dq_lin;
-//   - `bwd_keys_kernel`, a block a (batch, head, 64-key tile): one pass over
-//     the query tiles with their m, r, u gives dK and dV in registers;
-//   - `colsum_kernel` + `reduce_kernel`: the bias gradients in f32.
-// In the backward kernels a thread holds a 4x4 tile of the 64x64 scores
-// whose four columns are neighbours, so one Philox call gives its keep bits;
-// row sums are register partials folded over the 16 lanes of a row at the
-// end of a pass.
+//   - the backward's attention is attention_mma.cuh's kernels in their
+//     `Fused` statistics form, in both instances: the forward kernel as the
+//     rows' statistics pass, a block a (batch, head, 64-query tile): a pass
+//     over the key tiles for the row max m, then one for e, its sum,
+//     sum(keep dP e) and the recomputed head (e_drop V); it writes m,
+//     r = 1 / sum e, u and the head. Then bf16 kernel 4's dK/dV kernel (a
+//     block a 64-key tile, S^T and dP^T, over the query tiles) and dQ
+//     kernel (a block a 64-query tile, S and dP again) with ds =
+//     bf16(e (z - u)), writing dq_lin = dQ scale, dK and dV in f32 (for
+//     the bias sums) and in bf16 (the GEMMs' operands);
+//   - the input and weight gradients: at bf16 gemm_mma.cuh's modes (dx_qk's
+//     dk part into f32, then its dq part with that addend, rounded once; the
+//     four weight gradients x^T g with A read transposed, one launch, as
+//     f32 split-K partials), at f32 the FP32 GEMM;
+//   - `colsum_kernel` + `reduce_kernel`: the bias gradients in f32, and the
+//     sums of the split partials, in split order.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -80,19 +86,44 @@ namespace {
 
 using pcm::bf16;
 using pcm::from_f;
-using pcm::round_to;
 using pcm::to_f;
 
-constexpr int kThreads = 256;
-constexpr int kGM = 64, kGN = 64, kGK = 16;  // GEMM tile
-constexpr int kBQ = 64, kBK = 64;            // attention tiles
-constexpr int kMaxProblems = 3;
+constexpr int kThreads = 256;  // the reductions' blocks
+constexpr int kMaxProblems = 4;
 
-// C = (A B + bias) * scale + addend over an M x N x K problem; element (m,
-// k) of A at a[m * a_m + k * a_k], and so on. bias has N values of B's type;
-// addend is f32 (M, N) row-major; either may be null. round_a/round_b round
-// an f32 operand to bf16 as it is loaded. Split s of a split reduction
-// writes its partial at c + s * c_split.
+// ---------------------------------------------------------------------------
+// The FP32 GEMM: every product of the f32 instance but the attention.
+//
+// C = (A B + bias) * scale + addend over an M x N x K problem whose operands
+// are f32 or bf16 (a bf16 value converts to f32 exactly as it loads), every
+// product an f32 FMA and every sum f32 in K order: no TF32 and no split-bf16,
+// so f32 operands stay exact. The output is rounded once to its type. Up to
+// four problems of one shape share a launch (blockIdx.z, times the splits);
+// a long K (the weight gradients, B*L rows) is split into `splits` ranges
+// whose f32 partials `reduce_kernel` sums in split order.
+//
+// What bounds it on an H100: the FP32 pipes, 2 M N K flops at 67 TFLOP/s
+// (kernel 8's eleven products at B = 4, L = 2051, D = 512, 47.3 GFLOP:
+// 0.71 ms; kernel 7's four, 17.2 GFLOP: 0.26 ms).
+//
+// What the design does about it: a block of 256 threads computes a
+// 128 x 128 tile of C, each thread an 8 x 8 register tile (rows 4 ty .. and
+// 64 + 4 ty .., columns 4 tx .. and 64 + 4 tx ..): 64 FMAs for every four
+// `float4` shared loads. A and B are staged K-major (As[k][m], Bs[k][n],
+// rows padded by 4 floats) in 8-deep K steps, double-buffered: the next
+// step's global loads go to registers while this step multiplies. A thread
+// loads four neighbours along an operand's contiguous axis, by one vector
+// load where the rows are aligned, and transposes them into the K-major
+// tile where that axis is K. Two blocks an SM (128 registers a thread).
+
+constexpr int kSM = 128, kSN = 128, kSK = 8;  // block tile of C, K step
+constexpr int kSThreads = 256;                // 16 x 16 threads, 8 x 8 outputs each
+constexpr int kSLd = kSM + 4;                 // a K-major tile row, padded
+
+// C = (A B + bias) * scale + addend: element (m, k) of A at a[m * a_m + k *
+// a_k], and so on; bias has N values of B's type, addend is f32 (M, N) at
+// row stride N; either may be null. Split s of a split K writes its partial
+// at c + s * c_split. The layout flags are set by `gemm`.
 struct Gemm {
   const void* a;
   long long a_m, a_k;
@@ -101,90 +132,165 @@ struct Gemm {
   const void* bias;
   const float* addend;
   void* c;
-  long long c_m, c_n, c_split;
+  long long c_m, c_split;
   float scale;
-  int round_a, round_b;
+  int a_kc, a_vec;  // A's chunks run along K; by vector loads
+  int b_kc, b_vec;  // likewise for B
 };
 
 struct GemmBatch {
   Gemm p[kMaxProblems];
+  int splits, k_per_split;
 };
 
+// base[0], base[step], base[2 step], base[3 step] as f32, zero past the first
+// n; one vector load when `vec` and all four are in (step 1, aligned).
+template <typename T>
+__device__ __forceinline__ float4 fetch4(const T* base, long long step, int n, int vec) {
+  if (vec && n == 4) {
+    if constexpr (pcm::is_bf16<T>::value) {
+      const uint2 u = *reinterpret_cast<const uint2*>(base);
+      const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+      const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+      return make_float4(lo.x, lo.y, hi.x, hi.y);
+    } else {
+      return *reinterpret_cast<const float4*>(base);
+    }
+  }
+  float v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = i < n ? to_f(base[i * step]) : 0.f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// A thread's chunk of the tile of K step k0 of an operand with rows (M or N
+// axis) r0 .. r0 + 127 of `rows`: four K values of one row (kc) or four rows
+// of one K value; zero past `rows` and past k_end.
+template <typename T>
+__device__ __forceinline__ float4 fetch_tile(const T* x, long long s_r, long long s_k, int kc,
+                                             int vec, int r0, int rows, int k0, int k_end) {
+  const int t = threadIdx.x;
+  if (kc) {
+    const int r = r0 + (t >> 1), k = k0 + (t & 1) * 4;
+    const int n = r < rows ? max(0, min(4, k_end - k)) : 0;
+    return fetch4(x + (long long)r * s_r + (long long)k * s_k, s_k, n, vec);
+  }
+  const int k = k0 + (t >> 5), r = r0 + (t & 31) * 4;
+  const int n = k < k_end ? max(0, min(4, rows - r)) : 0;
+  return fetch4(x + (long long)r * s_r + (long long)k * s_k, s_r, n, vec);
+}
+
+// That chunk into a K-major shared tile.
+__device__ __forceinline__ void store_tile(float* S, float4 v, int kc) {
+  const int t = threadIdx.x;
+  if (kc) {
+    const int r = t >> 1, k = (t & 1) * 4;
+    S[(k + 0) * kSLd + r] = v.x;
+    S[(k + 1) * kSLd + r] = v.y;
+    S[(k + 2) * kSLd + r] = v.z;
+    S[(k + 3) * kSLd + r] = v.w;
+  } else {
+    *reinterpret_cast<float4*>(S + (t >> 5) * kSLd + (t & 31) * 4) = v;
+  }
+}
+
+// Four neighbouring outputs, rounded to TC; one vector store where aligned.
+template <typename TC>
+__device__ __forceinline__ void store4(TC* c, const float (&x)[4]) {
+  if constexpr (pcm::is_bf16<TC>::value) {
+    if ((uintptr_t)c % 8 == 0) {
+      __nv_bfloat162 v[2] = {__floats2bfloat162_rn(x[0], x[1]), __floats2bfloat162_rn(x[2], x[3])};
+      *reinterpret_cast<uint2*>(c) = *reinterpret_cast<const uint2*>(v);
+      return;
+    }
+  } else {
+    if ((uintptr_t)c % 16 == 0) {
+      *reinterpret_cast<float4*>(c) = make_float4(x[0], x[1], x[2], x[3]);
+      return;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) c[j] = from_f<TC>(x[j]);
+}
+
+// One block a 128 x 128 tile of C of problem blockIdx.z / splits, over the K
+// range of split blockIdx.z % splits.
 template <typename TA, typename TB, typename TC>
-__global__ void __launch_bounds__(kThreads)
-gemm_kernel(GemmBatch batch, int M, int N, int K, int splits, int k_per_split) {
-  __shared__ float As[kGK][kGM + 4];
-  __shared__ float Bs[kGK][kGN + 4];
-  const Gemm p = batch.p[blockIdx.z / splits];
-  const int split = blockIdx.z % splits;
-  const TA* A = (const TA*)p.a;
-  const TB* Bm = (const TB*)p.b;
-  const int m0 = blockIdx.y * kGM, n0 = blockIdx.x * kGN;
-  const int k_begin = split * k_per_split;
-  const int k_end = min(K, k_begin + k_per_split);
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+__global__ void __launch_bounds__(kSThreads, 2)
+fp32_gemm_kernel(GemmBatch batch, int M, int N, int K) {
+  __shared__ __align__(16) float As[2][kSK * kSLd];
+  __shared__ __align__(16) float Bs[2][kSK * kSLd];
+  const int split = (int)blockIdx.z % batch.splits;
+  const Gemm p = batch.p[blockIdx.z / batch.splits];
+  const TA* A = static_cast<const TA*>(p.a);
+  const TB* Bm = static_cast<const TB*>(p.b);
+  const int m0 = blockIdx.y * kSM, n0 = blockIdx.x * kSN;
+  const int k_begin = split * batch.k_per_split;
+  const int k_end = min(K, k_begin + batch.k_per_split);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 
-  float acc[4][4];
+  float acc[8][8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = k_begin; k0 < k_end; k0 += kGK) {
-    // neighbouring threads load along the operand's contiguous axis
-    for (int e = tid; e < kGM * kGK; e += kThreads) {
-      const int mm = p.a_k == 1 ? e / kGK : e % kGM;
-      const int kk = p.a_k == 1 ? e % kGK : e / kGM;
-      const int m = m0 + mm, k = k0 + kk;
-      float x = 0.f;
-      if (m < M && k < k_end) {
-        x = to_f(A[m * p.a_m + k * p.a_k]);
-        if (p.round_a) x = round_to<bf16>(x);
-      }
-      As[kk][mm] = x;
-    }
-    for (int e = tid; e < kGK * kGN; e += kThreads) {
-      const int nn = p.b_n == 1 ? e % kGN : e / kGK;
-      const int kk = p.b_n == 1 ? e / kGN : e % kGK;
-      const int n = n0 + nn, k = k0 + kk;
-      float x = 0.f;
-      if (n < N && k < k_end) {
-        x = to_f(Bm[k * p.b_k + n * p.b_n]);
-        if (p.round_b) x = round_to<bf16>(x);
-      }
-      Bs[kk][nn] = x;
-    }
+  if (k_begin < k_end) {
+    float4 ra = fetch_tile(A, p.a_m, p.a_k, p.a_kc, p.a_vec, m0, M, k_begin, k_end);
+    float4 rb = fetch_tile(Bm, p.b_n, p.b_k, p.b_kc, p.b_vec, n0, N, k_begin, k_end);
+    store_tile(As[0], ra, p.a_kc);
+    store_tile(Bs[0], rb, p.b_kc);
     __syncthreads();
+    int st = 0;
+    for (int k0 = k_begin; k0 < k_end; k0 += kSK) {
+      const bool more = k0 + kSK < k_end;
+      if (more) {  // the next step's loads in flight while this one multiplies
+        ra = fetch_tile(A, p.a_m, p.a_k, p.a_kc, p.a_vec, m0, M, k0 + kSK, k_end);
+        rb = fetch_tile(Bm, p.b_n, p.b_k, p.b_kc, p.b_vec, n0, N, k0 + kSK, k_end);
+      }
+      const float* At = As[st];
+      const float* Bt = Bs[st];
 #pragma unroll
-    for (int kk = 0; kk < kGK; ++kk) {
-      float a[4], b[4];
+      for (int kk = 0; kk < kSK; ++kk) {
+        const float4 a0 = *reinterpret_cast<const float4*>(At + kk * kSLd + 4 * ty);
+        const float4 a1 = *reinterpret_cast<const float4*>(At + kk * kSLd + 64 + 4 * ty);
+        const float4 b0 = *reinterpret_cast<const float4*>(Bt + kk * kSLd + 4 * tx);
+        const float4 b1 = *reinterpret_cast<const float4*>(Bt + kk * kSLd + 64 + 4 * tx);
+        const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
+        for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+      if (more) {
+        store_tile(As[st ^ 1], ra, p.a_kc);
+        store_tile(Bs[st ^ 1], rb, p.b_kc);
+      }
+      __syncthreads();  // stage st is consumed, stage st ^ 1 filled
+      st ^= 1;
     }
-    __syncthreads();
   }
 
-  TC* C = (TC*)p.c + split * p.c_split;
-  const TB* bias = (const TB*)p.bias;
+  TC* C = static_cast<TC*>(p.c) + split * p.c_split;
+  const TB* bias = static_cast<const TB*>(p.bias);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + (i >> 2) * 64 + 4 * ty + (i & 3);
     if (m >= M) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
+    for (int jh = 0; jh < 2; ++jh) {
+      const int n = n0 + jh * 64 + 4 * tx;  // and the next three (N is a multiple of 64)
       if (n >= N) continue;
-      float x = acc[i][j];
-      if (bias != nullptr) x += to_f(bias[n]);
-      x *= p.scale;
-      if (p.addend != nullptr) x += p.addend[(long long)m * N + n];
-      C[m * p.c_m + n * p.c_n] = from_f<TC>(x);
+      float x[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        x[j] = acc[i][4 * jh + j];
+        if (bias != nullptr) x[j] += to_f(bias[n + j]);
+        x[j] *= p.scale;
+        if (p.addend != nullptr) x[j] += p.addend[(long long)m * N + n + j];
+      }
+      store4(C + (long long)m * p.c_m + n, x);
     }
   }
 }
@@ -225,351 +331,6 @@ colsum_kernel(const TI* __restrict__ x, int rows, int cols, int rows_per_split,
   }
 }
 
-// The backward's attention operands, (B, L, D) row-major with head h in
-// columns h*dh .. h*dh+dh-1.
-struct BwdArgs {
-  const bf16 *q, *k, *v, *dheads;
-  float *row_m, *row_r, *row_u;  // (B, H, L) each
-  bf16* heads;
-  float *dq, *dk, *dv;
-  int H, L, D;
-  float scale;
-  uint32_t threshold;
-  float inv_keep;
-  uint32_t seed;
-  int dropout;
-};
-
-// Rows r0.. of head h of a (B, L, D) bf16 tensor into an f32 tile, zero past L.
-template <int DH>
-__device__ __forceinline__ void load_tile(const bf16* base, int L, int D, int r0, float* t) {
-  constexpr int LD = DH + 1;
-  for (int e = threadIdx.x; e < 64 * DH; e += kThreads) {
-    const int r = e / DH, c = e % DH;
-    t[r * LD + c] = r0 + r < L ? to_f(base[(long long)(r0 + r) * D + c]) : 0.f;
-  }
-}
-
-// s[i][j] = X[ty+16i] . Y[4tx+j] (and, with Z/W, p[i][j] = Z[ty+16i] . W[4tx+j])
-// over DH columns of padded f32 tiles.
-template <int DH, bool kTwo>
-__device__ __forceinline__ void tile_dots(const float* X, const float* Y, const float* Z,
-                                          const float* W, float (&s)[4][4], float (&p)[4][4]) {
-  constexpr int LD = DH + 1;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = p[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < DH; ++d) {
-    float x[4], y[4], z[4], w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      x[i] = X[(ty + 16 * i) * LD + d];
-      if (kTwo) z[i] = Z[(ty + 16 * i) * LD + d];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      y[j] = Y[(4 * tx + j) * LD + d];
-      if (kTwo) w[j] = W[(4 * tx + j) * LD + d];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(x[i], y[j], s[i][j]);
-        if (kTwo) p[i][j] = fmaf(z[i], w[j], p[i][j]);
-      }
-  }
-}
-
-// The keep bits of a thread's four neighbouring columns 4tx.. of key tile k0
-// in query row `row` (all kept without dropout).
-__device__ __forceinline__ void keep4(const BwdArgs& a, int h, int row, int k0, bool (&keep)[4]) {
-  if (!a.dropout) {
-    keep[0] = keep[1] = keep[2] = keep[3] = true;
-    return;
-  }
-  const uint4 bits = pcm::keep_bits4(a.seed, h, row, (k0 + 4 * (threadIdx.x & 15)) >> 2);
-  keep[0] = bits.x >= a.threshold;
-  keep[1] = bits.y >= a.threshold;
-  keep[2] = bits.z >= a.threshold;
-  keep[3] = bits.w >= a.threshold;
-}
-
-// Sum (or max) over the 16 lanes that hold one row's columns.
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-template <int DH>
-constexpr size_t rows_smem_floats() {
-  return 4 * (size_t)64 * (DH + 1) + (size_t)64 * (kBK + 1);
-}
-
-template <int DH>
-__global__ void __launch_bounds__(kThreads) bwd_rows_kernel(BwdArgs a) {
-  constexpr int LD = DH + 1, LDP = kBK + 1, CJ = DH / 16;
-  extern __shared__ float sm[];
-  float* Qs = sm;
-  float* dOs = Qs + 64 * LD;
-  float* Ks = dOs + 64 * LD;
-  float* Vs = Ks + 64 * LD;
-  float* Ps = Vs + 64 * LD;
-
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int q0 = blockIdx.x * kBQ;
-  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
-  const long long off = (long long)b * a.L * a.D + h * DH;
-  const int n_kt = (a.L + kBK - 1) / kBK;
-  load_tile<DH>(a.q + off, a.L, a.D, q0, Qs);
-  load_tile<DH>(a.dheads + off, a.L, a.D, q0, dOs);
-
-  float s[4][4], dp[4][4];
-  // pass 1: the row max
-  float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();
-    load_tile<DH>(a.k + off, a.L, a.D, k0, Ks);
-    __syncthreads();
-    tile_dots<DH, false>(Qs, Ks, nullptr, nullptr, s, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (k0 + 4 * tx + j < a.L) m[i] = fmaxf(m[i], s[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) m[i] = row_max(m[i]);
-
-  // pass 2: denom, sum(keep dp e) and the head
-  float l[4] = {0.f, 0.f, 0.f, 0.f}, w[4] = {0.f, 0.f, 0.f, 0.f};
-  float acc[4][CJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < CJ; ++c) acc[i][c] = 0.f;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();
-    load_tile<DH>(a.k + off, a.L, a.D, k0, Ks);
-    load_tile<DH>(a.v + off, a.L, a.D, k0, Vs);
-    __syncthreads();
-    tile_dots<DH, true>(Qs, Ks, dOs, Vs, s, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      bool keep[4];
-      keep4(a, h, q0 + ty + 16 * i, k0, keep);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float ed = 0.f;
-        if (k0 + 4 * tx + j < a.L) {
-          const float e = expf(s[i][j] - m[i]);
-          l[i] += e;
-          if (keep[j]) {
-            w[i] = fmaf(dp[i][j], e, w[i]);
-            ed = a.dropout ? e * a.inv_keep : e;
-          }
-        }
-        Ps[(ty + 16 * i) * LDP + 4 * tx + j] = round_to<bf16>(ed);
-      }
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kBK; ++kk) {
-      float pv[4], vv[CJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * LDP + kk];
-#pragma unroll
-      for (int c = 0; c < CJ; ++c) vv[c] = Vs[kk * LD + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < CJ; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
-    }
-  }
-  float r[4], u[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    r[i] = 1.0f / row_sum(l[i]);
-    u[i] = r[i] * (row_sum(w[i]) * (a.inv_keep * r[i]));
-    const int row = q0 + ty + 16 * i;
-    if (row >= a.L) continue;
-#pragma unroll
-    for (int c = 0; c < CJ; ++c)
-      a.heads[off + (long long)row * a.D + tx + 16 * c] = from_f<bf16>(acc[i][c] * r[i]);
-    if (tx == 0) {
-      const long long at = (long long)blockIdx.y * a.L + row;
-      a.row_m[at] = m[i];
-      a.row_r[at] = r[i];
-      a.row_u[at] = u[i];
-    }
-  }
-
-  // pass 3: ds = bf16(e (z - u)) and dQ = ds K
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < CJ; ++c) acc[i][c] = 0.f;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();
-    load_tile<DH>(a.k + off, a.L, a.D, k0, Ks);
-    load_tile<DH>(a.v + off, a.L, a.D, k0, Vs);
-    __syncthreads();
-    tile_dots<DH, true>(Qs, Ks, dOs, Vs, s, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      bool keep[4];
-      keep4(a, h, q0 + ty + 16 * i, k0, keep);
-      const float zr = a.inv_keep * r[i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float ds = 0.f;
-        if (k0 + 4 * tx + j < a.L) {
-          const float e = expf(s[i][j] - m[i]);
-          const float z = keep[j] ? dp[i][j] * zr : 0.f;
-          ds = round_to<bf16>(e * (z - u[i]));
-        }
-        Ps[(ty + 16 * i) * LDP + 4 * tx + j] = ds;
-      }
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kBK; ++kk) {
-      float dv[4], kv[CJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dv[i] = Ps[(ty + 16 * i) * LDP + kk];
-#pragma unroll
-      for (int c = 0; c < CJ; ++c) kv[c] = Ks[kk * LD + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < CJ; ++c) acc[i][c] = fmaf(dv[i], kv[c], acc[i][c]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= a.L) continue;
-#pragma unroll
-    for (int c = 0; c < CJ; ++c)
-      a.dq[off + (long long)row * a.D + tx + 16 * c] = acc[i][c] * a.scale;
-  }
-}
-
-template <int DH>
-constexpr size_t keys_smem_floats() {
-  return 4 * (size_t)64 * (DH + 1) + 2 * (size_t)64 * (kBK + 1) + 3 * kBQ;
-}
-
-template <int DH>
-__global__ void __launch_bounds__(kThreads) bwd_keys_kernel(BwdArgs a) {
-  constexpr int LD = DH + 1, LDP = kBK + 1, CJ = DH / 16;
-  extern __shared__ float sm[];
-  float* Ks = sm;
-  float* Vs = Ks + 64 * LD;
-  float* Qs = Vs + 64 * LD;
-  float* dOs = Qs + 64 * LD;
-  float* Ps = dOs + 64 * LD;
-  float* dSs = Ps + 64 * LDP;
-  float* rm = dSs + 64 * LDP;
-  float* rr = rm + kBQ;
-  float* ru = rr + kBQ;
-
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int k0 = blockIdx.x * kBK;
-  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
-  const long long off = (long long)b * a.L * a.D + h * DH;
-  load_tile<DH>(a.k + off, a.L, a.D, k0, Ks);
-  load_tile<DH>(a.v + off, a.L, a.D, k0, Vs);
-
-  float dk[4][CJ], dv[4][CJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < CJ; ++c) dk[i][c] = dv[i][c] = 0.f;
-
-  const int n_qt = (a.L + kBQ - 1) / kBQ;
-  for (int qt = 0; qt < n_qt; ++qt) {
-    const int q0 = qt * kBQ;
-    __syncthreads();  // the previous query tile is consumed
-    load_tile<DH>(a.q + off, a.L, a.D, q0, Qs);
-    load_tile<DH>(a.dheads + off, a.L, a.D, q0, dOs);
-    for (int rw = threadIdx.x; rw < kBQ; rw += kThreads) {
-      const bool in = q0 + rw < a.L;
-      const long long at = (long long)blockIdx.y * a.L + q0 + rw;
-      rm[rw] = in ? a.row_m[at] : 0.f;
-      rr[rw] = in ? a.row_r[at] : 0.f;
-      ru[rw] = in ? a.row_u[at] : 0.f;
-    }
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_dots<DH, true>(Qs, Ks, dOs, Vs, s, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int rw = ty + 16 * i;
-      bool keep[4];
-      keep4(a, h, q0 + rw, k0, keep);
-      const float zr = a.inv_keep * rr[rw];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float pd = 0.f, ds = 0.f;
-        if (q0 + rw < a.L && k0 + 4 * tx + j < a.L) {
-          const float e = expf(s[i][j] - rm[rw]);
-          const float z = keep[j] ? dp[i][j] * zr : 0.f;
-          pd = keep[j] ? e * zr : 0.f;
-          ds = e * (z - ru[rw]);
-        }
-        Ps[rw * LDP + 4 * tx + j] = round_to<bf16>(pd);
-        dSs[rw * LDP + 4 * tx + j] = round_to<bf16>(ds);
-      }
-    }
-    __syncthreads();
-    // dV += p_drop^T dheads, dK += dS^T Q: key rows ty + 16 i, columns tx + 16 c
-#pragma unroll 4
-    for (int qq = 0; qq < kBQ; ++qq) {
-      float pk[4], sk[4], dov[CJ], qv[CJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pk[i] = Ps[qq * LDP + ty + 16 * i];
-        sk[i] = dSs[qq * LDP + ty + 16 * i];
-      }
-#pragma unroll
-      for (int c = 0; c < CJ; ++c) {
-        dov[c] = dOs[qq * LD + tx + 16 * c];
-        qv[c] = Qs[qq * LD + tx + 16 * c];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < CJ; ++c) {
-          dv[i][c] = fmaf(pk[i], dov[c], dv[i][c]);
-          dk[i][c] = fmaf(sk[i], qv[c], dk[i][c]);
-        }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kr = k0 + ty + 16 * i;
-    if (kr >= a.L) continue;
-#pragma unroll
-    for (int c = 0; c < CJ; ++c) {
-      a.dk[off + (long long)kr * a.D + tx + 16 * c] = dk[i][c];
-      a.dv[off + (long long)kr * a.D + tx + 16 * c] = dv[i][c];
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Launch helpers
 
@@ -599,7 +360,7 @@ struct Weight {
 };
 
 Gemm problem(const void* a, long long a_m, long long a_k, const void* b, long long b_k,
-             long long b_n, void* c, long long c_m, long long c_n) {
+             long long b_n, void* c, long long c_m) {
   Gemm g{};
   g.a = a;
   g.a_m = a_m;
@@ -609,59 +370,92 @@ Gemm problem(const void* a, long long a_m, long long a_k, const void* b, long lo
   g.b_n = b_n;
   g.c = c;
   g.c_m = c_m;
-  g.c_n = c_n;
   g.scale = 1.f;
   return g;
 }
 
 // rows (M, D) x W (D, D), the rows row-major
 Gemm times_w(const void* x, const Weight& w, void* c, long long D) {
-  return problem(x, D, 1, w.w, w.s_in, w.s_out, c, D, 1);
+  return problem(x, D, 1, w.w, w.s_in, w.s_out, c, D);
 }
 
 // rows (M, D) x W^T (D, D)
 Gemm times_wt(const void* x, const Weight& w, void* c, long long D) {
-  return problem(x, D, 1, w.w, w.s_out, w.s_in, c, D, 1);
+  return problem(x, D, 1, w.w, w.s_out, w.s_in, c, D);
 }
 
 // x^T g over `rows` rows of (rows, D) row-major x and g -> f32 split partials
 Gemm xt_times(const void* x, const void* g, float* part, long long D, long long part_stride) {
-  Gemm p = problem(x, 1, D, g, D, 1, part, D, 1);
+  Gemm p = problem(x, 1, D, g, D, 1, part, D);
   p.c_split = part_stride;
   return p;
 }
 
+// An operand's layout flags: chunks along K unless its other axis (M or N)
+// is the contiguous one; vector loads where that axis has stride 1 and
+// every chunk starts 4-element aligned.
+template <typename T>
+void layout(const void* x, long long s_r, long long s_k, int& kc, int& vec) {
+  kc = !(s_r == 1 && s_k != 1);
+  const long long contiguous = kc ? s_k : s_r, other = kc ? s_r : s_k;
+  vec = contiguous == 1 && other % 4 == 0 && (uintptr_t)x % (4 * sizeof(T)) == 0;
+}
+
+// `probs` (up to four of one M x N x K shape) in one launch of the FP32 GEMM
 template <typename TA, typename TB, typename TC>
 cudaError_t gemm(const Launch& l, std::initializer_list<Gemm> probs, int M, int N, int K,
                  int splits = 1) {
   GemmBatch batch{};
   int n = 0;
-  for (const Gemm& g : probs) batch.p[n++] = g;
-  const int k_per_split = (K + splits - 1) / splits;
-  const dim3 grid((N + kGN - 1) / kGN, (M + kGM - 1) / kGM, n * splits);
-  gemm_kernel<TA, TB, TC><<<grid, kThreads, 0, l.stream>>>(batch, M, N, K, splits, k_per_split);
+  for (Gemm g : probs) {
+    layout<TA>(g.a, g.a_m, g.a_k, g.a_kc, g.a_vec);
+    layout<TB>(g.b, g.b_n, g.b_k, g.b_kc, g.b_vec);
+    batch.p[n++] = g;
+  }
+  batch.splits = splits;
+  batch.k_per_split = pcm::gemm_mma::k_per_split(K, splits);  // a multiple of kSK
+  const dim3 grid((N + kSN - 1) / kSN, (M + kSM - 1) / kSM, n * splits);
+  fp32_gemm_kernel<TA, TB, TC><<<grid, kSThreads, 0, l.stream>>>(batch, M, N, K);
   return cudaGetLastError();
 }
 
+namespace mma = pcm::gemm_mma;
+
 // (rows, D) x W (D, D) -> C on the tensor cores (bf16 only)
-pcm::gemm_mma::Problem mma_times_w(const bf16* x, const Weight& w, const bf16* bias, bf16* c,
-                                   long long D, float scale) {
-  return pcm::gemm_mma::problem(x, D, (const bf16*)w.w, w.s_in, w.s_out, bias, c, D, scale);
+mma::Problem mma_times_w(const bf16* x, const Weight& w, const bf16* bias, void* c, long long D,
+                         float scale) {
+  return mma::problem(x, D, (const bf16*)w.w, w.s_in, w.s_out, bias, c, D, scale);
+}
+
+// (rows, D) x W^T (D, D) -> C on the tensor cores, `addend` f32 (rows, D) or null
+mma::Problem mma_times_wt(const bf16* x, const Weight& w, const float* addend, void* c,
+                          long long D) {
+  mma::Problem p = mma::problem(x, D, (const bf16*)w.w, w.s_out, w.s_in, nullptr, c, D, 1.f);
+  p.addend = addend;
+  return p;
+}
+
+// x^T g over the rows of (rows, D) row-major x and g -> f32 split partials
+// on the tensor cores (A read transposed)
+mma::Problem mma_xt_times(const bf16* x, const bf16* g, float* part, long long D,
+                          long long part_stride) {
+  mma::Problem p = mma::problem(x, D, g, D, 1, nullptr, part, D, 1.f);
+  p.c_split = part_stride;
+  return p;
 }
 
 // q, k, v into the bf16 (3, B, L, D) buffer qkv: the forward's and the
 // backward's projections, one launch; at bf16 on the tensor cores
-// (gemm_mma.cuh), at f32 by the FMA GEMM.
+// (gemm_mma.cuh), at f32 by the FP32 GEMM.
 template <typename T>
 cudaError_t project_qkv(const Launch& l, const T* x_qk, const T* x_v, const Weight* w,
                         const T* const* bias, bf16* qkv) {
   const long long rows = (long long)l.B * l.L, D = l.D;
   if constexpr (pcm::is_bf16<T>::value) {
-    const pcm::gemm_mma::Problem p[3] = {
-        mma_times_w(x_qk, w[0], bias[0], qkv, D, l.scale),
-        mma_times_w(x_qk, w[1], bias[1], qkv + rows * D, D, 1.f),
-        mma_times_w(x_v, w[2], bias[2], qkv + 2 * rows * D, D, 1.f)};
-    return pcm::gemm_mma::gemm(p, 3, (int)rows, l.D, l.D, l.stream);
+    const mma::Problem p[3] = {mma_times_w(x_qk, w[0], bias[0], qkv, D, l.scale),
+                               mma_times_w(x_qk, w[1], bias[1], qkv + rows * D, D, 1.f),
+                               mma_times_w(x_v, w[2], bias[2], qkv + 2 * rows * D, D, 1.f)};
+    return mma::gemm(p, 3, (int)rows, l.D, l.D, l.stream);
   } else {
     Gemm q = times_w(x_qk, w[0], qkv, D), k = times_w(x_qk, w[1], qkv + rows * D, D),
          v = times_w(x_v, w[2], qkv + 2 * rows * D, D);
@@ -702,8 +496,8 @@ cudaError_t fwd(void* const* ptrs, const Weight* w, const Launch& l) {
   PCM_TRY(l.D / l.H == 64 ? attention_core<64>(l, qkv, heads)
                           : attention_core<128>(l, qkv, heads));
   if constexpr (pcm::is_bf16<T>::value) {
-    const pcm::gemm_mma::Problem o = mma_times_w(heads, w[3], bias[3], out, D, 1.f);
-    return pcm::gemm_mma::gemm(&o, 1, (int)rows, l.D, l.D, l.stream);
+    const mma::Problem o = mma_times_w(heads, w[3], bias[3], out, D, 1.f);
+    return mma::gemm(&o, 1, (int)rows, l.D, l.D, l.stream);
   } else {
     Gemm o = times_w(heads, w[3], out, D);
     o.bias = bias[3];
@@ -711,19 +505,27 @@ cudaError_t fwd(void* const* ptrs, const Weight* w, const Launch& l) {
   }
 }
 
+// The backward's attention on the tensor cores (attention_mma.cuh, the
+// `Fused` form): the statistics pass (m, r, u and the heads), then dK/dV
+// and dQ. q, k, v, dheads, the heads and the bf16 dq, dk, dv are (B, L, D)
+// with head h in columns h*dh .., as are the f32 dq, dk, dv; stats holds
+// m, r, u, (B, H, L) each.
 template <int DH>
-cudaError_t attention_bwd(const Launch& l, const BwdArgs& a) {
-  const size_t rows_smem = rows_smem_floats<DH>() * sizeof(float);
-  const size_t keys_smem = keys_smem_floats<DH>() * sizeof(float);
-  PCM_TRY(cudaFuncSetAttribute(bwd_rows_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)rows_smem));
-  PCM_TRY(cudaFuncSetAttribute(bwd_keys_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)keys_smem));
-  const dim3 grid((l.L + 63) / 64, l.B * l.H);
-  bwd_rows_kernel<DH><<<grid, kThreads, rows_smem, l.stream>>>(a);
-  PCM_TRY(cudaGetLastError());
-  bwd_keys_kernel<DH><<<grid, kThreads, keys_smem, l.stream>>>(a);
-  return cudaGetLastError();
+cudaError_t attention_bwd(const Launch& l, const bf16* q, const bf16* k, const bf16* v,
+                          const bf16* dheads, bf16* heads, bf16* dq, bf16* dk, bf16* dv,
+                          float* stats, float* dq32, float* dk32, float* dv32) {
+  namespace mm = pcm::attn_mma;
+  const long long D = l.D, n_stats = (long long)l.B * l.H * l.L;
+  float *m = stats, *r = stats + n_stats, *u = stats + 2 * n_stats;
+  const mm::Strides st{l.L * D, DH, D};
+  const int vec = mm::rows_aligned(q, st) && mm::rows_aligned(k, st) &&
+                  mm::rows_aligned(v, st) && mm::rows_aligned(dheads, st);
+  const mm::FwdArgs fa{q, k, v, heads, m, r, st, st, st, st, l.H, l.L, l.L, l.L,
+                       1.0f, l.threshold, l.inv_keep, l.seed, l.dropout, vec};
+  const mm::BwdArgs ba{q, k, v, dheads, m, r, u, dq, dk, dv, st, st, st, st, st, st, st,
+                       l.H, l.L, l.L, l.L, l.scale, l.threshold, l.inv_keep, l.seed, l.dropout,
+                       vec};
+  return mm::launch_fused_bwd<DH>(fa, ba, mm::Fused{dheads, u, dq32, dk32, dv32}, l.B, l.stream);
 }
 
 template <typename TI>
@@ -749,11 +551,13 @@ cudaError_t bwd(void* const* ptrs, const Weight* w, const Launch& l) {
   const T* dout = (const T*)ptrs[2];
   const T* bias[3] = {(const T*)ptrs[4], (const T*)ptrs[6], (const T*)ptrs[8]};
   const long long rows = (long long)l.B * l.L, D = l.D, DD = D * D;
-  bf16* qkv = (bf16*)ptrs[10];  // q, k, v, dheads, heads
+  bf16* qkv = (bf16*)ptrs[10];  // q, k, v, dheads, heads, dq_lin, dk, dv
   bf16* dheads = qkv + 3 * rows * D;
   bf16* heads = qkv + 4 * rows * D;
+  bf16 *dq = qkv + 5 * rows * D, *dk = qkv + 6 * rows * D, *dv = qkv + 7 * rows * D;
   float* f32s = (float*)ptrs[11];  // dq_lin, dk, dv, dxk
-  float *dq = f32s, *dk = f32s + rows * D, *dv = f32s + 2 * rows * D, *dxk = f32s + 3 * rows * D;
+  float *dq32 = f32s, *dk32 = f32s + rows * D, *dv32 = f32s + 2 * rows * D,
+        *dxk = f32s + 3 * rows * D;
   float* stats = (float*)ptrs[12];  // m, r, u: (B, H, L) each
   float* parts = (float*)ptrs[13];  // (4, splits, D*D + D)
   T* dx_qk = (T*)ptrs[14];
@@ -763,53 +567,54 @@ cudaError_t bwd(void* const* ptrs, const Weight* w, const Launch& l) {
   const long long pstride = DD + D;  // one split's dW and db partials
   const long long pblock = l.splits * pstride;
   const int M = (int)rows;
+  constexpr bool kBf16 = pcm::is_bf16<T>::value;
 
+  // q, k, v and dheads = bf16(dO Wo^T)
   PCM_TRY(project_qkv<T>(l, x_qk, x_v, w, bias, qkv));
-  PCM_TRY((gemm<T, T, bf16>(l, {times_wt(dout, w[3], dheads, D)}, M, l.D, l.D)));
+  if constexpr (kBf16) {
+    const mma::Problem p = mma_times_wt(dout, w[3], nullptr, dheads, D);
+    PCM_TRY(mma::gemm(&p, 1, M, l.D, l.D, l.stream));
+  } else {
+    PCM_TRY((gemm<T, T, bf16>(l, {times_wt(dout, w[3], dheads, D)}, M, l.D, l.D)));
+  }
 
-  BwdArgs a;
-  a.q = qkv;
-  a.k = qkv + rows * D;
-  a.v = qkv + 2 * rows * D;
-  a.dheads = dheads;
-  const long long n_stats = (long long)l.B * l.H * l.L;
-  a.row_m = stats;
-  a.row_r = stats + n_stats;
-  a.row_u = stats + 2 * n_stats;
-  a.heads = heads;
-  a.dq = dq;
-  a.dk = dk;
-  a.dv = dv;
-  a.H = l.H;
-  a.L = l.L;
-  a.D = l.D;
-  a.scale = l.scale;
-  a.threshold = l.threshold;
-  a.inv_keep = l.inv_keep;
-  a.seed = l.seed;
-  a.dropout = l.dropout;
-  PCM_TRY(l.D / l.H == 64 ? attention_bwd<64>(l, a) : attention_bwd<128>(l, a));
+  const bf16 *q = qkv, *k = qkv + rows * D, *v = qkv + 2 * rows * D;
+  PCM_TRY(l.D / l.H == 64
+              ? attention_bwd<64>(l, q, k, v, dheads, heads, dq, dk, dv, stats, dq32, dk32, dv32)
+              : attention_bwd<128>(l, q, k, v, dheads, heads, dq, dk, dv, stats, dq32, dk32,
+                                   dv32));
 
-  // input gradients: dx_qk = T(bf16(dq) Wq^T + bf16(dk) Wk^T), dx_v = T(bf16(dv) Wv^T)
-  Gemm gk = times_wt(dk, w[1], dxk, D);
-  gk.round_a = 1;
-  PCM_TRY((gemm<float, T, float>(l, {gk}, M, l.D, l.D)));
-  Gemm gq = times_wt(dq, w[0], dx_qk, D), gv = times_wt(dv, w[2], dx_v, D);
-  gq.round_a = gv.round_a = 1;
-  gq.addend = dxk;
-  PCM_TRY((gemm<float, T, T>(l, {gq, gv}, M, l.D, l.D)));
+  // input gradients: dx_qk = T(bf16(dq) Wq^T + bf16(dk) Wk^T), dx_v = T(bf16(dv) Wv^T);
+  // weight gradients as split partials
+  if constexpr (kBf16) {
+    const mma::Problem gk = mma_times_wt(dk, w[1], nullptr, dxk, D);
+    PCM_TRY((mma::gemm<false, mma::kF32>(&gk, 1, M, l.D, l.D, l.stream)));
+    const mma::Problem gx[2] = {mma_times_wt(dq, w[0], dxk, dx_qk, D),
+                                mma_times_wt(dv, w[2], nullptr, dx_v, D)};
+    PCM_TRY((mma::gemm<false, mma::kAddend>(gx, 2, M, l.D, l.D, l.stream)));
+    const mma::Problem gw[4] = {mma_xt_times(x_qk, dq, parts, D, pstride),
+                                mma_xt_times(x_qk, dk, parts + pblock, D, pstride),
+                                mma_xt_times(x_v, dv, parts + 2 * pblock, D, pstride),
+                                mma_xt_times(heads, dout, parts + 3 * pblock, D, pstride)};
+    PCM_TRY((mma::gemm<true, mma::kF32>(gw, 4, l.D, l.D, M, l.stream, l.splits)));
+  } else {
+    PCM_TRY((gemm<bf16, T, float>(l, {times_wt(dk, w[1], dxk, D)}, M, l.D, l.D)));
+    Gemm gq = times_wt(dq, w[0], dx_qk, D);
+    gq.addend = dxk;
+    PCM_TRY((gemm<bf16, T, T>(l, {gq, times_wt(dv, w[2], dx_v, D)}, M, l.D, l.D)));
+    PCM_TRY((gemm<T, bf16, float>(l,
+                                  {xt_times(x_qk, dq, parts, D, pstride),
+                                   xt_times(x_qk, dk, parts + pblock, D, pstride),
+                                   xt_times(x_v, dv, parts + 2 * pblock, D, pstride)},
+                                  l.D, l.D, M, l.splits)));
+    PCM_TRY((gemm<bf16, T, float>(l, {xt_times(heads, dout, parts + 3 * pblock, D, pstride)},
+                                  l.D, l.D, M, l.splits)));
+  }
 
-  // weight gradients as split partials, then the bias gradients' column sums
-  Gemm wq = xt_times(x_qk, dq, parts, D, pstride);
-  Gemm wk = xt_times(x_qk, dk, parts + pblock, D, pstride);
-  Gemm wv = xt_times(x_v, dv, parts + 2 * pblock, D, pstride);
-  wq.round_b = wk.round_b = wv.round_b = 1;
-  PCM_TRY((gemm<T, float, float>(l, {wq, wk, wv}, l.D, l.D, M, l.splits)));
-  PCM_TRY((gemm<bf16, T, float>(l, {xt_times(heads, dout, parts + 3 * pblock, D, pstride)}, l.D,
-                                l.D, M, l.splits)));
-  PCM_TRY(colsum<float>(l, dq, parts + DD, pstride));
-  PCM_TRY(colsum<float>(l, dk, parts + pblock + DD, pstride));
-  PCM_TRY(colsum<float>(l, dv, parts + 2 * pblock + DD, pstride));
+  // the bias gradients' column sums, then every sum of partials in split order
+  PCM_TRY(colsum<float>(l, dq32, parts + DD, pstride));
+  PCM_TRY(colsum<float>(l, dk32, parts + pblock + DD, pstride));
+  PCM_TRY(colsum<float>(l, dv32, parts + 2 * pblock + DD, pstride));
   PCM_TRY(colsum<T>(l, dout, parts + 3 * pblock + DD, pstride));
   for (int p = 0; p < 4; ++p) {
     PCM_TRY(reduce<T>(l, parts + p * pblock, pstride, DD, dW[p]));
@@ -821,7 +626,7 @@ cudaError_t bwd(void* const* ptrs, const Weight* w, const Launch& l) {
 bool valid(int B, int L, int D, int H, int splits) {
   return B >= 1 && L >= 1 && H >= 1 && D % H == 0 && (D / H == 64 || D / H == 128) &&
          B * H <= 65535 && splits >= 1 && (long long)B * L < (1LL << 31) &&
-         ((long long)B * L + kGM - 1) / kGM <= 65535;
+         ((long long)B * L + 63) / 64 <= 65535;
 }
 
 }  // namespace
@@ -851,7 +656,7 @@ int pcm_fused_mha_fwd(void* const* ptrs, const long long* wstrides, int B, int L
 }
 
 // The backward. ptrs: x_qk, x_v, dout, wq, bq, wk, bk, wv, bv, wo, then the
-// scratch: bf16 (5, B, L, D), f32 (4, B, L, D), f32 (3, B, H, L), f32
+// scratch: bf16 (8, B, L, D), f32 (4, B, L, D), f32 (3, B, H, L), f32
 // (4, splits, D*D + D); then the outputs dx_qk, dx_v, dwq, dbq, dwk, dbk,
 // dwv, dbv, dwo, dbo (contiguous, of the inputs' type; the weight gradients
 // (D_in, D_out)). Other arguments as the forward's; the weight and bias

@@ -282,7 +282,8 @@ def fused_mha_bwd_cuda(x_qk, x_v, wq, bq, wk, bk, wv, bv, wo, bo, dout,
         return tuple(g.zero_() for g in grads)
     S = _splits(B * L)
     H = nhead
-    bf_scratch = torch.empty((5, B, L, D), dtype=_BF16, device=dev)  # q k v dheads heads
+    # q k v dheads heads, and the bf16 dq_lin dk dv that the GEMMs read
+    bf_scratch = torch.empty((8, B, L, D), dtype=_BF16, device=dev)
     f32_scratch = torch.empty((4, B, L, D), dtype=_F32, device=dev)  # dq dk dv dxk
     stats = torch.empty((3, B, H, L), dtype=_F32, device=dev)        # m r u
     parts = torch.empty((4, S, D * D + D), dtype=_F32, device=dev)   # dW, db partials

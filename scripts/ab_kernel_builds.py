@@ -1,0 +1,141 @@
+#!/usr/bin/env python3
+"""Compare the bf16 attention kernels of two builds of the port on one GPU.
+
+    python3 scripts/ab_kernel_builds.py OTHER [--rounds 2]
+
+OTHER is a directory holding another copy of ``pointcloudmatters_tpu_torch/``,
+for example the parent commit's::
+
+    mkdir -p checkouts/parent
+    git archive HEAD~1 pointcloudmatters_tpu_torch | tar -x -C checkouts/parent
+
+In turns (other, this, this, other, and so on, ``--rounds`` pairs), a fresh
+process builds one copy's kernels and times by CUDA events, over 20 launches
+after a warm-up: bf16 kernel 3 (the oneshot forward, with its row
+statistics) and kernel 4 (its backward) at B=4, H=8, L=2051, dh=64, at
+dropout 0 and 0.1, and bf16 kernel 7 (the fused layer's forward) at B=4,
+L=2051, D=512, H=8. Then it compares the SASS (``cuobjdump -sass``) of
+every kernel of the attention libraries that include
+``csrc/attention_mma.cuh`` but not the fused layer (``attention_fwd``,
+``attention_bwd``, ``flash_attention``) between the two builds, instruction
+addresses and encodings dropped, kernels paired by mangled name (the
+oneshot kernels' ``Oneshot`` template argument ignored), and prints how
+many kernels differ.
+
+Needs the card and the CUDA toolkit (``cuobjdump``); prints the card's name
+and power limit first.
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import os
+import re
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the libraries whose kernels share attention_mma.cuh with the fused layer's
+SASS_LIBRARIES = ("attention_fwd", "attention_bwd", "flash_attention")
+
+
+def time_build(root: str) -> str:
+    """One line of the kernel times of the copy under ``root``."""
+    sys.path.insert(0, root)
+    sys.path.insert(1, REPO)
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from pointcloudmatters_tpu_torch import _build
+    from pointcloudmatters_tpu_torch.ops import fused_mha as fm
+    from pointcloudmatters_tpu_torch.ops import oneshot_attention as one
+
+    if not one.__file__.startswith(root):
+        raise RuntimeError(f"imported {one.__file__}, not the copy under {root}")
+    _build.build(["attention_fwd", "attention_bwd", "flash_attention", "fused_mha"])
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(0)
+
+    def arr(*shape, std=1.0):
+        return torch.from_numpy((rng.randn(*shape) * std).astype(np.float32)).to(
+            dev, torch.bfloat16)
+
+    B, H, L, dh, D = 4, 8, 2051, 64, 512
+    q, k, v, dout = (arr(B, H, L, dh) for _ in range(4))
+    scale = dh ** -0.5
+    parts = []
+    for rate in (0.0, 0.1):
+        out, m, r = one.oneshot_attention_cuda(q, k, v, scale, None, rate, 11, with_stats=True)
+        args = (q, k, v, out, dout, m, r, scale, None, rate, 11)
+        fwd = chip_smoke.cuda_ms(lambda: one.oneshot_attention_cuda(
+            q, k, v, scale, None, rate, 11, with_stats=True), 20)
+        bwd = chip_smoke.cuda_ms(lambda: one.oneshot_attention_bwd_cuda(*args), 20)
+        parts.append(f"#3 {fwd:.4f} ms, #4 {bwd:.4f} ms at rate {rate}")
+    layer = [arr(B, L, D), arr(B, L, D)] + [
+        t for _ in range(4) for t in (arr(D, D, std=D ** -0.5), arr(D, std=0.2))]
+    fused = chip_smoke.cuda_ms(lambda: fm.fused_mha_cuda(*layer, H, 0.0, 17), 20)
+    parts.append(f"#7 {fused:.4f} ms")
+    return "; ".join(parts)
+
+
+def sass(root: str, lib: str) -> dict:
+    """Instructions by kernel of library ``lib`` of the copy under ``root``,
+    the kernels keyed by their mangled names with the oneshot kernels'
+    statistics-form argument (``Oneshot``) and the hash of the build's path
+    in anonymous namespaces dropped."""
+    (so,) = glob.glob(os.path.join(root, "pointcloudmatters_tpu_torch", "build", f"{lib}-*.so"))
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", so], capture_output=True, text=True,
+                          check=True).stdout
+    kernels, lines = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1).replace("NS0_7OneshotE", "")
+            name = re.sub(r"_GLOBAL__N__[0-9a-f]{8}_", "_GLOBAL__N__", name)  # a path hash
+            lines = kernels.setdefault(re.sub(r"T0_$", "", name), [])
+        elif lines is not None:
+            line = re.sub(r"/\*[^*]*\*/", "", line).strip()
+            if line:
+                lines.append(line)
+    if not kernels:
+        raise RuntimeError(f"no kernel in {so}")
+    return kernels
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("other", nargs="?",
+                        help="directory holding another pointcloudmatters_tpu_torch/")
+    parser.add_argument("--rounds", type=int, default=2, help="pairs of turns")
+    parser.add_argument("--time", help=argparse.SUPPRESS)  # one turn, in a fresh process
+    args = parser.parse_args()
+    if args.time:
+        print(time_build(os.path.abspath(args.time)), flush=True)
+        return 0
+
+    if not args.other:
+        parser.error("OTHER is required")
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    print(chip_smoke.card_line(), flush=True)
+    other = os.path.abspath(args.other)
+    for i in range(2 * args.rounds):
+        root = other if i % 4 in (0, 3) else REPO
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--time", root],
+                             capture_output=True, text=True, check=True).stdout.strip()
+        print(f"{'other' if root == other else 'this '}: {out}", flush=True)
+    for lib in SASS_LIBRARIES:
+        a, b = sass(other, lib), sass(REPO, lib)
+        differ = sorted(k for k in a.keys() | b.keys() if a.get(k) != b.get(k))
+        print(f"SASS {lib}: {len(a)} / {len(b)} kernels, {sum(map(len, a.values()))} / "
+              f"{sum(map(len, b.values()))} lines, {len(differ)} kernels differ"
+              + (f": {differ}" if differ else ""), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

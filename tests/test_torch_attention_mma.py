@@ -23,6 +23,13 @@ and the ctypes signatures of the attention kernels' C entries.
   the flash wrappers (``ops/flash_attention.py``) to the three entries of
   ``csrc/flash_attention.cu``, and those of the fused layer's wrappers
   (``ops/fused_mha.py``) to the two entries of ``csrc/fused_mha.cu``.
+- ``chip_smoke.py`` finds each tensor-core kernel's (and the FP32 GEMM's)
+  registers and spills in ptxas's output by a piece of its mangled name
+  (``PTXAS_FUNCTIONS``), and fails on the card when a piece finds nothing.
+  Each piece is held here to the sources: it names a ``__global__``
+  function of the source that ``chip_smoke.KERNELS`` lists for the entry
+  (or of a header it includes), and every other name in it (namespaces,
+  template arguments) is in those sources too.
 """
 
 import ctypes
@@ -37,6 +44,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from pointcloudmatters_tpu.ops import oneshot_attention as jone
 from pointcloudmatters_tpu_torch import _build
 from pointcloudmatters_tpu_torch.ops import flash_attention as tfa
@@ -157,3 +165,62 @@ def test_wrapper_argtypes_match_c_prototypes(monkeypatch, getter, source, entry)
     for i, (got, kind) in enumerate(zip(fn.argtypes, want)):
         assert got is kind, f"{entry} argument {i}: {got.__name__} for {kind.__name__}"
     assert fn.restype is ctypes.c_int
+
+
+def _sources(name: str, seen=None) -> list:
+    """The text of csrc file ``name`` and of every csrc header it includes,
+    comments removed."""
+    seen = set() if seen is None else seen
+    if name in seen:
+        return []
+    seen.add(name)
+    with open(os.path.join(_build.CSRC, name)) as f:
+        text = re.sub(r"//[^\n]*", "", f.read())
+    texts = [text]
+    for header in re.findall(r'#include "([\w.]+)"', text):
+        texts += _sources(header, seen)
+    return texts
+
+
+def _mangled_names(piece: str, leading: bool = False) -> list:
+    """The source-level names in a piece of an Itanium-mangled name, in
+    order: literals (``Li64E``, ``Lb0E``) and substitutions (``S0_``,
+    ``T0_``) dropped, then every <length><identifier>; with ``leading``
+    only those before the first other character (the nested name of the
+    function: its namespaces, then the function)."""
+    piece = re.sub(r"L[a-z]+\d+E|[ST]\d*_", "", piece)
+    names, i = [], 0
+    while i < len(piece):
+        m = re.match(r"\d+", piece[i:])
+        if m:
+            n = int(m.group())
+            start = i + len(m.group())
+            names.append(piece[start:start + n])
+            i = start + n
+        elif leading:
+            break
+        else:
+            i += 1
+    return names
+
+
+@pytest.mark.parametrize("entry,tag", [
+    (entry, tag) for entry, pieces in sorted(chip_smoke.PTXAS_FUNCTIONS.items())
+    for tag in sorted(pieces)])
+def test_ptxas_pieces_name_kernels_of_their_source(entry, tag):
+    """A ``PTXAS_FUNCTIONS`` piece names a ``__global__`` function of its
+    entry's source, and its other names occur there too."""
+    piece = chip_smoke.PTXAS_FUNCTIONS[entry][tag]
+    source = chip_smoke.KERNELS[entry][0]
+    assert source.startswith(chip_smoke._CSRC), source
+    texts = _sources(source[len(chip_smoke._CSRC):])
+    kernels = {m for t in texts for m in re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(", t)}
+    names = _mangled_names(piece)
+    assert names, piece
+    function = _mangled_names(piece, leading=True)[-1]
+    assert function in kernels, f"{piece}: no __global__ {function} in {source}"
+    for name in names:
+        if name != function and name != "__nv_bfloat16":
+            assert any(re.search(r"\b" + re.escape(name) + r"\b", t) for t in texts), \
+                f"{piece}: {name} is not in {source}"

@@ -11,8 +11,9 @@ Phases, each of which raises on failure (exit code non-zero, no result):
    csrc`` (nvcc, sm_90a, one process a source, all at once) and prints the
    build time and ptxas's registers and spills by kernel function; those of
    the tensor-core kernels (bf16 kernel 9, the bf16 oneshot backward, kernel
-   7's and 8's GEMM instantiations and attention kernels at dh 64 and 128)
-   and of the FP32 GEMM go into the kernels line (``ptxas``).
+   7's and 8's GEMM instantiations and attention kernels at dh 64 and 128,
+   the 3xTF32 f32 kernels 4 and 9 at dh 64 and 128) and of the FP32 GEMM go
+   into the kernels line (``ptxas``).
 3. Holds each kernel against its plain PyTorch version on the card at the
    flagship's shapes, and times both:
    FPS B=4, N=10240 -> 2048 (index-exact), and at N=20480 its large-cloud
@@ -128,10 +129,11 @@ the peak of the inputs' type, 67 TFLOP/s f32 or 989 TFLOP/s bf16; one
 ``attention_bwd`` launch is one call of the three-kernel backward: the
 ``rowsum(dO * O)`` pre-pass, dK/dV and dQ, timed together, and its library
 time is the library's forward + backward less its forward; the bf16
-oneshot kernels and bf16 flash kernels 9, 10 and 11 also carry ``ms_rate0``,
-their time at dropout 0 beside ``ms`` at 0.1 (bf16 kernel 9 also
+oneshot kernels, bf16 flash kernels 9, 10 and 11 and the f32 kernels 4 and 9
+also carry ``ms_rate0``, their time at dropout 0 beside ``ms`` at 0.1, like
+for like with the library's rate-0 call (kernel 9 of both types also
 ``ms_single_step``, its single-step variant at rate 0.1, which takes S once
-more over every key, and ``ptxas``); a fused layer's
+more over every key); the kernels of ``PTXAS_FUNCTIONS`` carry ``ptxas``; a fused layer's
 bound sums its products' times at their operands' peaks; flash kernels 10
 and 11 are timed apart, and the library's backward stands on kernel 10's
 row, against the two together), then
@@ -189,11 +191,16 @@ KERNELS = {
     "flash_dkv_bf16": (_CSRC + "flash_mma.cuh", _OPS + "flash_attention.py:1068"),
     "flash_dq_bf16": (_CSRC + "flash_mma.cuh", _OPS + "flash_attention.py:1427"),
 }
-# phase 2: the tensor-core kernels whose ptxas registers and spills the
-# kernels line records, by a piece of their mangled names
+# phase 2: the tensor-core kernels (bf16, and f32 kernels 4 and 9 in 3xTF32)
+# whose ptxas registers and spills the kernels line records, by a piece of
+# their mangled names
 PTXAS_FUNCTIONS = {
+    "attention_bwd": {"dkdv_dh64": "15f32_dkdv_kernelILi64E", "dq_dh64": "13f32_dq_kernelILi64E",
+                      "dkdv_dh128": "15f32_dkdv_kernelILi128E",
+                      "dq_dh128": "13f32_dq_kernelILi128E"},
     "attention_bwd_bf16": {"dkdv_dh64": "8attn_mma11dkdv_kernelILi64ENS0_7OneshotE",
                            "dq_dh64": "8attn_mma9dq_kernelILi64ENS0_7OneshotE"},
+    "flash_fwd": {"dh64": "14f32_fwd_kernelILi64E", "dh128": "14f32_fwd_kernelILi128E"},
     "flash_fwd_bf16": {"dh64": "5flash10fwd_kernelILi64E", "dh128": "5flash10fwd_kernelILi128E"},
     "fused_mha_fwd": {"gemm_qkv": "16fp32_gemm_kernelIff13__nv_bfloat16E",
                       "gemm_out": "16fp32_gemm_kernelI13__nv_bfloat16ffE"},
@@ -662,6 +669,8 @@ def check_attention(dev) -> dict:
                                           (2, 8, 100, 700, 64, ATTN_DROPOUT, 650),
                                           (2, 4, 515, 515, 128, ATTN_DROPOUT, 500)):
         args, got, ref = bwd_case(B, H, Lq, Lk, dh, rate, l_act)
+        if (B, Lq, rate) == (4, 2051, 0.0):  # the kernel at rate 0, beside the library
+            bwd_ms_rate0 = cuda_ms(lambda: one.oneshot_attention_bwd_cuda(*args), 5)
         errs, scales = [], []
         for name, g, p in zip(("dq", "dk", "dv"), got, ref):
             err = _max_err(g, p)
@@ -682,11 +691,13 @@ def check_attention(dev) -> dict:
                 raise AssertionError("two identical backward launches differ")
             log("attn    bwd: two identical launches are bit-identical")
             res["attention_bwd"].update(
-                max_abs_err=max(errs),
+                max_abs_err=max(errs), ms_rate0=bwd_ms_rate0,
                 ms=cuda_ms(lambda: one.oneshot_attention_bwd_cuda(*args), 5),
                 plain_ms=cuda_ms(lambda: one.oneshot_attention_plain_bwd(*args), 5))
-            log(f"attn    bwd rate={rate}: kernel {res['attention_bwd']['ms']:.3f} ms, "
-                f"plain {res['attention_bwd']['plain_ms']:.3f} ms")
+            t = res["attention_bwd"]
+            log(f"attn    bwd: kernel {t['ms']:.3f} ms at rate {rate}, {t['ms_rate0']:.3f} ms "
+                f"at rate 0; plain {t['plain_ms']:.3f} ms; library {t['library_ms']:.3f} ms "
+                f"(rate 0); bound {t['bound_ms']:.3f} ms; worst error {max(errs):.3e}")
         del args, got, ref
     return res
 
@@ -1096,19 +1107,19 @@ def check_flash(dev) -> dict:
             max_abs_err=worst["dq"], library_ms=None, **dq_b,
             ms=cuda_ms(lambda: fa.flash_attention_bwd_dq_cuda(*args, **kw), 5),
             plain_ms=cuda_ms(lambda: fa.flash_attention_plain_bwd_dq(*args, **kw), 2))
-        if tag == "bf16":  # the share of Philox: kernels 9, 10 and 11 at rate 0
-            kw0 = dict(kw, dropout_rate=0.0)
-            res["flash_fwd_bf16"]["ms_rate0"] = cuda_ms(
-                lambda: fa.flash_attention_cuda(q, k, v, **kw0), 5)
-            # the price of one more pass of S over every key: the single-step
-            # variant (block_k >= Lk) takes S three times, 512-key blocks twice
-            kw1 = dict(kw, block_k=L)
-            res["flash_fwd_bf16"]["ms_single_step"] = cuda_ms(
-                lambda: fa.flash_attention_cuda(q, k, v, **kw1), 5)
-            log(f"flash   flash_fwd_bf16: kernel {res['flash_fwd_bf16']['ms']:.3f} ms at rate "
-                f"{ATTN_DROPOUT}, {res['flash_fwd_bf16']['ms_rate0']:.3f} ms at rate 0, "
-                f"{res['flash_fwd_bf16']['ms_single_step']:.3f} ms in the single-step variant "
-                f"(block_k={L}, rate {ATTN_DROPOUT})")
+        # kernel 9 at rate 0, beside the library; and the price of one more
+        # pass of S over every key: the single-step variant (block_k >= Lk)
+        # takes S three times, 512-key blocks twice
+        kw0 = dict(kw, dropout_rate=0.0)
+        fwd = res["flash_fwd" + suffix]
+        fwd["ms_rate0"] = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw0), 5)
+        kw1 = dict(kw, block_k=L)
+        fwd["ms_single_step"] = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw1), 5)
+        log(f"flash   flash_fwd{suffix}: kernel {fwd['ms']:.3f} ms at rate {ATTN_DROPOUT}, "
+            f"{fwd['ms_rate0']:.3f} ms at rate 0, {fwd['ms_single_step']:.3f} ms in the "
+            f"single-step variant (block_k={L}, rate {ATTN_DROPOUT}); worst error "
+            f"{fwd['max_abs_err']:.3e}")
+        if tag == "bf16":  # the share of Philox: kernels 10 and 11 at rate 0
             o0, l0, m0 = fa.flash_attention_cuda(q, k, v, **kw0)
             args0 = (q, k, v, None, None, l0, m0, do, (o0.float() * do.float()).sum(-1))
             for name, fn in (("flash_dkv_bf16", fa.flash_attention_bwd_dkv_cuda),

@@ -24,13 +24,13 @@
 // attention_mma.cuh, which round where the TPU kernel rounds: the
 // pre-scaled q (oneshot_attention.py:238), p_drop before dV (:131), dS
 // before dQ and dK (:143), dQ before its scale (:147, :273), and the
-// outputs. The f32 kernels below keep tiles, statistics and accumulators f32
-// (their `T` is float; `round_to<float>` is the identity).
+// outputs. The f32 kernels below keep tiles, statistics, p, dS and
+// accumulators f32.
 //
-// What bounds the f32 kernels on an H100: arithmetic, as in the forward.
-// 14 dh flops a score element (S and dP recomputed in both passes below) on
-// the FP32 pipes, as f32 FMAs (f32 stays off TF32, which would lose the
-// 1e-5 the f32 step is held to).
+// What bounds the f32 kernels on an H100: arithmetic. 14 dh flops a score
+// element (S and dP recomputed in both kernels; 120.6 GFLOP at B = 4,
+// H = 8, L = 2051, dh = 64), on the TF32 tensor cores in 3xTF32
+// (f32_mma.cuh: each product an exact-f32 sum of three TF32 mmas).
 //
 // What the design does about the TPU kernel's shape: that kernel holds a
 // whole key row and accumulates dK/dV in VMEM scratch across a sequential
@@ -38,16 +38,19 @@
 // 227 KB, so the work is split three ways, each without atomics:
 //   1. one warp a query row: D = rowsum(dO * O);
 //   2. one block a (batch, head, 64-key tile), looping over the 64-query
-//      tiles: dK and dV of its 64 keys in registers (4 rows x dh/16 columns
-//      a thread);
+//      tiles: dK and dV of its 64 keys in registers;
 //   3. one block a (batch, head, 64-query tile), looping over the key tiles
 //      up to l_actual: dQ of its 64 queries in registers.
-// Tiles live in shared memory padded by one float a row; the 64x64 score
-// work uses the forward's 16x16 thread grid (4x4 elements a thread). The
-// dropout mask is applied in one pass over the probability tile, one Philox
-// call for four neighbouring key columns. Strides are passed for every
-// tensor (batch, head, row; last axis contiguous), so the (B, L, H, dh)
-// projections are read in place and dQ/dK/dV are written in the same layout.
+// At f32, kernels 2 and 3 follow the bf16 kernels' shape with f32_mma.cuh's
+// product: 4 warps x 16 rows, f32 tiles streamed by cp.async into two-stage
+// rings (plain loads for views whose rows are not 16-byte aligned), the C
+// fragments of S and dP (S^T and dP^T in kernel 2) taken as the A fragments
+// of dQ += dS K (dV += p_drop^T dO, dK += dS^T q), scores a 16- or 32-column
+// sub-tile at a time, and the lane-shared Philox draws of attention_mma.cuh
+// (`keep_rows`, `keep_keys`), one call for four neighbouring key columns.
+// Strides are passed for every tensor (batch, head, row; last axis
+// contiguous), so the (B, L, H, dh) projections are read in place and
+// dQ/dK/dV are written in the same layout.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -55,18 +58,19 @@
 
 #include "attention_mma.cuh"
 #include "elem.cuh"
+#include "f32_mma.cuh"
 #include "philox.cuh"
 
 namespace {
 
-using pcm::round_to;
 using pcm::to_f;
 
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kThreads = 256;
+namespace mm = pcm::attn_mma;
+namespace tx = pcm::tf32x3;
 
-using Strides = pcm::attn_mma::Strides;
+constexpr int kThreads = 256;  // the D pre-pass: 8 rows a block
+
+using Strides = mm::Strides;
 
 template <typename T>
 struct Args {
@@ -82,11 +86,6 @@ struct Args {
   uint32_t seed;
   int dropout;
 };
-
-template <int DH>
-constexpr size_t smem_floats() {
-  return 4 * (size_t)kBQ * (DH + 1) + 2 * (size_t)kBQ * (kBK + 1) + 3 * kBQ;
-}
 
 // D = rowsum(dO * O), one warp a (batch, head, query row).
 template <typename T>
@@ -107,264 +106,256 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_delta_kernel(Args<T> a, int
   if (lane == 0) a.delta[row] = sum;
 }
 
-// Query rows q0.. of Q (pre-scaled) and dO, and their row statistics, into
-// shared memory; rows past Lq are zero with m = +inf, so their p is 0.
-template <typename T, int DH>
-__device__ __forceinline__ void load_query_tile(const Args<T>& a, int bh, int b, int h,
-                                                int q0, float* Qs, float* dOs, float* rm,
-                                                float* rr, float* rd) {
-  constexpr int LD = DH + 1;
-  const T* qb = a.q + b * a.qs.b + h * a.qs.h;
-  const T* dob = a.dout + b * a.dos.b + h * a.dos.h;
-  for (int e = threadIdx.x; e < kBQ * DH; e += kThreads) {
-    const int r = e / DH, c = e % DH;
-    const bool in = q0 + r < a.Lq;
-    Qs[r * LD + c] =
-        in ? round_to<T>(__fmul_rn(to_f(qb[(q0 + r) * a.qs.l + c]), a.scale)) : 0.f;
-    dOs[r * LD + c] = in ? to_f(dob[(q0 + r) * a.dos.l + c]) : 0.f;
-  }
-  const long long base = (long long)bh * a.Lq + q0;
-  for (int r = threadIdx.x; r < kBQ; r += kThreads) {
-    const bool in = q0 + r < a.Lq;
-    rm[r] = in ? a.row_max[base + r] : INFINITY;
-    rr[r] = in ? a.row_inv[base + r] : 0.f;
-    rd[r] = in ? a.delta[base + r] : 0.f;
-  }
+// ---- f32: dK/dV and dQ in 3xTF32 on the tensor cores (f32_mma.cuh) --------------
+
+// Shared memory of both kernels: two 64-row f32 tiles held for the whole
+// block, two two-stage rings of streamed tiles, and (dK/dV) two stages of
+// m, 1 / l and D of 64 queries.
+template <int DH>
+constexpr size_t f32_smem() {
+  return 6 * tx::tile_bytes<DH>() + 2 * 3 * tx::kTile * sizeof(float);
 }
 
-// Key rows k0.. of K and V into shared memory, zero past Lk.
-template <typename T, int DH>
-__device__ __forceinline__ void load_key_tile(const Args<T>& a, int b, int h, int k0,
-                                              float* Ks, float* Vs) {
-  constexpr int LD = DH + 1;
-  const T* kb = a.k + b * a.ks.b + h * a.ks.h;
-  const T* vb = a.v + b * a.vs.b + h * a.vs.h;
-  for (int e = threadIdx.x; e < kBK * DH; e += kThreads) {
-    const int r = e / DH, c = e % DH;
-    const bool in = k0 + r < a.Lk;
-    Ks[r * LD + c] = in ? to_f(kb[(k0 + r) * a.ks.l + c]) : 0.f;
-    Vs[r * LD + c] = in ? to_f(vb[(k0 + r) * a.vs.l + c]) : 0.f;
-  }
-}
+// One block a (batch, head, 64-key tile), looping over the query tiles:
+// S^T = K (q scale)^T and dP^T = V dO^T a sub-tile at a time, then
+// dV += p_drop^T dO and dK += dS^T (q scale), the C fragments of S^T and dP^T
+// taken as the A fragments of the two sums. `vec`: q, k, v and dout rows
+// 16-byte aligned.
+template <int DH>
+__global__ void __launch_bounds__(tx::kThreads, DH == 64 ? 2 : 1)
+    f32_dkdv_kernel(Args<float> a, int vec) {
+  constexpr int LD = tx::ld<DH>(), T = tx::kTile, NT = tx::sub<DH>() / 8;
+  extern __shared__ __align__(16) float smf[];
+  float* Ks = smf;
+  float* Vs = Ks + T * LD;
+  float* Qs = Vs + T * LD;       // two stages
+  float* dOs = Qs + 2 * T * LD;  // two stages
+  float* stats = dOs + 2 * T * LD;  // [stage][m, 1/l, D][64]
 
-// Recomputes the (64 query x 64 key) tile at (q0, k0) and leaves
-// p_drop in Ps and dS in dSs (row = query, column = key), both rounded to T.
-// Every thread of the block calls it; it ends with the tiles complete.
-template <typename T, int DH>
-__device__ __forceinline__ void probs_and_ds(const Args<T>& a, int h, int q0, int k0,
-                                             const float* Qs, const float* dOs,
-                                             const float* Ks, const float* Vs, float* Ps,
-                                             float* dSs, const float* rm, const float* rr,
-                                             const float* rd) {
-  constexpr int LD = DH + 1;
-  constexpr int LDP = kBK + 1;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float s[4][4], dp[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < DH; ++d) {
-    float aq[4], ad[4], bk[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      aq[i] = Qs[(ty + 16 * i) * LD + d];
-      ad[i] = dOs[(ty + 16 * i) * LD + d];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      bk[j] = Ks[(tx + 16 * j) * LD + d];
-      bv[j] = Vs[(tx + 16 * j) * LD + d];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(aq[i], bk[j], s[i][j]);
-        dp[i][j] = fmaf(ad[i], bv[j], dp[i][j]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j;
-      const float p = k0 + c < a.l_actual ? expf(s[i][j] - rm[r]) * rr[r] : 0.f;
-      Ps[r * LDP + c] = a.dropout ? p : round_to<T>(p);
-      dSs[r * LDP + c] = a.dropout ? dp[i][j] : round_to<T>(p * (dp[i][j] - rd[r]));
-    }
-  }
-  __syncthreads();
-  if (a.dropout) {
-    for (int gi = threadIdx.x; gi < kBQ * (kBK / 4); gi += kThreads) {
-      const int r = gi / (kBK / 4), c4 = (gi % (kBK / 4)) * 4;
-      const uint4 bits = pcm::keep_bits4(a.seed, h, q0 + r, (k0 + c4) >> 2);
-      const uint32_t w[4] = {bits.x, bits.y, bits.z, bits.w};
-      const float dr = rd[r];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int at = r * LDP + c4 + e;
-        const bool keep = w[e] >= a.threshold;
-        const float p = Ps[at];
-        dSs[at] = round_to<T>(p * ((keep ? dSs[at] * a.inv_keep : 0.f) - dr));
-        Ps[at] = round_to<T>(keep ? p * a.inv_keep : 0.f);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads) attn_bwd_dkdv_kernel(Args<T> a) {
-  constexpr int LD = DH + 1;
-  constexpr int LDP = kBK + 1;
-  constexpr int CJ = DH / 16;  // output columns a thread
-  extern __shared__ float sm[];
-  float* Ks = sm;
-  float* Vs = Ks + kBK * LD;
-  float* Qs = Vs + kBK * LD;
-  float* dOs = Qs + kBQ * LD;
-  float* Ps = dOs + kBQ * LD;
-  float* dSs = Ps + kBQ * LDP;
-  float* rm = dSs + kBQ * LDP;
-  float* rr = rm + kBQ;
-  float* rd = rr + kBQ;
-
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int k0 = blockIdx.x * kBK;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int k0 = blockIdx.x * T;
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const float* qb = a.q + b * a.qs.b + h * a.qs.h;
+  const float* dob = a.dout + b * a.dos.b + h * a.dos.h;
+  const int key = k0 + warp * 16 + (lane >> 2);  // and key + 8
+  const int cq = 2 * (lane & 3);
+  const long long sb = (long long)bh * a.Lq;
 
-  float dk[4][CJ], dv[4][CJ];
+  float dk[DH / 8][4], dv[DH / 8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < DH / 8; ++j)
 #pragma unroll
-    for (int j = 0; j < CJ; ++j) dk[i][j] = dv[i][j] = 0.f;
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  // the statistics of query tile q0 into stage st (rows past Lq get m = +inf
+  // and 1/l = 0, so their p is 0)
+  auto load_stats = [&](int st, int q0) {
+    float* sp = stats + st * 3 * T;
+    for (int r = threadIdx.x; r < T; r += tx::kThreads) {
+      const bool in = q0 + r < a.Lq;
+      sp[r] = in ? a.row_max[sb + q0 + r] : INFINITY;
+      sp[T + r] = in ? a.row_inv[sb + q0 + r] : 0.f;
+      sp[2 * T + r] = in ? a.delta[sb + q0 + r] : 0.f;
+    }
+  };
 
   if (k0 < a.l_actual) {  // key tiles past l_actual get zero gradients
-    load_key_tile<T, DH>(a, b, h, k0, Ks, Vs);
-    const int n_qt = (a.Lq + kBQ - 1) / kBQ;
+    const int n_qt = (a.Lq + T - 1) / T;
+    tx::load_tile<DH>(Ks, a.k + b * a.ks.b + h * a.ks.h, a.ks.l, k0, a.Lk, vec);
+    tx::load_tile<DH>(Vs, a.v + b * a.vs.b + h * a.vs.h, a.vs.l, k0, a.Lk, vec);
+    tx::load_tile<DH>(Qs, qb, a.qs.l, 0, a.Lq, vec);
+    tx::load_tile<DH>(dOs, dob, a.dos.l, 0, a.Lq, vec);
+    load_stats(0, 0);
+    mm::cp_async_commit();
     for (int qt = 0; qt < n_qt; ++qt) {
-      const int q0 = qt * kBQ;
-      __syncthreads();  // the previous query tile is consumed
-      load_query_tile<T, DH>(a, bh, b, h, q0, Qs, dOs, rm, rr, rd);
+      const int st = qt & 1;
+      float* Qt = Qs + st * T * LD;
+      const float* dOt = dOs + st * T * LD;
+      if (qt + 1 < n_qt) {
+        tx::load_tile<DH>(Qs + (st ^ 1) * T * LD, qb, a.qs.l, (qt + 1) * T, a.Lq, vec);
+        tx::load_tile<DH>(dOs + (st ^ 1) * T * LD, dob, a.dos.l, (qt + 1) * T, a.Lq, vec);
+        load_stats(st ^ 1, (qt + 1) * T);
+      }
+      mm::cp_async_commit();
+      mm::cp_async_wait<1>();
+      tx::scale_own_chunks<DH>(Qt, a.scale);  // q -> q * scale
       __syncthreads();
-      probs_and_ds<T, DH>(a, h, q0, k0, Qs, dOs, Ks, Vs, Ps, dSs, rm, rr, rd);
-      // dV += p_drop^T dO and dK += dS^T Q: key rows ty + 16 i, columns tx + 16 j
-#pragma unroll 4
-      for (int qq = 0; qq < kBQ; ++qq) {
-        float pk[4], sk[4], dov[CJ], qv[CJ];
+      const float* sm_m = stats + st * 3 * T;
+      const float* sm_r = sm_m + T;
+      const float* sm_d = sm_r + T;
+      const int q0 = qt * T;
+#pragma unroll 1
+      for (int sc = 0; sc < T; sc += 8 * NT) {
+        float s[NT][4], dp[NT][4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pk[i] = Ps[qq * LDP + ty + 16 * i];
-          sk[i] = dSs[qq * LDP + ty + 16 * i];
-        }
+        for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int j = 0; j < CJ; ++j) {
-          dov[j] = dOs[qq * LD + tx + 16 * j];
-          qv[j] = Qs[qq * LD + tx + 16 * j];
-        }
+          for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+        tx::mma_abt<DH, NT>(s, Ks, warp * 16, Qt, sc);    // S^T
+        tx::mma_abt<DH, NT>(dp, Vs, warp * 16, dOt, sc);  // dP^T
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < NT; ++j) {
+          const int c = sc + 8 * j + cq;  // query column in the tile
+          uint32_t keep[4];
+          if (a.dropout) mm::keep_keys(keep, a.seed, h, key, q0 + c);
 #pragma unroll
-          for (int j = 0; j < CJ; ++j) {
-            dv[i][j] = fmaf(pk[i], dov[j], dv[i][j]);
-            dk[i][j] = fmaf(sk[i], qv[j], dk[i][j]);
+          for (int e = 0; e < 4; ++e) {
+            const int qc = c + (e & 1);
+            const bool live = key + (e >> 1) * 8 < a.l_actual;
+            const float p = live ? expf(s[j][e] - sm_m[qc]) * sm_r[qc] : 0.f;
+            float pd = p, dpk = dp[j][e];
+            if (a.dropout) {
+              const bool kp = keep[e] >= a.threshold;
+              pd = kp ? p * a.inv_keep : 0.f;
+              dpk = kp ? dpk * a.inv_keep : 0.f;
+            }
+            s[j][e] = pd;                     // p_drop
+            dp[j][e] = p * (dpk - sm_d[qc]);  // dS
           }
+        }
+        tx::mma_pv<DH, NT>(dv, s, dOt, sc);
+        tx::mma_pv<DH, NT>(dk, dp, Qt, sc);
+      }
+      __syncthreads();  // stage st is consumed before it is refilled
+    }
+  }
+
+  float* dkb = a.dk + b * a.dks.b + h * a.dks.h;
+  float* dvb = a.dv + b * a.dvs.b + h * a.dvs.h;
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j) {
+    const int c = 8 * j + cq;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = key + (e >> 1) * 8;
+      if (r < a.Lk) {
+        dkb[(long long)r * a.dks.l + c + (e & 1)] = dk[j][e];
+        dvb[(long long)r * a.dvs.l + c + (e & 1)] = dv[j][e];
       }
     }
   }
-
-  T* dkb = a.dk + b * a.dks.b + h * a.dks.h;
-  T* dvb = a.dv + b * a.dvs.b + h * a.dvs.h;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kr = k0 + ty + 16 * i;
-    if (kr >= a.Lk) continue;
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) {
-      dkb[kr * a.dks.l + tx + 16 * j] = pcm::from_f<T>(dk[i][j]);
-      dvb[kr * a.dvs.l + tx + 16 * j] = pcm::from_f<T>(dv[i][j]);
-    }
-  }
 }
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads) attn_bwd_dq_kernel(Args<T> a) {
-  constexpr int LD = DH + 1;
-  constexpr int LDP = kBK + 1;
-  constexpr int CJ = DH / 16;
-  extern __shared__ float sm[];
-  float* Ks = sm;
-  float* Vs = Ks + kBK * LD;
-  float* Qs = Vs + kBK * LD;
-  float* dOs = Qs + kBQ * LD;
-  float* Ps = dOs + kBQ * LD;
-  float* dSs = Ps + kBQ * LDP;
-  float* rm = dSs + kBQ * LDP;
-  float* rr = rm + kBQ;
-  float* rd = rr + kBQ;
+// One block a (batch, head, 64-query tile), looping over the key tiles up
+// to l_actual: S = (q scale) K^T and dP = dO V^T a sub-tile at a time,
+// then dQ += dS K, the C fragments of dS taken as A fragments; dQ
+// times scale at the end. `vec` as for f32_dkdv_kernel.
+template <int DH>
+__global__ void __launch_bounds__(tx::kThreads, DH == 64 ? 2 : 1)
+    f32_dq_kernel(Args<float> a, int vec) {
+  constexpr int LD = tx::ld<DH>(), T = tx::kTile, NT = tx::sub<DH>() / 8;
+  extern __shared__ __align__(16) float smf[];
+  float* Qs = smf;
+  float* dOs = Qs + T * LD;
+  float* Ks = dOs + T * LD;     // two stages
+  float* Vs = Ks + 2 * T * LD;  // two stages
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int q0 = blockIdx.x * kBQ;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int q0 = blockIdx.x * T;
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const float* kb = a.k + b * a.ks.b + h * a.ks.h;
+  const float* vb = a.v + b * a.vs.b + h * a.vs.h;
+  const int row = q0 + warp * 16 + (lane >> 2);  // and row + 8
+  const int cq = 2 * (lane & 3);
 
-  load_query_tile<T, DH>(a, bh, b, h, q0, Qs, dOs, rm, rr, rd);
-  float dq[4][CJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) dq[i][j] = 0.f;
+  tx::load_tile<DH>(Qs, a.q + b * a.qs.b + h * a.qs.h, a.qs.l, q0, a.Lq, vec);
+  tx::load_tile<DH>(dOs, a.dout + b * a.dos.b + h * a.dos.h, a.dos.l, q0, a.Lq, vec);
+  mm::cp_async_commit();
+  tx::load_tile<DH>(Ks, kb, a.ks.l, 0, a.Lk, vec);
+  tx::load_tile<DH>(Vs, vb, a.vs.l, 0, a.Lk, vec);
+  mm::cp_async_commit();
+  // rows past Lq: m = +inf and 1/l = 0, so their p is 0
+  const long long sb = (long long)bh * a.Lq;
+  const float m0 = row < a.Lq ? a.row_max[sb + row] : INFINITY;
+  const float m1 = row + 8 < a.Lq ? a.row_max[sb + row + 8] : INFINITY;
+  const float r0 = row < a.Lq ? a.row_inv[sb + row] : 0.f;
+  const float r1 = row + 8 < a.Lq ? a.row_inv[sb + row + 8] : 0.f;
+  const float d0 = row < a.Lq ? a.delta[sb + row] : 0.f;
+  const float d1 = row + 8 < a.Lq ? a.delta[sb + row + 8] : 0.f;
+  mm::cp_async_wait<1>();
+  tx::scale_own_chunks<DH>(Qs, a.scale);  // q -> q * scale
 
-  const int n_kt = (a.l_actual + kBK - 1) / kBK;
+  float acc[DH / 8][4];
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  const int n_kt = (a.l_actual + T - 1) / T;
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // the previous key tile is consumed
-    load_key_tile<T, DH>(a, b, h, k0, Ks, Vs);
-    __syncthreads();
-    probs_and_ds<T, DH>(a, h, q0, k0, Qs, dOs, Ks, Vs, Ps, dSs, rm, rr, rd);
-    // dQ += dS K: query rows ty + 16 i, columns tx + 16 j
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float sv[4], kv[CJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sv[i] = dSs[(ty + 16 * i) * LDP + kk];
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) kv[j] = Ks[kk * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < CJ; ++j) dq[i][j] = fmaf(sv[i], kv[j], dq[i][j]);
+    const int st = kt & 1;
+    if (kt + 1 < n_kt) {
+      tx::load_tile<DH>(Ks + (st ^ 1) * T * LD, kb, a.ks.l, (kt + 1) * T, a.Lk, vec);
+      tx::load_tile<DH>(Vs + (st ^ 1) * T * LD, vb, a.vs.l, (kt + 1) * T, a.Lk, vec);
     }
+    mm::cp_async_commit();
+    mm::cp_async_wait<1>();
+    __syncthreads();
+    const float* Kt = Ks + st * T * LD;
+    const float* Vt = Vs + st * T * LD;
+#pragma unroll 1
+    for (int sc = 0; sc < T; sc += 8 * NT) {
+      float s[NT][4], dp[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      tx::mma_abt<DH, NT>(s, Qs, warp * 16, Kt, sc);
+      tx::mma_abt<DH, NT>(dp, dOs, warp * 16, Vt, sc);
+      const int c0 = kt * T + sc;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int col = c0 + 8 * j + cq;
+        float p[4];
+        p[0] = col < a.l_actual ? expf(s[j][0] - m0) * r0 : 0.f;
+        p[1] = col + 1 < a.l_actual ? expf(s[j][1] - m0) * r0 : 0.f;
+        p[2] = col < a.l_actual ? expf(s[j][2] - m1) * r1 : 0.f;
+        p[3] = col + 1 < a.l_actual ? expf(s[j][3] - m1) * r1 : 0.f;
+        if (a.dropout) {
+          uint32_t keep[4];
+          mm::keep_rows(keep, a.seed, h, row, col);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[j][e] = keep[e] >= a.threshold ? dp[j][e] * a.inv_keep : 0.f;
+        }
+        s[j][0] = p[0] * (dp[j][0] - d0);  // dS
+        s[j][1] = p[1] * (dp[j][1] - d0);
+        s[j][2] = p[2] * (dp[j][2] - d1);
+        s[j][3] = p[3] * (dp[j][3] - d1);
+      }
+      tx::mma_pv<DH, NT>(acc, s, Kt, sc);
+    }
+    __syncthreads();  // stage st is consumed before it is refilled
   }
 
-  T* dqb = a.dq + b * a.dqs.b + h * a.dqs.h;
+  float* dqb = a.dq + b * a.dqs.b + h * a.dqs.h;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qr = q0 + ty + 16 * i;
-    if (qr >= a.Lq) continue;
+  for (int j = 0; j < DH / 8; ++j) {
+    const int c = 8 * j + cq;
 #pragma unroll
-    for (int j = 0; j < CJ; ++j)
-      dqb[qr * a.dqs.l + tx + 16 * j] = pcm::from_f<T>(round_to<T>(dq[i][j]) * a.scale);
+    for (int e = 0; e < 4; ++e) {
+      const int r = row + (e >> 1) * 8;
+      if (r < a.Lq) dqb[(long long)r * a.dqs.l + c + (e & 1)] = acc[j][e] * a.scale;
+    }
   }
 }
 
-template <typename T, int DH>
-cudaError_t launch(const Args<T>& a, int B, cudaStream_t stream) {
-  const size_t smem = smem_floats<DH>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_bwd_dkdv_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// dK/dV, then dQ, at f32 on `stream` (after the D pre-pass).
+template <int DH>
+cudaError_t launch_f32(const Args<float>& a, int B, cudaStream_t stream) {
+  const int vec = tx::rows_aligned(a.q, a.qs) && tx::rows_aligned(a.k, a.ks) &&
+                  tx::rows_aligned(a.v, a.vs) && tx::rows_aligned(a.dout, a.dos);
+  const size_t smem = f32_smem<DH>();
+  cudaError_t err = cudaFuncSetAttribute(f32_dkdv_kernel<DH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(attn_bwd_dq_kernel<T, DH>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  err = cudaFuncSetAttribute(f32_dq_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
   if (err != cudaSuccess) return err;
-  attn_bwd_dkdv_kernel<T, DH>
-      <<<dim3((a.Lk + kBK - 1) / kBK, B * a.H), kThreads, smem, stream>>>(a);
+  f32_dkdv_kernel<DH><<<dim3((a.Lk + tx::kTile - 1) / tx::kTile, B * a.H), tx::kThreads, smem,
+                        stream>>>(a, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_bwd_dq_kernel<T, DH>
-      <<<dim3((a.Lq + kBQ - 1) / kBQ, B * a.H), kThreads, smem, stream>>>(a);
+  f32_dq_kernel<DH><<<dim3((a.Lq + tx::kTile - 1) / tx::kTile, B * a.H), tx::kThreads, smem,
+                      stream>>>(a, vec);
   return cudaGetLastError();
 }
 
@@ -413,7 +404,6 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v, const void
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if constexpr (pcm::is_bf16<T>::value) {
-    namespace mm = pcm::attn_mma;
     const mm::BwdArgs m{a.q, a.k, a.v, a.dout, a.row_max, a.row_inv, a.delta, a.dq, a.dk,
                         a.dv, a.qs, a.ks, a.vs, a.dos, a.dqs, a.dks, a.dvs, H, Lq, Lk,
                         l_actual, a.scale, threshold, inv_keep, seed, dropout,
@@ -421,7 +411,7 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v, const void
                             mm::rows_aligned(v, a.vs) && mm::rows_aligned(dout, a.dos)};
     return dh == 64 ? mm::launch_bwd<64>(m, B, s) : mm::launch_bwd<128>(m, B, s);
   } else {
-    return dh == 64 ? launch<T, 64>(a, B, s) : launch<T, 128>(a, B, s);
+    return dh == 64 ? launch_f32<64>(a, B, s) : launch_f32<128>(a, B, s);
   }
 }
 

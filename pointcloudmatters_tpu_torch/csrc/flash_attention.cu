@@ -35,8 +35,8 @@
 //
 // bf16 rounds where the TPU kernels round (:571-573, :1023-1024, :1045,
 // :1397-1399): p D before p v, p_dropped before dV, dS before dK and dQ,
-// and each output once (flash_mma.cuh). The kernels of this file hold their
-// tiles, row statistics and accumulators in f32. The forward follows the
+// and each output once (flash_mma.cuh). The f32 kernels of this file hold
+// their tiles, row statistics and accumulators in f32. The forward follows the
 // TPU's update rule block_k block by block_k block (:528-575), as the plain
 // version does: m_next = max(m_prev, rowmax(s)) over the whole block first,
 // then p = exp(s - m_next), l_next = rowsum(p) + exp(m_prev - m_next)
@@ -45,42 +45,47 @@
 // block_k >= Lk it takes the single-step variant (:585, :647-665): l
 // first, then p / l before dropout and p v, and no division at the end.
 //
-// What bounds it on an H100: arithmetic. 4 B H Lq Lk dh flops forward, 8
-// for dK/dV (S, dP, dV, dK) and 6 for dQ (S, dP, dQ). The kernels below are
-// the f32 instances, f32 FMAs on the FP32 pipes (TF32 would round their
-// operands). At bf16 the C entries dispatch to the tensor-core kernels of
-// flash_mma.cuh (kernels 9, 10 and 11), which also holds what every kernel
-// here shares: the launch arguments, the mask value, the causal skips and
-// the Philox bits.
+// What bounds it on an H100: arithmetic. 4 B H Lq Lk dh flops forward (6
+// with S taken twice), 8 for dK/dV (S, dP, dV, dK) and 6 for dQ (S, dP,
+// dQ). At f32, kernel 9 runs on the TF32 tensor cores in 3xTF32
+// (f32_mma.cuh: exact-f32 products from three TF32 mmas) and kernels 10 and
+// 11 on the FP32 pipes as f32 FMAs. At bf16 the C entries dispatch to the
+// tensor-core kernels of flash_mma.cuh (kernels 9, 10 and 11), which also
+// holds what every kernel here shares: the launch arguments, the mask value,
+// the causal skips, the Philox bits, the score function and the forward's
+// walk over the block_k blocks.
 //
 // What the design does about the TPU kernels' shape: those carry m, l and
 // the accumulators in VMEM scratch across a sequential kv grid axis (dK/dV
 // across a sequential q axis). Hopper has no sequential grid axis, so a
-// loop inside the block takes its place, as in kernels 3 and 4
-// (attention_fwd.cuh, attention_bwd.cu, whose tiling this file follows and
-// leaves untouched):
-//   9  (f32) one block a (64-query tile, batch * head); for each block_k block
-//      of keys it takes the row max over the block's 64-key tiles, then p
-//      and p v tile by tile, and updates m, l and the accumulators once. A
-//      block's 64 x block_k scores are staged in shared memory when they fit
-//      (128 KiB at the flagship's 512, beside the Q, K and V tiles);
-//      otherwise each pass computes them again;
+// loop inside the block takes its place, as in kernels 3 and 4:
+//   9  (f32) one block a (64-query tile, batch * head), 4 warps x 16 rows,
+//      walking the block_k blocks as bf16 kernel 9 walks them: per block S
+//      and its row max over the 64-key tiles the block overlaps, then S
+//      again, p and P V (the single step: a pass for l between), K and V
+//      tiles streamed by cp.async into two-stage rings. S is computed again,
+//      not staged: a 64 x 512 block of f32 scores would take 128 KiB of
+//      shared memory and one block an SM. The C fragments of p D are the A
+//      fragments of P V (f32_mma.cuh's k permutation), and the update keeps
+//      the TPU's arithmetic and two accumulators;
 //   10 (f32) one block a (64-key tile, batch * head); it loops over the query
 //      tiles, dK and dV of its 64 keys in registers;
 //   11 (f32) one block a (64-query tile, batch * head); it loops over the key
 //      tiles, dQ of its 64 queries in registers, and writes its ds tiles.
-// 256 threads a block, each a 4x4 register tile of the 64x64 score work;
-// shared tiles padded by one float a row. Tail tiles are bounds-checked:
-// pairs out of range, and pairs of causal tiles the TPU grid skips, get the
-// logit -inf and weigh exactly 0 (a row that has seen none of its pairs yet
-// keeps m = -inf, and its exp is taken against 0 instead, never NaN). A
-// 64x64 tile none of whose pairs is visited is skipped.
+// Kernels 10 and 11 take 256 threads a block, each a 4x4 register tile of
+// the 64x64 score work, shared tiles padded by one float a row. Tail tiles
+// are bounds-checked: pairs out of range, and pairs of causal tiles the TPU
+// grid skips, get the logit -inf and weigh exactly 0 (a row that has seen
+// none of its pairs yet keeps m = -inf, and its exp is taken against 0
+// instead, never NaN). A 64x64 tile none of whose pairs is visited is
+// skipped.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "elem.cuh"
+#include "f32_mma.cuh"
 #include "flash_mma.cuh"
 #include "philox.cuh"
 
@@ -90,10 +95,18 @@ using pcm::round_to;
 using pcm::to_f;
 using pcm::flash::Args;
 using pcm::flash::flash_keep_bits4;
+using pcm::flash::FwdStep;
 using pcm::flash::kMaskValue;
 using pcm::flash::last_row;
+using pcm::flash::logits;
+using pcm::flash::next_step;
+using pcm::flash::quad_max;
+using pcm::flash::quad_sum;
 using pcm::flash::Strides;
 using pcm::flash::tile_skipped;
+
+namespace mm = pcm::attn_mma;
+namespace tx = pcm::tf32x3;
 
 constexpr int kBQ = 64;
 constexpr int kBK = 64;
@@ -156,253 +169,208 @@ __device__ __forceinline__ void load_ids(const int* ids, int b, int r0, int rows
     dst[r] = ids != nullptr && r0 + r < rows ? ids[(long long)b * rows + r0 + r] : 0;
 }
 
-// Dynamic shared memory of the forward at a score pitch of `sp` floats:
-// the Q, K and V tiles, 64 rows of scores (a whole block_k block when it is
-// staged, else one 64-key tile) and the segment ids.
+// ---- kernel 9 at f32: 3xTF32 on the tensor cores (f32_mma.cuh) -------------------
+
+// Shared memory of the forward: the 64-row Q tile held for the whole block,
+// two-stage rings of K and V tiles, and two stages of key segment ids.
 template <int DH>
-constexpr size_t fwd_smem_bytes(int sp) {
-  return ((size_t)kBQ * (DH + 1) + (size_t)kBK * (DH + 1) + (size_t)kBK * DH +
-          (size_t)kBQ * sp) * sizeof(float) + (kBQ + kBK) * sizeof(int);
+constexpr size_t f32_fwd_smem() {
+  return 5 * tx::tile_bytes<DH>() + 2 * tx::kTile * sizeof(int);
 }
 
-// The 64x64 logit tile at key column k0 of a block that ends at `kend`:
-// loads the K tile (rows up to kend) and its segment ids, then s[i][j] for
-// row ty + 16 i, column tx + 16 j, -inf past kend. Every thread calls it.
-template <typename T, int DH>
-__device__ __forceinline__ void fwd_logits(const Args& a, long long bh, int b, const T* kb,
-                                           int q0, int k0, int kend, const float* Qs,
-                                           float* Ks, const int* sq, int* skv,
-                                           float (&s)[4][4]) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  __syncthreads();  // the previous K tile is consumed
-  load_rows<T, DH>(kb, a.ks.l, k0, kend, Ks, DH + 1);
-  load_ids(a.seg_kv, b, k0, a.Lk, skv);
-  __syncthreads();
-  tile_dot<DH>(Qs, Ks, s);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = ty + 16 * i, c = tx + 16 * j;
-      s[i][j] = k0 + c < kend ? logit<T>(a, bh, q0 + r, k0 + c, s[i][j], sq[r], skv[c])
-                              : -INFINITY;
-    }
-}
+// One block a (batch, head, 64-query tile), walking the block_k blocks it
+// visits as flash_mma.cuh's fwd_kernel walks them (its FwdStep): per block
+// S = q k^T and the row max m_next, then S again with p = exp(s - m_use),
+// its undropped row sum and o_curr = (p D) V, the C fragments of p D taken
+// as the A fragments of the product (the single step: a pass for l between,
+// and p / l). At the block's end the TPU's update in its own arithmetic:
+// l_next = rowsum + exp(m_prev - m_next) l_prev and acc <- acc (l_corr /
+// l_next) + o_curr / l_next, rounded step by step as the plain version
+// rounds it (two accumulators). `vec`: q, k and v rows 16-byte aligned.
+template <int DH>
+__global__ void __launch_bounds__(tx::kThreads, DH == 64 ? 2 : 1)
+    f32_fwd_kernel(Args a, int vec) {
+  constexpr int LD = tx::ld<DH>(), T = tx::kTile, NT = tx::sub<DH>() / 8;
+  extern __shared__ __align__(16) float smf[];
+  float* Qs = smf;
+  float* Ks = Qs + T * LD;      // two stages
+  float* Vs = Ks + 2 * T * LD;  // two stages
+  int* kids = reinterpret_cast<int*>(Vs + 2 * T * LD);  // [stage][64] key segment ids
 
-// The sum, or the maximum, of v over the 16 threads that share a row group
-// (lanes 16 (ty & 1) + tx of warp ty / 2); a butterfly, so every one of them
-// gets the same bits.
-__device__ __forceinline__ float row_sum16(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-__device__ __forceinline__ float row_max16(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
-  constexpr int LD = DH + 1;   // padded row of Q and K tiles
-  constexpr int CJ = DH / 16;  // output columns a thread
-  extern __shared__ float sm[];
-  float* Qs = sm;
-  float* Ks = Qs + kBQ * LD;
-  float* Vs = Ks + kBK * LD;
-  float* Ss = Vs + kBK * DH;  // 64 rows of pitch a.sp: scores, then p
-  int* sq = (int*)(Ss + kBQ * a.sp);
-  int* skv = sq + kBQ;
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int q0 = blockIdx.x * kBQ;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int q0 = blockIdx.x * T;
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-  const T* kb = (const T*)a.k + b * a.ks.b + h * a.ks.h;
-  const T* vb = (const T*)a.v + b * a.vs.b + h * a.vs.h;
-  T* ob = (T*)a.o + b * a.os.b + h * a.os.h;
-
-  load_rows<T, DH>((const T*)a.q + b * a.qs.b + h * a.qs.h, a.qs.l, q0, a.Lq, Qs, LD);
-  load_ids(a.seg_q, b, q0, a.Lq, sq);
-
-  // rows ty + 16 i: the running state, the same in the row group's 16 threads
-  float acc[4][CJ], m_run[4], l_run[4];
+  const float* kb = (const float*)a.k + b * a.ks.b + h * a.ks.h;
+  const float* vb = (const float*)a.v + b * a.vs.b + h * a.vs.h;
+  const int row = q0 + warp * 16 + (lane >> 2);  // and row + 8
+  const int cq = 2 * (lane & 3);
+  // the keep threshold and the scale of a kept score; without dropout every
+  // score is kept (its bits stay 0) and scaled by 1
+  const uint32_t thr = a.dropout ? a.threshold : 0u;
+  const float kept = a.dropout ? a.inv_keep : 1.f;
+  int sq[2];  // the segment ids of rows row and row + 8 (0 past Lq or without ids)
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_run[i] = -INFINITY;
-    l_run[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) acc[i][j] = 0.f;
-  }
+  for (int i = 0; i < 2; ++i)
+    sq[i] = a.seg_q != nullptr && row + 8 * i < a.Lq
+                ? a.seg_q[(long long)b * a.Lq + row + 8 * i] : 0;
+  // the key tile at step s into stage st: K, V in pass 2, the segment ids
+  auto load = [&](const FwdStep& s, int st) {
+    tx::load_tile<DH>(Ks + st * T * LD, kb, a.ks.l, s.t * T, a.Lk, vec);
+    if (s.pass == 2) tx::load_tile<DH>(Vs + st * T * LD, vb, a.vs.l, s.t * T, a.Lk, vec);
+    for (int r = threadIdx.x; r < T; r += tx::kThreads)
+      kids[st * T + r] = a.seg_kv != nullptr && s.t * T + r < a.Lk
+                             ? a.seg_kv[(long long)b * a.Lk + s.t * T + r] : 0;
+  };
 
-  // the TPU's single-step variant: one block, p normalised before p v
   const bool single = a.bk >= a.Lk;
   const int bk = single ? a.Lk : a.bk;
-  for (int kb0 = 0; kb0 < a.Lk; kb0 += bk) {
-    if (tile_skipped(a, q0, kb0)) continue;  // the same for every thread
-    const int kend = min(kb0 + bk, a.Lk);
-    const int nt = (kend - kb0 + kBK - 1) / kBK;
+  FwdStep cur{0, min(bk, a.Lk), 0, 0};  // block 0 is visited by every row (block_q >= 2)
+  tx::load_tile<DH>(Qs, (const float*)a.q + b * a.qs.b + h * a.qs.h, a.qs.l, q0, a.Lq, vec);
+  load(cur, 0);
+  mm::cp_async_commit();
 
-    // pass 1: the block's row max m_next = max(m_prev, rowmax(s)), the
-    // scores staged in Ss when the block fits
-    float m_use[4];
+  // rows row and row + 8: the running state, and the current block's terms
+  float acc[DH / 8][4], o_cur[DH / 8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) m_use[i] = -INFINITY;
-    for (int t = 0; t < nt; ++t) {
-      float s[4][4];
-      fwd_logits<T, DH>(a, bh, b, kb, q0, kb0 + t * kBK, kend, Qs, Ks, sq, skv, s);
+  for (int j = 0; j < DH / 8; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          m_use[i] = fmaxf(m_use[i], s[i][j]);
-          if (a.staged) Ss[(ty + 16 * i) * a.sp + t * kBK + tx + 16 * j] = s[i][j];
-        }
-    }
-    float m_next[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      m_next[i] = fmaxf(m_run[i], row_max16(m_use[i]));
-      m_use[i] = m_next[i] == -INFINITY ? 0.f : m_next[i];  // no visited pair yet
-    }
+    for (int e = 0; e < 4; ++e) acc[j][e] = o_cur[j][e] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  float mx[2] = {-INFINITY, -INFINITY}, psum[2] = {0.f, 0.f};
+  float m_next[2], m_use[2], l_single[2];
+  bool run[2];
 
-    // the logits of tile t: staged, or computed again
-    auto logits = [&](int t, float (&s)[4][4]) {
-      if (!a.staged) {
-        fwd_logits<T, DH>(a, bh, b, kb, q0, kb0 + t * kBK, kend, Qs, Ks, sq, skv, s);
-        return;
-      }
+  for (int st = 0;; st ^= 1) {
+    FwdStep nxt = cur;
+    const bool more = next_step(a, q0, bk, single, nxt);
+    if (more) load(nxt, st ^ 1);
+    mm::cp_async_commit();
+    mm::cp_async_wait<1>();
+    __syncthreads();
+    const float* Kt = Ks + st * T * LD;
+    const float* Vt = Vs + st * T * LD;
+    const int* ids = kids + st * T;
+    const int k0 = cur.t * T;
+    const bool edge = k0 < cur.kb0 || k0 + T > cur.kend;  // the tile straddles the block
+#pragma unroll 1
+    for (int sc = 0; sc < T; sc += 8 * NT) {
+      float s[NT][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      tx::mma_abt<DH, NT>(s, Qs, warp * 16, Kt, sc);
+      logits<NT, float>(a, bh, s, [&](int j, int e) {
+        const int kc = sc + 8 * j + cq + (e & 1);  // key column in the tile
+        return make_int4(row + (e >> 1) * 8, k0 + kc, sq[e >> 1], ids[kc]);
+      });
+      if (edge) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = Ss[(ty + 16 * i) * a.sp + t * kBK + tx + 16 * j];
-    };
-
-    // pass 2, single step only: l = rowsum(exp(s - m)) before p is formed
-    float psum[4] = {0.f, 0.f, 0.f, 0.f}, l_single[4];
-    if (single) {
-      for (int t = 0; t < nt; ++t) {
-        float s[4][4];
-        logits(t, s);
+        for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) psum[i] += expf(s[i][j] - m_use[i]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) l_single[i] = row_sum16(psum[i]);
-    }
-
-    // pass 3: p = exp(s - m_next) (single step: / l), l's row sum of the
-    // undropped p, p D rounded to T, and o_curr = p v over the block
-    float o_cur[4][CJ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) o_cur[i][j] = 0.f;
-    for (int t = 0; t < nt; ++t) {
-      const int k0 = kb0 + t * kBK;
-      float s[4][4];
-      logits(t, s);  // recomputed: syncs, then loads K
-      __syncthreads();  // the previous tile's V and p are consumed
-      load_rows<T, DH>(vb, a.vs.l, k0, kend, Vs, DH);
-      float* Ps = a.staged ? Ss + t * kBK : Ss;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float p = expf(s[i][j] - m_use[i]);
-          if (single)
-            p = __fdiv_rn(p, l_single[i]);
-          else
-            psum[i] += p;
-          // undropped p is rounded here; dropped p after its scaling below
-          Ps[(ty + 16 * i) * a.sp + tx + 16 * j] = a.dropout ? p : round_to<T>(p);
-        }
-      __syncthreads();
-
-      if (a.dropout) {  // p <- round(p D), four columns a thread
-        for (int gi = tid; gi < kBQ * (kBK / 4); gi += kThreads) {
-          const int r = gi / (kBK / 4), c4 = (gi % (kBK / 4)) * 4;
-          float* pr = Ps + r * a.sp + c4;
-          uint32_t w[4];
-          if ((k0 & 3) == 0) {  // one draw holds the four columns
-            const uint4 bits = flash_keep_bits4(a.seed, q0 + r, (k0 + c4) >> 2);
-            w[0] = bits.x;
-            w[1] = bits.y;
-            w[2] = bits.z;
-            w[3] = bits.w;
-          } else {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int col = k0 + c4 + e;
-              const uint4 bits = flash_keep_bits4(a.seed, q0 + r, col >> 2);
-              const int word = col & 3;
-              w[e] = word == 0 ? bits.x : word == 1 ? bits.y : word == 2 ? bits.z : bits.w;
-            }
+          for (int e = 0; e < 4; ++e) {
+            const int c = k0 + sc + 8 * j + cq + (e & 1);
+            if (c < cur.kb0 || c >= cur.kend) s[j][e] = -INFINITY;
           }
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            pr[e] = round_to<T>(w[e] >= a.threshold ? pr[e] * a.inv_keep : 0.f);
-        }
-        __syncthreads();
       }
-
-      // o_curr += P V: rows ty + 16 i, columns tx + 16 j
-#pragma unroll 8
-      for (int kk = 0; kk < kBK; ++kk) {
-        float pv[4], vv[CJ];
+      if (cur.pass == 0) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * a.sp + kk];
+        for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int j = 0; j < CJ; ++j) vv[j] = Vs[kk * DH + tx + 16 * j];
+          for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      } else if (cur.pass == 1) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < NT; ++j)
 #pragma unroll
-          for (int j = 0; j < CJ; ++j) o_cur[i][j] = fmaf(pv[i], vv[j], o_cur[i][j]);
-      }
-    }
-
-    // the block's update of the rows that visit it; under `causal` a row
-    // whose block_q tile does not reach this block keeps its state
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      const bool run = !a.causal || last_row(row, a.bq) > kb0;
-      const float rowsum = row_sum16(psum[i]);  // every thread of the group calls it
-      if (!run) continue;
-      if (single) {
-#pragma unroll
-        for (int j = 0; j < CJ; ++j) acc[i][j] = o_cur[i][j];
-        l_run[i] = l_single[i];
+          for (int e = 0; e < 4; ++e) psum[e >> 1] += expf(s[j][e] - m_use[e >> 1]);
       } else {
-        // l_next = rowsum(p) + alpha l_prev; acc <- acc (l_corr / l_next) +
-        // o_curr / l_next, with 1 / l_next taken as 1 where l_next is 0
-        const float l_corr = __fmul_rn(expf(m_run[i] - m_use[i]), l_run[i]);
-        const float l_next = __fadd_rn(rowsum, l_corr);
-        const float inv = l_next == 0.f ? 1.f : __fdiv_rn(1.0f, l_next);
-        const float corr = __fmul_rn(l_corr, inv);
 #pragma unroll
-        for (int j = 0; j < CJ; ++j)
-          acc[i][j] = __fadd_rn(__fmul_rn(acc[i][j], corr), __fmul_rn(o_cur[i][j], inv));
-        l_run[i] = l_next;
+        for (int j = 0; j < NT; ++j) {
+          uint32_t keep[4] = {0u, 0u, 0u, 0u};
+          if (a.dropout) pcm::flash::keep_rows(keep, a.seed, row, k0 + sc + 8 * j + cq);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1;
+            float p = expf(s[j][e] - m_use[i]);
+            if (single)
+              p = __fdiv_rn(p, l_single[i]);
+            else
+              psum[i] += p;
+            s[j][e] = __fmul_rn(p, keep[e] >= thr ? kept : 0.f);  // p D
+          }
+        }
+        tx::mma_pv<DH, NT>(o_cur, s, Vt, sc);
       }
-      m_run[i] = m_next[i];
     }
+
+    if (cur.t == (cur.kend - 1) / T) {  // the pass's last tile: the same in every thread
+      if (cur.pass == 0) {
+        // m_next = max(m_prev, rowmax(s)); a row whose block_q tile does not
+        // reach this block (under `causal`) keeps its state
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          m_next[i] = fmaxf(m_run[i], quad_max(mx[i]));
+          m_use[i] = m_next[i] == -INFINITY ? 0.f : m_next[i];  // no visited pair yet
+          run[i] = !a.causal || last_row(row + 8 * i, a.bq) > cur.kb0;
+        }
+      } else if (cur.pass == 1) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) l_single[i] = quad_sum(psum[i]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float rowsum = quad_sum(psum[i]);
+          float corr = 0.f, inv = 1.f;  // single step: acc <- o_curr
+          if (run[i]) {
+            if (single) {
+              l_run[i] = l_single[i];
+            } else {
+              // l_next = rowsum(p) + alpha l_prev; 1 / l_next taken as 1 where 0
+              const float l_corr = __fmul_rn(expf(m_run[i] - m_use[i]), l_run[i]);
+              const float l_next = __fadd_rn(rowsum, l_corr);
+              inv = l_next == 0.f ? 1.f : __fdiv_rn(1.0f, l_next);
+              corr = __fmul_rn(l_corr, inv);
+              l_run[i] = l_next;
+            }
+            m_run[i] = m_next[i];
+#pragma unroll
+            for (int j = 0; j < DH / 8; ++j)
+#pragma unroll
+              for (int e = 2 * i; e < 2 * i + 2; ++e)
+                acc[j][e] = single ? o_cur[j][e]
+                                   : __fadd_rn(__fmul_rn(acc[j][e], corr),
+                                               __fmul_rn(o_cur[j][e], inv));
+          }
+          mx[i] = -INFINITY;
+          psum[i] = 0.f;
+        }
+#pragma unroll
+        for (int j = 0; j < DH / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o_cur[j][e] = 0.f;
+      }
+    }
+    __syncthreads();  // stage st is consumed before it is refilled
+    if (!more) break;
+    cur = nxt;
   }
 
-  const long long base = (long long)bh * a.Lq;
+  const long long sb = (long long)bh * a.Lq;
+  if ((lane & 3) == 0) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= a.Lq) continue;
-    if (tx == 0) {
-      a.l[base + row] = l_run[i];
-      a.m[base + row] = m_run[i];
+    for (int i = 0; i < 2; ++i)
+      if (row + 8 * i < a.Lq) {
+        a.l[sb + row + 8 * i] = l_run[i];
+        a.m[sb + row + 8 * i] = m_run[i];
+      }
+  }
+  float* ob = (float*)a.o + b * a.os.b + h * a.os.h;
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j) {
+    const int c = 8 * j + cq;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = row + (e >> 1) * 8;
+      if (r < a.Lq) ob[(long long)r * a.os.l + c + (e & 1)] = acc[j][e];
     }
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) ob[row * a.os.l + tx + 16 * j] = pcm::from_f<T>(acc[i][j]);
   }
 }
 
@@ -644,29 +612,24 @@ cudaError_t launch(Which w, const Args& args, int B, cudaStream_t stream) {
     if (w == kFwd) return pcm::flash::launch_fwd<DH>(args, B, stream);
     return pcm::flash::launch_bwd<DH>(w == kDkv, args, B, stream);
   } else {
-    Args a = args;
-    size_t smem = bwd_smem_bytes<DH>();
-    if (w == kFwd) {
-      // stage a whole block_k block of scores when it fits the opt-in shared
-      // memory, else keep one 64-key tile and compute the scores again
-      int device = 0, optin = 0;
-      cudaError_t err = cudaGetDevice(&device);
-      if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (w == kFwd) {  // kernel 9 in 3xTF32
+      const int vec = tx::rows_aligned(args.q, args.qs) && tx::rows_aligned(args.k, args.ks) &&
+                      tx::rows_aligned(args.v, args.vs);
+      const size_t smem = f32_fwd_smem<DH>();
+      const cudaError_t err = cudaFuncSetAttribute(
+          f32_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (err != cudaSuccess) return err;
-      const int width = ((a.bk >= a.Lk ? a.Lk : a.bk) + kBK - 1) / kBK * kBK;
-      a.staged = fwd_smem_bytes<DH>(width + 1) <= (size_t)optin;
-      a.sp = a.staged ? width + 1 : kBK + 1;
-      smem = fwd_smem_bytes<DH>(a.sp);
+      f32_fwd_kernel<DH><<<dim3((args.Lq + tx::kTile - 1) / tx::kTile, B * args.H),
+                           tx::kThreads, smem, stream>>>(args, vec);
+      return cudaGetLastError();
     }
-    void (*kernel)(Args) = flash_fwd_kernel<T, DH>;
-    if (w == kDkv) kernel = flash_dkv_kernel<T, DH>;
-    if (w == kDq) kernel = flash_dq_kernel<T, DH>;
+    const size_t smem = bwd_smem_bytes<DH>();
+    void (*kernel)(Args) = w == kDkv ? flash_dkv_kernel<T, DH> : flash_dq_kernel<T, DH>;
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    const int tiles = w == kDkv ? (a.Lk + kBK - 1) / kBK : (a.Lq + kBQ - 1) / kBQ;
-    kernel<<<dim3(tiles, B * a.H), kThreads, smem, stream>>>(a);
+    const int tiles = w == kDkv ? (args.Lk + kBK - 1) / kBK : (args.Lq + kBQ - 1) / kBQ;
+    kernel<<<dim3(tiles, B * args.H), kThreads, smem, stream>>>(args);
     return cudaGetLastError();
   }
 }

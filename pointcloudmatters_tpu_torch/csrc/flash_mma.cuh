@@ -4,8 +4,8 @@
 // flash_attention.cu (the launch arguments, the mask value, the causal
 // skips, the Philox bits), whose C entries `pcm_flash_fwd`,
 // `pcm_flash_bwd_dkv` and `pcm_flash_bwd_dq` dispatch here when the element
-// type is bf16. The f32 instances stay on the FP32 pipes in
-// flash_attention.cu.
+// type is bf16. The f32 kernels are in flash_attention.cu (kernel 9 in
+// 3xTF32 on the tensor cores, 10 and 11 on the FP32 pipes).
 //
 // Replaces the TPU kernels of pointcloudmatters_tpu/ops/flash_attention.py
 // at bf16: `_flash_attention_impl` (:697; pallas_call :869, bodies
@@ -121,7 +121,7 @@ struct Args {
   float inv_keep;
   uint32_t seed;
   int dropout;
-  int sp, staged;  // the forward's score pitch, and whether a block is staged
+  int unused[2];  // keeps the offset of the parameter after Args in the kernels that take one
 };
 
 // Keep bits of key columns 4g .. 4g+3 of query row `row`, every batch item
@@ -182,8 +182,8 @@ __device__ __forceinline__ void keep_keys(uint32_t (&k)[4], uint32_t seed, int k
 // `causal`) tested once for all the fragments, so that the per-element work
 // stays straight-line code the compiler can interleave. pair(j, e) gives the
 // element's query row, key column, query segment id and key segment id
-// (x, y, z, w).
-template <int NT, class Pair>
+// (x, y, z, w). T is the bias's element type.
+template <int NT, typename T = bf16, class Pair>
 __device__ __forceinline__ void logits(const Args& a, long long bh, float (&s)[NT][4],
                                        Pair pair) {
   if (a.ab != nullptr) {
@@ -193,7 +193,7 @@ __device__ __forceinline__ void logits(const Args& a, long long bh, float (&s)[N
       for (int e = 0; e < 4; ++e) {
         const int4 p = pair(j, e);
         if (p.x < a.Lq && p.y < a.Lk)
-          s[j][e] = __fadd_rn(s[j][e], to_f(((const bf16*)a.ab)[(bh * a.Lq + p.x) * a.Lk + p.y]));
+          s[j][e] = __fadd_rn(s[j][e], to_f(((const T*)a.ab)[(bh * a.Lq + p.x) * a.Lk + p.y]));
       }
   }
 #pragma unroll

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Compare the bf16 attention kernels of two builds of the port on one GPU.
+"""Compare the attention kernels of two builds of the port on one GPU.
 
     python3 scripts/ab_kernel_builds.py OTHER [--rounds 2]
 
@@ -13,14 +13,18 @@ In turns (other, this, this, other, and so on, ``--rounds`` pairs), a fresh
 process builds one copy's kernels and times by CUDA events, over 20 launches
 after a warm-up: bf16 kernel 3 (the oneshot forward, with its row
 statistics) and kernel 4 (its backward) at B=4, H=8, L=2051, dh=64, at
-dropout 0 and 0.1, and bf16 kernel 7 (the fused layer's forward) at B=4,
-L=2051, D=512, H=8. Then it compares the SASS (``cuobjdump -sass``) of
-every kernel of the attention libraries that include
+dropout 0 and 0.1; bf16 kernel 7 (the fused layer's forward) at B=4,
+L=2051, D=512, H=8; and the f32 oneshot backward (kernel 4) and f32 flash
+forward (kernel 9, 512-row tiles) at the same attention shape and rates,
+each with its worst error against its plain version at rate 0.1 on the same
+seeded inputs in every turn. Then it compares the SASS (``cuobjdump -sass``)
+of every kernel of the attention libraries that include
 ``csrc/attention_mma.cuh`` but not the fused layer (``attention_fwd``,
 ``attention_bwd``, ``flash_attention``) between the two builds, instruction
 addresses and encodings dropped, kernels paired by mangled name (the
-oneshot kernels' ``Oneshot`` template argument ignored), and prints how
-many kernels differ.
+oneshot kernels' ``Oneshot`` template argument ignored), and prints one
+line a kernel: the same, differing (with both line counts), or in one
+build only.
 
 Needs the card and the CUDA toolkit (``cuobjdump``); prints the card's name
 and power limit first.
@@ -49,6 +53,7 @@ def time_build(root: str) -> str:
 
     import chip_smoke
     from pointcloudmatters_tpu_torch import _build
+    from pointcloudmatters_tpu_torch.ops import flash_attention as fa
     from pointcloudmatters_tpu_torch.ops import fused_mha as fm
     from pointcloudmatters_tpu_torch.ops import oneshot_attention as one
 
@@ -77,6 +82,22 @@ def time_build(root: str) -> str:
         t for _ in range(4) for t in (arr(D, D, std=D ** -0.5), arr(D, std=0.2))]
     fused = chip_smoke.cuda_ms(lambda: fm.fused_mha_cuda(*layer, H, 0.0, 17), 20)
     parts.append(f"#7 {fused:.4f} ms")
+
+    # f32 kernels 4 and 9: times at both rates, worst error at rate 0.1
+    q, k, v, dout = (arr(B, H, L, dh).float() for _ in range(4))
+    f32 = []
+    for rate in (0.0, 0.1):
+        out, m, r = one.oneshot_attention_cuda(q, k, v, scale, None, rate, 11, with_stats=True)
+        args = (q, k, v, out, dout, m, r, scale, None, rate, 11)
+        bwd = chip_smoke.cuda_ms(lambda: one.oneshot_attention_bwd_cuda(*args), 20)
+        kw = dict(sm_scale=scale, dropout_rate=rate, dropout_seed=23, block_q=512, block_k=512)
+        fwd = chip_smoke.cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw), 20)
+        f32.append(f"f32 #4 {bwd:.4f} ms, f32 #9 {fwd:.4f} ms at rate {rate}")
+    err4 = max(chip_smoke._max_err(g, p) for g, p in zip(
+        one.oneshot_attention_bwd_cuda(*args), one.oneshot_attention_plain_bwd(*args)))
+    err9 = chip_smoke._max_err(fa.flash_attention_cuda(q, k, v, **kw)[0],
+                               fa.flash_attention_plain(q, k, v, **kw)[0])
+    parts += f32 + [f"f32 worst error at rate 0.1: #4 {err4:.3e}, #9 {err9:.3e}"]
     return "; ".join(parts)
 
 
@@ -131,9 +152,18 @@ def main() -> int:
     for lib in SASS_LIBRARIES:
         a, b = sass(other, lib), sass(REPO, lib)
         differ = sorted(k for k in a.keys() | b.keys() if a.get(k) != b.get(k))
-        print(f"SASS {lib}: {len(a)} / {len(b)} kernels, {sum(map(len, a.values()))} / "
-              f"{sum(map(len, b.values()))} lines, {len(differ)} kernels differ"
-              + (f": {differ}" if differ else ""), flush=True)
+        print(f"SASS {lib}: {len(a)} / {len(b)} kernels (other / this), "
+              f"{len(differ)} differ", flush=True)
+        for name in sorted(a.keys() | b.keys()):
+            if name not in b:
+                state = f"only in other ({len(a[name])} lines)"
+            elif name not in a:
+                state = f"only in this ({len(b[name])} lines)"
+            elif a[name] == b[name]:
+                state = f"same ({len(a[name])} lines)"
+            else:
+                state = f"differs ({len(a[name])} / {len(b[name])} lines)"
+            print(f"  {name}: {state}", flush=True)
     return 0
 
 

@@ -1,0 +1,217 @@
+"""The exact-f32 product of the port's f32 oneshot backward and f32 flash
+forward (``csrc/f32_mma.cuh``, "3xTF32"), emulated in numpy.
+
+The card runs each f32 product as three TF32 tensor-core products: an
+operand x is split into hi = rna(x) and lo = rna(x - hi), rna being
+``cvt.rna.tf32.f32`` (10 mantissa bits, ties away from zero), and a b is
+summed as a_lo b_hi + a_hi b_lo + a_hi b_hi, small terms first, one
+``mma.m16n8k8`` (8-deep k step) at a time. The emulation
+takes each k step's eight TF32 products exactly (in f64, where a product of
+two 11-bit significands is exact), adds them truncating (toward zero, as
+the tensor cores add into their accumulator) into a zeroed f32 sum, one
+mma at a time, and adds that sum to the f32 accumulator rounding to
+nearest, as the kernels' ``mma3`` does.
+
+- rna rounds to 10 mantissa bits with ties away from zero, and hi + lo
+  holds an operand to 2^-22 of its size.
+- Over a long sum (P V over 2051 keys), adding the mmas straight into the
+  accumulator lets their truncation shrink it step by step; the flushed sum
+  stays within 4x of an f32 FMA chain's error.
+- At dh 64 and 128, on operands drawn as ``chip_smoke.py`` phase 3 draws
+  them (standard normal, q scaled by dh^-0.5), the emulated S = q k^T is
+  within 4x of the error of a plain f32 product (an f32 FMA chain in k
+  order, as the kernels it replaces summed) against f64; TF32 alone (hi
+  only) is over 100x off, which is why it is not used.
+- The emulated backward chain S -> p -> dP -> dS -> dQ, dK, dV (the f32
+  oneshot backward's arithmetic, dropout at 0.1 included) stays inside the
+  1e-4 * max(1, max |plain|) that ``chip_smoke.py`` holds the kernel to,
+  against the same chain in f64.
+- The f32 shared tiles (``at`` and ``ld`` of the header, read from the
+  source) give every fragment load of the kernels 32 distinct banks a warp:
+  the 8-byte row-major loads of A and B (conflict-free by half-warp) and
+  the 4-byte transposed B loads.
+"""
+
+import os
+import re
+
+import numpy as np
+import pytest
+
+from pointcloudmatters_tpu_torch import _build
+
+HEADER = os.path.join(_build.CSRC, "f32_mma.cuh")
+
+
+def rna_tf32(x: np.ndarray) -> np.ndarray:
+    """``cvt.rna.tf32.f32``: x to 10 mantissa bits, ties away from zero
+    (finite x; the magnitude is rounded up at half an ulp, in the bits)."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def split(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    x = np.asarray(x, np.float32)
+    hi = rna_tf32(x)
+    return hi, rna_tf32(x - hi)
+
+
+def rz(x: np.ndarray) -> np.ndarray:
+    """f64 values to f32 rounding toward zero, as an mma adds into its
+    accumulator."""
+    r = np.asarray(x, np.float64).astype(np.float32)
+    over = np.abs(r.astype(np.float64)) > np.abs(x)
+    r[over] = np.nextafter(r[over], np.float32(0))
+    return r
+
+
+def mma3(a: np.ndarray, b: np.ndarray, terms=("lh", "hl", "hh"), flush=True) -> np.ndarray:
+    """a (M, K) times b (K, N) as the card sums it: per 8-deep k step, each
+    TF32 product term's eight products summed exactly and added truncating
+    into a zeroed f32 sum, which is added to the f32 accumulator rounding to
+    nearest (``flush``, the kernels' ``mma3``); or each term added
+    truncating into the accumulator itself."""
+    (ah, al), (bh, bl) = split(a), split(b)
+    parts = {"h": (ah, bh), "l": (al, bl)}
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k0 in range(0, a.shape[1], 8):
+        ks = slice(k0, k0 + 8)
+        t = np.zeros_like(acc) if flush else acc
+        for term in terms:
+            pa, pb = parts[term[0]][0], parts[term[1]][1]
+            t = rz(t.astype(np.float64) + pa[:, ks].astype(np.float64) @ pb[ks].astype(np.float64))
+        acc = (acc.astype(np.float64) + t).astype(np.float32) if flush else t
+    return acc
+
+
+def fma_chain(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """a b in f32, summed in k order (the FP32-pipe kernels' sum)."""
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k in range(a.shape[1]):
+        acc = (acc.astype(np.float64)
+               + a[:, k:k + 1].astype(np.float64) * b[k:k + 1].astype(np.float64)
+               ).astype(np.float32)
+    return acc
+
+
+def test_rna_rounds_to_ten_bits_ties_away_from_zero():
+    one = np.float32(1.0)
+    ulp = np.float32(2.0 ** -10)
+    cases = {
+        1.0 + 2.0 ** -11: 1.0 + 2.0 ** -10,        # a tie: away from zero
+        -(1.0 + 2.0 ** -11): -(1.0 + 2.0 ** -10),
+        1.0 + 2.0 ** -11 - 2.0 ** -20: 1.0,        # below the tie
+        1.0 + 3 * 2.0 ** -11: 1.0 + 2 * 2.0 ** -10,  # a tie above an odd ulp
+        2.0 - 2.0 ** -12: 2.0,                     # the carry into the exponent
+    }
+    for x, want in cases.items():
+        assert rna_tf32(np.float32(x)) == np.float32(want), x
+    assert rna_tf32(one + ulp) == one + ulp
+    x = np.random.RandomState(0).randn(10000).astype(np.float32)
+    hi = rna_tf32(x)
+    assert np.all(hi.view(np.uint32) & np.uint32(0x1FFF) == 0)
+    assert np.all(np.abs(hi - x) <= np.abs(x) * 2.0 ** -11)
+
+
+def test_split_holds_the_operand_to_2_pow_minus_22():
+    x = np.random.RandomState(1).randn(100000).astype(np.float32) * 10.0 ** \
+        np.random.RandomState(2).randint(-3, 4, 100000)
+    hi, lo = split(x)
+    err = np.abs(x.astype(np.float64) - hi.astype(np.float64) - lo.astype(np.float64))
+    assert np.all(err <= np.abs(x) * 2.0 ** -22)
+
+
+def _phase3_operands(dh, rows, seed):
+    rng = np.random.RandomState(seed)
+    q = (rng.randn(rows, dh) * dh ** -0.5).astype(np.float32)
+    k = rng.randn(rows, dh).astype(np.float32)
+    return q, k
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+def test_split_product_error_is_f32_like(dh):
+    q, k = _phase3_operands(dh, 256, 3)
+    ref = q.astype(np.float64) @ k.T.astype(np.float64)
+    err3 = np.abs(mma3(q, k.T) - ref).max()
+    err_fma = np.abs(fma_chain(q, k.T) - ref).max()
+    err1 = np.abs(mma3(q, k.T, terms=("hh",)) - ref).max()
+    assert err3 <= 4.0 * err_fma, (err3, err_fma)
+    assert err1 >= 100.0 * err_fma, (err1, err_fma)
+
+
+def test_flushed_sum_removes_the_truncation_bias():
+    """A P V sum over 2051 keys: added straight into the accumulator, the
+    mmas' truncation shrinks it step by step; flushed, the error is that of
+    an f32 sum."""
+    rng = np.random.RandomState(5)
+    s = rng.randn(64, 2051)
+    p = (np.exp(s - s.max(-1, keepdims=True)) * 0.5).astype(np.float32)
+    v = rng.randn(2051, 64).astype(np.float32)
+    ref = p.astype(np.float64) @ v.astype(np.float64)
+    err_flush = np.abs(mma3(p, v) - ref).max()
+    err_direct = np.abs(mma3(p, v, flush=False) - ref).max()
+    err_fma = np.abs(fma_chain(p, v) - ref).max()
+    assert err_flush <= 4.0 * err_fma, (err_flush, err_fma)
+    assert err_direct >= 4.0 * err_flush, (err_direct, err_flush)
+
+
+@pytest.mark.parametrize("dh,rate", [(64, 0.0), (64, 0.1), (128, 0.1)])
+def test_split_backward_chain_within_kernel_limit(dh, rate):
+    """S -> p -> dS -> dQ, dK, dV of the f32 oneshot backward, each product
+    in emulated 3xTF32 and the rest in f32, against the chain in f64."""
+    rng = np.random.RandomState(4)
+    Lq, Lk = 96, 160
+    q = rng.randn(Lq, dh).astype(np.float32)
+    k, v = rng.randn(Lk, dh).astype(np.float32), rng.randn(Lk, dh).astype(np.float32)
+    do = rng.randn(Lq, dh).astype(np.float32)
+    scale = np.float32(dh ** -0.5)
+    keep = rng.rand(Lq, Lk) >= rate
+    inv_keep = np.float32(1.0 / (1.0 - rate))
+
+    def chain(mm, f):
+        qs = f(q) * f(scale)
+        s = mm(qs, f(k).T)
+        m = s.max(-1, keepdims=True)
+        e = np.exp(s - m)
+        p = e * (f(1.0) / e.sum(-1, keepdims=True))
+        pd = np.where(keep, p * f(inv_keep), f(0.0))
+        o = mm(pd, f(v))
+        delta = (f(do) * o).sum(-1, keepdims=True)
+        dp = mm(f(do), f(v).T)
+        ds = p * (np.where(keep, dp * f(inv_keep), f(0.0)) - delta)
+        return mm(ds, f(k)) * f(scale), mm(ds.T, qs), mm(pd.T, f(do))
+
+    got = chain(mma3, np.float32)
+    ref = chain(lambda a, b: a @ b, np.float64)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        limit = 1e-4 * max(1.0, np.abs(r).max())
+        assert np.abs(g - r).max() <= limit, name
+
+
+def _tile_offset(dh: int):
+    """``at<DH>(r, c)`` of the header as a Python function, from its source."""
+    with open(HEADER) as f:
+        text = f.read()
+    ld = re.search(r"constexpr int ld\(\) \{\s*return (DH \+ \d+);", text).group(1)
+    at = re.search(r"int at\(int r, int c\) \{\s*return ([^;]+);", text).group(1)
+    width = eval(ld.replace("DH", str(dh)))
+    expr = at.replace("ld<DH>()", str(width))
+    return lambda r, c: eval(expr, {}, {"r": r, "c": c})
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+def test_tile_fragment_loads_are_conflict_free(dh):
+    at = _tile_offset(dh)
+    lanes = [(lane >> 2, lane & 3) for lane in range(32)]  # (g, t)
+    for r0 in (0, 16, 48):
+        for c0 in range(0, dh, 8):
+            # row-major A/B: one 8-byte load of (row r0 + g, columns c0 + 2t, +1)
+            for half in (lanes[:16], lanes[16:]):
+                offs = [at(r0 + g, c0 + 2 * t) for g, t in half]
+                assert all(o % 2 == 0 and at(r0 + g, c0 + 2 * t + 1) == o + 1
+                           for o, (g, t) in zip(offs, half))
+                assert len({(o % 32) // 2 for o in offs}) == 16
+            # transposed B: 4-byte loads of rows c0 + 2t (+1), column r0 + g
+            for extra in (0, 1):
+                banks = {at(c0 + 2 * t + extra, r0 + g) % 32 for g, t in lanes}
+                assert len(banks) == 32

@@ -12,7 +12,8 @@ Phases, each of which raises on failure (exit code non-zero, no result):
    build time and ptxas's registers and spills by kernel function; those of
    the tensor-core kernels (bf16 kernel 9, the bf16 oneshot backward, kernel
    7's and 8's GEMM instantiations and attention kernels at dh 64 and 128,
-   the 3xTF32 f32 kernels 4 and 9 at dh 64 and 128) and of the FP32 GEMM go
+   the 3xTF32 f32 kernels 4, 9, 10 and 11 at dh 64 and 128) and of the FP32
+   GEMM go
    into the kernels line (``ptxas``).
 3. Holds each kernel against its plain PyTorch version on the card at the
    flagship's shapes, and times both:
@@ -50,11 +51,13 @@ Phases, each of which raises on failure (exit code non-zero, no result):
    with a bias (its gradient ds), a masked key tail, a batch row whose keys
    are all masked and Lq != Lk; dh=128; kernel 9's
    1024-key blocks (scores computed again in each pass) and its single-step
-   variant; in bf16 (kernels 9, 10 and 11 on the tensor cores,
-   ``csrc/flash_mma.cuh``) also Lq=70, Lk=650 with a segment-masked key
-   tail, the same on views whose rows are not 16-byte aligned, and a causal
-   case whose 48- and 40-row TPU tiles straddle the 64-row mma tiles, each
-   at rate 0.1, and kernels 9, 10 and 11 timed at rate 0 beside rate 0.1:
+   variant; in f32 (kernels 9, 10 and 11 in 3xTF32, ``csrc/f32_mma.cuh``)
+   and in bf16 (on the tensor cores, ``csrc/flash_mma.cuh``) also Lq=70,
+   Lk=650 with a segment-masked key tail, the same on views whose rows are
+   not 16-byte aligned (plain loads, no cp.async), and a causal case whose
+   48- and 40-row TPU tiles straddle the 64-row mma tiles, each at rate
+   0.1, and kernels 9, 10 and 11 of both types timed at rate 0 beside rate
+   0.1:
    o and every gradient within 1e-4 * max(1, max |plain|) in f32 and BF16_TOL in bf16,
    l and m within 1e-5 relative, two launches of each bit-identical, the
    mask read back bit for bit and the same for every batch item and head.
@@ -129,8 +132,8 @@ the peak of the inputs' type, 67 TFLOP/s f32 or 989 TFLOP/s bf16; one
 ``attention_bwd`` launch is one call of the three-kernel backward: the
 ``rowsum(dO * O)`` pre-pass, dK/dV and dQ, timed together, and its library
 time is the library's forward + backward less its forward; the bf16
-oneshot kernels, bf16 flash kernels 9, 10 and 11 and the f32 kernels 4 and 9
-also carry ``ms_rate0``, their time at dropout 0 beside ``ms`` at 0.1, like
+oneshot kernels, flash kernels 9, 10 and 11 of both types and the f32
+kernel 4 also carry ``ms_rate0``, their time at dropout 0 beside ``ms`` at 0.1, like
 for like with the library's rate-0 call (kernel 9 of both types also
 ``ms_single_step``, its single-step variant at rate 0.1, which takes S once
 more over every key); the kernels of ``PTXAS_FUNCTIONS`` carry ``ptxas``; a fused layer's
@@ -191,16 +194,21 @@ KERNELS = {
     "flash_dkv_bf16": (_CSRC + "flash_mma.cuh", _OPS + "flash_attention.py:1068"),
     "flash_dq_bf16": (_CSRC + "flash_mma.cuh", _OPS + "flash_attention.py:1427"),
 }
-# phase 2: the tensor-core kernels (bf16, and f32 kernels 4 and 9 in 3xTF32)
-# whose ptxas registers and spills the kernels line records, by a piece of
-# their mangled names
+# phase 2: the tensor-core kernels (bf16, and f32 kernels 4, 9, 10 and 11 in
+# 3xTF32) whose ptxas registers and spills the kernels line records, by a
+# piece of their mangled names (the two f32_dq_kernel pieces by their
+# argument types as well: each library has one)
 PTXAS_FUNCTIONS = {
-    "attention_bwd": {"dkdv_dh64": "15f32_dkdv_kernelILi64E", "dq_dh64": "13f32_dq_kernelILi64E",
+    "attention_bwd": {"dkdv_dh64": "15f32_dkdv_kernelILi64E",
+                      "dq_dh64": "13f32_dq_kernelILi64EEEvNS_4ArgsIfEE",
                       "dkdv_dh128": "15f32_dkdv_kernelILi128E",
-                      "dq_dh128": "13f32_dq_kernelILi128E"},
+                      "dq_dh128": "13f32_dq_kernelILi128EEEvNS_4ArgsIfEE"},
     "attention_bwd_bf16": {"dkdv_dh64": "8attn_mma11dkdv_kernelILi64ENS0_7OneshotE",
                            "dq_dh64": "8attn_mma9dq_kernelILi64ENS0_7OneshotE"},
     "flash_fwd": {"dh64": "14f32_fwd_kernelILi64E", "dh128": "14f32_fwd_kernelILi128E"},
+    "flash_dkv": {"dh64": "14f32_dkv_kernelILi64E", "dh128": "14f32_dkv_kernelILi128E"},
+    "flash_dq": {"dh64": "13f32_dq_kernelILi64EEEvN3pcm5flash4ArgsE",
+                 "dh128": "13f32_dq_kernelILi128EEEvN3pcm5flash4ArgsE"},
     "flash_fwd_bf16": {"dh64": "5flash10fwd_kernelILi64E", "dh128": "5flash10fwd_kernelILi128E"},
     "fused_mha_fwd": {"gemm_qkv": "16fp32_gemm_kernelIff13__nv_bfloat16E",
                       "gemm_out": "16fp32_gemm_kernelI13__nv_bfloat16ffE"},
@@ -1019,13 +1027,13 @@ def check_flash(dev) -> dict:
     versions: B=4, H=8, L=2051, dh=64 at the adapter's 512-row tiles, f32
     and bf16, rates 0 and 0.1; a small causal case with a bias (its
     gradient ds), a masked key tail, a batch row whose keys are all masked,
-    Lq != Lk and 128-row tiles; dh=128; bf16 Lq=70, Lk=650 with a
+    Lq != Lk and 128-row tiles; dh=128; Lq=70, Lk=650 with a
     segment-masked key tail, aligned and not, and causal 48/40-row tiles.
     o, dq, dk, dv and ds within 1e-4 *
     max(1, max |plain|) in f32 and BF16_TOL in bf16, l and m within 1e-5
     relative; two launches of each kernel bit-identical; the mask read back
     bit for bit, the same for every batch item and head. Kernel, plain and
-    library times at the flagship shape (bf16 10 and 11 also at rate 0)."""
+    library times at the flagship shape (10 and 11 also at rate 0)."""
     import numpy as np
     import torch
 
@@ -1119,15 +1127,16 @@ def check_flash(dev) -> dict:
             f"{fwd['ms_rate0']:.3f} ms at rate 0, {fwd['ms_single_step']:.3f} ms in the "
             f"single-step variant (block_k={L}, rate {ATTN_DROPOUT}); worst error "
             f"{fwd['max_abs_err']:.3e}")
-        if tag == "bf16":  # the share of Philox: kernels 10 and 11 at rate 0
-            o0, l0, m0 = fa.flash_attention_cuda(q, k, v, **kw0)
-            args0 = (q, k, v, None, None, l0, m0, do, (o0.float() * do.float()).sum(-1))
-            for name, fn in (("flash_dkv_bf16", fa.flash_attention_bwd_dkv_cuda),
-                             ("flash_dq_bf16", fa.flash_attention_bwd_dq_cuda)):
-                res[name]["ms_rate0"] = cuda_ms(lambda: fn(*args0, **kw0), 5)
-                log(f"flash   {name}: kernel {res[name]['ms']:.3f} ms at rate "
-                    f"{ATTN_DROPOUT}, {res[name]['ms_rate0']:.3f} ms at rate 0")
-            del o0, l0, m0, args0
+        # kernels 10 and 11 at rate 0: like for like with the library, and
+        # the share of Philox
+        o0, l0, m0 = fa.flash_attention_cuda(q, k, v, **kw0)
+        args0 = (q, k, v, None, None, l0, m0, do, (o0.float() * do.float()).sum(-1))
+        for name, fn in (("flash_dkv" + suffix, fa.flash_attention_bwd_dkv_cuda),
+                         ("flash_dq" + suffix, fa.flash_attention_bwd_dq_cuda)):
+            res[name]["ms_rate0"] = cuda_ms(lambda: fn(*args0, **kw0), 5)
+            log(f"flash   {name}: kernel {res[name]['ms']:.3f} ms at rate "
+                f"{ATTN_DROPOUT}, {res[name]['ms_rate0']:.3f} ms at rate 0")
+        del o0, l0, m0, args0
         log(f"flash   {tag} rate={ATTN_DROPOUT}: fwd kernel {res['flash_fwd' + suffix]['ms']:.3f} "
             f"ms, plain {res['flash_fwd' + suffix]['plain_ms']:.3f} ms, "
             f"scaled_dot_product_attention {lib_fwd:.3f} ms (rate 0); dkv kernel "
@@ -1170,27 +1179,29 @@ def check_flash(dev) -> dict:
             check(f"{tag} B=2 H=2 L={L} dh=64 block_k={bk} rate={ATTN_DROPOUT}",
                   *run(q, k, v, None, None, do, kw), dtype)
 
-    # bf16 shapes that stress the tensor-core tiling of kernels 10 and 11:
-    # Lq = 70 and Lk = 650 (ragged 64-row tiles and 32-column sub-tiles)
-    # with a segment-masked key tail, also on views whose rows are not
-    # 16-byte aligned (row stride dh + 1, loaded without cp.async); and a
-    # causal case whose TPU tiles straddle the 64-row mma tiles
+    # shapes that stress the mma tiling of kernels 10 and 11 (tensor cores
+    # in bf16, 3xTF32 in f32): Lq = 70 and Lk = 650 (ragged 64-row tiles and
+    # sub-tiles) with a segment-masked key tail, also on views whose rows
+    # are not 16-byte aligned (row stride dh + 1, loaded without cp.async);
+    # and a causal case whose TPU tiles straddle the 64-row mma tiles
     Bs, Hs, Lq, Lk = 2, 4, 70, 650
     kv = torch.ones((Bs, Lk), dtype=i32, device=dev)
     kv[:, 600:] = 0
     ids = fa.SegmentIds(torch.ones((Bs, Lq), dtype=i32, device=dev), kv)
-    kw = dict(sm_scale=0.125, dropout_rate=ATTN_DROPOUT, dropout_seed=13, block_q=Lq,
-              block_k=FLASH_BLOCK)
-    for pad in (0, 1):
-        q, do = (arr(bf16, Bs, Hs, Lq, 64 + pad)[..., pad:] for _ in range(2))
-        k, v = (arr(bf16, Bs, Hs, Lk, 64 + pad)[..., pad:] for _ in range(2))
-        check(f"bf16 Lq={Lq} Lk={Lk} dh=64, segment-masked key tail, rate={ATTN_DROPOUT}"
-              + (", row stride dh + 1" if pad else ""), *run(q, k, v, None, ids, do, kw), bf16)
-    q, k, v, do = (arr(bf16, 2, 2, 300, 64) for _ in range(4))
-    kw = dict(causal=True, sm_scale=0.125, dropout_rate=ATTN_DROPOUT, dropout_seed=3,
-              block_q=48, block_k=40)
-    check(f"bf16 causal L=300 dh=64 block_q=48 block_k=40 rate={ATTN_DROPOUT}",
-          *run(q, k, v, None, None, do, kw), bf16)
+    for dtype, tag in ((f32, "f32"), (bf16, "bf16")):
+        kw = dict(sm_scale=0.125, dropout_rate=ATTN_DROPOUT, dropout_seed=13, block_q=Lq,
+                  block_k=FLASH_BLOCK)
+        for pad in (0, 1):
+            q, do = (arr(dtype, Bs, Hs, Lq, 64 + pad)[..., pad:] for _ in range(2))
+            k, v = (arr(dtype, Bs, Hs, Lk, 64 + pad)[..., pad:] for _ in range(2))
+            check(f"{tag} Lq={Lq} Lk={Lk} dh=64, segment-masked key tail, rate={ATTN_DROPOUT}"
+                  + (", row stride dh + 1" if pad else ""),
+                  *run(q, k, v, None, ids, do, kw), dtype)
+        q, k, v, do = (arr(dtype, 2, 2, 300, 64) for _ in range(4))
+        kw = dict(causal=True, sm_scale=0.125, dropout_rate=ATTN_DROPOUT, dropout_seed=3,
+                  block_q=48, block_k=40)
+        check(f"{tag} causal L=300 dh=64 block_q=48 block_k=40 rate={ATTN_DROPOUT}",
+              *run(q, k, v, None, None, do, kw), dtype)
 
     # the mask read back: q = 0 weighs every key alike, v = Lk I in two
     # stripes of 128 columns picks one key a column, so o != 0 where kept

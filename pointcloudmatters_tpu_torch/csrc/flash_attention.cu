@@ -47,38 +47,47 @@
 //
 // What bounds it on an H100: arithmetic. 4 B H Lq Lk dh flops forward (6
 // with S taken twice), 8 for dK/dV (S, dP, dV, dK) and 6 for dQ (S, dP,
-// dQ). At f32, kernel 9 runs on the TF32 tensor cores in 3xTF32
-// (f32_mma.cuh: exact-f32 products from three TF32 mmas) and kernels 10 and
-// 11 on the FP32 pipes as f32 FMAs. At bf16 the C entries dispatch to the
-// tensor-core kernels of flash_mma.cuh (kernels 9, 10 and 11), which also
-// holds what every kernel here shares: the launch arguments, the mask value,
-// the causal skips, the Philox bits, the score function and the forward's
-// walk over the block_k blocks.
+// dQ). At f32 all three kernels run on the TF32 tensor cores in 3xTF32
+// (f32_mma.cuh: exact-f32 products from three TF32 mmas, each k step's sum
+// added to the f32 accumulator rounding to nearest). At bf16 the C entries
+// dispatch to the tensor-core kernels of flash_mma.cuh (kernels 9, 10 and
+// 11), which also holds what every kernel here shares: the launch
+// arguments, the mask value, the causal skips, the Philox bits, the score
+// function and the forward's walk over the block_k blocks.
 //
 // What the design does about the TPU kernels' shape: those carry m, l and
 // the accumulators in VMEM scratch across a sequential kv grid axis (dK/dV
 // across a sequential q axis). Hopper has no sequential grid axis, so a
-// loop inside the block takes its place, as in kernels 3 and 4:
-//   9  (f32) one block a (64-query tile, batch * head), 4 warps x 16 rows,
-//      walking the block_k blocks as bf16 kernel 9 walks them: per block S
-//      and its row max over the 64-key tiles the block overlaps, then S
-//      again, p and P V (the single step: a pass for l between), K and V
-//      tiles streamed by cp.async into two-stage rings. S is computed again,
-//      not staged: a 64 x 512 block of f32 scores would take 128 KiB of
-//      shared memory and one block an SM. The C fragments of p D are the A
-//      fragments of P V (f32_mma.cuh's k permutation), and the update keeps
+// loop inside the block takes its place, as in kernels 3 and 4. Every f32
+// kernel here is 4 warps x 16 rows, f32 tiles streamed by cp.async into
+// two-stage rings (plain loads for views whose rows are not 16-byte
+// aligned), scores a sub-tile of 16 or 32 columns at a time, the C
+// fragments of one product taken as the A fragments of the next
+// (f32_mma.cuh's k permutation), and flash_mma.cuh's score function
+// (`logits`, each launch-wide condition tested once) and lane-shared Philox
+// draws (`keep_rows`, `keep_keys`):
+//   9  one block a (64-query tile, batch * head), walking the block_k
+//      blocks as bf16 kernel 9 walks them: per block S and its row max over
+//      the 64-key tiles the block overlaps, then S again, p and P V (the
+//      single step: a pass for l between), K and V tiles streamed. S is
+//      computed again, not staged: a 64 x 512 block of f32 scores would
+//      take 128 KiB of shared memory and one block an SM. The update keeps
 //      the TPU's arithmetic and two accumulators;
-//   10 (f32) one block a (64-key tile, batch * head); it loops over the query
-//      tiles, dK and dV of its 64 keys in registers;
-//   11 (f32) one block a (64-query tile, batch * head); it loops over the key
-//      tiles, dQ of its 64 queries in registers, and writes its ds tiles.
-// Kernels 10 and 11 take 256 threads a block, each a 4x4 register tile of
-// the 64x64 score work, shared tiles padded by one float a row. Tail tiles
-// are bounds-checked: pairs out of range, and pairs of causal tiles the TPU
-// grid skips, get the logit -inf and weigh exactly 0 (a row that has seen
-// none of its pairs yet keeps m = -inf, and its exp is taken against 0
-// instead, never NaN). A 64x64 tile none of whose pairs is visited is
-// skipped.
+//   10 one block a (64-key tile, batch * head), K and V resident, Q and dO
+//      tiles and their rows' m, 1 / l, di and segment ids streamed over the
+//      query tiles it visits; S^T = K Q^T and dP^T = V dO^T, so that
+//      p_dropped^T and dS^T are the A fragments of dV += p_dropped^T dO and
+//      dK += dS^T Q; dK and dV of its 64 keys in registers;
+//   11 one block a (64-query tile, batch * head), Q and dO resident, K, V
+//      and the keys' segment ids streamed over the key tiles it visits;
+//      S = Q K^T and dP = dO V^T, dS into dQ += dS K and, with a bias, from
+//      its registers into ds.
+// Tail tiles are bounds-checked: pairs out of range, and pairs of causal
+// tiles the TPU grid skips, get the logit -inf and weigh exactly 0 (in the
+// forward a row that has seen none of its pairs yet keeps m = -inf, and
+// its exp is taken against 0 instead, never NaN). Under `causal` the
+// visited tiles of a key tile are a suffix of the query tiles and those of
+// a query tile a prefix of the key tiles; the rings stream just those.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -87,87 +96,24 @@
 #include "elem.cuh"
 #include "f32_mma.cuh"
 #include "flash_mma.cuh"
-#include "philox.cuh"
 
 namespace {
 
-using pcm::round_to;
-using pcm::to_f;
 using pcm::flash::Args;
-using pcm::flash::flash_keep_bits4;
 using pcm::flash::FwdStep;
-using pcm::flash::kMaskValue;
 using pcm::flash::last_row;
 using pcm::flash::logits;
 using pcm::flash::next_step;
 using pcm::flash::quad_max;
 using pcm::flash::quad_sum;
+using pcm::flash::score_ds;
 using pcm::flash::Strides;
 using pcm::flash::tile_skipped;
 
 namespace mm = pcm::attn_mma;
 namespace tx = pcm::tf32x3;
 
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kThreads = 256;
-static_assert(kBQ == pcm::flash::kTileRows, "tile_skipped tests 64-row query tiles");
-
-// The logit of (row, col) from the product s = q . k, or -inf for a pair
-// out of range or not visited. sq and skv are the pair's segment ids.
-template <typename T>
-__device__ __forceinline__ float logit(const Args& a, long long bh, int row, int col, float s,
-                                       int sq, int skv) {
-  if (row >= a.Lq || col >= a.Lk) return -INFINITY;
-  if (a.causal && last_row(row, a.bq) <= (col / a.bk) * a.bk) return -INFINITY;
-  if (a.ab != nullptr)
-    s = __fadd_rn(s, to_f(((const T*)a.ab)[(bh * a.Lq + row) * a.Lk + col]));
-  s = __fmul_rn(s, a.scale);
-  const bool masked = (a.seg_q != nullptr && sq != skv) || (a.causal && col > row);
-  return masked ? __fadd_rn(s, kMaskValue) : s;
-}
-
-// The 4x4 register tile of products of rows ty + 16 i of A and rows
-// tx + 16 j of B (both DH wide in shared memory, row pitch DH + 1).
-template <int DH>
-__device__ __forceinline__ void tile_dot(const float* A, const float* B, float (&s)[4][4]) {
-  constexpr int LD = DH + 1;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < DH; ++d) {
-    float x[4], y[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = A[(ty + 16 * i) * LD + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) y[j] = B[(tx + 16 * j) * LD + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(x[i], y[j], s[i][j]);
-  }
-}
-
-// Rows r0.. of a (batch, head) slice into shared memory (pitch ld), zero
-// past `rows`.
-template <typename T, int DH>
-__device__ __forceinline__ void load_rows(const T* base, long long stride, int r0, int rows,
-                                          float* dst, int ld) {
-  for (int e = threadIdx.x; e < 64 * DH; e += kThreads) {
-    const int r = e / DH, c = e % DH;
-    dst[r * ld + c] = r0 + r < rows ? to_f(base[(r0 + r) * stride + c]) : 0.f;
-  }
-}
-
-// Segment ids of rows r0 .. r0 + 63 of batch item b (0 past `rows` or
-// without segment ids).
-__device__ __forceinline__ void load_ids(const int* ids, int b, int r0, int rows, int* dst) {
-  for (int r = threadIdx.x; r < 64; r += kThreads)
-    dst[r] = ids != nullptr && r0 + r < rows ? ids[(long long)b * rows + r0 + r] : 0;
-}
+static_assert(tx::kTile == pcm::flash::kTileRows, "tile_skipped tests 64-row query tiles");
 
 // ---- kernel 9 at f32: 3xTF32 on the tensor cores (f32_mma.cuh) -------------------
 
@@ -374,233 +320,273 @@ __global__ void __launch_bounds__(tx::kThreads, DH == 64 ? 2 : 1)
   }
 }
 
+// ---- kernels 10 and 11 at f32: 3xTF32 on the tensor cores (f32_mma.cuh) -------------
+
+// Shared memory of the backward kernels: two 64-row tiles held for the
+// whole block, two two-stage rings of streamed tiles, and two stages of
+// per-row terms (dK/dV: m, 1 / l, di and the segment id of 64 queries; dQ:
+// the segment ids of 64 keys, in the same room).
 template <int DH>
-constexpr size_t bwd_smem_bytes() {
-  return (4 * (size_t)kBQ * (DH + 1) + 2 * (size_t)kBQ * (kBK + 1) + 3 * kBQ) *
-             sizeof(float) + (kBQ + kBK) * sizeof(int);
+constexpr size_t f32_bwd_smem() {
+  return 6 * tx::tile_bytes<DH>() + 2 * 4 * tx::kTile * sizeof(float);
 }
 
-// Shared memory of the backward kernels.
+// Query columns a sub-tile of kernel 10 at both dh: at dh = 64, 32
+// (tx::sub) left it at 255 registers with 36 B stored and 92 B loaded
+// spilled; 16 fits it in 224 without a spill and ran 5-7% faster (H100
+// 80GB HBM3 at 700 W, scripts/ab_kernel_builds.py).
+constexpr int kDkvSub = 16;
+
+// One block a (batch, head, 64-key tile), looping over the query tiles it
+// visits: S^T = K Q^T and dP^T = V dO^T a sub-tile at a time, their logits
+// by flash's score function in the key-row layout, then dV += p_dropped^T dO
+// and dK += dS^T Q, the C fragments of p_dropped^T and dS^T taken as the A
+// fragments of the two sums. `vec`: q, k, v and dout rows 16-byte aligned.
 template <int DH>
-struct BwdTiles {
-  float *Ks, *Vs, *Qs, *dOs, *Ps, *dSs, *rm, *rl, *rd;
-  int *sq, *skv;
-  __device__ explicit BwdTiles(float* sm) {
-    constexpr int LD = DH + 1;
-    Ks = sm;
-    Vs = Ks + kBK * LD;
-    Qs = Vs + kBK * LD;
-    dOs = Qs + kBQ * LD;
-    Ps = dOs + kBQ * LD;
-    dSs = Ps + kBQ * (kBK + 1);
-    rm = dSs + kBQ * (kBK + 1);
-    rl = rm + kBQ;
-    rd = rl + kBQ;
-    sq = (int*)(rd + kBQ);
-    skv = sq + kBQ;
-  }
-};
+__global__ void __launch_bounds__(tx::kThreads, DH == 64 ? 2 : 1)
+    f32_dkv_kernel(Args a, int vec) {
+  constexpr int LD = tx::ld<DH>(), T = tx::kTile, NT = kDkvSub / 8;
+  extern __shared__ __align__(16) float smf[];
+  float* Ks = smf;
+  float* Vs = Ks + T * LD;
+  float* Qs = Vs + T * LD;          // two stages
+  float* dOs = Qs + 2 * T * LD;     // two stages
+  float* rows = dOs + 2 * T * LD;   // [stage][m, 1/l, di, id][64]
 
-// Query rows q0.. of q and do, their m, 1 / l and di, and their segment ids.
-template <typename T, int DH>
-__device__ __forceinline__ void load_query_tile(const Args& a, int bh, int b, int h, int q0,
-                                                const BwdTiles<DH>& t) {
-  load_rows<T, DH>((const T*)a.q + b * a.qs.b + h * a.qs.h, a.qs.l, q0, a.Lq, t.Qs, DH + 1);
-  load_rows<T, DH>((const T*)a.dout + b * a.dos.b + h * a.dos.h, a.dos.l, q0, a.Lq, t.dOs,
-                   DH + 1);
-  load_ids(a.seg_q, b, q0, a.Lq, t.sq);
-  const long long base = (long long)bh * a.Lq + q0;
-  for (int r = threadIdx.x; r < kBQ; r += kThreads) {
-    const bool in = q0 + r < a.Lq;
-    t.rm[r] = in ? a.m[base + r] : 0.f;
-    t.rl[r] = in ? 1.0f / a.l[base + r] : 0.f;
-    t.rd[r] = in ? a.di[base + r] : 0.f;
-  }
-}
-
-// Key rows k0.. of k and v, and their segment ids.
-template <typename T, int DH>
-__device__ __forceinline__ void load_key_tile(const Args& a, int b, int h, int k0,
-                                              const BwdTiles<DH>& t) {
-  load_rows<T, DH>((const T*)a.k + b * a.ks.b + h * a.ks.h, a.ks.l, k0, a.Lk, t.Ks, DH + 1);
-  load_rows<T, DH>((const T*)a.v + b * a.vs.b + h * a.vs.h, a.vs.l, k0, a.Lk, t.Vs, DH + 1);
-  load_ids(a.seg_kv, b, k0, a.Lk, t.skv);
-}
-
-// Recomputes the (64 query x 64 key) tile at (q0, k0) and leaves p_dropped
-// in Ps and dS in dSs (row = query, column = key), both rounded to T; 0 for
-// pairs not visited. Every thread of the block calls it; it ends with the
-// tiles complete.
-template <typename T, int DH>
-__device__ __forceinline__ void probs_and_ds(const Args& a, long long bh, int q0, int k0,
-                                             const BwdTiles<DH>& t) {
-  constexpr int LDP = kBK + 1;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float s[4][4], dp[4][4];
-  tile_dot<DH>(t.Qs, t.Ks, s);
-  tile_dot<DH>(t.dOs, t.Vs, dp);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j;
-      const float x = logit<T>(a, bh, q0 + r, k0 + c, s[i][j], t.sq[r], t.skv[c]);
-      const float p = x == -INFINITY ? 0.f : __fmul_rn(expf(x - t.rm[r]), t.rl[r]);
-      if (a.dropout) {  // finished in the pass below
-        t.Ps[r * LDP + c] = p;
-        t.dSs[r * LDP + c] = dp[i][j];
-      } else {
-        t.Ps[r * LDP + c] = round_to<T>(p);
-        t.dSs[r * LDP + c] =
-            p == 0.f ? 0.f
-                     : round_to<T>(__fmul_rn(__fmul_rn(__fsub_rn(dp[i][j], t.rd[r]), p), a.scale));
-      }
-    }
-  }
-  __syncthreads();
-  if (a.dropout) {
-    for (int gi = threadIdx.x; gi < kBQ * (kBK / 4); gi += kThreads) {
-      const int r = gi / (kBK / 4), c4 = (gi % (kBK / 4)) * 4;
-      const uint4 bits = flash_keep_bits4(a.seed, q0 + r, (k0 + c4) >> 2);
-      const uint32_t w[4] = {bits.x, bits.y, bits.z, bits.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int at = r * LDP + c4 + e;
-        const float d = w[e] >= a.threshold ? a.inv_keep : 0.f;
-        const float p = t.Ps[at];
-        t.dSs[at] = p == 0.f ? 0.f
-                             : round_to<T>(__fmul_rn(
-                                   __fmul_rn(__fsub_rn(__fmul_rn(t.dSs[at], d), t.rd[r]), p),
-                                   a.scale));
-        t.Ps[at] = round_to<T>(__fmul_rn(p, d));
-      }
-    }
-    __syncthreads();
-  }
-}
-
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
-  constexpr int LD = DH + 1;
-  constexpr int LDP = kBK + 1;
-  constexpr int CJ = DH / 16;  // output columns a thread
-  extern __shared__ float sm[];
-  const BwdTiles<DH> t(sm);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int k0 = blockIdx.x * kBK;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int k0 = blockIdx.x * T;
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-
-  float dk[4][CJ], dv[4][CJ];
+  const float* qb = (const float*)a.q + b * a.qs.b + h * a.qs.h;
+  const float* dob = (const float*)a.dout + b * a.dos.b + h * a.dos.h;
+  const int key = k0 + warp * 16 + (lane >> 2);  // and key + 8
+  const int cq = 2 * (lane & 3);
+  const long long sb = (long long)bh * a.Lq;
+  // the keep threshold and the scale of a kept score; without dropout every
+  // score is kept (its bits stay 0) and scaled by 1
+  const uint32_t thr = a.dropout ? a.threshold : 0u;
+  const float kept = a.dropout ? a.inv_keep : 1.f;
+  int skv[2];  // the segment ids of keys key and key + 8 (0 past Lk or without ids)
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) dk[i][j] = dv[i][j] = 0.f;
+  for (int i = 0; i < 2; ++i)
+    skv[i] = a.seg_kv != nullptr && key + 8 * i < a.Lk
+                 ? a.seg_kv[(long long)b * a.Lk + key + 8 * i] : 0;
 
-  load_key_tile<T, DH>(a, b, h, k0, t);
-  const int n_qt = (a.Lq + kBQ - 1) / kBQ;
-  for (int qt = 0; qt < n_qt; ++qt) {
-    const int q0 = qt * kBQ;
-    if (tile_skipped(a, q0, k0)) continue;  // the same for every thread
-    __syncthreads();  // the previous query tile is consumed (and the key tile loaded)
-    load_query_tile<T, DH>(a, bh, b, h, q0, t);
+  float dk[DH / 8][4], dv[DH / 8][4];
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  // query tile q0 into stage st: its Q and dO rows, and its rows' terms by
+  // plain loads (0 past Lq)
+  auto load = [&](int st, int q0) {
+    tx::load_tile<DH>(Qs + st * T * LD, qb, a.qs.l, q0, a.Lq, vec);
+    tx::load_tile<DH>(dOs + st * T * LD, dob, a.dos.l, q0, a.Lq, vec);
+    float* sp = rows + st * 4 * T;
+    int* ids = reinterpret_cast<int*>(sp + 3 * T);
+    for (int r = threadIdx.x; r < T; r += tx::kThreads) {
+      const bool in = q0 + r < a.Lq;
+      sp[r] = in ? a.m[sb + q0 + r] : 0.f;
+      sp[T + r] = in ? 1.0f / a.l[sb + q0 + r] : 0.f;
+      sp[2 * T + r] = in ? a.di[sb + q0 + r] : 0.f;
+      ids[r] = a.seg_q != nullptr && in ? a.seg_q[(long long)b * a.Lq + q0 + r] : 0;
+    }
+  };
+
+  // under `causal` the query tiles this key tile visits are a suffix
+  const int n_qt = (a.Lq + T - 1) / T;
+  int qt0 = 0;
+  while (qt0 < n_qt && tile_skipped(a, qt0 * T, k0)) ++qt0;
+  if (qt0 < n_qt) {
+    tx::load_tile<DH>(Ks, (const float*)a.k + b * a.ks.b + h * a.ks.h, a.ks.l, k0, a.Lk, vec);
+    tx::load_tile<DH>(Vs, (const float*)a.v + b * a.vs.b + h * a.vs.h, a.vs.l, k0, a.Lk, vec);
+    load(0, qt0 * T);
+    mm::cp_async_commit();
+  }
+  for (int qt = qt0; qt < n_qt; ++qt) {
+    const int st = (qt - qt0) & 1;
+    const float* Qt = Qs + st * T * LD;
+    const float* dOt = dOs + st * T * LD;
+    if (qt + 1 < n_qt) load(st ^ 1, (qt + 1) * T);
+    mm::cp_async_commit();
+    mm::cp_async_wait<1>();
     __syncthreads();
-    probs_and_ds<T, DH>(a, bh, q0, k0, t);
-    // dV += p_dropped^T dO and dK += dS^T Q: key rows ty + 16 i, columns tx + 16 j
-#pragma unroll 4
-    for (int qq = 0; qq < kBQ; ++qq) {
-      float pk[4], sk[4], dov[CJ], qv[CJ];
+    const float* sm_m = rows + st * 4 * T;
+    const float* sm_r = sm_m + T;
+    const float* sm_d = sm_r + T;
+    const int* sm_id = reinterpret_cast<const int*>(sm_d + T);
+    const int q0 = qt * T;
+#pragma unroll 1
+    for (int sc = 0; sc < T; sc += 8 * NT) {
+      float s[NT][4], dp[NT][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pk[i] = t.Ps[qq * LDP + ty + 16 * i];
-        sk[i] = t.dSs[qq * LDP + ty + 16 * i];
-      }
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        dov[j] = t.dOs[qq * LD + tx + 16 * j];
-        qv[j] = t.Qs[qq * LD + tx + 16 * j];
-      }
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      tx::mma_abt<DH, NT>(s, Ks, warp * 16, Qt, sc);    // S^T
+      tx::mma_abt<DH, NT>(dp, Vs, warp * 16, dOt, sc);  // dP^T
+      logits<NT, float>(a, bh, s, [&](int j, int e) {
+        const int qc = sc + 8 * j + cq + (e & 1);  // query column in the tile
+        return make_int4(q0 + qc, key + (e >> 1) * 8, sm_id[qc], skv[e >> 1]);
+      });
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < NT; ++j) {
+        const int c = sc + 8 * j + cq;  // query column in the tile
+        uint32_t keep[4] = {0u, 0u, 0u, 0u};
+        if (a.dropout) pcm::flash::keep_keys(keep, a.seed, key, q0 + c);
 #pragma unroll
-        for (int j = 0; j < CJ; ++j) {
-          dv[i][j] = fmaf(pk[i], dov[j], dv[i][j]);
-          dk[i][j] = fmaf(sk[i], qv[j], dk[i][j]);
+        for (int e = 0; e < 4; ++e) {
+          const int qc = c + (e & 1);
+          const float d = keep[e] >= thr ? kept : 0.f;
+          // dS, and p_dropped into s
+          dp[j][e] = score_ds(s[j][e], dp[j][e], sm_m[qc], sm_r[qc], sm_d[qc], d, a.scale,
+                              s[j][e]);
         }
+      }
+      tx::mma_pv<DH, NT>(dv, s, dOt, sc);
+      tx::mma_pv<DH, NT>(dk, dp, Qt, sc);
     }
+    __syncthreads();  // stage st is consumed before it is refilled
   }
 
-  T* dkb = (T*)a.dk + b * a.dks.b + h * a.dks.h;
-  T* dvb = (T*)a.dv + b * a.dvs.b + h * a.dvs.h;
+  float* dkb = (float*)a.dk + b * a.dks.b + h * a.dks.h;
+  float* dvb = (float*)a.dv + b * a.dvs.b + h * a.dvs.h;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kr = k0 + ty + 16 * i;
-    if (kr >= a.Lk) continue;
+  for (int j = 0; j < DH / 8; ++j) {
+    const int c = 8 * j + cq;
 #pragma unroll
-    for (int j = 0; j < CJ; ++j) {
-      dkb[kr * a.dks.l + tx + 16 * j] = pcm::from_f<T>(dk[i][j]);
-      dvb[kr * a.dvs.l + tx + 16 * j] = pcm::from_f<T>(dv[i][j]);
+    for (int e = 0; e < 4; ++e) {
+      const int r = key + (e >> 1) * 8;
+      if (r < a.Lk) {
+        dkb[(long long)r * a.dks.l + c + (e & 1)] = dk[j][e];
+        dvb[(long long)r * a.dvs.l + c + (e & 1)] = dv[j][e];
+      }
     }
   }
 }
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
-  constexpr int LD = DH + 1;
-  constexpr int LDP = kBK + 1;
-  constexpr int CJ = DH / 16;
-  extern __shared__ float sm[];
-  const BwdTiles<DH> t(sm);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int q0 = blockIdx.x * kBQ;
+// One block a (batch, head, 64-query tile), looping over the key tiles it
+// visits: S = Q K^T and dP = dO V^T a sub-tile at a time, their logits in
+// the query-row layout, then dQ += dS K, the C fragments of dS taken as A
+// fragments, and dS from its registers into `ds` when a bias was given. dS
+// carries sm_scale, so dQ is written as summed. `vec` as for
+// f32_dkv_kernel.
+template <int DH>
+__global__ void __launch_bounds__(tx::kThreads, DH == 64 ? 2 : 1)
+    f32_dq_kernel(Args a, int vec) {
+  constexpr int LD = tx::ld<DH>(), T = tx::kTile, NT = tx::sub<DH>() / 8;
+  extern __shared__ __align__(16) float smf[];
+  float* Qs = smf;
+  float* dOs = Qs + T * LD;
+  float* Ks = dOs + T * LD;     // two stages
+  float* Vs = Ks + 2 * T * LD;  // two stages
+  int* kids = reinterpret_cast<int*>(Vs + 2 * T * LD);  // [stage][64] key segment ids
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int q0 = blockIdx.x * T;
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-
-  load_query_tile<T, DH>(a, bh, b, h, q0, t);
-  float dq[4][CJ];
+  const float* kb = (const float*)a.k + b * a.ks.b + h * a.ks.h;
+  const float* vb = (const float*)a.v + b * a.vs.b + h * a.vs.h;
+  const int row = q0 + warp * 16 + (lane >> 2);  // and row + 8
+  const int cq = 2 * (lane & 3);
+  const uint32_t thr = a.dropout ? a.threshold : 0u;
+  const float kept = a.dropout ? a.inv_keep : 1.f;
+  // m, 1 / l, di and the segment id of rows row and row + 8 (0 past Lq)
+  float m[2], inv_l[2], di[2];
+  int sq[2];
+  const long long sb = (long long)bh * a.Lq;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) dq[i][j] = 0.f;
+  for (int i = 0; i < 2; ++i) {
+    const int r = row + 8 * i;
+    const bool in = r < a.Lq;
+    m[i] = in ? a.m[sb + r] : 0.f;
+    inv_l[i] = in ? 1.0f / a.l[sb + r] : 0.f;
+    di[i] = in ? a.di[sb + r] : 0.f;
+    sq[i] = a.seg_q != nullptr && in ? a.seg_q[(long long)b * a.Lq + r] : 0;
+  }
+  // key tile kt into stage st: its K and V rows, and their segment ids by
+  // plain loads (0 past Lk)
+  auto load = [&](int st, int kt) {
+    tx::load_tile<DH>(Ks + st * T * LD, kb, a.ks.l, kt * T, a.Lk, vec);
+    tx::load_tile<DH>(Vs + st * T * LD, vb, a.vs.l, kt * T, a.Lk, vec);
+    for (int r = threadIdx.x; r < T; r += tx::kThreads)
+      kids[st * T + r] = a.seg_kv != nullptr && kt * T + r < a.Lk
+                             ? a.seg_kv[(long long)b * a.Lk + kt * T + r] : 0;
+  };
 
-  T* ds = (T*)a.ds;
-  const int n_kt = (a.Lk + kBK - 1) / kBK;
+  // under `causal` the key tiles this query tile visits are a prefix (the
+  // first is always visited: block_q >= 2)
+  int n_kt = (a.Lk + T - 1) / T;
+  while (n_kt > 1 && tile_skipped(a, q0, (n_kt - 1) * T)) --n_kt;
+  tx::load_tile<DH>(Qs, (const float*)a.q + b * a.qs.b + h * a.qs.h, a.qs.l, q0, a.Lq, vec);
+  tx::load_tile<DH>(dOs, (const float*)a.dout + b * a.dos.b + h * a.dos.h, a.dos.l, q0, a.Lq,
+                    vec);
+  load(0, 0);
+  mm::cp_async_commit();
+
+  float acc[DH / 8][4];
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  float* ds = (float*)a.ds;
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kBK;
-    if (tile_skipped(a, q0, k0)) continue;  // its ds stays the caller's zeros
-    __syncthreads();  // the previous key tile is consumed (and the query tile loaded)
-    load_key_tile<T, DH>(a, b, h, k0, t);
+    const int st = kt & 1;
+    if (kt + 1 < n_kt) load(st ^ 1, kt + 1);
+    mm::cp_async_commit();
+    mm::cp_async_wait<1>();
     __syncthreads();
-    probs_and_ds<T, DH>(a, bh, q0, k0, t);
-    if (ds != nullptr) {  // the bias gradient: this tile of dS, rows and columns in range
-      for (int e = threadIdx.x; e < kBQ * kBK; e += kThreads) {
-        const int r = e / kBK, c = e % kBK;
-        if (q0 + r < a.Lq && k0 + c < a.Lk)
-          ds[((long long)bh * a.Lq + q0 + r) * a.Lk + k0 + c] =
-              pcm::from_f<T>(t.dSs[r * LDP + c]);
+    const float* Kt = Ks + st * T * LD;
+    const float* Vt = Vs + st * T * LD;
+    const int* ids = kids + st * T;
+    const int k0 = kt * T;
+#pragma unroll 1
+    for (int sc = 0; sc < T; sc += 8 * NT) {
+      float s[NT][4], dp[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      tx::mma_abt<DH, NT>(s, Qs, warp * 16, Kt, sc);
+      tx::mma_abt<DH, NT>(dp, dOs, warp * 16, Vt, sc);
+      logits<NT, float>(a, bh, s, [&](int j, int e) {
+        const int kc = sc + 8 * j + cq + (e & 1);  // key column in the tile
+        return make_int4(row + (e >> 1) * 8, k0 + kc, sq[e >> 1], ids[kc]);
+      });
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        uint32_t keep[4] = {0u, 0u, 0u, 0u};
+        if (a.dropout) pcm::flash::keep_rows(keep, a.seed, row, k0 + sc + 8 * j + cq);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const float d = keep[e] >= thr ? kept : 0.f;
+          float pd;
+          s[j][e] = score_ds(s[j][e], dp[j][e], m[i], inv_l[i], di[i], d, a.scale, pd);  // dS
+        }
       }
+      if (ds != nullptr) {  // the bias gradient: dS of the pairs in range
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = row + (e >> 1) * 8, c = k0 + sc + 8 * j + cq + (e & 1);
+            if (r < a.Lq && c < a.Lk) ds[(sb + r) * a.Lk + c] = s[j][e];
+          }
+      }
+      tx::mma_pv<DH, NT>(acc, s, Kt, sc);
     }
-    // dQ += dS K: query rows ty + 16 i, columns tx + 16 j
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float sv[4], kv[CJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sv[i] = t.dSs[(ty + 16 * i) * LDP + kk];
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) kv[j] = t.Ks[kk * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < CJ; ++j) dq[i][j] = fmaf(sv[i], kv[j], dq[i][j]);
-    }
+    __syncthreads();  // stage st is consumed before it is refilled
   }
 
-  T* dqb = (T*)a.dq + b * a.dqs.b + h * a.dqs.h;
+  float* dqb = (float*)a.dq + b * a.dqs.b + h * a.dqs.h;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qr = q0 + ty + 16 * i;
-    if (qr >= a.Lq) continue;
+  for (int j = 0; j < DH / 8; ++j) {
+    const int c = 8 * j + cq;
 #pragma unroll
-    for (int j = 0; j < CJ; ++j) dqb[qr * a.dqs.l + tx + 16 * j] = pcm::from_f<T>(dq[i][j]);
+    for (int e = 0; e < 4; ++e) {
+      const int r = row + (e >> 1) * 8;
+      if (r < a.Lq) dqb[(long long)r * a.dqs.l + c + (e & 1)] = acc[j][e];
+    }
   }
 }
 
@@ -623,13 +609,17 @@ cudaError_t launch(Which w, const Args& args, int B, cudaStream_t stream) {
                            tx::kThreads, smem, stream>>>(args, vec);
       return cudaGetLastError();
     }
-    const size_t smem = bwd_smem_bytes<DH>();
-    void (*kernel)(Args) = w == kDkv ? flash_dkv_kernel<T, DH> : flash_dq_kernel<T, DH>;
+    // kernel 10 or 11 in 3xTF32
+    const int vec = tx::rows_aligned(args.q, args.qs) && tx::rows_aligned(args.k, args.ks) &&
+                    tx::rows_aligned(args.v, args.vs) && tx::rows_aligned(args.dout, args.dos);
+    const size_t smem = f32_bwd_smem<DH>();
+    void (*kernel)(Args, int) = w == kDkv ? f32_dkv_kernel<DH> : f32_dq_kernel<DH>;
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    const int tiles = w == kDkv ? (args.Lk + kBK - 1) / kBK : (args.Lq + kBQ - 1) / kBQ;
-    kernel<<<dim3(tiles, B * args.H), kThreads, smem, stream>>>(args);
+    const int rows = w == kDkv ? args.Lk : args.Lq;
+    kernel<<<dim3((rows + tx::kTile - 1) / tx::kTile, B * args.H), tx::kThreads, smem, stream>>>(
+        args, vec);
     return cudaGetLastError();
   }
 }

@@ -4,8 +4,8 @@
 // flash_attention.cu (the launch arguments, the mask value, the causal
 // skips, the Philox bits), whose C entries `pcm_flash_fwd`,
 // `pcm_flash_bwd_dkv` and `pcm_flash_bwd_dq` dispatch here when the element
-// type is bf16. The f32 kernels are in flash_attention.cu (kernel 9 in
-// 3xTF32 on the tensor cores, 10 and 11 on the FP32 pipes).
+// type is bf16. The f32 kernels are in flash_attention.cu (kernels 9, 10
+// and 11 in 3xTF32 on the TF32 tensor cores, f32_mma.cuh).
 //
 // Replaces the TPU kernels of pointcloudmatters_tpu/ops/flash_attention.py
 // at bf16: `_flash_attention_impl` (:697; pallas_call :869, bodies
@@ -176,8 +176,9 @@ __device__ __forceinline__ void keep_keys(uint32_t (&k)[4], uint32_t seed, int k
 }
 
 // The logits of the scores s[j][e] (the C fragments of a 16 x 8 NT
-// product) in place, as flash_attention.cu's `logit` gives them element by
-// element (-inf for a pair out of range or not visited), with each
+// product) in place: (s + ab) * sm_scale, the mask value added where segment
+// ids differ or a key is after its query under `causal`, and -inf for a
+// pair out of range or in a causal TPU-grid tile not visited, with each
 // condition that is the same for the whole block (a bias, segment ids,
 // `causal`) tested once for all the fragments, so that the per-element work
 // stays straight-line code the compiler can interleave. pair(j, e) gives the

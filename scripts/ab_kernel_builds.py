@@ -14,9 +14,10 @@ process builds one copy's kernels and times by CUDA events, over 20 launches
 after a warm-up: bf16 kernel 3 (the oneshot forward, with its row
 statistics) and kernel 4 (its backward) at B=4, H=8, L=2051, dh=64, at
 dropout 0 and 0.1; bf16 kernel 7 (the fused layer's forward) at B=4,
-L=2051, D=512, H=8; and the f32 oneshot backward (kernel 4) and f32 flash
-forward (kernel 9, 512-row tiles) at the same attention shape and rates,
-each with its worst error against its plain version at rate 0.1 on the same
+L=2051, D=512, H=8; and the f32 oneshot backward (kernel 4), the f32 flash
+forward (kernel 9, 512-row tiles) and the f32 flash backward's dK/dV
+(kernel 10) and dQ (kernel 11) at the same attention shape and rates, each
+with its worst error against its plain version at rate 0.1 on the same
 seeded inputs in every turn. Then it compares the SASS (``cuobjdump -sass``)
 of every kernel of the attention libraries that include
 ``csrc/attention_mma.cuh`` but not the fused layer (``attention_fwd``,
@@ -83,7 +84,7 @@ def time_build(root: str) -> str:
     fused = chip_smoke.cuda_ms(lambda: fm.fused_mha_cuda(*layer, H, 0.0, 17), 20)
     parts.append(f"#7 {fused:.4f} ms")
 
-    # f32 kernels 4 and 9: times at both rates, worst error at rate 0.1
+    # f32 kernels 4, 9, 10 and 11: times at both rates, worst error at rate 0.1
     q, k, v, dout = (arr(B, H, L, dh).float() for _ in range(4))
     f32 = []
     for rate in (0.0, 0.1):
@@ -92,12 +93,23 @@ def time_build(root: str) -> str:
         bwd = chip_smoke.cuda_ms(lambda: one.oneshot_attention_bwd_cuda(*args), 20)
         kw = dict(sm_scale=scale, dropout_rate=rate, dropout_seed=23, block_q=512, block_k=512)
         fwd = chip_smoke.cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw), 20)
-        f32.append(f"f32 #4 {bwd:.4f} ms, f32 #9 {fwd:.4f} ms at rate {rate}")
+        o, fl, fm = fa.flash_attention_cuda(q, k, v, **kw)
+        fargs = (q, k, v, None, None, fl, fm, dout, (o * dout).sum(-1))
+        dkv = chip_smoke.cuda_ms(lambda: fa.flash_attention_bwd_dkv_cuda(*fargs, **kw), 20)
+        dq = chip_smoke.cuda_ms(lambda: fa.flash_attention_bwd_dq_cuda(*fargs, **kw), 20)
+        f32.append(f"f32 #4 {bwd:.4f} ms, f32 #9 {fwd:.4f} ms, f32 #10 {dkv:.4f} ms, "
+                   f"f32 #11 {dq:.4f} ms at rate {rate}")
     err4 = max(chip_smoke._max_err(g, p) for g, p in zip(
         one.oneshot_attention_bwd_cuda(*args), one.oneshot_attention_plain_bwd(*args)))
     err9 = chip_smoke._max_err(fa.flash_attention_cuda(q, k, v, **kw)[0],
                                fa.flash_attention_plain(q, k, v, **kw)[0])
-    parts += f32 + [f"f32 worst error at rate 0.1: #4 {err4:.3e}, #9 {err9:.3e}"]
+    err10 = max(chip_smoke._max_err(g, p) for g, p in zip(
+        fa.flash_attention_bwd_dkv_cuda(*fargs, **kw),
+        fa.flash_attention_plain_bwd_dkv(*fargs, **kw)))
+    err11 = chip_smoke._max_err(fa.flash_attention_bwd_dq_cuda(*fargs, **kw)[0],
+                                fa.flash_attention_plain_bwd_dq(*fargs, **kw)[0])
+    parts += f32 + [f"f32 worst error at rate 0.1: #4 {err4:.3e}, #9 {err9:.3e}, "
+                    f"#10 {err10:.3e}, #11 {err11:.3e}"]
     return "; ".join(parts)
 
 

@@ -1,5 +1,5 @@
 """The exact-f32 product of the port's f32 oneshot backward and f32 flash
-forward (``csrc/f32_mma.cuh``, "3xTF32"), emulated in numpy.
+forward and backward (``csrc/f32_mma.cuh``, "3xTF32"), emulated in numpy.
 
 The card runs each f32 product as three TF32 tensor-core products: an
 operand x is split into hi = rna(x) and lo = rna(x - hi), rna being
@@ -22,10 +22,12 @@ nearest, as the kernels' ``mma3`` does.
   within 4x of the error of a plain f32 product (an f32 FMA chain in k
   order, as the kernels it replaces summed) against f64; TF32 alone (hi
   only) is over 100x off, which is why it is not used.
-- The emulated backward chain S -> p -> dP -> dS -> dQ, dK, dV (the f32
-  oneshot backward's arithmetic, dropout at 0.1 included) stays inside the
-  1e-4 * max(1, max |plain|) that ``chip_smoke.py`` holds the kernel to,
-  against the same chain in f64.
+- The emulated backward chain S -> p -> dP -> dS -> dQ, dK, dV stays
+  inside the 1e-4 * max(1, max |plain|) that ``chip_smoke.py`` holds the
+  kernels to, against the same chain in f64: the f32 oneshot backward's
+  arithmetic (q pre-scaled, dQ scaled after), and the f32 flash
+  backward's (a bias, the mask value added on a segment-masked key tail,
+  sm_scale on the scores and in dS), dropout at 0 and 0.1.
 - The f32 shared tiles (``at`` and ``ld`` of the header, read from the
   source) give every fragment load of the kernels 32 distinct banks a warp:
   the 8-byte row-major loads of A and B (conflict-free by half-warp) and
@@ -186,6 +188,50 @@ def test_split_backward_chain_within_kernel_limit(dh, rate):
     for name, g, r in zip(("dq", "dk", "dv"), got, ref):
         limit = 1e-4 * max(1.0, np.abs(r).max())
         assert np.abs(g - r).max() <= limit, name
+
+
+# flash's DEFAULT_MASK_VALUE as the kernels add it to an f32 score
+MASK_VALUE = np.float32(-0.7 * float(np.finfo(np.float32).max))
+
+
+@pytest.mark.parametrize("dh,rate", [(64, 0.0), (64, 0.1), (128, 0.0), (128, 0.1)])
+def test_split_flash_backward_chain_within_kernel_limit(dh, rate):
+    """The f32 flash backward (kernels 10 and 11): s = (q k^T + ab) sm_scale
+    with q not pre-scaled, the mask value added on a segment-masked key
+    tail, p = exp(s - m) (1 / l), dS = (dP D - di) p sm_scale, then
+    dQ = dS k (no scale after), dK = dS^T q and dV = p_dropped^T do; each
+    product in emulated 3xTF32 and the rest in f32, against the same chain
+    in f64."""
+    rng = np.random.RandomState(6)
+    Lq, Lk = 96, 160
+    q, do = rng.randn(Lq, dh).astype(np.float32), rng.randn(Lq, dh).astype(np.float32)
+    k, v = rng.randn(Lk, dh).astype(np.float32), rng.randn(Lk, dh).astype(np.float32)
+    ab = (rng.randn(Lq, Lk) * 0.5).astype(np.float32)
+    masked = np.zeros((Lq, Lk), bool)
+    masked[:, 130:] = True  # the keys' segment id differs from every query's
+    sm_scale = np.float32(dh ** -0.5)
+    keep = rng.rand(Lq, Lk) >= rate
+    inv_keep = np.float32(1.0 / (1.0 - rate))
+
+    def chain(mm, f):
+        s = (mm(f(q), f(k).T) + f(ab)) * f(sm_scale)
+        s = np.where(masked, s + f(MASK_VALUE), s)
+        m = s.max(-1, keepdims=True)
+        e = np.exp(s - m)
+        p = e * (f(1.0) / e.sum(-1, keepdims=True))
+        d = np.where(keep, f(inv_keep), f(0.0))
+        pd = p * d
+        di = (f(do) * mm(pd, f(v))).sum(-1, keepdims=True)
+        ds = (mm(f(do), f(v).T) * d - di) * p * f(sm_scale)
+        return mm(ds, f(k)), mm(ds.T, f(q)), mm(pd.T, f(do))
+
+    got = chain(mma3, np.float32)
+    ref = chain(lambda a, b: a @ b, np.float64)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        limit = 1e-4 * max(1.0, np.abs(r).max())
+        assert np.abs(g - r).max() <= limit, name
+    for g in got[1:]:  # the masked keys weigh exactly 0: no dK, dV
+        assert np.all(g[130:] == 0.0)
 
 
 def _tile_offset(dh: int):

@@ -12,21 +12,24 @@ Phases, each of which raises on failure (exit code non-zero, no result):
    build time and ptxas's registers and spills by kernel function; those of
    the tensor-core kernels (bf16 kernel 9, the bf16 oneshot backward, kernel
    7's and 8's GEMM instantiations and attention kernels at dh 64 and 128,
-   the 3xTF32 f32 kernels 4, 9, 10 and 11 at dh 64 and 128) and of the FP32
-   GEMM go
-   into the kernels line (``ptxas``).
+   the 3xTF32 f32 kernels 3, 4, 9, 10 and 11 at dh 64 and 128), of the FP32
+   GEMM and of the FPS cluster kernel go into the kernels line (``ptxas``).
 3. Holds each kernel against its plain PyTorch version on the card at the
    flagship's shapes, and times both:
-   FPS B=4, N=10240 -> 2048 (index-exact), and at N=20480 its large-cloud
-   variant; kNN B=4, M=2048 FPS queries, N=10240 and 20480, k=16 and 128,
+   FPS -> 2048 (one thread-block cluster a cloud) index-exact at B=1, 4
+   and 32 for N=10240 and at B=1 and 4 for N=20480 and 40960, on a cloud
+   of exact ties and on a partly masked one with a row of fewer valid
+   points than it samples, each case's cluster size, threads a CTA, ms and
+   microseconds a round logged; kNN B=4, M=2048 FPS queries, N=10240 and 20480, k=16 and 128,
    in FPS order and Morton-sorted: kernels 2 (``v3``), 12 (chunk-skip) and
    13 (dense scan) each index-exact against its plain version, 12 and 13
    also against kernel 2, d2 within 1e-6 relative of the plain versions and
    bit-equal to kernel 2's, relaunches bit-identical, kernel 12's skipped
    chunks equal to its plain version's (its share printed); kernel 2 at
    k=96; k=160 launching no kNN kernel on any selector; attention forward
-   B=4, H=8, L=2051, dh=64, f32, at dropout rate 0 and 0.1 (max abs error <= 1e-4;
-   also dh=128 and a masked key tail); the dropout mask read back from the
+   B=4, H=8, L=2051, dh=64, f32 (3xTF32, ``csrc/attention_fwd.cuh``), at
+   dropout rate 0 and 0.1, each timed, also at dh=128, H=4 (max abs error
+   <= 1e-4; also a masked key tail); the dropout mask read back from the
    forward bit for bit (q = 0, v = I); the attention backward at rate 0,
    0.1 and a masked key tail (each of dQ, dK, dV within
    1e-4 * max(1, max |plain|)), two identical launches bit-identical. The
@@ -133,10 +136,12 @@ the peak of the inputs' type, 67 TFLOP/s f32 or 989 TFLOP/s bf16; one
 ``rowsum(dO * O)`` pre-pass, dK/dV and dQ, timed together, and its library
 time is the library's forward + backward less its forward; the bf16
 oneshot kernels, flash kernels 9, 10 and 11 of both types and the f32
-kernel 4 also carry ``ms_rate0``, their time at dropout 0 beside ``ms`` at 0.1, like
+kernels 3 and 4 also carry ``ms_rate0``, their time at dropout 0 beside ``ms`` at 0.1, like
 for like with the library's rate-0 call (kernel 9 of both types also
 ``ms_single_step``, its single-step variant at rate 0.1, which takes S once
-more over every key); the kernels of ``PTXAS_FUNCTIONS`` carry ``ptxas``; a fused layer's
+more over every key; f32 kernel 3 also ``ms_dh128`` and ``ms_rate0_dh128``,
+at dh 128, H=4); the kernels of ``PTXAS_FUNCTIONS`` carry ``ptxas``; FPS carries ``cases``,
+each phase-3 case's cluster size, threads, ms and microseconds a round; a fused layer's
 bound sums its products' times at their operands' peaks; flash kernels 10
 and 11 are timed apart, and the library's backward stands on kernel 10's
 row, against the two together), then
@@ -194,10 +199,10 @@ KERNELS = {
     "flash_dkv_bf16": (_CSRC + "flash_mma.cuh", _OPS + "flash_attention.py:1068"),
     "flash_dq_bf16": (_CSRC + "flash_mma.cuh", _OPS + "flash_attention.py:1427"),
 }
-# phase 2: the tensor-core kernels (bf16, and f32 kernels 4, 9, 10 and 11 in
-# 3xTF32) whose ptxas registers and spills the kernels line records, by a
-# piece of their mangled names (the two f32_dq_kernel pieces by their
-# argument types as well: each library has one)
+# phase 2: the tensor-core kernels (bf16, and f32 kernels 3, 4, 9, 10 and 11
+# in 3xTF32) and the FPS cluster kernel, whose ptxas registers and spills the
+# kernels line records, by a piece of their mangled names (the two
+# f32_dq_kernel pieces by their argument types as well: each library has one)
 PTXAS_FUNCTIONS = {
     "attention_bwd": {"dkdv_dh64": "15f32_dkdv_kernelILi64E",
                       "dq_dh64": "13f32_dq_kernelILi64EEEvNS_4ArgsIfEE",
@@ -222,6 +227,9 @@ PTXAS_FUNCTIONS = {
                       "dkdv_dh128": "8attn_mma11dkdv_kernelILi128ENS0_5FusedE",
                       "dq_dh64": "8attn_mma9dq_kernelILi64ENS0_5FusedE",
                       "dq_dh128": "8attn_mma9dq_kernelILi128ENS0_5FusedE"},
+    "fps": {"cluster": "18fps_cluster_kernel"},
+    "attention_fwd": {"dh64": "4attn15attn_fwd_kernelILi64E",
+                      "dh128": "4attn15attn_fwd_kernelILi128E"},
     "fused_mha_bwd_bf16": {"gemm_f32": "8gemm_mma11gemm_kernelILb0ELi1E",
                            "gemm_addend": "8gemm_mma11gemm_kernelILb0ELi2E",
                            "gemm_wgrad": "8gemm_mma11gemm_kernelILb1ELi1E"},
@@ -396,37 +404,7 @@ def plain_kernels():
 def check_kernels(dev) -> dict:
     """Phase 3: each kernel against its plain version; returns per-kernel
     max_abs_err, ms and plain_ms."""
-    import torch
-
-    from pointcloudmatters_tpu_torch.entry import build_batch
-    from pointcloudmatters_tpu_torch.ops import fps
-    from pointcloudmatters_tpu_torch.ops import pointops
-
-    res = {}
-    batch = build_batch(batch_size=4, n_points=N_POINTS, seed=0, with_actions=False)
-    xyz = torch.from_numpy(batch["pcds"]["coord"]).to(dev)
-    mask = torch.from_numpy(batch["pcds"]["valid"]).to(dev)
-
-    idx = fps.farthest_point_sampling_padded_cuda(xyz, mask, 2048)
-    idx_p = pointops.farthest_point_sampling_padded_plain(xyz, mask, 2048)
-    torch.cuda.synchronize()
-    fps_err = (idx.long() - idx_p.long()).abs().max().item()
-    if fps_err != 0:
-        raise AssertionError(f"FPS kernel disagrees with its plain version: "
-                             f"{(idx != idx_p).sum().item()} indices differ")
-    res["fps"] = dict(
-        max_abs_err=float(fps_err),
-        ms=cuda_ms(lambda: fps.farthest_point_sampling_padded_cuda(xyz, mask, 2048), 5),
-        plain_ms=cuda_ms(
-            lambda: pointops.farthest_point_sampling_padded_plain(xyz, mask, 2048), 2),
-        library_ms=None,
-        # 2047 steps of ~8 flops a point; xyz and mask read, indices written
-        **bound(8.0 * xyz.shape[0] * N_POINTS * 2047,
-                xyz.numel() * 4 + mask.numel() + idx.numel() * 4, "f32"),
-    )
-    log(f"fps     B=4 N={N_POINTS}->2048: index-exact; kernel "
-        f"{res['fps']['ms']:.3f} ms, plain {res['fps']['plain_ms']:.3f} ms")
-
+    res = {"fps": check_fps(dev)}
     res.update(check_knn(dev))
     res.update(check_attention(dev))
     res.update(check_attention_bf16(dev))
@@ -436,10 +414,73 @@ def check_kernels(dev) -> dict:
     return res
 
 
+# phase 3's FPS cases: (what, B, N), the first the kernels line's times
+FPS_CASES = (("random", 4, N_POINTS), ("random", 1, N_POINTS), ("random", BIG_BATCH, N_POINTS),
+             ("random", 1, BIG_CLOUD), ("random", 4, BIG_CLOUD), ("random", 1, 40960),
+             ("random", 4, 40960), ("ties", 4, N_POINTS), ("masked", 4, BIG_CLOUD))
+
+
+def check_fps(dev) -> dict:
+    """Phase 3, FPS (kernel 1, one thread-block cluster a cloud) at each of
+    FPS_CASES, 2048 samples: index-exact against its plain version; its
+    cluster size C, threads a CTA, ms and microseconds a round logged.
+    ``random`` clouds come from ``build_batch`` (rows with holes at the
+    end); ``ties`` puts every point on a coarse grid with each point twice
+    (exact ties everywhere); ``masked`` drops 40% of the points at random
+    and leaves one row 1000 valid points, fewer than it samples."""
+    import numpy as np
+    import torch
+
+    from pointcloudmatters_tpu_torch.entry import build_batch
+    from pointcloudmatters_tpu_torch.ops import fps, pointops
+
+    rng = np.random.RandomState(5)
+    res, cases = None, []
+    for what, B, N in FPS_CASES:
+        if what == "random":
+            batch = build_batch(batch_size=B, n_points=N, seed=0, with_actions=False)
+            xyz = torch.from_numpy(batch["pcds"]["coord"]).to(dev)
+            mask = torch.from_numpy(batch["pcds"]["valid"]).to(dev)
+        elif what == "ties":
+            grid = (rng.randint(0, 6, (B, N // 2, 3)) * 0.25).astype(np.float32)
+            xyz = torch.from_numpy(np.concatenate([grid, grid], 1)).to(dev)
+            mask = torch.ones((B, N), dtype=torch.bool, device=dev)
+        else:
+            xyz = torch.from_numpy((rng.rand(B, N, 3) - 0.5).astype(np.float32)).to(dev)
+            valid = rng.rand(B, N) < 0.6
+            valid[1, 1000:] = False
+            mask = torch.from_numpy(valid).to(dev)
+        run = lambda: fps.farthest_point_sampling_padded_cuda(xyz, mask, 2048)  # noqa: E731
+        idx = run()
+        ref = pointops.farthest_point_sampling_padded_plain(xyz, mask, 2048)
+        if not torch.equal(idx, ref):
+            raise AssertionError(f"FPS kernel ({what}, B={B}, N={N}) disagrees with its plain "
+                                 f"version at {(idx != ref).sum().item()} indices")
+        C, T = fps.launch_shape(B, N, dev.index)
+        ms = cuda_ms(run, 5)
+        case = dict(what=what, B=B, N=N, cluster=C, threads=T, ms=ms,
+                    us_per_round=ms * 1e3 / 2047)
+        cases.append(case)
+        log(f"fps     {what} B={B} N={N}->2048: index-exact; cluster of {C} CTAs x {T} "
+            f"threads; kernel {ms:.3f} ms, {case['us_per_round']:.3f} us a round")
+        if res is None:
+            res = dict(
+                max_abs_err=0.0, ms=ms,
+                plain_ms=cuda_ms(lambda: pointops.farthest_point_sampling_padded_plain(
+                    xyz, mask, 2048), 2),
+                library_ms=None,
+                # 2047 steps of ~8 flops a point; xyz and mask read, indices written
+                **bound(8.0 * B * N * 2047, xyz.numel() * 4 + mask.numel() + idx.numel() * 4,
+                        "f32"))
+            log(f"fps     B={B} N={N}: plain {res['plain_ms']:.3f} ms, bound "
+                f"{res['bound_ms']:.4f} ms")
+    res["cases"] = cases
+    return res
+
+
 def check_knn(dev) -> dict:
     """Phase 3, the kNN kernels 2, 12 and 13 at B=4, M=2048 FPS queries,
-    N=10240 and N=20480 (there FPS too, its large-cloud variant, held
-    index-exact), k = 16 and 128, on the queries in FPS order and sorted
+    N=10240 and N=20480, k = 16 and 128, on the queries in FPS order and sorted
     along a Morton curve: indices equal to each kernel's plain version's,
     to ``knn_query_padded_plain``'s and to kernel 2's; d2 within 1e-6
     relative of the plain versions and bit-equal to kernel 2's (the three
@@ -468,11 +509,6 @@ def check_knn(dev) -> dict:
         xyz = torch.from_numpy(batch["pcds"]["coord"]).to(dev)
         mask = torch.from_numpy(batch["pcds"]["valid"]).to(dev)
         idx = fps.farthest_point_sampling_padded_cuda(xyz, mask, 2048)
-        if N == BIG_CLOUD:
-            if not torch.equal(idx, pointops.farthest_point_sampling_padded_plain(xyz, mask, 2048)):
-                raise AssertionError(f"FPS kernel at N={N} disagrees with its plain version")
-            log(f"fps     B=4 N={N}->2048 (large-cloud variant): index-exact; kernel "
-                f"{cuda_ms(lambda: fps.farthest_point_sampling_padded_cuda(xyz, mask, 2048), 3):.3f} ms")
         q = torch.gather(xyz, 1, idx.long()[..., None].expand(-1, -1, 3)).contiguous()
         all_valid = torch.ones(q.shape[:2], dtype=torch.bool, device=dev)
         perm = pointops.spatial_sort_order(q, all_valid).long()
@@ -616,16 +652,19 @@ def check_attention(dev) -> dict:
                                      f"by {err:.3e}")
             log(f"attn    fwd B={B} H={H} L={L} dh={dh} rate={rate}: max abs err "
                 f"{err:.3e}")
-            if dh != 64:
-                continue
             ms = cuda_ms(lambda: one.oneshot_attention_cuda(q, k, v, scale, rate=rate,
                                                             seed=11), 5)
+            if dh != 64:
+                log(f"attn    fwd dh={dh} rate={rate}: kernel {ms:.3f} ms")
+                res.setdefault("attention_fwd", {})[
+                    f"ms{'_rate0' if rate == 0.0 else ''}_dh{dh}"] = ms
+                continue
             plain_ms = cuda_ms(lambda: one.oneshot_attention_plain(
                 q, k, v, scale, rate=rate, seed=11), 5)
             log(f"attn    fwd rate={rate}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
             fwd = res.setdefault("attention_fwd", {})
-            fwd.update(max_abs_err=max(err, fwd.get("max_abs_err", 0.0)), ms=ms,
-                       plain_ms=plain_ms)
+            fwd.update(max_abs_err=max(err, fwd.get("max_abs_err", 0.0)), plain_ms=plain_ms,
+                       **{"ms_rate0" if rate == 0.0 else "ms": ms})
             if rate == 0.0:
                 lib_fwd, lib_fb = sdpa_ms(q, k, v)
                 log(f"attn    scaled_dot_product_attention f32 B={B} H={H} L={L} dh={dh} "

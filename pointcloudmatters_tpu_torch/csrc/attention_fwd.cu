@@ -1,34 +1,14 @@
 // C entry of the exact softmax attention forward (kernel 3 of the port,
 // the TPU's `oneshot_attention` `_fwd_kernel`). The f32 kernel and its
-// design notes are in attention_fwd.cuh (FP32 FMAs); the bf16 kernel, on the
-// tensor cores, is in attention_mma.cuh.
+// design notes are in attention_fwd.cuh (3xTF32 on the TF32 tensor cores,
+// f32_mma.cuh); the bf16 kernel, on the bf16 tensor cores, is in
+// attention_mma.cuh.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "attention_fwd.cuh"
 #include "attention_mma.cuh"
-
-namespace {
-
-using pcm::attn::launch;
-using pcm::attn::Strides;
-
-cudaError_t launch_dh(int dh, const void* q, const void* k, const void* v, void* o,
-                      float* row_max, float* row_inv, Strides qs, Strides ks, Strides vs,
-                      Strides os, int B, int H, int Lq, int Lk, int l_actual, float scale,
-                      uint32_t threshold, float inv_keep, uint32_t seed, int dropout,
-                      cudaStream_t s) {
-  if (dh == 64)
-    return launch<64>(q, k, v, o, row_max, row_inv, qs, ks, vs, os, B, H, Lq, Lk, l_actual,
-                      scale, threshold, inv_keep, seed, dropout, s);
-  if (dh == 128)
-    return launch<128>(q, k, v, o, row_max, row_inv, qs, ks, vs, os, B, H, Lq, Lk, l_actual,
-                       scale, threshold, inv_keep, seed, dropout, s);
-  return cudaErrorInvalidValue;
-}
-
-}  // namespace
 
 extern "C" {
 
@@ -53,7 +33,6 @@ int pcm_attention_fwd(const void* q, const void* k, const void* v, void* o, floa
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const Strides qs{qsb, qsh, qsl}, ks{ksb, ksh, ksl}, vs{vsb, vsh, vsl}, os{osb, osh, osl};
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16) {
     namespace mm = pcm::attn_mma;
@@ -67,8 +46,14 @@ int pcm_attention_fwd(const void* q, const void* k, const void* v, void* o, floa
     if (dh == 128) return (int)mm::launch_fwd<128>(a, B, s);
     return (int)cudaErrorInvalidValue;
   }
-  return (int)launch_dh(dh, q, k, v, o, row_max, row_inv, qs, ks, vs, os, B, H, Lq, Lk,
-                        l_actual, scale, threshold, inv_keep, seed, dropout, s);
+  namespace fw = pcm::attn;
+  const fw::Args a{(const float*)q, (const float*)k, (const float*)v, (float*)o, row_max,
+                   row_inv, fw::Strides{qsb, qsh, qsl}, fw::Strides{ksb, ksh, ksl},
+                   fw::Strides{vsb, vsh, vsl}, fw::Strides{osb, osh, osl}, H, Lq, Lk, l_actual,
+                   scale, threshold, inv_keep, seed, dropout};
+  if (dh == 64) return (int)fw::launch<64>(a, B, s);
+  if (dh == 128) return (int)fw::launch<128>(a, B, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -1,10 +1,10 @@
 // Exact softmax attention on the bf16 tensor cores: the bf16 forward
 // (kernel 3) and the bf16 backward's dK/dV and dQ kernels (kernel 4). Their
 // C entries are attention_fwd.cu and attention_bwd.cu, which dispatch here
-// when the element type is bf16. At f32 the forward stays on the FP32 pipes
-// (attention_fwd.cuh), and the backward's dK/dV and dQ kernels
-// (attention_bwd.cu) take these kernels' shape on the TF32 tensor cores in
-// 3xTF32 (f32_mma.cuh), with the cp.async and Philox helpers below.
+// when the element type is bf16. At f32 the forward (attention_fwd.cuh)
+// and the backward's dK/dV and dQ kernels (attention_bwd.cu) take these
+// kernels' shape on the TF32 tensor cores in 3xTF32 (f32_mma.cuh), with the
+// cp.async and Philox helpers below.
 //
 // Replaces the TPU kernels `_fwd_kernel` and `_bwd_kernel`
 // (pointcloudmatters_tpu/ops/oneshot_attention.py:68-166) at bf16. Their

@@ -1,6 +1,7 @@
 // Exact-f32 products on the TF32 tensor cores ("3xTF32"), the one product
-// scheme of the f32 oneshot backward (kernel 4, attention_bwd.cu) and of the
-// f32 flash forward and backward (kernels 9, 10 and 11, flash_attention.cu).
+// scheme of the f32 oneshot forward and backward (kernels 3 and 4,
+// attention_fwd.cuh and attention_bwd.cu) and of the f32 flash forward and
+// backward (kernels 9, 10 and 11, flash_attention.cu).
 //
 // Each f32 operand x is split into hi = rna(x) and lo = rna(x - hi), both
 // TF32 (`cvt.rna.tf32.f32`: 10 mantissa bits, ties away from zero), so that

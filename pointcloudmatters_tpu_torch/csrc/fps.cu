@@ -1,4 +1,5 @@
-// Batched farthest-point sampling over padded clouds, one block per cloud.
+// Batched farthest-point sampling over padded clouds, one thread-block
+// cluster per cloud.
 //
 // Replaces the TPU kernel `_fps_kernel` / `farthest_point_sampling_padded_pallas`
 // (pointcloudmatters_tpu/ops/pallas_fps.py:30-103). Semantics are those of
@@ -8,27 +9,56 @@
 // a row has no valid point); rows with fewer valid points than `npoints` repeat
 // indices; exact ties go to the smaller index.
 //
-// What bounds it on an H100: the loop is sequential. Each of the npoints-1
-// iterations needs the previous argmax, so the time is npoints times the
-// latency of one pass over the cloud plus one block-wide argmax (warp
-// shuffles, one __syncthreads). Only B blocks exist, so only B of the 132 SMs
-// work (B = 1 in a rollout).
+// What bounds it on an H100: the loop is sequential. Each of the npoints - 1
+// rounds needs the previous round's argmax, so the time is npoints times the
+// latency of one round: a pass over the cloud (about 20 instructions a point)
+// and an argmax over it. With one block a cloud that pass is one SM's issue
+// rate (10,240 points: about 1,600 issue cycles a round), and only B of the
+// 132 SMs work (B = 1 in a rollout).
 //
-// What the design does about it: everything the loop touches stays on chip.
-// Coordinates live in dynamic shared memory (12 bytes a point: 123 KB at
-// N = 10240), the min-distance cache in registers (PPT values a thread), the
-// validity of a thread's points in one bitmask register. An iteration reads
-// the chosen point from shared memory (a broadcast), updates PPT distances,
-// reduces (value, index) within the warp by shuffles, and reduces the 32 warp
-// results redundantly in every warp from a double-buffered shared array, so
-// one barrier an iteration suffices.
+// What the design does about it: a cloud is spread over a cluster of C CTAs
+// (C in {1, 2, 4, 8, 16} and the threads a CTA chosen by the wrapper,
+// ops/fps.py), launched with cudaLaunchKernelEx and a cluster dimension.
+// CTA r owns the contiguous slice [r S, (r + 1) S) of the cloud, S =
+// ceil(N / C), and keeps it in shared memory as float4 (x, y, z, |x|^2),
+// |x|^2 computed once with the rounding below; its min-distance cache and
+// the validity of its points stay in registers (point j of the slice in
+// thread j % T, slot j / T). A round:
+//   1. every thread updates its points and takes their argmax (j rises
+//      with the slot, so a strict > keeps the smaller index); each warp
+//      reduces (value, index) by two `redux.sync`: the max of the value's
+//      order-preserving bits, then the min index among the lanes that hold
+//      it; the warps' results meet in shared memory (one __syncthreads) and
+//      warp 0 reduces them the same way;
+//   2. lanes 0 .. C - 1 of warp 0 send the CTA's record (value, index, x,
+//      y, z, |x|^2, the point read from the CTA's own slice) into slot
+//      [round & 1][r] of CTA 0 .. C - 1 of the cluster by `st.async`, each
+//      onto the receiving CTA's mbarrier [round & 1], which counts the
+//      bytes (thread 0 of each CTA arms it for C records a round);
+//   3. every warp waits on its CTA's mbarrier (`mbarrier.try_wait.parity`,
+//      acquire at cluster scope), reads the C records and reduces them by
+//      the same two `redux.sync`. All CTAs then hold the same winner and,
+//      from its record, its coordinates: no CTA reads the chosen point from
+//      another CTA's memory, and no cluster-wide barrier runs in the loop.
+// Why two slots and two mbarriers suffice (the argument of the double-
+// buffered warp results of the one-block kernel this replaces, lifted to
+// the cluster): a CTA sends its record of round i + 1 only after it has
+// read the records of round i (its warps meet at round i + 1's
+// __syncthreads after their reads), and a CTA reaches round i + 2 only
+// with every CTA's record of round i + 1. So a record of round i + 2 never
+// lands in a slot that is still to be read, nor counts on a phase of the
+// mbarrier that is still open; and no warp can miss its phase (parity i &
+// 1), since the next phase of that mbarrier needs this CTA's own record of
+// round i + 2. A cluster barrier before the first round makes sure that
+// every CTA runs, with its mbarriers initialised, before any record is
+// sent; one after the last keeps every CTA until the records in flight
+// have landed.
+// Two other exchanges measured slower on the card (PERF.md): a record a
+// warp, and plain remote stores with one cluster barrier a round.
 //
-// Above 16,384 points (two cameras of the shipped 16,384 each, say) the
-// coordinates no longer fit shared memory (12 bytes a point) nor the cache
-// registers, so `fps_kernel_large` keeps the min-distance cache and the
-// validity in shared memory (5 bytes a point, up to kMaxNLarge points) and
-// reads the coordinates from global memory, where the cloud stays in L2
-// (240 KB at N = 20480). Its loop, reduction and tie order are the same.
+// A slice holds at most kMaxSlice points (192 KiB of float4; 16,384 would
+// take 256 KiB, above the 227 KiB a block may use) and a thread at most
+// kMaxPPT of them, so the wrapper takes C >= ceil(N / kMaxSlice).
 //
 // Rounding: distances are computed with __fmul_rn/__fadd_rn/__fsub_rn in the
 // plain version's order, |x|^2 + |p|^2 - 2 (x0 p0 + x1 p1 + x2 p2), with
@@ -39,244 +69,325 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kMaxThreads = 1024;
-constexpr int kMaxPPT = 16;  // points a thread: N <= 16384
-constexpr int kMaxN = kMaxThreads * kMaxPPT;
-constexpr int kMaxNLarge = 40960;  // 5 bytes a point of dynamic shared memory
+constexpr int kMaxPPT = 12;  // points a thread
+constexpr int kMaxSlice = kMaxThreads * kMaxPPT;  // points a CTA: 12,288
+constexpr int kMaxN = 40960;
+constexpr int kMaxCluster = 16;  // non-portable above 8
+constexpr uint32_t kNoIndex = 0x7fffffffu;
+constexpr int kMaxDevices = 64;
+constexpr uint32_t kRecordBytes = 24;  // (key, index) and (x, y, z, |x|^2)
 
 __device__ __forceinline__ float sqnorm(float x, float y, float z) {
   return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
 }
 
-// (v, i) beats (bv, bi) when larger, or equal with a smaller index.
-__device__ __forceinline__ void take_better(float v, int i, float& bv, int& bi) {
-  if (v > bv || (v == bv && i < bi)) {
-    bv = v;
-    bi = i;
-  }
+// The bits of v as an unsigned integer in the order of the floats (v not
+// NaN; -0 is taken as +0 first, as the float comparison takes them).
+__device__ __forceinline__ uint32_t ordered(float v) {
+  const uint32_t u = __float_as_uint(__fadd_rn(v, 0.0f));
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-__device__ __forceinline__ void warp_argmax(float& bv, int& bi) {
+// The warp's best (key, index): the largest key, then the smallest index
+// among the lanes that hold it. Every lane gets both.
+__device__ __forceinline__ void warp_best(uint32_t key, uint32_t idx, uint32_t& best_key,
+                                          uint32_t& best_idx) {
+  best_key = __reduce_max_sync(0xffffffffu, key);
+  best_idx = __reduce_min_sync(0xffffffffu, key == best_key ? idx : 0xffffffffu);
+}
+
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// The address of shared-memory address `a` of this CTA in CTA `rank`.
+__device__ __forceinline__ uint32_t mapa(uint32_t a, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// A slot of the round's exchange: the winner's coordinates and |x|^2, and
+// (ordered value, index).
+struct Slots {
+  float4* xyzw;  // [2][C]
+  uint2* key;    // [2][C]
+};
+
+// Where lane l < C of warp 0 writes the CTA's record of each parity: the
+// CTA's slot of that parity and the mbarrier of that parity in CTA l of the
+// cluster (addresses mapped once, before the rounds).
+struct Route {
+  uint32_t key[2], xyzw[2], bar[2];
+};
+
+__device__ __forceinline__ Route route(const Slots& slots, uint64_t* bar, int slot, int C,
+                                       int lane) {
+  Route r;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-    int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-    take_better(ov, oi, bv, bi);
+  for (int b = 0; b < 2; ++b) {
+    r.key[b] = mapa(smem_u32(slots.key + b * C + slot), lane);
+    r.xyzw[b] = mapa(smem_u32(slots.xyzw + b * C + slot), lane);
+    r.bar[b] = mapa(smem_u32(bar + b), lane);
   }
+  return r;
 }
 
-template <int PPT>
-__global__ void __launch_bounds__(kMaxThreads, 1)  // 64 registers a thread
-fps_kernel(const float* __restrict__ xyz, const uint8_t* __restrict__ mask,
-           int32_t* __restrict__ out, int N, int npoints) {
-  extern __shared__ float smem[];
-  float* sx = smem;
-  float* sy = sx + N;
-  float* sz = sy + N;
-  __shared__ float red_v[2][32];
-  __shared__ int red_i[2][32];
+// Lanes 0 .. C - 1 write the record of parity `buf` into CTA `lane` each
+// (by st.async: onto that CTA's mbarrier of the parity).
+__device__ __forceinline__ void send(const Route& r, int buf, float4 w, uint32_t key,
+                                     uint32_t idx, int lane, int C) {
+  if (lane >= C) return;
+  const uint32_t k = buf ? r.key[1] : r.key[0];
+  const uint32_t x = buf ? r.xyzw[1] : r.xyzw[0];
+  const uint32_t rb = buf ? r.bar[1] : r.bar[0];
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.u32 [%0], {%1, %2}, [%3];\n"
+      ::"r"(k), "r"(key), "r"(idx), "r"(rb) : "memory");
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(x), "f"(w.x), "f"(w.y), "f"(w.z), "f"(w.w), "r"(rb) : "memory");
+}
 
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = nthreads >> 5;
+// The slice as float4, and two parities of C record slots.
+constexpr size_t smem_bytes(int slice, int cluster) {
+  return (size_t)slice * sizeof(float4) + (size_t)2 * cluster * kRecordBytes;
+}
+
+// One cluster a cloud: grid (B C), cluster (C), T threads a CTA.
+__global__ void __launch_bounds__(kMaxThreads, 1)
+fps_cluster_kernel(const float* __restrict__ xyz, const uint8_t* __restrict__ mask,
+                   int32_t* __restrict__ out, int N, int npoints, int slice) {
+  extern __shared__ __align__(16) float4 sm4[];
+  __shared__ uint2 red[2][32];    // the warps' results
+  __shared__ uint64_t bar[2];     // a round's records have landed
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int T = blockDim.x, W = T >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float4* pts = sm4;
+  const Slots slots{pts + slice, reinterpret_cast<uint2*>(pts + slice + 2 * C)};
+
+  const int b = blockIdx.x / C;
+  const int lo = rank * slice;
+  const int n_own = max(0, min(N - lo, slice));
+  const int ppt = (n_own + T - 1) / T;  // the same in every thread of the CTA
   const float* p = xyz + (size_t)b * N * 3;
-  const uint8_t* m = mask + (size_t)b * N;
+  const uint8_t* m = mask + (size_t)b * N + lo;
 
-  for (int j = tid; j < N; j += nthreads) {
-    sx[j] = p[3 * j];
-    sy[j] = p[3 * j + 1];
-    sz[j] = p[3 * j + 2];
+  for (int j = tid; j < n_own; j += T) {
+    const float x = p[3 * (lo + j)], y = p[3 * (lo + j) + 1], z = p[3 * (lo + j) + 2];
+    pts[j] = make_float4(x, y, z, sqnorm(x, y, z));
   }
-
-  float dist[PPT];
+  float dist[kMaxPPT];
   uint32_t valid = 0;
 #pragma unroll
-  for (int i = 0; i < PPT; ++i) {
-    const int j = tid + i * nthreads;
-    if (j < N) {
+  for (int i = 0; i < kMaxPPT; ++i) {
+    const int j = tid + i * T;
+    if (j < n_own) {
       const bool v = m[j] != 0;
       valid |= (uint32_t)v << i;
       dist[i] = v ? 1.0e10f : -1.0f;
     } else {
-      dist[i] = -INFINITY;  // beyond the row: never selected
+      dist[i] = -INFINITY;  // beyond the row or the slice: never selected
     }
   }
-  if (tid == 0) out[(size_t)b * npoints] = 0;
-  __syncthreads();
+  if (rank == 0 && tid == 0) out[(size_t)b * npoints] = 0;
+  if (tid == 0) {
+    mbar_init(&bar[0]);
+    mbar_init(&bar[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  float px = p[0], py = p[1], pz = p[2];
+  float p2 = sqnorm(px, py, pz);
+  uint32_t phases = 0;  // the parity of each mbarrier's current phase
+  // lanes >= C send nothing
+  const Route to = route(slots, bar, rank, C, lane < C ? lane : rank);
+  cluster_barrier();  // every CTA runs, with its slice and mbarriers in place
 
-  int last = 0;
   for (int it = 1; it < npoints; ++it) {
-    const float px = sx[last], py = sy[last], pz = sz[last];
-    const float p2 = sqnorm(px, py, pz);
+    const int buf = it & 1;
+    if (tid == 0) mbar_expect(&bar[buf], C * kRecordBytes);
     float bv = -INFINITY;
-    int bi = 0x7fffffff;
+    uint32_t bi = kNoIndex;
 #pragma unroll
-    for (int i = 0; i < PPT; ++i) {
-      const int j = tid + i * nthreads;
+    for (int i = 0; i < kMaxPPT; ++i) {
+      if (i == ppt) break;
+      const int j = tid + i * T;
       if ((valid >> i) & 1u) {
-        const float x = sx[j], y = sy[j], z = sz[j];
+        const float4 x = pts[j];
         const float dot =
-            __fadd_rn(__fadd_rn(__fmul_rn(x, px), __fmul_rn(y, py)), __fmul_rn(z, pz));
-        const float d = __fsub_rn(__fadd_rn(sqnorm(x, y, z), p2), __fmul_rn(2.0f, dot));
+            __fadd_rn(__fadd_rn(__fmul_rn(x.x, px), __fmul_rn(x.y, py)), __fmul_rn(x.z, pz));
+        const float d = __fsub_rn(__fadd_rn(x.w, p2), __fmul_rn(2.0f, dot));
         dist[i] = fminf(dist[i], d);
       }
       // j rises with i, so a strict > keeps the smaller index on a tie
       if (dist[i] > bv) {
         bv = dist[i];
-        bi = j;
+        bi = (uint32_t)(lo + j);
       }
     }
-    warp_argmax(bv, bi);
-    const int buf = it & 1;
-    if (lane == 0) {
-      red_v[buf][warp] = bv;
-      red_i[buf][warp] = bi;
-    }
+    uint32_t wkey, widx;
+    warp_best(ordered(bv), bi, wkey, widx);
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    // the CTA's record: the warps' results through shared memory (parity
+    // buffered as the slots are), reduced by warp 0, which sends it
+    if (lane == 0) red[buf][warp] = make_uint2(wkey, widx);
     __syncthreads();
-    // every warp reduces the warp results itself: no second barrier. The
-    // buffer alternates, so a warp that runs ahead writes the other one.
-    bv = lane < nwarps ? red_v[buf][lane] : -INFINITY;
-    bi = lane < nwarps ? red_i[buf][lane] : 0x7fffffff;
-    warp_argmax(bv, bi);
-    last = bi;
-    if (tid == 0) out[(size_t)b * npoints + it] = last;
+    if (warp == 0) {
+      const uint2 r = lane < W ? red[buf][lane] : make_uint2(0u, 0xffffffffu);
+      uint32_t ckey, cidx;
+      warp_best(r.x, r.y, ckey, cidx);
+      const float4 w = cidx != kNoIndex ? pts[cidx - lo] : zero;
+      send(to, buf, w, ckey, cidx, lane, C);
+    }
+    mbar_wait(&bar[buf], (phases >> buf) & 1u);
+    phases ^= 1u << buf;
+
+    // every warp reduces the records of the round; the lane of the winner
+    // hands out its point
+    uint32_t ck = 0u, ci = 0xffffffffu;
+    float4 cp = zero;
+    for (int s = lane; s < C; s += 32) {
+      const uint2 r = slots.key[buf * C + s];
+      const float4 x = slots.xyzw[buf * C + s];
+      if (r.x > ck || (r.x == ck && r.y < ci)) {
+        ck = r.x;
+        ci = r.y;
+        cp = x;
+      }
+    }
+    uint32_t gkey, gidx;
+    warp_best(ck, ci, gkey, gidx);
+    const int win = __ffs(__ballot_sync(0xffffffffu, ck == gkey && ci == gidx)) - 1;
+    px = __shfl_sync(0xffffffffu, cp.x, win);
+    py = __shfl_sync(0xffffffffu, cp.y, win);
+    pz = __shfl_sync(0xffffffffu, cp.z, win);
+    p2 = __shfl_sync(0xffffffffu, cp.w, win);
+    if (rank == 0 && tid == 0) out[(size_t)b * npoints + it] = (int32_t)gidx;
   }
+  cluster_barrier();  // no CTA leaves while records fly
 }
 
-// The same loop for kMaxN < N <= kMaxNLarge: the min-distance cache and the
-// validity in shared memory, the coordinates read from global memory. Each
-// thread touches only its own points (j = tid + i * nthreads), so the cache
-// needs no barrier of its own.
-__global__ void __launch_bounds__(kMaxThreads, 1)
-fps_kernel_large(const float* __restrict__ xyz, const uint8_t* __restrict__ mask,
-                 int32_t* __restrict__ out, int N, int npoints) {
-  extern __shared__ float smem[];
-  float* dist = smem;
-  uint8_t* valid = reinterpret_cast<uint8_t*>(dist + N);
-  __shared__ float red_v[2][32];
-  __shared__ int red_i[2][32];
-
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = nthreads >> 5;
-  const float* p = xyz + (size_t)b * N * 3;
-  const uint8_t* m = mask + (size_t)b * N;
-
-  for (int j = tid; j < N; j += nthreads) {
-    const bool v = m[j] != 0;
-    valid[j] = v;
-    dist[j] = v ? 1.0e10f : -1.0f;
-  }
-  if (tid == 0) out[(size_t)b * npoints] = 0;
-  __syncthreads();
-
-  int last = 0;
-  for (int it = 1; it < npoints; ++it) {
-    const float px = __ldg(p + 3 * last), py = __ldg(p + 3 * last + 1),
-                pz = __ldg(p + 3 * last + 2);
-    const float p2 = sqnorm(px, py, pz);
-    float bv = -INFINITY;
-    int bi = 0x7fffffff;
-    for (int j = tid; j < N; j += nthreads) {
-      float dj = dist[j];
-      if (valid[j]) {
-        const float x = __ldg(p + 3 * j), y = __ldg(p + 3 * j + 1), z = __ldg(p + 3 * j + 2);
-        const float dot =
-            __fadd_rn(__fadd_rn(__fmul_rn(x, px), __fmul_rn(y, py)), __fmul_rn(z, pz));
-        const float d = __fsub_rn(__fadd_rn(sqnorm(x, y, z), p2), __fmul_rn(2.0f, dot));
-        dj = fminf(dj, d);
-        dist[j] = dj;
-      }
-      // j rises, so a strict > keeps the smaller index on a tie
-      if (dj > bv) {
-        bv = dj;
-        bi = j;
-      }
-    }
-    warp_argmax(bv, bi);
-    const int buf = it & 1;
-    if (lane == 0) {
-      red_v[buf][warp] = bv;
-      red_i[buf][warp] = bi;
-    }
-    __syncthreads();
-    bv = lane < nwarps ? red_v[buf][lane] : -INFINITY;
-    bi = lane < nwarps ? red_i[buf][lane] : 0x7fffffff;
-    warp_argmax(bv, bi);
-    last = bi;
-    if (tid == 0) out[(size_t)b * npoints + it] = last;
-  }
-}
-
-template <int PPT>
-cudaError_t launch(const float* xyz, const uint8_t* mask, int32_t* out, int B, int N,
-                   int npoints, int threads, cudaStream_t stream) {
-  const size_t smem = (size_t)3 * N * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(fps_kernel<PPT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)((size_t)3 * kMaxN * sizeof(float)));
+// The kernel's attributes on the current device `device`, set at its first
+// use there: clusters above 8 CTAs, and the shared memory of the largest
+// slice (what a launch takes is its own dynamic size).
+cudaError_t set_attributes(int device) {
+  static bool done[kMaxDevices];
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (done[device]) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(fps_cluster_kernel,
+                                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
-  fps_kernel<PPT><<<B, threads, smem, stream>>>(xyz, mask, out, N, npoints);
-  return cudaGetLastError();
+  err = cudaFuncSetAttribute(fps_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_bytes(kMaxSlice, kMaxCluster));
+  done[device] = err == cudaSuccess;
+  return err;
+}
+
+// The launch configuration of B clouds of N points, C CTAs of T threads
+// each; false when the kernel does not take it.
+bool config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int B, int N, int C, int T,
+            cudaStream_t stream) {
+  if (N < 1 || N > kMaxN || B < 1 || C < 1 || C > kMaxCluster || (C & (C - 1)) != 0 ||
+      T < 32 || T > kMaxThreads || T % 32 != 0)
+    return false;
+  const int slice = (N + C - 1) / C;
+  if (slice > kMaxSlice || (slice + T - 1) / T > kMaxPPT) return false;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3((unsigned)(B * C));
+  cfg.blockDim = dim3((unsigned)T);
+  cfg.dynamicSmemBytes = smem_bytes(slice, C);
+  cfg.stream = stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = (unsigned)C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return true;
 }
 
 }  // namespace
 
 extern "C" {
 
-int pcm_fps_max_points() { return kMaxNLarge; }
+int pcm_fps_max_points() { return kMaxN; }
+
+int pcm_fps_max_slice() { return kMaxSlice; }
+
+int pcm_fps_max_points_per_thread() { return kMaxPPT; }
+
+// How many clusters of C CTAs of T threads, for clouds of N points, the
+// device can hold at once (cudaOccupancyMaxActiveClusters): 0 when none
+// fits, minus the cudaError_t on an error.
+int pcm_fps_max_active_clusters(int N, int C, int T, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  if (!config(cfg, attr, 1, N, C, T, 0)) return -(int)cudaErrorInvalidValue;
+  err = set_attributes(device);
+  if (err != cudaSuccess) return -(int)err;
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, (void*)fps_cluster_kernel, &cfg);
+  if (err != cudaSuccess) return -(int)err;
+  return n;
+}
 
 // xyz (B, N, 3) f32, mask (B, N) bool as bytes, out (B, npoints) int32; all
-// contiguous on device `device`. Returns the cudaError_t of the launch.
-int pcm_fps(const float* xyz, const uint8_t* mask, int32_t* out, int B, int N,
-            int npoints, int device, void* stream) {
-  if (N < 1 || N > kMaxNLarge || npoints < 1 || B < 1) return (int)cudaErrorInvalidValue;
+// contiguous on device `device`. One cluster of C CTAs (a power of two up to
+// 16) of T threads (a multiple of 32) a cloud; ceil(N / C) <= kMaxSlice and
+// ceil(ceil(N / C) / T) <= kMaxPPT. Returns the cudaError_t of the launch.
+int pcm_fps(const float* xyz, const uint8_t* mask, int32_t* out, int B, int N, int npoints,
+            int C, int T, int device, void* stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  if (npoints < 1 || !config(cfg, attr, B, N, C, T, (cudaStream_t)stream))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (N > kMaxN) {
-    const size_t smem = (size_t)N * (sizeof(float) + 1);
-    err = cudaFuncSetAttribute(fps_kernel_large, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)((size_t)kMaxNLarge * (sizeof(float) + 1)));
-    if (err != cudaSuccess) return (int)err;
-    fps_kernel_large<<<B, kMaxThreads, smem, (cudaStream_t)stream>>>(xyz, mask, out, N,
-                                                                      npoints);
-    return (int)cudaGetLastError();
-  }
-  const int threads = N >= kMaxThreads ? kMaxThreads : ((N + 31) / 32) * 32;
-  const int ppt = (N + threads - 1) / threads;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (ppt) {
-#define PCM_FPS_CASE(P) \
-  case P:               \
-    return (int)launch<P>(xyz, mask, out, B, N, npoints, threads, s);
-    PCM_FPS_CASE(1)
-    PCM_FPS_CASE(2)
-    PCM_FPS_CASE(3)
-    PCM_FPS_CASE(4)
-    PCM_FPS_CASE(5)
-    PCM_FPS_CASE(6)
-    PCM_FPS_CASE(7)
-    PCM_FPS_CASE(8)
-    PCM_FPS_CASE(9)
-    PCM_FPS_CASE(10)
-    PCM_FPS_CASE(11)
-    PCM_FPS_CASE(12)
-    PCM_FPS_CASE(13)
-    PCM_FPS_CASE(14)
-    PCM_FPS_CASE(15)
-    PCM_FPS_CASE(16)
-#undef PCM_FPS_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  err = set_attributes(device);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchKernelEx(&cfg, fps_cluster_kernel, xyz, mask, out, N, npoints,
+                           (N + C - 1) / C);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -29,9 +29,10 @@ The seed is a host integer, so drawing it never waits for the device.
 plain versions (:func:`oneshot_attention_plain`,
 :func:`oneshot_attention_plain_bwd`); a CUDA tensor the hand-written kernels
 behind the C entries ``csrc/attention_fwd.cu`` and ``csrc/attention_bwd.cu``,
-which raise on anything they do not take: f32 on the FP32 pipes
-(``csrc/attention_fwd.cuh``, ``csrc/attention_bwd.cu``), bf16 on the tensor
-cores (``csrc/attention_mma.cuh``; design notes in the sources).
+which raise on anything they do not take: f32 on the TF32 tensor cores in
+3xTF32, exact f32 (``csrc/attention_fwd.cuh``, ``csrc/attention_bwd.cu`` on
+``csrc/f32_mma.cuh``), bf16 on the bf16 tensor cores
+(``csrc/attention_mma.cuh``; design notes in the sources).
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Compare the attention kernels of two builds of the port on one GPU.
+"""Compare the kernels of two builds of the port on one GPU.
 
     python3 scripts/ab_kernel_builds.py OTHER [--rounds 2]
 
@@ -18,14 +18,16 @@ L=2051, D=512, H=8; and the f32 oneshot backward (kernel 4), the f32 flash
 forward (kernel 9, 512-row tiles) and the f32 flash backward's dK/dV
 (kernel 10) and dQ (kernel 11) at the same attention shape and rates, each
 with its worst error against its plain version at rate 0.1 on the same
-seeded inputs in every turn. Then it compares the SASS (``cuobjdump -sass``)
-of every kernel of the attention libraries that include
-``csrc/attention_mma.cuh`` but not the fused layer (``attention_fwd``,
-``attention_bwd``, ``flash_attention``) between the two builds, instruction
-addresses and encodings dropped, kernels paired by mangled name (the
-oneshot kernels' ``Oneshot`` template argument ignored), and prints one
-line a kernel: the same, differing (with both line counts), or in one
-build only.
+seeded inputs in every turn; the f32 oneshot forward (kernel 3, with its
+row statistics) at the same shape and rates, and at B=4, H=4, L=2051,
+dh=128 (the same flops), with its worst errors; and FPS (kernel 1) at B=1,
+4 and 32 for N=10240 and at B=4 for N=20480 and 40960, 2048 samples. Then
+it compares the
+SASS (``cuobjdump -sass``) of every kernel of every library between the
+two builds, instruction addresses and encodings dropped, kernels paired by
+mangled name (the oneshot kernels' ``Oneshot`` template argument ignored),
+and prints one line a kernel: the same, differing (with both line counts),
+or in one build only.
 
 Needs the card and the CUDA toolkit (``cuobjdump``); prints the card's name
 and power limit first.
@@ -41,8 +43,27 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# the libraries whose kernels share attention_mma.cuh with the fused layer's
-SASS_LIBRARIES = ("attention_fwd", "attention_bwd", "flash_attention")
+FPS_CASES = ((1, 10240), (4, 10240), (32, 10240), (4, 20480), (4, 40960))
+
+
+def fps_times() -> str:
+    """FPS times at FPS_CASES."""
+    import torch
+
+    import chip_smoke
+    from pointcloudmatters_tpu_torch.entry import build_batch
+    from pointcloudmatters_tpu_torch.ops import fps
+
+    dev = torch.device("cuda", 0)
+    parts = []
+    for B, N in FPS_CASES:
+        batch = build_batch(batch_size=B, n_points=N, seed=0, with_actions=False)
+        xyz = torch.from_numpy(batch["pcds"]["coord"]).to(dev)
+        mask = torch.from_numpy(batch["pcds"]["valid"]).to(dev)
+        ms = chip_smoke.cuda_ms(
+            lambda: fps.farthest_point_sampling_padded_cuda(xyz, mask, 2048), 10)
+        parts.append(f"B={B} N={N} {ms:.4f} ms")
+    return "FPS: " + ", ".join(parts)
 
 
 def time_build(root: str) -> str:
@@ -60,7 +81,7 @@ def time_build(root: str) -> str:
 
     if not one.__file__.startswith(root):
         raise RuntimeError(f"imported {one.__file__}, not the copy under {root}")
-    _build.build(["attention_fwd", "attention_bwd", "flash_attention", "fused_mha"])
+    _build.build()
     dev = torch.device("cuda", 0)
     rng = np.random.RandomState(0)
 
@@ -84,12 +105,14 @@ def time_build(root: str) -> str:
     fused = chip_smoke.cuda_ms(lambda: fm.fused_mha_cuda(*layer, H, 0.0, 17), 20)
     parts.append(f"#7 {fused:.4f} ms")
 
-    # f32 kernels 4, 9, 10 and 11: times at both rates, worst error at rate 0.1
+    # f32 kernels 3, 4, 9, 10 and 11: times at both rates, worst error at rate 0.1
     q, k, v, dout = (arr(B, H, L, dh).float() for _ in range(4))
     f32 = []
     for rate in (0.0, 0.1):
         out, m, r = one.oneshot_attention_cuda(q, k, v, scale, None, rate, 11, with_stats=True)
         args = (q, k, v, out, dout, m, r, scale, None, rate, 11)
+        fwd3 = chip_smoke.cuda_ms(lambda: one.oneshot_attention_cuda(
+            q, k, v, scale, None, rate, 11, with_stats=True), 20)
         bwd = chip_smoke.cuda_ms(lambda: one.oneshot_attention_bwd_cuda(*args), 20)
         kw = dict(sm_scale=scale, dropout_rate=rate, dropout_seed=23, block_q=512, block_k=512)
         fwd = chip_smoke.cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw), 20)
@@ -97,8 +120,10 @@ def time_build(root: str) -> str:
         fargs = (q, k, v, None, None, fl, fm, dout, (o * dout).sum(-1))
         dkv = chip_smoke.cuda_ms(lambda: fa.flash_attention_bwd_dkv_cuda(*fargs, **kw), 20)
         dq = chip_smoke.cuda_ms(lambda: fa.flash_attention_bwd_dq_cuda(*fargs, **kw), 20)
-        f32.append(f"f32 #4 {bwd:.4f} ms, f32 #9 {fwd:.4f} ms, f32 #10 {dkv:.4f} ms, "
-                   f"f32 #11 {dq:.4f} ms at rate {rate}")
+        f32.append(f"f32 #3 {fwd3:.4f} ms, f32 #4 {bwd:.4f} ms, f32 #9 {fwd:.4f} ms, "
+                   f"f32 #10 {dkv:.4f} ms, f32 #11 {dq:.4f} ms at rate {rate}")
+    err3 = chip_smoke._max_err(one.oneshot_attention_cuda(q, k, v, scale, None, 0.1, 11),
+                               one.oneshot_attention_plain(q, k, v, scale, None, 0.1, 11))
     err4 = max(chip_smoke._max_err(g, p) for g, p in zip(
         one.oneshot_attention_bwd_cuda(*args), one.oneshot_attention_plain_bwd(*args)))
     err9 = chip_smoke._max_err(fa.flash_attention_cuda(q, k, v, **kw)[0],
@@ -108,8 +133,20 @@ def time_build(root: str) -> str:
         fa.flash_attention_plain_bwd_dkv(*fargs, **kw)))
     err11 = chip_smoke._max_err(fa.flash_attention_bwd_dq_cuda(*fargs, **kw)[0],
                                 fa.flash_attention_plain_bwd_dq(*fargs, **kw)[0])
-    parts += f32 + [f"f32 worst error at rate 0.1: #4 {err4:.3e}, #9 {err9:.3e}, "
-                    f"#10 {err10:.3e}, #11 {err11:.3e}"]
+    parts += f32 + [f"f32 worst error at rate 0.1: #3 {err3:.3e}, #4 {err4:.3e}, "
+                    f"#9 {err9:.3e}, #10 {err10:.3e}, #11 {err11:.3e}"]
+
+    # f32 kernel 3 at dh 128, the same flops (H=4)
+    q, k, v = (arr(B, 4, L, 128).float() for _ in range(3))
+    dh128 = []
+    for rate in (0.0, 0.1):
+        ms = chip_smoke.cuda_ms(lambda: one.oneshot_attention_cuda(
+            q, k, v, 128 ** -0.5, None, rate, 11, with_stats=True), 20)
+        err = chip_smoke._max_err(one.oneshot_attention_cuda(q, k, v, 128 ** -0.5, None, rate, 11),
+                                  one.oneshot_attention_plain(q, k, v, 128 ** -0.5, None, rate, 11))
+        dh128.append(f"{ms:.4f} ms (error {err:.3e}) at rate {rate}")
+    parts.append("f32 #3 dh 128, H=4: " + ", ".join(dh128))
+    parts.append(fps_times())
     return "; ".join(parts)
 
 
@@ -161,7 +198,9 @@ def main() -> int:
         out = subprocess.run([sys.executable, os.path.abspath(__file__), "--time", root],
                              capture_output=True, text=True, check=True).stdout.strip()
         print(f"{'other' if root == other else 'this '}: {out}", flush=True)
-    for lib in SASS_LIBRARIES:
+    from pointcloudmatters_tpu_torch import _build
+
+    for lib in _build.KERNELS:
         a, b = sass(other, lib), sass(REPO, lib)
         differ = sorted(k for k in a.keys() | b.keys() if a.get(k) != b.get(k))
         print(f"SASS {lib}: {len(a)} / {len(b)} kernels (other / this), "

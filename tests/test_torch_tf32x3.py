@@ -1,5 +1,6 @@
-"""The exact-f32 product of the port's f32 oneshot backward and f32 flash
-forward and backward (``csrc/f32_mma.cuh``, "3xTF32"), emulated in numpy.
+"""The exact-f32 product of the port's f32 oneshot forward and backward and
+f32 flash forward and backward (``csrc/f32_mma.cuh``, "3xTF32"), emulated
+in numpy.
 
 The card runs each f32 product as three TF32 tensor-core products: an
 operand x is split into hi = rna(x) and lo = rna(x - hi), rna being
@@ -22,6 +23,16 @@ nearest, as the kernels' ``mma3`` does.
   within 4x of the error of a plain f32 product (an f32 FMA chain in k
   order, as the kernels it replaces summed) against f64; TF32 alone (hi
   only) is over 100x off, which is why it is not used.
+- The emulated oneshot forward chain (``csrc/attention_fwd.cuh``): S =
+  (q scale) K^T in 3xTF32 a 64-key tile at a time, keys at l_actual and
+  beyond set to -1e30, the online softmax folded tile by tile (m_new =
+  max(m, rowmax S), l <- l exp(m - m_new) + rowsum e, acc rescaled by the
+  same factor), dropout on e, e_drop split for e_drop V, o = acc (1 / l),
+  stays inside the 1e-4 * max(1, max |plain|) of ``chip_smoke.py`` against
+  the same chain in f64 (itself the two-pass softmax to 1e-12), at dh 64
+  and 128, rates 0 and 0.1, with and without a masked key tail; its row
+  max and 1 / l, which the backward reads, within 1e-5 relative. Its
+  tiles are f32_mma.cuh's, checked below.
 - The emulated backward chain S -> p -> dP -> dS -> dQ, dK, dV stays
   inside the 1e-4 * max(1, max |plain|) that ``chip_smoke.py`` holds the
   kernels to, against the same chain in f64: the f32 oneshot backward's
@@ -190,6 +201,66 @@ def test_split_backward_chain_within_kernel_limit(dh, rate):
         assert np.abs(g - r).max() <= limit, name
 
 
+def oneshot_forward_chain(mm, f, q, k, v, scale, l_actual, keep, inv_keep, tile=64):
+    """The f32 oneshot forward kernel's walk (``attention_fwd.cuh``) in the
+    arithmetic ``f`` with the product ``mm``: o, the row max and 1 / l."""
+    qs = f(q) * f(scale)
+    Lq, dh = q.shape
+    m = np.full((Lq, 1), -np.inf, qs.dtype)
+    l = np.zeros((Lq, 1), qs.dtype)
+    acc = np.zeros((Lq, dh), qs.dtype)
+    for k0 in range(0, l_actual, tile):
+        cols = np.arange(k0, k0 + tile)
+        kt = np.zeros((tile, dh), k.dtype)
+        vt = np.zeros((tile, dh), v.dtype)
+        n = min(tile, k.shape[0] - k0)
+        kt[:n], vt[:n] = k[k0:k0 + n], v[k0:k0 + n]
+        s = mm(qs, f(kt).T)
+        s = np.where(cols[None] < l_actual, s, f(-1.0e30))
+        m_new = np.maximum(m, s.max(-1, keepdims=True))
+        alpha = np.exp(m - m_new)
+        e = np.exp(s - m_new)
+        l = l * alpha + e.sum(-1, keepdims=True)
+        kp = np.zeros((Lq, tile), bool)
+        kp[:, :min(tile, keep.shape[1] - k0)] = keep[:, k0:k0 + tile]
+        e_drop = np.where(kp, e * f(inv_keep), f(0.0))
+        acc = acc * alpha + mm(e_drop, f(vt))
+        m = m_new
+    inv = f(1.0) / l
+    return acc * inv, m[:, 0], inv[:, 0]
+
+
+@pytest.mark.parametrize("dh,rate,tail", [(64, 0.0, False), (64, 0.1, False),
+                                          (64, 0.1, True), (128, 0.0, True),
+                                          (128, 0.1, False)])
+def test_split_oneshot_forward_chain_within_kernel_limit(dh, rate, tail):
+    """The f32 oneshot forward (kernel 3): each product in emulated 3xTF32
+    and the online softmax in f32, against the same walk in f64, which is
+    the two-pass softmax of the plain version."""
+    rng = np.random.RandomState(7 + dh)
+    Lq, Lk = 80, 200
+    l_actual = 170 if tail else Lk
+    q = rng.randn(Lq, dh).astype(np.float32)
+    k, v = rng.randn(Lk, dh).astype(np.float32), rng.randn(Lk, dh).astype(np.float32)
+    k[l_actual:] *= 1e3  # junk keys past l_actual
+    scale = np.float32(dh ** -0.5)
+    keep = rng.rand(Lq, Lk) >= rate
+    inv_keep = np.float32(1.0 / (1.0 - rate))
+
+    got = oneshot_forward_chain(mma3, np.float32, q, k, v, scale, l_actual, keep, inv_keep)
+    ref = oneshot_forward_chain(lambda a, b: a @ b, np.float64, q, k, v, scale, l_actual,
+                                keep, inv_keep)
+    s = (q.astype(np.float64) * np.float64(scale)) @ k[:l_actual].T.astype(np.float64)
+    e = np.exp(s - s.max(-1, keepdims=True))
+    two_pass = (np.where(keep[:, :l_actual], e * np.float64(inv_keep), 0.0)
+                @ v[:l_actual].astype(np.float64)) / e.sum(-1, keepdims=True)
+    np.testing.assert_allclose(ref[0], two_pass, rtol=0, atol=1e-12)
+    limit = 1e-4 * max(1.0, np.abs(ref[0]).max())
+    assert np.abs(got[0] - ref[0]).max() <= limit
+    for g, r in zip(got[1:], ref[1:]):  # the row max and 1 / l
+        assert np.all(np.abs(g - r) <= 1e-5 * np.abs(r))
+
+
 # flash's DEFAULT_MASK_VALUE as the kernels add it to an f32 score
 MASK_VALUE = np.float32(-0.7 * float(np.finfo(np.float32).max))
 
@@ -249,7 +320,7 @@ def _tile_offset(dh: int):
 def test_tile_fragment_loads_are_conflict_free(dh):
     at = _tile_offset(dh)
     lanes = [(lane >> 2, lane & 3) for lane in range(32)]  # (g, t)
-    for r0 in (0, 16, 48):
+    for r0 in (0, 16, 48, 112):  # 112: the last warp of a 128-row q tile
         for c0 in range(0, dh, 8):
             # row-major A/B: one 8-byte load of (row r0 + g, columns c0 + 2t, +1)
             for half in (lanes[:16], lanes[16:]):

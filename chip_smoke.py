@@ -13,20 +13,25 @@ Phases, each of which raises on failure (exit code non-zero, no result):
    the tensor-core kernels (bf16 kernel 9, the bf16 oneshot backward, kernel
    7's and 8's GEMM instantiations and attention kernels at dh 64 and 128,
    the 3xTF32 f32 kernels 3, 4, 9, 10 and 11 at dh 64 and 128), of the FP32
-   GEMM and of the FPS cluster kernel go into the kernels line (``ptxas``).
+   GEMM, of the FPS cluster kernel and of the lane-group kNN kernels 2 and
+   12 (k = 16 and 128, groups of 8 and 32 lanes) go into the kernels line
+   (``ptxas``).
 3. Holds each kernel against its plain PyTorch version on the card at the
    flagship's shapes, and times both:
    FPS -> 2048 (one thread-block cluster a cloud) index-exact at B=1, 4
    and 32 for N=10240 and at B=1 and 4 for N=20480 and 40960, on a cloud
    of exact ties and on a partly masked one with a row of fewer valid
    points than it samples, each case's cluster size, threads a CTA, ms and
-   microseconds a round logged; kNN B=4, M=2048 FPS queries, N=10240 and 20480, k=16 and 128,
-   in FPS order and Morton-sorted: kernels 2 (``v3``), 12 (chunk-skip) and
-   13 (dense scan) each index-exact against its plain version, 12 and 13
-   also against kernel 2, d2 within 1e-6 relative of the plain versions and
-   bit-equal to kernel 2's, relaunches bit-identical, kernel 12's skipped
-   chunks equal to its plain version's (its share printed); kernel 2 at
-   k=96; k=160 launching no kNN kernel on any selector; attention forward
+   microseconds a round logged; kNN over M=2048 FPS queries at each of
+   KNN_CASES (B=1, 4 and 32 at N=10240, B=1 and 4 at N=20480, k=16, 96 and
+   128, a lattice of exact ties, a row of fewer valid points than k), in FPS
+   order and Morton-sorted (B=32: FPS order, no kernel 12): kernels 2
+   (``v3``), 12 (chunk-skip) and 13 (dense scan) each index-exact against
+   its plain version and the plain kNN, d2 bit-equal to them and across the
+   three, relaunches bit-identical, kernel 12's skipped (tile, chunk) pairs
+   equal to its plain version's at the kernel's query tile TQ; each case's
+   lane group S, TQ, times and kernel 12's skipped and box-pruned shares
+   logged; k=160 launching no kNN kernel on any selector; attention forward
    B=4, H=8, L=2051, dh=64, f32 (3xTF32, ``csrc/attention_fwd.cuh``), at
    dropout rate 0 and 0.1, each timed, also at dh=128, H=4 (max abs error
    <= 1e-4; also a masked key tail); the dropout mask read back from the
@@ -141,7 +146,9 @@ for like with the library's rate-0 call (kernel 9 of both types also
 ``ms_single_step``, its single-step variant at rate 0.1, which takes S once
 more over every key; f32 kernel 3 also ``ms_dh128`` and ``ms_rate0_dh128``,
 at dh 128, H=4); the kernels of ``PTXAS_FUNCTIONS`` carry ``ptxas``; FPS carries ``cases``,
-each phase-3 case's cluster size, threads, ms and microseconds a round; a fused layer's
+each phase-3 case's cluster size, threads, ms and microseconds a round, and
+the kNN kernels theirs (S, kernel 12's TQ and shares, ms); kernel 12 also
+``skipped_share`` and ``pruned_share`` of the first case; a fused layer's
 bound sums its products' times at their operands' peaks; flash kernels 10
 and 11 are timed apart, and the library's backward stands on kernel 10's
 row, against the two together), then
@@ -200,9 +207,11 @@ KERNELS = {
     "flash_dq_bf16": (_CSRC + "flash_mma.cuh", _OPS + "flash_attention.py:1427"),
 }
 # phase 2: the tensor-core kernels (bf16, and f32 kernels 3, 4, 9, 10 and 11
-# in 3xTF32) and the FPS cluster kernel, whose ptxas registers and spills the
-# kernels line records, by a piece of their mangled names (the two
-# f32_dq_kernel pieces by their argument types as well: each library has one)
+# in 3xTF32), the FPS cluster kernel and the lane-group kNN kernels 2 and 12
+# (k = 16 and 128 in groups of 8 and 32 lanes), whose ptxas registers and
+# spills the kernels line records, by a piece of their mangled names (the
+# two f32_dq_kernel pieces by their argument types as well: each library has
+# one)
 PTXAS_FUNCTIONS = {
     "attention_bwd": {"dkdv_dh64": "15f32_dkdv_kernelILi64E",
                       "dq_dh64": "13f32_dq_kernelILi64EEEvNS_4ArgsIfEE",
@@ -228,6 +237,13 @@ PTXAS_FUNCTIONS = {
                       "dq_dh64": "8attn_mma9dq_kernelILi64ENS0_5FusedE",
                       "dq_dh128": "8attn_mma9dq_kernelILi128ENS0_5FusedE"},
     "fps": {"cluster": "18fps_cluster_kernel"},
+    "knn": {"k16_S8": "16knn_group_kernelILi8ELi2EE", "k16_S32": "16knn_group_kernelILi32ELi1EE",
+            "k128_S8": "16knn_group_kernelILi8ELi16EE",
+            "k128_S32": "16knn_group_kernelILi32ELi4EE"},
+    "knn_chunkskip": {"k16_S8": "20knn_chunkskip_kernelILi8ELi2EE",
+                      "k16_S32": "20knn_chunkskip_kernelILi32ELi1EE",
+                      "k128_S8": "20knn_chunkskip_kernelILi8ELi16EE",
+                      "k128_S32": "20knn_chunkskip_kernelILi32ELi4EE"},
     "attention_fwd": {"dh64": "4attn15attn_fwd_kernelILi64E",
                       "dh128": "4attn15attn_fwd_kernelILi128E"},
     "fused_mha_bwd_bf16": {"gemm_f32": "8gemm_mma11gemm_kernelILb0ELi1E",
@@ -294,8 +310,8 @@ def card_line() -> str:
 
 
 def ptxas_usage(logs: dict) -> dict:
-    """Registers and spill bytes by kernel function (mangled name), from the
-    ``-Xptxas=-v`` output of phase 2's build."""
+    """Registers, stack frame and spill bytes by kernel function (mangled
+    name), from the ``-Xptxas=-v`` output of phase 2's build."""
     usage, fn = {}, None
     for text in logs.values():
         for line in text.splitlines():
@@ -303,9 +319,11 @@ def ptxas_usage(logs: dict) -> dict:
             if m:
                 fn = m.group(1)
                 continue
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
             if m and fn:
-                usage.setdefault(fn, {}).update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+                usage.setdefault(fn, {}).update(stack=int(m[1]), spill_stores=int(m[2]),
+                                                spill_loads=int(m[3]))
             m = re.search(r"Used (\d+) registers", line)
             if m and fn:
                 usage.setdefault(fn, {})["registers"] = int(m[1])
@@ -478,17 +496,32 @@ def check_fps(dev) -> dict:
     return res
 
 
+# phase 3's kNN cases: (what, B, N, k), the first the kernels line's times;
+# "lattice" puts the cloud and its queries on a coarse grid (exact ties
+# everywhere), "short" leaves row 1 ten valid points, fewer than k
+KNN_CASES = (("random", 4, N_POINTS, 16), ("random", 1, N_POINTS, 16),
+             ("random", BIG_BATCH, N_POINTS, 16), ("random", 1, BIG_CLOUD, 16),
+             ("random", 4, BIG_CLOUD, 16), ("random", 4, N_POINTS, 96),
+             ("random", 4, N_POINTS, 128), ("random", 1, BIG_CLOUD, 128),
+             ("lattice", 4, N_POINTS, 16), ("short", 4, N_POINTS, 16),
+             ("short", 4, N_POINTS, 128))
+
+
 def check_knn(dev) -> dict:
-    """Phase 3, the kNN kernels 2, 12 and 13 at B=4, M=2048 FPS queries,
-    N=10240 and N=20480, k = 16 and 128, on the queries in FPS order and sorted
-    along a Morton curve: indices equal to each kernel's plain version's,
-    to ``knn_query_padded_plain``'s and to kernel 2's; d2 within 1e-6
-    relative of the plain versions and bit-equal to kernel 2's (the three
-    share one distance expression); two launches bit-identical; kernel 12's
-    skipped (tile, chunk) pairs equal to its plain version's. Kernel 2 also
-    at k=96; k=160 takes the plain version on every selector and launches
-    no kNN kernel. Times at N=10240, k=16: kernel 12 on the sorted queries,
-    as its route runs it, kernels 2 and 13 on the FPS order."""
+    """Phase 3, the kNN kernels 2, 12 and 13 at each of KNN_CASES over
+    M=2048 FPS queries, in FPS order and sorted along a Morton curve (B=32:
+    FPS order only, and no kernel 12): indices equal to
+    ``knn_query_padded_plain``'s, to each kernel's plain version's and to
+    kernel 2's; d2 bit-equal to the plain kNN's and across the three
+    kernels (they share one distance expression); two launches
+    bit-identical; kernel 12's skipped (tile, chunk) pairs equal to its
+    plain version's at the kernel's query tile TQ. Logs each case's times
+    (kernel 2 on the FPS order, kernel 12 on the sorted queries, as its
+    route runs them, kernel 13 on the FPS order), the lane group S, TQ and
+    kernel 12's skipped and box-pruned shares. k=160 takes the plain
+    version on every selector and launches no kNN kernel; kernel 2's visiting
+    order (``ops.knn.order_multiplier``) is the C entry's."""
+    import numpy as np
     import torch
 
     from pointcloudmatters_tpu_torch import ops
@@ -497,97 +530,117 @@ def check_knn(dev) -> dict:
     from pointcloudmatters_tpu_torch.ops import knn_baseline as kb
     from pointcloudmatters_tpu_torch.ops import knn_chunkskip as kc
 
-    def rel_err(got, ref):
-        return ((got - ref).abs() / ref.abs().clamp_min(1e-30)).max().item()
-
-    selectors = {"knn_chunkskip": (kc.knn_query_chunkskip_cuda,
-                                   pointops.knn_query_chunkskip_plain),
-                 "knn_baseline": (kb.knn_query_baseline_cuda, pointops.knn_query_baseline_plain)}
-    res = {name: dict(max_abs_err=0.0, library_ms=None) for name in ("knn",) + tuple(selectors)}
-    for N in (N_POINTS, BIG_CLOUD):
-        batch = build_batch(batch_size=4, n_points=N, seed=0, with_actions=False)
+    lib = knn._lib()
+    for n in (1, 3, 1000, N_POINTS, 16400, BIG_CLOUD):
+        if lib.pcm_knn_order_multiplier(n) != knn.order_multiplier(n):
+            raise AssertionError(f"kernel 2's visiting order differs from ops/knn.py's at N={n}")
+    kernels = {"knn": (knn.knn_query_padded_cuda, pointops.knn_query_padded_plain),
+               "knn_chunkskip": (kc.knn_query_chunkskip_cuda,
+                                 pointops.knn_query_chunkskip_plain),
+               "knn_baseline": (kb.knn_query_baseline_cuda, pointops.knn_query_baseline_plain)}
+    res = {name: dict(max_abs_err=0.0, library_ms=None, cases=[]) for name in kernels}
+    rng = np.random.RandomState(9)
+    for what, B, N, k in KNN_CASES:
+        batch = build_batch(batch_size=B, n_points=N, seed=0, with_actions=False)
         xyz = torch.from_numpy(batch["pcds"]["coord"]).to(dev)
         mask = torch.from_numpy(batch["pcds"]["valid"]).to(dev)
+        if what == "lattice":
+            grid = (rng.randint(0, 24, (B, N, 3)) * (0.4 / 24) - 0.2).astype(np.float32)
+            xyz = torch.from_numpy(grid).to(dev)
+        elif what == "short":
+            mask[1, 10:] = False
         idx = fps.farthest_point_sampling_padded_cuda(xyz, mask, 2048)
         q = torch.gather(xyz, 1, idx.long()[..., None].expand(-1, -1, 3)).contiguous()
         all_valid = torch.ones(q.shape[:2], dtype=torch.bool, device=dev)
         perm = pointops.spatial_sort_order(q, all_valid).long()
         q_sorted = torch.gather(q, 1, perm[..., None].expand(-1, -1, 3)).contiguous()
-        for k in (16, 128):
-            for order, qq in (("FPS order", q), ("Morton-sorted", q_sorted)):
-                pi, pd = pointops.knn_query_padded_plain(qq, xyz, mask, k)
-                ki, kd = knn.knn_query_padded_cuda(qq, xyz, mask, k)
-                if not torch.equal(ki, pi) or not rel_err(kd, pd) <= 1e-6:
-                    raise AssertionError(f"kNN kernel (N={N}, k={k}, {order}) disagrees with "
-                                         f"its plain version at {(ki != pi).sum().item()} "
-                                         f"indices, d2 {rel_err(kd, pd):.3e} relative")
-                res["knn"]["max_abs_err"] = max(res["knn"]["max_abs_err"], _max_err(kd, pd))
-                notes = []
-                for name, (kernel, plain) in selectors.items():
-                    gi, gd = kernel(qq, xyz, mask, k)
-                    again = kernel(qq, xyz, mask, k)
-                    si, sd = plain(qq, xyz, mask, k)
-                    if not (torch.equal(gi, si) and torch.equal(gi, pi) and torch.equal(gi, ki)):
-                        raise AssertionError(
-                            f"{name} (N={N}, k={k}, {order}): indices differ from its plain "
-                            f"version at {(gi != si).sum().item()}, from the plain kNN at "
-                            f"{(gi != pi).sum().item()}, from kernel 2 at "
-                            f"{(gi != ki).sum().item()} places")
-                    if not (rel_err(gd, sd) <= 1e-6 and torch.equal(gd, kd)):
-                        raise AssertionError(f"{name} (N={N}, k={k}, {order}): d2 "
-                                             f"{rel_err(gd, sd):.3e} relative off its plain "
-                                             f"version, or not bit-equal to kernel 2's")
-                    if not (torch.equal(gi, again[0]) and torch.equal(gd, again[1])):
-                        raise AssertionError(f"two identical {name} launches differ")
-                    res[name]["max_abs_err"] = max(res[name]["max_abs_err"], _max_err(gd, sd))
-                    if name == "knn_chunkskip":
-                        skipped = int(kernel(qq, xyz, mask, k, with_skipped=True)[2])
-                        plain_skipped = int(plain(qq, xyz, mask, k, with_skipped=True)[2])
-                        if skipped != plain_skipped:
-                            raise AssertionError(f"kernel 12 skipped {skipped} chunks, its "
-                                                 f"plain version {plain_skipped}")
-                        total = 4 * 16 * -(-N // 512)
-                        notes.append(f"kernel 12 skipped {skipped} of {total} (tile, chunk) "
-                                     f"pairs, as its plain version")
-                        if (N, k, order) == (N_POINTS, 16, "Morton-sorted"):
-                            res[name]["skipped_share"] = skipped / total
-                log(f"knn     B=4 M=2048 N={N} k={k} {order}: kernels 12 and 13 index-equal "
-                    f"to their plain versions and to kernel 2, d2 bit-equal to kernel 2's, "
-                    f"relaunches bit-identical; " + "; ".join(notes))
-        if N != N_POINTS:
-            continue
-        # the times, and kernel 2 at k=96 and k=160 at the flagship's cloud
-        runs = {"knn": (knn.knn_query_padded_cuda, pointops.knn_query_padded_plain, q),
-                "knn_chunkskip": selectors["knn_chunkskip"] + (q_sorted,),
-                "knn_baseline": selectors["knn_baseline"] + (q,)}
-        for name, (kernel, plain, qq) in runs.items():
-            res[name].update(
-                ms=cuda_ms(lambda: kernel(qq, xyz, mask, 16), 5),
-                plain_ms=cuda_ms(lambda: plain(qq, xyz, mask, 16), 2),
-                # ~8 flops a (query, point) distance, every one computed
-                # (the early-out skips insertions, not distances); inputs
-                # read, idx and d2 written
-                **bound(8.0 * q.shape[0] * q.shape[1] * N,
-                        (q.numel() + xyz.numel()) * 4 + mask.numel() + q.numel() // 3 * 16 * 8,
-                        "f32"))
-            log(f"{name} B=4 M=2048 N={N} k=16: kernel {res[name]['ms']:.3f} ms, plain "
-                f"{res[name]['plain_ms']:.3f} ms")
-        ki, kd = knn.knn_query_padded_cuda(q, xyz, mask, 96)
-        pi, pd = pointops.knn_query_padded_plain(q, xyz, mask, 96)
-        if not torch.equal(ki, pi) or not rel_err(kd, pd) <= 1e-6:
-            raise AssertionError("kNN kernel at k=96 disagrees with its plain version")
-        ref = pointops.knn_query_padded_plain(q, xyz, mask, 160)
-        for impl in (None,) + tuple(SELECTOR_KERNEL):
-            ops.reset_launch_counts()
-            with knn_impl(impl):
-                got = pointops.knn_query_padded(q, xyz, mask, 160)
-            counts = ops.launch_counts()
-            if any(counts[k] for k in KNN_KERNELS):
-                raise AssertionError(f"k=160 launched a kNN kernel: {counts}")
-            if not all(torch.equal(a, b) for a, b in zip(got, ref)):
-                raise AssertionError(f"k=160 under PCM_KNN_IMPL={impl} is not the plain kNN")
-        log(f"knn     k=96: kernel 2 index-exact; k=160: the plain version on every selector, "
-            f"no kNN kernel launched")
+        M = q.shape[1]
+        S2 = knn.launch_group(B, M, k, dev.index)
+        S12, TQ = kc.launch_shape(B, M, k, dev.index)
+        orders = (("FPS order", q),) if B == BIG_BATCH else (("FPS order", q),
+                                                             ("Morton-sorted", q_sorted))
+        notes, skip_share, prune_share = [], None, None
+        for order, qq in orders:
+            pi, pd = pointops.knn_query_padded_plain(qq, xyz, mask, k)
+            outs = {}
+            for name, (kernel, plain) in kernels.items():
+                if name == "knn_chunkskip" and B == BIG_BATCH:
+                    continue
+                gi, gd = kernel(qq, xyz, mask, k)
+                again = kernel(qq, xyz, mask, k)
+                si, sd = plain(qq, xyz, mask, k, **({"tm": TQ} if name == "knn_chunkskip"
+                                                     else {}))
+                where = f"{name} ({what}, B={B}, N={N}, k={k}, {order})"
+                if not (torch.equal(gi, pi) and torch.equal(gi, si)):
+                    raise AssertionError(f"{where}: indices differ from the plain kNN at "
+                                         f"{(gi != pi).sum().item()}, from its plain version "
+                                         f"at {(gi != si).sum().item()} places")
+                if not (torch.equal(gd, pd) and torch.equal(gd, sd)):
+                    raise AssertionError(f"{where}: d2 not bit-equal to the plain versions "
+                                         f"(max diff {_max_err(gd, pd):.3e})")
+                if not (torch.equal(gi, again[0]) and torch.equal(gd, again[1])):
+                    raise AssertionError(f"{where}: two identical launches differ")
+                res[name]["max_abs_err"] = max(res[name]["max_abs_err"], _max_err(gd, sd))
+                outs[name] = gd
+            if any(not torch.equal(d, outs["knn"]) for d in outs.values()):
+                raise AssertionError(f"kNN ({what}, B={B}, N={N}, k={k}, {order}): d2 differs "
+                                     f"across kernels 2, 12 and 13")
+            if B != BIG_BATCH:
+                _, _, skipped, pruned = kc.knn_query_chunkskip_cuda(
+                    qq, xyz, mask, k, with_skipped=True, with_pruned=True)
+                plain_skipped = int(pointops.knn_query_chunkskip_plain(
+                    qq, xyz, mask, k, with_skipped=True, tm=TQ)[2])
+                if int(skipped) != plain_skipped:
+                    raise AssertionError(f"kernel 12 ({what}, B={B}, N={N}, k={k}, {order}) "
+                                         f"skipped {int(skipped)} chunks, its plain version "
+                                         f"{plain_skipped}")
+                total = B * -(-M // TQ) * -(-N // kc.chunk_points(N))
+                notes.append(f"{order}: kernel 12 skipped {int(skipped)} of {total} (tile, "
+                             f"chunk) pairs, as its plain version, {int(pruned)} by boxes")
+                if order == "Morton-sorted":
+                    skip_share, prune_share = int(skipped) / total, int(pruned) / total
+        # times: kernel 2 and 13 on the FPS order, kernel 12 on the sorted queries
+        times = {}
+        for name, (kernel, plain) in kernels.items():
+            if name == "knn_chunkskip" and B == BIG_BATCH:
+                continue
+            qq = q_sorted if name == "knn_chunkskip" else q
+            times[name] = cuda_ms(lambda: kernel(qq, xyz, mask, k), 5)
+            case = dict(what=what, B=B, N=N, k=k, ms=times[name])
+            if name != "knn_baseline":
+                case["S"] = S2 if name == "knn" else S12
+            if name == "knn_chunkskip":
+                case.update(TQ=TQ, skipped_share=skip_share, pruned_share=prune_share)
+            res[name]["cases"].append(case)
+        log(f"knn     {what} B={B} M=2048 N={N} k={k}: kernels 2, 12 and 13 index-exact, "
+            f"d2 bit-equal, relaunches bit-identical; kernel 2 S={S2}, kernel 12 S={S12}, "
+            f"TQ={TQ}; ms: "
+            + ", ".join(f"{n} {t:.4f}" for n, t in times.items()) + "; " + "; ".join(notes))
+        if (what, B, N, k) == KNN_CASES[0]:
+            for name, (kernel, plain) in kernels.items():
+                qq = q_sorted if name == "knn_chunkskip" else q
+                # ~8 flops a (query, point) distance; kernel 12 computes none
+                # for the pairs its boxes prune; inputs read, idx and d2 written
+                share = 1.0 - (prune_share if name == "knn_chunkskip" else 0.0)
+                res[name].update(
+                    ms=times[name], plain_ms=cuda_ms(lambda: plain(qq, xyz, mask, 16), 2),
+                    **bound(8.0 * B * M * N * share,
+                            (q.numel() + xyz.numel()) * 4 + mask.numel() + B * M * 16 * 8,
+                            "f32"))
+                log(f"{name} B={B} M=2048 N={N} k=16: kernel {res[name]['ms']:.3f} ms, "
+                    f"plain {res[name]['plain_ms']:.3f} ms")
+            res["knn_chunkskip"].update(skipped_share=skip_share, pruned_share=prune_share)
+            ref = pointops.knn_query_padded_plain(q, xyz, mask, 160)
+            for impl in (None,) + tuple(SELECTOR_KERNEL):
+                ops.reset_launch_counts()
+                with knn_impl(impl):
+                    got = pointops.knn_query_padded(q, xyz, mask, 160)
+                counts = ops.launch_counts()
+                if any(counts[n] for n in KNN_KERNELS):
+                    raise AssertionError(f"k=160 launched a kNN kernel: {counts}")
+                if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                    raise AssertionError(f"k=160 under PCM_KNN_IMPL={impl} is not the plain kNN")
+            log("knn     k=160: the plain version on every selector, no kNN kernel launched")
     return res
 
 
@@ -1837,8 +1890,8 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     usage = ptxas_usage(logs)
     for fn, u in sorted(usage.items()):
-        log(f"  {fn}: {u.get('registers')} registers, spill stores "
-            f"{u.get('spill_stores')} B, loads {u.get('spill_loads')} B")
+        log(f"  {fn}: {u.get('registers')} registers, stack frame {u.get('stack')} B, "
+            f"spill stores {u.get('spill_stores')} B, loads {u.get('spill_loads')} B")
     ptxas = {name: {tag: next((u for fn, u in usage.items() if piece in fn), None)
                     for tag, piece in pieces.items()}
              for name, pieces in PTXAS_FUNCTIONS.items()}

@@ -1,5 +1,5 @@
-// Exact k-nearest-neighbour query over padded clouds, one thread per query,
-// 1 <= k <= 128.
+// Exact k-nearest-neighbour query over padded clouds on lane groups,
+// 1 <= k <= 128: kernel 2 of the port.
 //
 // Replaces the TPU kernel `_knn3_kernel` / `knn_query_padded_pallas3`
 // (pointcloudmatters_tpu/ops/pallas_knn3.py:46-152). Semantics are those of
@@ -8,54 +8,75 @@
 // smaller point index; invalid points are skipped; slots a row cannot fill
 // hold index -1 and distance 1e10.
 //
-// What bounds it on an H100: B*M*N distance evaluations (671 M at the
-// flagship's B=32, M=2048, N=10240), each a dozen FP32 instructions plus a
-// compare against the running k-th distance; the top-k insertions are rare
-// after the first few hundred points. The TPU kernel keeps a whole (TM, N)
-// distance row in 16 MB of VMEM and extracts k minima by vector reductions;
-// that row does not fit a Hopper SM, and Hopper has scalar threads, so the
-// design is the classic one instead.
+// What bounds it on an H100: B*M*N distance evaluations (84 M at B=4,
+// M=2048, N=10240), each about a dozen issued instructions (a 16-byte
+// shared load, nine round-to-nearest FP32 operations, the compare with the
+// row's k-th pair). The TPU kernel keeps a whole (TM, N) distance row in
+// 16 MB of VMEM and extracts k minima by vector reductions; that row does
+// not fit a Hopper SM. One thread a query left the card nearly empty at
+// small batches (32 blocks of 64 threads at B=1).
 //
-// What the design does about it: each thread owns one query and keeps its
-// sorted top-K list (knn_topk.cuh: in registers up to K = 64, fully
-// unrolled so the list never leaves them; in a shared-memory column above).
-// The block streams the cloud through shared memory in tiles of kTile
-// points in ascending index order (coordinates, the squared norm and the
-// validity byte); every thread of the block reads the same point at the
-// same time, a broadcast. Nothing is written to device memory but the k
-// results.
+// What the design does about it: a query is served by a group of S lanes
+// (csrc/knn_select.cuh), S chosen by the wrapper (ops/knn.py) so that the
+// B*M*S/32 warps fill the card; the block's kThreads / S queries stream the
+// cloud's records (written once by the pre-pass) through shared memory in
+// kTile-point tiles, two stages by cp.async, and every group scans every
+// tile, each lane a strided share, queueing the candidates before its row's
+// k-th pair and merging when a queue fills. Nothing is written to device
+// memory but the records, their indices and the k results.
 //
-// Rounding: the distance is pcm_topk::dist2, the plain version's expression
-// with round-to-nearest intrinsics, so the kernel is index-exact against
-// its plain PyTorch version on the card.
+// The visiting order: clouds come sorted along a Morton curve, so in index
+// order a query meets points ever nearer to it as the scan approaches its
+// place, and nearly every one of them is queued (an emulation of the
+// flagship's cloud: 427-867 candidates a query against 126-379). The
+// pre-pass therefore writes position j of a cloud as point (j * A) mod N, A
+// the odd number nearest N (sqrt(5) - 1) / 2 that is coprime to N, with
+// the point's index beside it: each tile is then a sample of the whole
+// cloud, and the k-th pair is tight after the first. A lane reads a
+// point's index only when its distance does not exceed the k-th's. The
+// pair order keeps the result exact on this order as on any.
+//
+// Rounding: the distance is pcm_topk::dist2, bit for bit the plain
+// version's expression and kernels 12's and 13's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "knn_topk.cuh"
+#include "knn_select.cuh"
 
 namespace {
 
-using pcm_topk::kBig;
+using pcm_select::invalid_record;
+using pcm_select::kUnroll;
 
-constexpr int kQueries = 64;  // threads (queries) a block
-constexpr int kTile = 1024;   // points a shared-memory tile
+constexpr int kThreads = 256;  // threads a block: kThreads / S queries
+constexpr int kTile = 1024;    // points a shared-memory stage (16 KiB)
+constexpr int kRecordChunk = 1024;
 
-template <class List>
-__global__ void __launch_bounds__(kQueries)
-knn_kernel(const float* __restrict__ q, const float* __restrict__ p,
-           const uint8_t* __restrict__ mask, int32_t* __restrict__ out_idx,
-           float* __restrict__ out_d2, int M, int N, int k) {
-  __shared__ float tx[kTile], ty[kTile], tz[kTile], tn[kTile];
-  __shared__ uint8_t tv[kTile];
-  extern __shared__ __align__(16) unsigned char list_smem[];
+// stage a tile of cnt records and their indices (padded with invalid
+// records to `span`; the padding's indices are never read)
+__device__ __forceinline__ void stage(float4* dst, int* dst_idx, const float4* src,
+                                      const int* src_idx, int cnt, int span) {
+  for (int j = threadIdx.x; j < span; j += kThreads) {
+    if (j < cnt) pcm_select::cp_async16(dst + j, src + j);
+    else dst[j] = invalid_record();
+  }
+  for (int j = threadIdx.x; j < cnt; j += kThreads) pcm_select::cp_async4(dst_idx + j, src_idx + j);
+}
 
-  const int b = blockIdx.y;
-  const int m = blockIdx.x * kQueries + threadIdx.x;
+template <int S, int R>
+__global__ void __launch_bounds__(kThreads)
+knn_group_kernel(const float4* __restrict__ rec, const int* __restrict__ rec_idx,
+                 const float* __restrict__ q,
+                 int32_t* __restrict__ out_idx, float* __restrict__ out_d2, int M, int N, int k) {
+  __shared__ __align__(16) float4 tile[2][kTile];
+  __shared__ int tile_idx[2][kTile];
+  constexpr int kGroups = kThreads / S;
+  constexpr int kStep = S * kUnroll;  // tile points a group takes between two votes
+
+  const int tid = threadIdx.x, lane_g = tid % S;
+  const int b = blockIdx.y, m = blockIdx.x * kGroups + tid / S;
   const bool active = m < M;
-  const float* pb = p + (size_t)b * N * 3;
-  const uint8_t* mb = mask + (size_t)b * N;
-
   float qx = 0.f, qy = 0.f, qz = 0.f;
   if (active) {
     const float* qp = q + ((size_t)b * M + m) * 3;
@@ -64,45 +85,81 @@ knn_kernel(const float* __restrict__ q, const float* __restrict__ p,
     qz = qp[2];
   }
   const float q2 = pcm_topk::sqnorm(qx, qy, qz);
-  List list;
-  list.init(list_smem, threadIdx.x, kQueries);
+  pcm_select::GroupSelect<S, R> sel;
+  sel.init(lane_g, k, active);
 
-  for (int t0 = 0; t0 < N; t0 += kTile) {
-    const int tn_count = min(kTile, N - t0);
-    __syncthreads();  // the previous tile is consumed
-    for (int j = threadIdx.x; j < tn_count; j += kQueries) {
-      const float x = pb[3 * (t0 + j)], y = pb[3 * (t0 + j) + 1], z = pb[3 * (t0 + j) + 2];
-      tx[j] = x;
-      ty[j] = y;
-      tz[j] = z;
-      tn[j] = pcm_topk::sqnorm(x, y, z);
-      tv[j] = mb[t0 + j];
-    }
-    __syncthreads();
-    if (!active) continue;
-    for (int j = 0; j < tn_count; ++j) {
-      if (!tv[j]) continue;
-      const float d = pcm_topk::dist2(qx, qy, qz, q2, tx[j], ty[j], tz[j], tn[j]);
-      list.push_after(d, t0 + j);  // points arrive in index order
-    }
+  const float4* rb = rec + (size_t)b * N;
+  const int* ib = rec_idx + (size_t)b * N;
+  const int n_tiles = (N + kTile - 1) / kTile;
+  auto span_of = [](int cnt) { return (cnt + kStep - 1) / kStep * kStep; };
+  {
+    const int cnt = min(kTile, N);
+    stage(tile[0], tile_idx[0], rb, ib, cnt, span_of(cnt));
   }
+  pcm_select::cp_async_commit();
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      const int t1 = (t + 1) * kTile, cnt = min(kTile, N - t1);
+      stage(tile[(t + 1) & 1], tile_idx[(t + 1) & 1], rb + t1, ib + t1, cnt, span_of(cnt));
+    }
+    pcm_select::cp_async_commit();
+    pcm_select::cp_async_wait<1>();  // this thread's copies of tile t landed
+    __syncthreads();                 // and everyone's
+    const float4* tl = tile[t & 1];
+    const int* tli = tile_idx[t & 1];
+    const int span = span_of(min(kTile, N - t * kTile));
+    for (int j = lane_g; j < span; j += kStep) {
+      if (sel.must_merge()) sel.merge();
+      float d[kUnroll];
+      bool near = false;
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const float4 r = tl[j + u * S];
+        d[u] = pcm_topk::dist2(qx, qy, qz, q2, r.x, r.y, r.z, r.w);
+        near |= d[u] <= sel.td;
+      }
+      // a uniform branch: most steps of the warp queue nothing, and skip the
+      // queue's selects
+      if (__any_sync(pcm_select::kFull, near)) {
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+          if (d[u] <= sel.td) sel.push(d[u], tli[j + u * S]);  // the index only if near
+      }
+    }
+    __syncthreads();  // tile t is consumed before its stage is refilled
+  }
+  if (__any_sync(pcm_select::kFull, sel.cnt > 0)) sel.merge();
 
   if (!active) return;
   const size_t o = ((size_t)b * M + m) * k;
-  list.store(out_idx + o, out_d2 + o, k);
+  sel.store(out_idx + o, out_d2 + o, k);
 }
 
-template <class List>
-cudaError_t launch(const float* q, const float* p, const uint8_t* mask, int32_t* idx,
-                   float* d2, int B, int M, int N, int k, cudaStream_t stream) {
-  const size_t smem = List::smem_bytes(kQueries);
-  if (smem > 0) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        knn_kernel<List>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid((M + kQueries - 1) / kQueries, B);
-  knn_kernel<List><<<grid, kQueries, smem, stream>>>(q, p, mask, idx, d2, M, N, k);
+// the visiting order's multiplier: the odd number nearest N (sqrt(5) - 1) / 2
+// that is coprime to N (1 for N <= 2)
+int order_multiplier(int N) {
+  int a = (int)(N * 0.6180339887498949) | 1;
+  auto gcd = [](long long x, long long y) {
+    while (y) {
+      const long long t = x % y;
+      x = y;
+      y = t;
+    }
+    return x;
+  };
+  while (a > 1 && gcd(a, N) != 1) a += 2;
+  return a < N ? a : 1;
+}
+
+template <int S, int R>
+cudaError_t launch(const float* q, const float* p, const uint8_t* mask, float4* rec,
+                   int* rec_idx, int32_t* idx, float* d2, int B, int M, int N, int k,
+                   cudaStream_t stream) {
+  pcm_select::records_kernel<<<dim3((N + kRecordChunk - 1) / kRecordChunk, B),
+                               pcm_select::kRecordThreads, 0, stream>>>(
+      p, mask, rec, rec_idx, nullptr, N, kRecordChunk, order_multiplier(N));
+  const dim3 grid((M + kThreads / S - 1) / (kThreads / S), B);
+  knn_group_kernel<S, R><<<grid, kThreads, 0, stream>>>(rec, rec_idx, q, idx, d2, M, N, k);
   return cudaGetLastError();
 }
 
@@ -111,18 +168,27 @@ cudaError_t launch(const float* q, const float* p, const uint8_t* mask, int32_t*
 extern "C" {
 
 int pcm_knn_max_k() { return pcm_topk::kMaxK; }
+int pcm_knn_max_rows() { return pcm_select::kMaxRows; }
+int pcm_knn_threads() { return kThreads; }
+int pcm_knn_order_multiplier(int N) { return order_multiplier(N); }
 
-// q (B, M, 3) f32, p (B, N, 3) f32, mask (B, N) bool as bytes; idx (B, M, k)
-// int32 and d2 (B, M, k) f32 outputs; all contiguous on device `device`;
-// 1 <= k <= pcm_knn_max_k(). Returns the cudaError_t of the launch.
-int pcm_knn(const float* q, const float* p, const uint8_t* mask, int32_t* idx, float* d2,
-            int B, int M, int N, int k, int device, void* stream) {
+// q (B, M, 3) f32, p (B, N, 3) f32, mask (B, N) bool as bytes; rec a (B, N)
+// float4 scratch and rec_idx a (B, N) int32 scratch; idx (B, M, k) int32
+// and d2 (B, M, k) f32 outputs; all contiguous on device `device`; 1 <= k
+// <= pcm_knn_max_k(); S, the lanes a query, in {1, 2, 4, 8, 16, 32} with
+// the least power of two at or above k at most pcm_knn_max_rows() * S.
+// Returns the cudaError_t of the launches.
+int pcm_knn(const float* q, const float* p, const uint8_t* mask, void* rec, int* rec_idx,
+            int32_t* idx, float* d2, int B, int M, int N, int k, int S, int device,
+            void* stream) {
   if (B < 1 || M < 1 || N < 1 || B > 65535) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  return (int)pcm_topk::with_list(k, [&](auto tag) {
-    return launch<typename decltype(tag)::type>(q, p, mask, idx, d2, B, M, N, k, s);
+  float4* records = static_cast<float4*>(rec);
+  return (int)pcm_select::with_shape(S, k, [&](auto shape) {
+    using Sh = decltype(shape);
+    return launch<Sh::kS, Sh::kR>(q, p, mask, records, rec_idx, idx, d2, B, M, N, k, s);
   });
 }
 

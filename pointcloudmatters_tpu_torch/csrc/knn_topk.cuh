@@ -1,29 +1,28 @@
-// The running k-best list of one query, shared by the three kNN kernels
-// (knn.cu, knn_chunkskip.cu, knn_baseline.cu), and the squared distance
-// they all compute.
+// The running k-best list of one query of the dense-scan kNN kernel 13
+// (knn_baseline.cu), and the squared distance and pair order that all three
+// kNN kernels share (kernels 2 and 12, knn.cu and knn_chunkskip.cu, keep
+// their lists on lane groups: knn_select.cuh).
 //
 // A list holds K (distance, index) pairs in ascending order of the pair:
-// a smaller distance first, and on equal distances the smaller index. A
-// candidate enters when it is before the list's last pair, so a kernel that
-// visits the points in any order ends with the K smallest pairs, and exact
-// ties go to the smaller index (the order the plain versions give). Empty
+// a smaller distance first, and on equal distances the smaller index. Empty
 // slots hold (1e10, kNoIndex), which no candidate of distance 1e10 beats;
 // `store` writes index -1 for every slot at or above 1e10.
 //
-// A kernel that visits the points in index order calls `push_after`, which
-// compares distances only: there a later point with an equal distance must
-// stay behind, and the cheaper compare matters because a warp pays for the
-// insertion of any of its threads.
+// Kernel 13 visits the points in index order and calls `push_after`, which
+// compares distances only: a later point with an equal distance must stay
+// behind, so exact ties go to the smaller index (the order the plain
+// versions give), and the cheaper compare matters because a warp pays for
+// the insertion of any of its threads.
 //
-// Two layouts, one interface (`init`, `worst` (the K-th distance), `kth`,
-// `push`, `push_after`, `store`):
+// Two layouts, one interface (`init`, `worst` (the K-th distance),
+// `push_after`, `store`):
 //   RegTopK<K>, K <= 64: the list in registers, fully unrolled, so it never
 //     leaves them (2K registers);
 //   SmemTopK<K>, for K up to 128: at K = 128 the list alone would take 256
 //     registers, more than a thread has, so it lives in dynamic shared
 //     memory, one column a thread (slot s of thread t at s * nthreads + t),
-//     which keeps a warp's accesses on 32 distinct banks. The last pair is
-//     cached in registers for the hot comparison. A block needs
+//     which keeps a warp's accesses on 32 distinct banks. The last
+//     distance is cached in a register for the hot comparison. A block needs
 //     `smem_bytes(nthreads)` of dynamic shared memory for it.
 // The top-K prefix of length k is the top-k, so a kernel instantiates the
 // smallest K that holds k and stores only the first k slots.
@@ -72,26 +71,14 @@ struct RegTopK {
     }
   }
   __device__ __forceinline__ float worst() const { return d[K - 1]; }
-  // the k-th best distance, 1 <= k <= K (a select, so the list stays in
-  // registers)
-  __device__ __forceinline__ float kth(int k) const {
-    float v = d[0];
-#pragma unroll
-    for (int s = 1; s < K; ++s)
-      if (s == k - 1) v = d[s];
-    return v;
-  }
-  __device__ __forceinline__ void push(float cd, int ci) { insert<false>(cd, ci); }
-  __device__ __forceinline__ void push_after(float cd, int ci) { insert<true>(cd, ci); }
-  // insert before the first later pair, then shift the tail; `after`: ci
-  // is larger than every index in the list, so only the distance decides
-  template <bool after>
-  __device__ __forceinline__ void insert(float cd, int ci) {
-    if (after ? !(cd < d[K - 1]) : !before(cd, ci, d[K - 1], i[K - 1])) return;
+  // insert before the first larger distance, then shift the tail: ci is
+  // larger than every index in the list, so only the distance decides
+  __device__ __forceinline__ void push_after(float cd, int ci) {
+    if (!(cd < d[K - 1])) return;
     bool shifting = false;
 #pragma unroll
     for (int s = 0; s < K; ++s) {
-      const bool take = shifting || (after ? cd < d[s] : before(cd, ci, d[s], i[s]));
+      const bool take = shifting || cd < d[s];
       if (take) {
         const float td = d[s];
         const int ti = i[s];
@@ -122,8 +109,7 @@ struct SmemTopK {
   float* d;  // this thread's column
   int* i;
   int stride;
-  float wd;  // the last pair, cached
-  int wi;
+  float wd;  // the last distance, cached
 
   // `smem`: the block's smem_bytes(nthreads) of dynamic shared memory
   __device__ __forceinline__ void init(unsigned char* smem, int tid, int nthreads) {
@@ -135,21 +121,17 @@ struct SmemTopK {
       i[s * stride] = kNoIndex;
     }
     wd = kBig;
-    wi = kNoIndex;
   }
   __device__ __forceinline__ float worst() const { return wd; }
-  __device__ __forceinline__ float kth(int k) const { return d[(k - 1) * stride]; }
-  __device__ __forceinline__ void push(float cd, int ci) { insert<false>(cd, ci); }
-  __device__ __forceinline__ void push_after(float cd, int ci) { insert<true>(cd, ci); }
-  // insertion from the tail: shift each later pair one slot down
-  template <bool after>
-  __device__ __forceinline__ void insert(float cd, int ci) {
-    if (after ? !(cd < wd) : !before(cd, ci, wd, wi)) return;
+  // insertion from the tail: shift each larger distance one slot down (ci
+  // is larger than every index in the list)
+  __device__ __forceinline__ void push_after(float cd, int ci) {
+    if (!(cd < wd)) return;
     int s = K - 1;
     while (s > 0) {
       const float pd = d[(s - 1) * stride];
       const int pi = i[(s - 1) * stride];
-      if (after ? !(cd < pd) : !before(cd, ci, pd, pi)) break;
+      if (!(cd < pd)) break;
       d[s * stride] = pd;
       i[s * stride] = pi;
       --s;
@@ -157,7 +139,6 @@ struct SmemTopK {
     d[s * stride] = cd;
     i[s * stride] = ci;
     wd = d[(K - 1) * stride];
-    wi = i[(K - 1) * stride];
   }
   __device__ __forceinline__ void store(int32_t* out_idx, float* out_d2, int k) const {
     for (int s = 0; s < k; ++s) {

@@ -154,11 +154,13 @@ def _k_best(shape, device) -> tuple[torch.Tensor, torch.Tensor]:
 
 def knn_query_chunkskip_plain(
     new_xyz: torch.Tensor, xyz: torch.Tensor, mask: torch.Tensor, nsample: int,
-    with_skipped: bool = False,
+    with_skipped: bool = False, tm: int = 128,
 ):
     """Plain PyTorch version of the chunk-skip kNN kernel 12
     (``csrc/knn_chunkskip.cu``), following the TPU kernel's traversal
-    (``pallas_knn2.py:65-107``): the queries in 128-query tiles; the cloud in
+    (``pallas_knn2.py:65-107``): the queries in ``tm``-query tiles (the
+    TPU's 128 by default; the kernel's tile is chosen by
+    ``ops.knn_chunkskip.choose_tile``); the cloud in
     ``tn = min(512, max(N, 128))``-point chunks, visited in the ring order
     c0, c0+1, c0-1, c0+2, ... (mod n_chunks) from the tile's home chunk
     ``c0 = qt * n_chunks // n_tiles``; a chunk merged into the running
@@ -176,7 +178,7 @@ def knn_query_chunkskip_plain(
     B, M, _ = new_xyz.shape
     N = xyz.shape[1]
     dev = new_xyz.device
-    tm, tn = 128, min(512, max(N, 128))
+    tn = min(512, max(N, 128))
     n_tiles, n_chunks = -(-M // tm), -(-N // tn)
     q = _pad_rows(new_xyz, n_tiles * tm - M).reshape(B, n_tiles, tm, 3)
     active = (torch.arange(n_tiles * tm, device=dev) < M).reshape(n_tiles, tm)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Compare the kernels of two builds of the port on one GPU.
 
-    python3 scripts/ab_kernel_builds.py OTHER [--rounds 2]
+    python3 scripts/ab_kernel_builds.py OTHER [--rounds 2] [--knn-only]
 
 OTHER is a directory holding another copy of ``pointcloudmatters_tpu_torch/``,
 for example the parent commit's::
@@ -20,8 +20,12 @@ forward (kernel 9, 512-row tiles) and the f32 flash backward's dK/dV
 with its worst error against its plain version at rate 0.1 on the same
 seeded inputs in every turn; the f32 oneshot forward (kernel 3, with its
 row statistics) at the same shape and rates, and at B=4, H=4, L=2051,
-dh=128 (the same flops), with its worst errors; and FPS (kernel 1) at B=1,
-4 and 32 for N=10240 and at B=4 for N=20480 and 40960, 2048 samples. Then
+dh=128 (the same flops), with its worst errors; FPS (kernel 1) at B=1,
+4 and 32 for N=10240 and at B=4 for N=20480 and 40960, 2048 samples; and
+the kNN kernels at k=16 over 2048 FPS queries, kernel 2 at B=1, 4 and 32
+for N=10240 on the FPS order, kernel 12 at B=1 and 4 for N=10240 and 20480
+on the Morton-sorted queries, each with whether its indices equal the plain
+kNN's (``--knn-only``: the kNN kernels alone). Then
 it compares the
 SASS (``cuobjdump -sass``) of every kernel of every library between the
 two builds, instruction addresses and encodings dropped, kernels paired by
@@ -44,6 +48,8 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FPS_CASES = ((1, 10240), (4, 10240), (32, 10240), (4, 20480), (4, 40960))
+KNN_CASES = ((2, 1, 10240), (2, 4, 10240), (2, 32, 10240), (12, 1, 10240), (12, 4, 10240),
+             (12, 1, 20480), (12, 4, 20480))
 
 
 def fps_times() -> str:
@@ -66,7 +72,38 @@ def fps_times() -> str:
     return "FPS: " + ", ".join(parts)
 
 
-def time_build(root: str) -> str:
+def knn_times() -> str:
+    """kNN kernel 2 (FPS-order queries) and kernel 12 (Morton-sorted) at
+    KNN_CASES, k = 16, M = 2048, with each result's agreement with the plain
+    kNN."""
+    import torch
+
+    import chip_smoke
+    from pointcloudmatters_tpu_torch.entry import build_batch
+    from pointcloudmatters_tpu_torch.ops import fps, knn, pointops
+    from pointcloudmatters_tpu_torch.ops import knn_chunkskip as kc
+
+    dev = torch.device("cuda", 0)
+    parts = []
+    for kernel, B, N in KNN_CASES:
+        batch = build_batch(batch_size=B, n_points=N, seed=0, with_actions=False)
+        xyz = torch.from_numpy(batch["pcds"]["coord"]).to(dev)
+        mask = torch.from_numpy(batch["pcds"]["valid"]).to(dev)
+        sel = fps.farthest_point_sampling_padded_cuda(xyz, mask, 2048)
+        q = torch.gather(xyz, 1, sel.long()[..., None].expand(-1, -1, 3)).contiguous()
+        if kernel == 12:
+            perm = pointops.spatial_sort_order(q, torch.ones(q.shape[:2], dtype=torch.bool,
+                                                             device=dev)).long()
+            q = torch.gather(q, 1, perm[..., None].expand(-1, -1, 3)).contiguous()
+        run = knn.knn_query_padded_cuda if kernel == 2 else kc.knn_query_chunkskip_cuda
+        exact = torch.equal(run(q, xyz, mask, 16)[0],
+                            pointops.knn_query_padded_plain(q, xyz, mask, 16)[0])
+        ms = chip_smoke.cuda_ms(lambda: run(q, xyz, mask, 16), 20)
+        parts.append(f"#{kernel} B={B} N={N} {ms:.4f} ms (exact {exact})")
+    return "kNN: " + ", ".join(parts)
+
+
+def time_build(root: str, knn_only: bool = False) -> str:
     """One line of the kernel times of the copy under ``root``."""
     sys.path.insert(0, root)
     sys.path.insert(1, REPO)
@@ -82,6 +119,8 @@ def time_build(root: str) -> str:
     if not one.__file__.startswith(root):
         raise RuntimeError(f"imported {one.__file__}, not the copy under {root}")
     _build.build()
+    if knn_only:
+        return knn_times()
     dev = torch.device("cuda", 0)
     rng = np.random.RandomState(0)
 
@@ -147,6 +186,7 @@ def time_build(root: str) -> str:
         dh128.append(f"{ms:.4f} ms (error {err:.3e}) at rate {rate}")
     parts.append("f32 #3 dh 128, H=4: " + ", ".join(dh128))
     parts.append(fps_times())
+    parts.append(knn_times())
     return "; ".join(parts)
 
 
@@ -180,10 +220,12 @@ def main() -> int:
     parser.add_argument("other", nargs="?",
                         help="directory holding another pointcloudmatters_tpu_torch/")
     parser.add_argument("--rounds", type=int, default=2, help="pairs of turns")
+    parser.add_argument("--knn-only", action="store_true",
+                        help="time the kNN kernels 2 and 12 alone")
     parser.add_argument("--time", help=argparse.SUPPRESS)  # one turn, in a fresh process
     args = parser.parse_args()
     if args.time:
-        print(time_build(os.path.abspath(args.time)), flush=True)
+        print(time_build(os.path.abspath(args.time), args.knn_only), flush=True)
         return 0
 
     if not args.other:
@@ -195,7 +237,8 @@ def main() -> int:
     other = os.path.abspath(args.other)
     for i in range(2 * args.rounds):
         root = other if i % 4 in (0, 3) else REPO
-        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--time", root],
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--time", root]
+                             + (["--knn-only"] if args.knn_only else []),
                              capture_output=True, text=True, check=True).stdout.strip()
         print(f"{'other' if root == other else 'this '}: {out}", flush=True)
     from pointcloudmatters_tpu_torch import _build

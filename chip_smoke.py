@@ -12,10 +12,10 @@ Phases, each of which raises on failure (exit code non-zero, no result):
    build time and ptxas's registers and spills by kernel function; those of
    the tensor-core kernels (bf16 kernel 9, the bf16 oneshot backward, kernel
    7's and 8's GEMM instantiations and attention kernels at dh 64 and 128,
-   the 3xTF32 f32 kernels 3, 4, 9, 10 and 11 at dh 64 and 128), of the FP32
-   GEMM, of the FPS cluster kernel and of the lane-group kNN kernels 2 and
-   12 (k = 16 and 128, groups of 8 and 32 lanes) go into the kernels line
-   (``ptxas``).
+   the 3xTF32 f32 kernels 3, 4, 9, 10 and 11 at dh 64 and 128, the routed dW
+   kernel 6), of the FP32 GEMM, of the FPS cluster kernel and of the
+   lane-group kNN kernels 2, 12 and 13 (k = 16 and 128, groups of 8 and 32
+   lanes; 13 also in groups of 16) go into the kernels line (``ptxas``).
 3. Holds each kernel against its plain PyTorch version on the card at the
    flagship's shapes, and times both:
    FPS -> 2048 (one thread-block cluster a cloud) index-exact at B=1, 4
@@ -45,8 +45,11 @@ Phases, each of which raises on failure (exit code non-zero, no result):
    1e-5, the mask read back bit for bit, two backward launches
    bit-identical). The data-source builder at B=4, N=10240, M=2048, K=16,
    D=512 with holes: kernel 5's vmax, vmin and tie bitmap bit-equal, sg
-   within one bf16 ulp, totals within 1e-5 relative; kernel 6 (Cin=515)
-   within 1e-5 * max |dW|; two launches of each bit-identical. The fused
+   within one bf16 ulp, totals within 1e-5 relative; kernel 6 (Cin=515, on
+   the bf16 tensor cores) at B=4 and B=32, with queries of one live
+   neighbour (its w_lo product), within 1e-5 * max |dW|, the share of its
+   tiles that ran the w_lo product logged; two launches of each
+   bit-identical. The fused
    attention layer (kernels 7 and 8) at B=4, L=2051, D=512, H=8, f32 and
    bf16, rates 0 and 0.1: the output and each of the ten gradients within
    BF16_TOL * max(1, max |plain|), two launches of each bit-identical; once
@@ -206,9 +209,10 @@ KERNELS = {
     "flash_dkv_bf16": (_CSRC + "flash_mma.cuh", _OPS + "flash_attention.py:1068"),
     "flash_dq_bf16": (_CSRC + "flash_mma.cuh", _OPS + "flash_attention.py:1427"),
 }
-# phase 2: the tensor-core kernels (bf16, and f32 kernels 3, 4, 9, 10 and 11
-# in 3xTF32), the FPS cluster kernel and the lane-group kNN kernels 2 and 12
-# (k = 16 and 128 in groups of 8 and 32 lanes), whose ptxas registers and
+# phase 2: the tensor-core kernels (bf16, kernel 6, and f32 kernels 3, 4, 9,
+# 10 and 11 in 3xTF32), the FPS cluster kernel and the lane-group kNN kernels
+# 2, 12 and 13 (k = 16 and 128 in groups of 8 and 32 lanes; 13 also in the
+# 16 it takes at B=4), whose ptxas registers and
 # spills the kernels line records, by a piece of their mangled names (the
 # two f32_dq_kernel pieces by their argument types as well: each library has
 # one)
@@ -244,6 +248,12 @@ PTXAS_FUNCTIONS = {
                       "k16_S32": "20knn_chunkskip_kernelILi32ELi1EE",
                       "k128_S8": "20knn_chunkskip_kernelILi8ELi16EE",
                       "k128_S32": "20knn_chunkskip_kernelILi32ELi4EE"},
+    "knn_baseline": {"k16_S8": "19knn_baseline_kernelILi8ELi2EE",
+                     "k16_S16": "19knn_baseline_kernelILi16ELi1EE",
+                     "k16_S32": "19knn_baseline_kernelILi32ELi1EE",
+                     "k128_S8": "19knn_baseline_kernelILi8ELi16EE",
+                     "k128_S32": "19knn_baseline_kernelILi32ELi4EE"},
+    "routed_dw": {"mma": "16routed_dw_kernelE"},
     "attention_fwd": {"dh64": "4attn15attn_fwd_kernelILi64E",
                       "dh128": "4attn15attn_fwd_kernelILi128E"},
     "fused_mha_bwd_bf16": {"gemm_f32": "8gemm_mma11gemm_kernelILb0ELi1E",
@@ -557,6 +567,7 @@ def check_knn(dev) -> dict:
         M = q.shape[1]
         S2 = knn.launch_group(B, M, k, dev.index)
         S12, TQ = kc.launch_shape(B, M, k, dev.index)
+        S13, TQ13 = kb.launch_shape(B, M, k, dev.index)
         orders = (("FPS order", q),) if B == BIG_BATCH else (("FPS order", q),
                                                              ("Morton-sorted", q_sorted))
         notes, skip_share, prune_share = [], None, None
@@ -607,14 +618,15 @@ def check_knn(dev) -> dict:
             qq = q_sorted if name == "knn_chunkskip" else q
             times[name] = cuda_ms(lambda: kernel(qq, xyz, mask, k), 5)
             case = dict(what=what, B=B, N=N, k=k, ms=times[name])
-            if name != "knn_baseline":
-                case["S"] = S2 if name == "knn" else S12
+            case["S"] = {"knn": S2, "knn_chunkskip": S12, "knn_baseline": S13}[name]
+            if name != "knn":
+                case["TQ"] = TQ if name == "knn_chunkskip" else TQ13
             if name == "knn_chunkskip":
-                case.update(TQ=TQ, skipped_share=skip_share, pruned_share=prune_share)
+                case.update(skipped_share=skip_share, pruned_share=prune_share)
             res[name]["cases"].append(case)
         log(f"knn     {what} B={B} M=2048 N={N} k={k}: kernels 2, 12 and 13 index-exact, "
             f"d2 bit-equal, relaunches bit-identical; kernel 2 S={S2}, kernel 12 S={S12}, "
-            f"TQ={TQ}; ms: "
+            f"TQ={TQ}, kernel 13 S={S13}, TQ={TQ13}; ms: "
             + ", ".join(f"{n} {t:.4f}" for n, t in times.items()) + "; " + "; ".join(notes))
         if (what, B, N, k) == KNN_CASES[0]:
             for name, (kernel, plain) in kernels.items():
@@ -1319,21 +1331,25 @@ def check_flash(dev) -> dict:
     return res
 
 
-def check_builder(dev) -> dict:
-    """Phase 3, the data-source builder at the flagship's shapes (B=4,
-    N=10240, M=2048, K=16, D=512, Cin=515) with FPS/kNN neighbourhoods plus
-    holes, all-hole queries and duplicate neighbours: kernel 5's vmax, vmin
-    and tie bitmap equal to the plain version's, sg within one bf16 ulp,
-    totals within 1e-5 relative; kernel 6 within 1e-5 * max|dW| (summation
-    order only); two launches of each bit-identical."""
+# phase 3's routed dW batches: B=4 (the kernels line's times) and the step's B=32
+ROUTED_BATCHES = (4, BIG_BATCH)
+
+
+def builder_inputs(dev, B: int) -> dict:
+    """The data-source builder's inputs at the flagship's shapes (B clouds
+    of N=10240 points, M=2048 FPS queries, K=16 kNN neighbours, D=512,
+    Cin=515, seeded): nn_idx with all-hole queries (the last 8), partial
+    holes, duplicate neighbours (exact ties) and queries with one live
+    neighbour (rows 300-339: that neighbour holds both tie bits in every
+    column, so the routed weight is dvx + dvn); bf16 src, g = src W and h;
+    seeded bf16 cotangents dvx and dvn."""
     import torch
 
     from pointcloudmatters_tpu_torch.entry import build_batch
-    from pointcloudmatters_tpu_torch.ops import fused_builder as fb
     from pointcloudmatters_tpu_torch.ops import pointops
 
     bf16 = torch.bfloat16
-    B, M, K, D, Cin = 4, 2048, 16, 512, 515
+    M, K, D, Cin = 2048, 16, 512, 515
     batch = build_batch(batch_size=B, n_points=N_POINTS, seed=2, with_actions=False)
     xyz = torch.from_numpy(batch["pcds"]["coord"]).to(dev)
     mask = torch.from_numpy(batch["pcds"]["valid"]).to(dev)
@@ -1343,15 +1359,35 @@ def check_builder(dev) -> dict:
     nn_idx[:, -8:, :] = -1             # queries with holes only
     nn_idx[:, 100:300, 9:] = -1        # partial holes
     nn_idx[0, 3, 5:] = nn_idx[0, 3, 0]  # duplicate neighbours: exact ties
+    nn_idx[:, 300:340, 1:] = -1        # one live neighbour: both tie bits on it
     nn_idx = nn_idx.contiguous()
     gen = torch.Generator(device=dev).manual_seed(0)
     feat = torch.relu(torch.randn((B, N_POINTS, Cin - 3), generator=gen, device=dev))
     src = torch.cat([xyz, feat], -1).to(bf16).contiguous()
     W = (torch.randn((Cin, D), generator=gen, device=dev) * Cin ** -0.5).to(bf16)
-    g = (src @ W).contiguous()
     query = torch.cat([new_xyz, torch.zeros_like(feat[:, :M])], -1).to(bf16)
-    h = (query @ W).contiguous()
+    return dict(src=src, nn_idx=nn_idx, g=(src @ W).contiguous(), h=(query @ W).contiguous(),
+                dvx=torch.randn((B, M, D), generator=gen, device=dev).to(bf16),
+                dvn=torch.randn((B, M, D), generator=gen, device=dev).to(bf16))
 
+
+def check_builder(dev) -> dict:
+    """Phase 3, the data-source builder on ``builder_inputs`` at B=4:
+    kernel 5's vmax, vmin and tie bitmap equal to the plain version's, sg
+    within one bf16 ulp, totals within 1e-5 relative; two launches
+    bit-identical. Kernel 6 (on kernel 5's tie bitmap) at each of
+    ROUTED_BATCHES within 1e-5 * max|dW| of its plain version (summation
+    order only: its w_lo product makes every product exact), two launches
+    bit-identical; the share of its tiles that ran the w_lo product logged,
+    and the time of ``pad_channels``' copy of src."""
+    import torch
+
+    from pointcloudmatters_tpu_torch.ops import fused_builder as fb
+
+    x = builder_inputs(dev, 4)
+    g, h, nn_idx = x["g"], x["h"], x["nn_idx"]
+    B, M, K = nn_idx.shape
+    D = g.shape[-1]
     got = fb.builder_core_cuda(g, h, nn_idx)
     ref = fb.builder_core_plain(g, h, nn_idx)
     for name, a, b in zip(("vmax", "vmin"), got[:2], ref[:2]):
@@ -1388,29 +1424,39 @@ def check_builder(dev) -> dict:
         f"{tot_err:.3e} relative, {ties:.4f} of (m, d) with a max tie; kernel "
         f"{res['builder_fwd']['ms']:.3f} ms, plain {res['builder_fwd']['plain_ms']:.3f} ms")
 
-    dvx = torch.randn((B, M, D), generator=gen, device=dev).to(bf16)
-    dvn = torch.randn((B, M, D), generator=gen, device=dev).to(bf16)
-    bm = got[3]
-    dw = fb.routed_dw_cuda(src, nn_idx, bm, dvx, dvn)
-    dw_p = fb.routed_dw_plain(src, nn_idx, bm, dvx, dvn)
-    err = _max_err(dw, dw_p)
-    limit = 1e-5 * dw_p.abs().max().item()
-    if not err <= limit:
-        raise AssertionError(f"routed dW kernel off by {err:.3e} > {limit:.3e}")
-    if not torch.equal(dw, fb.routed_dw_cuda(src, nn_idx, bm, dvx, dvn)):
-        raise AssertionError("two identical routed dW launches differ")
-    res["routed_dw"] = dict(
-        max_abs_err=err, library_ms=None,
-        ms=cuda_ms(lambda: fb.routed_dw_cuda(src, nn_idx, bm, dvx, dvn), 5),
-        plain_ms=cuda_ms(lambda: fb.routed_dw_plain(src, nn_idx, bm, dvx, dvn), 2),
-        # 2 B M K Cin D flops on bf16 inputs; src, nn, bm, dvx, dvn read,
-        # dW written
-        **bound(2.0 * B * M * K * Cin * D,
-                src.numel() * 2 + nn_idx.numel() * 4 + B * M * D * (4 + 2 + 2)
-                + Cin * D * 4, "bf16"))
-    log(f"routed  dW B={B} M={M} K={K} Cin={Cin} D={D}: max abs err {err:.3e} (limit "
-        f"{limit:.3e}), two launches bit-identical; kernel {res['routed_dw']['ms']:.3f} ms, "
-        f"plain {res['routed_dw']['plain_ms']:.3f} ms")
+    cases = []
+    for B in ROUTED_BATCHES:
+        if B != 4:
+            x = builder_inputs(dev, B)
+        src, nn_idx, dvx, dvn = x["src"], x["nn_idx"], x["dvx"], x["dvn"]
+        bm = fb.builder_core_cuda(x["g"], x["h"], nn_idx)[3]
+        Cin = src.shape[-1]
+        srcp = fb.pad_channels(src)[..., :Cin]  # as the backward hands it over
+        dw, lo_share = fb.routed_dw_cuda(srcp, nn_idx, bm, dvx, dvn, with_lo_share=True)
+        dw_p = fb.routed_dw_plain(src, nn_idx, bm, dvx, dvn)
+        err = _max_err(dw, dw_p)
+        limit = 1e-5 * dw_p.abs().max().item()
+        if not err <= limit:
+            raise AssertionError(f"routed dW kernel (B={B}) off by {err:.3e} > {limit:.3e}")
+        if not torch.equal(dw, fb.routed_dw_cuda(srcp, nn_idx, bm, dvx, dvn)):
+            raise AssertionError(f"two identical routed dW launches (B={B}) differ")
+        case = dict(B=B, max_abs_err=err, limit=limit, lo_share=lo_share.item(),
+                    ms=cuda_ms(lambda: fb.routed_dw_cuda(srcp, nn_idx, bm, dvx, dvn), 5),
+                    pad_ms=cuda_ms(lambda: fb.pad_channels(src), 5),
+                    plain_ms=cuda_ms(lambda: fb.routed_dw_plain(src, nn_idx, bm, dvx, dvn), 2),
+                    # 2 B M K Cin D flops on bf16 inputs; src, nn, bm, dvx,
+                    # dvn read, dW written
+                    **bound(2.0 * B * M * K * Cin * D,
+                            src.numel() * 2 + nn_idx.numel() * 4 + B * M * D * (4 + 2 + 2)
+                            + Cin * D * 4, "bf16"))
+        cases.append(case)
+        log(f"routed  dW B={B} M={M} K={K} Cin={Cin} D={D}: max abs err {err:.3e} (limit "
+            f"{limit:.3e}), two launches bit-identical, {case['lo_share']:.4f} of tiles ran "
+            f"the w_lo product; kernel {case['ms']:.3f} ms (bound {case['bound_ms']:.4f}), "
+            f"plain {case['plain_ms']:.3f} ms, pad_channels {case['pad_ms']:.3f} ms")
+        del x, src, srcp, nn_idx, bm, dvx, dvn, dw, dw_p
+        torch.cuda.empty_cache()
+    res["routed_dw"] = dict(cases[0], library_ms=None, cases=cases)
     return res
 
 

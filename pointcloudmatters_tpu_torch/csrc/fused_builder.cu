@@ -35,17 +35,44 @@
 //   dW[c, d] = sum over (b, m, k) of src[b, nn[b, m, k], c] * w[b, m, k, d],
 //   w = bit_max_k(bm[b, m, d]) * dvx[b, m, d] + bit_min_k(bm) * dvn[b, m, d]
 // with bf16 src, dvx and dvn (the tie-count-normalised cotangents rounded
-// as at fused_builder.py:489-490), w and the sums in f32, hole rows zero. It
-// gathers the src rows itself from nn, where the TPU path builds a
-// (B, K, Ci, M) gathered copy first (1.1 GB at the flagship shapes). What
-// bounds it: operations, 2 * B*M*K * Cin * D flops (0.57 TFLOP at B=32,
-// Cin=515), here f32 FMAs on the FP32 pipes (tensor-core tiles are later
-// work). Design: a GEMM over the B*M*K rows, one block per (64-channel,
-// 128-column) tile of dW and per split of the (b, m) pairs; a stage stages
-// the gathered src rows of 4 pairs (4 K rows) and their w rows in shared
-// memory, and each of 256 threads accumulates a 4 x 8 register tile with
-// 16-byte shared loads. The splits' partial tiles are summed by a second
-// kernel in split order: deterministic.
+// as at fused_builder.py:489-490), w and the sums in f32, hole rows zero,
+// as the reference `_routed_dw_xla` does (the TPU kernel rounds w to
+// bf16, which differs where one neighbour holds both tie bits). It gathers
+// the src rows itself from nn, where the TPU path builds a (B, K, Ci, M)
+// gathered copy first (1.1 GB at the flagship shapes), and builds the
+// (B, M, K, D) weights only in shared memory. What bounds it: operations,
+// 2 * B*M*K * Cin * D flops (0.57 TFLOP at B=32, Cin=515) at the bf16
+// tensor-core peak.
+// Design: dW = A^T W, a split-K GEMM over the B*M*K gathered rows on
+// `mma.sync.m16n8k16` bf16 -> f32 (attention_mma.cuh's helpers, A read
+// transposed by `ldmatrix.trans` as gemm_mma.cuh's kAT mode reads it).
+//   - A block is 8 warps computing a 128-channel x 128-column tile of dW
+//     over one split of the (b, m) pairs, each warp a 64 x 32 part; a
+//     stage is 4 pairs (4 K rows, padded to a multiple of 16).
+//   - Source rows: `cp.async` of 16-byte chunks at a row pitch that is a
+//     multiple of 8 channels (the wrapper pads Cin = 515 to 528, as the
+//     TPU path pads to a multiple of 16, fused_builder.py:473-476), a hole
+//     or a row past the split zero-filled; a ring of 5 stages keeps 3
+//     stages in flight while one multiplies, their indices read a stage
+//     ahead. Channels at or above Cin only reach dW rows that are not
+//     stored. A stage's bm, dvx and dvn rows come by `cp.async` too (D a
+//     multiple of 8, the rows 16-byte aligned: the entry rejects others).
+//   - Weights: each thread takes one pair and two columns, forms the four
+//     values w can take there (mx dvx + mn dvn, in f32 as the plain version
+//     forms them) and writes w_hi = bf16(w) for each of the K neighbours:
+//     that of no tie bit (0) in all K rows, then over it that of each
+//     neighbour with a bit (two a column, more on ties); the next stage's
+//     between this stage's k steps (two weight buffers). Only
+//     w = dvx + dvn (one neighbour both max and min: a query with one live
+//     neighbour, or equal values) is not a bf16 value; for it w_lo =
+//     bf16(w - w_hi), and a block-wide vote runs the w_lo product only in a
+//     stage where some w_lo of the tile is not 0. Adding zero products
+//     changes no bit, so the skip is exact.
+//   - The tensor cores add truncating: a stage's products go into a zeroed
+//     f32 fragment, added to the f32 accumulator rounding to nearest every
+//     kFlush = 2 stages (f32_mma.cuh's remedy).
+//   - The splits' partial tiles are summed by a second kernel in split
+//     order; the splits are a function of the shapes only: deterministic.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,6 +81,7 @@
 
 #include <algorithm>
 
+#include "attention_mma.cuh"
 #include "elem.cuh"
 
 namespace {
@@ -162,95 +190,318 @@ sum_partials_kernel(const float* __restrict__ part, float* __restrict__ out, lon
 }
 
 // ---------------------------------------------------------------------------
-// kernel 6: routed dW
+// kernel 6: routed dW on the bf16 tensor cores
 // ---------------------------------------------------------------------------
-constexpr int kTC = 64;    // dW rows (src channels) a block
-constexpr int kTD = 128;   // dW columns a block
-constexpr int kPairs = 4;  // (b, m) pairs a stage: up to 64 rows
-constexpr int kRows = kPairs * kMaxK;
-constexpr size_t kRoutedSmem =
-    (size_t)kRows * kTC * sizeof(float) + (size_t)kRows * kTD * sizeof(float) +
-    (size_t)kRows * sizeof(long long);
+namespace mm = pcm::attn_mma;
 
-__global__ void __launch_bounds__(256)
-routed_dw_kernel(const bf16* __restrict__ src, const int* __restrict__ nn,
-                 const int* __restrict__ bm, const bf16* __restrict__ dvx,
-                 const bf16* __restrict__ dvn, float* __restrict__ part, int N, int M, int K,
-                 int Cin, int D, long long n_pairs, long long pairs_per_split) {
-  extern __shared__ float4 sm4[];
-  float* As = (float*)sm4;                       // [rows][kTC] gathered src
-  float* Ws = As + kRows * kTC;                  // [rows][kTD] routed weights
-  long long* base_s = (long long*)(Ws + kRows * kTD);  // src offset of a row, -1 = hole
+constexpr int kTC = 128;     // dW rows (source channels) a block
+constexpr int kTD = 128;     // dW columns a block
+constexpr int kPairs = 4;    // (b, m) pairs a stage
+constexpr int kStageRows = kPairs * kMaxK;  // gathered rows a stage, at most
+constexpr int kLd = 128 + 8;  // a shared row: 128 values and 16 bytes of padding
+constexpr int kRing = 5;      // stages of source rows and pair data in shared memory
+// stages between two flushes of the stage sums into the f32 accumulators
+// (ROUTED_FLUSH in ops/fused_builder.py)
+constexpr int kFlush = 2;
+// 2 (channels) x kTD / 32 (columns) warps, 64 x 32 each
+constexpr int kRoutedThreads = 2 * kTD;
+constexpr int kWarpsD = kTD / 32;
+constexpr int kRowsAPass = kRoutedThreads / 16;   // source rows a load pass
+constexpr int kPasses = kStageRows / kRowsAPass;  // load passes a stage
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int c0 = blockIdx.x * kTC, d0 = blockIdx.y * kTD;
-  const long long p_begin = (long long)blockIdx.z * pairs_per_split;
-  const long long p_end = min(p_begin + pairs_per_split, n_pairs);
-  const int rows = kPairs * K;
+struct RoutedSmem {
+  bf16 a[kRing][kStageRows][kLd];  // gathered source rows [row][channel]
+  bf16 w_hi[2][kStageRows][kLd];   // a stage's weights [row][column]: bf16(w)
+  bf16 w_lo[kStageRows][kLd];      // and bf16(w - w_hi)
+  int bm[kRing][kPairs][kTD];      // the stages' tie bits and cotangents
+  bf16 dvx[kRing][kPairs][kTD];
+  bf16 dvn[kRing][kPairs][kTD];
+};
 
-  // thread tile: dW rows c0 + 4 ty + i, columns d0 + 4 tx + j and
-  // d0 + 64 + 4 tx + j (i, j < 4)
-  float acc[4][8];
+struct RoutedArgs {
+  const bf16* src;
+  const int* nn;
+  const int* bm;
+  const bf16 *dvx, *dvn;
+  float* part;
+  int* counts;
+  int N, M, K, Cin, pitch, D;
+  int n_pairs, pairs_per_split;  // B * M <= 2^30
+};
+
+__device__ __forceinline__ uint32_t bf16_bits(float x) {
+  const bf16 h = __float2bfloat16_rn(x);
+  return (uint32_t)*reinterpret_cast<const unsigned short*>(&h);
+}
+
+__device__ __forceinline__ float bf16_value(uint32_t bits) {
+  return __uint_as_float(bits << 16);
+}
+
+// The bf16 bits of w for each (max bit, min bit) of a column, and w_lo of
+// w = dvx + dvn: w formed as the plain version forms it (a product by 0 or
+// 1, then one f32 sum, so 0 * inf stays NaN), w_lo = bf16(w - bf16(w)),
+// 0 where w is not finite.
+struct Routes {
+  uint32_t h00, h10, h01, h11, l11;
+  __device__ __forceinline__ Routes(float vx, float vn) {
+    const float zx = __fmul_rn(0.f, vx), zn = __fmul_rn(0.f, vn);
+    const float w11 = __fadd_rn(vx, vn);
+    h00 = bf16_bits(__fadd_rn(zx, zn));
+    h10 = bf16_bits(__fadd_rn(vx, zn));
+    h01 = bf16_bits(__fadd_rn(zx, vn));
+    h11 = bf16_bits(w11);
+    l11 = isfinite(w11) ? bf16_bits(__fsub_rn(w11, bf16_value(h11))) : 0u;
+  }
+  // m: the column's bits shifted by k and masked with 0x10001
+  __device__ __forceinline__ uint32_t hi(uint32_t m) const {
+    return m == 0x10001u ? h11 : m == 1u ? h10 : m != 0u ? h01 : h00;
+  }
+  __device__ __forceinline__ uint32_t lo(uint32_t m) const { return m == 0x10001u ? l11 : 0u; }
+};
+
+// A thread's part of a stage's weights: pair q, columns d and d + 1.
+struct PairWeights {
+  uint32_t b0, b1;
+  Routes r0, r1;
+  __device__ __forceinline__ PairWeights(const RoutedSmem& s, int slot, int q, int d)
+      : b0((uint32_t)s.bm[slot][q][d]),
+        b1((uint32_t)s.bm[slot][q][d + 1]),
+        r0(pcm::to_f(s.dvx[slot][q][d]), pcm::to_f(s.dvn[slot][q][d])),
+        r1(pcm::to_f(s.dvx[slot][q][d + 1]), pcm::to_f(s.dvn[slot][q][d + 1])) {}
+  // w_hi of neighbours k0 .. k1 - 1 with neither tie bit into w (rows q K
+  // + k, columns d, d + 1): 0, or NaN where dvx or dvn is not finite
+  __device__ __forceinline__ void hi_clear(bf16 (*w)[kLd], int q, int d, int K, int k0,
+                                           int k1) const {
+    const uint32_t v = r0.h00 | (r1.h00 << 16);
+    for (int k = k0; k < k1; ++k) *reinterpret_cast<uint32_t*>(&w[q * K + k][d]) = v;
+  }
+  // then w_hi of the neighbours with a tie bit (one or two a column, more
+  // on ties), one bf16 store each
+  __device__ __forceinline__ void hi_set(bf16 (*w)[kLd], int q, int d, int K,
+                                         uint32_t kmask) const {
+    for (uint32_t u = (b0 | (b0 >> 16)) & kmask; u != 0u; u &= u - 1u) {
+      const int k = __ffs(u) - 1;
+      *reinterpret_cast<unsigned short*>(&w[q * K + k][d]) =
+          (unsigned short)r0.hi((b0 >> k) & 0x10001u);
+    }
+    for (uint32_t u = (b1 | (b1 >> 16)) & kmask; u != 0u; u &= u - 1u) {
+      const int k = __ffs(u) - 1;
+      *reinterpret_cast<unsigned short*>(&w[q * K + k][d + 1]) =
+          (unsigned short)r1.hi((b1 >> k) & 0x10001u);
+    }
+  }
+  __device__ __forceinline__ void lo(bf16 (*w)[kLd], int q, int d, int K) const {
+    for (int k = 0; k < K; ++k)
+      *reinterpret_cast<uint32_t*>(&w[q * K + k][d]) =
+          r0.lo((b0 >> k) & 0x10001u) | (r1.lo((b1 >> k) & 0x10001u) << 16);
+  }
+  // whether a w_lo is not 0: a neighbour holds both bits and w_lo != +-0
+  __device__ __forceinline__ bool has_lo(uint32_t kmask) const {
+    return ((b0 & (b0 >> 16) & kmask) != 0u && (r0.l11 & 0x7fffu) != 0u) ||
+           ((b1 & (b1 >> 16) & kmask) != 0u && (r1.l11 & 0x7fffu) != 0u);
+  }
+};
+
+__global__ void __launch_bounds__(kRoutedThreads, 1)
+routed_dw_kernel(const RoutedArgs a) {
+  extern __shared__ __align__(16) unsigned char routed_smem[];
+  RoutedSmem& s = *reinterpret_cast<RoutedSmem*>(routed_smem);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n_ctiles = (a.Cin + kTC - 1) / kTC;
+  const int c0 = (int)(blockIdx.x % n_ctiles) * kTC, d0 = (int)(blockIdx.x / n_ctiles) * kTD;
+  const int p_begin = (int)blockIdx.y * a.pairs_per_split;
+  const int p_end = min(p_begin + a.pairs_per_split, a.n_pairs);
+  const int n_stages = p_end > p_begin ? (p_end - p_begin + kPairs - 1) / kPairs : 0;
+  const int K = a.K, rows = kPairs * K, steps = (rows + 15) / 16;
+  const int k_per_step = (K + steps - 1) / steps;  // neighbours built a k step
+  const int wm = (warp / kWarpsD) * 64, wn = (warp % kWarpsD) * 32;  // the warp's part
+  // 16-channel fragments of the warp below Cin (the others are not stored)
+  const int live = max(0, min(4, (a.Cin - c0 - wm + 15) / 16));
+
+  // source rows: thread t loads 16 bytes at channel c0 + cc of the stage's
+  // rows (t >> 4) + kRowsAPass j, j < kPasses
+  const int cc = (tid & 15) * 8;
+  // the pair in the stage of each of those rows, a byte each
+  uint64_t pair_of = 0;
+#pragma unroll
+  for (int j = 0; j < kPasses; ++j)
+    pair_of |= (uint64_t)(((tid >> 4) + kRowsAPass * j) / K) << (8 * j);
+  // a row's nn entry is flat entry p K + k = (stage's first pair) K + row
+  auto load_nn = [&](int st, int (&out)[kPasses]) {
+    const int pb = p_begin + st * kPairs;
+#pragma unroll
+    for (int j = 0; j < kPasses; ++j) {
+      const int r = (tid >> 4) + kRowsAPass * j;
+      const int p = pb + (int)((pair_of >> (8 * j)) & 0xffu);
+      out[j] = st < n_stages && r < rows && p < p_end ? __ldg(a.nn + (long long)pb * K + r) : -1;
+    }
+  };
+  auto issue = [&](int st, const int (&nnv)[kPasses]) {
+    if (st >= n_stages) return;
+    const int slot = st % kRing;
+    const int pb = p_begin + st * kPairs;
+#pragma unroll
+    for (int j = 0; j < kPasses; ++j) {
+      const int r = (tid >> 4) + kRowsAPass * j;
+      if (r >= steps * 16) continue;
+      const bool in = nnv[j] >= 0 && c0 + cc < a.Cin;
+      const int b = (pb + (int)((pair_of >> (8 * j)) & 0xffu)) / a.M;
+      const bf16* g =
+          in ? a.src + ((long long)b * a.N + nnv[j]) * a.pitch + c0 + cc : a.src;
+      mm::cp_async16(&s.a[slot][r][cc], g, in ? 16 : 0);
+    }
+    // one 16-byte chunk a thread: bm, then dvx, then dvn
+    const bool is_bm = tid < kTD;
+    const int i = is_bm ? tid : (tid - kTD) % (kTD / 2);
+    const int q = is_bm ? i / (kTD / 4) : i / (kTD / 8);
+    const int e = is_bm ? (i % (kTD / 4)) * 4 : (i % (kTD / 8)) * 8;
+    const int p = pb + q;
+    const bool in = p < p_end && d0 + e < a.D;
+    const long long o = (long long)p * a.D + d0 + e;
+    if (is_bm)
+      mm::cp_async16(&s.bm[slot][q][e], in ? a.bm + o : a.bm, in ? 16 : 0);
+    else if (tid < kTD + kTD / 2)
+      mm::cp_async16(&s.dvx[slot][q][e], in ? a.dvx + o : a.dvx, in ? 16 : 0);
+    else
+      mm::cp_async16(&s.dvn[slot][q][e], in ? a.dvn + o : a.dvn, in ? 16 : 0);
+  };
+
+  // rows rows .. 16 steps - 1 of the weights are padding: zero, never written
+  for (int e = tid; e < (steps * 16 - rows) * (kTD / 2); e += kRoutedThreads) {
+    const int r = rows + e / (kTD / 2), d = 2 * (e % (kTD / 2));
+    *reinterpret_cast<uint32_t*>(&s.w_hi[0][r][d]) = 0u;
+    *reinterpret_cast<uint32_t*>(&s.w_hi[1][r][d]) = 0u;
+    *reinterpret_cast<uint32_t*>(&s.w_lo[r][d]) = 0u;
+  }
+
+  float acc[4][4][4], t[4][4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = t[i][j][e] = 0.f;
 
-  for (long long p0 = p_begin; p0 < p_end; p0 += kPairs) {
-    __syncthreads();  // the previous stage's tiles are consumed
-    for (int e = tid; e < rows; e += blockDim.x) {
-      const long long p = p0 + e / K;
-      const int n = p < p_end ? nn[p * K + e % K] : -1;
-      base_s[e] = n >= 0 ? ((p / M) * N + n) * (long long)Cin : -1;
-    }
-    for (int e = tid; e < kPairs * kTD; e += blockDim.x) {
-      const int q = e / kTD, d = e % kTD;
-      const long long p = p0 + q;
-      unsigned bits = 0;
-      float wx = 0.f, wn = 0.f;
-      if (p < p_end && d0 + d < D) {
-        const long long o = p * D + d0 + d;
-        bits = (unsigned)bm[o];
-        wx = pcm::to_f(dvx[o]);
-        wn = pcm::to_f(dvn[o]);
-      }
-      for (int k = 0; k < K; ++k)
-        Ws[(q * K + k) * kTD + d] =
-            (float)((bits >> k) & 1u) * wx + (float)((bits >> (16 + k)) & 1u) * wn;
-    }
-    __syncthreads();  // base_s is complete
-    for (int e = tid; e < rows * kTC; e += blockDim.x) {
-      const int r = e / kTC, c = e % kTC;
-      const long long base = base_s[r];
-      As[r * kTC + c] = base >= 0 && c0 + c < Cin ? pcm::to_f(src[base + c0 + c]) : 0.f;
-    }
+  // the ring: stages 0 .. kRing - 2 in flight, then one more each stage
+  int nn_next[kPasses];
+  for (int st = 0; st + 1 < kRing; ++st) {
+    load_nn(st, nn_next);
+    issue(st, nn_next);
+    mm::cp_async_commit();
+  }
+  load_nn(kRing - 1, nn_next);
+  // weights: thread t forms those of pair t / (kTD / 2), columns 2 (t %
+  // (kTD / 2)) and + 1
+  const int wq = tid / (kTD / 2), wd = 2 * (tid % (kTD / 2));
+  const uint32_t kmask = K >= 16 ? 0xffffu : (1u << K) - 1u;
+  bool has_lo = false;
+  if (n_stages > 0) {  // stage 0's weights
+    mm::cp_async_wait<kRing - 2>();
     __syncthreads();
-#pragma unroll 4
-    for (int r = 0; r < rows; ++r) {
-      const float4 a = *(const float4*)(As + r * kTC + 4 * ty);
-      const float4 w0 = *(const float4*)(Ws + r * kTD + 4 * tx);
-      const float4 w1 = *(const float4*)(Ws + r * kTD + 64 + 4 * tx);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+    const PairWeights pw(s, 0, wq, wd);
+    pw.hi_clear(s.w_hi[0], wq, wd, K, 0, K);
+    pw.hi_set(s.w_hi[0], wq, wd, K, kmask);
+    has_lo = pw.has_lo(kmask);
+  }
+  int lo_stages = 0;
+
+  for (int st = 0; st < n_stages; ++st) {
+    const int slot = st % kRing, wb = st & 1;
+    // stages st and st + 1 have landed; stage st's weights are built;
+    // stage st - 1's tiles are consumed
+    mm::cp_async_wait<kRing - 3>();
+    const bool lo = __syncthreads_or(has_lo);
+    if (lo) {
+      const PairWeights pw(s, slot, wq, wd);
+      pw.lo(s.w_lo, wq, wd, K);
+      __syncthreads();
+      ++lo_stages;
+    }
+    issue(st + kRing - 1, nn_next);
+    mm::cp_async_commit();
+    load_nn(st + kRing, nn_next);
+
+    // stage st's products, and between its k steps stage st + 1's weights
+    const bool next = st + 1 < n_stages;
+    const PairWeights pw(s, (st + 1) % kRing, wq, wd);
+    has_lo = next && pw.has_lo(kmask);
+    for (int kk = 0; kk < steps; ++kk) {
+      if (next)
+        pw.hi_clear(s.w_hi[wb ^ 1], wq, wd, K, kk * k_per_step, min(K, (kk + 1) * k_per_step));
+      // the k step's fragments, then its products (the small terms first)
+      uint32_t af[4][4], bh[2][4], bl[2][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (i < live)
+          mm::ldsm_x4_t(af[i], &s.a[slot][kk * 16 + ((lane >> 4) << 3) + (lane & 7)]
+                                       [wm + i * 16 + (((lane >> 3) & 1) << 3)]);
+      const int row = kk * 16 + (lane & 15);
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp) {  // 8-column fragments 2 jp and 2 jp + 1
+        const int col = wn + jp * 16 + ((lane >> 4) << 3);
+        mm::ldsm_x4_t(bh[jp], &s.w_hi[wb][row][col]);
+        if (lo) mm::ldsm_x4_t(bl[jp], &s.w_lo[row][col]);
+      }
+      if (lo) {
+#pragma unroll
+        for (int jp = 0; jp < 2; ++jp)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (i < live) {
+              mm::mma(t[i][2 * jp], af[i], bl[jp][0], bl[jp][1]);
+              mm::mma(t[i][2 * jp + 1], af[i], bl[jp][2], bl[jp][3]);
+            }
+      }
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (i < live) {
+            mm::mma(t[i][2 * jp], af[i], bh[jp][0], bh[jp][1]);
+            mm::mma(t[i][2 * jp + 1], af[i], bh[jp][2], bh[jp][3]);
+          }
+    }
+    if (next) pw.hi_set(s.w_hi[wb ^ 1], wq, wd, K, kmask);
+    if ((st + 1) % kFlush == 0) {  // the stage sums into the accumulator, rounding to nearest
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[i][j][e] = __fadd_rn(acc[i][j][e], t[i][j][e]);
+            t[i][j][e] = 0.f;
+          }
     }
   }
+  mm::cp_async_wait<0>();
 
-  float* pb = part + (long long)blockIdx.z * Cin * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = c0 + 4 * ty + i;
-    if (c >= Cin) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int d = d0 + (j < 4 ? 4 * tx + j : 64 + 4 * tx + j - 4);
-      if (d < D) pb[(long long)c * D + d] = acc[i][j];
-    }
+  if (tid == 0 && a.counts != nullptr) {
+    atomicAdd(a.counts, lo_stages);
+    atomicAdd(a.counts + 1, n_stages);
   }
+  float* pb = a.part + (long long)blockIdx.y * a.Cin * a.D;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = c0 + wm + 16 * i + (lane >> 2) + 8 * h;
+      if (c >= a.Cin) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int d = d0 + wn + 8 * j + 2 * (lane & 3);
+        const float x0 = __fadd_rn(acc[i][j][2 * h], t[i][j][2 * h]);
+        const float x1 = __fadd_rn(acc[i][j][2 * h + 1], t[i][j][2 * h + 1]);
+        float* o = pb + (long long)c * a.D + d;
+        if (d + 1 < a.D && (uintptr_t)o % 8 == 0) {
+          *reinterpret_cast<float2*>(o) = make_float2(x0, x1);
+        } else {
+          if (d < a.D) o[0] = x0;
+          if (d + 1 < a.D) o[1] = x1;
+        }
+      }
+    }
 }
 
 // out[e] = sum over splits s = 0, 1, ... of part[s, e], in that order.
@@ -299,29 +550,38 @@ int pcm_builder_fwd(const void* g, const void* h, const int* nn, void* vmax, voi
   return (int)cudaGetLastError();
 }
 
-// Kernel 6. src (B, N, Cin) bf16, nn (B, M, K) int32 (-1 = hole), bm
-// (B, M, D) int32, dvx and dvn (B, M, D) bf16, all contiguous on device
-// `device`; 1 <= K <= 16. The B*M (b, m) pairs are cut into `splits`
-// consecutive runs; part is f32 scratch of splits * Cin * D; out (Cin, D)
-// f32 is written. Returns the first cudaError_t that is not success.
+// Kernel 6. src (B, N, Cin) bf16 at row pitch `pitch` (a multiple of 8 at
+// least Cin, the data 16-byte aligned; channels Cin .. pitch - 1 are never
+// read into a stored entry), nn (B, M, K) int32 (-1 = hole), bm (B, M, D)
+// int32, dvx and dvn (B, M, D) bf16, all on device `device`, the last four
+// contiguous, bm, dvx and dvn 16-byte aligned; 1 <= K <= 16, D a multiple
+// of 8, B * M <= 2^30. The B*M (b, m) pairs are cut into `splits`
+// consecutive runs (a multiple of 4 pairs each, the last shorter); part is
+// f32 scratch of splits * Cin * D; out (Cin, D) f32 is written. The stage
+// sums are flushed into the f32 accumulators every kFlush stages of 4
+// pairs. `counts`: null, or two int32 on the device
+// to which the launch adds the (block, stage) tiles that ran the w_lo
+// product and all tiles. Returns the first cudaError_t that is not success.
 int pcm_routed_dw(const void* src, const int* nn, const int* bm, const void* dvx,
-                  const void* dvn, float* part, float* out, int B, int N, int M, int K,
-                  int Cin, int D, int splits, int device, void* stream) {
-  if (B < 1 || N < 1 || M < 1 || K < 1 || K > kMaxK || Cin < 1 || D < 1 || splits < 1 ||
-      splits > 65535)
+                  const void* dvn, float* part, float* out, int* counts, int B, int N, int M,
+                  int K, int Cin, int pitch, int D, int splits, int device, void* stream) {
+  if (B < 1 || N < 1 || M < 1 || K < 1 || K > kMaxK || Cin < 1 || D < 8 || D % 8 != 0 ||
+      splits < 1 || splits > 65535 || pitch < Cin || pitch % 8 != 0 ||
+      (uintptr_t)src % 16 != 0 || (uintptr_t)bm % 16 != 0 || (uintptr_t)dvx % 16 != 0 ||
+      (uintptr_t)dvn % 16 != 0 || (long long)B * M > (1LL << 30))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(routed_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)kRoutedSmem);
+                             (int)sizeof(RoutedSmem));
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  const long long n_pairs = (long long)B * M;
-  const long long per_split = (n_pairs + splits - 1) / splits;
-  const dim3 grid((Cin + kTC - 1) / kTC, (D + kTD - 1) / kTD, splits);
-  routed_dw_kernel<<<grid, 256, kRoutedSmem, s>>>(
-      (const bf16*)src, nn, bm, (const bf16*)dvx, (const bf16*)dvn, part, N, M, K, Cin, D,
-      n_pairs, per_split);
+  RoutedArgs a{(const bf16*)src, nn, bm, (const bf16*)dvx, (const bf16*)dvn, part, counts, N, M,
+               K, Cin, pitch, D, 0, 0};
+  a.n_pairs = B * M;
+  a.pairs_per_split = ((a.n_pairs + splits - 1) / splits + kPairs - 1) / kPairs * kPairs;
+  const dim3 grid(((Cin + kTC - 1) / kTC) * ((D + kTD - 1) / kTD), splits);
+  routed_dw_kernel<<<grid, kRoutedThreads, sizeof(RoutedSmem), s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long n = (long long)Cin * D;

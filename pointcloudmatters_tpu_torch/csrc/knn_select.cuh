@@ -1,7 +1,7 @@
-// The selection that the exact kNN kernels 2 (knn.cu) and 12
-// (knn_chunkskip.cu) share: a query served by a group of S lanes of one
-// warp, S in {1, 2, 4, 8, 16, 32}, so that a warp serves 32 / S queries and
-// a small batch still fills the card.
+// The selection that the exact kNN kernels 2 (knn.cu), 12
+// (knn_chunkskip.cu) and 13 (knn_baseline.cu) share: a query served by a
+// group of S lanes of one warp, S in {1, 2, 4, 8, 16, 32}, so that a warp
+// serves 32 / S queries and a small batch still fills the card.
 //
 // Points. A pre-pass (`records_kernel`) writes each point once as a 16-byte
 // record (x, y, z, |p|^2), |p|^2 by pcm_topk::sqnorm, and each invalid point
@@ -47,8 +47,7 @@
 // of any one lane.
 //
 // Why the result is exact on any visiting order, with ties to the smaller
-// index (knn_topk.cuh's argument, carried to groups): the list orders by
-// the pair, and every pair is distinct (each point is visited once a query;
+// index: the list orders by the pair, and every pair is distinct (each point is visited once a query;
 // only empty slots repeat, and no candidate equals them). A point p of the
 // true top k has fewer than k pairs before it among all points, so it comes
 // before the k-th pair of any subset of the points, and so before the row's

@@ -31,8 +31,11 @@ version, a CUDA tensor the kernel, which raises on what it does not take):
 - kernel 5, the forward statistics (``csrc/fused_builder.cu``,
   ``builder_fwd_kernel``; plain: :func:`builder_core_plain`, the JAX
   ``_core_xla``), bf16 only;
-- kernel 6, term (1) (``routed_dw_kernel``; plain: :func:`routed_dw_plain`,
-  the JAX ``_routed_dw_xla``), bf16 inputs, f32 sums.
+- kernel 6, term (1) (``routed_dw_kernel``, on the bf16 tensor cores;
+  plain: :func:`routed_dw_plain`, the JAX ``_routed_dw_xla``), bf16 inputs,
+  w and the sums f32. The kernel reads the source rows at a pitch of a
+  multiple of 8 channels: :func:`pad_channels` pads them as the JAX
+  backward does (to a multiple of 16), once a backward.
 
 Terms (2)-(4), the histogram and ``dh`` are plain torch, as the JAX package
 leaves them to XLA. Rounding follows the JAX backward: the source rows of
@@ -58,6 +61,8 @@ __all__ = [
     "builder_core_cuda",
     "routed_dw_plain",
     "routed_dw_cuda",
+    "routed_dw_splits",
+    "pad_channels",
     "grouped_stats_data",
     "sum_sq_f32",
     "LAUNCHES",
@@ -71,6 +76,15 @@ ROUTED_LAUNCHES = 0
 
 _LANES = 128
 _MAX_K = 16
+# stages of 4 (b, m) pairs (128 gathered rows at K = 16) between two flushes
+# of kernel 6's stage sums into its f32 accumulators (``kFlush`` of
+# csrc/fused_builder.cu, which this must equal), and its splits of the (b, m) pairs: SPLIT_GROUP splits a SPLIT_PAIRS pairs,
+# 660 blocks at the flagship's 20 tiles of dW (Cin = 515, D = 512), whole
+# waves of one block an SM on an H100's 132 SMs (scripts/routed_dw_sweep.py,
+# PERF.md)
+ROUTED_FLUSH = 2
+ROUTED_SPLIT_GROUP = 33
+ROUTED_SPLIT_PAIRS = 32768
 
 
 def fused_builder_supported(n: int, m: int, k: int, d: int) -> bool:
@@ -196,7 +210,7 @@ def _lib() -> ctypes.CDLL:
         lib.pcm_builder_fwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         lib.pcm_builder_fwd.restype = ctypes.c_int
-        lib.pcm_routed_dw.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
+        lib.pcm_routed_dw.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
             ctypes.c_void_p]
         lib.pcm_routed_dw.restype = ctypes.c_int
     return lib
@@ -254,11 +268,49 @@ def builder_core_cuda(g: torch.Tensor, h: torch.Tensor, nn_idx: torch.Tensor):
     return vmax, vmin, sg, bm, totals[0], totals[1]
 
 
+def pad_channels(src: torch.Tensor) -> torch.Tensor:
+    """src (B, N, Cin) -> a zero-padded bf16 copy (B, N, Ci), Ci = Cin rounded
+    up to a multiple of 16 (the JAX backward's ``Ci``,
+    ``fused_builder.py:473-476``); ``[..., :Cin]`` of it is the bf16 source
+    with rows 16-byte aligned, as kernel 6 reads them."""
+    B, N, Cin = src.shape
+    Ci = -(-Cin // 16) * 16
+    out = torch.empty((B, N, Ci), dtype=torch.bfloat16, device=src.device)
+    out[..., :Cin] = src
+    out[..., Cin:] = 0
+    return out
+
+
+def routed_dw_splits(B: int, M: int) -> int:
+    """Splits of kernel 6's B*M (b, m) pairs: ROUTED_SPLIT_GROUP for each
+    ROUTED_SPLIT_PAIRS pairs begun, enough blocks to fill the card; a
+    function of the shapes only, so the summation order is fixed."""
+    return ROUTED_SPLIT_GROUP * -(-(B * M) // ROUTED_SPLIT_PAIRS)
+
+
+def _pitched(src: torch.Tensor) -> bool:
+    """Whether kernel 6 reads ``src`` (B, N, Cin) bf16 in place: unit
+    channel stride, rows at a pitch of a multiple of 8 channels and 16-byte
+    aligned, the clouds one after another, the storage holding every
+    pitch."""
+    B, N, Cin = src.shape
+    pitch = src.stride(1)
+    need = (src.storage_offset() + B * N * pitch) * src.element_size()
+    return (src.stride(2) == 1 and pitch % 8 == 0 and pitch >= Cin
+            and src.stride(0) == N * pitch and src.data_ptr() % 16 == 0
+            and src.untyped_storage().nbytes() >= need)
+
+
 def routed_dw_cuda(src: torch.Tensor, nn_idx: torch.Tensor, bm: torch.Tensor,
-                   dvx: torch.Tensor, dvn: torch.Tensor) -> torch.Tensor:
-    """Kernel 6: contiguous bf16 src (B, N, Cin), int32 nn_idx (B, M, K),
-    int32 bm and bf16 dvx, dvn (B, M, D), on one CUDA device -> (Cin, D) f32,
-    as :func:`routed_dw_plain` computes it (up to summation order)."""
+                   dvx: torch.Tensor, dvn: torch.Tensor, with_lo_share: bool = False):
+    """Kernel 6: bf16 src (B, N, Cin) with rows at a pitch of a multiple of
+    8 channels (a ``[..., :Cin]`` view of :func:`pad_channels`' copy, or a
+    contiguous src with Cin a multiple of 8), contiguous int32 nn_idx (B, M,
+    K), int32 bm and bf16 dvx, dvn (B, M, D), D a multiple of 8, the last
+    three contiguous and 16-byte aligned, on one CUDA device -> (Cin, D)
+    f32, as :func:`routed_dw_plain` computes it (up to summation order).
+    With ``with_lo_share`` also the share of the kernel's (block, stage)
+    tiles that ran the w_lo product (a 0-d f32 device tensor)."""
     global ROUTED_LAUNCHES
     B, M, K = _check_nn(nn_idx, "routed dW kernel")
     dev = nn_idx.device
@@ -266,22 +318,32 @@ def routed_dw_cuda(src: torch.Tensor, nn_idx: torch.Tensor, bm: torch.Tensor,
         raise ValueError(f"routed dW kernel takes src (B, N, Cin) and bm (B, M, D), "
                          f"got {tuple(src.shape)} and {tuple(bm.shape)}")
     N, Cin, D = src.shape[1], src.shape[2], bm.shape[2]
-    _check("src", src, torch.bfloat16, (B, N, Cin), dev)
+    if src.device != dev or src.dtype != torch.bfloat16:
+        raise ValueError(f"src must be bf16 on {dev}, got {src.dtype} on {src.device}")
+    if not _pitched(src):
+        raise ValueError(f"routed dW kernel takes src rows 16-byte aligned at a pitch of a "
+                         f"multiple of 8 channels (pad_channels' copy), got strides "
+                         f"{src.stride()}")
     _check("bm", bm, torch.int32, (B, M, D), dev)
     _check("dvx", dvx, torch.bfloat16, (B, M, D), dev)
     _check("dvn", dvn, torch.bfloat16, (B, M, D), dev)
-    # splits of the B*M (b, m) pairs: enough blocks to fill the card, a
-    # function of the shapes only, so the summation order is fixed
-    splits = max(1, min(32, (B * M) // 512))
+    if D % 8 or any(t.data_ptr() % 16 for t in (bm, dvx, dvn)):
+        raise ValueError(f"routed dW kernel takes D a multiple of 8 and bm, dvx, dvn "
+                         f"16-byte aligned, got D = {D}")
+    splits = routed_dw_splits(B, M)
     part = torch.empty((splits, Cin, D), dtype=torch.float32, device=dev)
     out = torch.empty((Cin, D), dtype=torch.float32, device=dev)
+    counts = torch.zeros((2,), dtype=torch.int32, device=dev) if with_lo_share else None
     err = _lib().pcm_routed_dw(src.data_ptr(), nn_idx.data_ptr(), bm.data_ptr(),
                                dvx.data_ptr(), dvn.data_ptr(), part.data_ptr(),
-                               out.data_ptr(), B, N, M, K, Cin, D, splits, dev.index,
+                               out.data_ptr(), None if counts is None else counts.data_ptr(),
+                               B, N, M, K, Cin, src.stride(1), D, splits, dev.index,
                                _stream(dev))
     _build.check(err, "routed_dw")
     ROUTED_LAUNCHES += 1
-    return out
+    if not with_lo_share:
+        return out
+    return out, counts[0].float() / counts[1].clamp_min(1).float()
 
 
 def _builder_bwd(src, W, h, nn_idx, g, sg, bm, dvmax, dvmin, dtot, dts):
@@ -298,11 +360,13 @@ def _builder_bwd(src, W, h, nn_idx, g, sg, bm, dvmax, dvmin, dtot, dts):
     cnt_min = torch.clamp_min(popcount16(bm >> 16), 1).to(f32)
     dvx = dvmax.to(f32) / cnt_max
     dvn = dvmin.to(f32) / cnt_min
-    srcb = src.to(torch.bfloat16).contiguous()
+    srcp = pad_channels(src)  # (B, N, Ci) bf16, Ci a multiple of 16
+    Ci = srcp.shape[2]
 
     # (1) routed term
     routed = routed_dw_plain if src.device.type == "cpu" else routed_dw_cuda
-    dw_routed = routed(srcb, nn_idx, bm, dvx.to(torch.bfloat16), dvn.to(torch.bfloat16))
+    dw_routed = routed(srcp[..., :Cin], nn_idx, bm, dvx.to(torch.bfloat16),
+                       dvn.to(torch.bfloat16))
 
     # (2) multiplicity-weighted g term
     off = (torch.arange(B, device=src.device) * N)[:, None, None]
@@ -314,10 +378,11 @@ def _builder_bwd(src, W, h, nn_idx, g, sg, bm, dvmax, dvmin, dtot, dts):
 
     # (3) h term, s_m = sum_k src[nn[m, k]] (one neighbour at a time: the
     # (B, M, K, Cin) gather never exists)
-    s = torch.zeros((B, M, Cin), dtype=f32, device=src.device)
+    s = torch.zeros((B, M, Ci), dtype=f32, device=src.device)
     for k in range(K):
         s += torch.where(hole[:, :, k, None], 0.0,
-                         gather_rows_padded(srcb, nn_idx[:, :, k]).to(f32))
+                         gather_rows_padded(srcp, nn_idx[:, :, k]).to(f32))
+    s = s[..., :Cin]
     dw_h = -2.0 * (s.reshape(-1, Cin).transpose(0, 1)
                    @ h.to(f32).reshape(-1, D)) * dts[None, :]
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Compare the kernels of two builds of the port on one GPU.
 
-    python3 scripts/ab_kernel_builds.py OTHER [--rounds 2] [--knn-only]
+    python3 scripts/ab_kernel_builds.py OTHER [--rounds 2] [--knn-only] [--builder-only]
 
 OTHER is a directory holding another copy of ``pointcloudmatters_tpu_torch/``,
 for example the parent commit's::
@@ -24,8 +24,13 @@ dh=128 (the same flops), with its worst errors; FPS (kernel 1) at B=1,
 4 and 32 for N=10240 and at B=4 for N=20480 and 40960, 2048 samples; and
 the kNN kernels at k=16 over 2048 FPS queries, kernel 2 at B=1, 4 and 32
 for N=10240 on the FPS order, kernel 12 at B=1 and 4 for N=10240 and 20480
-on the Morton-sorted queries, each with whether its indices equal the plain
-kNN's (``--knn-only``: the kNN kernels alone). Then
+on the Morton-sorted queries, kernel 13 at B=1, 4 and 32 for N=10240 on the
+FPS order, each with whether its indices equal the plain kNN's
+(``--knn-only``: the kNN kernels alone); and the routed dW (kernel 6) at
+B=4 and 32 on ``chip_smoke.builder_inputs``, with its worst error against
+its plain version relative to max |dW| (``--builder-only``: kernel 6
+alone; a build that has ``pad_channels`` is handed the padded view, as its
+backward hands it over, so that neither time holds a copy). Then
 it compares the
 SASS (``cuobjdump -sass``) of every kernel of every library between the
 two builds, instruction addresses and encodings dropped, kernels paired by
@@ -41,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import glob
+import importlib.util
 import os
 import re
 import subprocess
@@ -49,7 +55,8 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FPS_CASES = ((1, 10240), (4, 10240), (32, 10240), (4, 20480), (4, 40960))
 KNN_CASES = ((2, 1, 10240), (2, 4, 10240), (2, 32, 10240), (12, 1, 10240), (12, 4, 10240),
-             (12, 1, 20480), (12, 4, 20480))
+             (12, 1, 20480), (12, 4, 20480), (13, 1, 10240), (13, 4, 10240), (13, 32, 10240))
+ROUTED_BATCHES = (4, 32)
 
 
 def fps_times() -> str:
@@ -73,14 +80,15 @@ def fps_times() -> str:
 
 
 def knn_times() -> str:
-    """kNN kernel 2 (FPS-order queries) and kernel 12 (Morton-sorted) at
-    KNN_CASES, k = 16, M = 2048, with each result's agreement with the plain
-    kNN."""
+    """kNN kernels 2 and 13 (FPS-order queries) and kernel 12
+    (Morton-sorted) at KNN_CASES, k = 16, M = 2048, with each result's
+    agreement with the plain kNN."""
     import torch
 
     import chip_smoke
     from pointcloudmatters_tpu_torch.entry import build_batch
     from pointcloudmatters_tpu_torch.ops import fps, knn, pointops
+    from pointcloudmatters_tpu_torch.ops import knn_baseline as kb
     from pointcloudmatters_tpu_torch.ops import knn_chunkskip as kc
 
     dev = torch.device("cuda", 0)
@@ -95,7 +103,8 @@ def knn_times() -> str:
             perm = pointops.spatial_sort_order(q, torch.ones(q.shape[:2], dtype=torch.bool,
                                                              device=dev)).long()
             q = torch.gather(q, 1, perm[..., None].expand(-1, -1, 3)).contiguous()
-        run = knn.knn_query_padded_cuda if kernel == 2 else kc.knn_query_chunkskip_cuda
+        run = {2: knn.knn_query_padded_cuda, 12: kc.knn_query_chunkskip_cuda,
+               13: kb.knn_query_baseline_cuda}[kernel]
         exact = torch.equal(run(q, xyz, mask, 16)[0],
                             pointops.knn_query_padded_plain(q, xyz, mask, 16)[0])
         ms = chip_smoke.cuda_ms(lambda: run(q, xyz, mask, 16), 20)
@@ -103,14 +112,43 @@ def knn_times() -> str:
     return "kNN: " + ", ".join(parts)
 
 
-def time_build(root: str, knn_only: bool = False) -> str:
-    """One line of the kernel times of the copy under ``root``."""
-    sys.path.insert(0, root)
-    sys.path.insert(1, REPO)
-    import numpy as np
+def routed_times() -> str:
+    """Kernel 6 at ROUTED_BATCHES on ``chip_smoke.builder_inputs``, with its
+    worst error against its plain version relative to max |dW|."""
     import torch
 
     import chip_smoke
+    from pointcloudmatters_tpu_torch.ops import fused_builder as fb
+
+    dev = torch.device("cuda", 0)
+    parts = []
+    for B in ROUTED_BATCHES:
+        x = chip_smoke.builder_inputs(dev, B)
+        src, nn_idx, dvx, dvn = x["src"], x["nn_idx"], x["dvx"], x["dvn"]
+        bm = fb.builder_core_cuda(x["g"], x["h"], nn_idx)[3]
+        if hasattr(fb, "pad_channels"):
+            src = fb.pad_channels(src)[..., :src.shape[-1]]
+        ref = fb.routed_dw_plain(x["src"], nn_idx, bm, dvx, dvn)
+        err = (fb.routed_dw_cuda(src, nn_idx, bm, dvx, dvn) - ref).abs().max().item()
+        ms = chip_smoke.cuda_ms(lambda: fb.routed_dw_cuda(src, nn_idx, bm, dvx, dvn), 10)
+        parts.append(f"B={B} {ms:.4f} ms (error {err / ref.abs().max().item():.3e})")
+        del x, src, nn_idx, dvx, dvn, bm, ref
+        torch.cuda.empty_cache()
+    return "#6: " + ", ".join(parts)
+
+
+def time_build(root: str, knn_only: bool = False, builder_only: bool = False) -> str:
+    """One line of the kernel times of the copy under ``root``: its
+    package, timed by this tree's ``chip_smoke`` helpers (``cuda_ms``,
+    ``builder_inputs``), whatever ``root`` holds beside the package."""
+    sys.path.insert(0, root)
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  os.path.join(REPO, "chip_smoke.py"))
+    chip_smoke = sys.modules["chip_smoke"] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    import numpy as np
+    import torch
+
     from pointcloudmatters_tpu_torch import _build
     from pointcloudmatters_tpu_torch.ops import flash_attention as fa
     from pointcloudmatters_tpu_torch.ops import fused_mha as fm
@@ -121,6 +159,8 @@ def time_build(root: str, knn_only: bool = False) -> str:
     _build.build()
     if knn_only:
         return knn_times()
+    if builder_only:
+        return routed_times()
     dev = torch.device("cuda", 0)
     rng = np.random.RandomState(0)
 
@@ -187,6 +227,7 @@ def time_build(root: str, knn_only: bool = False) -> str:
     parts.append("f32 #3 dh 128, H=4: " + ", ".join(dh128))
     parts.append(fps_times())
     parts.append(knn_times())
+    parts.append(routed_times())
     return "; ".join(parts)
 
 
@@ -221,11 +262,14 @@ def main() -> int:
                         help="directory holding another pointcloudmatters_tpu_torch/")
     parser.add_argument("--rounds", type=int, default=2, help="pairs of turns")
     parser.add_argument("--knn-only", action="store_true",
-                        help="time the kNN kernels 2 and 12 alone")
+                        help="time the kNN kernels 2, 12 and 13 alone")
+    parser.add_argument("--builder-only", action="store_true",
+                        help="time the routed dW kernel 6 alone")
     parser.add_argument("--time", help=argparse.SUPPRESS)  # one turn, in a fresh process
     args = parser.parse_args()
     if args.time:
-        print(time_build(os.path.abspath(args.time), args.knn_only), flush=True)
+        print(time_build(os.path.abspath(args.time), args.knn_only, args.builder_only),
+              flush=True)
         return 0
 
     if not args.other:
@@ -237,10 +281,13 @@ def main() -> int:
     other = os.path.abspath(args.other)
     for i in range(2 * args.rounds):
         root = other if i % 4 in (0, 3) else REPO
-        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--time", root]
-                             + (["--knn-only"] if args.knn_only else []),
-                             capture_output=True, text=True, check=True).stdout.strip()
-        print(f"{'other' if root == other else 'this '}: {out}", flush=True)
+        run = subprocess.run([sys.executable, os.path.abspath(__file__), "--time", root]
+                             + (["--knn-only"] if args.knn_only else [])
+                             + (["--builder-only"] if args.builder_only else []),
+                             capture_output=True, text=True)
+        if run.returncode:
+            raise RuntimeError(f"the turn of {root} failed:\n{run.stderr[-4000:]}")
+        print(f"{'other' if root == other else 'this '}: {run.stdout.strip()}", flush=True)
     from pointcloudmatters_tpu_torch import _build
 
     for lib in _build.KERNELS:

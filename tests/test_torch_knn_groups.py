@@ -1,5 +1,6 @@
-"""The lane-group selection of the exact kNN kernels 2 (``csrc/knn.cu``) and
-12 (``csrc/knn_chunkskip.cu``), both on ``csrc/knn_select.cuh``, on the CPU.
+"""The lane-group selection of the exact kNN kernels 2 (``csrc/knn.cu``), 12
+(``csrc/knn_chunkskip.cu``) and 13 (``csrc/knn_baseline.cu``), all on
+``csrc/knn_select.cuh``, on the CPU.
 
 A numpy emulation of each kernel's selection is held index for index, with
 d2 bit-equal, against the port's plain versions and JAX's kNN:
@@ -17,10 +18,15 @@ d2 bit-equal, against the port's plain versions and JAX's kNN:
 - kernel 12: the same selection in the TPU's traversal (512-point chunks,
   the ring order from the tile's home chunk) over tiles of TQ queries, far
   chunks pruned by their boxes (``box_bound``), the queues merged at the end
-  of every computed chunk, and the skip test on the tile's k-th snapshot.
+  of every computed chunk, and the skip test on the tile's k-th snapshot;
+- kernel 13: the same selection over tiles of TQ queries in the TPU's
+  dense-scan traversal (2048-point chunks in index order, none skipped,
+  each padded with invalid records to the lanes' step), the queues merged
+  by the votes and once at the end.
 
 The distances are ``pcm_topk::dist2`` in numpy float32, one rounding an
-operation in the kernel's order. Cases: every S, k in {1, 4, 16, 33, 128},
+operation in the kernel's order. Cases: every S, k in {1, 4, 16, 33, 128}
+(kernel 13: {1, 16, 33, 128}),
 lattice clouds full of exact ties, invalid points with inf and NaN
 coordinates, a row with fewer valid points than k, N divisible by neither
 S nor the tile. The box bound is checked against every ``dist2`` value of
@@ -44,10 +50,12 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+from pointcloudmatters_tpu.ops import pallas_knn as jknn
 from pointcloudmatters_tpu.ops import pallas_knn3 as jknn3
 from pointcloudmatters_tpu.ops import pointops as jops
 from pointcloudmatters_tpu_torch import _build
 from pointcloudmatters_tpu_torch.ops import knn as tkn
+from pointcloudmatters_tpu_torch.ops import knn_baseline as tkb
 from pointcloudmatters_tpu_torch.ops import knn_chunkskip as tkc
 from pointcloudmatters_tpu_torch.ops import pointops as tpo
 
@@ -293,6 +301,30 @@ def emulate_chunkskip(q, xyz, mask, k, S, TQ, stats=None):
     return i.reshape(B, Mp, k)[:, :M], d.reshape(B, Mp, k)[:, :M], skipped, pruned
 
 
+def emulate_baseline(q, xyz, mask, k, S, TQ, stats=None):
+    """Kernel 13's selection at query tile TQ: (idx, d2) as the kernel
+    returns them."""
+    stats = {"merges": 0, "queued": 0} if stats is None else stats
+    B, M, _ = q.shape
+    N = xyz.shape[1]
+    tn = tkb.chunk_points(N)
+    qq, q2, rows_b, active, Mp = _rows(q, TQ, S)
+    rec = _records(xyz, mask)
+    sel = _Selection(qq.shape[0], active, k, S, stats)
+    for base in range(0, N, tn):
+        cnt = min(tn, N - base)
+        span = -(-cnt // (S * UNROLL)) * (S * UNROLL)
+        chunk = np.zeros((B, span, 4), np.float32)
+        chunk[..., 3] = np.inf  # the padding: invalid records
+        chunk[:, :cnt] = rec[:, base:base + cnt]
+        cidx = np.full((B, span), NO_INDEX, np.int64)
+        cidx[:, :cnt] = np.arange(base, base + cnt)
+        _scan(sel, qq, q2, chunk, cidx, rows_b, span)
+    sel.finish()
+    i, d = sel.result()
+    return i.reshape(B, Mp, k)[:, :M], d.reshape(B, Mp, k)[:, :M]
+
+
 def _cloud(seed, B, N, M, lattice=False, sort=False, junk=False):
     """Queries (B, M, 3), points (B, N, 3) and a mask with holes: row 0
     keeps 70% of its points at random, row 1 only its first 10, any further
@@ -405,6 +437,55 @@ def test_chunkskip_tiles_on_ties_junk_and_short_rows(k):
     assert skipped == int(tpo.knn_query_chunkskip_plain(*args, k, with_skipped=True, tm=TQ)[2])
 
 
+def _baseline_plain(q, xyz, mask, k):
+    i, d = tpo.knn_query_baseline_plain(*(torch.from_numpy(np.ascontiguousarray(a))
+                                          for a in (q, xyz, mask)), k)
+    return i.numpy(), d.numpy()
+
+
+# every group size with each k its lists hold (k = 33 takes S >= 4, 128 S >= 8)
+_BASELINE_SHAPES = [(S, k) for S in (1, 2, 4, 8, 16, 32) for k in (1, 16, 33, 128)
+                    if tkn.list_rows(k, S) <= tkn.MAX_ROWS]
+
+
+@pytest.mark.parametrize("S,k", _BASELINE_SHAPES)
+def test_baseline_groups_match_plain_on_ties_junk_and_short_rows(S, k):
+    # N = 4,500: three 2048-point chunks, the last of 404 points, divisible
+    # by no lane step; M = 45 leaves a tile and a warp partly past M; a
+    # lattice (exact ties), invalid points with inf and NaN coordinates, a
+    # row of 10 valid points
+    TQ = tkb.choose_tile(S)
+    q, xyz, mask = _cloud(S * 7 + k, 3, 4500, 45, lattice=True, junk=True)
+    got = emulate_baseline(q, xyz, mask, k, S, TQ)
+    _assert_same(got, _baseline_plain(q, xyz, mask, k))
+    _assert_same(got, _plain(q, xyz, mask, k))
+    if k > 10:  # row 1 holds 10 valid points
+        assert (got[0][1, :, 10:] == -1).all() and (got[1][1, :, 10:] == BIG).all()
+
+
+@pytest.mark.parametrize("S,k", _BASELINE_SHAPES)
+def test_baseline_groups_match_the_pallas_kernel_in_interpret_mode(monkeypatch, S, k):
+    monkeypatch.setattr(jknn, "pl", _Module(
+        jknn.pl, pallas_call=functools.partial(jknn.pl.pallas_call, interpret=True)))
+    # random points (2,333: a 2048-point chunk and one of 285) and a lattice
+    # (ties to the smaller index), invalid points with inf and NaN
+    # coordinates, a row of 10 valid points; index-exact on both. The JAX
+    # kernel forms q.p as its own product (XLA's order on the CPU), so its d2
+    # is bit-equal on the lattice, whose coordinates make every sum exact,
+    # and within 1e-5 relative on random points (a fifth to a quarter differ
+    # by an ulp)
+    for lattice in (False, True):
+        q, xyz, mask = _cloud(S + k, 2, 2333, 40, lattice=lattice, junk=True)
+        ref_i, ref_d = jknn.knn_query_padded_pallas(jnp.asarray(q), jnp.asarray(xyz),
+                                                    jnp.asarray(mask), k)
+        got = emulate_baseline(q, xyz, mask, k, S, tkb.choose_tile(S))
+        if lattice:
+            _assert_same(got, (np.asarray(ref_i), np.asarray(ref_d)))
+        else:
+            np.testing.assert_array_equal(got[0], np.asarray(ref_i))
+            np.testing.assert_allclose(got[1], np.asarray(ref_d), rtol=1e-5, atol=1e-6)
+
+
 def _bound_holds(q, p, valid):
     """box_bound of the boxes of queries q (n, 3) and points p (m, 3) is at
     most every dist2 of a query and a valid point."""
@@ -477,6 +558,22 @@ def test_group_and_tile_choosers_meet_their_rules(B, M, k):
     TQ = tkc.choose_tile(S12)
     assert TQ * S12 == tkc.TILE_THREADS and TQ in (1, 2, 4, 8, 16, 32, 64, 128)
     assert 32 <= TQ * S12 <= tkc.MAX_THREADS and TQ <= tkc.MAX_TILE
+    S13 = tkb.choose_group(B, M, k, H100_SMS)
+    assert S13 == _h100_model_group_rule(B, M, k, tkb.WARPS_PER_SM, tkn.list_rows(k, 32))
+    TQ13 = tkb.choose_tile(S13)
+    assert TQ13 * S13 == min(tkb.TILE_THREADS, tkb.MAX_TILE * S13)
+    assert 32 <= TQ13 * S13 <= tkb.MAX_THREADS and TQ13 <= tkb.MAX_TILE
+
+
+def test_baseline_launch_shape_at_the_flagship(monkeypatch):
+    # M = 2048 FPS queries: the sweep's best (S, TQ) at k = 16, B = 1, 4, 32
+    # and at k = 128, B = 4 (scripts/knn_group_sweep.py, PERF.md)
+    monkeypatch.setattr(tkn, "sm_count", lambda device: H100_SMS)
+    assert [tkb.launch_shape(B, 2048, 16, 0) for B in (1, 4, 32)] == [(32, 8), (16, 16),
+                                                                      (16, 16)]
+    assert tkb.launch_shape(4, 2048, 128, 0) == (32, 8)
+    assert tkb.choose_tile(1) == 128 and tkb.choose_group(1, 1, 4, H100_SMS) == 32
+    assert tkb.chunk_points(100) == 128 and tkb.chunk_points(10240) == 2048
 
 
 def test_chooser_cases_at_the_flagship():
@@ -499,6 +596,9 @@ def test_constants_match_the_sources():
     assert int(dense["kThreads"]) == tkn.THREADS and int(dense["kTile"]) == TILE
     skip = _consts("knn_chunkskip.cu")
     assert int(skip["kMaxTile"]) == tkc.MAX_TILE and int(skip["kMaxThreads"]) == tkc.MAX_THREADS
+    base = _consts("knn_baseline.cu")
+    assert int(base["kMaxTile"]) == tkb.MAX_TILE and int(base["kMaxThreads"]) == tkb.MAX_THREADS
+    assert int(base["kChunk"]) == tkb.chunk_points(10**6)
     assert int(_consts("knn_topk.cuh")["kMaxK"]) == tkn.MAX_K
 
 
@@ -518,12 +618,16 @@ def _prototype(source: str, name: str) -> list:
 @pytest.mark.parametrize("module,source,entry", [
     (tkn, "knn.cu", "pcm_knn"), (tkn, "knn.cu", "pcm_knn_order_multiplier"),
     (tkn, "knn.cu", "pcm_knn_max_rows"), (tkc, "knn_chunkskip.cu", "pcm_knn_chunkskip"),
-    (tkc, "knn_chunkskip.cu", "pcm_knn_chunkskip_max_tile")])
+    (tkc, "knn_chunkskip.cu", "pcm_knn_chunkskip_max_tile"),
+    (tkb, "knn_baseline.cu", "pcm_knn_baseline"),
+    (tkb, "knn_baseline.cu", "pcm_knn_baseline_max_threads")])
 def test_wrapper_argtypes_match_c_prototypes(monkeypatch, module, source, entry):
     values = {"pcm_knn_max_k": tkn.MAX_K, "pcm_knn_max_rows": tkn.MAX_ROWS,
               "pcm_knn_threads": tkn.THREADS, "pcm_knn_chunkskip_max_tile": tkc.MAX_TILE,
               "pcm_knn_chunkskip_max_threads": tkc.MAX_THREADS,
-              "pcm_knn_chunkskip_box_floats": tkc.BOX_FLOATS}
+              "pcm_knn_chunkskip_box_floats": tkc.BOX_FLOATS,
+              "pcm_knn_baseline_max_tile": tkb.MAX_TILE,
+              "pcm_knn_baseline_max_threads": tkb.MAX_THREADS}
 
     class FakeLib:
         def __getattr__(self, name):

@@ -13,16 +13,20 @@ Phases, each of which raises on failure (exit code non-zero, no result):
    the tensor-core kernels (bf16 kernel 9, the bf16 oneshot backward, kernel
    7's and 8's GEMM instantiations and attention kernels at dh 64 and 128,
    the 3xTF32 f32 kernels 3, 4, 9, 10 and 11 at dh 64 and 128, the routed dW
-   kernel 6), of the FP32 GEMM, of the FPS cluster kernel and of the
+   kernel 6), of the FP32 GEMM, of the FPS cluster kernel (held and
+   streamed slices), of the
    lane-group kNN kernels 2, 12 and 13 (k = 16 and 128, groups of 8 and 32
-   lanes; 13 also in groups of 16) go into the kernels line (``ptxas``).
+   lanes; 13 also in groups of 16) and of kernel 5 and its partial sum go
+   into the kernels line (``ptxas``).
 3. Holds each kernel against its plain PyTorch version on the card at the
    flagship's shapes, and times both:
    FPS -> 2048 (one thread-block cluster a cloud) index-exact at B=1, 4
-   and 32 for N=10240 and at B=1 and 4 for N=20480 and 40960, on a cloud
-   of exact ties and on a partly masked one with a row of fewer valid
-   points than it samples, each case's cluster size, threads a CTA, ms and
-   microseconds a round logged; kNN over M=2048 FPS queries at each of
+   and 32 for N=10240 and at B=1 and 4 for N=20480, 40960, 40961, what a
+   cluster holds (196,608) and above it, where the slices are streamed
+   (196,609 and 1,048,576), on clouds of exact ties and on partly masked
+   ones with a row of fewer valid points than it samples, each case's
+   cluster size, threads a CTA, ms and microseconds a round logged; kNN
+   over M=2048 FPS queries at each of
    KNN_CASES (B=1, 4 and 32 at N=10240, B=1 and 4 at N=20480, k=16, 96 and
    128, a lattice of exact ties, a row of fewer valid points than k), in FPS
    order and Morton-sorted (B=32: FPS order, no kernel 12): kernels 2
@@ -43,9 +47,11 @@ Phases, each of which raises on failure (exit code non-zero, no result):
    timed at both rates, and at dh=128, Lq=70, Lk=650, l_actual=600 (each
    output within BF16_TOL * max(1, max |plain|), row statistics within
    1e-5, the mask read back bit for bit, two backward launches
-   bit-identical). The data-source builder at B=4, N=10240, M=2048, K=16,
-   D=512 with holes: kernel 5's vmax, vmin and tie bitmap bit-equal, sg
-   within one bf16 ulp, totals within 1e-5 relative; kernel 6 (Cin=515, on
+   bit-identical). The data-source builder at B=4 and 32, N=10240, M=2048,
+   K=16, D=512 with holes, and at B=4 on K=9 of the neighbours of M=2000
+   queries: kernel 5's vmax, vmin and tie bitmap bit-equal, sg
+   within one bf16 ulp, totals within 1e-5 relative of the exact totals
+   (f64 sums; the plain version's f32 sums logged beside), each case timed; kernel 6 (Cin=515, on
    the bf16 tensor cores) at B=4 and B=32, with queries of one live
    neighbour (its w_lo product), within 1e-5 * max |dW|, the share of its
    tiles that ran the w_lo product logged; two launches of each
@@ -149,8 +155,14 @@ for like with the library's rate-0 call (kernel 9 of both types also
 ``ms_single_step``, its single-step variant at rate 0.1, which takes S once
 more over every key; f32 kernel 3 also ``ms_dh128`` and ``ms_rate0_dh128``,
 at dh 128, H=4); the kernels of ``PTXAS_FUNCTIONS`` carry ``ptxas``; FPS carries ``cases``,
-each phase-3 case's cluster size, threads, ms and microseconds a round, and
-the kNN kernels theirs (S, kernel 12's TQ and shares, ms); kernel 12 also
+each phase-3 case's cluster size, threads, whether its slices were streamed,
+ms and microseconds a round, ``max_points``, the most points a cloud the
+kernel takes, and ``max_resident``, the most a cluster holds without
+streaming, the kNN kernels theirs (S, kernel 12's TQ
+and shares, ms), kernel 5 its six (errors, ms, plain ms, bound; its ``ms``
+through ``builder_core_cuda``, as earlier builds were timed, ``ms_entry``
+the C entry's on buffers made once: the wrapper's host time is above the
+kernels' at B=4); kernel 12 also
 ``skipped_share`` and ``pruned_share`` of the first case; a fused layer's
 bound sums its products' times at their operands' peaks; flash kernels 10
 and 11 are timed apart, and the library's backward stands on kernel 10's
@@ -210,9 +222,9 @@ KERNELS = {
     "flash_dq_bf16": (_CSRC + "flash_mma.cuh", _OPS + "flash_attention.py:1427"),
 }
 # phase 2: the tensor-core kernels (bf16, kernel 6, and f32 kernels 3, 4, 9,
-# 10 and 11 in 3xTF32), the FPS cluster kernel and the lane-group kNN kernels
+# 10 and 11 in 3xTF32), the FPS cluster kernel, the lane-group kNN kernels
 # 2, 12 and 13 (k = 16 and 128 in groups of 8 and 32 lanes; 13 also in the
-# 16 it takes at B=4), whose ptxas registers and
+# 16 it takes at B=4) and kernel 5 with its partial sum, whose ptxas registers and
 # spills the kernels line records, by a piece of their mangled names (the
 # two f32_dq_kernel pieces by their argument types as well: each library has
 # one)
@@ -240,7 +252,7 @@ PTXAS_FUNCTIONS = {
                       "dkdv_dh128": "8attn_mma11dkdv_kernelILi128ENS0_5FusedE",
                       "dq_dh64": "8attn_mma9dq_kernelILi64ENS0_5FusedE",
                       "dq_dh128": "8attn_mma9dq_kernelILi128ENS0_5FusedE"},
-    "fps": {"cluster": "18fps_cluster_kernel"},
+    "fps": {"held": "18fps_cluster_kernelILb0E", "streamed": "18fps_cluster_kernelILb1E"},
     "knn": {"k16_S8": "16knn_group_kernelILi8ELi2EE", "k16_S32": "16knn_group_kernelILi32ELi1EE",
             "k128_S8": "16knn_group_kernelILi8ELi16EE",
             "k128_S32": "16knn_group_kernelILi32ELi4EE"},
@@ -254,6 +266,7 @@ PTXAS_FUNCTIONS = {
                      "k128_S8": "19knn_baseline_kernelILi8ELi16EE",
                      "k128_S32": "19knn_baseline_kernelILi32ELi4EE"},
     "routed_dw": {"mma": "16routed_dw_kernelE"},
+    "builder_fwd": {"fwd": "18builder_fwd_kernelE", "sum": "19sum_partials_kernelE"},
     "attention_fwd": {"dh64": "4attn15attn_fwd_kernelILi64E",
                       "dh128": "4attn15attn_fwd_kernelILi128E"},
     "fused_mha_bwd_bf16": {"gemm_f32": "8gemm_mma11gemm_kernelILb0ELi1E",
@@ -442,10 +455,17 @@ def check_kernels(dev) -> dict:
     return res
 
 
-# phase 3's FPS cases: (what, B, N), the first the kernels line's times
+# phase 3's FPS cases: (what, B, N), the first the kernels line's times; N
+# None is what a cluster holds, fps.MAX_RESIDENT (196,608); above it each
+# CTA streams the rest of its slice (STREAMED_CLOUD: 53,248 points a CTA)
+STREAMED_CLOUD = 1 << 20
 FPS_CASES = (("random", 4, N_POINTS), ("random", 1, N_POINTS), ("random", BIG_BATCH, N_POINTS),
              ("random", 1, BIG_CLOUD), ("random", 4, BIG_CLOUD), ("random", 1, 40960),
-             ("random", 4, 40960), ("ties", 4, N_POINTS), ("masked", 4, BIG_CLOUD))
+             ("random", 4, 40960), ("random", 1, 40961), ("random", 4, 40961),
+             ("random", 1, None), ("random", 4, None), ("ties", 4, N_POINTS),
+             ("masked", 4, BIG_CLOUD), ("random", 1, 196609), ("random", 4, 196609),
+             ("random", 1, STREAMED_CLOUD), ("random", 4, STREAMED_CLOUD),
+             ("ties", 1, STREAMED_CLOUD), ("masked", 4, STREAMED_CLOUD))
 
 
 def check_fps(dev) -> dict:
@@ -455,7 +475,8 @@ def check_fps(dev) -> dict:
     ``random`` clouds come from ``build_batch`` (rows with holes at the
     end); ``ties`` puts every point on a coarse grid with each point twice
     (exact ties everywhere); ``masked`` drops 40% of the points at random
-    and leaves one row 1000 valid points, fewer than it samples."""
+    and leaves one row 1000 valid points, fewer than it samples. Clouds
+    above 196,608 points run the streamed slices."""
     import numpy as np
     import torch
 
@@ -465,6 +486,7 @@ def check_fps(dev) -> dict:
     rng = np.random.RandomState(5)
     res, cases = None, []
     for what, B, N in FPS_CASES:
+        N = fps.MAX_RESIDENT if N is None else N
         if what == "random":
             batch = build_batch(batch_size=B, n_points=N, seed=0, with_actions=False)
             xyz = torch.from_numpy(batch["pcds"]["coord"]).to(dev)
@@ -486,11 +508,13 @@ def check_fps(dev) -> dict:
                                  f"version at {(idx != ref).sum().item()} indices")
         C, T = fps.launch_shape(B, N, dev.index)
         ms = cuda_ms(run, 5)
-        case = dict(what=what, B=B, N=N, cluster=C, threads=T, ms=ms,
+        streamed = fps.cluster_slice(N, C) > fps.MAX_SLICE
+        case = dict(what=what, B=B, N=N, cluster=C, threads=T, streamed=streamed, ms=ms,
                     us_per_round=ms * 1e3 / 2047)
         cases.append(case)
         log(f"fps     {what} B={B} N={N}->2048: index-exact; cluster of {C} CTAs x {T} "
-            f"threads; kernel {ms:.3f} ms, {case['us_per_round']:.3f} us a round")
+            f"threads{', slices streamed' if streamed else ''}; kernel {ms:.3f} ms, "
+            f"{case['us_per_round']:.3f} us a round")
         if res is None:
             res = dict(
                 max_abs_err=0.0, ms=ms,
@@ -503,6 +527,7 @@ def check_fps(dev) -> dict:
             log(f"fps     B={B} N={N}: plain {res['plain_ms']:.3f} ms, bound "
                 f"{res['bound_ms']:.4f} ms")
     res["cases"] = cases
+    res["max_points"], res["max_resident"] = fps.max_points(), fps.MAX_RESIDENT
     return res
 
 
@@ -1331,7 +1356,8 @@ def check_flash(dev) -> dict:
     return res
 
 
-# phase 3's routed dW batches: B=4 (the kernels line's times) and the step's B=32
+# phase 3's builder batches (kernels 5 and 6): B=4 (the kernels line's times)
+# and the step's B=32
 ROUTED_BATCHES = (4, BIG_BATCH)
 
 
@@ -1371,65 +1397,148 @@ def builder_inputs(dev, B: int) -> dict:
                 dvn=torch.randn((B, M, D), generator=gen, device=dev).to(bf16))
 
 
-def check_builder(dev) -> dict:
-    """Phase 3, the data-source builder on ``builder_inputs`` at B=4:
-    kernel 5's vmax, vmin and tie bitmap equal to the plain version's, sg
-    within one bf16 ulp, totals within 1e-5 relative; two launches
-    bit-identical. Kernel 6 (on kernel 5's tie bitmap) at each of
-    ROUTED_BATCHES within 1e-5 * max|dW| of its plain version (summation
-    order only: its w_lo product makes every product exact), two launches
-    bit-identical; the share of its tiles that ran the w_lo product logged,
-    and the time of ``pad_channels``' copy of src."""
+def _check_builder_fwd(g, h, nn_idx, what: str) -> dict:
+    """Kernel 5 on one case: vmax, vmin and the tie bitmap equal to the plain
+    version's, sg within one bf16 ulp, totals within 1e-5 relative of the
+    exact totals (f64 sums of the plain version's x), two launches
+    bit-identical; its time (``ms``: ``builder_core_cuda``, as every
+    earlier build was timed; ``ms_entry``: the C entry, both kernels, on
+    buffers made once), the plain version's and the bound."""
     import torch
 
     from pointcloudmatters_tpu_torch.ops import fused_builder as fb
+    from pointcloudmatters_tpu_torch.ops.pointops import gather_rows_padded
 
-    x = builder_inputs(dev, 4)
-    g, h, nn_idx = x["g"], x["h"], x["nn_idx"]
     B, M, K = nn_idx.shape
     D = g.shape[-1]
     got = fb.builder_core_cuda(g, h, nn_idx)
     ref = fb.builder_core_plain(g, h, nn_idx)
     for name, a, b in zip(("vmax", "vmin"), got[:2], ref[:2]):
         if not torch.equal(a, b):
-            raise AssertionError(f"builder kernel {name} differs from the plain version "
-                                 f"at {(a != b).sum().item()} places")
+            raise AssertionError(f"builder kernel ({what}) {name} differs from the plain "
+                                 f"version at {(a != b).sum().item()} places")
     if not torch.equal(got[3], ref[3]):
-        raise AssertionError(f"builder kernel tie bitmap differs at "
+        raise AssertionError(f"builder kernel ({what}) tie bitmap differs at "
                              f"{(got[3] != ref[3]).sum().item()} places")
     sg, sg_p = got[2].float(), ref[2].float()
     ulp = torch.exp2(torch.floor(torch.log2(sg_p.abs().clamp_min(1e-30))) - 7)
     if not bool(((sg - sg_p).abs() <= ulp).all()):
-        raise AssertionError(f"builder kernel sg off by more than one bf16 ulp at "
+        raise AssertionError(f"builder kernel ({what}) sg off by more than one bf16 ulp at "
                              f"{((sg - sg_p).abs() > ulp).sum().item()} places")
-    tot_err = max(((a - b).abs() / b.abs().clamp_min(1e-30)).max().item()
-                  for a, b in zip(got[4:], ref[4:]))
+    # the totals against their exact values: x as the plain version rounds
+    # it, summed in f64 a cloud at a time. The plain version's f32 sums are
+    # no reference at 1e-5 where a channel's x nearly cancel (the ragged
+    # case's worst channel sums to 2e-5 of its sum |x|, and the plain f32
+    # sum misses it by 8.6e-6 relative)
+    hole = (nn_idx < 0)[..., None]
+    exact = torch.zeros((2, D), dtype=torch.float64, device=g.device)
+    for b in range(B):
+        gg = torch.where(hole[b:b + 1], 0, gather_rows_padded(g[b:b + 1], nn_idx[b:b + 1]))
+        xz = torch.where(hole[b:b + 1], 0, gg - h[b:b + 1, :, None, :]).double()
+        exact[0] += xz.sum(dim=(0, 1, 2))
+        exact[1] += (xz * xz).sum(dim=(0, 1, 2))
+        del gg, xz
+
+    def rel(t):  # worst relative error of (total, total_sq) against the exact ones
+        return max(((a.double() - e).abs() / e.abs().clamp_min(1e-300)).max().item()
+                   for a, e in zip(t, exact))
+
+    tot_err, plain_tot_err = rel(got[4:]), rel(ref[4:])
     if not tot_err <= 1e-5:
-        raise AssertionError(f"builder kernel totals off by {tot_err:.3e} relative")
+        raise AssertionError(f"builder kernel ({what}) totals off by {tot_err:.3e} relative "
+                             f"(the plain version's by {plain_tot_err:.3e})")
     again = fb.builder_core_cuda(g, h, nn_idx)
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
-        raise AssertionError("two identical builder launches differ")
-    ties = (fb.popcount16(got[3]) > 1).float().mean().item()
-    res = {"builder_fwd": dict(
-        max_abs_err=_max_err(sg, sg_p), library_ms=None,
-        ms=cuda_ms(lambda: fb.builder_core_cuda(g, h, nn_idx), 5),
-        plain_ms=cuda_ms(lambda: fb.builder_core_plain(g, h, nn_idx), 5),
+        raise AssertionError(f"two identical builder launches ({what}) differ")
+    # the C entry on buffers made once: the wrapper's host time (its checks
+    # and six allocations) is above the kernels' at B=4
+    lib, dev = fb._lib(), g.device
+    outs = [torch.empty_like(t) for t in got[:4]]
+    part = torch.empty((lib.pcm_builder_fwd_partials(B, M, D), 2, D), dtype=torch.float32,
+                       device=dev)
+    totals = torch.empty((2, D), dtype=torch.float32, device=dev)
+
+    def entry():
+        err = lib.pcm_builder_fwd(g.data_ptr(), h.data_ptr(), nn_idx.data_ptr(),
+                                  *[t.data_ptr() for t in outs], part.data_ptr(),
+                                  totals.data_ptr(), B, g.shape[1], M, K, D, dev.index,
+                                  fb._stream(dev))
+        if err:
+            raise RuntimeError(f"pcm_builder_fwd: CUDA error {err}")
+
+    case = dict(
+        what=what, B=B, M=M, K=K, D=D, max_abs_err=_max_err(sg, sg_p), totals_rel_err=tot_err,
+        plain_totals_rel_err=plain_tot_err,
+        sg_bit_equal=bool(torch.equal(got[2], ref[2])),
+        max_tie_share=(fb.popcount16(got[3]) > 1).float().mean().item(),
+        ms=cuda_ms(lambda: fb.builder_core_cuda(g, h, nn_idx), 20),
+        ms_entry=cuda_ms(entry, 20),
+        plain_ms=cuda_ms(lambda: fb.builder_core_plain(g, h, nn_idx), 2),
         # g, h, nn read; vmax, vmin, sg (bf16), bm (int32), totals written;
         # ~6 flops an (m, k, d)
         **bound(6.0 * B * M * K * D,
                 (g.numel() + h.numel()) * 2 + nn_idx.numel() * 4 + B * M * D * (3 * 2 + 4)
-                + 2 * D * 4, "bf16"))}
-    log(f"builder fwd B={B} N={N_POINTS} M={M} K={K} D={D}: vmax, vmin, bitmap equal, sg "
-        f"within 1 ulp (max abs {res['builder_fwd']['max_abs_err']:.3e}), totals "
-        f"{tot_err:.3e} relative, {ties:.4f} of (m, d) with a max tie; kernel "
-        f"{res['builder_fwd']['ms']:.3f} ms, plain {res['builder_fwd']['plain_ms']:.3f} ms")
+                + 2 * D * 4, "bf16"))
+    log(f"builder fwd {what} B={B} N={g.shape[1]} M={M} K={K} D={D}: vmax, vmin, bitmap "
+        f"equal, sg within 1 ulp (max abs {case['max_abs_err']:.3e}, bit-equal "
+        f"{case['sg_bit_equal']}), totals {tot_err:.3e} relative to the exact ones (plain "
+        f"{plain_tot_err:.3e}), relaunch bit-identical, "
+        f"{case['max_tie_share']:.4f} of (m, d) with a max tie; kernel {case['ms']:.4f} ms "
+        f"(bound {case['bound_ms']:.4f}; {case['ms_entry']:.4f} through the C entry), "
+        f"plain {case['plain_ms']:.3f} ms")
+    return case
 
-    cases = []
+
+# kernel 5 at the other widths its decomposition takes, (D, queries a
+# block, passes over the channels): (128, 16, 1), (384, 5, 1: one thread
+# slot idle), (2064, 1, 2: the second pass 2 chunks wide)
+BUILDER_WIDTHS = (128, 384, 2064)
+
+
+def builder_width_inputs(dev, D: int):
+    """Kernel 5's inputs at width D, B=2, N=1000, M=301, K=16, seeded: x = g
+    - h near 1 (no channel's total cancels), all-hole queries, partial
+    holes, duplicate neighbours and one-live-neighbour queries."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(D)
+    B, N, M, K = 2, 1000, 301, 16
+    g = (torch.randn((B, N, D), generator=gen, device=dev) * 0.5 + 1.0).to(torch.bfloat16)
+    h = (torch.randn((B, M, D), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+    nn = torch.randint(0, N, (B, M, K), generator=gen, device=dev).to(torch.int32)
+    nn[:, -8:] = -1                    # queries with holes only
+    nn[:, 100:150, 9:] = -1            # partial holes
+    nn[0, 3, 5:] = nn[0, 3, 0]         # duplicate neighbours: exact ties
+    nn[:, 200:220, 1:] = -1            # one live neighbour
+    return g, h, nn.contiguous()
+
+
+def check_builder(dev) -> dict:
+    """Phase 3, the data-source builder on ``builder_inputs`` at each of
+    ROUTED_BATCHES. Kernel 5 (``_check_builder_fwd``) on the flagship shapes
+    and, at B=4, on a ragged case (K = 9 of the neighbours, M = 2000 of the
+    queries, slices made contiguous), then at each of BUILDER_WIDTHS
+    (``builder_width_inputs``); the kernels line's times are B=4's.
+    Kernel 6 (on kernel 5's tie bitmap) within 1e-5 * max|dW| of its plain
+    version (summation order only: its w_lo product makes every product
+    exact), two launches bit-identical; the share of its tiles that ran the
+    w_lo product logged, and the time of ``pad_channels``' copy of src."""
+    import torch
+
+    from pointcloudmatters_tpu_torch.ops import fused_builder as fb
+
+    fwd_cases, cases = [], []
     for B in ROUTED_BATCHES:
-        if B != 4:
-            x = builder_inputs(dev, B)
+        x = builder_inputs(dev, B)
         src, nn_idx, dvx, dvn = x["src"], x["nn_idx"], x["dvx"], x["dvn"]
+        fwd_cases.append(_check_builder_fwd(x["g"], x["h"], nn_idx, "flagship"))
+        if B == 4:
+            fwd_cases.append(_check_builder_fwd(
+                x["g"], x["h"][:, :2000].contiguous(), nn_idx[:, :2000, :9].contiguous(),
+                "ragged"))
         bm = fb.builder_core_cuda(x["g"], x["h"], nn_idx)[3]
+        _, M, K = nn_idx.shape
+        D = bm.shape[-1]
         Cin = src.shape[-1]
         srcp = fb.pad_channels(src)[..., :Cin]  # as the backward hands it over
         dw, lo_share = fb.routed_dw_cuda(srcp, nn_idx, bm, dvx, dvn, with_lo_share=True)
@@ -1456,8 +1565,11 @@ def check_builder(dev) -> dict:
             f"plain {case['plain_ms']:.3f} ms, pad_channels {case['pad_ms']:.3f} ms")
         del x, src, srcp, nn_idx, bm, dvx, dvn, dw, dw_p
         torch.cuda.empty_cache()
-    res["routed_dw"] = dict(cases[0], library_ms=None, cases=cases)
-    return res
+    for D in BUILDER_WIDTHS:
+        fwd_cases.append(_check_builder_fwd(*builder_width_inputs(dev, D), f"D={D}"))
+    first = {k: v for k, v in fwd_cases[0].items() if k not in ("what", "B", "M", "K", "D")}
+    return {"builder_fwd": dict(first, library_ms=None, cases=fwd_cases),
+            "routed_dw": dict(cases[0], library_ms=None, cases=cases)}
 
 
 # attention_impl -> (the serving path's kernels, the small policy's widths and

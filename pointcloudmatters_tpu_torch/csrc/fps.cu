@@ -56,9 +56,22 @@
 // Two other exchanges measured slower on the card (PERF.md): a record a
 // warp, and plain remote stores with one cluster barrier a round.
 //
-// A slice holds at most kMaxSlice points (192 KiB of float4; 16,384 would
+// A CTA holds at most kMaxSlice points (192 KiB of float4; 16,384 would
 // take 256 KiB, above the 227 KiB a block may use) and a thread at most
-// kMaxPPT of them, so the wrapper takes C >= ceil(N / kMaxSlice).
+// kMaxPPT of them, so the wrapper takes C >= ceil(N / kMaxSlice) up to
+// kMaxCluster * kMaxSlice = 196,608 points a cloud (a cluster of 16 CTAs
+// of 1024 threads, one an SM). Above that the cluster has 16 CTAs of 1024
+// threads, and each CTA holds the first kMaxSlice points of its slice as
+// above and streams the rest each round: their coordinates from xyz, their
+// validity from mask, and their min-distance cache from the caller's f32
+// scratch `work` (B, N), read and written back by the thread that owns the
+// point (slice point j >= kMaxSlice in thread j % T, after its held
+// points: j still rises within a thread, so the strict > still keeps the
+// smaller index). |x|^2 of a streamed point is recomputed each round with
+// the same rounding, so nothing else changes. The streaming is a template
+// argument: the kernel that holds its whole slice carries none of it (with
+// it, an empty loop and a branch slowed every round by 16%, PERF.md). A
+// cloud holds at most kMaxN points: an index stays below kNoIndex.
 //
 // Rounding: distances are computed with __fmul_rn/__fadd_rn/__fsub_rn in the
 // plain version's order, |x|^2 + |p|^2 - 2 (x0 p0 + x1 p1 + x2 p2), with
@@ -78,9 +91,10 @@ namespace {
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxPPT = 12;  // points a thread
 constexpr int kMaxSlice = kMaxThreads * kMaxPPT;  // points a CTA: 12,288
-constexpr int kMaxN = 40960;
 constexpr int kMaxCluster = 16;  // non-portable above 8
+constexpr int kMaxResident = kMaxCluster * kMaxSlice;  // held by a cluster: 196,608
 constexpr uint32_t kNoIndex = 0x7fffffffu;
+constexpr int kMaxN = (int)kNoIndex - 1;  // points a cloud
 constexpr int kMaxDevices = 64;
 constexpr uint32_t kRecordBytes = 24;  // (key, index) and (x, y, z, |x|^2)
 
@@ -188,10 +202,14 @@ constexpr size_t smem_bytes(int slice, int cluster) {
   return (size_t)slice * sizeof(float4) + (size_t)2 * cluster * kRecordBytes;
 }
 
-// One cluster a cloud: grid (B C), cluster (C), T threads a CTA.
+// One cluster a cloud: grid (B C), cluster (C), T threads a CTA; kStream
+// when a slice is above kMaxSlice points, and only then is `work` (B, N)
+// f32 read.
+template <bool kStream>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 fps_cluster_kernel(const float* __restrict__ xyz, const uint8_t* __restrict__ mask,
-                   int32_t* __restrict__ out, int N, int npoints, int slice) {
+                   int32_t* __restrict__ out, float* __restrict__ work, int N, int npoints,
+                   int slice) {
   extern __shared__ __align__(16) float4 sm4[];
   __shared__ uint2 red[2][32];    // the warps' results
   __shared__ uint64_t bar[2];     // a round's records have landed
@@ -200,26 +218,32 @@ fps_cluster_kernel(const float* __restrict__ xyz, const uint8_t* __restrict__ ma
   const int rank = (int)cluster.block_rank();
   const int T = blockDim.x, W = T >> 5;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int held = min(slice, kMaxSlice);  // the slice points in shared memory
   float4* pts = sm4;
-  const Slots slots{pts + slice, reinterpret_cast<uint2*>(pts + slice + 2 * C)};
+  const Slots slots{pts + held, reinterpret_cast<uint2*>(pts + held + 2 * C)};
 
   const int b = blockIdx.x / C;
   const int lo = rank * slice;
   const int n_own = max(0, min(N - lo, slice));
-  const int ppt = (n_own + T - 1) / T;  // the same in every thread of the CTA
+  const int n_held = min(n_own, kMaxSlice);
+  const int ppt = (n_held + T - 1) / T;  // the same in every thread of the CTA
   const float* p = xyz + (size_t)b * N * 3;
   const uint8_t* m = mask + (size_t)b * N + lo;
+  float* wk = work + (size_t)b * N + lo;  // the streamed points' caches
 
-  for (int j = tid; j < n_own; j += T) {
-    const float x = p[3 * (lo + j)], y = p[3 * (lo + j) + 1], z = p[3 * (lo + j) + 2];
-    pts[j] = make_float4(x, y, z, sqnorm(x, y, z));
+  for (int j = tid; j < n_held; j += T) {
+    const float* q = p + (size_t)3 * (lo + j);
+    pts[j] = make_float4(q[0], q[1], q[2], sqnorm(q[0], q[1], q[2]));
+  }
+  if (kStream) {
+    for (int j = kMaxSlice + tid; j < n_own; j += T) wk[j] = m[j] ? 1.0e10f : -1.0f;
   }
   float dist[kMaxPPT];
   uint32_t valid = 0;
 #pragma unroll
   for (int i = 0; i < kMaxPPT; ++i) {
     const int j = tid + i * T;
-    if (j < n_own) {
+    if (j < n_held) {
       const bool v = m[j] != 0;
       valid |= (uint32_t)v << i;
       dist[i] = v ? 1.0e10f : -1.0f;
@@ -262,6 +286,25 @@ fps_cluster_kernel(const float* __restrict__ xyz, const uint8_t* __restrict__ ma
         bi = (uint32_t)(lo + j);
       }
     }
+    if (kStream) {  // the streamed points, after the held ones
+#pragma unroll 4
+      for (int j = kMaxSlice + tid; j < n_own; j += T) {
+        float dj = wk[j];
+        if (m[j]) {
+          const float* q = p + (size_t)3 * (lo + j);
+          const float x0 = q[0], x1 = q[1], x2 = q[2];
+          const float dot =
+              __fadd_rn(__fadd_rn(__fmul_rn(x0, px), __fmul_rn(x1, py)), __fmul_rn(x2, pz));
+          const float d = __fsub_rn(__fadd_rn(sqnorm(x0, x1, x2), p2), __fmul_rn(2.0f, dot));
+          dj = fminf(dj, d);
+          wk[j] = dj;
+        }
+        if (dj > bv) {
+          bv = dj;
+          bi = (uint32_t)(lo + j);
+        }
+      }
+    }
     uint32_t wkey, widx;
     warp_best(ordered(bv), bi, wkey, widx);
     const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -273,7 +316,16 @@ fps_cluster_kernel(const float* __restrict__ xyz, const uint8_t* __restrict__ ma
       const uint2 r = lane < W ? red[buf][lane] : make_uint2(0u, 0xffffffffu);
       uint32_t ckey, cidx;
       warp_best(r.x, r.y, ckey, cidx);
-      const float4 w = cidx != kNoIndex ? pts[cidx - lo] : zero;
+      float4 w = zero;
+      if (cidx != kNoIndex) {
+        const int j = (int)cidx - lo;
+        if (!kStream || j < kMaxSlice) {
+          w = pts[j];
+        } else {
+          const float* q = p + (size_t)3 * cidx;
+          w = make_float4(q[0], q[1], q[2], sqnorm(q[0], q[1], q[2]));
+        }
+      }
       send(to, buf, w, ckey, cidx, lane, C);
     }
     mbar_wait(&bar[buf], (phases >> buf) & 1u);
@@ -304,20 +356,31 @@ fps_cluster_kernel(const float* __restrict__ xyz, const uint8_t* __restrict__ ma
   cluster_barrier();  // no CTA leaves while records fly
 }
 
-// The kernel's attributes on the current device `device`, set at its first
-// use there: clusters above 8 CTAs, and the shared memory of the largest
-// slice (what a launch takes is its own dynamic size).
+using Kernel = void (*)(const float*, const uint8_t*, int32_t*, float*, int, int, int);
+
+// The kernel for clouds of N points over C CTAs.
+Kernel kernel_for(int N, int C) {
+  return (N + C - 1) / C > kMaxSlice ? fps_cluster_kernel<true> : fps_cluster_kernel<false>;
+}
+
+// The kernels' attributes on the current device `device`, set at their
+// first use there: clusters above 8 CTAs, and the shared memory of the
+// largest slice (what a launch takes is its own dynamic size).
 cudaError_t set_attributes(int device) {
   static bool done[kMaxDevices];
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   if (done[device]) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(fps_cluster_kernel,
-                                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(fps_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_bytes(kMaxSlice, kMaxCluster));
-  done[device] = err == cudaSuccess;
-  return err;
+  const Kernel kernels[2] = {fps_cluster_kernel<false>, fps_cluster_kernel<true>};
+  for (Kernel k : kernels) {
+    cudaError_t err =
+        cudaFuncSetAttribute(k, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem_bytes(kMaxSlice, kMaxCluster));
+    if (err != cudaSuccess) return err;
+  }
+  done[device] = true;
+  return cudaSuccess;
 }
 
 // The launch configuration of B clouds of N points, C CTAs of T threads
@@ -328,11 +391,14 @@ bool config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int B, int N, in
       T < 32 || T > kMaxThreads || T % 32 != 0)
     return false;
   const int slice = (N + C - 1) / C;
-  if (slice > kMaxSlice || (slice + T - 1) / T > kMaxPPT) return false;
+  const int held = slice < kMaxSlice ? slice : kMaxSlice;
+  if ((held + T - 1) / T > kMaxPPT) return false;
+  // a slice is streamed only in the largest cluster, each thread holding kMaxPPT points
+  if (slice > kMaxSlice && (C != kMaxCluster || T != kMaxThreads)) return false;
   cfg = cudaLaunchConfig_t{};
   cfg.gridDim = dim3((unsigned)(B * C));
   cfg.blockDim = dim3((unsigned)T);
-  cfg.dynamicSmemBytes = smem_bytes(slice, C);
+  cfg.dynamicSmemBytes = smem_bytes(held, C);
   cfg.stream = stream;
   attr.id = cudaLaunchAttributeClusterDimension;
   attr.val.clusterDim.x = (unsigned)C;
@@ -365,26 +431,29 @@ int pcm_fps_max_active_clusters(int N, int C, int T, int device) {
   err = set_attributes(device);
   if (err != cudaSuccess) return -(int)err;
   int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, (void*)fps_cluster_kernel, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&n, (void*)kernel_for(N, C), &cfg);
   if (err != cudaSuccess) return -(int)err;
   return n;
 }
 
-// xyz (B, N, 3) f32, mask (B, N) bool as bytes, out (B, npoints) int32; all
-// contiguous on device `device`. One cluster of C CTAs (a power of two up to
-// 16) of T threads (a multiple of 32) a cloud; ceil(N / C) <= kMaxSlice and
-// ceil(ceil(N / C) / T) <= kMaxPPT. Returns the cudaError_t of the launch.
-int pcm_fps(const float* xyz, const uint8_t* mask, int32_t* out, int B, int N, int npoints,
-            int C, int T, int device, void* stream) {
+// xyz (B, N, 3) f32, mask (B, N) bool as bytes, out (B, npoints) int32, and
+// for N > kMaxResident work (B, N) f32 scratch (else unread, may be null);
+// all contiguous on device `device`. One cluster of C CTAs (a power of two
+// up to 16) of T threads (a multiple of 32) a cloud; ceil(min(ceil(N / C),
+// kMaxSlice) / T) <= kMaxPPT, and C = 16, T = 1024 where ceil(N / C) >
+// kMaxSlice. Returns the cudaError_t of the launch.
+int pcm_fps(const float* xyz, const uint8_t* mask, int32_t* out, float* work, int B, int N,
+            int npoints, int C, int T, int device, void* stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  if (npoints < 1 || !config(cfg, attr, B, N, C, T, (cudaStream_t)stream))
+  if (npoints < 1 || !config(cfg, attr, B, N, C, T, (cudaStream_t)stream) ||
+      ((N + C - 1) / C > kMaxSlice && work == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   err = set_attributes(device);
   if (err != cudaSuccess) return (int)err;
-  err = cudaLaunchKernelEx(&cfg, fps_cluster_kernel, xyz, mask, out, N, npoints,
+  err = cudaLaunchKernelEx(&cfg, kernel_for(N, C), xyz, mask, out, work, N, npoints,
                            (N + C - 1) / C);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

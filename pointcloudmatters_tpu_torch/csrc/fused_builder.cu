@@ -17,18 +17,46 @@
 //                      squares (fused_builder.py:183-185).
 // The (B, M, K, D) neighbourhood tensor never exists. What bounds it on an
 // H100: bytes. It must read g, h and nn and write four (B, M, D) outputs
-// (741 MB at B=32, N=10240, M=2048, D=512: 0.22 ms at 3.35 TB/s); the
+// (742 MB at B=32, N=10240, M=2048, D=512: 0.22 ms at 3.35 TB/s); the
 // gathers read 16 source rows a query (1.07 GB), which the 50 MB L2 serves
 // as long as the blocks in flight work on one or two clouds (10 MB of g
-// each). Design: one block per (cloud, 32 consecutive queries), one thread
-// per pair of channels, so that a warp reads 128 contiguous bytes of a
-// source row and each source row (1 KB at D=512) is read whole by the block;
-// a thread keeps its K differences in registers to set the tie bits after
-// the max and min are known. The TPU kernel's query sort, chunk transpose
-// and VMEM-resident g are devices of its memory system and have no place
-// here: a block reads each query's K rows straight from global memory.
-// Totals are per-block partial sums, reduced by a second kernel in a fixed
-// order: no atomics, so two launches give identical bits.
+// each). Design:
+//   - A thread owns 8 consecutive channels (a 16-byte chunk of a row), so
+//     D / 8 threads serve a query: each gathered g row and h arrive as
+//     16-byte `ld.global.nc` loads (a warp reads 512 contiguous bytes of a
+//     source row), vmax, vmin and sg leave as 16-byte stores and bm as two.
+//   - A block of 256 threads serves QF = min(16, 256 / (D / 8)) queries at
+//     once (4 at D = 512): a thread issues the gathers of its query's live
+//     neighbours together, K loads in flight (hole rows are not loaded).
+//   - The B*M queries go out in groups of QF to at most kFwdBlocks = 264
+//     blocks, round robin: block i takes groups i, i + blocks, ... So the
+//     blocks work on neighbouring groups (one or two clouds) at any time,
+//     and the block count and each block's rounds follow from (B, M, D)
+//     alone. 264 blocks are one wave at two blocks an SM (128 registers a
+//     thread); 132, 396, 528, 792 and 1056 measured slower
+//     (scripts/probe_builder_fwd.py, PERF.md). Each round's nn rows are
+//     staged in shared memory by `cp.async` during the round before. (Each
+//     warp staging its own, with no block barrier between rounds, took a
+//     register more and spilled: slower.)
+//   - x = bf16(g - h) is one `sub.rn.bf16x2` a channel pair: one rounding of
+//     the exact difference, which is what the f32 difference rounded once
+//     gives (for bf16 operands the f32 difference is exact unless their
+//     exponents differ by more than 15, and then both round to the larger
+//     operand). The K differences stay packed (K * 4 registers at K = 16);
+//     vmax and vmin are `max.bf16x2` / `min.bf16x2` over the live ones, and
+//     the tie bits come after them by packed compares, a hole compared as
+//     NaN (never equal). sg adds the gathered rows in f32 in k order, as the
+//     plain version adds them.
+//   - Totals: each thread sums x and x * x of its channels in f32 over a
+//     query's neighbours, then adds the query's sums to its running totals
+//     in shared memory (K + rounds terms deep, not K * rounds: at 264
+//     blocks a thread walks 63 rounds at B=32); a block adds its QF query
+//     slots in slot order and writes one row of partials; a second kernel
+//     sums the rows in a fixed order (128 interleaved runs a column, then 4
+//     runs a lane, then a shuffle tree). No atomics, so two launches give
+//     identical bits.
+// The TPU kernel's query sort, chunk transpose and VMEM-resident g are
+// devices of its memory system and have no place here.
 //
 // Kernel 6 replaces the TPU kernel `_routed_kernel` / `_routed_dw_pallas`
 // (fused_builder.py:339-383). It computes
@@ -79,121 +107,230 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <algorithm>
-
 #include "attention_mma.cuh"
 #include "elem.cuh"
 
 namespace {
 
 using pcm::bf16;
+namespace mm = pcm::attn_mma;
 
 constexpr int kMaxK = 16;
-constexpr int kQB = 32;  // queries a block, kernel 5
+// kernel 5: threads a block, queries in flight a block at most, blocks at
+// most (the two an SM of an H100's 132 that its registers let run at once:
+// one wave; more rounds a block above that)
+constexpr int kFwdThreads = 256;
+constexpr int kMaxQF = 16;
+constexpr int kFwdBlocks = 264;
+constexpr int kSumRuns = 128;  // interleaved runs a column of the partial sum
+static_assert(kSumRuns == 4 * 32, "the partial sum's lanes take 4 runs each");
 
-// ---------------------------------------------------------------------------
-// kernel 5: forward statistics
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(256)
+// Kernel 5's decomposition of B*M queries of D channels, from the shapes
+// alone: chunks of 8 channels a row, chunks a pass (one pass unless D >
+// 2048), queries a group, groups, blocks and rounds a block.
+struct FwdShape {
+  int chunks, per_pass, qf, passes, blocks, rounds;
+  __host__ __device__ FwdShape(long long queries, int D) {
+    chunks = D / 8;
+    per_pass = chunks < kFwdThreads ? chunks : kFwdThreads;
+    qf = kFwdThreads / per_pass < kMaxQF ? kFwdThreads / per_pass : kMaxQF;
+    passes = (chunks + per_pass - 1) / per_pass;
+    const long long groups = (queries + qf - 1) / qf;
+    blocks = (int)(groups < kFwdBlocks ? groups : kFwdBlocks);
+    rounds = (int)((groups + blocks - 1) / blocks);
+  }
+};
+
+__device__ __forceinline__ void cp_async4(int* dst, const int* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(mm::smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ __nv_bfloat162 as_bf2(uint32_t u) {
+  return *reinterpret_cast<__nv_bfloat162*>(&u);
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// the two bf16 of a pair as f32
+__device__ __forceinline__ float lo_f(uint32_t u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float hi_f(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
+
+__device__ __forceinline__ uint32_t pack_rn(float lo, float hi) {
+  return as_u32(__floats2bfloat162_rn(lo, hi));
+}
+
+constexpr uint32_t kNaN2 = 0x7fc07fc0u;      // a bf16 NaN pair: a hole's x
+constexpr uint32_t kNegInf2 = 0xff80ff80u;   // -inf, +inf pairs
+constexpr uint32_t kPosInf2 = 0x7f807f80u;
+
+__global__ void __launch_bounds__(kFwdThreads, 2)
 builder_fwd_kernel(const bf16* __restrict__ g, const bf16* __restrict__ h,
                    const int* __restrict__ nn, bf16* __restrict__ vmax_out,
                    bf16* __restrict__ vmin_out, bf16* __restrict__ sg_out,
                    int* __restrict__ bm_out, float* __restrict__ part, int N, int M, int K,
-                   int D) {
-  __shared__ int nn_s[kQB * kMaxK];
-  const int b = blockIdx.y;
-  const int m0 = blockIdx.x * kQB;
-  const int nq = min(kQB, M - m0);
-  for (int e = threadIdx.x; e < nq * K; e += blockDim.x)
-    nn_s[e] = nn[((long long)b * M + m0) * K + e];
-  __syncthreads();
+                   int D, long long queries) {
+  __shared__ int nn_s[2][kMaxQF * kMaxK];
+  // a pass's totals of each thread over its rounds: x, then x * x
+  __shared__ __align__(16) float red[kFwdThreads * 16];
+  const FwdShape sh(queries, D);
+  const int tid = threadIdx.x;
+  const int slot = tid / sh.per_pass, cl = tid % sh.per_pass;
+  const int qk = sh.qf * K;  // nn entries a round, at most kFwdThreads
+  // round r's nn rows into buffer r & 1 (an empty group past the last round)
+  auto stage = [&](int r) {
+    const long long i = ((long long)r * gridDim.x + blockIdx.x) * sh.qf * K + tid;
+    if (tid < qk && r < sh.rounds && i < queries * K) cp_async4(&nn_s[r & 1][tid], nn + i);
+    mm::cp_async_commit();
+  };
 
-  const long long blk = (long long)b * gridDim.x + blockIdx.x;
-  const bf16* gb = g + (long long)b * N * D;
-  for (int dp = threadIdx.x; dp < D / 2; dp += blockDim.x) {
-    const int d0 = 2 * dp;
-    float tot0 = 0.f, tot1 = 0.f, sq0 = 0.f, sq1 = 0.f;
-    for (int qi = 0; qi < nq; ++qi) {
-      const long long row = (long long)b * M + m0 + qi;
-      const float2 hv = __bfloat1622float2(*(const __nv_bfloat162*)(h + row * D + d0));
-      float x0[kMaxK], x1[kMaxK];
+  for (int pass = 0; pass < sh.passes; ++pass) {
+    const int c = pass * sh.per_pass + cl;  // the thread's chunk
+    const bool mine = slot < sh.qf && c < sh.chunks;
+    // the thread's totals over its rounds, in shared memory (its own
+    // entries; the slots' rows are read after the pass's last round)
+    float* acc = red + slot * 16 * sh.per_pass + cl * 8;
+    if (slot < sh.qf) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[j] = acc[8 * sh.per_pass + j] = 0.f;
+    }
+    stage(0);
+    for (int r = 0; r < sh.rounds; ++r) {
+      mm::cp_async_wait<0>();
+      __syncthreads();  // round r's rows have landed; round r - 1's are read
+      stage(r + 1);
+      const long long q = ((long long)r * gridDim.x + blockIdx.x) * sh.qf + slot;
+      if (!mine || q >= queries) continue;
+      const int* nq = nn_s[r & 1] + slot * K;
+      const bf16* gb = g + (q / M) * N * D + c * 8;
+      const long long o = q * D + c * 8;
+      const uint4 hv = __ldcs(reinterpret_cast<const uint4*>(h + o));
+      const uint32_t hp[4] = {hv.x, hv.y, hv.z, hv.w};
+      // the gathers of the live neighbours, all in flight; a hole's x is NaN
+      uint32_t x[kMaxK][4];
       unsigned live = 0;
-      float mx0 = -INFINITY, mx1 = -INFINITY, mn0 = INFINITY, mn1 = INFINITY;
-      float sg0 = 0.f, sg1 = 0.f;
 #pragma unroll
       for (int k = 0; k < kMaxK; ++k) {
         if (k >= K) break;
-        const int n = nn_s[qi * K + k];
-        float2 gv = make_float2(0.f, 0.f);
+        const int n = nq[k];
+        uint4 v = make_uint4(kNaN2, kNaN2, kNaN2, kNaN2);
         if (n >= 0) {
-          gv = __bfloat1622float2(*(const __nv_bfloat162*)(gb + (long long)n * D + d0));
+          v = __ldg(reinterpret_cast<const uint4*>(gb + (long long)n * D));
           live |= 1u << k;
         }
-        x0[k] = pcm::round_to<bf16>(gv.x - hv.x);
-        x1[k] = pcm::round_to<bf16>(gv.y - hv.y);
-        sg0 += gv.x;
-        sg1 += gv.y;
-        if (n >= 0) {
-          mx0 = fmaxf(mx0, x0[k]);
-          mx1 = fmaxf(mx1, x1[k]);
-          mn0 = fminf(mn0, x0[k]);
-          mn1 = fminf(mn1, x1[k]);
-          tot0 += x0[k];
-          tot1 += x1[k];
-          sq0 += x0[k] * x0[k];
-          sq1 += x1[k] * x1[k];
-        }
+        x[k][0] = v.x;
+        x[k][1] = v.y;
+        x[k][2] = v.z;
+        x[k][3] = v.w;
       }
-      unsigned bits0 = 0, bits1 = 0;
+      // sg in k order, x = bf16(g - h), vmax, vmin and the totals
+      float sg[8], tot[8], sq[8];  // the query's sums over k
+      uint32_t mx[4], mn[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        sg[2 * j] = sg[2 * j + 1] = tot[2 * j] = tot[2 * j + 1] = sq[2 * j] = sq[2 * j + 1] = 0.f;
+        mx[j] = kNegInf2;
+        mn[j] = kPosInf2;
+      }
 #pragma unroll
       for (int k = 0; k < kMaxK; ++k) {
         if (k >= K) break;
         if (!((live >> k) & 1u)) continue;
-        bits0 |= (x0[k] == mx0 ? 1u : 0u) << k;
-        bits0 |= (x0[k] == mn0 ? 1u : 0u) << (16 + k);
-        bits1 |= (x1[k] == mx1 ? 1u : 0u) << k;
-        bits1 |= (x1[k] == mn1 ? 1u : 0u) << (16 + k);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          sg[2 * j] += lo_f(x[k][j]);
+          sg[2 * j + 1] += hi_f(x[k][j]);
+          const __nv_bfloat162 d = __hsub2(as_bf2(x[k][j]), as_bf2(hp[j]));
+          x[k][j] = as_u32(d);
+          mx[j] = as_u32(__hmax2(as_bf2(mx[j]), d));
+          mn[j] = as_u32(__hmin2(as_bf2(mn[j]), d));
+          const float d0 = lo_f(x[k][j]), d1 = hi_f(x[k][j]);
+          tot[2 * j] += d0;
+          tot[2 * j + 1] += d1;
+          sq[2 * j] = fmaf(d0, d0, sq[2 * j]);  // x * x is exact: one rounding either way
+          sq[2 * j + 1] = fmaf(d1, d1, sq[2 * j + 1]);
+        }
       }
-      const long long o = row * D + d0;
-      *(__nv_bfloat162*)(vmax_out + o) = __floats2bfloat162_rn(mx0, mx1);
-      *(__nv_bfloat162*)(vmin_out + o) = __floats2bfloat162_rn(mn0, mn1);
-      *(__nv_bfloat162*)(sg_out + o) = __floats2bfloat162_rn(sg0, sg1);
-      *(int2*)(bm_out + o) = make_int2((int)bits0, (int)bits1);
+      // the query's totals onto the thread's: K + rounds terms deep, not K * rounds
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        acc[j] += tot[j];
+        acc[8 * sh.per_pass + j] += sq[j];
+      }
+      // the tie bits: bit k of a pair's low / high half for its two channels
+      uint32_t tmax[4] = {0u, 0u, 0u, 0u}, tmin[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int k = 0; k < kMaxK; ++k) {
+        if (k >= K) break;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          tmax[j] |= __heq2_mask(as_bf2(x[k][j]), as_bf2(mx[j])) & (0x10001u << k);
+          tmin[j] |= __heq2_mask(as_bf2(x[k][j]), as_bf2(mn[j])) & (0x10001u << k);
+        }
+      }
+      // the outputs
+      __stcs(reinterpret_cast<uint4*>(vmax_out + o), make_uint4(mx[0], mx[1], mx[2], mx[3]));
+      __stcs(reinterpret_cast<uint4*>(vmin_out + o), make_uint4(mn[0], mn[1], mn[2], mn[3]));
+      __stcs(reinterpret_cast<uint4*>(sg_out + o),
+             make_uint4(pack_rn(sg[0], sg[1]), pack_rn(sg[2], sg[3]), pack_rn(sg[4], sg[5]),
+                        pack_rn(sg[6], sg[7])));
+      uint32_t bits[8];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        bits[2 * j] = __byte_perm(tmax[j], tmin[j], 0x5410);      // channel 2j: low halves
+        bits[2 * j + 1] = __byte_perm(tmax[j], tmin[j], 0x7632);  // 2j + 1: high halves
+      }
+      __stcs(reinterpret_cast<uint4*>(bm_out + o), make_uint4(bits[0], bits[1], bits[2], bits[3]));
+      __stcs(reinterpret_cast<uint4*>(bm_out + o) + 1,
+             make_uint4(bits[4], bits[5], bits[6], bits[7]));
     }
-    float* pb = part + blk * 2 * D;
-    pb[d0] = tot0;
-    pb[d0 + 1] = tot1;
-    pb[D + d0] = sq0;
-    pb[D + d0 + 1] = sq1;
+    // the block's row of partials: the slots' totals added in slot order
+    __syncthreads();
+    float* pb = part + (long long)blockIdx.x * 2 * D;
+    for (int e = tid; e < 16 * sh.per_pass; e += kFwdThreads) {
+      const int which = e / (8 * sh.per_pass), ch = pass * sh.per_pass * 8 + e % (8 * sh.per_pass);
+      if (ch >= D) continue;
+      float s = 0.f;
+      for (int i = 0; i < sh.qf; ++i) s += red[i * 16 * sh.per_pass + e];
+      pb[which * D + ch] = s;
+    }
+    __syncthreads();  // red and nn_s are the next pass's
   }
 }
 
-// out[j] = sum over blocks of part[blk, j], j < 2 D, in a fixed order: lane
-// group l of 8 sums blocks l, l + 8, ..., then lane group 0 adds the 8.
-__global__ void __launch_bounds__(256)
-sum_partials_kernel(const float* __restrict__ part, float* __restrict__ out, long long nblk,
+// out[j] = sum over rows i < rows of part[i, j], j < width, in a fixed
+// order: run u of kSumRuns adds rows u, u + kSumRuns, ... in order; then
+// lane l of a warp adds runs 4l .. 4l + 3 in order, and the warp's lanes are
+// added by a shuffle tree. A block takes 8 columns (a 32-byte sector a row),
+// a warp a column in the last step.
+__global__ void __launch_bounds__(8 * kSumRuns)
+sum_partials_kernel(const float* __restrict__ part, float* __restrict__ out, int rows,
                     int width) {
-  __shared__ float acc[8][32];
-  const int col = blockIdx.x * 32 + (threadIdx.x & 31);
-  const int grp = threadIdx.x >> 5;
+  __shared__ float acc[kSumRuns][8];
+  const int c8 = threadIdx.x & 7, run = threadIdx.x >> 3;
+  const int col = blockIdx.x * 8 + c8;
   float s = 0.f;
-  if (col < width)
-    for (long long i = grp; i < nblk; i += 8) s += part[i * width + col];
-  acc[grp][threadIdx.x & 31] = s;
+  if (col < width) {
+#pragma unroll 4
+    for (int i = run; i < rows; i += kSumRuns) s += part[(long long)i * width + col];
+  }
+  acc[run][c8] = s;
   __syncthreads();
-  if (grp == 0 && col < width) {
-    float t = 0.f;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp < 8) {
+    float t = acc[4 * lane][warp];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) t += acc[i][threadIdx.x];
-    out[col] = t;
+    for (int i = 1; i < 4; ++i) t += acc[4 * lane + i][warp];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) t += __shfl_down_sync(0xffffffffu, t, off);
+    if (lane == 0 && blockIdx.x * 8 + warp < width) out[blockIdx.x * 8 + warp] = t;
   }
 }
 
 // ---------------------------------------------------------------------------
 // kernel 6: routed dW on the bf16 tensor cores
 // ---------------------------------------------------------------------------
-namespace mm = pcm::attn_mma;
-
 constexpr int kTC = 128;     // dW rows (source channels) a block
 constexpr int kTD = 128;     // dW columns a block
 constexpr int kPairs = 4;    // (b, m) pairs a stage
@@ -520,33 +657,35 @@ sum_splits_kernel(const float* __restrict__ part, float* __restrict__ out, long 
 extern "C" {
 
 // Number of per-block partial rows kernel 5 writes for B clouds of M
-// queries: the caller's `part` holds that many (2, D) f32 rows.
-long long pcm_builder_fwd_partials(int B, int M) {
-  return (long long)B * ((M + kQB - 1) / kQB);
+// queries of D channels: the caller's `part` holds that many (2, D) f32 rows.
+long long pcm_builder_fwd_partials(int B, int M, int D) {
+  return FwdShape((long long)B * M, D).blocks;
 }
 
 // Kernel 5. g (B, N, D) and h (B, M, D) bf16, nn (B, M, K) int32 (-1 =
-// hole), all contiguous on device `device`; 1 <= K <= 16, D even. Writes
-// vmax, vmin, sg (B, M, D) bf16, bm (B, M, D) int32 and totals (2, D) f32
-// (total, then total_sq); part is f32 scratch of
-// pcm_builder_fwd_partials(B, M) * 2 * D. Returns the first cudaError_t of
-// its two launches that is not success.
+// hole), all contiguous on device `device`, g, h and the four outputs
+// 16-byte aligned; 1 <= K <= 16, D a multiple of 8. Writes vmax, vmin, sg
+// (B, M, D) bf16, bm (B, M, D) int32 and totals (2, D) f32 (total, then
+// total_sq); part is f32 scratch of pcm_builder_fwd_partials(B, M, D) * 2 *
+// D. Returns the first cudaError_t of its two launches that is not success.
 int pcm_builder_fwd(const void* g, const void* h, const int* nn, void* vmax, void* vmin,
                     void* sg, int* bm, float* part, float* totals, int B, int N, int M, int K,
                     int D, int device, void* stream) {
-  if (B < 1 || B > 65535 || N < 1 || M < 1 || K < 1 || K > kMaxK || D < 2 || D % 2)
+  if (B < 1 || N < 1 || M < 1 || K < 1 || K > kMaxK || D < 8 || D % 8 != 0 ||
+      (uintptr_t)g % 16 != 0 || (uintptr_t)h % 16 != 0 || (uintptr_t)vmax % 16 != 0 ||
+      (uintptr_t)vmin % 16 != 0 || (uintptr_t)sg % 16 != 0 || (uintptr_t)bm % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  const int threads = std::min(256, ((D / 2 + 31) / 32) * 32);
-  builder_fwd_kernel<<<dim3((M + kQB - 1) / kQB, B), threads, 0, s>>>(
+  const long long queries = (long long)B * M;
+  const FwdShape sh(queries, D);
+  builder_fwd_kernel<<<sh.blocks, kFwdThreads, 0, s>>>(
       (const bf16*)g, (const bf16*)h, nn, (bf16*)vmax, (bf16*)vmin, (bf16*)sg, bm, part, N, M,
-      K, D);
+      K, D, queries);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  sum_partials_kernel<<<(2 * D + 31) / 32, 256, 0, s>>>(part, totals,
-                                                         pcm_builder_fwd_partials(B, M), 2 * D);
+  sum_partials_kernel<<<(2 * D + 7) / 8, 8 * kSumRuns, 0, s>>>(part, totals, sh.blocks, 2 * D);
   return (int)cudaGetLastError();
 }
 

@@ -6,7 +6,9 @@ is ``ops.pointops.farthest_point_sampling_padded_plain``.
 
 The kernel spreads each cloud over a thread-block cluster of C CTAs; the
 cluster size and the threads a CTA are chosen here (:func:`choose_cluster`),
-so that the CPU tests can check the rules.
+so that the CPU tests can check the rules. Above MAX_RESIDENT points a cloud
+each of the 16 CTAs streams the part of its slice beyond MAX_SLICE points
+every round, its distances in a scratch tensor made here.
 """
 
 from __future__ import annotations
@@ -20,8 +22,8 @@ import torch
 from pointcloudmatters_tpu_torch import _build
 
 __all__ = ["farthest_point_sampling_padded_cuda", "choose_cluster", "cta_threads",
-           "cluster_slice", "launch_shape", "LAUNCHES", "MAX_CLUSTER", "MAX_SLICE",
-           "MAX_POINTS_PER_THREAD", "WARPS_PER_SM"]
+           "cluster_slice", "launch_shape", "max_points", "LAUNCHES", "MAX_CLUSTER",
+           "MAX_SLICE", "MAX_RESIDENT", "MAX_POINTS_PER_THREAD", "WARPS_PER_SM"]
 
 # launches of the kernel in this process; a caller may reset it to 0
 LAUNCHES = 0
@@ -30,6 +32,9 @@ MAX_CLUSTER = 16  # CTAs a cloud (a non-portable cluster size above 8)
 MAX_SLICE = 12288  # points a CTA holds (csrc/fps.cu kMaxSlice: 192 KiB of float4)
 MAX_POINTS_PER_THREAD = 12  # csrc/fps.cu kMaxPPT
 MAX_THREADS = 1024
+# points a cluster holds in shared memory (csrc/fps.cu kMaxResident); a
+# larger cloud streams the rest of each slice
+MAX_RESIDENT = MAX_CLUSTER * MAX_SLICE
 MAX_CTAS_PER_SM = 32  # Hopper's limit of resident blocks an SM
 # the warps an SM runs for FPS, shared by the CTAs on it: more shorten a
 # round's pass over the points, fewer its reductions
@@ -40,9 +45,9 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("fps")
     if lib.pcm_fps.argtypes is None:
         lib.pcm_fps.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p,
         ]
         lib.pcm_fps.restype = ctypes.c_int
         lib.pcm_fps_max_active_clusters.argtypes = [ctypes.c_int] * 4
@@ -55,6 +60,12 @@ def _lib() -> ctypes.CDLL:
                 MAX_SLICE, MAX_POINTS_PER_THREAD):
             raise RuntimeError("csrc/fps.cu and ops/fps.py disagree on the slice limits")
     return lib
+
+
+def max_points() -> int:
+    """The most points a cloud the kernel takes (``pcm_fps_max_points``: an
+    index stays below the kernel's 2^31 - 1 "no index")."""
+    return _lib().pcm_fps_max_points()
 
 
 def cluster_slice(N: int, C: int) -> int:
@@ -80,6 +91,8 @@ def choose_cluster(B: int, N: int, sm_count: int,
 
     - C is a power of two, at least ceil(N / MAX_SLICE) (a slice fits the
       shared memory and a thread's registers) and at most MAX_CLUSTER;
+      above MAX_RESIDENT points C is MAX_CLUSTER and T is MAX_THREADS
+      (``cta_threads`` gives it), each CTA streaming the rest of its slice;
     - for each C, T is ``cta_threads`` for k CTAs an SM, k = ceil(B C /
       sm_count) when all B clusters run, or for the least k above that
       with which B clusters fit the device at once (``active_clusters`` >=
@@ -92,10 +105,8 @@ def choose_cluster(B: int, N: int, sm_count: int,
     Raises ``ValueError`` when not even that fits.
     """
     least = 1
-    while least * MAX_SLICE < N:
+    while least * MAX_SLICE < N and least < MAX_CLUSTER:
         least *= 2
-    if least > MAX_CLUSTER:
-        raise ValueError(f"FPS kernel: N={N} needs a cluster above {MAX_CLUSTER}")
     C = MAX_CLUSTER
     while True:
         S = cluster_slice(N, C)
@@ -155,18 +166,21 @@ def farthest_point_sampling_padded_cuda(
         raise ValueError("FPS kernel needs contiguous xyz and mask")
     B, N, _ = xyz.shape
     lib = _lib()
-    if not 1 <= N <= lib.pcm_fps_max_points() or npoints < 1:
-        raise ValueError(f"FPS kernel takes 1 <= N <= "
-                         f"{lib.pcm_fps_max_points()} and npoints >= 1, got "
-                         f"N={N}, npoints={npoints}")
+    if not 1 <= N <= max_points() or npoints < 1:
+        raise ValueError(f"FPS kernel takes 1 <= N <= {max_points()} and npoints >= 1, "
+                         f"got N={N}, npoints={npoints}")
     out = torch.empty((B, npoints), dtype=torch.int32, device=xyz.device)
     if B == 0:
         return out
     device = xyz.device.index
     C, T = launch_shape(B, N, device)
+    # the streamed points' min-distance caches, written by the kernel first
+    work = (torch.empty((B, N), dtype=torch.float32, device=xyz.device)
+            if cluster_slice(N, C) > MAX_SLICE else None)
     stream = torch.cuda.current_stream(xyz.device).cuda_stream
-    err = lib.pcm_fps(xyz.data_ptr(), mask.data_ptr(), out.data_ptr(), B, N,
-                      npoints, C, T, device, stream)
+    err = lib.pcm_fps(xyz.data_ptr(), mask.data_ptr(), out.data_ptr(),
+                      None if work is None else work.data_ptr(), B, N, npoints, C, T,
+                      device, stream)
     _build.check(err, "fps")
     LAUNCHES += 1
     return out

@@ -205,7 +205,7 @@ def routed_dw_plain(src: torch.Tensor, nn_idx: torch.Tensor, bm: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_builder")
     if lib.pcm_builder_fwd.argtypes is None:
-        lib.pcm_builder_fwd_partials.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.pcm_builder_fwd_partials.argtypes = [ctypes.c_int] * 3
         lib.pcm_builder_fwd_partials.restype = ctypes.c_longlong
         lib.pcm_builder_fwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
@@ -240,23 +240,29 @@ def _stream(dev: torch.device) -> int:
 
 
 def builder_core_cuda(g: torch.Tensor, h: torch.Tensor, nn_idx: torch.Tensor):
-    """Kernel 5: contiguous bf16 g (B, N, D) and h (B, M, D), int32 nn_idx
-    (B, M, K), K <= 16, D even, on one CUDA device -> (vmax, vmin, sg, bm,
-    total, total_sq) as :func:`builder_core_plain` gives them."""
+    """Kernel 5: contiguous bf16 g (B, N, D) and h (B, M, D), both 16-byte
+    aligned, int32 nn_idx (B, M, K), K <= 16, D a multiple of 8, on one CUDA
+    device -> (vmax, vmin, sg, bm, total, total_sq) as
+    :func:`builder_core_plain` gives them."""
     global LAUNCHES
+    if g.ndim != 3 or g.shape[2] % 8 or g.shape[2] < 8 or g.shape[1] < 1:
+        raise ValueError(f"builder kernel takes g (B, N, D) with D a multiple of 8, got "
+                         f"{tuple(g.shape)}")
     B, M, K = _check_nn(nn_idx, "builder kernel")
     dev = nn_idx.device
-    if g.ndim != 3 or g.shape[0] != B or g.shape[2] % 2 or g.shape[1] < 1:
-        raise ValueError(f"builder kernel takes g (B, N, D) with D even, got "
-                         f"{tuple(g.shape)} for nn_idx {tuple(nn_idx.shape)}")
+    if g.shape[0] != B:
+        raise ValueError(f"builder kernel takes g (B, N, D) for nn_idx (B, M, K), got "
+                         f"{tuple(g.shape)} and {tuple(nn_idx.shape)}")
     N, D = g.shape[1], g.shape[2]
     _check("g", g, torch.bfloat16, (B, N, D), dev)
     _check("h", h, torch.bfloat16, (B, M, D), dev)
+    if g.data_ptr() % 16 or h.data_ptr() % 16:
+        raise ValueError("builder kernel takes g and h 16-byte aligned")
     lib = _lib()
     out = [torch.empty((B, M, D), dtype=torch.bfloat16, device=dev) for _ in range(3)]
     bm = torch.empty((B, M, D), dtype=torch.int32, device=dev)
     totals = torch.empty((2, D), dtype=torch.float32, device=dev)
-    part = torch.empty((lib.pcm_builder_fwd_partials(B, M), 2, D), dtype=torch.float32,
+    part = torch.empty((lib.pcm_builder_fwd_partials(B, M, D), 2, D), dtype=torch.float32,
                        device=dev)
     err = lib.pcm_builder_fwd(g.data_ptr(), h.data_ptr(), nn_idx.data_ptr(),
                               *[t.data_ptr() for t in out], bm.data_ptr(),

@@ -26,9 +26,11 @@ the kNN kernels at k=16 over 2048 FPS queries, kernel 2 at B=1, 4 and 32
 for N=10240 on the FPS order, kernel 12 at B=1 and 4 for N=10240 and 20480
 on the Morton-sorted queries, kernel 13 at B=1, 4 and 32 for N=10240 on the
 FPS order, each with whether its indices equal the plain kNN's
-(``--knn-only``: the kNN kernels alone); and the routed dW (kernel 6) at
+(``--knn-only``: the kNN kernels alone); and the builder forward (kernel 5),
+with whether its vmax, vmin and tie bitmap equal the plain version's, and the
+routed dW (kernel 6) at
 B=4 and 32 on ``chip_smoke.builder_inputs``, with its worst error against
-its plain version relative to max |dW| (``--builder-only``: kernel 6
+its plain version relative to max |dW| (``--builder-only``: kernels 5 and 6
 alone; a build that has ``pad_channels`` is handed the padded view, as its
 backward hands it over, so that neither time holds a copy). Then
 it compares the
@@ -113,8 +115,10 @@ def knn_times() -> str:
 
 
 def routed_times() -> str:
-    """Kernel 6 at ROUTED_BATCHES on ``chip_smoke.builder_inputs``, with its
-    worst error against its plain version relative to max |dW|."""
+    """Kernels 5 and 6 at ROUTED_BATCHES on ``chip_smoke.builder_inputs``:
+    whether kernel 5's vmax, vmin and tie bitmap equal the plain version's,
+    and kernel 6's worst error against its plain version relative to max
+    |dW|."""
     import torch
 
     import chip_smoke
@@ -125,16 +129,22 @@ def routed_times() -> str:
     for B in ROUTED_BATCHES:
         x = chip_smoke.builder_inputs(dev, B)
         src, nn_idx, dvx, dvn = x["src"], x["nn_idx"], x["dvx"], x["dvn"]
-        bm = fb.builder_core_cuda(x["g"], x["h"], nn_idx)[3]
+        fwd = fb.builder_core_cuda(x["g"], x["h"], nn_idx)
+        ref = fb.builder_core_plain(x["g"], x["h"], nn_idx)
+        exact = all(torch.equal(fwd[i], ref[i]) for i in (0, 1, 3))
+        ms = chip_smoke.cuda_ms(lambda: fb.builder_core_cuda(x["g"], x["h"], nn_idx), 20)
+        parts.append(f"#5 B={B} {ms:.4f} ms (exact {exact})")
+        bm = fwd[3]
+        del fwd, ref
         if hasattr(fb, "pad_channels"):
             src = fb.pad_channels(src)[..., :src.shape[-1]]
         ref = fb.routed_dw_plain(x["src"], nn_idx, bm, dvx, dvn)
         err = (fb.routed_dw_cuda(src, nn_idx, bm, dvx, dvn) - ref).abs().max().item()
         ms = chip_smoke.cuda_ms(lambda: fb.routed_dw_cuda(src, nn_idx, bm, dvx, dvn), 10)
-        parts.append(f"B={B} {ms:.4f} ms (error {err / ref.abs().max().item():.3e})")
+        parts.append(f"#6 B={B} {ms:.4f} ms (error {err / ref.abs().max().item():.3e})")
         del x, src, nn_idx, dvx, dvn, bm, ref
         torch.cuda.empty_cache()
-    return "#6: " + ", ".join(parts)
+    return "builder: " + ", ".join(parts)
 
 
 def time_build(root: str, knn_only: bool = False, builder_only: bool = False) -> str:
@@ -264,7 +274,7 @@ def main() -> int:
     parser.add_argument("--knn-only", action="store_true",
                         help="time the kNN kernels 2, 12 and 13 alone")
     parser.add_argument("--builder-only", action="store_true",
-                        help="time the routed dW kernel 6 alone")
+                        help="time the builder kernels 5 and 6 alone")
     parser.add_argument("--time", help=argparse.SUPPRESS)  # one turn, in a fresh process
     args = parser.parse_args()
     if args.time:

@@ -63,8 +63,8 @@ def main() -> int:
                 out = torch.empty((B, 2048), dtype=torch.int32, device=dev)
 
                 def run():
-                    err = lib.pcm_fps(xyz.data_ptr(), mask.data_ptr(), out.data_ptr(), B, N,
-                                      2048, C, T, dev.index, stream)
+                    err = lib.pcm_fps(xyz.data_ptr(), mask.data_ptr(), out.data_ptr(), None,
+                                      B, N, 2048, C, T, dev.index, stream)
                     if err:
                         raise RuntimeError(f"fps launch: CUDA error {err}")
 

@@ -21,7 +21,9 @@ kernels 9, 10 and 11) and, after two warm-up steps:
    the ``D = rowsum(dO * O)`` pre-pass, dK/dV and dQ; the fused layer as its
    GEMM, attention and reduction kernels), the busy share of
    the kernel span (one minus the device's idle share) and the peak device
-   memory.
+   memory. The ranges torch's optimizer marks on the device's track
+   (``Optimizer.step#...``, user annotations) are listed apart and count
+   neither in the device time nor in the busy share.
 
 Needs the card; prints its name and power limit first.
 """
@@ -42,6 +44,13 @@ import chip_smoke  # noqa: E402  (constants of the flagship step)
 def _device_us(event) -> float:
     return (getattr(event, "self_device_time_total", None)
             or getattr(event, "self_cuda_time_total", 0))
+
+
+def _annotation(event) -> bool:
+    """Whether a device event is a range marked by the host (the optimizer's
+    ``Optimizer.step#...``), not a kernel."""
+    return bool(getattr(event, "is_user_annotation", False)) or event.key.startswith(
+        "Optimizer.")
 
 
 def main() -> int:
@@ -123,14 +132,18 @@ def main() -> int:
             trainer.train_step(module, batch)
         torch.cuda.synchronize()
     # a kernel's time shows twice: on its own row and on the op that
-    # launched it; the total counts the kernels only
+    # launched it; the total counts the kernels only, not the ranges that
+    # torch's optimizer marks on the device's track (user annotations)
     cuda = torch.autograd.DeviceType.CUDA
     averages = prof.key_averages()
-    total = sum(_device_us(e) for e in averages if e.device_type == cuda)
+    kernels = [e for e in averages if e.device_type == cuda and not _annotation(e)]
+    total = sum(_device_us(e) for e in kernels)
     print(f"device kernel time a step: {total / 1e3 / args.traced:.3f} ms "
           f"(over {args.traced} traced steps)")
     for title, rows in (("by op", [e for e in averages if e.device_type != cuda]),
-                        ("by kernel", [e for e in averages if e.device_type == cuda])):
+                        ("by kernel", kernels),
+                        ("device ranges, not in the total",
+                         [e for e in averages if e.device_type == cuda and _annotation(e)])):
         print(title)
         for e in sorted(rows, key=_device_us, reverse=True)[:args.top]:
             if _device_us(e) == 0:
@@ -139,7 +152,7 @@ def main() -> int:
                   f"{100 * _device_us(e) / total:5.1f}%  n={e.count // args.traced:6d}  "
                   f"{e.key[:100]}")
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == cuda)
+                   if e.device_type == cuda and not _annotation(e))
     if not spans:
         print("the trace holds no device events: time with CUDA events only")
     else:

@@ -11,8 +11,11 @@ index against the port's plain version (``farthest_point_sampling_padded_plain``
 JAX's XLA FPS (the plain reference of its Pallas kernel) and the Pallas
 kernel itself in interpret mode, for C in {1, 2, 4, 8, 16}: exact ties,
 invalid points, rows with fewer valid points than ``npoints``, N not
-divisible by C. The kernel itself runs on the card only (``chip_smoke.py``
-phase 3 holds it index-exact against the plain version there).
+divisible by C, and slices of more points than a CTA holds (above
+196,608 points a cloud the kernel streams the rest of each slice, in the
+same order a thread). The kernel itself runs on the card only
+(``chip_smoke.py`` phase 3 holds it index-exact against the plain version
+there).
 
 The cluster-size and thread chooser is checked against its rules on a model of an
 H100 (132 SMs in GPCs of 18, 16 and 14), and the C entry points against
@@ -38,6 +41,7 @@ from pointcloudmatters_tpu_torch.ops import pointops as tpo
 
 SOURCE = os.path.join(_build.CSRC, "fps.cu")
 NO_INDEX = 0x7FFFFFFF
+MAX_POINTS = NO_INDEX - 1  # pcm_fps_max_points(): an index stays below NO_INDEX
 
 
 def _best(values: np.ndarray, index: np.ndarray, axis: int):
@@ -129,6 +133,23 @@ def test_cluster_decomposition_is_index_exact(kind, N, C):
         assert len(set(plain[1].tolist())) <= 10
 
 
+@pytest.mark.parametrize("C", [1, 16])
+@pytest.mark.parametrize("kind,N", [("ties", 8192), ("holes", 7001)])
+def test_streamed_slices_are_index_exact(kind, N, C):
+    """A streamed slice: with T = 1024 a CTA holds MAX_POINTS_PER_THREAD
+    points a thread, t + i T, and streams slice points t + (12 + k) T after
+    them, so a thread's points stay in index order past its held slots.
+    The emulation at T = 32 takes 14 to 256 points a thread, beyond its 12
+    slots, in that order."""
+    npoints = 40
+    xyz, mask, plain, xla = _references(kind, N, npoints, N + C % 3)
+    np.testing.assert_array_equal(plain, xla)
+    T = 32
+    assert -(-tfps.cluster_slice(N, C) // T) > tfps.MAX_POINTS_PER_THREAD
+    got = emulate_cluster_fps(xyz, mask, npoints, C, T)
+    np.testing.assert_array_equal(got, plain, err_msg=f"C={C} T={T}")
+
+
 def test_plain_matches_the_pallas_kernel_in_interpret_mode(monkeypatch):
     """The port's plain FPS against JAX's Pallas kernel itself, run by the
     Pallas interpreter on the CPU, on ties and holes."""
@@ -161,7 +182,7 @@ def h100_active_clusters(C: int, T: int) -> int:
 
 def _least(N: int) -> int:
     C = 1
-    while C * tfps.MAX_SLICE < N:
+    while C * tfps.MAX_SLICE < N and C < tfps.MAX_CLUSTER:
         C *= 2
     return C
 
@@ -178,13 +199,16 @@ def _first_fit(B, N, C):
 
 
 @pytest.mark.parametrize("B", [1, 4, 32, 64])
-@pytest.mark.parametrize("N", [1, 100, 10240, 20480, 40960])
+@pytest.mark.parametrize("N", [1, 100, 10240, 20480, 40960, 40961, tfps.MAX_RESIDENT,
+                               tfps.MAX_RESIDENT + 1, 1 << 20])
 def test_cluster_chooser_meets_its_rules(B, N):
     C, T = tfps.choose_cluster(B, N, 132, h100_active_clusters)
     least = _least(N)
     assert C in (1, 2, 4, 8, 16) and least <= C <= tfps.MAX_CLUSTER
     S = tfps.cluster_slice(N, C)
-    assert S <= tfps.MAX_SLICE and -(-S // T) <= tfps.MAX_POINTS_PER_THREAD
+    assert -(-min(S, tfps.MAX_SLICE) // T) <= tfps.MAX_POINTS_PER_THREAD
+    if S > tfps.MAX_SLICE:  # streamed: the largest cluster, 12 points held a thread
+        assert N > tfps.MAX_RESIDENT and (C, T) == (tfps.MAX_CLUSTER, tfps.MAX_THREADS)
     assert T % 32 == 0 and 32 <= T <= 1024
     if C > least:
         assert T == _first_fit(B, N, C) and h100_active_clusters(C, T) >= B
@@ -219,11 +243,14 @@ def test_cluster_chooser_cases():
     assert choose(32, 10240) == (16, 128)  # 4 CTAs an SM, 4 warps each
     assert choose(4, 20480) == (16, 512)
     assert choose(64, 40960)[0] == 4       # the least size: 40,960 / 12,288 -> 4
+    assert choose(4, 40961) == (16, 512)   # one point above 40,960
+    # what a cluster holds: 16 CTAs of 12,288 points, 1024 threads each
+    assert choose(1, 196608) == choose(64, 196608) == (16, 1024)
     assert choose(200, 10240)[0] == 1      # 200 clusters fit no larger size
     with pytest.raises(ValueError):
         tfps.choose_cluster(1, 10240, 132, lambda C, T: 0)
-    with pytest.raises(ValueError):
-        tfps.choose_cluster(1, 300000, 132, h100_active_clusters)
+    # above it the same cluster streams the rest of each slice
+    assert choose(1, 300000) == choose(64, 1 << 20) == (16, 1024)
 
 
 def test_slice_limits_match_the_source():
@@ -237,6 +264,13 @@ def test_slice_limits_match_the_source():
     # the largest slice as float4, two parities of a 24-byte record of each
     # of 16 CTAs and the static 528 bytes fit the 227 KiB of a block
     assert tfps.MAX_SLICE * 16 + 2 * 16 * 24 + 528 <= 232448
+    # what a cluster holds: the largest size, each CTA the largest slice
+    assert re.search(r"constexpr int kMaxResident = kMaxCluster \* kMaxSlice;", text)
+    assert tfps.MAX_RESIDENT == tfps.MAX_CLUSTER * tfps.MAX_SLICE == 196608
+    # a cloud: any N whose indices stay below the "no index"
+    assert re.search(r"constexpr uint32_t kNoIndex = 0x7fffffffu;", text)
+    assert re.search(r"constexpr int kMaxN = \(int\)kNoIndex - 1;", text)
+    assert "int pcm_fps_max_points() { return kMaxN; }" in text
 
 
 _CTYPE_OF = {"int": ctypes.c_int}
@@ -252,11 +286,12 @@ def _prototype(name: str) -> list:
             for p in match.group(1).split(",") if p.strip()]
 
 
+@pytest.mark.parametrize("limit", [40960, MAX_POINTS])  # 40,960 points, and the kernel's limit
 @pytest.mark.parametrize("entry", ["pcm_fps", "pcm_fps_max_active_clusters"])
-def test_wrapper_argtypes_match_c_prototypes(monkeypatch, entry):
+def test_wrapper_argtypes_match_c_prototypes(monkeypatch, entry, limit):
     values = {"pcm_fps_max_slice": tfps.MAX_SLICE,
               "pcm_fps_max_points_per_thread": tfps.MAX_POINTS_PER_THREAD,
-              "pcm_fps_max_points": 40960}
+              "pcm_fps_max_points": limit}
 
     class FakeLib:
         def __getattr__(self, name):
@@ -273,3 +308,56 @@ def test_wrapper_argtypes_match_c_prototypes(monkeypatch, entry):
     for i, (got, kind) in enumerate(zip(fn.argtypes, want)):
         assert got is kind, f"{entry} argument {i}: {got.__name__} for {kind.__name__}"
     assert fn.restype is ctypes.c_int
+
+
+# ---- clouds above what a cluster holds ------------------------------------------
+
+
+class _FpsLib:
+    """The FPS library's constants without a build (no nvcc on the CPU)."""
+
+    def __init__(self):
+        self.values = {"pcm_fps_max_slice": tfps.MAX_SLICE,
+                       "pcm_fps_max_points_per_thread": tfps.MAX_POINTS_PER_THREAD,
+                       "pcm_fps_max_points": MAX_POINTS}
+
+    def __getattr__(self, name):
+        value = self.values.get(name, 0)
+        fn = lambda *args: value  # noqa: E731
+        fn.argtypes = fn.restype = None
+        setattr(self, name, fn)
+        return fn
+
+
+def test_kernel_takes_every_index(monkeypatch):
+    monkeypatch.setattr(_build, "load", lambda name: _FpsLib())
+    assert tfps.max_points() == MAX_POINTS == NO_INDEX - 1
+    assert tfps.max_points() > 1000 * tfps.MAX_RESIDENT
+
+
+def test_cpu_fps_needs_no_library(monkeypatch):
+    def no_build(name):
+        raise AssertionError("FPS on the CPU loaded a library")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    xyz, mask, plain, _ = _references("holes", 1001, 40, 1001)
+    got = tpo.farthest_point_sampling_padded(torch.from_numpy(xyz), torch.from_numpy(mask), 40)
+    np.testing.assert_array_equal(got.numpy(), plain)
+
+
+def test_plain_above_what_a_cluster_holds_matches_jax():
+    """One point above what a cluster holds (where the kernel starts to
+    stream), the plain version the card holds the kernel against is index
+    for index JAX's XLA FPS, and no launch is counted on the CPU."""
+    N = tfps.MAX_RESIDENT + 1
+    rng = np.random.RandomState(4)
+    xyz = (rng.rand(2, N, 3) * 0.4 - 0.2).astype(np.float32)
+    mask = rng.rand(2, N) < 0.9
+    mask[1, 7:] = False  # fewer valid points than samples: indices repeat
+    before = tfps.LAUNCHES
+    got = tpo.farthest_point_sampling_padded(
+        torch.from_numpy(xyz), torch.from_numpy(mask), 12).numpy()
+    want = np.asarray(jops._farthest_point_sampling_padded_xla(
+        jnp.asarray(xyz), jnp.asarray(mask), 12))
+    np.testing.assert_array_equal(got, want)
+    assert tfps.LAUNCHES == before

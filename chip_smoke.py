@@ -141,6 +141,28 @@ Phases, each of which raises on failure (exit code non-zero, no result):
    version; ``bogus`` raising ``ValueError`` with no kNN kernel launched;
    a warmed bf16 B=32 step under ``chunkskip`` timed as phase 5, kernel 12
    once a step. Kernels 12 and 13 launched on any other path fail the run.
+10. Trains the flagship as shipped through ``Trainer.fit``: its task module
+   ``ManiSkill2ACTBCModule`` (24,124,456 parameters, dropout 0.1, AdamW +
+   OneCycleLR), ``"bf16-mixed"``, ``accumulate_grad_batches=2``, B=8, 8
+   micro-steps over the ported data pipeline (the config's grid sampling,
+   colour normalisation, shuffle and collect; the point-cloud collate,
+   pinned batches, 4 loader threads) on synthetic ManiSkill2 demos held in
+   memory, so that no h5py is needed (one 128 x 128 camera, 8 episodes of
+   60 steps, 2 held out).
+   Checks 8 micro-steps and 4 optimizer and schedule steps, every parameter
+   bit-equal across each odd micro-step and moved after each even one, the
+   batch statistics moved after every micro-step, finite losses and
+   gradient norms, kernels 1, 2 and bf16 3/4 launched in the counts of one
+   micro-step each and no other kernel, and the module's validation over
+   the configs' ``DummyDataset`` returning ``{}``. Then the same fit warmed,
+   timed by the host clock between optimizer steps (ms a step, samples/s,
+   the share of the loop spent waiting on the loader, peak memory, points
+   a cloud and the grid sampling's route); one accumulated pair of
+   micro-steps with every kernel against the same pair on the plain
+   versions (mean gradient and updated parameters within BF16_STEP_TOL of
+   max(1, max |ref|)); and ``Trainer.validate`` of a base ``BCModule`` over
+   4 held-out batches of 1 (finite ``val/loss``, FPS, kNN and f32 kernel 3
+   launched in the counts of one eval forward each).
 
 Prints a JSON line of the kernels (route, source, the TPU kernel each
 replaces, launches on each path, error, kernel, plain and library times,
@@ -1708,7 +1730,7 @@ def timed_steps(dev, path: str, precision: str, dropout: float = ATTN_DROPOUT,
 
     module = BCModule(build_flagship(seed=0, dropout=dropout, device=dev, **flagship_kw),
                       optimizer=FLAGSHIP_OPT, lr_scheduler=FLAGSHIP_SCHED)
-    trainer = Trainer(precision=precision, device=dev, seed=0)
+    trainer = Trainer(precision=precision, seed=0)
     trainer.setup(module, TOTAL_STEPS)
     # on the device before the timed steps, as a loader with pinned memory
     # and non-blocking copies would deliver it
@@ -2026,6 +2048,363 @@ def serve_selectors(dev) -> dict:
     return launches
 
 
+# phase 10: the flagship trained as shipped (scratch_pointnet_pcd.yaml: batch
+# 8, accumulate_grad_batches 2; maniskill2_act_pcd_dataset.yaml: one camera
+# of 128 x 128 points, its transforms, pin_memory, pad_multiple 512) over
+# synthetic demos, 6 episodes to train on and 2 held out
+FIT_CAM_SIDE = 128
+FIT_EPISODES, FIT_HELD_OUT, FIT_EPISODE_LEN = 8, 2, 60
+FIT_BATCH, FIT_ACCUMULATE, FIT_MICRO_STEPS = 8, 2, 8
+FIT_LOOP = 12  # 6 episodes x 12 = 72 samples: 9 batches of 8, one more than the fit takes
+FIT_WORKERS = 4
+FIT_VAL_BATCHES = 4  # at the config's batch_size_val of 1
+FLAGSHIP_PARAMS = 24_124_456
+ACT_KERNELS = ("fps", "knn", "attention_fwd_bf16", "attention_bwd_bf16")
+# a micro-step's launches of each: FPS and kNN once, the attention kernels once
+# in each encoder layer
+ACT_KERNELS_A_STEP = {"fps": 1, "knn": 1, "attention_fwd_bf16": ENC_LAYERS,
+                      "attention_bwd_bf16": ENC_LAYERS}
+EVAL_KERNELS_A_BATCH = {"fps": 1, "knn": 1, "attention_fwd": ENC_LAYERS}
+
+
+def synthetic_demos(n_episodes: int, episode_len: int, cam_side: int, seed: int = 0) -> list:
+    """Trajectories in the ManiSkill2 layout that ``tests/synth.py`` writes
+    (actions, agent qpos, the camera's xyzw and rgb, the goal position), held
+    in memory: its tabletop cloud, xy in [-0.2, 0.2] and z in [0, 0.3] with
+    about 20% w = 0 points and the ground band z <= 0.005 that the dataset
+    drops; the flagship's widths (qpos 9, action 7, goal 3)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    n = cam_side * cam_side
+    demos = []
+    for _ in range(n_episodes):
+        xyz = rng.rand(episode_len + 1, n, 3).astype(np.float32)
+        xyz[..., :2] = (xyz[..., :2] - 0.5) * 0.4
+        xyz[..., 2] *= 0.3
+        w = (rng.rand(episode_len + 1, n, 1) > 0.2).astype(np.float32)
+        demos.append({
+            "actions": rng.randn(episode_len, 7).astype(np.float32),
+            "obs": {
+                "agent": {"qpos": rng.randn(episode_len + 1, 9).astype(np.float32)},
+                "pointcloud": {
+                    "xyzw": np.concatenate([xyz, w], -1),
+                    "rgb": rng.randint(0, 255, (episode_len + 1, n, 3)).astype(np.uint8)},
+                "extra": {"goal_pos": rng.randn(episode_len + 1, 3).astype(np.float32)},
+            },
+        })
+    return demos
+
+
+class TimedLoader:
+    """A loader that times how long the training loop waits for each batch,
+    and keeps each batch's points a cloud and padded width."""
+
+    def __init__(self, loader):
+        self.loader, self.dataset, self.runs = loader, loader.dataset, []
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        run = dict(wait=0.0, counts=[], widths=set(), start=None, end=None)
+        self.runs.append(run)
+        batches = iter(self.loader)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                run["start"] = run["start"] or t0
+                try:
+                    batch = next(batches)
+                except StopIteration:
+                    return
+                run["wait"] += time.perf_counter() - t0
+                run["counts"] += batch["pcds"]["count"].tolist()
+                run["widths"].add(int(batch["pcds"]["coord"].shape[1]))
+                yield batch
+        finally:
+            run["end"] = time.perf_counter()
+            batches.close()
+
+
+class StepClock:
+    """A logger keeping the host clock at each logged micro-step: the
+    trainer reads the step's floats first, which waits for the card."""
+
+    def __init__(self):
+        self.rows = []
+
+    def log_metrics(self, metrics, step):
+        self.rows.append((time.perf_counter(), step, dict(metrics)))
+
+    def finalize(self):
+        pass
+
+
+def fit_datasets(cache_dir: str) -> tuple:
+    """Phase 10's train set (6 episodes, FIT_LOOP times) and held-out set (2
+    episodes, twice): the port's ManiSkill2 ACT point-cloud dataset with the
+    config's transforms over synthetic demos held in memory."""
+    import copy
+
+    from pointcloudmatters_tpu_torch.data.components import transformpcd as T
+    from pointcloudmatters_tpu_torch.data.components.maniskill2 import (
+        ManiSkill2GoalPosSingleTaskACTPCDDataset,
+    )
+
+    class InMemoryACTPCDDataset(ManiSkill2GoalPosSingleTaskACTPCDDataset):
+        """The port's dataset over demos held in memory, so that the run
+        needs no h5py: only the file read is replaced ("PCD" in the name
+        picks the point-cloud collate, as the configs' class names do)."""
+
+        def __init__(self, trajs, **kw):
+            self.trajs = trajs
+            super().__init__("held-in-memory.h5", **kw)
+
+        def _read_file(self, episode_ids):
+            meta = {"episodes": [{"episode_id": i} for i in range(len(self.trajs))],
+                    "env_info": {"env_id": "PickCube-v0",
+                                 "env_kwargs": {"obs_mode": "pointcloud"}}}
+            return meta, [copy.deepcopy(self.trajs[i]) for i in episode_ids]
+
+    def transforms():  # configs/data/maniskill2_act_pcd_dataset.yaml
+        return [T.GridSamplePCD(grid_size=0.005, hash_type="fnv", mode="train",
+                                return_grid_coord=True, return_displacement=False,
+                                keys=("coord", "color")),
+                T.NormalizeColorPCD(), T.ShufflePointPCD(), T.ToTensorPCD(),
+                T.CollectPCD(keys=("coord", "grid_coord"), feat_keys=("color", "coord"))]
+
+    demos = synthetic_demos(FIT_EPISODES, FIT_EPISODE_LEN, FIT_CAM_SIDE)
+    n_train = FIT_EPISODES - FIT_HELD_OUT
+    kw = dict(goal_cond_keys=["goal_pos"], chunk_size=100, camera_ids=[0],
+              point_num_per_cam=FIT_CAM_SIDE ** 2, cache_dir=cache_dir)
+    return (InMemoryACTPCDDataset(demos[:n_train], transform_pcd=transforms(), loop=FIT_LOOP,
+                                  **kw),
+            InMemoryACTPCDDataset(demos[n_train:], transform_pcd=transforms(), loop=2, **kw))
+
+
+def fit_data(train_set, val=None, workers: int = FIT_WORKERS):
+    """The config's datamodule (pinned batches, pad_multiple 512, batch 8,
+    validation batch 1; validation over the configs' ``DummyDataset``
+    unless ``val`` is given) whose train loader is a ``TimedLoader``
+    (``.timed``)."""
+    from pointcloudmatters_tpu_torch.data.base_datamodule import BaseDataModule
+    from pointcloudmatters_tpu_torch.data.components.misc import DummyDataset
+
+    class TimedData(BaseDataModule):
+        def train_dataloader(self):
+            self.timed = TimedLoader(super().train_dataloader())
+            return self.timed
+
+    return TimedData(train=train_set, val=DummyDataset(size=400) if val is None else val,
+                     batch_size_train=FIT_BATCH, batch_size_val=1, num_workers=workers,
+                     pin_memory=True, pad_multiple=512)
+
+
+def fit_module(dev):
+    """The flagship's task module over the seeded flagship (dropout 0.1) with
+    its config's AdamW + OneCycleLR."""
+    from pointcloudmatters_tpu_torch.entry import build_flagship
+    from pointcloudmatters_tpu_torch.models.maniskill2_modules import ManiSkill2ACTBCModule
+
+    module = ManiSkill2ACTBCModule(build_flagship(seed=0, dropout=ATTN_DROPOUT, device=dev),
+                                   optimizer=FLAGSHIP_OPT, lr_scheduler=FLAGSHIP_SCHED,
+                                   env_id="PickCube-v0")
+    n_params = sum(p.numel() for p in module.policy.parameters())
+    if n_params != FLAGSHIP_PARAMS:
+        raise AssertionError(f"the flagship has {n_params} parameters, not {FLAGSHIP_PARAMS}")
+    return module
+
+
+def fit_trainer(root: str, **kw):
+    """``Trainer`` as phase 10 fits: bf16-mixed on the card, k = 2, one
+    epoch of FIT_MICRO_STEPS micro-steps, the floats read every 2."""
+    from pointcloudmatters_tpu_torch.trainer import Trainer
+
+    return Trainer(accelerator="gpu", devices=1, precision="bf16-mixed",
+                   accumulate_grad_batches=FIT_ACCUMULATE, max_epochs=1,
+                   limit_train_batches=FIT_MICRO_STEPS, log_every_n_steps=2,
+                   default_root_dir=root, seed=0, **kw)
+
+
+def timed_fit(dev, module, data, root: str) -> dict:
+    """A warmed fit timed by the host clock between logged micro-steps (the
+    second of every optimizer step): ms a step, samples/s, the share of the
+    loop waiting on the loader, the loop's seconds, peak memory, points a
+    cloud and padded widths."""
+    import torch
+
+    clock = StepClock()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fit_trainer(root, logger=clock, check_val_every_n_epoch=0).fit(module, data)
+    marks = [t for t, step, m in clock.rows if "grad_norm" in m]
+    run = data.timed.runs[-1]
+    step_ms = (marks[-1] - marks[0]) * 1e3 / (len(marks) - 1)
+    return dict(step_ms=step_ms, steps=len(marks) - 1,
+                samples_per_s=FIT_BATCH * FIT_ACCUMULATE * 1e3 / step_ms,
+                wait_share=run["wait"] / (run["end"] - run["start"]),
+                loop_s=run["end"] - run["start"], peak=torch.cuda.max_memory_allocated(dev),
+                counts=run["counts"], widths=sorted(run["widths"]))
+
+
+def fit_flagship(dev) -> dict:
+    """Phase 10: ``Trainer.fit`` of the flagship as shipped: its task module
+    (``ManiSkill2ACTBCModule``), ``"bf16-mixed"``, gradient accumulation 2,
+    over the ported data pipeline; then ``Trainer.validate`` of a base
+    ``BCModule`` on held-out demos. Returns the kernels' launches of the fit
+    and of the validation."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pointcloudmatters_tpu_torch import ops
+    from pointcloudmatters_tpu_torch.data import native
+    from pointcloudmatters_tpu_torch.data.base_datamodule import BaseDataModule
+    from pointcloudmatters_tpu_torch.models.bc_module import BCModule, to_device
+    from pointcloudmatters_tpu_torch.trainer import Trainer
+
+    class Record:
+        def __init__(self):
+            self.val = []
+
+        def setup(self, trainer, model): pass
+        def on_fit_start(self, trainer, model): pass
+        def on_train_epoch_end(self, trainer, model, metrics, epoch): pass
+        def on_fit_end(self, trainer, model): pass
+
+        def on_validation_end(self, trainer, model, metrics, epoch):
+            self.val.append(dict(metrics))
+
+    t0 = time.perf_counter()
+    route = native.route()  # builds native/pcm_native.cpp on first use
+    cache = tempfile.TemporaryDirectory()  # norm statistics of this run only
+    train_set, held_out = fit_datasets(cache.name)
+    data = fit_data(train_set)
+    log(f"fit     grid sampling route: {route}; {FIT_EPISODES} synthetic episodes of "
+        f"{FIT_EPISODE_LEN} steps, {FIT_CAM_SIDE ** 2} points a camera, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    module = fit_module(dev)
+    params = [p for p in module.policy.parameters()]
+    stats = [b for n, b in module.policy.named_buffers() if n.endswith((".mean", ".var"))]
+
+    def flat(tensors):
+        return torch.cat([t.detach().flatten() for t in tensors])
+
+    # after every micro-step (train_metrics.update ends the step): the
+    # parameters, the batch statistics and the step's metrics, kept on the
+    # card and compared after the fit
+    shots, update = [(flat(params), flat(stats), None)], module.train_metrics.update
+
+    def keep(outputs, weight=1.0):
+        update(outputs, weight)
+        shots.append((flat(params), flat(stats), dict(outputs)))
+
+    module.train_metrics.update = keep
+    record = Record()
+    fit = fit_trainer(cache.name, callbacks=[record])
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    fit.fit(module, data)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    log(f"fit     {FIT_MICRO_STEPS} micro-steps at B={FIT_BATCH}, {FIT_ACCUMULATE} a step: "
+        f"{time.perf_counter() - t0:.2f} s with the first steps' warm-up; launches {launches}")
+    module.train_metrics.update = update
+
+    steps = module.scheduler.last_epoch
+    opt_steps = {int(s["step"]) for s in module.optimizer.state.values()}
+    if (fit.global_step, steps, opt_steps) != (FIT_MICRO_STEPS, 4, {4}):
+        raise AssertionError(f"want 8 micro-steps, 4 optimizer and schedule steps: got "
+                             f"{fit.global_step}, {steps}, {opt_steps}")
+    for i, (prev, now) in enumerate(zip(shots, shots[1:]), start=1):
+        if torch.equal(prev[1], now[1]):
+            raise AssertionError(f"micro-step {i} left the batch statistics as they were")
+        if torch.equal(prev[0], now[0]) != (i % 2 == 1):
+            raise AssertionError(f"micro-step {i} {'moved' if i % 2 else 'left'} the "
+                                 f"parameters: the optimizer steps on every second one")
+    losses = [float(m["loss"]) for *_, m in shots[1:]]
+    norms = [float(m["grad_norm"]) for *_, m in shots[1:]]
+    if not np.isfinite(losses + norms).all():
+        raise AssertionError(f"fit: non-finite loss or grad_norm: {losses}, {norms}")
+    log(f"fit     parameters bit-equal after micro-steps 1, 3, 5, 7 and moved after 2, 4, 6, 8; "
+        f"batch statistics moved after each; loss {losses}; grad_norm {norms}")
+    want = {k: n * FIT_MICRO_STEPS for k, n in ACT_KERNELS_A_STEP.items()}
+    got = {k: launches[k] for k in ACT_KERNELS}
+    stray = {k: n for k, n in launches.items() if k not in ACT_KERNELS and n}
+    if got != want or stray:
+        raise AssertionError(f"fit: want {want} launches and no other kernel, got {launches}")
+    if record.val != [{}]:
+        raise AssertionError(f"ManiSkill2ACTBCModule's validation over DummyDataset: want "
+                             f"{{}}, got {record.val}")
+    log("fit     ManiSkill2ACTBCModule validation over the configs' DummyDataset: {}")
+    del shots
+    torch.cuda.empty_cache()
+
+    t = timed_fit(dev, module, data, cache.name)  # warmed: the same fit again
+    counts = np.asarray(t["counts"])
+    log(f"fit     B={FIT_BATCH} x {FIT_ACCUMULATE} bf16-mixed, warmed: {t['step_ms']:.2f} ms "
+        f"per optimizer step over {t['steps']}, {t['samples_per_s']:.2f} samples/s, loader "
+        f"wait {100 * t['wait_share']:.1f}% of the loop's {t['loop_s']:.2f} s ({FIT_WORKERS} "
+        f"threads), peak device memory {t['peak'] / 2**30:.2f} GiB; points a cloud after grid "
+        f"sampling mean {counts.mean():.1f}, max {counts.max()}, padded to {t['widths']}; "
+        f"grid sampling {route}")
+
+    # one accumulated pair of micro-steps with every kernel against the same
+    # pair on the plain versions, from the same state, generators and batches
+    batches = iter(data.train_dataloader())
+    pair = [to_device(next(batches), dev) for _ in range(FIT_ACCUMULATE)]
+    batches.close()
+    start = {k: v.clone() for k, v in module.policy.state_dict().items()}
+
+    def accumulated_pair():
+        module.policy.load_state_dict(start)
+        tr = Trainer(accelerator="gpu", precision="bf16-mixed",
+                     accumulate_grad_batches=FIT_ACCUMULATE, seed=5)
+        tr.setup(module, TOTAL_STEPS)
+        loss = sum(tr.train_step(module, b)["loss"] for b in pair) / len(pair)
+        return (loss, {n: p.grad.detach().clone() for n, p in module.policy.named_parameters()},
+                {n: p.detach().clone() for n, p in module.policy.named_parameters()})
+
+    got = accumulated_pair()
+    with plain_kernels():
+        ref = accumulated_pair()
+    log("fit     " + _compare_step("accumulated pair, mean gradient, kernels vs plain versions",
+                                   *got[:2], *ref[:2], grad_rtol=BF16_STEP_TOL,
+                                   loss_rtol=BF16_STEP_TOL))
+    worst = max((got[2][n] - ref[2][n]).abs().max().item() / max(1.0, ref[2][n].abs().max().item())
+                for n in ref[2])
+    if not worst <= BF16_STEP_TOL:
+        raise AssertionError(f"accumulated pair: updated parameters off by {worst:.3e}")
+    log(f"fit     accumulated pair, updated parameters: worst {worst:.3e} of max(1, max|p|)")
+    del pair, start, got, ref
+    torch.cuda.empty_cache()
+
+    # held-out validation of a base BCModule (the mean loss) over the demos
+    # kept out of training
+    evaluate = BCModule(module.policy, optimizer=FLAGSHIP_OPT, lr_scheduler=FLAGSHIP_SCHED)
+    val_data = BaseDataModule(train=train_set, val=held_out, batch_size_train=FIT_BATCH,
+                              batch_size_val=1, num_workers=FIT_WORKERS, pad_multiple=512)
+    ops.reset_launch_counts()
+    metrics = Trainer(accelerator="gpu", precision="bf16-mixed", limit_val_batches=FIT_VAL_BATCHES,
+                      default_root_dir=cache.name).validate(evaluate, val_data)
+    val_launches = ops.launch_counts()
+    if set(metrics) != {"val/loss", "val/loss_best"} or not np.isfinite(
+            list(metrics.values())).all():
+        raise AssertionError(f"held-out validation: {metrics}")
+    # the eval forward runs the f32 parameters at dropout 0, as JAX's
+    want = {k: n * FIT_VAL_BATCHES for k, n in EVAL_KERNELS_A_BATCH.items()}
+    if {k: n for k, n in val_launches.items() if n} != {k: n for k, n in want.items() if n}:
+        raise AssertionError(f"held-out validation: want {want} launches, got {val_launches}")
+    log(f"fit     held-out validation over {FIT_VAL_BATCHES} batches of 1: {metrics}; "
+        f"launches {val_launches}")
+    cache.cleanup()
+    del module, evaluate, train_set, held_out, data, val_data
+    torch.cuda.empty_cache()
+    return {"fit": launches, "validate": val_launches}
+
+
 def main() -> int:
     import torch
 
@@ -2073,6 +2452,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     selector_paths = serve_selectors(dev)
     paths.update(selector_paths)
+    with knn_impl(None):
+        paths.update(fit_flagship(dev))
     stray = {path: [k for k in FLASH_KERNELS if counts[k]] for path, counts in paths.items()
              if "flash" not in path and any(counts[k] for k in FLASH_KERNELS)}
     if stray:

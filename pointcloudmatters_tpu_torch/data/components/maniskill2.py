@@ -1,0 +1,286 @@
+"""ManiSkill2 replayed-trajectory datasets for ACT over point clouds (port of
+``pointcloudmatters_tpu/data/components/maniskill2.py:54-300``), numpy on
+the host.
+
+- A sample draws a random start timestep, takes the action chunk of
+  ``chunk_size`` future actions with an ``is_pad`` tail mask, z-scores qpos
+  and actions by per-task statistics (cached as ``.npz`` under
+  ``cache_dir``, keyed by ``env_id``), and adds the goal from
+  ``obs["extra"][goal_cond_keys]``.
+- The point cloud merges the selected cameras, drops ``w <= 0`` points and
+  the ground (``z <= 0.005``; with ``include_ground`` it keeps the ground
+  and masks the foreground), optionally zeroes all but a random 112^2 crop
+  (``rand_crop``), and goes through ``transform_pcd``; with ``pointmap`` it
+  is a 6-channel image instead.
+
+Every read of the demo file (``h5py`` and the json beside it) is
+:meth:`_ManiSkill2TrajectoryDataset._read_file`. The RGB-D and Diffusion
+Policy datasets, and the normaliser they need, are not ported yet.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+from os.path import expanduser
+
+import numpy as np
+
+from pointcloudmatters_tpu_torch.data.components.transformpcd import ComposePCD
+from pointcloudmatters_tpu_torch.utils import io as io_utils
+
+__all__ = ["ManiSkill2GoalPosSingleTaskACTPCDDataset",
+           "ManiSkill2NullGoalSingleTaskACTPCDDataset"]
+
+log = logging.getLogger(__name__)
+
+_DEFAULT_CACHE = os.path.join(expanduser("~"), ".cache", "pcm_tpu")
+
+
+class _ManiSkill2TrajectoryDataset:
+    """Trajectory loading and caching, and the z-score statistics."""
+
+    def __init__(
+        self,
+        dataset_file: str,
+        load_count=-1,
+        goal_cond_keys=None,
+        chunk_size: int = 100,
+        cache_dir: str = _DEFAULT_CACHE,
+        cache_traj: bool = True,
+        loop: int = 1,
+    ):
+        self.dataset_file = dataset_file
+        self.json_data, _ = self._read_file(())
+        self.episodes = self.json_data["episodes"]
+        self.env_info = self.json_data["env_info"]
+        self.env_id = self.env_info["env_id"]
+        self.env_kwargs = self.env_info["env_kwargs"]
+        self.loop = loop
+        self.goal_cond_keys = goal_cond_keys
+        self.chunk_size = chunk_size
+        self.cache_dir = cache_dir
+        os.makedirs(cache_dir, exist_ok=True)
+        self.cache_traj = cache_traj
+
+        if load_count == -1:
+            load_count = len(self.episodes)
+        elif isinstance(load_count, float):
+            load_count = int(load_count * len(self.episodes))
+        self.load_count = load_count
+
+        if cache_traj:
+            _, trajs = self._read_file(
+                [eps["episode_id"] for eps in self.episodes[:load_count]])
+            self.trajectories = [self._trim(t) for t in trajs]
+        self.norm_stats = self.get_norm_stats()
+
+    def _read_file(self, episode_ids) -> tuple[dict, list[dict]]:
+        """The demo file's json (episodes, env info) and the trajectories of
+        ``episode_ids``, each as nested dicts of numpy arrays."""
+        import h5py
+
+        json_data = io_utils.load_json(self.dataset_file.replace(".h5", ".json"))
+        if not episode_ids:
+            return json_data, []
+        with h5py.File(self.dataset_file, "r") as data:
+            return json_data, [io_utils.load_h5_data(data[f"traj_{i}"]) for i in episode_ids]
+
+    @staticmethod
+    def _trim(traj: dict) -> dict:
+        # drop the bulky streams no sample reads, as the reference does
+        traj["obs"].get("agent", {}).pop("qvel", None)
+        traj["obs"].get("agent", {}).pop("base_pose", None)
+        traj["obs"].pop("camera_param", None)
+        return traj
+
+    def _episode_for_index(self, idx: int):
+        if self.load_count == len(self.episodes):
+            return self.episodes[idx]
+        stride = int(np.floor(len(self.episodes) / self.load_count))
+        return self.episodes[::stride][idx]
+
+    def _trajectory(self, idx: int) -> dict:
+        if self.cache_traj:
+            return self.trajectories[idx]
+        _, (traj,) = self._read_file([self._episode_for_index(idx)["episode_id"]])
+        return self._trim(traj)
+
+    def __len__(self):
+        return self.load_count * self.loop
+
+    def _stats_cache_path(self, tag: str = "") -> str:
+        suffix = "" if self.load_count == len(self.episodes) else f"_sample_{self.load_count}"
+        return os.path.join(self.cache_dir, f"{self.env_id}_norm_stats{tag}{suffix}.npz")
+
+    def _all_qpos_action(self):
+        qpos, action = [], []
+        for i in range(self.load_count):
+            traj = self._trajectory(i)
+            qpos.append(traj["obs"]["agent"]["qpos"])
+            action.append(traj["actions"])
+        return np.concatenate(qpos, 0), np.concatenate(action, 0)
+
+    def get_norm_stats(self) -> dict:
+        """qpos and action means and standard deviations (at least 1e-2),
+        from the cache file of this ``env_id`` when there is one."""
+        path = self._stats_cache_path()
+        if os.path.exists(path):
+            log.info("Loading normalization stats from cache...")
+            return dict(np.load(path))
+        log.info(f"Calculating normalization stats -> {path}")
+        all_qpos, all_action = self._all_qpos_action()
+        stats = {
+            "action_mean": all_action.mean(0),
+            "action_std": np.clip(all_action.std(0), 1e-2, np.inf),
+            "qpos_mean": all_qpos.mean(0),
+            "qpos_std": np.clip(all_qpos.std(0), 1e-2, np.inf),
+        }
+        np.savez(path, **stats)
+        return stats
+
+    def get_goal(self, obs) -> np.ndarray:
+        goal_conds = []
+        for key in self.goal_cond_keys:
+            goal = np.asarray(obs["extra"][key], np.float32)
+            if key == "target_angle_diff":
+                goal = goal[..., None]
+            if "target_angle_diff" in self.goal_cond_keys and goal.ndim == 1:
+                goal = goal[None, :]
+            goal_conds.append(goal)
+        return np.concatenate(goal_conds, axis=-1)
+
+    def _extract_pcd(self, trajectory: dict, ts: int, mode: str = "train"):
+        """The transformed pcd dict of timestep ``ts``, or a 6-channel
+        pointmap image (k, h, w, 6) with ``self.pointmap``."""
+        side = int(round(self.point_num_per_cam ** 0.5))  # 128 on real data
+        coords = trajectory["obs"]["pointcloud"]["xyzw"][ts].reshape(-1, side, side, 4)[
+            self.camera_ids
+        ]
+        if self.pointmap:
+            colors = (
+                trajectory["obs"]["pointcloud"]["rgb"][ts]
+                .reshape(-1, side, side, 3)[self.camera_ids]
+                .astype(float) / 255.0
+            )
+            colors[coords[..., -1] == 0] = 0
+            coords = np.where(coords[..., -1:] == 0, 0, coords)[..., :3]
+            image = np.concatenate([colors, coords], axis=-1).reshape(-1, side, side, 6)
+            return image.astype(np.float32)
+
+        coords = coords.copy()
+        if self.rand_crop and mode == "train":
+            crop = int(side * 112 / 128)
+            cx = np.random.randint(0, side - crop)
+            cy = np.random.randint(0, side - crop)
+            coords[:, :cx] = 0
+            coords[:, cx + crop:] = 0
+            coords[:, :, :cy] = 0
+            coords[:, :, cy + crop:] = 0
+        coords = coords.reshape(-1, 4)
+        colors = (
+            trajectory["obs"]["pointcloud"]["rgb"][ts]
+            .reshape(-1, self.point_num_per_cam, 3)[self.camera_ids]
+            .reshape(-1, 3)
+        )
+        keep = coords[..., -1] > 0
+        colors, coords = colors[keep], coords[keep][:, :3]
+        if not self.include_ground:
+            keep = coords[..., -1] > 0.005
+        else:
+            keep = coords[..., 0] > -0.8
+        colors, coords = colors[keep], coords[keep]
+        pcd = self.transform_pcd(
+            dict(coord=coords.astype(np.float32), color=colors.astype(np.float32)),
+            mode=mode,
+        )
+        if self.include_ground:
+            pcd["mask"] = pcd["coord"][:, -1] > 0.005
+        return pcd
+
+    def _action_chunk_with_pad(self, trajectory, start_ts):
+        actions = trajectory["actions"]
+        chunk = actions[start_ts: start_ts + self.chunk_size]
+        padded = np.zeros((self.chunk_size, actions.shape[1]), np.float32)
+        padded[: len(chunk)] = chunk
+        is_pad = np.zeros(self.chunk_size, bool)
+        is_pad[len(chunk):] = True
+        return padded, is_pad
+
+
+class ManiSkill2GoalPosSingleTaskACTPCDDataset(_ManiSkill2TrajectoryDataset):
+    """The ACT point-cloud dataset (reference
+    ``maniskill2_single_task_pcd_act.py:18``)."""
+
+    def __init__(
+        self,
+        dataset_file: str,
+        load_count=-1,
+        goal_cond_keys=None,
+        chunk_size=100,
+        transform_pcd=None,
+        cache_dir=_DEFAULT_CACHE,
+        camera_ids=(0,),
+        point_num_per_cam=16384,
+        include_ground=False,
+        cache_traj=True,
+        rand_crop=False,
+        pointmap=False,
+        loop=1,
+    ):
+        self.camera_ids = list(camera_ids)
+        self.point_num_per_cam = point_num_per_cam
+        self.include_ground = include_ground
+        self.rand_crop = rand_crop
+        self.pointmap = pointmap
+        self.transform_pcd = transform_pcd if isinstance(transform_pcd, ComposePCD) \
+            else ComposePCD(transform_pcd)
+        super().__init__(
+            dataset_file=dataset_file, load_count=load_count,
+            goal_cond_keys=goal_cond_keys, chunk_size=chunk_size,
+            cache_dir=cache_dir, cache_traj=cache_traj, loop=loop,
+        )
+
+    def __getitem__(self, idx):
+        idx = idx % self.load_count
+        trajectory = self._trajectory(idx)
+        episode_len = trajectory["actions"].shape[0]
+        start_ts = np.random.choice(episode_len)
+
+        qpos = trajectory["obs"]["agent"]["qpos"][start_ts].astype(np.float32)
+        qpos = (qpos - self.norm_stats["qpos_mean"]) / self.norm_stats["qpos_std"]
+        padded_action, is_pad = self._action_chunk_with_pad(trajectory, start_ts)
+        action = (padded_action - self.norm_stats["action_mean"]) / self.norm_stats["action_std"]
+        goal_cond = np.asarray(self.get_goal(trajectory["obs"])[start_ts], np.float32)
+
+        obs = self._extract_pcd(trajectory, start_ts)
+        data = dict(
+            qpos=qpos.astype(np.float32),
+            actions=action.astype(np.float32),
+            is_pad=is_pad,
+            goal_cond=goal_cond,
+        )
+        if self.pointmap:
+            data["image"] = obs
+        else:
+            data["pcds"] = [obs]
+        return data
+
+
+class ManiSkill2NullGoalSingleTaskACTPCDDataset(ManiSkill2GoalPosSingleTaskACTPCDDataset):
+    """A zero goal vector of width 1000 (reference
+    ``maniskill2_single_task_pcd_act.py:288``)."""
+
+    def __init__(self, dataset_file, load_count=-1, chunk_size=20, transform_pcd=None,
+                 cache_dir=_DEFAULT_CACHE, camera_ids=(0,), point_num_per_cam=16384,
+                 include_ground=False, loop=1, **kwargs):
+        super().__init__(
+            dataset_file=dataset_file, load_count=load_count, chunk_size=chunk_size,
+            transform_pcd=transform_pcd, cache_dir=cache_dir, camera_ids=camera_ids,
+            point_num_per_cam=point_num_per_cam, include_ground=include_ground,
+            loop=loop, **kwargs,
+        )
+
+    def get_goal(self, obs):
+        n = len(obs["agent"]["qpos"])
+        return np.zeros((n, 1000), np.float32)

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from pointcloudmatters_tpu_torch.data.collate import morton_order
 from pointcloudmatters_tpu_torch.models.components.act.act import ACTPCD
 from pointcloudmatters_tpu_torch.models.components.act.transformer import (
     Transformer,
@@ -40,31 +41,6 @@ from pointcloudmatters_tpu_torch.models.components.pcd_encoder.pointnet import (
 )
 
 __all__ = ["build_flagship", "build_batch", "init_parameters", "morton_order"]
-
-
-def _part1by2(v: np.ndarray) -> np.ndarray:
-    """Spread 10 bits over 30."""
-    v = v & 0x3FF
-    v = (v | (v << 16)) & 0x030000FF
-    v = (v | (v << 8)) & 0x0300F00F
-    v = (v | (v << 4)) & 0x030C30C3
-    v = (v | (v << 2)) & 0x09249249
-    return v
-
-
-def morton_order(coord: np.ndarray) -> np.ndarray:
-    """Morton (Z-curve) permutation of an (N, 3) cloud quantised to a 10-bit
-    grid over its bounding box, stable on equal codes: the point order the
-    JAX collate gives (``pointcloudmatters_tpu/data/collate.py:41-61``),
-    kept here so that the port imports nothing of the JAX package."""
-    c = coord.astype(np.float32, copy=False)
-    if len(c) == 0:
-        return np.empty((0,), np.int64)
-    lo = c.min(axis=0)
-    scale = 1023.0 / np.maximum(c.max(axis=0) - lo, 1e-6)
-    q = np.clip((c - lo) * scale, 0.0, 1023.0).astype(np.int32)
-    code = _part1by2(q[:, 0]) | (_part1by2(q[:, 1]) << 1) | (_part1by2(q[:, 2]) << 2)
-    return np.argsort(code, kind="stable")
 
 
 @torch.no_grad()

@@ -1,8 +1,9 @@
 """Behaviour-cloning task module (port of
 ``pointcloudmatters_tpu/models/bc_module.py``): ``select_model_batch``,
-variable loading, ``predict``, and the training side the ``Trainer`` drives
-(optimizer and schedule from config dicts, the step's random streams, the
-train-mode forward). Validation comes with a later slice."""
+variable loading, ``predict``, the training side the ``Trainer`` drives
+(optimizer, schedule and gradient accumulation from config dicts, the
+step's random streams, the train-mode forward) and held-out-loss
+validation (``run_validation``)."""
 
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from torch import nn
 
 from pointcloudmatters_tpu_torch.utils.flax_to_torch import flax_to_torch
 from pointcloudmatters_tpu_torch.utils.metrics import Metrics
-from pointcloudmatters_tpu_torch.utils.optimizer import build_optimizer
+from pointcloudmatters_tpu_torch.utils.optimizer import GradientMean, build_optimizer
 from pointcloudmatters_tpu_torch.utils.scheduler import build_scheduler
 
 __all__ = ["select_model_batch", "to_device", "cast_floating", "BCModule"]
@@ -44,14 +45,15 @@ def select_model_batch(batch: dict) -> dict:
     return out
 
 
-def to_device(tree, device: Union[str, torch.device]):
+def to_device(tree, device: Union[str, torch.device], non_blocking: bool = False):
     """Nested dict of numpy arrays or tensors -> the same of tensors on
-    ``device``."""
+    ``device``; ``non_blocking`` copies from page-locked memory without
+    waiting."""
     if isinstance(tree, Mapping):
-        return {k: to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, np.ndarray):
-        tree = torch.from_numpy(tree)
-    return tree.to(device)
+        return {k: to_device(v, device, non_blocking) for k, v in tree.items()}
+    if isinstance(tree, (np.ndarray, np.generic)):
+        tree = torch.as_tensor(tree)
+    return tree.to(device, non_blocking=non_blocking)
 
 
 def cast_floating(tree, dtype: torch.dtype):
@@ -64,11 +66,13 @@ def cast_floating(tree, dtype: torch.dtype):
 
 class BCModule:
     """Holds the policy on one device; serves actions and, once
-    :meth:`configure_optimizers` ran, trains it (through ``Trainer``).
+    :meth:`configure_optimizers` ran, trains it (through ``Trainer``), and
+    validates it by its held-out loss.
 
     ``optimizer`` and ``lr_scheduler`` are the JAX module's config dicts
     (``{"type": "AdamW", "lr": ...}``, ``{"scheduler": {"type":
-    "OneCycleLR", ...}}``)."""
+    "OneCycleLR", ...}}``); ``val_metrics`` default to the mean held-out
+    loss and ``best_val_metrics`` to its minimum over validations."""
 
     # the step's random streams (JAX: vae sampling + dropout); "seed" seeds
     # the oneshot attention kernel's mask from the host
@@ -77,6 +81,8 @@ class BCModule:
     def __init__(self, policy: nn.Module, device: Union[str, torch.device, None] = None,
                  optimizer: Optional[dict] = None, lr_scheduler: Optional[dict] = None,
                  train_metrics: Optional[Metrics] = None,
+                 val_metrics: Optional[Metrics] = None,
+                 best_val_metrics: Optional[Metrics] = None,
                  param_dicts: Optional[list] = None):
         if device is None:
             device = next(policy.parameters()).device
@@ -90,13 +96,27 @@ class BCModule:
         self.train_metrics = train_metrics or Metrics(
             ["MeanMetric"] * 3, ["loss", "action_loss", "kl_loss"],
             ["train/loss", "train/action_loss", "train/kl_loss"])
+        self.val_metrics = val_metrics or Metrics(["MeanMetric"], ["loss"], ["val/loss"])
+        self.best_val_metrics = best_val_metrics or Metrics(
+            ["MinMetric"], ["val/loss"], ["val/loss_best"])
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.scheduler = None
         self.gradient_clip_val: Optional[float] = None
+        self.gradient_mean: Optional[GradientMean] = None
 
     @property
     def train_metric_keys(self) -> list[str]:
         return self.train_metrics.input_keys
+
+    @property
+    def val_metric_keys(self) -> list[str]:
+        return [k for k in self.val_metrics.input_keys if k != "mean_success"]
+
+    def to(self, device: Union[str, torch.device]) -> "BCModule":
+        """The policy moved to ``device``; build the optimizer after."""
+        self.device = torch.device(device)
+        self.policy.to(self.device)
+        return self
 
     def load_variables(self, variables: Mapping) -> None:
         """Load JAX ``variables`` (params and batch_stats) into the policy."""
@@ -104,16 +124,22 @@ class BCModule:
         self.policy.load_state_dict(state, strict=True)
 
     def configure_optimizers(self, total_steps: int,
-                             gradient_clip_val: Optional[float] = None) -> None:
+                             gradient_clip_val: Optional[float] = None,
+                             accumulate_grad_batches: int = 1) -> None:
         """Optimizer and schedule over ``total_steps`` optimizer steps
         (the JAX ``configure_optimizers``); a global-norm clip of the
-        gradients when ``gradient_clip_val`` is set."""
+        gradients when ``gradient_clip_val`` is set; with
+        ``accumulate_grad_batches`` k > 1 the clip and the optimizer act on
+        the mean gradient of every k micro-batches (``optax.MultiSteps``
+        around the clip and the optimizer, as there)."""
         self.optimizer = build_optimizer(self.optimizer_cfg, self.policy.parameters())
         self.scheduler = None
         if self.lr_scheduler_cfg:
             sched_cfg = self.lr_scheduler_cfg.get("scheduler", self.lr_scheduler_cfg)
             self.scheduler = build_scheduler(self.optimizer, sched_cfg, total_steps)
         self.gradient_clip_val = gradient_clip_val
+        self.gradient_mean = (GradientMean(accumulate_grad_batches)
+                              if accumulate_grad_batches > 1 else None)
 
     def make_rngs(self, seed: int) -> dict[str, torch.Generator]:
         """One generator per stream of ``train_rng_streams``, seeded from
@@ -144,6 +170,42 @@ class BCModule:
         return torch.func.functional_call(
             self.policy, params, (cast_floating(batch, compute_dtype),),
             {"train": True, "rngs": rngs})
+
+    @torch.inference_mode()
+    def apply_eval(self, batch: dict) -> dict:
+        """The eval-mode forward of the f32 parameters over a batch with
+        actions: the policy's dict with the held-out ``loss`` (no dropout,
+        the CVAE latent at its mean, running statistics)."""
+        return self.policy(to_device(select_model_batch(batch), self.device, non_blocking=True),
+                           train=False)
+
+    def run_validation(self, trainer, datamodule) -> dict:
+        """Held-out-loss validation (JAX ``bc_module.py:209-235``): the mean
+        of ``val_metric_keys`` over ``trainer.limit_val_batches`` batches of
+        the validation loader, then the best-so-far trackers; floats.
+        ``{}`` without a validation loader or over a ``DummyDataset``."""
+        loader = datamodule.val_dataloader()
+        if loader is None or not self._has_real_val_data(loader):
+            return {}
+        from pointcloudmatters_tpu_torch.trainer import _limit
+
+        self.val_metrics.reset()
+        n_val = _limit(len(loader), trainer.limit_val_batches)
+        for i, batch in enumerate(loader):
+            if i >= n_val:
+                break
+            out = self.apply_eval(batch)
+            self.val_metrics.update({k: out[k].float() for k in self.val_metric_keys
+                                     if k in out})
+        out = self.val_metrics.compute()
+        self.best_val_metrics.update(out)
+        out.update(self.best_val_metrics.compute())
+        return {k: float(v) for k, v in out.items()}
+
+    @staticmethod
+    def _has_real_val_data(loader) -> bool:
+        ds = getattr(loader, "dataset", None)
+        return not type(ds).__name__.startswith("Dummy")
 
     @torch.inference_mode()
     def predict(self, obs: dict) -> torch.Tensor:

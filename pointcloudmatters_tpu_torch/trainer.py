@@ -1,6 +1,6 @@
-"""The training step (port of ``pointcloudmatters_tpu/trainer.py:237-277``):
-forward, loss, backward, optimizer and schedule step, gradient norm and
-batch statistics, on one device.
+"""The trainer (port of ``pointcloudmatters_tpu/trainer.py``): the training
+step, the epoch loop ``fit`` with gradient accumulation and held-out
+validation, and ``validate``, on one device.
 
 Precisions as the JAX trainer has them: ``"32-true"`` (or ``"32"``), and the
 mixed ones (``"bf16-mixed"``, ``"16-mixed"``, ``"bf16"``, ``"16"``, all
@@ -10,66 +10,191 @@ the batch-norm running statistics f32, takes the loss in f32 and gets f32
 gradients for the f32 master parameters, which the f32 optimizer updates
 (``trainer.py:249-268``). Under autocast, LayerNorm, softmax and reductions
 would stay f32 where JAX rounds to bf16, and elementwise ops would keep
-whatever type reaches them. The step reads nothing back from the device:
-metrics stay device tensors
-(``module.train_metrics`` accumulates them there), the oneshot kernel's
-dropout seeds come from a CPU generator, and the batch should already be on
-the device (a host batch is copied, which waits for the device). DDP,
-callbacks, checkpoints and validation come with later slices.
+whatever type reaches them.
+
+With ``accumulate_grad_batches`` k > 1 a step is a micro-step, as under the
+JAX module's ``optax.MultiSteps``: every micro-step runs forward and
+backward, updates the batch statistics and the train metrics, takes its own
+``grad_norm`` and folds its gradients into an f32 running mean; every k-th
+clips the mean and steps the optimizer and the schedule, and the others
+leave the parameters bit-equal. The schedule counts optimizer steps.
+
+The step reads nothing back from the device: metrics stay device tensors,
+the oneshot kernel's dropout seeds come from a CPU generator, and ``fit``
+copies each batch to the card from page-locked memory without blocking.
+``fit`` reads values back only where the JAX trainer reads floats: every
+``log_every_n_steps`` micro-steps, every step under ``detect_anomaly``, and
+at the end of an epoch. ``accelerator="cpu"`` trains on the CPU; ``"auto"``,
+``"gpu"``, ``"cuda"`` and ``"tpu"`` (the shipped configs' word) on the card,
+and raise without one. Several devices (DDP), checkpoints, the profiler and
+the callbacks themselves come with later slices; ``fit`` calls the hooks of
+whatever callbacks it is given.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Union
+import logging
+import math
+import os
+import time
+from collections.abc import Mapping
+from typing import Any, Optional, Sequence
 
 import torch
 
-from pointcloudmatters_tpu_torch.models.bc_module import BCModule
+from pointcloudmatters_tpu_torch.models.bc_module import BCModule, select_model_batch, to_device
+from pointcloudmatters_tpu_torch.utils.loggers import as_multi_logger
 from pointcloudmatters_tpu_torch.utils.optimizer import clip_by_global_norm, global_norm
 
 __all__ = ["Trainer"]
 
+log = logging.getLogger(__name__)
+
 _MIXED = ("bf16-mixed", "16-mixed", "bf16", "16")
+_ON_CARD = ("auto", "gpu", "cuda", "tpu")
+
+
+def _limit(n_batches: int, limit) -> int:
+    """Batches to run of ``n_batches``: all for None, a share for a float
+    (at least 1 unless the share is 0), at most ``limit`` for an int."""
+    if limit is None:
+        return n_batches
+    if isinstance(limit, float):
+        return max(1, int(n_batches * limit)) if limit > 0 else 0
+    return min(n_batches, int(limit))
+
+
+def _batch_size_of(batch) -> int:
+    """The leading size of the batch's first array of rank >= 1, in the
+    sorted key order of the JAX trainer's ``jax.tree.leaves``."""
+    if isinstance(batch, Mapping):
+        for key in sorted(batch):
+            n = _batch_size_of(batch[key])
+            if n:
+                return n
+        return 0
+    if isinstance(batch, (list, tuple)):
+        return next((n for n in map(_batch_size_of, batch) if n), 0)
+    shape = getattr(batch, "shape", ())
+    return int(shape[0]) if len(shape) >= 1 else 0
+
+
+def _not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md §1 item {item})")
 
 
 class Trainer:
-    """Drives ``BCModule`` training steps.
+    """Trains and validates a ``BCModule``; takes the JAX trainer's keys
+    (``configs/trainer/*.yaml``), of which ``strategy``, ``sync_batchnorm``,
+    ``deterministic`` and ``overfit_batches`` are accepted and, as there,
+    unused. ``seed`` seeds the module's random streams
+    (``BCModule.make_rngs``)."""
 
-    Args:
-        precision: ``"32-true"``/``"32"`` or a mixed precision (bf16
-            compute over f32 parameters).
-        device: where the step runs (default: the module's device).
-        seed: seeds the module's random streams (``BCModule.make_rngs``).
-        gradient_clip_val: global-norm clip of the gradients, if set.
-    """
-
-    def __init__(self, precision: str = "32-true",
-                 device: Union[str, torch.device, None] = None, seed: int = 0,
-                 gradient_clip_val: float | None = None):
+    def __init__(
+        self,
+        default_root_dir: str = ".",
+        min_epochs: int = 1,
+        max_epochs: int = 10,
+        accelerator: str = "auto",
+        devices: Any = "auto",
+        check_val_every_n_epoch: int = 1,
+        precision: str = "32-true",
+        gradient_clip_val: Optional[float] = None,
+        accumulate_grad_batches: int = 1,
+        deterministic: bool = False,
+        detect_anomaly: bool = False,
+        limit_train_batches: Any = 1.0,
+        limit_val_batches: Any = 1.0,
+        log_every_n_steps: int = 50,
+        num_sanity_val_steps: int = 0,
+        callbacks: Any = None,
+        logger: Any = None,
+        strategy: str = "data_parallel",
+        num_nodes: int = 1,
+        sync_batchnorm: bool = True,
+        profiler: Optional[str] = None,
+        fast_dev_run: bool = False,
+        overfit_batches: float = 0.0,
+        seed: int = 0,
+        **_ignored,
+    ):
         precision = str(precision)
         if precision not in _MIXED + ("32-true", "32"):
             raise ValueError(f"unknown precision {precision!r}")
+        if accelerator not in _ON_CARD + ("cpu",):
+            raise ValueError(f"unknown accelerator {accelerator!r}")
+        if (isinstance(devices, int) and devices > 1) or num_nodes > 1:
+            raise _not_ported("training on more than one device (DDP)", 7)
+        if profiler:
+            raise _not_ported("the profiler", 12)
+        self.default_root_dir = os.path.abspath(default_root_dir)
+        os.makedirs(self.default_root_dir, exist_ok=True)
+        self.min_epochs = min_epochs or 1
+        self.fast_dev_run = fast_dev_run
+        self.max_epochs = 1 if fast_dev_run else max_epochs
+        self.accelerator = accelerator
+        self.devices_spec = devices
+        self.check_val_every_n_epoch = check_val_every_n_epoch
         self.precision = precision
         self.compute_dtype = torch.bfloat16 if precision in _MIXED else None
-        self.device = None if device is None else torch.device(device)
-        self.seed = seed
         self.gradient_clip_val = gradient_clip_val
+        self.accumulate_grad_batches = max(1, accumulate_grad_batches)
+        self.deterministic = deterministic
+        self.detect_anomaly = detect_anomaly
+        self.limit_train_batches = 1 if fast_dev_run else limit_train_batches
+        self.limit_val_batches = 1 if fast_dev_run else limit_val_batches
+        self.log_every_n_steps = log_every_n_steps
+        self.num_sanity_val_steps = num_sanity_val_steps
+        if callbacks is None:
+            callbacks = []
+        elif isinstance(callbacks, dict):
+            callbacks = [cb for cb in callbacks.values() if cb is not None]
+        self.callbacks = list(callbacks)
+        self.logger = as_multi_logger(logger)
+        self.strategy = strategy
+        self.num_nodes = num_nodes
+        self.sync_batchnorm = sync_batchnorm
+        self.overfit_batches = overfit_batches
+        self.seed = seed
+
         self.rngs: dict[str, torch.Generator] | None = None
         self.global_step = 0
+        self.current_epoch = 0
+        self.should_stop = False
+        self.estimated_stepping_batches: Optional[int] = None
+        self._schedule = None
+        self._fit_first_step = 0
+        self.datamodule = None
+
+    # ------------------------------------------------------------------
+    # device and steps
+    # ------------------------------------------------------------------
+    def select_device(self) -> torch.device:
+        """The CPU for ``accelerator="cpu"``, else the card; raises where
+        there is no card, and where ``devices`` asks for more than one."""
+        if self.accelerator == "cpu":
+            return torch.device("cpu")
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"accelerator={self.accelerator!r} trains on a CUDA device and "
+                               f"there is none; pass accelerator='cpu' to train on the CPU")
+        if self.devices_spec in ("auto", -1, "-1", None) and torch.cuda.device_count() > 1:
+            raise _not_ported("training on more than one device (DDP)", 7)
+        return torch.device("cuda", torch.cuda.current_device())
 
     def setup(self, module: BCModule, total_steps: int) -> None:
-        """Optimizer and schedule over ``total_steps``, and the step's random
-        streams (the JAX ``setup_module`` + ``initial_state``)."""
-        if self.device is not None and module.device != self.device:
-            raise ValueError(f"module on {module.device}, trainer on {self.device}")
-        module.configure_optimizers(total_steps, self.gradient_clip_val)
+        """Optimizer, schedule and gradient accumulation over
+        ``total_steps`` optimizer steps, and the step's random streams (the
+        JAX ``setup_module`` + ``initial_state``)."""
+        module.configure_optimizers(total_steps, self.gradient_clip_val,
+                                    self.accumulate_grad_batches)
         self.rngs = module.make_rngs(self.seed)
 
     def train_step(self, module: BCModule, batch: dict) -> dict[str, torch.Tensor]:
-        """One optimizer step on ``batch``; returns the step's metrics (loss,
-        action_loss, kl_loss, grad_norm: 0-d tensors on the device). A
-        module not set up yet is set up for a 1-step schedule, as the JAX
-        module's ``initial_state`` does."""
+        """One micro-step on ``batch`` (an optimizer step when gradients are
+        not accumulated); updates ``module.train_metrics`` and returns the
+        step's metrics (loss, action_loss, kl_loss, grad_norm: 0-d tensors on
+        the device). A module not set up yet is set up for a 1-step
+        schedule, as the JAX module's ``initial_state`` does."""
         if module.optimizer is None or self.rngs is None:
             self.setup(module, total_steps=1)
         params = [p for p in module.policy.parameters() if p.requires_grad]
@@ -82,12 +207,15 @@ class Trainer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
-        grad_norm = global_norm(grads)
-        if module.gradient_clip_val:
-            clip_by_global_norm(grads, module.gradient_clip_val, grad_norm)
-        module.optimizer.step()
-        if module.scheduler is not None:
-            module.scheduler.step()
+        grad_norm = global_norm(grads)  # this micro-batch's, as JAX logs it
+        mean = module.gradient_mean
+        if mean is None or mean.update(grads):
+            if module.gradient_clip_val:
+                clip_by_global_norm(grads, module.gradient_clip_val,
+                                    grad_norm if mean is None else global_norm(grads))
+            module.optimizer.step()
+            if module.scheduler is not None:
+                module.scheduler.step()
         self.global_step += 1
         metrics = {k: out[k].detach().to(torch.float32)
                    for k in module.train_metric_keys if k in out}
@@ -101,3 +229,164 @@ class Trainer:
         if not batches:
             raise ValueError("fit_steps needs at least one batch")
         return [self.train_step(module, batches[i % len(batches)]) for i in range(n)]
+
+    # ------------------------------------------------------------------
+    # logging
+    # ------------------------------------------------------------------
+    def log_metrics(self, metrics: dict) -> None:
+        if metrics:
+            self.logger.log_metrics(metrics, self.global_step)
+
+    def current_lr(self) -> Optional[float]:
+        """The learning rate that the JAX trainer logs (ROADMAP.md §3, kept
+        by design): the schedule the module held when ``fit`` began (none
+        in a module's first fit: JAX reads it before it builds the
+        optimizer) at the micro-steps of this fit (JAX's ``state.step``),
+        which under accumulation is not the rate the optimizer applied."""
+        if self._schedule is None:
+            return None
+        return self._schedule.lr_at(self.global_step - self._fit_first_step)
+
+    # ------------------------------------------------------------------
+    # fit and validate
+    # ------------------------------------------------------------------
+    def _start(self, model: BCModule, datamodule, loader, ckpt_path) -> None:
+        """What ``fit`` and ``validate`` do before their loops: the device,
+        and the JAX trainer's example batch."""
+        if ckpt_path:
+            raise _not_ported("restoring a checkpoint", 4)
+        model.to(self.select_device())
+        self.datamodule = datamodule
+        # The JAX trainer draws one batch here to initialise the parameters.
+        # The port's policy is built already, but the draw stays: it starts
+        # the loader's epoch 0 (so epoch 0 shuffles with seed + 1) and takes
+        # its samples' random start steps, grid picks and shuffles from
+        # numpy's global stream. Without it every later batch would differ
+        # from the reference's.
+        batches = iter(loader)
+        try:
+            next(batches)
+        except StopIteration:
+            raise RuntimeError(
+                "the dataloader yielded no batches: the dataset has fewer samples than "
+                "batch_size (drop_last drops the remainder); lower the batch size or add "
+                "data") from None
+        finally:
+            batches.close()
+
+    def fit(self, model: BCModule, datamodule=None, ckpt_path: Optional[str] = None) -> None:
+        if hasattr(datamodule, "setup"):
+            datamodule.setup("fit")
+        train_loader = datamodule.train_dataloader()
+        n_train = _limit(len(train_loader), self.limit_train_batches)
+        opt_steps_per_epoch = max(1, n_train // self.accumulate_grad_batches)
+        self.estimated_stepping_batches = opt_steps_per_epoch * self.max_epochs
+        self._start(model, datamodule, train_loader, ckpt_path)
+        self._schedule, self._fit_first_step = model.scheduler, self.global_step
+        self.setup(model, self.estimated_stepping_batches)
+
+        for cb in self.callbacks:
+            cb.setup(self, model)
+        for cb in self.callbacks:
+            cb.on_fit_start(self, model)
+        t_fit = time.time()
+        log.info(f"fit: {model.device}, {n_train} batches/epoch, "
+                 f"{self.estimated_stepping_batches} optimizer steps total, "
+                 f"precision={self.precision}")
+
+        # the sanity check: N validation batches before the first epoch, so
+        # that a broken validation path fails at once; their metrics are
+        # discarded and the trackers reset, so that they seed no best value
+        if (self.num_sanity_val_steps and not self.fast_dev_run
+                and self.limit_val_batches not in (0, 0.0)):
+            n = int(self.num_sanity_val_steps)
+            saved = self.limit_val_batches
+            if n != -1:
+                self.limit_val_batches = min(n, int(saved)) if isinstance(saved, int) else n
+            log.info("sanity-checking the validation loop "
+                     f"({'all' if n == -1 else self.limit_val_batches} batches)")
+            try:
+                model.run_validation(self, datamodule)
+            finally:
+                self.limit_val_batches = saved
+                model.val_metrics.reset()
+                model.best_val_metrics.reset()
+
+        for epoch in range(self.current_epoch, self.max_epochs):
+            self.current_epoch = epoch
+            epoch_metrics = self._train_epoch(model, train_loader, n_train)
+            self.log_metrics(epoch_metrics)
+
+            val_metrics: dict = {}
+            if (self.check_val_every_n_epoch
+                    and (epoch + 1) % self.check_val_every_n_epoch == 0
+                    and self.limit_val_batches not in (0, 0.0)):
+                val_metrics = model.run_validation(self, datamodule)
+                self.log_metrics(val_metrics)
+                for cb in self.callbacks:
+                    cb.on_validation_end(self, model, val_metrics, epoch)
+            for cb in self.callbacks:
+                cb.on_train_epoch_end(self, model, {**epoch_metrics, **val_metrics}, epoch)
+            if self.should_stop and epoch + 1 >= self.min_epochs:
+                log.info(f"early stop at epoch {epoch}")
+                break
+
+        for cb in self.callbacks:
+            cb.on_fit_end(self, model)
+        self.logger.finalize()
+        log.info(f"fit done in {time.time() - t_fit:.1f}s ({self.global_step} steps)")
+
+    def _train_epoch(self, model: BCModule, loader, n_train: int) -> dict:
+        """One epoch of micro-steps; the epoch's train metrics and
+        ``samples_per_sec``, as floats."""
+        model.train_metrics.reset()
+        t0, seen = time.time(), 0
+        for i, batch in enumerate(loader):
+            if i >= n_train:
+                break
+            seen += _batch_size_of(batch)
+            metrics = self.train_step(
+                model, to_device(select_model_batch(batch), model.device, non_blocking=True))
+            if self.detect_anomaly:
+                loss = float(metrics["loss"])
+                if not math.isfinite(loss):
+                    raise FloatingPointError(
+                        f"non-finite loss {loss} at step {self.global_step}")
+            if self.global_step % self.log_every_n_steps == 0:
+                host = {k: float(v) for k, v in metrics.items()}
+                lr = self.current_lr()
+                if lr is not None:
+                    host["lr"] = lr
+                self.log_metrics(host)
+        if model.device.type == "cuda":
+            torch.cuda.synchronize(model.device)
+        epoch_metrics = {k: float(v) for k, v in model.train_metrics.compute().items()}
+        if seen:
+            epoch_metrics["samples_per_sec"] = seen / (time.time() - t0)
+        return epoch_metrics
+
+    def validate(self, model: BCModule, datamodule=None,
+                 ckpt_path: Optional[str] = None) -> dict:
+        """Held-out validation of ``model`` as it is (the JAX trainer's
+        ``validate``); the metrics, logged."""
+        if hasattr(datamodule, "setup"):
+            datamodule.setup("validate")
+        loader = None
+        for name in ("train_dataloader", "val_dataloader", "test_dataloader"):
+            fn = getattr(datamodule, name, None)
+            if fn is None:
+                continue
+            try:  # a validation-only datamodule may have no train split
+                candidate = fn()
+            except Exception:
+                continue
+            if candidate is not None:
+                loader = candidate
+                break
+        if loader is None:
+            raise RuntimeError("validate() needs at least one dataloader (train, val, or test)")
+        self._start(model, datamodule, loader, ckpt_path)
+        metrics = model.run_validation(self, datamodule)
+        self.log_metrics(metrics)
+        self.logger.finalize()
+        return metrics

@@ -1,8 +1,8 @@
 """Metric accumulators that stay on the device (port of
-``pointcloudmatters_tpu/utils/metrics.py``'s ``MeanMetric`` and
-``Metrics``). ``update`` only enqueues device work: nothing is read back
-until ``compute``, where the JAX package reads every value with ``float()``
-at every step. NaN values are skipped, as there."""
+``pointcloudmatters_tpu/utils/metrics.py``). ``update`` only enqueues device
+work: nothing is read back until ``compute``'s result is, where the JAX
+package reads every value with ``float()`` at every step. NaN values are
+skipped, as there."""
 
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ from typing import Any, Sequence
 
 import torch
 
-__all__ = ["MeanMetric", "Metrics"]
+__all__ = ["MeanMetric", "SumMetric", "MaxMetric", "MinMetric", "Metrics"]
 
 
 class MeanMetric:
@@ -41,14 +41,58 @@ class MeanMetric:
         self.total = self.count = None
 
 
-def _build_metric(spec: Any) -> MeanMetric:
+class SumMetric(MeanMetric):
+    """Weighted sum of the values given to ``update`` (0 if empty)."""
+
+    def compute(self) -> torch.Tensor:
+        if self.total is None:
+            return torch.tensor(0.0, dtype=torch.float64)
+        return self.total
+
+
+class MaxMetric:
+    """Largest value given to ``update`` (-inf if empty); it persists
+    across epochs until :meth:`reset`, the best-so-far tracker."""
+
+    _pick, _empty = staticmethod(torch.maximum), -float("inf")
+
+    def __init__(self):
+        self.value = None
+
+    def update(self, value: torch.Tensor, weight: float = 1.0) -> None:
+        del weight
+        value = torch.as_tensor(value).detach().to(torch.float64)
+        if self.value is None:
+            self.value = torch.full_like(value, self._empty)
+        self.value = torch.where(torch.isnan(value), self.value,
+                                 self._pick(self.value, value))
+
+    def compute(self) -> torch.Tensor:
+        if self.value is None:
+            return torch.tensor(self._empty, dtype=torch.float64)
+        return self.value
+
+    def reset(self) -> None:
+        self.value = None
+
+
+class MinMetric(MaxMetric):
+    """Smallest value given to ``update`` (inf if empty)."""
+
+    _pick, _empty = staticmethod(torch.minimum), float("inf")
+
+
+_METRICS = {cls.__name__: cls for cls in (MeanMetric, SumMetric, MaxMetric, MinMetric)}
+
+
+def _build_metric(spec: Any):
     if hasattr(spec, "update") and hasattr(spec, "compute"):
         return spec
-    name = spec if isinstance(spec, str) else spec.get("type", spec.get("_target_"))
-    if str(name).split(".")[-1] != "MeanMetric":
-        raise NotImplementedError(f"metric {name!r} is not ported yet; only "
-                                  f"MeanMetric is")
-    return MeanMetric()
+    name = spec if isinstance(spec, str) else spec.get("type", spec.get("_target_", "MeanMetric"))
+    name = str(name).split(".")[-1]
+    if name not in _METRICS:
+        raise KeyError(f"unknown metric {name!r}; options: {sorted(_METRICS)}")
+    return _METRICS[name]()
 
 
 class Metrics:

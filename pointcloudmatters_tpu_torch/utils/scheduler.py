@@ -52,8 +52,8 @@ class OneCycleLR(torch.optim.lr_scheduler.LRScheduler):
         self.momenta = (float(base_momentum), float(max_momentum))
         super().__init__(optimizer)
 
-    def _at(self, start: float, peak: float, end: float) -> float:
-        s = float(self.last_epoch)
+    def _at(self, start: float, peak: float, end: float, step: int) -> float:
+        s = float(step)
         if s <= self.e1:
             return _anneal_cos(start, peak, min(max(s / self.e1, 0.0), 1.0))
         pct = min(max((s - self.e1) / (self.e2 - self.e1), 0.0), 1.0)
@@ -62,11 +62,15 @@ class OneCycleLR(torch.optim.lr_scheduler.LRScheduler):
     def get_lr(self) -> list[float]:
         if self.cycle_momentum:
             base, top = self.momenta
-            beta1 = self._at(top, base, top)
+            beta1 = self._at(top, base, top, self.last_epoch)
             for group in self.optimizer.param_groups:
                 group["betas"] = (beta1, group["betas"][1])
-        lr = self._at(self.initial, self.peak, self.floor)
+        lr = self.lr_at(self.last_epoch)
         return [lr for _ in self.optimizer.param_groups]
+
+    def lr_at(self, step: int) -> float:
+        """The learning rate of optimizer step ``step``."""
+        return self._at(self.initial, self.peak, self.floor, step)
 
 
 def build_scheduler(optimizer: torch.optim.Optimizer, cfg: dict,

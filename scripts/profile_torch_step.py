@@ -88,7 +88,7 @@ def main() -> int:
                                      attention_impl=args.attention_impl),
                       optimizer=chip_smoke.FLAGSHIP_OPT,
                       lr_scheduler=chip_smoke.FLAGSHIP_SCHED)
-    trainer = Trainer(precision=args.precision, device=dev, seed=0)
+    trainer = Trainer(precision=args.precision, seed=0)
     trainer.setup(module, chip_smoke.TOTAL_STEPS)
     batch = to_device(build_batch(batch_size=args.batch, n_points=args.points, seed=0), dev)
     for _ in range(2):

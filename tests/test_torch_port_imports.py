@@ -44,6 +44,16 @@ SLICE_MODULES = (
     "pointcloudmatters_tpu_torch.utils.metrics",
     "pointcloudmatters_tpu_torch.trainer",
     "pointcloudmatters_tpu_torch.entry",
+    "pointcloudmatters_tpu_torch.utils.io",
+    "pointcloudmatters_tpu_torch.utils.loggers",
+    "pointcloudmatters_tpu_torch.data.native",
+    "pointcloudmatters_tpu_torch.data.collate",
+    "pointcloudmatters_tpu_torch.data.loader",
+    "pointcloudmatters_tpu_torch.data.base_datamodule",
+    "pointcloudmatters_tpu_torch.data.components.transformpcd",
+    "pointcloudmatters_tpu_torch.data.components.misc",
+    "pointcloudmatters_tpu_torch.data.components.maniskill2",
+    "pointcloudmatters_tpu_torch.models.maniskill2_modules",
 )
 
 
@@ -99,6 +109,37 @@ def test_port_imports_and_predicts_without_jax():
         metrics = Trainer(seed=0).train_step(
             module, build_batch(batch_size=2, n_points=2048, chunk=5))
         assert bool(metrics["loss"].isfinite()) and calls == [0.0, 0.1], (calls, metrics)
+        import os, tempfile
+        from tests.synth import make_synthetic_maniskill2
+        from pointcloudmatters_tpu_torch.data.base_datamodule import BaseDataModule
+        from pointcloudmatters_tpu_torch.data.components import transformpcd as T
+        from pointcloudmatters_tpu_torch.data.components.maniskill2 import (
+            ManiSkill2GoalPosSingleTaskACTPCDDataset)
+        from pointcloudmatters_tpu_torch.data.components.misc import DummyDataset
+        from pointcloudmatters_tpu_torch.models.maniskill2_modules import ManiSkill2ACTBCModule
+        with tempfile.TemporaryDirectory() as tmp:
+            path = make_synthetic_maniskill2(os.path.join(tmp, "demo.h5"), n_episodes=2,
+                                             episode_len=6, cam_side=16)
+            transforms = [T.GridSamplePCD(grid_size=0.02, return_grid_coord=True,
+                                          keys=("coord", "color")),
+                          T.NormalizeColorPCD(), T.ShufflePointPCD(), T.ToTensorPCD(),
+                          T.CollectPCD(keys=("coord", "grid_coord"),
+                                       feat_keys=("color", "coord"))]
+            data = ManiSkill2GoalPosSingleTaskACTPCDDataset(
+                path, goal_cond_keys=["goal_pos"], chunk_size=5, transform_pcd=transforms,
+                point_num_per_cam=256, cache_dir=tmp, loop=4)
+            module = ManiSkill2ACTBCModule(
+                build_flagship(hidden_dim=32, npoints=8, nsample=4, chunk=5, enc_layers=1,
+                               dec_layers=2, nhead=4, device="cpu"),
+                optimizer={{"type": "AdamW", "lr": 1e-3}},
+                lr_scheduler={{"scheduler": {{"type": "OneCycleLR", "max_lr": 1e-3}}}})
+            trainer = Trainer(default_root_dir=tmp, accelerator="cpu", precision="bf16-mixed",
+                              accumulate_grad_batches=2, max_epochs=1, limit_train_batches=4)
+            trainer.fit(module, BaseDataModule(train=data, val=DummyDataset(4),
+                                               batch_size_train=2, num_workers=2,
+                                               pad_multiple=64))
+        assert trainer.global_step == 4 and module.scheduler.last_epoch == 2
+        assert module.train_metrics.compute()["train/loss"].isfinite()
         assert not [m for m in sys.modules if m.split(".")[0] in
                     ("jax", "flax", "pointcloudmatters_tpu")
                     and sys.modules[m] is not None]

@@ -40,7 +40,7 @@ from pointcloudmatters_tpu_torch.models.components.act import act as tact
 from pointcloudmatters_tpu_torch.models.components.loss import misc as tloss
 from pointcloudmatters_tpu_torch.trainer import Trainer
 from pointcloudmatters_tpu_torch.utils.flax_to_torch import flax_to_torch
-from pointcloudmatters_tpu_torch.utils.metrics import MeanMetric, Metrics
+from pointcloudmatters_tpu_torch.utils.metrics import MaxMetric, MeanMetric, Metrics
 from pointcloudmatters_tpu_torch.utils.optimizer import build_optimizer
 from pointcloudmatters_tpu_torch.utils.scheduler import build_scheduler
 from test_torch_act_slice import _randomize, threefry_prng  # noqa: F401
@@ -247,8 +247,9 @@ def test_unported_training_options_raise():
         Trainer(precision="64-true")
     with pytest.raises(NotImplementedError):
         BCModule(torch.nn.Linear(2, 2), param_dicts=[{"keyword": "w"}])
-    with pytest.raises(NotImplementedError):
-        Metrics(["MaxMetric"], ["loss"], ["best"])
+    assert isinstance(Metrics(["MaxMetric"], ["loss"], ["best"]).metrics[0], MaxMetric)
+    with pytest.raises(KeyError):
+        Metrics(["MedianMetric"], ["loss"], ["median"])
 
 
 def test_mean_metric_skips_nan_and_stays_a_tensor():

@@ -163,9 +163,30 @@ Phases, each of which raises on failure (exit code non-zero, no result):
    max(1, max |ref|)); and ``Trainer.validate`` of a base ``BCModule`` over
    4 held-out batches of 1 (finite ``val/loss``, FPS, kNN and f32 kernel 3
    launched in the counts of one eval forward each).
+11. Trains the flagship through the port's entry point,
+   ``pointcloudmatters_tpu_torch.train.main``, composing ``configs/`` as the
+   README's command does (``exp_maniskill2_act_policy=base``,
+   ``scratch_pointnet_pcd``, ``PickCube-v0``: B=8, k=2, ``"bf16-mixed"``,
+   the default callbacks, the TensorBoard logger), over phase 10's demos,
+   2 epochs of 4 micro-steps, validating on the held-out demos after each
+   (the overrides and their reasons are at ``cli_argv``). Checks (a) ``last``
+   and a top-k checkpoint named by the shipped pattern, and
+   ``best_model_path``; (b) a fresh trainer's restore of ``last`` bit-equal
+   to the run's end in every parameter, running statistic, AdamW moment,
+   gradient mean, schedule step and generator state; (c) a second run from
+   ``ckpt_path=last`` resuming at epoch 2, its first logged step the saved
+   one plus an epoch's, writing a new ``last``; (d)
+   ``pointcloudmatters_tpu_torch.validate.main(ckpt_path=best)`` returning
+   a finite held-out loss equal to ``Trainer.validate``'s from the same
+   restored state; (e) kernels 1, 2 and bf16 3/4 launched in the counts of
+   the run's micro-steps and f32 3 in those of its validations, and no
+   other. Logs the seconds from ``main`` to the first step, the ms per
+   optimizer step from the trainer's epoch rate beside phase 10's on the
+   same call, and the checkpoint's size and save and restore seconds.
 
 Prints a JSON line of the kernels (route, source, the TPU kernel each
-replaces, launches on each path, error, kernel, plain and library times,
+replaces, launches on each path (phase 11's: ``train_cli``,
+``train_cli_resume``, ``validate_cli``), error, kernel, plain and library times,
 and the bound: the larger of the bytes over 3.35 TB/s and the flops over
 the peak of the inputs' type, 67 TFLOP/s f32 or 989 TFLOP/s bf16; one
 ``attention_bwd`` launch is one call of the three-kernel backward: the
@@ -199,6 +220,7 @@ import contextlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -2141,22 +2163,18 @@ class StepClock:
         pass
 
 
-def fit_datasets(cache_dir: str) -> tuple:
-    """Phase 10's train set (6 episodes, FIT_LOOP times) and held-out set (2
-    episodes, twice): the port's ManiSkill2 ACT point-cloud dataset with the
-    config's transforms over synthetic demos held in memory."""
+def in_memory_dataset(trajs, **kw):
+    """The port's ManiSkill2 ACT point-cloud dataset over demos held in
+    memory, so that the run needs no h5py: only the file read is replaced
+    ("PCD" in the class name picks the point-cloud collate, as the configs'
+    class names do)."""
     import copy
 
-    from pointcloudmatters_tpu_torch.data.components import transformpcd as T
     from pointcloudmatters_tpu_torch.data.components.maniskill2 import (
         ManiSkill2GoalPosSingleTaskACTPCDDataset,
     )
 
     class InMemoryACTPCDDataset(ManiSkill2GoalPosSingleTaskACTPCDDataset):
-        """The port's dataset over demos held in memory, so that the run
-        needs no h5py: only the file read is replaced ("PCD" in the name
-        picks the point-cloud collate, as the configs' class names do)."""
-
         def __init__(self, trajs, **kw):
             self.trajs = trajs
             super().__init__("held-in-memory.h5", **kw)
@@ -2167,20 +2185,37 @@ def fit_datasets(cache_dir: str) -> tuple:
                                  "env_kwargs": {"obs_mode": "pointcloud"}}}
             return meta, [copy.deepcopy(self.trajs[i]) for i in episode_ids]
 
-    def transforms():  # configs/data/maniskill2_act_pcd_dataset.yaml
-        return [T.GridSamplePCD(grid_size=0.005, hash_type="fnv", mode="train",
-                                return_grid_coord=True, return_displacement=False,
-                                keys=("coord", "color")),
-                T.NormalizeColorPCD(), T.ShufflePointPCD(), T.ToTensorPCD(),
-                T.CollectPCD(keys=("coord", "grid_coord"), feat_keys=("color", "coord"))]
+    return InMemoryACTPCDDataset(trajs, **kw)
 
+
+def fit_transforms() -> list:
+    """The point-cloud transforms of ``configs/data/maniskill2_act_pcd_dataset.yaml``."""
+    from pointcloudmatters_tpu_torch.data.components import transformpcd as T
+
+    return [T.GridSamplePCD(grid_size=0.005, hash_type="fnv", mode="train",
+                            return_grid_coord=True, return_displacement=False,
+                            keys=("coord", "color")),
+            T.NormalizeColorPCD(), T.ShufflePointPCD(), T.ToTensorPCD(),
+            T.CollectPCD(keys=("coord", "grid_coord"), feat_keys=("color", "coord"))]
+
+
+def held_out_dataset(trajs, cache_dir: str):
+    """Held-out demos, twice each, with the config's keys and transforms."""
+    return in_memory_dataset(trajs, transform_pcd=fit_transforms(), loop=2,
+                             goal_cond_keys=["goal_pos"], chunk_size=100, camera_ids=[0],
+                             point_num_per_cam=FIT_CAM_SIDE ** 2, cache_dir=cache_dir)
+
+
+def fit_datasets(cache_dir: str) -> tuple:
+    """Phase 10's train set (6 episodes, FIT_LOOP times) and held-out set (2
+    episodes, twice): the port's ManiSkill2 ACT point-cloud dataset with the
+    config's transforms over synthetic demos held in memory."""
     demos = synthetic_demos(FIT_EPISODES, FIT_EPISODE_LEN, FIT_CAM_SIDE)
     n_train = FIT_EPISODES - FIT_HELD_OUT
-    kw = dict(goal_cond_keys=["goal_pos"], chunk_size=100, camera_ids=[0],
-              point_num_per_cam=FIT_CAM_SIDE ** 2, cache_dir=cache_dir)
-    return (InMemoryACTPCDDataset(demos[:n_train], transform_pcd=transforms(), loop=FIT_LOOP,
-                                  **kw),
-            InMemoryACTPCDDataset(demos[n_train:], transform_pcd=transforms(), loop=2, **kw))
+    return (in_memory_dataset(demos[:n_train], transform_pcd=fit_transforms(), loop=FIT_LOOP,
+                              goal_cond_keys=["goal_pos"], chunk_size=100, camera_ids=[0],
+                              point_num_per_cam=FIT_CAM_SIDE ** 2, cache_dir=cache_dir),
+            held_out_dataset(demos[n_train:], cache_dir))
 
 
 def fit_data(train_set, val=None, workers: int = FIT_WORKERS):
@@ -2240,7 +2275,8 @@ def timed_fit(dev, module, data, root: str) -> dict:
     marks = [t for t, step, m in clock.rows if "grad_norm" in m]
     run = data.timed.runs[-1]
     step_ms = (marks[-1] - marks[0]) * 1e3 / (len(marks) - 1)
-    return dict(step_ms=step_ms, steps=len(marks) - 1,
+    epoch_rate = next(m["samples_per_sec"] for _, _, m in clock.rows if "samples_per_sec" in m)
+    return dict(step_ms=step_ms, steps=len(marks) - 1, epoch_samples_per_s=epoch_rate,
                 samples_per_s=FIT_BATCH * FIT_ACCUMULATE * 1e3 / step_ms,
                 wait_share=run["wait"] / (run["end"] - run["start"]),
                 loop_s=run["end"] - run["start"], peak=torch.cuda.max_memory_allocated(dev),
@@ -2252,7 +2288,7 @@ def fit_flagship(dev) -> dict:
     (``ManiSkill2ACTBCModule``), ``"bf16-mixed"``, gradient accumulation 2,
     over the ported data pipeline; then ``Trainer.validate`` of a base
     ``BCModule`` on held-out demos. Returns the kernels' launches of the fit
-    and of the validation."""
+    and of the validation, and the warmed fit's times."""
     import tempfile
 
     import numpy as np
@@ -2402,7 +2438,300 @@ def fit_flagship(dev) -> dict:
     cache.cleanup()
     del module, evaluate, train_set, held_out, data, val_data
     torch.cuda.empty_cache()
-    return {"fit": launches, "validate": val_launches}
+    return {"fit": launches, "validate": val_launches}, t
+
+
+# phase 11: the flagship through the port's entry points, as the README runs
+# it: python -m pointcloudmatters_tpu_torch.train exp_maniskill2_act_policy=base
+# ...maniskill2_model=scratch_pointnet_pcd ...maniskill2_pcd_task=PickCube-v0
+# (hidden 512, 2048 tokens, k = 16, chunk 100, B = 8, accumulate_grad_batches
+# 2, "bf16-mixed", the default callbacks, the TensorBoard logger). The
+# overrides, each for a reason:
+# - data.train._target_ / data.val._target_: phase 10's in-memory dataset
+#   (the card has no h5py), the held-out demos for validation
+#   (``cli_train_set``, ``cli_held_out_set`` below); data.num_workers=4;
+# - model._target_ = the base BCModule, ~model.val_metrics and
+#   ~model.best_val_metrics: its validation is the held-out loss (val/loss).
+#   ManiSkill2ACTBCModule's, without a simulator, keeps its mean_success
+#   trackers and reads no loss (its val_metric_keys are empty, in JAX too),
+#   so that no val/loss would ever be logged. The policy is the config's;
+# - trainer.max_epochs=2, check_val_every_n_epoch=1, limit_train_batches=4
+#   (two optimizer steps an epoch);
+# - callbacks.model_checkpoint.monitor=val/loss, mode=min (the shipped
+#   val/mean_success needs the simulator), and the probe
+#   +callbacks.end_state (``EndState``), which only records;
+# - paths.log_dir, hydra.run.dir: a temporary directory;
+#   extras.print_config=false (the config tree is long).
+CLI_TRAIN_BATCHES, CLI_EPOCHS = 4, 2
+CLI_DATA: dict = {}  # the phase's demos and cache directory, read by the targets below
+
+
+def cli_train_set(dataset_file=None, loop=FIT_LOOP, **kw):
+    """``data.train``'s target in phase 11: phase 10's in-memory dataset over
+    its training demos, with the config's keys (``dataset_file`` aside)."""
+    return in_memory_dataset(CLI_DATA["train"], loop=loop, cache_dir=CLI_DATA["cache"], **kw)
+
+
+def cli_held_out_set(size=None):
+    """``data.val``'s target in phase 11 (the config's ``DummyDataset`` had
+    ``size``): the held-out demos, as phase 10 validates on them."""
+    return held_out_dataset(CLI_DATA["held_out"], CLI_DATA["cache"])
+
+
+class EndState:
+    """A probe callback: keeps the trainer and module of each run, the
+    clock at fit start, and (epoch, global_step) at fit start and at each
+    epoch end."""
+
+    runs: list = []
+
+    def __init__(self):
+        self.epochs = []
+        EndState.runs.append(self)
+
+    def setup(self, trainer, module):
+        self.trainer, self.module = trainer, module
+
+    def on_fit_start(self, trainer, module):
+        self.start = (trainer.current_epoch, trainer.global_step)
+        self.t_start = time.perf_counter()
+
+    def on_train_epoch_end(self, trainer, module, metrics, epoch):
+        self.epochs.append((epoch, trainer.global_step, dict(metrics)))
+
+    def on_validation_end(self, trainer, module, metrics, epoch):
+        pass
+
+    def on_fit_end(self, trainer, module):
+        pass
+
+
+def cli_argv(root: str, run: str) -> list[str]:
+    return [
+        "exp_maniskill2_act_policy=base",
+        "exp_maniskill2_act_policy/maniskill2_model@maniskill2_model=scratch_pointnet_pcd",
+        "exp_maniskill2_act_policy/maniskill2_pcd_task@maniskill2_pcd_task=PickCube-v0",
+        "data.train._target_=chip_smoke.cli_train_set",
+        "data.val._target_=chip_smoke.cli_held_out_set", "data.num_workers=4",
+        "model._target_=pointcloudmatters_tpu.models.bc_module.BCModule",
+        "~model.val_metrics", "~model.best_val_metrics",
+        f"trainer.max_epochs={CLI_EPOCHS}", "trainer.check_val_every_n_epoch=1",
+        f"trainer.limit_train_batches={CLI_TRAIN_BATCHES}",
+        "callbacks.model_checkpoint.monitor=val/loss", "callbacks.model_checkpoint.mode=min",
+        "+callbacks.end_state._target_=chip_smoke.EndState",
+        f"paths.log_dir={root}/logs", f"hydra.run.dir={root}/{run}",
+        "extras.print_config=false",
+    ]
+
+
+def _run_state(trainer, module) -> dict:
+    """Every tensor and value a checkpoint carries, on the CPU."""
+    import torch
+
+    out = {f"sd/{k}": v.detach().cpu().clone() for k, v in module.policy.state_dict().items()}
+    opt = module.optimizer.state_dict()
+    for i, st in opt["state"].items():
+        for k, v in st.items():
+            out[f"opt/{i}/{k}"] = v.detach().cpu().clone()
+    out["groups"] = repr([{k: v for k, v in g.items() if k != "params"}
+                          for g in opt["param_groups"]])
+    out["schedule"] = module.scheduler.last_epoch
+    out["mini_step"] = module.gradient_mean.mini_step
+    for i, a in enumerate(module.gradient_mean.acc or []):
+        out[f"acc/{i}"] = a.detach().cpu().clone()
+    for k, g in trainer.rngs.items():
+        out[f"rng/{k}"] = g.get_state()
+    return out
+
+
+def _logged_steps(trainer) -> list[int]:
+    """The steps of the ``train/loss`` the run's TensorBoard logger wrote
+    (its event file, or its CSV stand-in)."""
+    import csv
+
+    from pointcloudmatters_tpu_torch.loggers import TensorBoardLogger
+
+    tb = next(lg for lg in trainer.logger.loggers if isinstance(lg, TensorBoardLogger))
+    if tb.writer == "csv":
+        with open(os.path.join(tb.save_dir, "metrics.csv")) as f:
+            return [int(r["step"]) for r in csv.DictReader(f) if r.get("train/loss")]
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    events = EventAccumulator(tb.save_dir)
+    events.Reload()
+    return [e.step for e in events.Scalars("train/loss")]
+
+
+def train_cli(dev, fit_times: dict) -> dict:
+    """Phase 11 (the comment above): (a) the checkpoint files, (b) a fresh
+    trainer's restore of ``last`` bit-equal to the run's end, (c) a second
+    run from ``ckpt_path=last`` resuming at epoch 2, (d)
+    ``validate.main(ckpt_path=best)`` equal to ``Trainer.validate`` of the
+    same restored state, (e) the launches of kernels 1, 2, bf16 3/4 (train)
+    and f32 3 (validation) and no other. Returns the launches of the two
+    runs and of the validation."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pointcloudmatters_tpu_torch import ops
+    from pointcloudmatters_tpu_torch import train as train_entry
+    from pointcloudmatters_tpu_torch import validate as validate_entry
+    from pointcloudmatters_tpu_torch.loggers import TensorBoardLogger
+    from pointcloudmatters_tpu_torch.trainer import CHECKPOINT_FILE, Trainer
+    from pointcloudmatters_tpu_torch.utils import config as C
+    from pointcloudmatters_tpu_torch.utils.utils import seed_everything
+
+    sys.modules.setdefault("chip_smoke", sys.modules[__name__])  # the targets' module
+    root = tempfile.TemporaryDirectory()
+    demos = synthetic_demos(FIT_EPISODES, FIT_EPISODE_LEN, FIT_CAM_SIDE)
+    n_train = FIT_EPISODES - FIT_HELD_OUT
+    CLI_DATA.update(train=demos[:n_train], held_out=demos[n_train:],
+                    cache=os.path.join(root.name, "cache"))
+    EndState.runs.clear()
+    micro = CLI_EPOCHS * CLI_TRAIN_BATCHES
+    n_val = FIT_HELD_OUT * 2  # held-out samples at a batch of 1, all of them a validation
+
+    # the run, and (e) its launches
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t_main = time.perf_counter()
+    train_entry.main(cli_argv(root.name, "run1"))
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = ops.launch_counts()
+    probe = EndState.runs[-1]
+    trainer, module = probe.trainer, probe.module
+    writer = next(lg.writer for lg in trainer.logger.loggers
+                  if isinstance(lg, TensorBoardLogger))
+    want = {"fps": micro + CLI_EPOCHS * n_val, "knn": micro + CLI_EPOCHS * n_val,
+            "attention_fwd_bf16": micro * ENC_LAYERS, "attention_bwd_bf16": micro * ENC_LAYERS,
+            "attention_fwd": CLI_EPOCHS * n_val * ENC_LAYERS}
+    if {k: n for k, n in launches.items() if n} != want:
+        raise AssertionError(f"train_cli: want {want} launches and no other kernel, "
+                             f"got {launches}")
+    if (trainer.global_step, module.scheduler.last_epoch) != (micro, micro // FIT_ACCUMULATE):
+        raise AssertionError(f"train_cli: {trainer.global_step} micro-steps, "
+                             f"{module.scheduler.last_epoch} optimizer steps")
+    if (type(module).__name__, type(module.policy).__name__, trainer.precision,
+            trainer.accumulate_grad_batches, module.device.type) != (
+            "BCModule", "ACTPCD", "bf16-mixed", FIT_ACCUMULATE, dev.type):
+        raise AssertionError("train_cli: not the composition it should be")
+    n_params = sum(p.numel() for p in module.policy.parameters())
+    if n_params != FLAGSHIP_PARAMS:
+        raise AssertionError(f"train_cli: {n_params} parameters, not {FLAGSHIP_PARAMS}")
+    losses = [m["train/loss"] for _, _, m in probe.epochs]
+    vals = [m["val/loss"] for _, _, m in probe.epochs]
+    if not np.isfinite(losses + vals).all():
+        raise AssertionError(f"train_cli: non-finite losses {losses} or val/loss {vals}")
+    startup = probe.t_start - t_main
+    epoch_rates = [m["samples_per_sec"] for _, _, m in probe.epochs]
+    step_ms = FIT_BATCH * FIT_ACCUMULATE * 1e3 / epoch_rates[-1]
+    log(f"cli     train.main: {n_params} parameters on {module.device}, {writer} writer; "
+        f"{micro} micro-steps over {CLI_EPOCHS} epochs in {t_end - t_main:.2f} s; train/loss "
+        f"{losses}, val/loss {vals}; launches {launches}")
+    log(f"cli     {card_line()}: {startup:.2f} s from main to the first step (composition, "
+        f"instantiation, weight draw, the device, the example batch); epoch 1 "
+        f"{epoch_rates[-1]:.2f} samples/s = {step_ms:.2f} ms per optimizer step of B="
+        f"{FIT_BATCH} x {FIT_ACCUMULATE} (epoch 0 {epoch_rates[0]:.2f} samples/s, with the "
+        f"warm-up); phase 10 on this call: {fit_times['step_ms']:.2f} ms per optimizer step "
+        f"between logged steps, its epoch {fit_times['epoch_samples_per_s']:.2f} samples/s = "
+        f"{FIT_BATCH * FIT_ACCUMULATE * 1e3 / fit_times['epoch_samples_per_s']:.2f} ms")
+
+    # (a) the files
+    ckpts = os.path.join(root.name, "run1", "checkpoints")
+    kept = sorted(os.listdir(ckpts))
+    top = [d for d in kept if d != "last"]
+    best = trainer.checkpoint_callback.best_model_path
+    if ("last" not in kept or not top or not best or not os.path.isdir(best)
+            or any(not re.fullmatch(r"epoch=\d{3}-val_mean_success=0", d) for d in top)):
+        raise AssertionError(f"train_cli: checkpoints {kept}, best {best!r}")
+    last = os.path.join(ckpts, "last")
+    size = os.path.getsize(os.path.join(last, CHECKPOINT_FILE))
+    log(f"cli     (a) checkpoints {kept}, best {os.path.basename(best)} "
+        f"(val/loss {trainer.checkpoint_callback.best_model_score:.5f}); one is "
+        f"{size / 1e6:.1f} MB")
+
+    # (b) a fresh trainer restores ``last``: bit-equal to the run's end
+    end = _run_state(trainer, module)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.save_checkpoint(os.path.join(root.name, "saved"))
+    save_s = time.perf_counter() - t0
+    shutil.rmtree(os.path.join(root.name, "saved"))
+    cfg = train_entry.compose_run(cli_argv(root.name, "fresh"))
+    other = train_entry.instantiate_model(cfg).to(dev)
+    fresh = Trainer(accelerator=trainer.accelerator, precision="bf16-mixed",
+                    accumulate_grad_batches=FIT_ACCUMULATE)
+    fresh.setup(other, trainer.estimated_stepping_batches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh.restore_checkpoint(last, other)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    got = _run_state(fresh, other)
+    differ = [k for k in end if k not in got or (
+        not torch.equal(got[k], end[k]) if isinstance(end[k], torch.Tensor) else got[k] != end[k])]
+    if differ or set(got) != set(end) or (fresh.current_epoch, fresh.global_step) != (
+            CLI_EPOCHS, micro):
+        raise AssertionError(f"train_cli: the restore of last differs in {differ[:10]}")
+    log(f"cli     (b) {card_line()}: a checkpoint of {size / 1e6:.1f} MB saved in "
+        f"{save_s:.2f} s, restored in {restore_s:.2f} s; {len(end)} tensors and values "
+        f"(parameters, running statistics, AdamW moments, the gradient mean, the "
+        f"schedule step, the {len(trainer.rngs)} generators) bit-equal to the run's end")
+    del other, fresh, got
+
+    # (c) a second run from ``last`` resumes at epoch 2
+    ops.reset_launch_counts()
+    train_entry.main(cli_argv(root.name, "run2") + [f"trainer.max_epochs={CLI_EPOCHS + 1}",
+                                                    f"ckpt_path={last}"])
+    torch.cuda.synchronize()
+    resume_launches = ops.launch_counts()
+    resumed = EndState.runs[-1]
+    logged = _logged_steps(resumed.trainer)
+    new_last = os.path.join(root.name, "run2", "checkpoints", "last")
+    if (resumed.start != (CLI_EPOCHS, micro) or [e for e, *_ in resumed.epochs] != [CLI_EPOCHS]
+            or not logged or logged[0] != micro + CLI_TRAIN_BATCHES
+            or not os.path.isfile(os.path.join(new_last, CHECKPOINT_FILE))):
+        raise AssertionError(f"train_cli: resumed at {resumed.start}, epochs "
+                             f"{resumed.epochs}, logged steps {logged}")
+    log(f"cli     (c) resumed at epoch {resumed.start[0]}, step {resumed.start[1]}; logged "
+        f"steps {logged}; a new last at {new_last}; launches {resume_launches}")
+
+    # (d) validate.main on the best checkpoint against Trainer.validate of the
+    # same restored state; the loader in the main thread, so that both take
+    # the same samples from numpy's stream
+    val_argv = cli_argv(root.name, "val") + [f"ckpt_path={best}", "data.num_workers=0"]
+    ops.reset_launch_counts()
+    metrics = validate_entry.main(val_argv)
+    torch.cuda.synchronize()
+    val_launches = ops.launch_counts()
+    cfg = train_entry.compose_run(cli_argv(root.name, "val_ref") + [f"ckpt_path={best}",
+                                                                   "data.num_workers=0"])
+    seed_everything(cfg.seed)
+    datamodule = C.instantiate(cfg.data)
+    reference = C.instantiate(cfg.trainer, callbacks=[], logger=[]).validate(
+        train_entry.instantiate_model(cfg), datamodule, ckpt_path=best)
+    gap = abs(metrics["val/loss"] - reference["val/loss"])
+    if (set(metrics) != {"val/loss", "val/loss_best"} or not np.isfinite(metrics["val/loss"])
+            or gap > 1e-6 * abs(reference["val/loss"])):
+        raise AssertionError(f"train_cli: validate.main {metrics}, Trainer.validate "
+                             f"{reference}")
+    want = {"fps": n_val, "knn": n_val, "attention_fwd": n_val * ENC_LAYERS}
+    if {k: n for k, n in val_launches.items() if n} != want:
+        raise AssertionError(f"validate_cli: want {want} launches, got {val_launches}")
+    log(f"cli     (d) validate.main(ckpt_path=best): {metrics}; Trainer.validate of the same "
+        f"restored state: {reference} (|diff| {gap:.3e}); launches {val_launches}")
+    root.cleanup()
+    CLI_DATA.clear()
+    EndState.runs.clear()
+    del trainer, module, probe, resumed
+    torch.cuda.empty_cache()
+    return {"train_cli": launches, "train_cli_resume": resume_launches,
+            "validate_cli": val_launches}
+
+
 
 
 def main() -> int:
@@ -2453,7 +2782,9 @@ def main() -> int:
     selector_paths = serve_selectors(dev)
     paths.update(selector_paths)
     with knn_impl(None):
-        paths.update(fit_flagship(dev))
+        fit_paths, fit_times = fit_flagship(dev)
+        paths.update(fit_paths)
+        paths.update(train_cli(dev, fit_times))
     stray = {path: [k for k in FLASH_KERNELS if counts[k]] for path, counts in paths.items()
              if "flash" not in path and any(counts[k] for k in FLASH_KERNELS)}
     if stray:

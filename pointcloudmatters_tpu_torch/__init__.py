@@ -6,10 +6,12 @@ hand-written CUDA kernel for Hopper (``csrc/``, built by ``_build.py`` at
 first use) with a plain PyTorch version beside it. A CPU tensor runs the
 plain version; a CUDA tensor runs the kernel or raises.
 
-Ported so far: inference (``BCModule.predict``) and the ``"32-true"``
-training step (``trainer.Trainer.train_step``) of the flagship ACT +
-PointNet policy (``entry.build_flagship``). This package imports neither jax
-nor flax, nor anything of the JAX package.
+Ported so far: the flagship ACT + PointNet policy (``entry.build_flagship``)
+served (``BCModule.predict``) and trained (``trainer.Trainer``: the step
+in f32 and bf16, ``fit``, ``validate``, checkpoints), its data pipeline,
+and the entry points ``python -m pointcloudmatters_tpu_torch.train`` and
+``.validate``, which compose the repository's ``configs/``. This package
+imports neither jax nor flax, nor anything of the JAX package.
 """
 
 import torch

@@ -72,7 +72,10 @@ class BCModule:
     ``optimizer`` and ``lr_scheduler`` are the JAX module's config dicts
     (``{"type": "AdamW", "lr": ...}``, ``{"scheduler": {"type":
     "OneCycleLR", ...}}``); ``val_metrics`` default to the mean held-out
-    loss and ``best_val_metrics`` to its minimum over validations."""
+    loss and ``best_val_metrics`` to its minimum over validations. Other
+    keyword arguments (a task config's keys, such as ``env_id``) are kept in
+    ``hparams``, and ``compile`` is accepted, as the JAX module accepts
+    them."""
 
     # the step's random streams (JAX: vae sampling + dropout); "seed" seeds
     # the oneshot attention kernel's mask from the host
@@ -83,7 +86,8 @@ class BCModule:
                  train_metrics: Optional[Metrics] = None,
                  val_metrics: Optional[Metrics] = None,
                  best_val_metrics: Optional[Metrics] = None,
-                 param_dicts: Optional[list] = None):
+                 param_dicts: Optional[list] = None, compile: bool = False,
+                 **hparams):
         if device is None:
             device = next(policy.parameters()).device
         if param_dicts:
@@ -93,6 +97,9 @@ class BCModule:
         self.policy = policy.to(self.device).eval()
         self.optimizer_cfg = dict(optimizer or {"type": "AdamW", "lr": 1e-4})
         self.lr_scheduler_cfg = lr_scheduler
+        # the config's other keys, kept as the JAX module keeps them
+        self.hparams = dict(hparams)
+        self.compile = compile
         self.train_metrics = train_metrics or Metrics(
             ["MeanMetric"] * 3, ["loss", "action_loss", "kl_loss"],
             ["train/loss", "train/action_loss", "train/kl_loss"])
@@ -103,6 +110,8 @@ class BCModule:
         self.scheduler = None
         self.gradient_clip_val: Optional[float] = None
         self.gradient_mean: Optional[GradientMean] = None
+        self.seed = 0  # seeds the step's random streams (make_rngs)
+        self._extras: dict = {}
 
     @property
     def train_metric_keys(self) -> list[str]:
@@ -206,6 +215,17 @@ class BCModule:
     def _has_real_val_data(loader) -> bool:
         ds = getattr(loader, "dataset", None)
         return not type(ds).__name__.startswith("Dummy")
+
+    def state_dict_extras(self) -> dict:
+        """What a checkpoint keeps beside the weights and the optimizer
+        (the JAX module's ``extras``)."""
+        return dict(self._extras)
+
+    def load_state_dict_extras(self, extras: dict) -> None:
+        if "normalizer" in (extras or {}):
+            raise NotImplementedError(
+                "the action/observation normalizer is not ported yet (ROADMAP.md §1 item 9)")
+        self._extras.update(extras or {})
 
     @torch.inference_mode()
     def predict(self, obs: dict) -> torch.Tensor:

@@ -60,7 +60,8 @@ class ACT(nn.Module):
                  encoder: Optional[TransformerEncoder], hidden_dim: int,
                  num_queries: int, action_dim: int = 8, qpos_dim: int = 9,
                  latent_dim: int = 32, action_loss=None, kl_weight: float = 20.0,
-                 goal_cond_dim: int = 0):
+                 goal_cond_dim: int = 0, num_cameras: int = 0, env_state_dim: int = 0,
+                 klloss=None):
         super().__init__()
         if backbone is None:
             raise NotImplementedError(
@@ -76,7 +77,11 @@ class ACT(nn.Module):
         self.latent_dim = latent_dim
         self.kl_weight = kl_weight
         self.goal_cond_dim = goal_cond_dim
-        self._klloss = KLDivergence()
+        # the configs' keys: the cameras of the image path (not ported) and
+        # the state width, which the JAX module keeps and never reads
+        self.num_cameras = num_cameras
+        self.env_state_dim = env_state_dim
+        self._klloss = klloss if callable(klloss) else KLDivergence()
         self._action_loss = build_action_loss(action_loss)
         self.input_proj_robot_state = nn.Linear(qpos_dim, D)
         self.cls_embed = nn.Parameter(torch.zeros(1, D))

@@ -1,6 +1,6 @@
 """The trainer (port of ``pointcloudmatters_tpu/trainer.py``): the training
 step, the epoch loop ``fit`` with gradient accumulation and held-out
-validation, and ``validate``, on one device.
+validation, ``validate``, and checkpoints, on one device.
 
 Precisions as the JAX trainer has them: ``"32-true"`` (or ``"32"``), and the
 mixed ones (``"bf16-mixed"``, ``"16-mixed"``, ``"bf16"``, ``"16"``, all
@@ -26,14 +26,23 @@ copies each batch to the card from page-locked memory without blocking.
 ``log_every_n_steps`` micro-steps, every step under ``detect_anomaly``, and
 at the end of an epoch. ``accelerator="cpu"`` trains on the CPU; ``"auto"``,
 ``"gpu"``, ``"cuda"`` and ``"tpu"`` (the shipped configs' word) on the card,
-and raise without one. Several devices (DDP), checkpoints, the profiler and
-the callbacks themselves come with later slices; ``fit`` calls the hooks of
-whatever callbacks it is given.
+and raise without one. ``fit`` calls the hooks of its callbacks
+(``pointcloudmatters_tpu_torch/callbacks.py``), the first of which with a
+``best_model_path`` is ``checkpoint_callback``.
+
+A checkpoint is a directory at the path the JAX trainer's Orbax checkpoint
+would take, holding one ``torch.save`` file (:data:`CHECKPOINT_FILE`) of the
+JAX checkpoint's keys: ``params`` (the f32 masters), ``batch_stats`` (the
+running statistics), ``step`` and ``epoch``; unless ``weights_only``,
+``opt_state`` (the optimizer's, the schedule's and the gradient mean's
+state) and ``rng`` (the state of each of the step's generators); and
+``extras`` when the module has any. ``fit(ckpt_path=)`` restores after the
+optimizer is built and ``validate(ckpt_path=)`` before validating, as in
+JAX. Several devices (DDP) and the profiler come with later slices.
 """
 
 from __future__ import annotations
 
-import logging
 import math
 import os
 import time
@@ -45,10 +54,13 @@ import torch
 from pointcloudmatters_tpu_torch.models.bc_module import BCModule, select_model_batch, to_device
 from pointcloudmatters_tpu_torch.utils.loggers import as_multi_logger
 from pointcloudmatters_tpu_torch.utils.optimizer import clip_by_global_norm, global_norm
+from pointcloudmatters_tpu_torch.utils.pylogger import RankedLogger
 
-__all__ = ["Trainer"]
+__all__ = ["Trainer", "CHECKPOINT_FILE", "write_checkpoint", "read_checkpoint"]
 
-log = logging.getLogger(__name__)
+CHECKPOINT_FILE = "checkpoint.pt"
+
+log = RankedLogger(__name__, rank_zero_only=True)
 
 _MIXED = ("bf16-mixed", "16-mixed", "bf16", "16")
 _ON_CARD = ("auto", "gpu", "cuda", "tpu")
@@ -79,6 +91,22 @@ def _batch_size_of(batch) -> int:
     return int(shape[0]) if len(shape) >= 1 else 0
 
 
+def write_checkpoint(path: str, item: dict) -> None:
+    """Write a checkpoint dict into the directory ``path`` (made if absent;
+    a checkpoint already there is replaced whole)."""
+    os.makedirs(path, exist_ok=True)
+    file = os.path.join(path, CHECKPOINT_FILE)
+    torch.save(item, file + ".tmp")
+    os.replace(file + ".tmp", file)
+
+
+def read_checkpoint(path: str) -> dict:
+    """The checkpoint dict in the directory ``path``, its tensors on the
+    CPU."""
+    return torch.load(os.path.join(path, CHECKPOINT_FILE), map_location="cpu",
+                      weights_only=True)
+
+
 def _not_ported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md §1 item {item})")
 
@@ -87,8 +115,8 @@ class Trainer:
     """Trains and validates a ``BCModule``; takes the JAX trainer's keys
     (``configs/trainer/*.yaml``), of which ``strategy``, ``sync_batchnorm``,
     ``deterministic`` and ``overfit_batches`` are accepted and, as there,
-    unused. ``seed`` seeds the module's random streams
-    (``BCModule.make_rngs``)."""
+    unused. ``seed``, when given, becomes the module's ``seed``, which seeds
+    its random streams (``BCModule.make_rngs``)."""
 
     def __init__(
         self,
@@ -115,7 +143,7 @@ class Trainer:
         profiler: Optional[str] = None,
         fast_dev_run: bool = False,
         overfit_batches: float = 0.0,
-        seed: int = 0,
+        seed: Optional[int] = None,
         **_ignored,
     ):
         precision = str(precision)
@@ -162,8 +190,11 @@ class Trainer:
         self.current_epoch = 0
         self.should_stop = False
         self.estimated_stepping_batches: Optional[int] = None
+        self.checkpoint_callback = next(
+            (cb for cb in self.callbacks if hasattr(cb, "best_model_path")), None)
         self._schedule = None
         self._fit_first_step = 0
+        self._module: Optional[BCModule] = None
         self.datamodule = None
 
     # ------------------------------------------------------------------
@@ -184,10 +215,14 @@ class Trainer:
     def setup(self, module: BCModule, total_steps: int) -> None:
         """Optimizer, schedule and gradient accumulation over
         ``total_steps`` optimizer steps, and the step's random streams (the
-        JAX ``setup_module`` + ``initial_state``)."""
+        JAX ``setup_module`` + ``initial_state``); ``module`` becomes the one
+        this trainer checkpoints."""
+        self._module = module
         module.configure_optimizers(total_steps, self.gradient_clip_val,
                                     self.accumulate_grad_batches)
-        self.rngs = module.make_rngs(self.seed)
+        if self.seed is not None:
+            module.seed = self.seed
+        self.rngs = module.make_rngs(module.seed)
 
     def train_step(self, module: BCModule, batch: dict) -> dict[str, torch.Tensor]:
         """One micro-step on ``batch`` (an optimizer step when gradients are
@@ -231,6 +266,72 @@ class Trainer:
         return [self.train_step(module, batches[i % len(batches)]) for i in range(n)]
 
     # ------------------------------------------------------------------
+    # checkpoints
+    # ------------------------------------------------------------------
+    def save_checkpoint(self, path: str, weights_only: bool = False) -> None:
+        """Save the module's state into the directory ``path`` (module doc);
+        ``weights_only`` leaves out ``opt_state`` and ``rng``."""
+        module = self._module
+        params = dict(module.policy.named_parameters())
+        state = module.policy.state_dict()
+        item = {
+            "params": {k: v.detach() for k, v in params.items()},
+            "batch_stats": {k: v for k, v in state.items() if k not in params},
+            "step": self.global_step - self._fit_first_step,
+            "epoch": self.current_epoch,
+        }
+        if not weights_only:
+            mean = module.gradient_mean
+            item["opt_state"] = {
+                "optimizer": module.optimizer.state_dict(),
+                "scheduler": None if module.scheduler is None else module.scheduler.state_dict(),
+                "gradient_mean": None if mean is None else mean.state_dict(),
+            }
+            item["rng"] = {k: g.get_state() for k, g in self.rngs.items()}
+        extras = module.state_dict_extras()
+        if extras:
+            item["extras"] = extras
+        write_checkpoint(os.path.abspath(path), item)
+
+    def restore_checkpoint(self, path: str, module: Optional[BCModule] = None) -> dict:
+        """Load the checkpoint in ``path`` into ``module`` (by default the
+        one ``fit`` or ``validate`` holds) and this trainer; set
+        ``current_epoch`` to the saved epoch + 1 and ``global_step`` to the
+        saved step. A module without an optimizer gets one first (a 1-step
+        schedule, as the JAX module's ``initial_state`` builds). Returns the
+        checkpoint dict."""
+        module = self._module = module or self._module
+        path = os.path.abspath(path)
+        ckpt = read_checkpoint(path)
+        module.policy.load_state_dict({**ckpt["params"], **ckpt["batch_stats"]}, strict=True)
+        if module.optimizer is None or self.rngs is None:
+            self.setup(module, self.estimated_stepping_batches or 1)
+        if "opt_state" in ckpt:
+            opt_state = ckpt["opt_state"]
+            module.optimizer.load_state_dict(opt_state["optimizer"])
+            if (opt_state["scheduler"] is None) != (module.scheduler is None):
+                raise ValueError("the checkpoint and the module disagree on a learning-rate "
+                                 "schedule")
+            if module.scheduler is not None:
+                module.scheduler.load_state_dict(opt_state["scheduler"])
+            mean = module.gradient_mean
+            if (opt_state["gradient_mean"] is None) != (mean is None):
+                raise ValueError("the checkpoint and the trainer disagree on gradient "
+                                 "accumulation (accumulate_grad_batches)")
+            if mean is not None:
+                mean.load_state_dict(opt_state["gradient_mean"], module.device)
+        if "rng" in ckpt:
+            for name, state in ckpt["rng"].items():
+                self.rngs[name].set_state(state)
+        self.current_epoch = int(ckpt["epoch"]) + 1
+        self.global_step = int(ckpt["step"])
+        self._fit_first_step = 0
+        if "extras" in ckpt:
+            module.load_state_dict_extras(ckpt["extras"])
+        log.info(f"Restored checkpoint from {path} (epoch {self.current_epoch})")
+        return ckpt
+
+    # ------------------------------------------------------------------
     # logging
     # ------------------------------------------------------------------
     def log_metrics(self, metrics: dict) -> None:
@@ -250,12 +351,11 @@ class Trainer:
     # ------------------------------------------------------------------
     # fit and validate
     # ------------------------------------------------------------------
-    def _start(self, model: BCModule, datamodule, loader, ckpt_path) -> None:
+    def _start(self, model: BCModule, datamodule, loader) -> None:
         """What ``fit`` and ``validate`` do before their loops: the device,
         and the JAX trainer's example batch."""
-        if ckpt_path:
-            raise _not_ported("restoring a checkpoint", 4)
         model.to(self.select_device())
+        self._module = model
         self.datamodule = datamodule
         # The JAX trainer draws one batch here to initialise the parameters.
         # The port's policy is built already, but the draw stays: it starts
@@ -281,9 +381,11 @@ class Trainer:
         n_train = _limit(len(train_loader), self.limit_train_batches)
         opt_steps_per_epoch = max(1, n_train // self.accumulate_grad_batches)
         self.estimated_stepping_batches = opt_steps_per_epoch * self.max_epochs
-        self._start(model, datamodule, train_loader, ckpt_path)
+        self._start(model, datamodule, train_loader)
         self._schedule, self._fit_first_step = model.scheduler, self.global_step
         self.setup(model, self.estimated_stepping_batches)
+        if ckpt_path:
+            self.restore_checkpoint(ckpt_path)
 
         for cb in self.callbacks:
             cb.setup(self, model)
@@ -367,8 +469,9 @@ class Trainer:
 
     def validate(self, model: BCModule, datamodule=None,
                  ckpt_path: Optional[str] = None) -> dict:
-        """Held-out validation of ``model`` as it is (the JAX trainer's
-        ``validate``); the metrics, logged."""
+        """Held-out validation of ``model`` as it is, or as the checkpoint
+        ``ckpt_path`` holds it (the JAX trainer's ``validate``); the
+        metrics, logged."""
         if hasattr(datamodule, "setup"):
             datamodule.setup("validate")
         loader = None
@@ -385,7 +488,9 @@ class Trainer:
                 break
         if loader is None:
             raise RuntimeError("validate() needs at least one dataloader (train, val, or test)")
-        self._start(model, datamodule, loader, ckpt_path)
+        self._start(model, datamodule, loader)
+        if ckpt_path:
+            self.restore_checkpoint(ckpt_path)
         metrics = model.run_validation(self, datamodule)
         self.log_metrics(metrics)
         self.logger.finalize()

@@ -1,0 +1,697 @@
+"""Hydra-compatible configuration engine (the port's own copy of
+``pointcloudmatters_tpu/utils/config.py``).
+
+It composes the repository's ``configs/`` tree as the JAX package does, with
+one change: ``_locate`` maps a ``_target_`` under ``pointcloudmatters_tpu.``
+to the same path under ``pointcloudmatters_tpu_torch.``, so that the shipped
+configs build the port's classes (see :func:`_locate`).
+
+A small, dependency-free re-implementation of the subset of Hydra 1.3 +
+OmegaConf semantics that the reference framework's 149-file config tree uses
+(see reference `configs/train.yaml`, `src/train.py:116`):
+
+- ``defaults:`` lists with group selection, ``_self_`` splicing (implicitly
+  appended last when absent), ``optional`` entries, ``override /group:``
+  directives, and ``group@package`` annotations.
+- ``# @package _global_`` overlay headers.
+- CLI overrides: ``group=option``, ``a/b@pkg=option``, ``key.path=value``,
+  ``+new.key=value``, ``++force.key=value``, ``~key`` deletion.
+- Interpolations ``${a.b}``, ``${eval:'...'}``, ``${now:%fmt}``,
+  ``${oc.env:VAR,default}``, ``${hydra:runtime.output_dir}``.
+- ``instantiate()`` for ``_target_`` nodes with ``_partial_`` / ``_recursive_``
+  / ``_args_`` semantics.
+
+No code is shared with Hydra; behavior is matched only as far as the
+reference's config tree exercises it.
+"""
+
+from __future__ import annotations
+
+import copy
+import datetime
+import importlib
+import functools
+import os
+import re
+from dataclasses import dataclass, field
+from typing import Any, Callable
+
+import yaml
+
+__all__ = [
+    "DotDict",
+    "MissingMandatoryValue",
+    "compose",
+    "instantiate",
+    "set_runtime",
+    "get_runtime",
+    "to_container",
+    "select",
+    "merge_into",
+]
+
+
+class MissingMandatoryValue(Exception):
+    pass
+
+
+class DotDict(dict):
+    """dict with attribute access, recursive wrapping, and '???' missing markers."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        for k, v in list(self.items()):
+            super().__setitem__(k, _wrap(v))
+
+    def __getattr__(self, name: str) -> Any:
+        try:
+            return self[name]
+        except KeyError as e:
+            raise AttributeError(name) from e
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        self[name] = value
+
+    def __delattr__(self, name: str) -> None:
+        try:
+            del self[name]
+        except KeyError as e:
+            raise AttributeError(name) from e
+
+    def __setitem__(self, key, value):
+        super().__setitem__(key, _wrap(value))
+
+    def __getitem__(self, key):
+        value = super().__getitem__(key)
+        if isinstance(value, str) and value == "???":
+            raise MissingMandatoryValue(f"Missing mandatory value: {key}")
+        return value
+
+    def get(self, key, default=None):
+        try:
+            return self[key]
+        except (KeyError, MissingMandatoryValue):
+            return default
+
+    def __deepcopy__(self, memo):
+        return DotDict({k: copy.deepcopy(v, memo) for k, v in self.items()})
+
+    def copy(self):
+        return copy.deepcopy(self)
+
+
+def _wrap(value: Any) -> Any:
+    if isinstance(value, DotDict):
+        return value
+    if isinstance(value, dict):
+        return DotDict(value)
+    if isinstance(value, (list, tuple)):
+        return [_wrap(v) for v in value]
+    return value
+
+
+def to_container(cfg: Any) -> Any:
+    """Convert nested DotDicts back to plain python containers."""
+    if isinstance(cfg, dict):
+        return {k: to_container(v) for k, v in dict.items(cfg)}
+    if isinstance(cfg, (list, tuple)):
+        return [to_container(v) for v in cfg]
+    return cfg
+
+
+def select(cfg: Any, path: str, default: Any = None) -> Any:
+    """Look up a dotted path in a nested config; returns default when absent."""
+    node = cfg
+    for part in path.split("."):
+        if isinstance(node, dict):
+            if part not in node:
+                return default
+            node = dict.__getitem__(node, part)
+        elif isinstance(node, (list, tuple)):
+            try:
+                node = node[int(part)]
+            except (ValueError, IndexError):
+                return default
+        else:
+            return default
+    return node
+
+
+def _set_path(cfg: dict, path: str, value: Any, *, force_add: bool = False) -> None:
+    parts = path.split(".")
+    node = cfg
+    for part in parts[:-1]:
+        nxt = dict.get(node, part) if isinstance(node, dict) else None
+        if not isinstance(nxt, dict):
+            if not force_add and not (isinstance(node, dict) and part in node):
+                # hydra requires '+' to add brand new keys; we are lenient on
+                # intermediate nodes only when force_add is set.
+                pass
+            nxt = DotDict()
+            node[part] = nxt
+        node = nxt
+    node[parts[-1]] = value
+
+
+def _del_path(cfg: dict, path: str) -> None:
+    parts = path.split(".")
+    node = cfg
+    for part in parts[:-1]:
+        node = dict.get(node, part)
+        if not isinstance(node, dict):
+            return
+    dict.pop(node, parts[-1], None)
+
+
+def merge_into(dst: dict, src: dict) -> dict:
+    """Recursive dict merge; ``src`` wins. Lists are replaced, not merged.
+
+    When ``src`` retargets a node (different ``_target_``), the node is
+    *replaced* instead of merged: stale keys from the old target would
+    otherwise leak into the new constructor. (Hydra merges and relies on
+    ``**kwargs``-tolerant constructors; replacement is the cleaner contract
+    and what every retargeting overlay in the reference tree intends.)
+    """
+    for key, value in dict.items(src):
+        dst_value = dict.get(dst, key)
+        if isinstance(value, dict) and isinstance(dst_value, dict):
+            src_target = dict.get(value, "_target_")
+            dst_target = dict.get(dst_value, "_target_")
+            if (src_target is not None and dst_target is not None
+                    and src_target != dst_target):
+                dst[key] = copy.deepcopy(value)
+            else:
+                merge_into(dst_value, value)
+        else:
+            dst[key] = copy.deepcopy(value)
+    return dst
+
+
+# ---------------------------------------------------------------------------
+# Runtime context (the hydra: resolver)
+# ---------------------------------------------------------------------------
+
+_RUNTIME: dict = {"runtime": {"output_dir": None, "cwd": os.getcwd()}}
+
+
+def set_runtime(**kwargs) -> None:
+    _RUNTIME["runtime"].update(kwargs)
+
+
+def get_runtime() -> dict:
+    return _RUNTIME["runtime"]
+
+
+# ---------------------------------------------------------------------------
+# Defaults-list expansion
+# ---------------------------------------------------------------------------
+
+_PACKAGE_RE = re.compile(r"^\s*#\s*@package\s+(\S+)\s*$", re.MULTILINE)
+
+
+@dataclass
+class _SelfItem:
+    content: dict
+    package: str  # "" = root
+
+
+@dataclass
+class _GroupItem:
+    group: str  # absolute group path, '/'-separated
+    option: Any  # declared option (str | None)
+    package: str | None  # explicit @package annotation
+    optional: bool
+
+
+def _load_yaml(path: str) -> tuple[dict, str | None]:
+    """Load a YAML config file. Returns (content, package_header)."""
+    with open(path) as f:
+        text = f.read()
+    m = _PACKAGE_RE.search(text)
+    package = m.group(1) if m else None
+    data = yaml.safe_load(text)
+    if data is None:
+        data = {}
+    if not isinstance(data, dict):
+        raise ValueError(f"Config file {path} must contain a mapping")
+    return data, package
+
+
+def _parse_defaults_entry(entry: Any, current_group: str):
+    """Parse one defaults-list entry into normalized pieces.
+
+    Returns (kind, group_abs, option, package, optional) where kind is one of
+    'self' | 'group' | 'override'.
+    """
+    if entry == "_self_":
+        return ("self", None, None, None, False)
+    if isinstance(entry, str):
+        # bare config name: a file in the same group directory, loaded
+        # unconditionally (e.g. `- default` inside trainer/ddp.yaml)
+        return ("file", current_group, entry, None, False)
+    if not isinstance(entry, dict) or len(entry) != 1:
+        raise ValueError(f"Malformed defaults entry: {entry!r}")
+    key, option = next(iter(entry.items()))
+    key = key.strip()
+    optional = False
+    is_override = False
+    while True:
+        if key.startswith("optional "):
+            optional = True
+            key = key[len("optional "):].strip()
+            continue
+        if key.startswith("override "):
+            is_override = True
+            key = key[len("override "):].strip()
+            continue
+        break
+    package = None
+    if "@" in key:
+        key, package = key.split("@", 1)
+    if key.startswith("/"):
+        group_abs = key[1:]
+    else:
+        group_abs = _join_group(current_group, key)
+    return ("override" if is_override else "group", group_abs, option, package, optional)
+
+
+def _join_group(parent: str, child: str) -> str:
+    return f"{parent}/{child}" if parent else child
+
+
+def _default_package(group: str, explicit: str | None, header: str | None) -> str:
+    """Resolve where a config's content merges."""
+    if header is not None:
+        if header == "_global_":
+            return ""
+        return header.replace("/", ".")
+    if explicit is not None:
+        if explicit in ("_global_", ""):
+            return ""
+        return explicit.replace("/", ".")
+    return group.replace("/", ".")
+
+
+class _Composer:
+    def __init__(self, config_dir: str, choices: dict[str, str | None]):
+        self.config_dir = config_dir
+        self.choices = dict(choices)  # group path -> option
+        self.override_directives: dict[str, Any] = {}
+
+    def _config_path(self, group: str, name: str) -> str:
+        rel = os.path.join(group, name) if group else name
+        if not rel.endswith((".yaml", ".yml")):
+            rel += ".yaml"
+        return os.path.join(self.config_dir, rel)
+
+    def expand(self, group: str, name: str, package: str, _stack=()) -> list[_SelfItem]:
+        """Depth-first expansion of a config + its defaults into SelfItems."""
+        key = (group, name)
+        if key in _stack:
+            raise ValueError(f"Circular defaults: {_stack} -> {key}")
+        path = self._config_path(group, name)
+        content, header = _load_yaml(path)
+        pkg = _default_package(group, None, header) if header is not None else package
+        defaults = content.pop("defaults", None)
+        if defaults is None:
+            return [_SelfItem(content, pkg)]
+        entries = [
+            _parse_defaults_entry(e, current_group=group) for e in defaults
+        ]
+        if not any(k == "self" for k, *_ in entries):
+            entries.append(("self", None, None, None, False))
+        items: list[_SelfItem] = []
+        for kind, grp, option, epkg, optional in entries:
+            if kind == "self":
+                items.append(_SelfItem(content, pkg))
+                continue
+            if kind == "override":
+                self.override_directives[grp] = option
+                continue
+            if kind == "file":
+                sub_pkg = _default_package(grp, epkg, None)
+                items.extend(
+                    self.expand(grp, str(option), sub_pkg, _stack=_stack + (key,))
+                )
+                continue
+            # group entry: resolve the choice lazily at merge time; here we
+            # record a placeholder by expanding later. To keep ordering simple
+            # we expand immediately with the best-known choice; compose() runs
+            # expansion twice so that late `override /group:` directives and
+            # CLI choices land on the first-pass positions.
+            choice = self.choices.get(grp, self.override_directives.get(grp, option))
+            if choice is None:
+                continue
+            sub_pkg = _default_package(grp, epkg, None)
+            sub_path = self._config_path(grp, str(choice))
+            if not os.path.exists(sub_path):
+                if optional:
+                    continue
+                raise FileNotFoundError(
+                    f"Config group '{grp}' has no option '{choice}' ({sub_path})"
+                )
+            items.extend(
+                self.expand(grp, str(choice), sub_pkg, _stack=_stack + (key,))
+            )
+        return items
+
+
+def _parse_cli_value(text: str) -> Any:
+    try:
+        return yaml.safe_load(text)
+    except yaml.YAMLError:
+        return text
+
+
+def _split_sweep_values(text: str) -> list[str]:
+    """Split a CLI override value on top-level commas (Hydra's choice-sweep
+    grammar). Commas inside ``[] {} ()`` or quotes do NOT split — ``k=[1,2]``
+    is one list value, ``k=1,2`` is a two-way sweep."""
+    parts: list[str] = []
+    depth = 0
+    quote: str | None = None
+    cur: list[str] = []
+    for ch in text:
+        if quote is not None:
+            cur.append(ch)
+            if ch == quote:
+                quote = None
+            continue
+        if ch in "\"'":
+            quote = ch
+            cur.append(ch)
+        elif ch in "[{(":
+            depth += 1
+            cur.append(ch)
+        elif ch in ")}]":
+            depth -= 1
+            cur.append(ch)
+        elif ch == "," and depth == 0:
+            parts.append("".join(cur))
+            cur = []
+        else:
+            cur.append(ch)
+    parts.append("".join(cur))
+    return parts
+
+
+def expand_multirun(overrides: list[str]) -> list[list[str]]:
+    """Expand Hydra ``-m`` choice sweeps into the cartesian product of
+    override lists (one list per job), preserving override order."""
+    import itertools
+
+    axes: list[list[str]] = []
+    for ov in overrides:
+        if ov.startswith("~") or "=" not in ov:
+            axes.append([ov])
+            continue
+        key, value = ov.split("=", 1)
+        values = _split_sweep_values(value)
+        axes.append([f"{key}={v}" for v in values])
+    return [list(combo) for combo in itertools.product(*axes)]
+
+
+def compose(
+    config_dir: str,
+    config_name: str,
+    overrides: list[str] | None = None,
+    resolve: bool = False,
+) -> DotDict:
+    """Compose a config the way ``hydra.main`` would (reference `src/train.py:116`)."""
+    overrides = list(overrides or [])
+    choices: dict[str, str | None] = {}
+    value_sets: list[tuple[str, Any, bool]] = []  # (path, value, force_add)
+    deletes: list[str] = []
+    for ov in overrides:
+        if ov.startswith("~"):
+            deletes.append(ov[1:].split("=", 1)[0])
+            continue
+        force = False
+        body = ov
+        if body.startswith("++"):
+            body, force = body[2:], True
+        elif body.startswith("+"):
+            body, force = body[1:], True
+        if "=" not in body:
+            raise ValueError(f"Malformed override (expected key=value): {ov}")
+        key, value = body.split("=", 1)
+        group_key = key.split("@", 1)[0]
+        if os.path.isdir(os.path.join(config_dir, group_key)) and "." not in group_key:
+            choices[group_key] = None if value in ("null", "~", "") else value
+        else:
+            value_sets.append((key, _parse_cli_value(value), force))
+
+    # two-pass expansion so `override /group:` directives inside overlays
+    # retarget group choices declared earlier in the root defaults list.
+    composer = _Composer(config_dir, choices)
+    composer.expand("", config_name, "")
+    directives = dict(composer.override_directives)
+    composer2 = _Composer(config_dir, choices)
+    composer2.override_directives = directives
+    items = composer2.expand("", config_name, "")
+
+    merged: DotDict = DotDict()
+    for item in items:
+        node: dict = DotDict()
+        if item.package:
+            _set_path(node, item.package, copy.deepcopy(item.content))
+        else:
+            node = _wrap(copy.deepcopy(item.content))
+        merge_into(merged, node)
+
+    for key, value, force in value_sets:
+        _set_path(merged, key, value, force_add=force)
+    for key in deletes:
+        _del_path(merged, key)
+
+    if resolve:
+        resolve_config(merged)
+    return merged
+
+
+# ---------------------------------------------------------------------------
+# Interpolation
+# ---------------------------------------------------------------------------
+
+_EVAL_GLOBALS = {"__builtins__": {}}
+_EVAL_LOCALS = {
+    "int": int, "float": float, "str": str, "bool": bool, "len": len,
+    "min": min, "max": max, "abs": abs, "round": round, "sum": sum,
+}
+
+
+def _resolver_eval(arg: str) -> Any:
+    return eval(arg, _EVAL_GLOBALS, dict(_EVAL_LOCALS))  # noqa: S307
+
+
+def _resolver_now(fmt: str) -> str:
+    return datetime.datetime.now().strftime(fmt)
+
+
+def _resolver_env(arg: str) -> str:
+    parts = arg.split(",", 1)
+    var = parts[0].strip()
+    if var in os.environ:
+        return os.environ[var]
+    if len(parts) == 2:
+        return parts[1].strip()
+    raise KeyError(f"Environment variable '{var}' not set and no default given")
+
+
+def _resolver_hydra(arg: str) -> Any:
+    value = select({"runtime": _RUNTIME["runtime"]}, arg)
+    if value is None:
+        raise KeyError(f"hydra runtime key '{arg}' not set; call set_runtime()")
+    return value
+
+
+_RESOLVERS: dict[str, Callable[[str], Any]] = {
+    "eval": _resolver_eval,
+    "now": _resolver_now,
+    "oc.env": _resolver_env,
+    "hydra": _resolver_hydra,
+}
+
+
+def register_resolver(name: str, fn: Callable[[str], Any]) -> None:
+    _RESOLVERS[name] = fn
+
+
+def _find_interp(s: str) -> tuple[int, int] | None:
+    """Find the first ${...} span (handling nesting); returns (start, end)."""
+    start = s.find("${")
+    if start < 0:
+        return None
+    depth = 0
+    i = start
+    while i < len(s):
+        if s.startswith("${", i):
+            depth += 1
+            i += 2
+            continue
+        if s[i] == "}":
+            depth -= 1
+            if depth == 0:
+                return (start, i + 1)
+        i += 1
+    raise ValueError(f"Unbalanced interpolation in: {s!r}")
+
+
+class _Resolver:
+    def __init__(self, root: dict):
+        self.root = root
+        self.active: set[str] = set()
+
+    def resolve_str(self, s: str) -> Any:
+        span = _find_interp(s)
+        if span is None:
+            return s
+        start, end = span
+        inner = s[start + 2 : end - 1]
+        value = self._resolve_expr(inner)
+        if start == 0 and end == len(s):
+            return value
+        rest = self.resolve_str(s[end:])
+        return f"{s[:start]}{'' if value is None else value}{rest}"
+
+    def _resolve_expr(self, expr: str) -> Any:
+        # nested interpolations inside the expression resolve first
+        while True:
+            span = _find_interp(expr)
+            if span is None:
+                break
+            start, end = span
+            inner_val = self._resolve_expr(expr[start + 2 : end - 1])
+            expr = f"{expr[:start]}{inner_val!r}{expr[end:]}" if _needs_repr(
+                expr, start
+            ) else f"{expr[:start]}{inner_val}{expr[end:]}"
+        for name, fn in _RESOLVERS.items():
+            if expr.startswith(name + ":"):
+                arg = expr[len(name) + 1 :]
+                if name == "eval":
+                    # strip matching outer quotes by hand: spliced nested
+                    # interpolations may repr() to strings containing quotes,
+                    # which YAML would refuse to parse
+                    s = arg.strip()
+                    if len(s) >= 2 and s[0] == s[-1] and s[0] in "'\"":
+                        arg = s[1:-1]
+                return fn(arg)
+        # config-path interpolation
+        path = expr.strip()
+        if path in self.active:
+            raise ValueError(f"Interpolation cycle at '{path}'")
+        self.active.add(path)
+        try:
+            node = select(self.root, path, default=_MISSING_SENTINEL)
+            if node is _MISSING_SENTINEL:
+                raise KeyError(f"Interpolation key not found: '{path}'")
+            return self.resolve_node(node, write_back=path)
+        finally:
+            self.active.discard(path)
+
+    def resolve_node(self, node: Any, write_back: str | None = None) -> Any:
+        if isinstance(node, str):
+            value = self.resolve_str(node)
+            if write_back is not None and value is not node:
+                _set_path(self.root, write_back, value)
+            return value
+        if isinstance(node, dict):
+            for k in list(dict.keys(node)):
+                v = dict.__getitem__(node, k)
+                rv = self.resolve_node(v)
+                if rv is not v:
+                    node[k] = rv
+            return node
+        if isinstance(node, list):
+            for i, v in enumerate(node):
+                rv = self.resolve_node(v)
+                if rv is not v:
+                    node[i] = rv
+            return node
+        return node
+
+
+_MISSING_SENTINEL = object()
+
+
+def _needs_repr(expr: str, pos: int) -> bool:
+    """Inside eval:'...' we splice values via repr for strings."""
+    return expr.startswith("eval:")
+
+
+def resolve_config(cfg: dict) -> dict:
+    """Resolve all interpolations in-place."""
+    _Resolver(cfg).resolve_node(cfg)
+    return cfg
+
+
+# ---------------------------------------------------------------------------
+# Instantiation
+# ---------------------------------------------------------------------------
+
+_JAX_PACKAGE = "pointcloudmatters_tpu."
+_PORT_PACKAGE = "pointcloudmatters_tpu_torch."
+
+
+def _locate(target: str) -> Any:
+    """The object a ``_target_`` names. A target under the JAX package
+    resolves to the same path under the port; where the port has no such
+    module or attribute, ``NotImplementedError`` names the JAX target. An
+    ``ImportError`` raised inside a module that exists propagates as itself
+    (a missing package is not a missing target)."""
+    ported = target.startswith(_JAX_PACKAGE)
+    if ported:
+        target = _PORT_PACKAGE + target[len(_JAX_PACKAGE):]
+    parts = target.split(".")
+    for split in range(len(parts) - 1, 0, -1):
+        module_name = ".".join(parts[:split])
+        try:
+            module = importlib.import_module(module_name)
+        except ModuleNotFoundError as e:
+            # only the module looked for (or a package above it) being
+            # absent moves the search up a level
+            if e.name is None or not (module_name == e.name
+                                      or module_name.startswith(e.name + ".")):
+                raise
+            continue
+        obj = module
+        try:
+            for attr in parts[split:]:
+                obj = getattr(obj, attr)
+        except AttributeError:
+            continue
+        return obj
+    if ported:
+        raise NotImplementedError(
+            f"{_JAX_PACKAGE}{target[len(_PORT_PACKAGE):]} is not ported yet "
+            f"(ROADMAP.md §1 lists what the port lacks)")
+    raise ImportError(f"Cannot locate target: {target}")
+
+
+def instantiate(cfg: Any, *args, _convert_: bool = True, **kwargs) -> Any:
+    """Hydra-style recursive instantiation of ``_target_`` nodes."""
+    if cfg is None:
+        return None
+    if isinstance(cfg, (list, tuple)):
+        return [instantiate(v) for v in cfg]
+    if not isinstance(cfg, dict):
+        return cfg
+    if "_target_" not in cfg:
+        return DotDict({k: instantiate(v) for k, v in dict.items(cfg)})
+    cfg = dict(cfg)
+    target = cfg.pop("_target_")
+    partial = bool(cfg.pop("_partial_", False))
+    recursive = bool(cfg.pop("_recursive_", True))
+    pos_args = list(cfg.pop("_args_", [])) + list(args)
+    call_kwargs = {}
+    for k, v in cfg.items():
+        if recursive:
+            v = instantiate(v)
+        elif isinstance(v, dict):
+            v = DotDict(v)
+        call_kwargs[k] = v
+    call_kwargs.update(kwargs)
+    fn = _locate(target) if isinstance(target, str) else target
+    if partial:
+        return functools.partial(fn, *pos_args, **call_kwargs)
+    return fn(*pos_args, **call_kwargs)

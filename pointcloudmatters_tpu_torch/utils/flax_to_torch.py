@@ -18,17 +18,24 @@ Input is the flax ``variables`` of a JAX model, ``{"params": ...,
 
 Anything else is an error, and so is a key or shape the target state dict
 does not have or lacks.
+
+:func:`jax_checkpoint_to_torch` carries a whole JAX checkpoint (the tree
+``Trainer.restore_checkpoint`` of the JAX package reads back) into the port's
+checkpoint dict: weights, batch statistics, the AdamW moments and count, the
+schedule's count, ``optax.MultiSteps``' mean and mini-step, step and epoch.
 """
 
 from __future__ import annotations
 
+import copy
 import re
 from collections.abc import Mapping
+from typing import Any
 
 import numpy as np
 import torch
 
-__all__ = ["flax_to_torch"]
+__all__ = ["flax_to_torch", "jax_checkpoint_to_torch"]
 
 _EMBEDDINGS = ("cls_embed", "query_embed", "additional_pos_embed")
 _QKV = ("query", "key", "value")
@@ -96,3 +103,95 @@ def flax_to_torch(variables: Mapping, target: Mapping[str, torch.Tensor]
     if bad:
         raise ValueError("shape mismatch: " + "; ".join(bad))
     return {k: torch.from_numpy(np.array(v, order="C")) for k, v in out.items()}
+
+
+def _plain(tree: Any) -> Any:
+    """Named tuples -> dicts, tuples -> lists, arrays -> numpy: the form an
+    Orbax checkpoint restored without a template has."""
+    if hasattr(tree, "_asdict"):
+        tree = tree._asdict()
+    if isinstance(tree, Mapping):
+        return {k: _plain(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_plain(v) for v in tree]
+    return tree if tree is None or isinstance(tree, (int, float)) else np.asarray(tree)
+
+
+def _nodes(tree: Any, keys: set) -> list[dict]:
+    """Every dict of ``tree`` whose keys are exactly ``keys``, in order."""
+    if isinstance(tree, dict):
+        if set(tree) == keys:
+            return [tree]
+        return [n for v in tree.values() for n in _nodes(v, keys)]
+    if isinstance(tree, list):
+        return [n for v in tree for n in _nodes(v, keys)]
+    return []
+
+
+def _one(tree: Any, keys: set, what: str) -> dict | None:
+    found = _nodes(tree, keys)
+    if len(found) > 1:
+        raise ValueError(f"the JAX optimizer state holds {len(found)} {what} states")
+    return found[0] if found else None
+
+
+def jax_checkpoint_to_torch(restored: Mapping, module) -> dict:
+    """The port's checkpoint dict (``trainer.py``) of a JAX checkpoint.
+
+    ``restored`` is the JAX checkpoint's tree (``params``, ``batch_stats``,
+    ``step``, ``epoch`` and, unless it holds weights only, ``opt_state``),
+    restored with or without a template, as arrays numpy takes. ``module``
+    is the port's ``BCModule`` with its optimizer built
+    (``Trainer.setup``): its policy gives the layout, its optimizer the
+    parameter groups. AdamW's ``mu``/``nu``/``count`` become the optimizer's
+    ``exp_avg``/``exp_avg_sq``/``step`` (through the same layout rules as
+    the parameters), the schedule's count its ``last_epoch``, and
+    ``MultiSteps``' ``acc_grads``/``mini_step`` the gradient mean's. The
+    JAX ``rng`` key has no counterpart (the port draws its dropout bits
+    another way) and is left out, so the restoring trainer keeps the streams
+    it seeded from ``module.seed``."""
+    if module.optimizer is None:
+        raise ValueError("build the module's optimizer before converting (Trainer.setup)")
+    restored = _plain(restored)
+    policy = module.policy
+    target = policy.state_dict()
+    names = [n for n, _ in policy.named_parameters()]
+    stats = restored.get("batch_stats") or {}
+
+    def as_torch(tree: Mapping) -> dict[str, torch.Tensor]:
+        return flax_to_torch({"params": tree, "batch_stats": stats}, target)
+
+    state = as_torch(restored["params"])
+    out = {"params": {n: state[n] for n in names},
+           "batch_stats": {k: v for k, v in state.items() if k not in names},
+           "step": int(restored["step"]), "epoch": int(restored["epoch"])}
+    if restored.get("extras"):
+        out["extras"] = restored["extras"]
+    opt = restored.get("opt_state")
+    if opt is None:
+        return out
+    adam = _one(opt, {"count", "mu", "nu"}, "Adam")
+    if adam is None:
+        raise NotImplementedError("only Adam-family optimizer states convert (AdamW, Adam)")
+    mu, nu, count = as_torch(adam["mu"]), as_torch(adam["nu"]), float(adam["count"])
+    optimizer = copy.deepcopy(module.optimizer.state_dict())
+    optimizer["state"] = {
+        i: {"step": torch.tensor(count, dtype=torch.float32), "exp_avg": mu[n],
+            "exp_avg_sq": nu[n]}
+        for i, n in enumerate(names)}
+    schedule = _one(opt, {"count"}, "schedule")
+    if (schedule is None) != (module.scheduler is None):
+        raise ValueError("the JAX checkpoint and the module disagree on a learning-rate schedule")
+    multi = _one(opt, {"mini_step", "gradient_step", "inner_opt_state", "acc_grads",
+                       "skip_state"}, "MultiSteps")
+    if (multi is None) != (module.gradient_mean is None):
+        raise ValueError("the JAX checkpoint and the module disagree on gradient accumulation")
+    trainable = [n for n, p in policy.named_parameters() if p.requires_grad]
+    out["opt_state"] = {
+        "optimizer": optimizer,
+        "scheduler": None if schedule is None else {"last_epoch": int(schedule["count"])},
+        "gradient_mean": None if multi is None else {
+            "mini_step": int(multi["mini_step"]),
+            "acc": [as_torch(multi["acc_grads"])[n] for n in trainable]},
+    }
+    return out

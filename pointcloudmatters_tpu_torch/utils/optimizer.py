@@ -91,3 +91,18 @@ class GradientMean:
         torch._foreach_zero_(self.acc)
         self.mini_step = 0
         return True
+
+    def state_dict(self) -> dict:
+        """The mean and its count, as ``optax.MultiSteps`` saves
+        ``acc_grads`` and ``mini_step`` (``acc`` is None before the first
+        micro-batch)."""
+        return {"mini_step": self.mini_step,
+                "acc": None if self.acc is None else [a.detach().clone() for a in self.acc]}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict, device: Optional[torch.device] = None) -> None:
+        """Restore :meth:`state_dict`; the mean goes to ``device`` (where the
+        gradients are) when given."""
+        self.mini_step = int(state["mini_step"])
+        acc = state["acc"]
+        self.acc = None if acc is None else [a.to(device=device, copy=True) for a in acc]

@@ -36,7 +36,13 @@ def _anneal_cos(start: float, end: float, pct: float) -> float:
 class OneCycleLR(torch.optim.lr_scheduler.LRScheduler):
     """One-cycle cosine schedule with the JAX package's phase clamp: the
     learning rate and (with ``cycle_momentum``) beta1 at step ``s`` are
-    ``scheduler.py``'s ``one_cycle_lr`` and ``build_momentum_schedule``."""
+    ``scheduler.py``'s ``one_cycle_lr`` and ``build_momentum_schedule``.
+
+    A checkpoint keeps the step (``last_epoch``), as the JAX optimizer's
+    state keeps the schedule's count; the cycle's shape is this run's, as a
+    JAX run resumed with more epochs builds its schedule over the new total.
+    ``load_state_dict`` sets the step and writes the learning rate and
+    beta1 of that step into the optimizer's ``param_groups``."""
 
     def __init__(self, optimizer: torch.optim.Optimizer, max_lr: float,
                  total_steps: int, pct_start: float, div_factor: float,
@@ -67,6 +73,16 @@ class OneCycleLR(torch.optim.lr_scheduler.LRScheduler):
                 group["betas"] = (beta1, group["betas"][1])
         lr = self.lr_at(self.last_epoch)
         return [lr for _ in self.optimizer.param_groups]
+
+    def state_dict(self) -> dict:
+        return {"last_epoch": self.last_epoch}
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        self.last_epoch = int(state_dict["last_epoch"])
+        self._step_count = self.last_epoch + 1
+        for group, lr in zip(self.optimizer.param_groups, self.get_lr()):
+            group["lr"] = lr
+        self._last_lr = [group["lr"] for group in self.optimizer.param_groups]
 
     def lr_at(self, step: int) -> float:
         """The learning rate of optimizer step ``step``."""

@@ -1,0 +1,206 @@
+"""The port's config composer (``pointcloudmatters_tpu_torch/utils/config.py``)
+against the JAX package's: over the flagship family (the six
+``scratch_pointnet_pcd*`` models x the eight ManiSkill2 point-cloud tasks,
+and ``trainer=cpu``, ``debug=default``, ``debug=fdr``, ``logger=csv``) the
+composed, resolved configs are equal (both keep the configs' targets), and
+every target resolves in the port, through the prefix map
+``pointcloudmatters_tpu.`` -> ``pointcloudmatters_tpu_torch.``, to the
+counterpart of the JAX object.
+The compositions build in the port (model at full width, data, trainer,
+callbacks, loggers); a target the port lacks raises ``NotImplementedError``
+naming ROADMAP; an ``ImportError`` inside a module propagates as itself.
+The card has PyYAML, so the port reads YAML with ``yaml.safe_load`` as the
+JAX composer does and has no reader of its own to test.
+"""
+
+import importlib
+import pathlib
+import sys
+
+import pytest
+
+from pointcloudmatters_tpu.utils import config as JC
+from pointcloudmatters_tpu_torch import callbacks as tcallbacks
+from pointcloudmatters_tpu_torch import loggers as tloggers
+from pointcloudmatters_tpu_torch.data.base_datamodule import BaseDataModule
+from pointcloudmatters_tpu_torch.models.maniskill2_modules import ManiSkill2ACTBCModule
+from pointcloudmatters_tpu_torch.trainer import Trainer
+from pointcloudmatters_tpu_torch.utils import config as TC
+from pointcloudmatters_tpu_torch.utils.utils import instantiate_callbacks, instantiate_loggers
+from tests.synth import make_synthetic_maniskill2
+
+CONFIG_DIR = str(pathlib.Path(__file__).resolve().parent.parent / "configs")
+FAMILY = "exp_maniskill2_act_policy"
+MODELS = sorted(p.stem for p in (pathlib.Path(CONFIG_DIR) / FAMILY / "maniskill2_model")
+                .glob("scratch_pointnet_pcd*.yaml"))
+TASKS = sorted(p.stem for p in (pathlib.Path(CONFIG_DIR) / FAMILY / "maniskill2_pcd_task")
+               .glob("*.yaml"))
+EXTRAS = (["trainer=cpu"], ["debug=default"], ["debug=fdr"], ["logger=csv"])
+FLAGSHIP_PARAMS = 24_124_456
+
+
+def _overrides(model, task, extra=(), out="/out"):
+    return [f"{FAMILY}=base",
+            f"{FAMILY}/maniskill2_model@maniskill2_model={model}",
+            f"{FAMILY}/maniskill2_pcd_task@maniskill2_pcd_task={task}",
+            f"hydra.run.dir={out}", f"hydra.sweep.dir={out}/sweep", *extra]
+
+
+def _compose(engine, overrides, out="/out"):
+    cfg = engine.compose(CONFIG_DIR, "train", overrides)
+    engine.set_runtime(output_dir=out, cwd="/cwd")
+    return engine.resolve_config(cfg)
+
+
+def _targets(tree):
+    if isinstance(tree, dict):
+        if isinstance(dict.get(tree, "_target_"), str):
+            yield dict.__getitem__(tree, "_target_")
+        for v in dict.values(tree):
+            yield from _targets(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _targets(v)
+
+
+@pytest.fixture(autouse=True)
+def _project_root(monkeypatch, tmp_path):
+    monkeypatch.setenv("PROJECT_ROOT", str(tmp_path))
+
+
+def _check_composition(overrides):
+    """Equal compositions; equal resolutions, or the same error where the
+    JAX composer cannot resolve (the NullGoal tasks retarget
+    ``data.train``, which drops the ``chunk_size`` that ``model`` reads);
+    every target located in the port as the counterpart of JAX's."""
+    ref, got = JC.compose(CONFIG_DIR, "train", overrides), TC.compose(CONFIG_DIR, "train",
+                                                                      overrides)
+    # the configs keep the JAX package's targets; the port maps them where
+    # it locates them
+    assert TC.to_container(got) == JC.to_container(ref)
+    for engine in (JC, TC):
+        engine.set_runtime(output_dir="/out", cwd="/cwd")
+    try:
+        JC.resolve_config(ref)
+    except KeyError as err:
+        with pytest.raises(KeyError) as port_err:
+            TC.resolve_config(got)
+        assert str(port_err.value) == str(err)
+    else:
+        assert TC.to_container(TC.resolve_config(got)) == JC.to_container(ref)
+    targets = sorted(set(_targets(ref)))
+    assert targets and all(t.startswith("pointcloudmatters_tpu.") for t in targets)
+    for target in targets:
+        jobj, tobj = JC._locate(target), TC._locate(target)
+        assert tobj.__qualname__ == jobj.__qualname__, target
+        assert tobj.__module__ == jobj.__module__.replace(
+            "pointcloudmatters_tpu", "pointcloudmatters_tpu_torch", 1), target
+
+
+@pytest.mark.parametrize("task", TASKS)
+@pytest.mark.parametrize("model", MODELS)
+def test_composition_equals_jax_once_targets_map(model, task):
+    _check_composition(_overrides(model, task))
+
+
+@pytest.mark.parametrize("extra", EXTRAS, ids=lambda e: e[0])
+def test_composition_with_run_overrides_equals_jax(extra):
+    _check_composition(_overrides("scratch_pointnet_pcd", "PickCube-v0", extra))
+
+
+def test_the_family_is_the_one_the_port_trains():
+    assert len(MODELS) == 6 and len(TASKS) == 8, (MODELS, TASKS)
+
+
+@pytest.fixture(scope="module")
+def demo_file(tmp_path_factory):
+    return make_synthetic_maniskill2(str(tmp_path_factory.mktemp("cfg") / "demo.h5"),
+                                     n_episodes=2, episode_len=6, cam_side=8)
+
+
+@pytest.mark.parametrize("model", MODELS)
+def test_composition_builds_in_the_port(model, demo_file, tmp_path):
+    """The model at the published width, the datamodule over a demo file,
+    the trainer, callbacks and (CSV) loggers: the port's classes."""
+    cfg = _compose(TC, _overrides(model, "PickCube-v0", [
+        "logger=csv", "debug=default", f"data.train.dataset_file={demo_file}",
+        f"data.train.cache_dir={tmp_path}/cache", "data.train.point_num_per_cam=64"],
+        out=str(tmp_path)), out=str(tmp_path))
+    module = TC.instantiate(cfg.model)
+    assert type(module) is ManiSkill2ACTBCModule
+    policy = module.policy
+    assert type(policy).__module__ == "pointcloudmatters_tpu_torch.models.components.act.act"
+    assert (policy.hidden_dim, policy.num_queries, policy.pcd_npoints, policy.pcd_nsample) \
+        == (512, 100, 2048, 16)
+    assert policy.pre_sample == ("presample" in model)
+    assert policy.backbone.in_channels == (3 if model.endswith(("wo_rgb", "wo_xyz")) else 6)
+    if model == "scratch_pointnet_pcd":
+        assert sum(p.numel() for p in policy.parameters()) == FLAGSHIP_PARAMS
+    data = TC.instantiate(cfg.data)
+    assert type(data) is BaseDataModule and len(data.data_train) > 0
+    assert type(data.data_val).__name__ == "DummyDataset"
+    assert [type(t).__name__ for t in data.data_train.transform_pcd.transforms] == [
+        "GridSamplePCD", "NormalizeColorPCD", "ShufflePointPCD", "ToTensorPCD", "CollectPCD"]
+    callbacks = instantiate_callbacks(cfg.callbacks)
+    assert [type(c) for c in callbacks] == [
+        tcallbacks.ModelCheckpoint, tcallbacks.ModelSummary, tcallbacks.RichProgressBar,
+        tcallbacks.LearningRateMonitor, tcallbacks.DeviceStatsMonitor]
+    loggers = instantiate_loggers(cfg.logger)
+    assert [type(lg) for lg in loggers] == [tloggers.CSVLogger]
+    trainer = TC.instantiate(cfg.trainer, callbacks=callbacks, logger=loggers)
+    assert type(trainer) is Trainer and trainer.accelerator == "cpu"
+    assert trainer.accumulate_grad_batches == 2 and trainer.precision == "bf16-mixed"
+    assert trainer.checkpoint_callback is callbacks[0]
+
+
+@pytest.mark.parametrize("target", [
+    "pointcloudmatters_tpu.models.components.pcd_encoder.spunet.SpUNet",
+    "pointcloudmatters_tpu.models.maniskill2_modules.ManiSkill2DiffusionPolicyBCModule",
+    "pointcloudmatters_tpu.models.components.diffusion_policy.diffusion.ddpm.DDPMScheduler",
+])
+def test_a_target_the_port_lacks_raises(target):
+    with pytest.raises(NotImplementedError, match=rf"{target} is not ported yet.*ROADMAP"):
+        TC._locate(target)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TC.instantiate({"_target_": target})
+
+
+def test_a_target_outside_the_package_is_left_as_it_is():
+    assert TC._locate("collections.OrderedDict") is importlib.import_module(
+        "collections").OrderedDict
+    with pytest.raises(ImportError, match="Cannot locate target"):
+        TC._locate("collections.NoSuchThing")
+
+
+def test_an_import_error_inside_a_module_propagates(tmp_path, monkeypatch):
+    (tmp_path / "pcm_cfg_broken.py").write_text("import pcm_cfg_no_such_package\n")
+    monkeypatch.syspath_prepend(str(tmp_path))
+    with pytest.raises(ModuleNotFoundError) as err:
+        TC._locate("pcm_cfg_broken.Thing")
+    assert err.value.name == "pcm_cfg_no_such_package"
+    sys.modules.pop("pcm_cfg_broken", None)
+
+    real = importlib.import_module
+
+    def missing_h5py(name, *args):
+        if name == "pointcloudmatters_tpu_torch.data.components.maniskill2":
+            raise ModuleNotFoundError("No module named 'h5py'", name="h5py")
+        return real(name, *args)
+
+    monkeypatch.setattr(TC.importlib, "import_module", missing_h5py)
+    with pytest.raises(ModuleNotFoundError) as err:
+        TC._locate("pointcloudmatters_tpu.data.components.maniskill2."
+                   "ManiSkill2GoalPosSingleTaskACTPCDDataset")
+    assert err.value.name == "h5py"
+
+
+def test_multirun_expands_as_jax(tmp_path):
+    for overrides in (["seed=1,2", "model.policy.hidden_dim=32"], ["a=1,2", "b=x,y"],
+                      ["k=[1,2]", "s='a,b'"], ["trainer=cpu,default", "~x"]):
+        assert TC.expand_multirun(overrides) == JC.expand_multirun(overrides)
+
+
+def test_cli_values_parse_as_in_the_jax_composer():
+    for text in ("1e-4", "[a, b]", "null", "'x,y'", "{a: 1}", "true", "0.1", "${a.b}",
+                 "epoch={epoch:03d}", "val/loss", "[goal_pos]"):
+        assert TC._parse_cli_value(text) == JC._parse_cli_value(text)

@@ -1,4 +1,5 @@
-"""The port runs without JAX: with ``jax`` and ``flax`` blocked from import,
+"""The port runs without JAX: with ``jax``, ``flax``, ``optax`` and ``orbax``
+blocked from import,
 the package and every module of the serving and training slices import, a
 tiny ``predict``, a tiny f32 training step, tiny ``"bf16-mixed"`` steps
 of the frozen-backbone and ``pre_sample`` variants, a tiny ``predict``
@@ -6,7 +7,8 @@ and dropout-0 step of the ``attention_impl="fused"`` encoder through its
 fused op, and a tiny ``predict`` and dropout-0.1 step of the
 ``attention_impl="flash"`` encoder through its flash op run, and nothing of
 the JAX package (``pointcloudmatters_tpu``) was imported (the GPU machine
-has no JAX). Every CUDA source under ``csrc/`` is one the build compiles,
+has no JAX); the training entry point composes ``configs/`` and fits with
+JAX blocked. Every CUDA source under ``csrc/`` is one the build compiles,
 and none includes a PyTorch or JAX header."""
 
 import subprocess
@@ -54,14 +56,22 @@ SLICE_MODULES = (
     "pointcloudmatters_tpu_torch.data.components.misc",
     "pointcloudmatters_tpu_torch.data.components.maniskill2",
     "pointcloudmatters_tpu_torch.models.maniskill2_modules",
+    "pointcloudmatters_tpu_torch.utils.config",
+    "pointcloudmatters_tpu_torch.utils.pylogger",
+    "pointcloudmatters_tpu_torch.utils.utils",
+    "pointcloudmatters_tpu_torch.callbacks",
+    "pointcloudmatters_tpu_torch.loggers",
+    "pointcloudmatters_tpu_torch.train",
+    "pointcloudmatters_tpu_torch.validate",
 )
+BLOCKED = ("jax", "flax", "optax", "orbax")
 
 
 def test_port_imports_and_predicts_without_jax():
     script = textwrap.dedent(f"""
         import importlib, sys
-        sys.modules["jax"] = None
-        sys.modules["flax"] = None
+        for name in {BLOCKED!r}:
+            sys.modules[name] = None
         for name in {SLICE_MODULES!r}:
             importlib.import_module(name)
         from pointcloudmatters_tpu_torch.entry import build_batch, build_flagship
@@ -141,7 +151,43 @@ def test_port_imports_and_predicts_without_jax():
         assert trainer.global_step == 4 and module.scheduler.last_epoch == 2
         assert module.train_metrics.compute()["train/loss"].isfinite()
         assert not [m for m in sys.modules if m.split(".")[0] in
-                    ("jax", "flax", "pointcloudmatters_tpu")
+                    {BLOCKED + ("pointcloudmatters_tpu",)!r}
+                    and sys.modules[m] is not None]
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO_ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
+
+
+def test_cli_trains_without_jax(tmp_path):
+    """``pointcloudmatters_tpu_torch.train.main`` composes ``configs/`` and
+    fits the flagship composition (tiny widths, on the CPU) with jax, flax,
+    optax and orbax blocked, and imports nothing of the JAX package."""
+    script = textwrap.dedent(f"""
+        import os, sys
+        for name in {BLOCKED!r}:
+            sys.modules[name] = None
+        from tests.synth import make_synthetic_maniskill2
+        from pointcloudmatters_tpu_torch.train import main
+        demo = make_synthetic_maniskill2({str(tmp_path / "demo.h5")!r}, n_episodes=2,
+                                         episode_len=6, cam_side=16)
+        main(["exp_maniskill2_act_policy=base",
+              "exp_maniskill2_act_policy/maniskill2_pcd_task@maniskill2_pcd_task=PickCube-v0",
+              "exp_maniskill2_act_policy/maniskill2_model@maniskill2_model=scratch_pointnet_pcd",
+              "trainer=cpu", "debug=default", "logger=csv", "extras.print_config=false",
+              "data.train.dataset_file=" + demo, "data.train.point_num_per_cam=256",
+              "data.train.chunk_size=5", "data.train.cache_dir={tmp_path}/cache",
+              "data.batch_size_train=2", "data.pad_multiple=64",
+              "model.policy.hidden_dim=32", "model.policy.pcd_npoints=16",
+              "model.policy.pcd_nsample=4", "model.policy.transformer.num_encoder_layers=1",
+              "model.policy.transformer.num_decoder_layers=1",
+              "model.policy.transformer.nhead=4", "hydra.run.dir={tmp_path}/run",
+              "paths.log_dir={tmp_path}/logs"])
+        assert os.path.isfile("{tmp_path}/run/checkpoints/last/checkpoint.pt")
+        assert not [m for m in sys.modules if m.split(".")[0] in
+                    {BLOCKED + ("pointcloudmatters_tpu",)!r}
                     and sys.modules[m] is not None]
         print("ok")
     """)

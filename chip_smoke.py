@@ -184,9 +184,32 @@ Phases, each of which raises on failure (exit code non-zero, no result):
    optimizer step from the trainer's epoch rate beside phase 10's on the
    same call, and the checkpoint's size and save and restore seconds.
 
+12. Trains the flagship data-parallel, one process a card
+   (``pointcloudmatters_tpu_torch/utils/dist.py``): (a) in a spawned
+   process, three shipped ``"bf16-mixed"`` B=32 steps (dropout 0.1) with no
+   process group, again (their reproducibility, logged), then in an NCCL
+   group of one rank, bit-equal to no group in losses, grad_norm,
+   parameters and running statistics; (b) two spawned processes on the one
+   card under a gloo group (NCCL refuses two ranks on one card; gloo takes
+   CUDA tensors), B=16 each, three AdamW + OneCycleLR steps of the
+   flagship at ``"32-true"`` and of its frozen backbone at
+   ``"bf16-mixed"`` (kernels 5 and 6), dropout 0, the posterior noise rows
+   of one global draw: the ranks' end states equal, rank 0's against a
+   world of one over the concatenated B=32 in this process within
+   ``DDP_LIMITS``, each kernel of the path launched on both ranks, each
+   world's ms a step and the flat all-reduce's ms, and at dropout 0.1 the
+   dense attention's mask and the kernels' seed drawn alike on both ranks
+   while BitsDropout's bits and the posterior noise differ; under NCCL
+   across two cards too where the machine has them; (c)
+   ``train.main`` on phase 11's composition at ``trainer.devices=auto``
+   (the README's composition sets ``devices: 1``): a world of one, and
+   ``trainer.devices`` above the card count raising before any launch.
+   Gloo over one card rehearses the path; it is no scaling figure.
+
 Prints a JSON line of the kernels (route, source, the TPU kernel each
 replaces, launches on each path (phase 11's: ``train_cli``,
-``train_cli_resume``, ``validate_cli``), error, kernel, plain and library times,
+``train_cli_resume``, ``validate_cli``; phase 12's: ``train_ddp``, the
+gloo ranks' and (a)'s group's steps, and ``train_cli_ddp``), error, kernel, plain and library times,
 and the bound: the larger of the bytes over 3.35 TB/s and the flops over
 the peak of the inputs' type, 67 TFLOP/s f32 or 989 TFLOP/s bf16; one
 ``attention_bwd`` launch is one call of the three-kernel backward: the
@@ -2733,6 +2756,390 @@ def train_cli(dev, fit_times: dict) -> dict:
 
 
 
+# phase 12: data parallelism, one process a card (PR 19). (a) an NCCL group
+# of one rank is bit-equal to no group; (b) two processes on the one card
+# under gloo (NCCL refuses two ranks on one card) against a world of one over
+# the concatenated batch; (c) the CLI at trainer=ddp's devices: auto (the
+# README's composition sets devices: 1), a world of one here, and its
+# refusal of devices above the card count.
+DDP_WORLD = 2
+DDP_STEPS = 3  # the compared steps
+DDP_TIMED = 2  # steps timed after them
+DDP_CASES = (("32-true", {}), ("bf16-mixed", {"freeze_backbone": True}))
+DDP_KERNELS = {"32-true": TRAIN_KERNELS, "bf16-mixed": BF16_KERNELS + BUILDER_KERNELS}
+# world 2 against world 1, from the CPU tests' limits (tests/test_torch_ddp.py
+# for f32, tests/test_torch_bf16.py for bf16): losses and grad_norm 1e-4
+# relative in f32, 1e-2 in bf16; parameters within 2e-6 + 1e-4 of a tensor's
+# largest entry, plus 4 lr a step for entries whose gradient is noise (an
+# AdamW step moves an entry by about lr whatever its gradient's size);
+# running statistics 1e-5 + 1e-5 relative in f32, 1e-5 + 1e-3 relative in
+# bf16
+DDP_LIMITS = {"32-true": dict(metric=1e-4, stats=1e-5), "bf16-mixed": dict(metric=1e-2, stats=1e-3)}
+
+
+def _rows(tree, lo: int, hi: int):
+    if isinstance(tree, dict):
+        return {k: _rows(v, lo, hi) for k, v in tree.items()}
+    return tree[lo:hi]
+
+
+def ddp_run(dev, precision: str, rank: int = 0, world: int = 1, dropout: float = 0.0,
+            fixed_eps: bool = True, timed: int = DDP_TIMED, **flagship_kw) -> dict:
+    """DDP_STEPS steps of the flagship (AdamW + OneCycleLR) over this rank's
+    rows of one global B=32 batch, the posterior noise (with ``fixed_eps``)
+    its rows of one global draw; then ``timed`` steps timed by the host
+    clock, and in a group the flat gradient all-reduce alone. Metrics,
+    learning rates, the end state on the CPU, launches of the compared steps
+    and the times."""
+    import numpy as np
+    import torch
+
+    from pointcloudmatters_tpu_torch import ops
+    from pointcloudmatters_tpu_torch.entry import build_batch, build_flagship
+    from pointcloudmatters_tpu_torch.models.bc_module import BCModule, to_device
+    from pointcloudmatters_tpu_torch.models.components.act import act as act_module
+    from pointcloudmatters_tpu_torch.trainer import Trainer
+    from pointcloudmatters_tpu_torch.utils import dist
+
+    n = BIG_BATCH // world
+    lo, hi = rank * n, (rank + 1) * n
+    batch = to_device(_rows(build_batch(batch_size=BIG_BATCH, n_points=N_POINTS, seed=2),
+                            lo, hi), dev)
+    eps = torch.from_numpy(np.random.RandomState(1).randn(BIG_BATCH, 32).astype(np.float32)
+                           [lo:hi]).to(dev)
+    module = BCModule(build_flagship(seed=0, dropout=dropout, device=dev, **flagship_kw),
+                      optimizer=FLAGSHIP_OPT, lr_scheduler=FLAGSHIP_SCHED)
+    trainer = Trainer(precision=precision, seed=0)
+    trainer.setup(module, TOTAL_STEPS)
+    saved = act_module.reparametrize
+    if fixed_eps:
+        act_module.reparametrize = (
+            lambda mu, logvar, gen: mu + torch.exp(0.5 * logvar) * eps.to(mu.dtype))
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        lrs, metrics = [], []
+        for _ in range(DDP_STEPS):
+            lrs.append(module.optimizer.param_groups[0]["lr"])
+            metrics.append(trainer.train_step(module, batch))
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+        state = {k: v.detach().cpu().clone() for k, v in module.policy.state_dict().items()}
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            trainer.train_step(module, batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / timed if timed else None
+        reduce_ms = None
+        if dist.is_initialized():  # the step's one all-reduce alone, at its size
+            size = sum(p.numel() for p in module.policy.parameters() if p.requires_grad)
+            flat = torch.zeros(size + 4, device=dev)
+            dist.all_reduce_([flat])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                dist.all_reduce_([flat])
+            torch.cuda.synchronize()
+            reduce_ms = (time.perf_counter() - t0) * 1e3 / 3
+    finally:
+        act_module.reparametrize = saved
+    out = dict(metrics=metrics, lrs=lrs, state=state, launches=launches, step_ms=step_ms,
+               reduce_ms=reduce_ms)
+    del module, trainer, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _differ(a: dict, b: dict) -> list:
+    """The keys whose tensors are not bit-equal."""
+    import torch
+
+    return [k for k in a if not torch.equal(a[k], b[k])]
+
+
+def ddp_nccl_one(out_file: str) -> None:
+    """Phase 12 (a), a process of its own: three shipped ``"bf16-mixed"``
+    steps (dropout 0.1, the generators' noise) with no group, again with no
+    group (the steps' own reproducibility), then in an NCCL group of one
+    rank; what differs, the group's launches and times."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from pointcloudmatters_tpu_torch.utils import dist
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    kw = dict(dropout=ATTN_DROPOUT, fixed_eps=False)
+    free = ddp_run(dev, "bf16-mixed", timed=0, **kw)
+    again = ddp_run(dev, "bf16-mixed", timed=0, **kw)
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{dist.free_port()}", rank=0, world_size=1)
+    try:
+        grouped = ddp_run(dev, "bf16-mixed", **kw)
+    finally:
+        dist.destroy()
+    torch.save({
+        "again": _differ(free["state"], again["state"]) + (
+            ["metrics"] if free["metrics"] != again["metrics"] else []),
+        "grouped": _differ(free["state"], grouped["state"]) + (
+            ["metrics"] if free["metrics"] != grouped["metrics"] else []),
+        "metrics": grouped["metrics"], "launches": grouped["launches"],
+        "step_ms": grouped["step_ms"], "reduce_ms": grouped["reduce_ms"],
+        "n_state": len(free["state"]),
+    }, out_file)
+
+
+def ddp_rank(rank: int, world: int, backend: str, store: str, out_dir: str) -> None:
+    """Phase 12 (b), one rank: ``ddp_run`` of each of DDP_CASES in a
+    ``backend`` group (gloo: every rank on card 0; nccl: card ``rank``);
+    rank 1's end states against rank 0's (a broadcast); draws of the shared
+    and the rank's own streams at dropout 0.1. Rank 0 keeps its end states."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from pointcloudmatters_tpu_torch.entry import build_flagship
+    from pointcloudmatters_tpu_torch.models.bc_module import BCModule
+    from pointcloudmatters_tpu_torch.ops.attention import draw_seed
+    from pointcloudmatters_tpu_torch.utils import dist
+
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    torch.distributed.init_process_group(backend, init_method=f"file://{store}", rank=rank,
+                                         world_size=world)
+    out = {}
+    try:
+        for precision, kw in DDP_CASES:
+            res = ddp_run(dev, precision, rank, world, **kw)
+            state = res.pop("state")
+            theirs = [v.to(dev).clone() for v in state.values()]
+            dist.broadcast_(theirs)
+            res["equal_to_rank0"] = all(torch.equal(a.cpu(), b) for a, b in
+                                        zip(theirs, state.values()))
+            if rank == 0:
+                res["state"] = state
+            out[precision] = res
+        rngs = BCModule(build_flagship(**SMALL, seed=0, dropout=ATTN_DROPOUT, device=dev)
+                        ).make_rngs(0, rank, world)
+        out["streams"] = {
+            "dense": torch.rand((102, 102), generator=rngs["dropout"], device=dev).cpu(),
+            "seed": draw_seed(rngs["seed"]),
+            "bits": torch.randint(0, 256, (4096,), generator=rngs["bits"], device=dev,
+                                  dtype=torch.uint8).cpu(),
+            "vae": torch.randn(64, generator=rngs["vae"], device=dev).cpu()}
+    finally:
+        dist.destroy()
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def _spawn(target, args_of_rank, n: int, what: str, timeout: float = 600) -> None:
+    """``n`` processes of ``target`` (spawned: each imports this file
+    afresh), joined; raises if one fails or outlives ``timeout`` s."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=args_of_rank(r)) for r in range(n)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + timeout
+    for p in procs:
+        p.join(max(1.0, deadline - time.perf_counter()))
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join()
+    if alive or any(p.exitcode for p in procs):
+        raise AssertionError(f"{what}: processes exited with {[p.exitcode for p in procs]}"
+                             f"{' (killed at the time limit)' if alive else ''}")
+
+
+def _check_world(what: str, precision: str, got: dict, ref: dict) -> str:
+    """World 2 (rank 0's end state, both ranks' metrics) against world 1."""
+    import numpy as np
+
+    lim = DDP_LIMITS[precision]
+    for key in ("loss", "action_loss", "kl_loss", "grad_norm"):
+        a = np.array([m[key] for m in got["metrics"]])
+        b = np.array([m[key] for m in ref["metrics"]])
+        if not np.abs(a - b).max() <= lim["metric"] * np.abs(b).max():
+            raise AssertionError(f"{what}: {key} {a} vs world 1 {b}")
+    allowance = 4.0 * sum(ref["lrs"])
+    worst = {}
+    for name, r in ref["state"].items():
+        g = got["state"][name]
+        err = (g - r).abs().max().item()
+        if name.endswith((".mean", ".var")):
+            limit = 1e-5 + lim["stats"] * r.abs().max().item()
+        else:
+            limit = 2e-6 + 1e-4 * r.abs().max().item() + allowance
+        if not err <= limit:
+            raise AssertionError(f"{what}: {name} off by {err:.3e} > {limit:.3e}")
+        kind = "stats" if name.endswith((".mean", ".var")) else "params"
+        if err / limit >= worst.get(kind, (0, None))[0]:
+            worst[kind] = (err / limit, name, err)
+    return (f"{what}: losses and grad_norm within {lim['metric']} relative; worst parameter "
+            f"{worst['params'][1]} {worst['params'][2]:.3e} ({worst['params'][0]:.2f} of its "
+            f"limit), worst running statistic {worst['stats'][1]} {worst['stats'][2]:.3e} "
+            f"({worst['stats'][0]:.2f} of its limit)")
+
+
+def ddp_group_of_one(tmp: str, card: str) -> dict:
+    """Phase 12 (a), an NCCL group of one rank against no group: the
+    launches of the group's steps."""
+    import torch
+
+    out_file = os.path.join(tmp, "nccl_one.pt")
+    _spawn(ddp_nccl_one, lambda r: (out_file,), 1, "train_ddp (a)")
+    one = torch.load(out_file, weights_only=False)
+    if one["again"]:
+        log(f"ddp     (a) the group-free steps did not reproduce themselves bit for bit in "
+            f"{one['again'][:8]}")
+    if one["grouped"]:
+        raise AssertionError(f"train_ddp (a): the NCCL group of one differs from no group in "
+                             f"{one['grouped'][:10]}")
+    log(f"ddp     (a) {card}: an NCCL group of one rank, three shipped bf16-mixed B=32 steps "
+        f"(dropout 0.1) bit-equal to no group in losses, grad_norm and all {one['n_state']} "
+        f"parameters and running statistics (group-free rerun bit-equal: "
+        f"{not one['again']}); {one['step_ms']:.2f} ms/step in the group, the flat all-reduce "
+        f"{one['reduce_ms']:.3f} ms; losses {[m['loss'] for m in one['metrics']]}")
+    return one["launches"]
+
+
+def ddp_two_ranks(dev, tmp: str, card: str) -> dict:
+    """Phase 12 (b), two processes on the one card under gloo (and under
+    NCCL across two cards where the machine has them) against a world of
+    one: the gloo ranks' launches on their compared steps, summed."""
+    import torch
+
+    launches: dict = {}
+    runs = [("gloo", 1)]
+    if torch.cuda.device_count() > 1:
+        runs.append(("nccl", DDP_WORLD))
+    for backend, cards in runs:
+        out_dir = os.path.join(tmp, backend)
+        os.makedirs(out_dir)
+        store = os.path.join(out_dir, "store")
+        t0 = time.perf_counter()
+        _spawn(ddp_rank, lambda r: (r, DDP_WORLD, backend, store, out_dir), DDP_WORLD,
+               f"train_ddp (b) {backend}")
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+                 for r in range(DDP_WORLD)]
+        log(f"ddp     (b) {backend}, {DDP_WORLD} processes on {cards} card(s): "
+            f"{time.perf_counter() - t0:.1f} s")
+        for precision, kw in DDP_CASES:
+            ref = ddp_run(dev, precision, **kw)
+            for rank, res in enumerate(ranks):
+                got = res[precision]
+                if not got["equal_to_rank0"]:
+                    raise AssertionError(f"train_ddp {backend} {precision}: rank {rank}'s "
+                                         f"end state differs from rank 0's")
+                missing = [k for k in DDP_KERNELS[precision] if not got["launches"][k]]
+                if missing:
+                    raise AssertionError(f"train_ddp {backend} {precision}: rank {rank} "
+                                         f"launched no {missing}")
+                if got["metrics"] != ranks[0][precision]["metrics"]:
+                    raise AssertionError(f"train_ddp {backend} {precision}: the ranks' "
+                                         f"metrics differ")
+                if backend == "gloo":
+                    for k, v in got["launches"].items():
+                        launches[k] = launches.get(k, 0) + v
+            got = dict(ranks[0][precision])
+            log("ddp     (b) " + _check_world(
+                f"{backend} {precision}{' frozen' if kw else ''} world 2 x B=16 vs world 1 "
+                f"x B=32, {DDP_STEPS} steps", precision, got, ref))
+            log(f"ddp     (b) {card}: {precision}{' frozen' if kw else ''}: world 1 "
+                f"{ref['step_ms']:.2f} ms/step at B=32; world 2 ({backend}, {cards} card(s)) "
+                f"{got['step_ms']:.2f} ms/step at B=16 a rank, the flat all-reduce "
+                f"{got['reduce_ms']:.2f} ms (rank 1: {ranks[1][precision]['step_ms']:.2f}, "
+                f"{ranks[1][precision]['reduce_ms']:.2f}); launches a rank "
+                f"{ {k: v for k, v in got['launches'].items() if v} }")
+            del ref, got
+        s0, s1 = ranks[0]["streams"], ranks[1]["streams"]
+        if not (torch.equal(s0["dense"], s1["dense"]) and s0["seed"] == s1["seed"]) or (
+                torch.equal(s0["bits"], s1["bits"]) or torch.equal(s0["vae"], s1["vae"])):
+            raise AssertionError(f"train_ddp {backend}: streams not shared and own as they "
+                                 f"should be")
+        differ = (s0["bits"] != s1["bits"]).float().mean().item()
+        log(f"ddp     (b) {backend}: the dense attention's mask and the kernels' seed drawn "
+            f"alike on both ranks, BitsDropout's bits ({differ:.3f} of 4096 differ) and the "
+            f"posterior noise each rank's own")
+        del ranks
+
+    return launches
+
+
+def ddp_cli(tmp: str) -> dict:
+    """Phase 12 (c), the CLI: the README's composition (trainer=ddp) at
+    devices=auto, a world of one on this card, over phase 10's demos; devices
+    above the card count raise before any process starts. The launches of
+    the devices=auto run."""
+    import torch
+
+    from pointcloudmatters_tpu_torch import ops
+    from pointcloudmatters_tpu_torch import train as train_entry
+    from pointcloudmatters_tpu_torch.utils import dist
+
+    cards = torch.cuda.device_count()
+    cli_launches = {}
+    if cards == 1:  # on more cards auto starts ranks, which cannot see demos held here
+        demos = synthetic_demos(FIT_EPISODES, FIT_EPISODE_LEN, FIT_CAM_SIDE)
+        n_train = FIT_EPISODES - FIT_HELD_OUT
+        CLI_DATA.update(train=demos[:n_train], held_out=demos[n_train:],
+                        cache=os.path.join(tmp, "cache"))
+        EndState.runs.clear()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        train_entry.main(cli_argv(tmp, "ddp") + [
+            "trainer.devices=auto", "trainer.max_epochs=1",
+            f"trainer.limit_train_batches={FIT_ACCUMULATE}"])
+        torch.cuda.synchronize()
+        cli_launches = ops.launch_counts()
+        probe = EndState.runs[-1]
+        if (probe.trainer.devices_spec, len(probe.epochs), dist.is_initialized()) != (
+                "auto", 1, False) or any(not cli_launches[k] for k in BF16_KERNELS) or (
+                not os.path.isdir(os.path.join(tmp, "ddp", "checkpoints", "last"))):
+            raise AssertionError(f"train_ddp (c): devices {probe.trainer.devices_spec}, "
+                                 f"epochs {probe.epochs}, launches {cli_launches}")
+        log(f"ddp     (c) train.main, the README's composition, trainer=ddp, "
+            f"trainer.devices=auto: a world of one on the one card, one epoch of "
+            f"{FIT_ACCUMULATE} micro-steps and its validation in "
+            f"{time.perf_counter() - t0:.2f} s, train/loss "
+            f"{probe.epochs[0][2]['train/loss']:.5f}, a last checkpoint; launches "
+            f"{ {k: v for k, v in cli_launches.items() if v} }")
+        CLI_DATA.clear()
+        EndState.runs.clear()
+        del probe
+    else:
+        log(f"ddp     (c) {cards} cards: devices=auto would start {cards} processes, which "
+            f"cannot read demos held in this one; not run")
+    ops.reset_launch_counts()
+    try:
+        train_entry.main(cli_argv(tmp, "ddp2") + [f"trainer.devices={cards + 1}"])
+    except ValueError as e:
+        if "cards" not in str(e) or any(ops.launch_counts().values()) or dist.is_initialized():
+            raise
+        log(f"ddp     (c) trainer.devices={cards + 1} raised before any launch: {e}")
+    else:
+        raise AssertionError("train_ddp (c): devices above the card count did not raise")
+    return cli_launches
+
+
+def train_ddp(dev) -> dict:
+    """Phase 12 (the comment above); returns the launches of the ranks'
+    compared steps and of (a)'s group, summed (the path ``train_ddp``), and
+    of (c)'s run (``train_cli_ddp``)."""
+    import tempfile
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        counts = [ddp_group_of_one(tmp, card), ddp_two_ranks(dev, tmp, card)]
+        cli_launches = ddp_cli(tmp)
+    launches = {k: sum(c.get(k, 0) for c in counts) for k in KERNELS}
+    log(f"ddp     phase 12 in {time.perf_counter() - t_phase:.1f} s; train_ddp launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return {"train_ddp": launches,
+            "train_cli_ddp": {k: cli_launches.get(k, 0) for k in KERNELS}}
 
 def main() -> int:
     import torch
@@ -2785,6 +3192,7 @@ def main() -> int:
         fit_paths, fit_times = fit_flagship(dev)
         paths.update(fit_paths)
         paths.update(train_cli(dev, fit_times))
+        paths.update(train_ddp(dev))
     stray = {path: [k for k in FLASH_KERNELS if counts[k]] for path, counts in paths.items()
              if "flash" not in path and any(counts[k] for k in FLASH_KERNELS)}
     if stray:

@@ -5,6 +5,11 @@ ModelSummary, RichProgressBar (a log line an epoch) and DeviceStatsMonitor
 (the card's memory in use). Checkpoints are written by
 ``Trainer.save_checkpoint``: a directory a checkpoint, as in JAX.
 
+Under data parallelism every rank runs the callbacks on the same global
+metrics, so ModelCheckpoint and EarlyStopping decide alike on every rank;
+rank 0 alone writes and deletes files (``Trainer.save_checkpoint``), and
+every rank holds the same ``best_model_path``.
+
 ``StochasticWeightAveraging`` is in no shipped composition (only
 ``configs/callbacks/stochastic_weight_averaging.yaml`` names it) and is not
 ported yet: it raises.
@@ -20,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from pointcloudmatters_tpu_torch.utils import dist
 from pointcloudmatters_tpu_torch.utils.pylogger import RankedLogger
 
 __all__ = ["Callback", "ModelCheckpoint", "EarlyStopping", "LearningRateMonitor",
@@ -108,7 +114,8 @@ class ModelCheckpoint(Callback):
     def setup(self, trainer, module) -> None:
         if self.dirpath is None:
             self.dirpath = os.path.join(trainer.default_root_dir, "checkpoints")
-        os.makedirs(self.dirpath, exist_ok=True)
+        if dist.is_main_process():
+            os.makedirs(self.dirpath, exist_ok=True)
 
     def _is_better(self, score: float, than: float) -> bool:
         return score < than if self.mode == "min" else score > than
@@ -131,7 +138,8 @@ class ModelCheckpoint(Callback):
         self._saved.sort(key=lambda t: t[0], reverse=(self.mode == "max"))
         if self.save_top_k != -1:
             for _, stale in self._saved[self.save_top_k:]:
-                shutil.rmtree(stale, ignore_errors=True)
+                if dist.is_main_process():
+                    shutil.rmtree(stale, ignore_errors=True)
             self._saved = self._saved[: self.save_top_k]
         self.best_model_score, self.best_model_path = self._saved[0]
         if self.verbose:

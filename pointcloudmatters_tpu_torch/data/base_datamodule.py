@@ -6,7 +6,9 @@ repr or class name holds "pcd". With ``pin_memory`` (the shipped configs
 set it) and a CUDA device present, the loader's threads hand over each
 collated batch as tensors in page-locked memory, which the trainer copies to
 the card without blocking; without a CUDA device there is nothing to pin
-for and the batch stays numpy, as torch's own loader does.
+for and the batch stays numpy, as torch's own loader does. Under data
+parallelism each process's loader yields its rank's block of every global
+batch (``loader.py``), and the trainer copies it to the process's own card.
 """
 
 from __future__ import annotations

@@ -32,6 +32,15 @@ class DataLoader:
     keeps only full global batches. ``(rank, world)`` is
     ``(process_index, process_count)`` where given, else the
     ``torch.distributed`` group's when it is initialised, else ``(0, 1)``.
+    Every process then yields as many batches, of ``batch_size`` rows each,
+    which the trainer's mean of the ranks' means needs.
+
+    Each process collates its own block, so the padded point count of a
+    batch may differ across the ranks (the collate pads to the block's
+    largest cloud), and with it the kNN route (``ops/pointops.py``
+    ``knn_route``: kernel 2 up to 16,384 points, kernel 12 above) or the
+    builder's. Every route computes the same function, so the global step
+    does not depend on it; parity tests feed the ranks equal padded widths.
     """
 
     def __init__(

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from pointcloudmatters_tpu_torch.utils import dist
 from pointcloudmatters_tpu_torch.utils.flax_to_torch import flax_to_torch
 from pointcloudmatters_tpu_torch.utils.metrics import Metrics
 from pointcloudmatters_tpu_torch.utils.optimizer import GradientMean, build_optimizer
@@ -80,6 +81,9 @@ class BCModule:
     # the step's random streams (JAX: vae sampling + dropout); "seed" seeds
     # the oneshot attention kernel's mask from the host
     train_rng_streams: tuple = ("vae", "dropout", "seed")
+    # those drawn a row or an element at a time, each rank its own under data
+    # parallelism ("bits": BitsDropout's, in a world of one "dropout" itself)
+    rank_rng_streams: tuple = ("vae", "bits")
 
     def __init__(self, policy: nn.Module, device: Union[str, torch.device, None] = None,
                  optimizer: Optional[dict] = None, lr_scheduler: Optional[dict] = None,
@@ -150,14 +154,33 @@ class BCModule:
         self.gradient_mean = (GradientMean(accumulate_grad_batches)
                               if accumulate_grad_batches > 1 else None)
 
-    def make_rngs(self, seed: int) -> dict[str, torch.Generator]:
-        """One generator per stream of ``train_rng_streams``, seeded from
-        ``seed``: ``"seed"`` on the CPU, the others on the policy's device."""
-        rngs = {}
-        for i, name in enumerate(self.train_rng_streams):
-            device = "cpu" if name == "seed" else self.device
-            rngs[name] = torch.Generator(device=device).manual_seed(
-                seed * len(self.train_rng_streams) + i)
+    def make_rngs(self, seed: int, rank: int = 0, world_size: int = 1,
+                   step: int = 0) -> dict[str, torch.Generator]:
+        """One generator per stream of ``train_rng_streams`` and
+        ``"bits"``, on the policy's device (``"seed"`` on the CPU).
+
+        Under GSPMD every draw is one global draw: a mask shared over the
+        batch is shared across the devices, and a row's draws are its own.
+        So ``"dropout"`` (the dense attention's mask) and ``"seed"`` (the
+        attention kernels' mask seeds) are seeded from ``seed`` alone, alike
+        on every rank, and the ``rank_rng_streams`` (the CVAE noise and
+        ``BitsDropout``'s bits) from ``(seed, rank)``, and ``step``, the
+        optimizer steps a resumed run starts from. A world of one draws as
+        the single-device trainer: ``"bits"`` is the ``"dropout"``
+        generator itself."""
+        n = len(self.train_rng_streams)
+
+        def generator(name: str, s: int) -> torch.Generator:
+            return torch.Generator(device="cpu" if name == "seed" else self.device).manual_seed(s)
+
+        rngs = {name: generator(name, seed * n + i)
+                for i, name in enumerate(self.train_rng_streams)}
+        if world_size == 1:
+            rngs["bits"] = rngs["dropout"]
+            return rngs
+        for i, name in enumerate(self.rank_rng_streams):
+            entropy = np.random.SeedSequence(seed % 2 ** 63, spawn_key=(rank, i, step))
+            rngs[name] = generator(name, int(entropy.generate_state(1, np.uint64)[0]))
         return rngs
 
     def forward_train(self, batch: dict, rngs: Mapping,
@@ -192,22 +215,36 @@ class BCModule:
         """Held-out-loss validation (JAX ``bc_module.py:209-235``): the mean
         of ``val_metric_keys`` over ``trainer.limit_val_batches`` batches of
         the validation loader, then the best-so-far trackers; floats.
-        ``{}`` without a validation loader or over a ``DummyDataset``."""
+        ``{}`` without a validation loader or over a ``DummyDataset``.
+
+        Under data parallelism a batch's value is the global batch's, its
+        ranks' means weighted by their rows (a loader may give ranks
+        ragged blocks), the same on every rank; each rank gives it to the
+        metrics with weight 1 / W, whose ``compute`` sums their states over
+        the ranks."""
         loader = datamodule.val_dataloader()
         if loader is None or not self._has_real_val_data(loader):
             return {}
-        from pointcloudmatters_tpu_torch.trainer import _limit
+        from pointcloudmatters_tpu_torch.trainer import _batch_size_of, _limit
 
         self.val_metrics.reset()
         n_val = _limit(len(loader), trainer.limit_val_batches)
+        world = dist.get_world_size()
         for i, batch in enumerate(loader):
             if i >= n_val:
                 break
             out = self.apply_eval(batch)
-            self.val_metrics.update({k: out[k].float() for k in self.val_metric_keys
-                                     if k in out})
+            values = {k: out[k].float() for k in self.val_metric_keys if k in out}
+            if world > 1 and values:
+                # the global batch's mean: each rank's mean weighted by its rows
+                rows = float(_batch_size_of(batch))
+                summed = torch.stack([*values.values(), torch.ones((), device=self.device)])
+                summed = summed * rows
+                dist.all_reduce_([summed])
+                values = dict(zip(values, summed[:-1] / summed[-1]))
+            self.val_metrics.update(values, 1.0 / world)
         out = self.val_metrics.compute()
-        self.best_val_metrics.update(out)
+        self.best_val_metrics.update(out, 1.0 / world)
         out.update(self.best_val_metrics.compute())
         return {k: float(v) for k, v in out.items()}
 

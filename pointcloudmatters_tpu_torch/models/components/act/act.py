@@ -9,8 +9,9 @@ merged in, and when actions are present ``loss``, ``action_loss`` and
 over ``[CLS, qpos, actions]``, sampled in training and its mean otherwise.
 
 ``train=True`` needs ``rngs``, the step's random streams: ``"vae"`` (the
-posterior noise) and ``"dropout"`` (generators on the batch's device) and
-``"seed"`` (a CPU generator seeding the oneshot attention kernel's mask).
+posterior noise), ``"dropout"`` and ``"bits"`` (generators on the batch's
+device, ``BCModule.make_rngs``) and ``"seed"`` (a CPU generator seeding the
+oneshot attention kernel's mask).
 The image and state-only observation paths come with later slices and
 raise ``NotImplementedError``.
 
@@ -177,7 +178,7 @@ class ACT(nn.Module):
     def forward(self, data_dict: dict, train: bool = False,
                 rngs: Optional[Mapping] = None) -> dict:
         if train and rngs is None:
-            raise ValueError("ACT training needs rngs ('vae', 'dropout', 'seed')")
+            raise ValueError("ACT training needs rngs ('vae', 'dropout', 'bits', 'seed')")
         data_dict = self.forward_encoder(data_dict, train, rngs)
         data_dict = self.forward_obs_embed(data_dict, train)
         data_dict = self.forward_decoder(data_dict, train, rngs)

@@ -18,9 +18,10 @@
   ``live_layers`` (ACT reads ``hs[0]``), in training too.
 - ``deterministic=False`` turns on dropout (attention weights and
   ``BitsDropout`` on the residual streams) and needs ``rngs``, the step's
-  random streams: ``"dropout"`` (a generator on the tokens' device) and
-  ``"seed"`` (a CPU generator seeding the oneshot and flash kernels'
-  masks).
+  random streams: ``"dropout"`` (a generator on the tokens' device, the
+  dense attention's mask, shared over the batch), ``"bits"`` (one there too,
+  ``BitsDropout``'s bits, an element each) and ``"seed"`` (a CPU generator
+  seeding the oneshot and flash kernels' masks).
 """
 
 from __future__ import annotations
@@ -79,8 +80,8 @@ def _with_pos(x: torch.Tensor, pos: Optional[torch.Tensor]) -> torch.Tensor:
 
 
 def _dropper(drop: BitsDropout, deterministic: bool, rngs: Optional[Mapping]):
-    """``x -> drop(x)`` with the step's dropout generator."""
-    generator = None if deterministic or rngs is None else rngs["dropout"]
+    """``x -> drop(x)`` with the step's generator of dropout bits."""
+    generator = None if deterministic or rngs is None else rngs["bits"]
     return lambda x: drop(x, deterministic, generator)
 
 

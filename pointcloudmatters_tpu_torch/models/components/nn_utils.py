@@ -18,6 +18,14 @@ taken in f32, as XLA takes them inside its fused reductions), the
 per-channel affine folded in f32 from the bf16 parameters and applied in
 bf16 (``nn_utils.py:129-135, 291-297`` of the JAX package), dropout scales
 by a factor rounded to the activations' type.
+
+Data parallelism: in training, the batch norms sum their statistics'
+totals and counts over a process group (:func:`~pointcloudmatters_tpu_torch.
+utils.dist.all_reduce_sum`, through which gradients flow) before they form
+the mean and variance, so that every rank normalises by the global batch's
+statistics and updates its running statistics alike, as the JAX modules'
+statistics are global under GSPMD. ``sync_batchnorm`` is not consulted: the
+JAX trainer accepts the key and its statistics are global whatever it says.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from pointcloudmatters_tpu_torch.ops.fused_builder import (
 )
 from pointcloudmatters_tpu_torch.ops.oneshot_attention import rounded_scalar
 from pointcloudmatters_tpu_torch.ops.pointops import gather_rows_padded
+from pointcloudmatters_tpu_torch.utils import dist
 
 __all__ = [
     "get_sinusoid_encoding_table",
@@ -84,12 +93,18 @@ def activation_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
 class _RunningNorm(nn.Module):
     """Variables of a batch norm over the last axis: parameters
     ``scale``/``bias``, running ``mean``/``var``; ``momentum`` is the torch
-    convention (``new = (1 - m) old + m batch``), as in the JAX modules."""
+    convention (``new = (1 - m) old + m batch``), as in the JAX modules.
 
-    def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5):
+    ``group`` is the process group whose ranks' batches make one batch (the
+    JAX modules' ``axis_name``): None for the default group, when one is
+    initialised."""
+
+    def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5,
+                 group=None):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.group = group
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
@@ -97,11 +112,17 @@ class _RunningNorm(nn.Module):
 
     def statistics(self, total: torch.Tensor, total_sq: torch.Tensor,
                    count) -> tuple[torch.Tensor, torch.Tensor]:
-        """Batch (mean, biased var) from f32 sums over ``count`` elements;
-        updates the running statistics in place (no gradient) with the
-        unbiased variance, as ``nn_utils.py:117-127`` of the JAX package."""
+        """Batch (mean, biased var) from f32 sums over ``count`` elements,
+        each summed over the group's ranks first; updates the running
+        statistics in place (no gradient) with the unbiased variance, as
+        ``nn_utils.py:113-127`` of the JAX package."""
         if not torch.is_tensor(count):  # filled on the device: no host copy
             count = torch.full((), float(count), dtype=torch.float32, device=total.device)
+        if self.group is not None or dist.is_initialized():
+            d = total.shape[0]
+            summed = dist.all_reduce_sum(torch.cat([total, total_sq, count.reshape(1)]),
+                                         self.group)
+            total, total_sq, count = summed[:d], summed[d:2 * d], summed[2 * d]
         count = torch.clamp_min(count, 1.0)
         mean = total / count
         var = torch.clamp_min(total_sq / count - mean * mean, 0.0)
@@ -123,7 +144,9 @@ class MaskedBatchNorm(_RunningNorm):
 
     ``mask`` (broadcastable to ``x.shape[:-1]``, True = valid) excludes
     padding from the batch statistics; padded activations are normalised
-    all the same (later layers ignore them)."""
+    all the same (later layers ignore them). The count is the valid
+    elements' (every element's without a mask), summed over the group as
+    the totals are."""
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 use_running_average: bool = True) -> torch.Tensor:
@@ -153,7 +176,8 @@ class GroupedBNReluMax(_RunningNorm):
     ``>= 0`` and their min where it is negative. A hole (``nn_idx < 0``)
     contributes an exact-zero row to the pool and to the batch statistics,
     whose count is every (token, neighbour) slot, holes included (the
-    reference quirk). Same variables as :class:`MaskedBatchNorm`.
+    reference quirk), summed over the group as the totals are. Same
+    variables as :class:`MaskedBatchNorm`.
 
     Two routes to the pooled statistics, as in the JAX module: ``"xla"``,
     plain torch over the gathered (B, M, K, D) rows, differentiable in g and

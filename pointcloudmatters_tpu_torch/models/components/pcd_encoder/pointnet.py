@@ -3,7 +3,9 @@
 
 Five bias-free linears of widths (64, 64, 64, 128, 512), each followed by a
 batch norm (eps 1e-3, momentum 0.01) and a ReLU, over the padded
-``(B, N, C_in)`` cloud; names ``conv1..5`` / ``bn1..5`` as in JAX.
+``(B, N, C_in)`` cloud; names ``conv1..5`` / ``bn1..5`` as in JAX. ``group``
+is the process group the batch norms sum their statistics over (the JAX
+module's ``axis_name``; None: the default group, when one is initialised).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ class PointNet(nn.Module):
     """Per-point feature extractor: ``forward({"feat": (B, N, C_in),
     "valid": (B, N)})`` -> (B, N, 512), or ``num_classes`` channels."""
 
-    def __init__(self, in_channels: int, num_classes: int = 0):
+    def __init__(self, in_channels: int, num_classes: int = 0, group=None):
         super().__init__()
         self.in_channels = in_channels
         self.num_classes = num_classes
@@ -31,7 +33,7 @@ class PointNet(nn.Module):
         for i, width in enumerate(WIDTHS):
             setattr(self, f"conv{i + 1}", nn.Linear(c_in, width, bias=False))
             setattr(self, f"bn{i + 1}",
-                    MaskedBatchNorm(width, momentum=0.01, eps=1e-3))
+                    MaskedBatchNorm(width, momentum=0.01, eps=1e-3, group=group))
             c_in = width
         if num_classes > 0:
             self.final = nn.Linear(c_in, num_classes)

@@ -24,7 +24,9 @@ kernel's mask, so that drawing it never waits for the device):
 
 - dense: flax's ``broadcast_dropout=True``, one ``(Lq, Lk)`` Bernoulli
   (1 - rate) mask shared across batch and heads, survivors scaled by
-  ``1 / (1 - rate)``, applied to the softmax weights;
+  ``1 / (1 - rate)``, applied to the softmax weights (under data
+  parallelism ``"dropout"`` is seeded alike on every rank, so the mask is
+  shared across the ranks' rows too, as one global draw is under GSPMD);
 - oneshot: the kernel's mask, one per head and shared across the batch,
   on the CPU as on the card (the JAX package's CPU fallback takes the dense
   broadcast instead; the port keeps the kernel's semantics everywhere);

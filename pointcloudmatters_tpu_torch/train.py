@@ -18,18 +18,30 @@ names the value ``main`` returns.
 The policy's weights are drawn from ``seed`` (``entry.init_parameters``),
 the draws the JAX package makes from ``model.seed`` in distribution, and a
 restored checkpoint then replaces them.
+
+Across devices (``trainer=ddp``, the shipped default: ``devices: auto``),
+one process a device, as Lightning's DDP runs the reference: a composed
+trainer asking for W > 1 processes (an int ``devices`` > 1, ``auto`` on a
+machine with several cards, ``accelerator: cpu`` with ``devices`` > 1)
+makes this process rank 0 and starts W - 1 more, each running the same
+command with torchrun's variables and the run directory set; under torchrun
+or SLURM each process joins the group their variables describe.
+``devices`` above the machine's cards raises before any process starts, as
+``num_nodes`` > 1 does without torchrun's or SLURM's variables. Every rank
+returns the optimized metric.
 """
 
 from __future__ import annotations
 
 import os
 import sys
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from pointcloudmatters_tpu_torch.entry import init_parameters
 from pointcloudmatters_tpu_torch.utils import config as C
+from pointcloudmatters_tpu_torch.utils import dist
 from pointcloudmatters_tpu_torch.utils.pylogger import RankedLogger
 from pointcloudmatters_tpu_torch.utils.utils import (
     extras,
@@ -41,7 +53,7 @@ from pointcloudmatters_tpu_torch.utils.utils import (
     task_wrapper,
 )
 
-__all__ = ["CONFIG_DIR", "instantiate_model", "train", "main"]
+__all__ = ["CONFIG_DIR", "instantiate_model", "train", "run_ranks", "main"]
 
 CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                           "configs")
@@ -124,9 +136,40 @@ def compose_run(argv: list[str], output_dir: Optional[str] = None):
     return cfg
 
 
+def run_ranks(task: Callable, cfg, argv: list[str], module: str):
+    """``task(cfg)`` in the process group ``cfg.trainer`` asks for (module
+    doc): started here, with ranks 1 .. W - 1 running ``python -m module
+    argv`` in the run directory, or joined from torchrun's or SLURM's
+    variables; ``task``'s result. The group ends with the task."""
+    trainer = cfg.trainer
+    accelerator = trainer.get("accelerator", "auto")
+    world = dist.requested_world(accelerator, trainer.get("devices", "auto"),
+                                 int(trainer.get("num_nodes") or 1))
+    env, procs = None, []
+    if world > 1 and not dist.is_initialized() and dist.process_env() is None:
+        argv = [*argv, f"hydra.run.dir={C.select(cfg, 'paths.output_dir')}"]
+        log.info(f"starting ranks 1-{world - 1} of {world}: python -m {module}")
+        env, procs = dist.spawn_ranks(module, argv, world)
+    joined = not dist.is_initialized()
+    try:
+        dist.init_dist("cpu" if accelerator == "cpu" else "cuda", env)
+        result = task(cfg)
+    except BaseException:
+        for p in procs:
+            p.kill()
+        raise
+    finally:
+        if joined:
+            dist.destroy()
+        codes = [p.wait() for p in procs]
+    if any(codes):
+        raise RuntimeError(f"ranks 1-{len(procs)} exited with {codes}")
+    return result
+
+
 def _run_one(argv: list[str], output_dir: Optional[str] = None) -> Optional[float]:
     cfg = compose_run(argv, output_dir)
-    metric_dict, _ = train(cfg)
+    metric_dict, _ = run_ranks(train, cfg, argv, "pointcloudmatters_tpu_torch.train")
     return get_metric_value(metric_dict, cfg.get("optimized_metric"))
 
 

@@ -1,6 +1,7 @@
 """The trainer (port of ``pointcloudmatters_tpu/trainer.py``): the training
 step, the epoch loop ``fit`` with gradient accumulation and held-out
-validation, ``validate``, and checkpoints, on one device.
+validation, ``validate``, and checkpoints, on one device or data-parallel
+over several, one process a device.
 
 Precisions as the JAX trainer has them: ``"32-true"`` (or ``"32"``), and the
 mixed ones (``"bf16-mixed"``, ``"16-mixed"``, ``"bf16"``, ``"16"``, all
@@ -38,7 +39,34 @@ running statistics), ``step`` and ``epoch``; unless ``weights_only``,
 state) and ``rng`` (the state of each of the step's generators); and
 ``extras`` when the module has any. ``fit(ckpt_path=)`` restores after the
 optimizer is built and ``validate(ckpt_path=)`` before validating, as in
-JAX. Several devices (DDP) and the profiler come with later slices.
+JAX. The profiler comes with a later slice.
+
+Data parallelism (the JAX trainer's ``"data"`` mesh, ``trainer.py:6-12``),
+one process a device joined by ``torch.distributed``
+(:mod:`pointcloudmatters_tpu_torch.utils.dist`): a step at world size W
+over W local batches computes what a step at world size 1 computes over
+their concatenation, as the JAX step over a sharded global batch does.
+``fit`` and ``validate`` use the default process group when one is
+initialised (so a caller picks the backend: ``chip_smoke.py`` and the tests
+run gloo over CUDA tensors), else join the one torchrun's or SLURM's
+variables describe (NCCL on the card ``LOCAL_RANK`` names, gloo on the
+CPU); ``python -m pointcloudmatters_tpu_torch.train`` starts the processes
+itself. ``devices`` asking for more than one process where none was started
+raises, as does asking for more cards than the machine has. In a group:
+
+- parameters and running statistics start as rank 0's (one broadcast);
+- each micro-step sums its gradients, its loss metrics and its rows over
+  the ranks in one flat buffer and divides by W, so that ``grad_norm``, the
+  clip, the gradient mean and the logged losses are the global batch's;
+  the ranks' local batches must be equal (a device-side check), since the
+  loss of each is a mean over it;
+- the batch norms sum their statistics over the ranks (``nn_utils.py``),
+  and the step's random streams are split into those shared by every rank
+  and each rank's own (``BCModule.make_rngs``);
+- metrics reduce over the ranks at ``compute`` (``utils/metrics.py``);
+  ``samples_per_sec`` counts the global batch;
+- ``should_stop`` is rank 0's; checkpoints and log files are written by
+  rank 0 alone, and every rank restores from them.
 """
 
 from __future__ import annotations
@@ -52,6 +80,7 @@ from typing import Any, Optional, Sequence
 import torch
 
 from pointcloudmatters_tpu_torch.models.bc_module import BCModule, select_model_batch, to_device
+from pointcloudmatters_tpu_torch.utils import dist
 from pointcloudmatters_tpu_torch.utils.loggers import as_multi_logger
 from pointcloudmatters_tpu_torch.utils.optimizer import clip_by_global_norm, global_norm
 from pointcloudmatters_tpu_torch.utils.pylogger import RankedLogger
@@ -113,10 +142,11 @@ def _not_ported(what: str, item: int) -> NotImplementedError:
 
 class Trainer:
     """Trains and validates a ``BCModule``; takes the JAX trainer's keys
-    (``configs/trainer/*.yaml``), of which ``strategy``, ``sync_batchnorm``,
-    ``deterministic`` and ``overfit_batches`` are accepted and, as there,
-    unused. ``seed``, when given, becomes the module's ``seed``, which seeds
-    its random streams (``BCModule.make_rngs``)."""
+    (``configs/trainer/*.yaml``), of which ``strategy``, ``sync_batchnorm``
+    (batch statistics are global, as under GSPMD), ``deterministic`` and
+    ``overfit_batches`` are accepted and, as there, unused. ``seed``, when
+    given, becomes the module's ``seed``, which seeds its random streams
+    (``BCModule.make_rngs``)."""
 
     def __init__(
         self,
@@ -151,8 +181,6 @@ class Trainer:
             raise ValueError(f"unknown precision {precision!r}")
         if accelerator not in _ON_CARD + ("cpu",):
             raise ValueError(f"unknown accelerator {accelerator!r}")
-        if (isinstance(devices, int) and devices > 1) or num_nodes > 1:
-            raise _not_ported("training on more than one device (DDP)", 7)
         if profiler:
             raise _not_ported("the profiler", 12)
         self.default_root_dir = os.path.abspath(default_root_dir)
@@ -201,28 +229,31 @@ class Trainer:
     # device and steps
     # ------------------------------------------------------------------
     def select_device(self) -> torch.device:
-        """The CPU for ``accelerator="cpu"``, else the card; raises where
-        there is no card, and where ``devices`` asks for more than one."""
+        """The CPU for ``accelerator="cpu"``, else the card ``LOCAL_RANK``
+        names (0 when unset); raises where there is no card, and where
+        ``devices`` asks for more cards than there are."""
         if self.accelerator == "cpu":
             return torch.device("cpu")
         if not torch.cuda.is_available():
             raise RuntimeError(f"accelerator={self.accelerator!r} trains on a CUDA device and "
                                f"there is none; pass accelerator='cpu' to train on the CPU")
-        if self.devices_spec in ("auto", -1, "-1", None) and torch.cuda.device_count() > 1:
-            raise _not_ported("training on more than one device (DDP)", 7)
-        return torch.device("cuda", torch.cuda.current_device())
+        dist.requested_world(self.accelerator, self.devices_spec)
+        return torch.device("cuda", dist.local_rank())
 
     def setup(self, module: BCModule, total_steps: int) -> None:
         """Optimizer, schedule and gradient accumulation over
         ``total_steps`` optimizer steps, and the step's random streams (the
         JAX ``setup_module`` + ``initial_state``); ``module`` becomes the one
-        this trainer checkpoints."""
+        this trainer checkpoints. In a process group the module's
+        parameters and running statistics become rank 0's."""
         self._module = module
+        if dist.is_initialized():
+            dist.broadcast_(list(module.policy.state_dict().values()))
         module.configure_optimizers(total_steps, self.gradient_clip_val,
                                     self.accumulate_grad_batches)
         if self.seed is not None:
             module.seed = self.seed
-        self.rngs = module.make_rngs(module.seed)
+        self.rngs = module.make_rngs(module.seed, dist.get_rank(), dist.get_world_size())
 
     def train_step(self, module: BCModule, batch: dict) -> dict[str, torch.Tensor]:
         """One micro-step on ``batch`` (an optimizer step when gradients are
@@ -242,6 +273,10 @@ class Trainer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
+        metrics = {k: out[k].detach().to(torch.float32)
+                   for k in module.train_metric_keys if k in out}
+        if dist.is_initialized():
+            metrics = self._all_reduce_step(grads, metrics, _batch_size_of(batch))
         grad_norm = global_norm(grads)  # this micro-batch's, as JAX logs it
         mean = module.gradient_mean
         if mean is None or mean.update(grads):
@@ -252,11 +287,30 @@ class Trainer:
             if module.scheduler is not None:
                 module.scheduler.step()
         self.global_step += 1
-        metrics = {k: out[k].detach().to(torch.float32)
-                   for k in module.train_metric_keys if k in out}
         metrics["grad_norm"] = grad_norm
-        module.train_metrics.update(metrics)
+        module.train_metrics.update(metrics, 1.0 / dist.get_world_size())
         return metrics
+
+    @staticmethod
+    def _all_reduce_step(grads: list, metrics: dict, rows: int) -> dict:
+        """The gradients (in place) and metrics of the global batch: each
+        summed over the ranks in one flat buffer, with the ranks' rows, and
+        divided by W. The mean of the ranks' mean losses is the global
+        mean only over equal local batches: a device-side check raises
+        otherwise (at the next synchronisation, on the card)."""
+        world = dist.get_world_size()
+        device = grads[0].device
+        values = list(metrics.values())
+        flat = torch.cat([g.reshape(-1) for g in grads] + [v.reshape(1) for v in values]
+                         + [torch.full((1,), float(rows), device=device)])
+        dist.all_reduce_([flat])
+        torch._assert_async(flat[-1] == float(rows * world),
+                            "the ranks' local batches differ in size")
+        flat.div_(world)
+        n = sum(g.numel() for g in grads)
+        for g, part in zip(grads, flat[:n].split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
+        return dict(zip(metrics, flat[n:n + len(values)]))
 
     def fit_steps(self, module: BCModule, batches: Sequence[dict], n: int
                   ) -> list[dict[str, torch.Tensor]]:
@@ -270,7 +324,13 @@ class Trainer:
     # ------------------------------------------------------------------
     def save_checkpoint(self, path: str, weights_only: bool = False) -> None:
         """Save the module's state into the directory ``path`` (module doc);
-        ``weights_only`` leaves out ``opt_state`` and ``rng``."""
+        ``weights_only`` leaves out ``opt_state`` and ``rng``. In a process
+        group rank 0 writes, and every rank returns once it has."""
+        if dist.is_main_process():
+            self._write_checkpoint(os.path.abspath(path), weights_only)
+        dist.barrier()
+
+    def _write_checkpoint(self, path: str, weights_only: bool) -> None:
         module = self._module
         params = dict(module.policy.named_parameters())
         state = module.policy.state_dict()
@@ -291,7 +351,7 @@ class Trainer:
         extras = module.state_dict_extras()
         if extras:
             item["extras"] = extras
-        write_checkpoint(os.path.abspath(path), item)
+        write_checkpoint(path, item)
 
     def restore_checkpoint(self, path: str, module: Optional[BCModule] = None) -> dict:
         """Load the checkpoint in ``path`` into ``module`` (by default the
@@ -299,7 +359,9 @@ class Trainer:
         ``current_epoch`` to the saved epoch + 1 and ``global_step`` to the
         saved step. A module without an optimizer gets one first (a 1-step
         schedule, as the JAX module's ``initial_state`` builds). Returns the
-        checkpoint dict."""
+        checkpoint dict. In a process group every rank reads the file; the
+        streams shared by the ranks continue from it, and each rank's own
+        start anew from ``(seed, rank, step)`` (the file holds rank 0's)."""
         module = self._module = module or self._module
         path = os.path.abspath(path)
         ckpt = read_checkpoint(path)
@@ -321,8 +383,13 @@ class Trainer:
             if mean is not None:
                 mean.load_state_dict(opt_state["gradient_mean"], module.device)
         if "rng" in ckpt:
-            for name, state in ckpt["rng"].items():
-                self.rngs[name].set_state(state)
+            world = dist.get_world_size()
+            for name in module.train_rng_streams:  # "bits" is "dropout" in a world of one
+                if name in ckpt["rng"] and (world == 1 or name not in module.rank_rng_streams):
+                    self.rngs[name].set_state(ckpt["rng"][name])
+            if world > 1:
+                fresh = module.make_rngs(module.seed, dist.get_rank(), world, int(ckpt["step"]))
+                self.rngs.update({name: fresh[name] for name in module.rank_rng_streams})
         self.current_epoch = int(ckpt["epoch"]) + 1
         self.global_step = int(ckpt["step"])
         self._fit_first_step = 0
@@ -351,10 +418,26 @@ class Trainer:
     # ------------------------------------------------------------------
     # fit and validate
     # ------------------------------------------------------------------
-    def _start(self, model: BCModule, datamodule, loader) -> None:
+    def _device(self) -> torch.device:
+        """The device ``fit`` and ``validate`` run on, after joining the
+        process group the environment describes unless one is initialised
+        (before a loader counts its batches, which depend on the group).
+        Raises where ``devices`` and ``num_nodes`` ask for more than one
+        process and this one is alone."""
+        device = self.select_device()
+        world = dist.init_dist(device.type)
+        wanted = dist.requested_world(self.accelerator, self.devices_spec, self.num_nodes)
+        if world == 1 and wanted > 1:
+            raise ValueError(
+                f"devices={self.devices_spec!r}, num_nodes={self.num_nodes} ask for {wanted} "
+                "processes, one a device, and this one runs alone: start them with "
+                "python -m pointcloudmatters_tpu_torch.train, torchrun or srun")
+        return device
+
+    def _start(self, model: BCModule, datamodule, loader, device: torch.device) -> None:
         """What ``fit`` and ``validate`` do before their loops: the device,
         and the JAX trainer's example batch."""
-        model.to(self.select_device())
+        model.to(device)
         self._module = model
         self.datamodule = datamodule
         # The JAX trainer draws one batch here to initialise the parameters.
@@ -375,13 +458,14 @@ class Trainer:
             batches.close()
 
     def fit(self, model: BCModule, datamodule=None, ckpt_path: Optional[str] = None) -> None:
+        device = self._device()
         if hasattr(datamodule, "setup"):
             datamodule.setup("fit")
         train_loader = datamodule.train_dataloader()
         n_train = _limit(len(train_loader), self.limit_train_batches)
         opt_steps_per_epoch = max(1, n_train // self.accumulate_grad_batches)
         self.estimated_stepping_batches = opt_steps_per_epoch * self.max_epochs
-        self._start(model, datamodule, train_loader)
+        self._start(model, datamodule, train_loader, device)
         self._schedule, self._fit_first_step = model.scheduler, self.global_step
         self.setup(model, self.estimated_stepping_batches)
         if ckpt_path:
@@ -392,8 +476,8 @@ class Trainer:
         for cb in self.callbacks:
             cb.on_fit_start(self, model)
         t_fit = time.time()
-        log.info(f"fit: {model.device}, {n_train} batches/epoch, "
-                 f"{self.estimated_stepping_batches} optimizer steps total, "
+        log.info(f"fit: {model.device} x {dist.get_world_size()} processes, {n_train} "
+                 f"batches/epoch, {self.estimated_stepping_batches} optimizer steps total, "
                  f"precision={self.precision}")
 
         # the sanity check: N validation batches before the first epoch, so
@@ -429,6 +513,7 @@ class Trainer:
                     cb.on_validation_end(self, model, val_metrics, epoch)
             for cb in self.callbacks:
                 cb.on_train_epoch_end(self, model, {**epoch_metrics, **val_metrics}, epoch)
+            self.should_stop = dist.broadcast_flag(self.should_stop)
             if self.should_stop and epoch + 1 >= self.min_epochs:
                 log.info(f"early stop at epoch {epoch}")
                 break
@@ -440,7 +525,7 @@ class Trainer:
 
     def _train_epoch(self, model: BCModule, loader, n_train: int) -> dict:
         """One epoch of micro-steps; the epoch's train metrics and
-        ``samples_per_sec``, as floats."""
+        ``samples_per_sec`` (of the global batch), as floats."""
         model.train_metrics.reset()
         t0, seen = time.time(), 0
         for i, batch in enumerate(loader):
@@ -464,7 +549,7 @@ class Trainer:
             torch.cuda.synchronize(model.device)
         epoch_metrics = {k: float(v) for k, v in model.train_metrics.compute().items()}
         if seen:
-            epoch_metrics["samples_per_sec"] = seen / (time.time() - t0)
+            epoch_metrics["samples_per_sec"] = seen * dist.get_world_size() / (time.time() - t0)
         return epoch_metrics
 
     def validate(self, model: BCModule, datamodule=None,
@@ -472,6 +557,7 @@ class Trainer:
         """Held-out validation of ``model`` as it is, or as the checkpoint
         ``ckpt_path`` holds it (the JAX trainer's ``validate``); the
         metrics, logged."""
+        device = self._device()
         if hasattr(datamodule, "setup"):
             datamodule.setup("validate")
         loader = None
@@ -488,7 +574,7 @@ class Trainer:
                 break
         if loader is None:
             raise RuntimeError("validate() needs at least one dataloader (train, val, or test)")
-        self._start(model, datamodule, loader)
+        self._start(model, datamodule, loader, device)
         if ckpt_path:
             self.restore_checkpoint(ckpt_path)
         metrics = model.run_validation(self, datamodule)

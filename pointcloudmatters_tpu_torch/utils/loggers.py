@@ -5,7 +5,11 @@ the CSV path and record the back end's configuration beside it.
 
 ``TensorBoardLogger`` writes event files through torch's ``SummaryWriter``
 when that imports, and CSV under the same directory when it does not, as the
-JAX package's logger does."""
+JAX package's logger does.
+
+Under data parallelism only rank 0 writes (Lightning's loggers'
+``rank_zero_only``): on the other ranks these loggers make no directory and
+no file, and log nothing."""
 
 from __future__ import annotations
 
@@ -14,6 +18,8 @@ import json
 import os
 from typing import Any, Optional
 from urllib.parse import urlparse
+
+from pointcloudmatters_tpu_torch.utils.dist import is_main_process, rank_zero_only
 
 __all__ = ["BaseLogger", "CSVLogger", "OfflineBackendLogger", "WandbLogger", "CometLogger",
            "MLFlowLogger", "NeptuneLogger", "AimLogger", "TensorBoardLogger", "MultiLogger",
@@ -38,12 +44,14 @@ class CSVLogger(BaseLogger):
 
     def __init__(self, save_dir: str, name: str = "csv", prefix: str = ""):
         self.save_dir = os.path.join(save_dir, name) if name else save_dir
-        os.makedirs(self.save_dir, exist_ok=True)
+        if is_main_process():
+            os.makedirs(self.save_dir, exist_ok=True)
         self.prefix = prefix
         self.path = os.path.join(self.save_dir, "metrics.csv")
         self._fieldnames: list[str] = ["step"]
         self._rows: list[dict] = []
 
+    @rank_zero_only
     def log_metrics(self, metrics: dict, step: int) -> None:
         row = {"step": step}
         for k, v in metrics.items():
@@ -60,6 +68,7 @@ class CSVLogger(BaseLogger):
             writer.writeheader()
             writer.writerows(self._rows)
 
+    @rank_zero_only
     def log_hyperparams(self, params: dict) -> None:
         with open(os.path.join(self.save_dir, "hparams.json"), "w") as f:
             json.dump(params, f, indent=2, default=str)
@@ -86,6 +95,8 @@ class OfflineBackendLogger(CSVLogger):
                 save_dir = "logs"
         super().__init__(save_dir, name=name or self.backend, prefix=prefix)
         self.backend_config = dict(backend_kwargs)
+        if not is_main_process():
+            return
         with open(os.path.join(self.save_dir, "backend_config.json"), "w") as fh:
             json.dump({"backend": self.backend, **self.backend_config}, fh, indent=2,
                       default=str)
@@ -121,9 +132,11 @@ class TensorBoardLogger(BaseLogger):
                  log_graph: bool = False, version: Optional[str] = None):
         del default_hp_metric, log_graph, version
         self.save_dir = os.path.join(save_dir, name) if name else save_dir
-        os.makedirs(self.save_dir, exist_ok=True)
         self.prefix = prefix
         self._writer: Any = None
+        if not is_main_process():
+            return
+        os.makedirs(self.save_dir, exist_ok=True)
         try:
             from torch.utils.tensorboard import SummaryWriter
         except ImportError:
@@ -135,6 +148,7 @@ class TensorBoardLogger(BaseLogger):
     def writer(self) -> str:
         return "csv" if self._writer is None else "tensorboard"
 
+    @rank_zero_only
     def log_metrics(self, metrics: dict, step: int) -> None:
         if self._writer is None:
             self._fallback.log_metrics(metrics, step)
@@ -143,6 +157,7 @@ class TensorBoardLogger(BaseLogger):
             key = f"{self.prefix}{k}" if self.prefix else k
             self._writer.add_scalar(key, float(v), step)
 
+    @rank_zero_only
     def log_hyperparams(self, params: dict) -> None:
         if self._writer is None:
             self._fallback.log_hyperparams(params)

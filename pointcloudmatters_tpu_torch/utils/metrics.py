@@ -2,13 +2,24 @@
 ``pointcloudmatters_tpu/utils/metrics.py``). ``update`` only enqueues device
 work: nothing is read back until ``compute``'s result is, where the JAX
 package reads every value with ``float()`` at every step. NaN values are
-skipped, as there."""
+skipped, as there.
+
+Under data parallelism ``compute`` reduces each metric's state over the
+default process group, on the device: a mean sums its totals and counts, a
+sum its totals, a max or min takes the extreme. Every rank runs the same
+loop, so a metric is empty on all ranks or on none, and an empty one
+reduces nothing. A value that every rank holds alike (a global batch's) is
+given with weight 1 / W on each, and then comes out as it went in."""
+
 
 from __future__ import annotations
 
 from typing import Any, Sequence
 
 import torch
+from torch.distributed import ReduceOp
+
+from pointcloudmatters_tpu_torch.utils import dist
 
 __all__ = ["MeanMetric", "SumMetric", "MaxMetric", "MinMetric", "Metrics"]
 
@@ -31,11 +42,19 @@ class MeanMetric:
         else:
             self.total, self.count = self.total + total, self.count + count
 
+    def _reduced(self) -> tuple[torch.Tensor, torch.Tensor]:
+        if not dist.is_initialized():
+            return self.total, self.count
+        state = torch.stack([self.total, self.count])
+        dist.all_reduce_([state])
+        return state[0], state[1]
+
     def compute(self) -> torch.Tensor:
         """The mean as a 0-d f64 tensor on the device (NaN if empty)."""
         if self.total is None:
             return torch.tensor(float("nan"), dtype=torch.float64)
-        return self.total / self.count
+        total, count = self._reduced()
+        return total / count
 
     def reset(self) -> None:
         self.total = self.count = None
@@ -47,7 +66,7 @@ class SumMetric(MeanMetric):
     def compute(self) -> torch.Tensor:
         if self.total is None:
             return torch.tensor(0.0, dtype=torch.float64)
-        return self.total
+        return self._reduced()[0]
 
 
 class MaxMetric:
@@ -55,6 +74,7 @@ class MaxMetric:
     across epochs until :meth:`reset`, the best-so-far tracker."""
 
     _pick, _empty = staticmethod(torch.maximum), -float("inf")
+    _op = ReduceOp.MAX
 
     def __init__(self):
         self.value = None
@@ -70,7 +90,11 @@ class MaxMetric:
     def compute(self) -> torch.Tensor:
         if self.value is None:
             return torch.tensor(self._empty, dtype=torch.float64)
-        return self.value
+        if not dist.is_initialized():
+            return self.value
+        value = self.value.clone()
+        dist.all_reduce_([value], op=self._op)
+        return value
 
     def reset(self) -> None:
         self.value = None
@@ -80,6 +104,7 @@ class MinMetric(MaxMetric):
     """Smallest value given to ``update`` (inf if empty)."""
 
     _pick, _empty = staticmethod(torch.minimum), float("inf")
+    _op = ReduceOp.MIN
 
 
 _METRICS = {cls.__name__: cls for cls in (MeanMetric, SumMetric, MaxMetric, MinMetric)}

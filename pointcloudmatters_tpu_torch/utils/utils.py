@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from pointcloudmatters_tpu_torch.utils import config as config_engine
+from pointcloudmatters_tpu_torch.utils import dist
 from pointcloudmatters_tpu_torch.utils.pylogger import RankedLogger
 
 log = RankedLogger(__name__, rank_zero_only=True)
@@ -22,7 +23,14 @@ log = RankedLogger(__name__, rank_zero_only=True)
 def seed_everything(seed: int) -> None:
     """Seed Python's, numpy's and torch's default generators (the CPU's and
     every card's) and set ``PYTHONHASHSEED``. The training step's own
-    streams are seeded from the module's ``seed`` (``BCModule.make_rngs``)."""
+    streams are seeded from the module's ``seed`` (``BCModule.make_rngs``).
+
+    Under data parallelism each rank seeds from ``(seed, rank)``, so that
+    its samples' random draws (start steps, grid picks) are its own; rank 0
+    seeds as a world of one does."""
+    rank = dist.get_rank()
+    if rank:
+        seed = int(np.random.SeedSequence(seed % 2 ** 63, spawn_key=(rank,)).generate_state(1)[0])
     random.seed(seed)
     np.random.seed(seed % (2**32))
     torch.manual_seed(seed)
@@ -41,13 +49,14 @@ def print_config_tree(cfg: dict, indent: int = 0) -> None:
 
 
 def extras(cfg: dict) -> None:
-    """Pre-run niceties: warnings filter, tag enforcement, config tree."""
+    """Pre-run niceties: warnings filter, tag enforcement, config tree (on
+    rank 0)."""
     ex = cfg.get("extras") or {}
     if ex.get("ignore_warnings"):
         warnings.filterwarnings("ignore")
     if ex.get("enforce_tags") and not cfg.get("tags"):
         raise ValueError("Specify tags before launching (enforce_tags=true)")
-    if ex.get("print_config", True):
+    if ex.get("print_config", True) and dist.is_main_process():
         print_config_tree(cfg)
 
 

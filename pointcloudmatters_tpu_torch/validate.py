@@ -4,7 +4,8 @@ checkpoint ``ckpt_path=...`` (required) and validates it::
 
     python -m pointcloudmatters_tpu_torch.validate <train's overrides> ckpt_path=<checkpoint>
 
-``main`` returns the validation's metrics.
+``main`` returns the validation's metrics. Across devices it runs as
+``train`` does (``train.run_ranks``).
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from __future__ import annotations
 import sys
 from typing import Optional
 
-from pointcloudmatters_tpu_torch.train import compose_run, instantiate_model
+from pointcloudmatters_tpu_torch.train import compose_run, instantiate_model, run_ranks
 from pointcloudmatters_tpu_torch.utils import config as C
 from pointcloudmatters_tpu_torch.utils.pylogger import RankedLogger
 from pointcloudmatters_tpu_torch.utils.utils import instantiate_loggers, seed_everything, task_wrapper
@@ -47,7 +48,8 @@ def validate(cfg) -> tuple[dict, dict]:
 
 def main(argv: Optional[list[str]] = None) -> dict:
     argv = list(sys.argv[1:] if argv is None else argv)
-    metric_dict, _ = validate(compose_run(argv))
+    metric_dict, _ = run_ranks(validate, compose_run(argv), argv,
+                               "pointcloudmatters_tpu_torch.validate")
     return metric_dict
 
 

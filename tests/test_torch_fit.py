@@ -521,17 +521,11 @@ def test_detect_anomaly_reads_the_loss(tmp_path):
 
 def test_what_is_not_ported_raises(tmp_path, monkeypatch):
     dm = _stub_data(4)
-    for kw in ({"devices": 2}, {"num_nodes": 2}, {"profiler": "simple"}):
+    for kw in ({"profiler": "simple"},):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             Trainer(default_root_dir=str(tmp_path), **kw)
     with pytest.raises(NotImplementedError, match="item 12"):
         Trainer(default_root_dir=str(tmp_path), profiler="advanced")
-    with monkeypatch.context() as m:  # every card of a machine with two: DDP
-        m.setattr(torch.cuda, "is_available", lambda: True)
-        m.setattr(torch.cuda, "device_count", lambda: 2)
-        with pytest.raises(NotImplementedError, match="item 7"):
-            Trainer(default_root_dir=str(tmp_path), accelerator="gpu").fit(
-                BCModule(Stub(), optimizer=OPT), dm)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for accelerator in ("tpu", "auto", "gpu", "cuda"):
         with pytest.raises(RuntimeError, match="no"):

@@ -58,6 +58,7 @@ SLICE_MODULES = (
     "pointcloudmatters_tpu_torch.models.maniskill2_modules",
     "pointcloudmatters_tpu_torch.utils.config",
     "pointcloudmatters_tpu_torch.utils.pylogger",
+    "pointcloudmatters_tpu_torch.utils.dist",
     "pointcloudmatters_tpu_torch.utils.utils",
     "pointcloudmatters_tpu_torch.callbacks",
     "pointcloudmatters_tpu_torch.loggers",

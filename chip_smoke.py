@@ -206,12 +206,37 @@ Phases, each of which raises on failure (exit code non-zero, no result):
    ``trainer.devices`` above the card count raising before any launch.
    Gloo over one card rehearses the path; it is no scaling figure.
 
+13. The Diffusion Policy over point clouds as
+   ``configs/exp_maniskill2_diffusion_policy`` ships it
+   (``scratch_pointnet_pcd``, PickCube-v0: 255,852,391 parameters, 255,687,303
+   of them the ConditionalUnet1D; seeded random weights; a normalizer fitted
+   on seeded data): (a) FPS and kNN (k = 16) over the 128 clouds of a B=64
+   step and the 2 of a rollout request, N = 16,384 with ragged valid counts,
+   M = 2048: index-exact (kNN d2 bit-equal) against their plain versions,
+   timed, FPS's cluster size and kNN's lane group logged (``dp_cases`` in
+   their kernels-line entries); (b) ``predict`` in f32, 100 DDPM steps, at
+   B=1 and B=8: a warm-up and three timed requests at each, FPS and kNN
+   once a request and no other kernel, the last B=8 answer against the plain
+   versions from the same generator seed (within 1e-5 of max(1, max
+   |plain|), bit-equality logged); (c) the ``"bf16-mixed"`` step at B=64,
+   timed as phase 5 times it (samples/s, peak memory), FPS and kNN once a
+   step, and one step on the kernels against one on the plain versions
+   (BF16_STEP_TOL, as phase 6); (d) ``train.main`` on the DP composition
+   over phase 10's demos (``dp_cli_argv``: 2 epochs of 2 micro-steps of 64,
+   held-out validation by ``held_out_dp_module``), the normalizer wired
+   from the dataset, ``last`` restored by a fresh trainer bit-equal with the
+   normalizer rebuilt from its extras; the checkpoint's size and save and
+   restore seconds logged. ``python3 tools/dp_phase.py`` builds the kernels
+   and runs this phase alone.
+
 Prints a JSON line of the kernels (route, source, the TPU kernel each
 replaces, launches on each path (phase 11's: ``train_cli``,
 ``train_cli_resume``, ``validate_cli``; phase 12's: ``train_ddp``, the
-gloo ranks' and (a)'s group's steps, and ``train_cli_ddp``), error, kernel, plain and library times,
+gloo ranks' and (a)'s group's steps, and ``train_cli_ddp``; phase 13's:
+``dp_predict``, ``dp_train``, ``train_cli_dp``), error, kernel, plain and library times,
 and the bound: the larger of the bytes over 3.35 TB/s and the flops over
-the peak of the inputs' type, 67 TFLOP/s f32 or 989 TFLOP/s bf16; one
+the peak of the inputs' type, 67 TFLOP/s f32 or 989 TFLOP/s bf16 (FPS and
+kNN count the flops of the valid points only: neither needs the padding); one
 ``attention_bwd`` launch is one call of the three-kernel backward: the
 ``rowsum(dO * O)`` pre-pass, dK/dV and dQ, timed together, and its library
 time is the library's forward + backward less its forward; the bf16
@@ -588,8 +613,10 @@ def check_fps(dev) -> dict:
                 plain_ms=cuda_ms(lambda: pointops.farthest_point_sampling_padded_plain(
                     xyz, mask, 2048), 2),
                 library_ms=None,
-                # 2047 steps of ~8 flops a point; xyz and mask read, indices written
-                **bound(8.0 * B * N * 2047, xyz.numel() * 4 + mask.numel() + idx.numel() * 4,
+                # 2047 steps of ~8 flops a valid point (the padding needs none);
+                # xyz and mask read, indices written
+                **bound(8.0 * int(mask.sum()) * 2047,
+                        xyz.numel() * 4 + mask.numel() + idx.numel() * 4,
                         "f32"))
             log(f"fps     B={B} N={N}: plain {res['plain_ms']:.3f} ms, bound "
                 f"{res['bound_ms']:.4f} ms")
@@ -723,12 +750,13 @@ def check_knn(dev) -> dict:
         if (what, B, N, k) == KNN_CASES[0]:
             for name, (kernel, plain) in kernels.items():
                 qq = q_sorted if name == "knn_chunkskip" else q
-                # ~8 flops a (query, point) distance; kernel 12 computes none
-                # for the pairs its boxes prune; inputs read, idx and d2 written
-                share = 1.0 - (prune_share if name == "knn_chunkskip" else 0.0)
+                # ~8 flops a (query, valid point) distance; kernel 12 computes
+                # none for the (tile, chunk) pairs its boxes prune, a share of
+                # all B * M * N; inputs read, idx and d2 written
+                pruned = B * N * (prune_share if name == "knn_chunkskip" else 0.0)
                 res[name].update(
                     ms=times[name], plain_ms=cuda_ms(lambda: plain(qq, xyz, mask, 16), 2),
-                    **bound(8.0 * B * M * N * share,
+                    **bound(8.0 * M * max(0.0, int(mask.sum()) - pruned),
                             (q.numel() + xyz.numel()) * 4 + mask.numel() + B * M * 16 * 8,
                             "f32"))
                 log(f"{name} B={B} M=2048 N={N} k=16: kernel {res[name]['ms']:.3f} ms, "
@@ -2186,21 +2214,25 @@ class StepClock:
         pass
 
 
-def in_memory_dataset(trajs, **kw):
-    """The port's ManiSkill2 ACT point-cloud dataset over demos held in
-    memory, so that the run needs no h5py: only the file read is replaced
-    ("PCD" in the class name picks the point-cloud collate, as the configs'
-    class names do)."""
+def in_memory_dataset(trajs, diffusion: bool = False, **kw):
+    """The port's ManiSkill2 ACT point-cloud dataset (with ``diffusion``,
+    the Diffusion Policy's) over demos held in memory, so that the run needs
+    no h5py: only the file read is replaced ("PCD" in the class name picks
+    the point-cloud collate, as the configs' class names do)."""
     import copy
 
     from pointcloudmatters_tpu_torch.data.components.maniskill2 import (
         ManiSkill2GoalPosSingleTaskACTPCDDataset,
+        ManiSkill2GoalPosSingleTaskDiffusionPolicyPCDDataset,
     )
 
-    class InMemoryACTPCDDataset(ManiSkill2GoalPosSingleTaskACTPCDDataset):
+    base = (ManiSkill2GoalPosSingleTaskDiffusionPolicyPCDDataset if diffusion
+            else ManiSkill2GoalPosSingleTaskACTPCDDataset)
+
+    class InMemoryPCDDataset(base):
         def __init__(self, trajs, **kw):
             self.trajs = trajs
-            super().__init__("held-in-memory.h5", **kw)
+            super().__init__(dataset_file="held-in-memory.h5", **kw)
 
         def _read_file(self, episode_ids):
             meta = {"episodes": [{"episode_id": i} for i in range(len(self.trajs))],
@@ -2208,7 +2240,7 @@ def in_memory_dataset(trajs, **kw):
                                  "env_kwargs": {"obs_mode": "pointcloud"}}}
             return meta, [copy.deepcopy(self.trajs[i]) for i in episode_ids]
 
-    return InMemoryACTPCDDataset(trajs, **kw)
+    return InMemoryPCDDataset(trajs, **kw)
 
 
 def fit_transforms() -> list:
@@ -2559,9 +2591,10 @@ def _run_state(trainer, module) -> dict:
     out["groups"] = repr([{k: v for k, v in g.items() if k != "params"}
                           for g in opt["param_groups"]])
     out["schedule"] = module.scheduler.last_epoch
-    out["mini_step"] = module.gradient_mean.mini_step
-    for i, a in enumerate(module.gradient_mean.acc or []):
-        out[f"acc/{i}"] = a.detach().cpu().clone()
+    if module.gradient_mean is not None:  # the DP composition accumulates nothing
+        out["mini_step"] = module.gradient_mean.mini_step
+        for i, a in enumerate(module.gradient_mean.acc or []):
+            out[f"acc/{i}"] = a.detach().cpu().clone()
     for k, g in trainer.rngs.items():
         out[f"rng/{k}"] = g.get_state()
     return out
@@ -3141,6 +3174,408 @@ def train_ddp(dev) -> dict:
     return {"train_ddp": launches,
             "train_cli_ddp": {k: cli_launches.get(k, 0) for k in KERNELS}}
 
+# phase 13: the Diffusion Policy over point clouds, the shipped
+# composition of configs/exp_maniskill2_diffusion_policy (scratch_pointnet_pcd,
+# PickCube-v0): batch 64 of two observation frames, so B * To = 128 clouds a
+# training step and 2 a rollout request, each of at most 16,384 points (one
+# 128 x 128 camera); FPS to 2048 tokens, kNN k = 16; a DDPM of 100 steps; the
+# ConditionalUnet1D of down_dims [512, 1024, 2048] (255,687,303 parameters)
+DP_BATCH, DP_OBS_STEPS, DP_POINTS = 64, 2, FIT_CAM_SIDE ** 2
+DP_SERVE_BATCHES = (1, 8)
+DP_UNET_PARAMS, DP_PARAMS = 255_687_303, 255_852_391
+DP_KERNELS = ("fps", "knn")
+DP_PREDICT_TOL = 1e-5  # of max(1, max |plain|): kernels 1 and 2 are index-exact
+DP_OPT = {"type": "AdamW", "betas": [0.9, 0.95], "lr": 1e-4, "weight_decay": 1e-4}
+DP_SCHED = {"scheduler": {"type": "OneCycleLR", "max_lr": 1e-4, "pct_start": 0.15,
+                          "anneal_strategy": "cos", "div_factor": 100.0,
+                          "final_div_factor": 1000.0}}
+DP_CLI_BATCHES = 2  # micro-steps an epoch in (d)
+DP_CLI_LOOP = 24  # 6 episodes x 24 = 144 samples: 2 batches of 64
+
+
+def dp_point_kernels(dev) -> dict:
+    """Phase 13 (a): FPS (kernel 1) and kNN (kernel 2, k = 16) over the
+    clouds of a DP training step (B * To = 128) and of a rollout request (2),
+    N = 16,384 with ragged valid counts, M = 2048: FPS index-exact against
+    its plain version, kNN index-exact with d2 bit-equal; each timed (CUDA
+    events), with FPS's cluster size and threads and kNN's lane group S.
+    Returns the cases of each."""
+    import torch
+
+    from pointcloudmatters_tpu_torch.entry import build_batch
+    from pointcloudmatters_tpu_torch.ops import fps, knn, pointops
+
+    cases = {"fps": [], "knn": []}
+    for B in (DP_BATCH * DP_OBS_STEPS, DP_OBS_STEPS):
+        batch = build_batch(batch_size=B, n_points=DP_POINTS, seed=0, with_actions=False)
+        xyz = torch.from_numpy(batch["pcds"]["coord"]).to(dev)
+        mask = torch.from_numpy(batch["pcds"]["valid"]).to(dev)
+        n_valid = int(mask.sum())  # the bounds count valid points: neither kernel needs the padding
+        run = lambda: fps.farthest_point_sampling_padded_cuda(xyz, mask, 2048)  # noqa: E731
+        idx = run()
+        if not torch.equal(idx, pointops.farthest_point_sampling_padded_plain(xyz, mask, 2048)):
+            raise AssertionError(f"dp      FPS at B={B}, N={DP_POINTS} disagrees with its "
+                                 f"plain version")
+        C, T = fps.launch_shape(B, DP_POINTS, dev.index)
+        ms = cuda_ms(run, 3)
+        cases["fps"].append(dict(B=B, N=DP_POINTS, cluster=C, threads=T, ms=ms,
+                                 **bound(8.0 * n_valid * 2047,
+                                         xyz.numel() * 4 + mask.numel() + idx.numel() * 4,
+                                         "f32")))
+        q = torch.gather(xyz, 1, idx.long()[..., None].expand(-1, -1, 3)).contiguous()
+        gi, gd = knn.knn_query_padded_cuda(q, xyz, mask, 16)
+        pi, pd = pointops.knn_query_padded_plain(q, xyz, mask, 16)
+        if not (torch.equal(gi, pi) and torch.equal(gd, pd)):
+            raise AssertionError(f"dp      kNN at B={B}, N={DP_POINTS}: indices differ at "
+                                 f"{(gi != pi).sum().item()} places, d2 max diff "
+                                 f"{_max_err(gd, pd):.3e}")
+        S = knn.launch_group(B, 2048, 16, dev.index)
+        knn_ms = cuda_ms(lambda: knn.knn_query_padded_cuda(q, xyz, mask, 16), 3)
+        cases["knn"].append(dict(B=B, N=DP_POINTS, k=16, S=S, ms=knn_ms,
+                                 **bound(8.0 * 2048 * n_valid,
+                                         (q.numel() + xyz.numel()) * 4 + mask.numel()
+                                         + B * 2048 * 16 * 8, "f32")))
+        log(f"dp      (a) {card_line()}: B*To={B} clouds of <= {DP_POINTS} points "
+            f"(valid {int(mask.sum(1).min())}-{int(mask.sum(1).max())}) -> 2048: FPS "
+            f"index-exact, cluster of {C} CTAs x {T} threads, {ms:.3f} ms; kNN k=16 "
+            f"index-exact, d2 bit-equal, S={S}, {knn_ms:.3f} ms")
+        del xyz, mask, q, gi, gd, pi, pd
+    torch.cuda.empty_cache()
+    return cases
+
+
+def dp_normalizer():
+    """A normalizer of the DP's fields fitted on seeded data: actions and
+    qpos to [-1, 1] by their ranges."""
+    import numpy as np
+
+    from pointcloudmatters_tpu_torch.utils.normalizer import LinearNormalizer
+
+    rng = np.random.RandomState(0)
+    normalizer = LinearNormalizer()
+    normalizer.fit({"action": rng.randn(1000, 7).astype(np.float32),
+                    "qpos": rng.randn(1000, 9).astype(np.float32)})
+    return normalizer
+
+
+def dp_module(dev):
+    """The DP task module over the full-width policy (seeded weights, the
+    normalizer of ``dp_normalizer``) with its config's AdamW + OneCycleLR."""
+    from pointcloudmatters_tpu_torch.entry import build_dp_policy
+    from pointcloudmatters_tpu_torch.models.maniskill2_modules import (
+        ManiSkill2DiffusionPolicyBCModule,
+    )
+
+    policy = build_dp_policy(seed=0, normalizer=dp_normalizer(), device=dev)
+    n_unet = sum(p.numel() for p in policy.model.parameters())
+    n_params = sum(p.numel() for p in policy.parameters())
+    if (n_unet, n_params) != (DP_UNET_PARAMS, DP_PARAMS):
+        raise AssertionError(f"the DP has {n_params} parameters, {n_unet} in its UNet")
+    return ManiSkill2DiffusionPolicyBCModule(policy, optimizer=DP_OPT, lr_scheduler=DP_SCHED,
+                                             env_id="PickCube-v0")
+
+
+def _only(launches: dict, want: dict, what: str) -> None:
+    got = {k: n for k, n in launches.items() if n}
+    if got != want:
+        raise AssertionError(f"{what}: want {want} launches and no other kernel, got {got}")
+
+
+def dp_serve(dev) -> dict:
+    """Phase 13 (b): ``predict`` of the full-width DP in f32 (the whole
+    reverse chain, 100 UNet calls) at B=1 (the rollout shape) and B=8: a
+    warm-up request at each size, then three timed by the host clock to
+    ``torch.cuda.synchronize()``; finite (B, 8, 7) actions; FPS and kNN once
+    a request and no other kernel; the last B=8 answer against the same
+    predict on the plain versions from the same generator seed, within
+    DP_PREDICT_TOL of max(1, max |plain|). Returns the launches."""
+    import torch
+
+    from pointcloudmatters_tpu_torch import ops
+    from pointcloudmatters_tpu_torch.entry import build_dp_batch
+
+    module = dp_module(dev)
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    requests = {B: [build_dp_batch(B, DP_OBS_STEPS, DP_POINTS, seed=s, with_actions=False)
+                    for s in (1, 2, 3)] for B in DP_SERVE_BATCHES}
+    for B in DP_SERVE_BATCHES:  # warm-up
+        module.predict(requests[B][0], gen(0))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    times = {}
+    for B in DP_SERVE_BATCHES:
+        for i, obs in enumerate(requests[B]):
+            t0 = time.perf_counter()
+            action = module.predict(obs, gen(i))
+            torch.cuda.synchronize()
+            times.setdefault(B, []).append((time.perf_counter() - t0) * 1e3)
+            if tuple(action.shape) != (B, 8, 7) or not torch.isfinite(action).all():
+                raise AssertionError(f"dp predict at B={B}: {tuple(action.shape)}, not a "
+                                     f"finite (B, 8, 7)")
+    launches = ops.launch_counts()
+    n = len(DP_SERVE_BATCHES) * 3
+    _only(launches, {"fps": n, "knn": n}, "dp_predict")
+    for B, ms in times.items():
+        log(f"dp      (b) {card_line()}: predict B={B} (B*To={B * DP_OBS_STEPS} clouds of "
+            f"<= {DP_POINTS} points, 100 DDPM steps, f32): "
+            + ", ".join(f"{t:.2f}" for t in ms) + " ms")
+    with plain_kernels():
+        plain = module.predict(requests[8][-1], gen(2))
+    torch.cuda.synchronize()
+    err = (action - plain).abs().max().item()
+    limit = DP_PREDICT_TOL * max(1.0, plain.abs().max().item())
+    if not err <= limit:
+        raise AssertionError(f"dp predict B=8, kernels vs plain versions: {err:.3e} > "
+                             f"{limit:.3e}")
+    log(f"dp      (b) predict B=8 kernels vs plain versions, one generator seed: max abs "
+        f"diff {err:.3e} ({'bit-equal' if torch.equal(action, plain) else 'not bit-equal'}); "
+        f"launches {launches}")
+    del module
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dp_train(dev) -> dict:
+    """Phase 13 (c): the ``"bf16-mixed"`` step of the full-width DP at B=64
+    (128 clouds): one warm-up step, then 5 under
+    ``torch.cuda.set_sync_debug_mode("error")`` timed by the host clock;
+    samples/s and peak memory; finite losses and grad norms, moved
+    parameters, FPS and kNN once a step and no other kernel. Then one step
+    on the kernels against one on the plain versions from the same
+    generator states (loss and gradients within BF16_STEP_TOL, as phase 6).
+    Returns the launches of the timed steps."""
+    import numpy as np
+    import torch
+
+    from pointcloudmatters_tpu_torch import ops
+    from pointcloudmatters_tpu_torch.entry import build_dp_batch
+    from pointcloudmatters_tpu_torch.models.bc_module import to_device
+    from pointcloudmatters_tpu_torch.trainer import Trainer
+
+    module = dp_module(dev)
+    trainer = Trainer(precision="bf16-mixed", seed=0)
+    trainer.setup(module, TOTAL_STEPS)
+    batch = to_device(build_dp_batch(DP_BATCH, DP_OBS_STEPS, DP_POINTS, seed=0), dev)
+    start = [p.detach().clone() for p in module.policy.parameters()]
+    trainer.train_step(module, batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        steps = [trainer.train_step(module, batch) for _ in range(TRAIN_STEPS)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [float(m["loss"]) for m in steps]
+    norms = [float(m["grad_norm"]) for m in steps]
+    log(f"dp      (c) {card_line()}: train B={DP_BATCH} (B*To={DP_BATCH * DP_OBS_STEPS} "
+        f"clouds of <= {DP_POINTS} points) bf16-mixed: {step_ms:.2f} ms/step over "
+        f"{TRAIN_STEPS} steps, {DP_BATCH * 1e3 / step_ms:.2f} samples/s, peak device memory "
+        f"{peak / 2**30:.2f} GiB; loss {losses}; grad_norm {norms}")
+    if not all(np.isfinite(losses + norms)):
+        raise AssertionError(f"dp_train: non-finite loss or grad_norm: {losses}, {norms}")
+    moved = sum(not torch.equal(a, p) for a, p in zip(start, module.policy.parameters()))
+    if moved < len(start) // 2:
+        raise AssertionError(f"dp_train: {moved} of {len(start)} parameter tensors moved")
+    _only(launches, {"fps": TRAIN_STEPS, "knn": TRAIN_STEPS}, "dp_train")
+    del start, steps
+    got = _step_grads(module, batch, module.make_rngs(5), torch.bfloat16)
+    with plain_kernels():
+        ref = _step_grads(module, batch, module.make_rngs(5), torch.bfloat16)
+    log("dp      (c) " + _compare_step(f"bf16 B={DP_BATCH} step, kernels vs plain versions",
+                                       *got, *ref, grad_rtol=BF16_STEP_TOL,
+                                       loss_rtol=BF16_STEP_TOL)
+        + f"; {moved} parameter tensors moved; launches {launches}")
+    del module, trainer, batch, got, ref
+    torch.cuda.empty_cache()
+    return launches
+
+
+# (d): the DP composition through the port's entry point, over phase 10's
+# demos; the overrides as phase 11's (cli_argv), and for the same reasons,
+# except: model._target_ is held_out_dp_module (the base BCModule has no
+# "noise" stream and sets no normalizer, in JAX too); the loader loops the
+# six training episodes DP_CLI_LOOP times for two batches of 64; one top-k
+# checkpoint (each is ~3 GB)
+def dp_cli_train_set(dataset_file=None, loop=DP_CLI_LOOP, **kw):
+    """``data.train``'s target in phase 13 (d): the port's DP point-cloud
+    dataset over phase 10's training demos, with the config's keys."""
+    return in_memory_dataset(CLI_DATA["train"], loop=loop, cache_dir=CLI_DATA["cache"],
+                             diffusion=True, **kw)
+
+
+def dp_cli_held_out_set(size=None):
+    """``data.val``'s target in phase 13 (d): the held-out demos, twice."""
+    return in_memory_dataset(CLI_DATA["held_out"], transform_pcd=fit_transforms(), loop=2,
+                             goal_cond_keys=["goal_pos"], chunk_size=16, camera_ids=[0],
+                             point_num_per_cam=DP_POINTS, cache_dir=CLI_DATA["cache"],
+                             diffusion=True, n_obs_steps=DP_OBS_STEPS)
+
+
+def held_out_dp_module(**kw):
+    """``model._target_`` in phase 13 (d): the DP task module validating by
+    its held-out loss (``val/loss``, its minimum as ``val/loss_best``). The
+    shipped module, without a simulator, keeps its mean_success trackers and
+    reads no loss, in JAX too."""
+    from pointcloudmatters_tpu_torch.models.bc_module import BCModule
+    from pointcloudmatters_tpu_torch.models.maniskill2_modules import (
+        ManiSkill2DiffusionPolicyBCModule,
+    )
+    from pointcloudmatters_tpu_torch.utils.metrics import Metrics
+
+    class HeldOutDPModule(ManiSkill2DiffusionPolicyBCModule):
+        @property
+        def val_metric_keys(self) -> list:
+            return ["loss"]
+
+        def run_validation(self, trainer, datamodule) -> dict:
+            return BCModule.run_validation(self, trainer, datamodule)
+
+    return HeldOutDPModule(
+        val_metrics=Metrics(["MeanMetric"], ["loss"], ["val/loss"]),
+        best_val_metrics=Metrics(["MinMetric"], ["val/loss"], ["val/loss_best"]), **kw)
+
+
+def dp_cli_argv(root: str, run: str) -> list[str]:
+    return [
+        "exp_maniskill2_diffusion_policy=base",
+        "exp_maniskill2_diffusion_policy/maniskill2_pcd_task@maniskill2_pcd_task=PickCube-v0",
+        "exp_maniskill2_diffusion_policy/maniskill2_model@maniskill2_model=scratch_pointnet_pcd",
+        "data.train._target_=chip_smoke.dp_cli_train_set",
+        "data.val._target_=chip_smoke.dp_cli_held_out_set", "data.num_workers=4",
+        "model._target_=chip_smoke.held_out_dp_module", "~model.val_metrics",
+        "~model.best_val_metrics",
+        f"trainer.max_epochs={CLI_EPOCHS}", "trainer.check_val_every_n_epoch=1",
+        f"trainer.limit_train_batches={DP_CLI_BATCHES}",
+        "callbacks.model_checkpoint.monitor=val/loss", "callbacks.model_checkpoint.mode=min",
+        "callbacks.model_checkpoint.save_top_k=1",
+        "+callbacks.end_state._target_=chip_smoke.EndState",
+        f"paths.log_dir={root}/logs", f"hydra.run.dir={root}/{run}",
+        "extras.print_config=false",
+    ]
+
+
+def train_cli_dp(dev) -> dict:
+    """Phase 13 (d): ``train.main`` on the DP composition (batch 64,
+    ``"bf16-mixed"``) over phase 10's demos, 2 epochs of DP_CLI_BATCHES
+    micro-steps, held-out validation after each: FPS and kNN launched once
+    a micro-step and once a held-out batch, and no other kernel; finite
+    losses; the normalizer wired from the dataset into the policy and the
+    checkpoint's extras; ``last`` restored by a fresh trainer into a fresh
+    module bit-equal in every parameter, running statistic and AdamW moment,
+    with the normalizer rebuilt from the extras. Logs the checkpoint's size
+    and its save and restore seconds. Returns the run's launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pointcloudmatters_tpu_torch import ops
+    from pointcloudmatters_tpu_torch import train as train_entry
+    from pointcloudmatters_tpu_torch.trainer import CHECKPOINT_FILE, Trainer
+
+    sys.modules.setdefault("chip_smoke", sys.modules[__name__])  # the targets' module
+    root = tempfile.TemporaryDirectory()
+    demos = synthetic_demos(FIT_EPISODES, FIT_EPISODE_LEN, FIT_CAM_SIDE)
+    n_train = FIT_EPISODES - FIT_HELD_OUT
+    CLI_DATA.update(train=demos[:n_train], held_out=demos[n_train:],
+                    cache=os.path.join(root.name, "cache"))
+    EndState.runs.clear()
+    micro = CLI_EPOCHS * DP_CLI_BATCHES
+    n_val = FIT_HELD_OUT * 2
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t_main = time.perf_counter()
+    train_entry.main(dp_cli_argv(root.name, "run1"))
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = ops.launch_counts()
+    probe = EndState.runs[-1]
+    trainer, module = probe.trainer, probe.module
+    _only(launches, {"fps": micro + CLI_EPOCHS * n_val, "knn": micro + CLI_EPOCHS * n_val},
+          "train_cli_dp")
+    if (type(module.policy).__name__, trainer.precision, module.device.type,
+            trainer.global_step) != ("DiffusionUnetImagePolicy", "bf16-mixed", dev.type, micro):
+        raise AssertionError("train_cli_dp: not the composition or the steps it should be")
+    n_params = sum(p.numel() for p in module.policy.parameters())
+    if n_params != DP_PARAMS:
+        raise AssertionError(f"train_cli_dp: {n_params} parameters, not {DP_PARAMS}")
+    normalizer = module.policy.normalizer
+    if normalizer is None or set(module.state_dict_extras().get("normalizer", {})) != {
+            "action", "qpos"}:
+        raise AssertionError("train_cli_dp: the dataset's normalizer was not wired")
+    losses = [m["train/loss"] for _, _, m in probe.epochs]
+    vals = [m["val/loss"] for _, _, m in probe.epochs]
+    if not np.isfinite(losses + vals).all():
+        raise AssertionError(f"train_cli_dp: non-finite losses {losses} or val/loss {vals}")
+    epoch_rates = [m["samples_per_sec"] for _, _, m in probe.epochs]
+    log(f"dp      (d) {card_line()}: train.main {n_params} parameters, {micro} micro-steps "
+        f"of B={DP_BATCH} over {CLI_EPOCHS} epochs in {t_end - t_main:.2f} s "
+        f"({probe.t_start - t_main:.2f} s from main to the first step; epoch 1 "
+        f"{epoch_rates[-1]:.2f} samples/s); train/loss {losses}, val/loss {vals}; "
+        f"launches {launches}")
+
+    ckpts = os.path.join(root.name, "run1", "checkpoints")
+    kept = sorted(os.listdir(ckpts))
+    last = os.path.join(ckpts, "last")
+    if "last" not in kept or len(kept) < 2:
+        raise AssertionError(f"train_cli_dp: checkpoints {kept}")
+    size = os.path.getsize(os.path.join(last, CHECKPOINT_FILE))
+    end = _run_state(trainer, module)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.save_checkpoint(os.path.join(root.name, "saved"))
+    save_s = time.perf_counter() - t0
+    shutil.rmtree(os.path.join(root.name, "saved"))
+    cfg = train_entry.compose_run(dp_cli_argv(root.name, "fresh"))
+    other = train_entry.instantiate_model(cfg).to(dev)
+    fresh = Trainer(accelerator=trainer.accelerator, precision="bf16-mixed")
+    fresh.setup(other, trainer.estimated_stepping_batches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh.restore_checkpoint(last, other)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    got = _run_state(fresh, other)
+    differ = [k for k in end if k not in got or (
+        not torch.equal(got[k], end[k]) if isinstance(end[k], torch.Tensor) else got[k] != end[k])]
+    restored = other.policy.normalizer
+    if differ or restored is None or any(
+            not (np.array_equal(restored[k].scale, normalizer[k].scale)
+                 and np.array_equal(restored[k].offset, normalizer[k].offset))
+            for k in ("action", "qpos")):
+        raise AssertionError(f"train_cli_dp: the restore of last differs in {differ[:10]} "
+                             f"or in the normalizer")
+    log(f"dp      (d) {card_line()}: checkpoints {kept}; one is {size / 1e9:.3f} GB, saved "
+        f"in {save_s:.2f} s, restored in {restore_s:.2f} s; {len(end)} tensors and values "
+        f"and the normalizer bit-equal to the run's end")
+    root.cleanup()
+    CLI_DATA.clear()
+    EndState.runs.clear()
+    del trainer, module, probe, other, fresh, got, end
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_dp(dev) -> tuple[dict, dict]:
+    """Phase 13: (a)-(d); the launches of paths ``dp_predict``, ``dp_train``
+    and ``train_cli_dp``, and the (a) cases of FPS and kNN."""
+    t_phase = time.perf_counter()
+    cases = dp_point_kernels(dev)
+    paths = {"dp_predict": dp_serve(dev), "dp_train": dp_train(dev),
+             "train_cli_dp": train_cli_dp(dev)}
+    log(f"dp      phase 13 in {time.perf_counter() - t_phase:.1f} s")
+    return paths, cases
+
+
 def main() -> int:
     import torch
 
@@ -3193,6 +3628,10 @@ def main() -> int:
         paths.update(fit_paths)
         paths.update(train_cli(dev, fit_times))
         paths.update(train_ddp(dev))
+        dp_paths, dp_cases = train_dp(dev)
+        paths.update(dp_paths)
+        for name, found in dp_cases.items():
+            res[name]["dp_cases"] = found
     stray = {path: [k for k in FLASH_KERNELS if counts[k]] for path, counts in paths.items()
              if "flash" not in path and any(counts[k] for k in FLASH_KERNELS)}
     if stray:

@@ -1,12 +1,17 @@
-"""ManiSkill2 replayed-trajectory datasets for ACT over point clouds (port of
-``pointcloudmatters_tpu/data/components/maniskill2.py:54-300``), numpy on
-the host.
+"""ManiSkill2 replayed-trajectory datasets for ACT and the Diffusion Policy
+over point clouds (port of ``pointcloudmatters_tpu/data/components/maniskill2.py:54-300,
+400-498``), numpy on the host.
 
 - A sample draws a random start timestep, takes the action chunk of
   ``chunk_size`` future actions with an ``is_pad`` tail mask, z-scores qpos
   and actions by per-task statistics (cached as ``.npz`` under
   ``cache_dir``, keyed by ``env_id``), and adds the goal from
   ``obs["extra"][goal_cond_keys]``.
+- A Diffusion Policy sample takes edge-padded chunks of ``qpos`` and
+  actions, unnormalized (the policy normalizes them: :meth:`get_normalizer`,
+  from min/max statistics cached beside the ACT ones with the tag
+  ``_dp``), and ``n_obs_steps`` clouds from the start step on under
+  ``obs.pcds`` (the last frame repeated past the episode's end).
 - The point cloud merges the selected cameras, drops ``w <= 0`` points and
   the ground (``z <= 0.005``; with ``include_ground`` it keeps the ground
   and masks the foreground), optionally zeroes all but a random 112^2 crop
@@ -14,8 +19,8 @@ the host.
   is a 6-channel image instead.
 
 Every read of the demo file (``h5py`` and the json beside it) is
-:meth:`_ManiSkill2TrajectoryDataset._read_file`. The RGB-D and Diffusion
-Policy datasets, and the normaliser they need, are not ported yet.
+:meth:`_ManiSkill2TrajectoryDataset._read_file`. The RGB-D datasets are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -28,9 +33,16 @@ import numpy as np
 
 from pointcloudmatters_tpu_torch.data.components.transformpcd import ComposePCD
 from pointcloudmatters_tpu_torch.utils import io as io_utils
+from pointcloudmatters_tpu_torch.utils.normalizer import (
+    LinearNormalizer,
+    SingleFieldLinearNormalizer,
+    get_range_normalizer_from_stat,
+)
 
 __all__ = ["ManiSkill2GoalPosSingleTaskACTPCDDataset",
-           "ManiSkill2NullGoalSingleTaskACTPCDDataset"]
+           "ManiSkill2NullGoalSingleTaskACTPCDDataset",
+           "ManiSkill2GoalPosSingleTaskDiffusionPolicyPCDDataset",
+           "ManiSkill2NullGoalSingleTaskDiffusionPolicyPCDDataset"]
 
 log = logging.getLogger(__name__)
 
@@ -284,3 +296,96 @@ class ManiSkill2NullGoalSingleTaskACTPCDDataset(ManiSkill2GoalPosSingleTaskACTPC
     def get_goal(self, obs):
         n = len(obs["agent"]["qpos"])
         return np.zeros((n, 1000), np.float32)
+
+
+class _DPStatsMixin:
+    """The Diffusion Policy's min/max statistics and its normalizer."""
+
+    def get_norm_stats(self) -> dict:
+        path = self._stats_cache_path(tag="_dp")
+        if os.path.exists(path):
+            log.info("Loading normalization stats from cache...")
+            return io_utils.load_npz_dict(path)
+        log.info(f"Calculating DP normalization stats -> {path}")
+        all_qpos, all_action = self._all_qpos_action()
+        stats = {
+            name: {"min": arr.min(0), "max": arr.max(0), "mean": arr.mean(0),
+                   "std": np.maximum(arr.std(0), 1e-2)}
+            for name, arr in (("action", all_action), ("qpos", all_qpos))
+        }
+        io_utils.save_npz_dict(path, stats)
+        return stats
+
+    def get_normalizer(self, **kwargs) -> LinearNormalizer:
+        """``action`` and ``qpos`` to [-1, 1] by their ranges; images (and
+        a pointmap's) unchanged."""
+        stats = self.get_norm_stats()
+        normalizer = LinearNormalizer()
+        normalizer["action"] = get_range_normalizer_from_stat(stats["action"], **kwargs)
+        for k in self.obs_keys:
+            if "pcd" in k:
+                if self.pointmap:
+                    normalizer["base_camera_rgb"] = SingleFieldLinearNormalizer.create_identity()
+                continue
+            if "rgb" in k or "depth" in k:
+                normalizer[k] = SingleFieldLinearNormalizer.create_identity()
+            elif "qpos" in k:
+                normalizer[k] = get_range_normalizer_from_stat(stats["qpos"], **kwargs)
+            else:
+                raise ValueError(f"Unknown key {k}")
+        return normalizer
+
+    def _chunk_edge_padded(self, arr, start_ts):
+        chunk = arr[start_ts: start_ts + self.chunk_size]
+        if len(chunk) < self.chunk_size:
+            pad = [[0, self.chunk_size - len(chunk)]] + [[0, 0]] * (chunk.ndim - 1)
+            chunk = np.pad(chunk, pad, mode="edge")
+        return chunk.astype(np.float32)
+
+
+class ManiSkill2GoalPosSingleTaskDiffusionPolicyPCDDataset(
+        _DPStatsMixin, ManiSkill2GoalPosSingleTaskACTPCDDataset):
+    """The Diffusion Policy point-cloud dataset (reference
+    ``maniskill2_single_task_pcd_dp.py:18``); coordinates and colours of a
+    history frame are both read at its own timestep (the reference reads the
+    colours one frame on, which the JAX package fixed)."""
+
+    def __init__(self, n_obs_steps=2, **kwargs):
+        self.n_obs_steps = n_obs_steps
+        self.obs_keys = ["qpos", "pcds"]
+        super().__init__(**kwargs)
+
+    def __getitem__(self, idx):
+        idx = idx % self.load_count
+        trajectory = self._trajectory(idx)
+        episode_len = trajectory["actions"].shape[0]
+        start_ts = np.random.choice(episode_len)
+
+        obs_dict = {"qpos": self._chunk_edge_padded(trajectory["obs"]["agent"]["qpos"], start_ts)}
+        n_frames = len(trajectory["obs"]["pointcloud"]["xyzw"])
+        obs_pcds = []
+        for step in range(self.n_obs_steps):
+            ts = start_ts + step
+            if ts >= n_frames:
+                assert obs_pcds, (step, n_frames)
+                obs_pcds.append(obs_pcds[-1])
+            else:
+                obs_pcds.append(self._extract_pcd(trajectory, ts))
+        if self.pointmap:
+            obs_dict["base_camera_rgb"] = np.concatenate(obs_pcds, axis=0)
+        else:
+            obs_dict["pcds"] = obs_pcds
+
+        out = {"obs": obs_dict, "action": self._chunk_edge_padded(trajectory["actions"], start_ts)}
+        goal_cond = self.get_goal(trajectory["obs"])
+        if goal_cond is not None:
+            out["goal"] = dict(task_emb=np.asarray(goal_cond[start_ts], np.float32))
+        return out
+
+
+class ManiSkill2NullGoalSingleTaskDiffusionPolicyPCDDataset(
+        ManiSkill2GoalPosSingleTaskDiffusionPolicyPCDDataset):
+    """No goal."""
+
+    def get_goal(self, obs):
+        return None

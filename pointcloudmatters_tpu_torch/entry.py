@@ -1,5 +1,6 @@
-"""The flagship model and synthetic batches of the port (port of
-``__graft_entry__.build_flagship`` / ``build_batch``).
+"""The flagship model, the Diffusion Policy at its shipped widths, and
+synthetic batches of the port (port of ``__graft_entry__.build_flagship`` /
+``build_batch`` / ``_build_dp_batch``).
 
 ``build_flagship()`` is ACTPCD + PointNet at the published scale of
 ``configs/model/maniskill2_act_pcd_model.yaml``: hidden 512, 8 heads, 4
@@ -14,6 +15,15 @@ takes the data-source kernels under bf16), ``pre_sample`` is the
 encoder's attention backend (``model.policy.transformer.attention_impl``:
 ``"oneshot"`` as shipped, or ``"fused"``, ``"flash"`` or ``"dense"``). ``build_batch()``
 is the same numpy batch the JAX entry builds from the same seed.
+
+``build_dp_policy()`` is the Diffusion Policy over point clouds of
+``configs/exp_maniskill2_diffusion_policy`` (``scratch_pointnet_pcd``,
+PickCube-v0): PointNet to 96 channels, FPS to 2048 tokens, kNN k=16, the
+projector [96, 128, 128], two observation frames, horizon 16, 8 executed
+steps, a DDPM of 100 steps (``squaredcos_cap_v2``), and the
+ConditionalUnet1D with step embedding 128, ``down_dims`` [512, 1024, 2048],
+kernel 5, 8 groups and FiLM scales: 255,687,303 UNet parameters.
+``build_dp_batch()`` is a batch of its data in the collate layout.
 """
 
 from __future__ import annotations
@@ -27,6 +37,15 @@ from torch import nn
 
 from pointcloudmatters_tpu_torch.data.collate import morton_order
 from pointcloudmatters_tpu_torch.models.components.act.act import ACTPCD
+from pointcloudmatters_tpu_torch.models.components.diffusion_policy.diffusion.ddpm import (
+    DDPMScheduler,
+)
+from pointcloudmatters_tpu_torch.models.components.diffusion_policy.diffusion_unet_image_policy import (  # noqa: E501
+    DiffusionUnetImagePolicy,
+)
+from pointcloudmatters_tpu_torch.models.components.diffusion_policy.vision.pcd_obs_encoder import (  # noqa: E501
+    PCDObsEncoder,
+)
 from pointcloudmatters_tpu_torch.models.components.act.transformer import (
     Transformer,
     TransformerEncoder,
@@ -40,26 +59,38 @@ from pointcloudmatters_tpu_torch.models.components.pcd_encoder.pointnet import (
     PointNet,
 )
 
-__all__ = ["build_flagship", "build_batch", "init_parameters", "morton_order"]
+__all__ = ["build_flagship", "build_batch", "build_dp_policy", "build_dp_batch",
+           "init_parameters", "morton_order", "DP_SHAPE_META"]
+
+# the data of the shipped DP composition (PickCube-v0's shape_meta)
+DP_SHAPE_META = {
+    "action": {"shape": [7]},
+    "obs": {"pcds": {"shape": [6], "type": "pcd"}, "qpos": {"shape": [9], "type": "low_dim"}},
+    "goal": {"task_emb": {"shape": [3]}},
+}
 
 
 @torch.no_grad()
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     """Draw the weights the way the JAX modules initialise theirs, from
-    ``generator`` (a CPU generator): linear weights normal with std
-    1/sqrt(fan_in), biases zero, layer norms one/zero, the learned
-    embeddings (parameters a module owns directly, such as ACT's
+    ``generator`` (a CPU generator): linear and convolution weights normal
+    with std 1/sqrt(fan_in) (a convolution's fan-in is its input channels
+    times its width), biases zero, layer and group norms one/zero, the
+    learned embeddings (parameters a module owns directly, such as ACT's
     ``query_embed``) standard normal. Batch norms keep scale 1, bias 0 and
     their running statistics."""
     def normal(shape, std):
         return torch.randn(shape, generator=generator) * std
 
     for mod in model.modules():
-        if isinstance(mod, nn.Linear):
-            mod.weight.copy_(normal(mod.weight.shape, 1.0 / math.sqrt(mod.in_features)))
+        if isinstance(mod, (nn.Linear, nn.Conv1d, nn.ConvTranspose1d)):
+            w = mod.weight
+            fan_in = (w.shape[0] * w.shape[2] if isinstance(mod, nn.ConvTranspose1d)
+                      else w[0].numel())
+            w.copy_(normal(w.shape, 1.0 / math.sqrt(fan_in)))
             if mod.bias is not None:
                 mod.bias.zero_()
-        elif isinstance(mod, nn.LayerNorm):
+        elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
         elif not isinstance(mod, (MaskedBatchNorm, GroupedBNReluMax)):
@@ -132,4 +163,54 @@ def build_batch(batch_size=2, n_points=4096, chunk=100, action_dim=7,
     }
     if not with_actions:
         del batch["actions"], batch["is_pad"]
+    return batch
+
+
+def build_dp_policy(npoints=2048, nsample=16, hidden_dim=96, projector_channels=(96, 128, 128),
+                    num_classes=96, horizon=16, n_action_steps=8, n_obs_steps=2,
+                    num_train_timesteps=100, num_inference_steps=100,
+                    diffusion_step_embed_dim=128, down_dims=(512, 1024, 2048), kernel_size=5,
+                    n_groups=8, pre_sample=False, seed=0, normalizer=None,
+                    device: Union[str, torch.device] = "cuda") -> DiffusionUnetImagePolicy:
+    """The Diffusion Policy of ``scratch_pointnet_pcd`` (module doc; the
+    defaults are its widths), weights from
+    ``torch.Generator().manual_seed(seed)``, on ``device`` in eval mode.
+    ``normalizer`` is set on the policy (None: the identity)."""
+    encoder = PCDObsEncoder(
+        shape_meta=DP_SHAPE_META, pcd_model=PointNet(in_channels=6, num_classes=num_classes),
+        n_obs_step=n_obs_steps, pcd_nsample=nsample, pcd_npoints=npoints,
+        pcd_hidden_dim=hidden_dim, projector_layers=1,
+        projector_channels=list(projector_channels), pre_sample=pre_sample)
+    policy = DiffusionUnetImagePolicy(
+        shape_meta=DP_SHAPE_META,
+        noise_scheduler=DDPMScheduler(
+            num_train_timesteps=num_train_timesteps, beta_start=0.0001, beta_end=0.02,
+            beta_schedule="squaredcos_cap_v2", clip_sample=True, prediction_type="epsilon"),
+        obs_encoder=encoder, horizon=horizon, n_action_steps=n_action_steps,
+        n_obs_steps=n_obs_steps, num_inference_steps=num_inference_steps,
+        diffusion_step_embed_dim=diffusion_step_embed_dim, down_dims=tuple(down_dims),
+        kernel_size=kernel_size, n_groups=n_groups, cond_predict_scale=True,
+        normalizer=normalizer)
+    init_parameters(policy, torch.Generator().manual_seed(seed))
+    return policy.to(device).eval()
+
+
+def build_dp_batch(batch_size=2, n_obs_steps=2, n_points=4096, horizon=16, action_dim=7,
+                   qpos_dim=9, goal_dim=3, seed=0, with_actions=True) -> dict:
+    """A Diffusion Policy batch in the collate layout, numpy: ``obs.qpos``
+    (B, horizon, qpos_dim), ``obs.pcds`` of B * n_obs_steps clouds (sample
+    by sample) padded to ``n_points`` as :func:`build_batch` makes them
+    (cloud 0 full, the others a random number of valid points, each in
+    Morton order), ``goal.task_emb`` and, unless ``with_actions`` is False
+    (a serving request), ``action`` (B, horizon, action_dim)."""
+    rng = np.random.RandomState(seed)
+    clouds = build_batch(batch_size * n_obs_steps, n_points, seed=seed, with_actions=False)
+    batch = {
+        "obs": {"qpos": rng.randn(batch_size, horizon, qpos_dim).astype(np.float32),
+                "pcds": clouds["pcds"]},
+        "action": rng.randn(batch_size, horizon, action_dim).astype(np.float32),
+        "goal": {"task_emb": rng.randn(batch_size, goal_dim).astype(np.float32)},
+    }
+    if not with_actions:
+        del batch["action"]
     return batch

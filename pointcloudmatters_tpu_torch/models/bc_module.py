@@ -125,6 +125,11 @@ class BCModule:
     def val_metric_keys(self) -> list[str]:
         return [k for k in self.val_metrics.input_keys if k != "mean_success"]
 
+    def setup_module(self, trainer) -> None:
+        """What the module takes from the trainer and its datamodule before
+        ``fit`` or ``validate`` restores a checkpoint (the JAX module's
+        ``setup_module``); nothing here."""
+
     def to(self, device: Union[str, torch.device]) -> "BCModule":
         """The policy moved to ``device``; build the optimizer after."""
         self.device = torch.device(device)
@@ -133,7 +138,7 @@ class BCModule:
 
     def load_variables(self, variables: Mapping) -> None:
         """Load JAX ``variables`` (params and batch_stats) into the policy."""
-        state = flax_to_torch(variables, self.policy.state_dict())
+        state = flax_to_torch(variables, self.policy)
         self.policy.load_state_dict(state, strict=True)
 
     def configure_optimizers(self, total_steps: int,
@@ -259,9 +264,6 @@ class BCModule:
         return dict(self._extras)
 
     def load_state_dict_extras(self, extras: dict) -> None:
-        if "normalizer" in (extras or {}):
-            raise NotImplementedError(
-                "the action/observation normalizer is not ported yet (ROADMAP.md §1 item 9)")
         self._extras.update(extras or {})
 
     @torch.inference_mode()

@@ -1,6 +1,7 @@
-"""The ManiSkill2 ACT task module (port of
-``pointcloudmatters_tpu/models/maniskill2_modules.py:58-185``), the
-flagship's module (``configs/model/maniskill2_act_pcd_model.yaml:1``).
+"""The ManiSkill2 task modules (port of
+``pointcloudmatters_tpu/models/maniskill2_modules.py:58-305``): ACT's, the
+flagship's module (``configs/model/maniskill2_act_pcd_model.yaml:1``), and
+the Diffusion Policy's (``configs/model/maniskill2_diffusion_policy_model.yaml:1``).
 
 Its validation is closed-loop rollouts in the ManiSkill2 simulator, scored
 by ``mean_success``. Rollouts are not ported yet (``ROADMAP.md`` §1 item
@@ -14,10 +15,14 @@ from __future__ import annotations
 import logging
 from typing import Callable, Optional
 
-from pointcloudmatters_tpu_torch.models.bc_module import BCModule
-from pointcloudmatters_tpu_torch.utils.metrics import Metrics
+import torch
 
-__all__ = ["ManiSkill2ACTBCModule"]
+from pointcloudmatters_tpu_torch.models.bc_module import BCModule, select_model_batch, to_device
+from pointcloudmatters_tpu_torch.utils.flax_to_torch import arrays_to_tensors
+from pointcloudmatters_tpu_torch.utils.metrics import Metrics
+from pointcloudmatters_tpu_torch.utils.normalizer import LinearNormalizer
+
+__all__ = ["ManiSkill2ACTBCModule", "ManiSkill2DiffusionPolicyBCModule"]
 
 log = logging.getLogger(__name__)
 
@@ -82,3 +87,56 @@ class ManiSkill2ACTBCModule(BCModule):
         log.warning("ManiSkill2 simulator unavailable (rollouts are not ported: ROADMAP.md "
                     "§1 item 12); falling back to held-out-loss validation")
         return super().run_validation(trainer, datamodule)
+
+
+class ManiSkill2DiffusionPolicyBCModule(ManiSkill2ACTBCModule):
+    """The Diffusion Policy's task module: the dataset's ``LinearNormalizer``
+    set on the policy before training (and kept in the checkpoint's extras),
+    ``loss`` alone as a train metric, and the streams ``"noise"`` (the
+    loss's noise and timesteps, drawn a row at a time: each rank its own
+    under data parallelism), ``"dropout"``, ``"crop"`` and ``"mask"``.
+    Validation as ``ManiSkill2ACTBCModule``'s. The held-out loss draws from
+    streams seeded 0 for every batch, and ``predict`` from the generator it
+    is given."""
+
+    train_rng_streams = ("noise", "dropout", "crop", "mask")
+    rank_rng_streams = ("noise",)
+
+    def __init__(self, policy, optimizer=None, lr_scheduler=None, train_metrics=None,
+                 **hparams):
+        super().__init__(
+            policy=policy, optimizer=optimizer, lr_scheduler=lr_scheduler,
+            train_metrics=train_metrics or Metrics(["MeanMetric"], ["loss"], ["train/loss"]),
+            **hparams)
+
+    def setup_module(self, trainer) -> None:
+        """The training set's normalizer onto a policy that has none."""
+        dataset = getattr(getattr(trainer, "datamodule", None), "data_train", None)
+        if self.policy.normalizer is None and hasattr(dataset, "get_normalizer"):
+            normalizer = dataset.get_normalizer()
+            self.policy.normalizer = normalizer
+            self._extras["normalizer"] = arrays_to_tensors(normalizer.state_dict())
+            log.info("wired the dataset's LinearNormalizer into the policy")
+
+    def load_state_dict_extras(self, extras: dict) -> None:
+        super().load_state_dict_extras(extras)
+        if "normalizer" in self._extras:
+            self._extras["normalizer"] = arrays_to_tensors(self._extras["normalizer"])
+            self.policy.normalizer = LinearNormalizer.from_state_dict(self._extras["normalizer"])
+
+    @torch.inference_mode()
+    def apply_eval(self, batch: dict) -> dict:
+        # the streams bound from seed 0 for every batch, as JAX's apply_eval
+        # binds them from PRNGKey(0)
+        return self.policy(to_device(select_model_batch(batch), self.device, non_blocking=True),
+                           train=False, rngs=self.make_rngs(0))
+
+    @torch.inference_mode()
+    def predict(self, obs: dict, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The executed actions (B, n_action_steps, action_dim) of the whole
+        reverse chain, drawn from ``generator`` (on the module's device; a
+        generator seeded with ``seed`` if None)."""
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        batch = to_device(select_model_batch(obs), self.device)
+        return self.policy(batch, train=False, rngs={"sample": generator})["a_hat"]

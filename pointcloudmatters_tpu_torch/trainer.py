@@ -258,9 +258,11 @@ class Trainer:
     def train_step(self, module: BCModule, batch: dict) -> dict[str, torch.Tensor]:
         """One micro-step on ``batch`` (an optimizer step when gradients are
         not accumulated); updates ``module.train_metrics`` and returns the
-        step's metrics (loss, action_loss, kl_loss, grad_norm: 0-d tensors on
-        the device). A module not set up yet is set up for a 1-step
-        schedule, as the JAX module's ``initial_state`` does."""
+        step's metrics (the module's ``train_metric_keys``, ACT's loss,
+        action_loss and kl_loss or the Diffusion Policy's loss, and
+        grad_norm: 0-d tensors on the device). A module not set up yet is
+        set up for a 1-step schedule, as the JAX module's ``initial_state``
+        does."""
         if module.optimizer is None or self.rngs is None:
             self.setup(module, total_steps=1)
         params = [p for p in module.policy.parameters() if p.requires_grad]
@@ -436,7 +438,7 @@ class Trainer:
 
     def _start(self, model: BCModule, datamodule, loader, device: torch.device) -> None:
         """What ``fit`` and ``validate`` do before their loops: the device,
-        and the JAX trainer's example batch."""
+        the JAX trainer's example batch and the module's ``setup_module``."""
         model.to(device)
         self._module = model
         self.datamodule = datamodule
@@ -456,6 +458,7 @@ class Trainer:
                 "data") from None
         finally:
             batches.close()
+        model.setup_module(self)
 
     def fit(self, model: BCModule, datamodule=None, ckpt_path: Optional[str] = None) -> None:
         device = self._device()

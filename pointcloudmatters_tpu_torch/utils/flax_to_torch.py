@@ -10,7 +10,11 @@ Input is the flax ``variables`` of a JAX model, ``{"params": ...,
 - attention ``query``/``key``/``value`` kernel (D, H, dh), bias (H, dh)
                                             -> Linear weight (H*dh, D), bias (H*dh,)
 - attention ``out`` kernel (H, dh, D)      -> Linear weight (D, H*dh)
-- LayerNorm ``scale``/``bias``             -> ``weight``/``bias``
+- Conv ``kernel`` (k, in, out)             -> Conv1d ``weight`` (out, in, k)
+- ConvTranspose ``kernel`` (k, in, out)    -> ConvTranspose1d ``weight`` (in, out, k),
+  flipped in time (flax's ``transpose_kernel=False`` correlates where torch
+  convolves): the modules of the target that are ``nn.ConvTranspose1d``
+- LayerNorm and GroupNorm ``scale``/``bias`` -> ``weight``/``bias``
 - batch norms (modules with ``batch_stats``): ``scale``/``bias`` parameters
   and ``mean``/``var`` buffers keep their names
 - top-level embeddings ``cls_embed``, ``query_embed``,
@@ -22,7 +26,8 @@ does not have or lacks.
 :func:`jax_checkpoint_to_torch` carries a whole JAX checkpoint (the tree
 ``Trainer.restore_checkpoint`` of the JAX package reads back) into the port's
 checkpoint dict: weights, batch statistics, the AdamW moments and count, the
-schedule's count, ``optax.MultiSteps``' mean and mini-step, step and epoch.
+schedule's count, ``optax.MultiSteps``' mean and mini-step, step and epoch,
+and the extras (the Diffusion Policy's normalizer), as tensors.
 """
 
 from __future__ import annotations
@@ -34,8 +39,9 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch import nn
 
-__all__ = ["flax_to_torch", "jax_checkpoint_to_torch"]
+__all__ = ["flax_to_torch", "jax_checkpoint_to_torch", "arrays_to_tensors"]
 
 _EMBEDDINGS = ("cls_embed", "query_embed", "additional_pos_embed")
 _QKV = ("query", "key", "value")
@@ -55,7 +61,8 @@ def _key(path: tuple) -> str:
     return re.sub(r"(^|\.)layers_(\d+)(?=\.|$)", r"\1layers.\2", ".".join(path))
 
 
-def _param(path: tuple, leaf: np.ndarray, norms: set) -> tuple[str, np.ndarray]:
+def _param(path: tuple, leaf: np.ndarray, norms: set, transposed: set
+           ) -> tuple[str, np.ndarray]:
     *mod, name = path
     mod = tuple(mod)
     last = mod[-1] if mod else None
@@ -67,6 +74,10 @@ def _param(path: tuple, leaf: np.ndarray, norms: set) -> tuple[str, np.ndarray]:
         return _key(mod + ("weight",)), leaf.reshape(leaf.shape[0], -1).T
     if name == "kernel" and leaf.ndim == 3 and last == "out":
         return _key(mod + ("weight",)), leaf.reshape(-1, leaf.shape[-1]).T
+    if name == "kernel" and leaf.ndim == 3:
+        if _key(mod) in transposed:
+            return _key(mod + ("weight",)), leaf[::-1].transpose(1, 2, 0)
+        return _key(mod + ("weight",)), leaf.transpose(2, 1, 0)
     if name == "bias":
         return _key(path), leaf.reshape(-1) if last in _QKV else leaf
     if name == "scale":
@@ -75,13 +86,20 @@ def _param(path: tuple, leaf: np.ndarray, norms: set) -> tuple[str, np.ndarray]:
                    f"of shape {leaf.shape}")
 
 
-def flax_to_torch(variables: Mapping, target: Mapping[str, torch.Tensor]
-                  ) -> dict[str, torch.Tensor]:
+def flax_to_torch(variables: Mapping, model: nn.Module) -> dict[str, torch.Tensor]:
     """Convert ``variables`` to a state dict with exactly the keys and shapes
-    of ``target`` (a ``state_dict()`` of the port's model).
+    of ``model.state_dict()``. The model, not its state dict, is what is
+    given: a transposed convolution's kernel has the shape of a plain one
+    when its in and out widths are equal, and only the module's type tells
+    them apart.
 
     Raises ``KeyError`` on an unmapped, missing or unexpected key and
     ``ValueError`` on a shape mismatch."""
+    if not isinstance(model, nn.Module):
+        raise TypeError(f"flax_to_torch takes the port's model, not a {type(model).__name__}")
+    transposed = {name for name, m in model.named_modules()
+                  if isinstance(m, nn.ConvTranspose1d)}
+    target = model.state_dict()
     stats = {p: np.asarray(v) for p, v in
              _flatten(variables.get("batch_stats", {})).items()}
     norms = {p[:-1] for p in stats}
@@ -91,7 +109,7 @@ def flax_to_torch(variables: Mapping, target: Mapping[str, torch.Tensor]
             raise KeyError(f"unmapped JAX batch statistic {'/'.join(path)}")
         out[_key(path)] = leaf
     for path, leaf in _flatten(variables["params"]).items():
-        key, value = _param(path, np.asarray(leaf), norms)
+        key, value = _param(path, np.asarray(leaf), norms, transposed)
         out[key] = value
     missing = sorted(set(target) - set(out))
     unexpected = sorted(set(out) - set(target))
@@ -115,6 +133,17 @@ def _plain(tree: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return [_plain(v) for v in tree]
     return tree if tree is None or isinstance(tree, (int, float)) else np.asarray(tree)
+
+
+def arrays_to_tensors(tree: Any) -> Any:
+    """Every numpy array of a nested dict or list as a CPU tensor (what a
+    checkpoint file read with ``weights_only`` holds); other leaves as they
+    are."""
+    if isinstance(tree, dict):
+        return {k: arrays_to_tensors(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [arrays_to_tensors(v) for v in tree]
+    return torch.from_numpy(np.array(tree)) if isinstance(tree, np.ndarray) else tree
 
 
 def _nodes(tree: Any, keys: set) -> list[dict]:
@@ -154,19 +183,18 @@ def jax_checkpoint_to_torch(restored: Mapping, module) -> dict:
         raise ValueError("build the module's optimizer before converting (Trainer.setup)")
     restored = _plain(restored)
     policy = module.policy
-    target = policy.state_dict()
     names = [n for n, _ in policy.named_parameters()]
     stats = restored.get("batch_stats") or {}
 
     def as_torch(tree: Mapping) -> dict[str, torch.Tensor]:
-        return flax_to_torch({"params": tree, "batch_stats": stats}, target)
+        return flax_to_torch({"params": tree, "batch_stats": stats}, policy)
 
     state = as_torch(restored["params"])
     out = {"params": {n: state[n] for n in names},
            "batch_stats": {k: v for k, v in state.items() if k not in names},
            "step": int(restored["step"]), "epoch": int(restored["epoch"])}
     if restored.get("extras"):
-        out["extras"] = restored["extras"]
+        out["extras"] = arrays_to_tensors(restored["extras"])
     opt = restored.get("opt_state")
     if opt is None:
         return out

@@ -86,7 +86,7 @@ def _randomize(variables, seed):
 
 
 def _load(module, variables):
-    module.load_state_dict(flax_to_torch(variables, module.state_dict()), strict=True)
+    module.load_state_dict(flax_to_torch(variables, module), strict=True)
     return module.eval()
 
 
@@ -263,7 +263,7 @@ def test_full_width_state_dict():
 
     model = tentry.build_flagship(device="cpu")
     target = model.state_dict()
-    state = flax_to_torch(variables, target)
+    state = flax_to_torch(variables, model)
     assert set(state) == set(target)
     assert all(state[k].shape == target[k].shape for k in state)
     assert sum(p.numel() for p in model.parameters()) == FLAGSHIP_PARAMS
@@ -273,7 +273,7 @@ def test_converter_refuses_unmapped_and_missing():
     jm = JPointNet(in_channels=6)
     inp = {"feat": jnp.zeros((1, 4, 6)), "valid": jnp.ones((1, 4), bool)}
     variables = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0), inp))
-    target = PointNet(in_channels=6).state_dict()
+    target = PointNet(in_channels=6)
     extra = {"params": dict(variables["params"], odd={"thing": np.zeros(3)}),
              "batch_stats": variables["batch_stats"]}
     with pytest.raises(KeyError, match="unmapped"):
@@ -282,6 +282,8 @@ def test_converter_refuses_unmapped_and_missing():
              "batch_stats": variables["batch_stats"]}
     with pytest.raises(KeyError, match="missing"):
         flax_to_torch(fewer, target)
+    with pytest.raises(TypeError, match="model"):  # a state dict cannot tell transposed kernels
+        flax_to_torch(variables, target.state_dict())
 
 
 def test_unported_backends_raise():

@@ -196,7 +196,7 @@ def test_bf16_mixed_step_matches_jax(variant, monkeypatch, tmp_path):
     got = Trainer(precision="bf16-mixed", seed=0).train_step(module, batch)
     assert _rel(got["loss"], metrics["loss"]) < 1e-2
 
-    target = module.policy.state_dict()
+    target = module.policy
     ref_grads = {k: v.numpy() for k, v in flax_to_torch(
         {"params": jgrads, "batch_stats": variables["batch_stats"]}, target).items()}
     g_max = max(np.abs(g).max() for g in ref_grads.values())

@@ -28,7 +28,10 @@ from pointcloudmatters_tpu.models.components import pretrained as jpretrained
 from pointcloudmatters_tpu.trainer import Trainer as JTrainer
 from pointcloudmatters_tpu_torch import entry as tentry
 from pointcloudmatters_tpu_torch.models.bc_module import BCModule
-from pointcloudmatters_tpu_torch.models.maniskill2_modules import ManiSkill2ACTBCModule
+from pointcloudmatters_tpu_torch.models.maniskill2_modules import (
+    ManiSkill2ACTBCModule,
+    ManiSkill2DiffusionPolicyBCModule,
+)
 from pointcloudmatters_tpu_torch.trainer import (
     CHECKPOINT_FILE,
     Trainer,
@@ -150,6 +153,9 @@ def test_round_trip_is_bit_equal(k, weights_only, tmp_path):
 
 
 def test_extras_round_trip_and_the_normalizer_raises(tmp_path):
+    """Extras round-trip; a normalizer in them is kept as it is by the ACT
+    modules, as JAX's base module keeps it, and rebuilt on the policy by the
+    Diffusion Policy's module, which raises on one that lacks its arrays."""
     module, trainer = _module(0), _trainer(1)
     trainer.setup(module, TOTAL_STEPS)
     module._extras["note"] = {"value": torch.arange(3)}
@@ -157,10 +163,21 @@ def test_extras_round_trip_and_the_normalizer_raises(tmp_path):
     other = _module(1)
     _trainer(1).restore_checkpoint(str(tmp_path / "c"), other)
     assert torch.equal(other.state_dict_extras()["note"]["value"], torch.arange(3))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        other.load_state_dict_extras({"normalizer": {}})
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ManiSkill2ACTBCModule(_module(2).policy).load_state_dict_extras({"normalizer": {}})
+    state = {"action": {"scale": torch.full((7,), 2.0), "offset": torch.zeros(7),
+                        "input_stats": {}}}
+    other.load_state_dict_extras({"normalizer": state})
+    act = ManiSkill2ACTBCModule(_module(2).policy)
+    act.load_state_dict_extras({"normalizer": state})
+    assert other.state_dict_extras()["normalizer"] is state
+    assert act.state_dict_extras()["normalizer"] is state
+    dp = ManiSkill2DiffusionPolicyBCModule(
+        tentry.build_dp_policy(npoints=8, nsample=4, hidden_dim=16, num_classes=16,
+                               projector_channels=(16, 16, 16), diffusion_step_embed_dim=8,
+                               down_dims=(8, 16), device="cpu"))
+    dp.load_state_dict_extras({"normalizer": state})
+    np.testing.assert_array_equal(dp.policy.normalizer["action"].scale, np.full(7, 2.0))
+    with pytest.raises(KeyError, match="scale"):
+        dp.load_state_dict_extras({"normalizer": {"action": {}}})
 
 
 def test_checkpoint_replaces_the_one_there(tmp_path):
@@ -257,7 +274,7 @@ def test_resume_from_a_converted_jax_checkpoint_matches_jax(files, tmp_path, mon
         if key != "samples_per_sec":
             np.testing.assert_allclose(got_m[key], ref_m[key], rtol=1e-4, atol=0, err_msg=key)
     lr_sum = sum(module.scheduler.lr_at(s) for s in range(5))
-    ref = flax_to_torch(ref, module.policy.state_dict())
+    ref = flax_to_torch(ref, module.policy)
     for name, r in ref.items():
         r = r.numpy()
         if name.endswith((".mean", ".var")):

@@ -108,6 +108,27 @@ def test_composition_with_run_overrides_equals_jax(extra):
     _check_composition(_overrides("scratch_pointnet_pcd", "PickCube-v0", extra))
 
 
+DP_FAMILY = "exp_maniskill2_diffusion_policy"
+DP_MODELS = sorted(p.stem for p in (pathlib.Path(CONFIG_DIR) / DP_FAMILY / "maniskill2_model")
+                   .glob("scratch_pointnet_pcd*.yaml"))
+
+
+@pytest.mark.parametrize("model", DP_MODELS)
+def test_the_diffusion_policy_composes_and_resolves_to_the_port(model):
+    """The Diffusion Policy's point-cloud compositions: equal to JAX's, and
+    every target (the task module, the policy, the DDPM scheduler, the
+    encoder, the dataset) the port's counterpart of JAX's."""
+    overrides = [f"{DP_FAMILY}=base", f"{DP_FAMILY}/maniskill2_model@maniskill2_model={model}",
+                 f"{DP_FAMILY}/maniskill2_pcd_task@maniskill2_pcd_task=PickCube-v0",
+                 "hydra.run.dir=/out"]
+    _check_composition(overrides)
+    targets = set(_targets(JC.to_container(JC.compose(CONFIG_DIR, "train", overrides))))
+    assert {"pointcloudmatters_tpu.models.maniskill2_modules.ManiSkill2DiffusionPolicyBCModule",
+            "pointcloudmatters_tpu.models.components.diffusion_policy.diffusion.ddpm."
+            "DDPMScheduler"} <= targets
+    assert len(DP_MODELS) == 6
+
+
 def test_the_family_is_the_one_the_port_trains():
     assert len(MODELS) == 6 and len(TASKS) == 8, (MODELS, TASKS)
 
@@ -155,8 +176,9 @@ def test_composition_builds_in_the_port(model, demo_file, tmp_path):
 
 @pytest.mark.parametrize("target", [
     "pointcloudmatters_tpu.models.components.pcd_encoder.spunet.SpUNet",
-    "pointcloudmatters_tpu.models.maniskill2_modules.ManiSkill2DiffusionPolicyBCModule",
-    "pointcloudmatters_tpu.models.components.diffusion_policy.diffusion.ddpm.DDPMScheduler",
+    "pointcloudmatters_tpu.models.components.img_encoder.resnet.ResNetTorchVision",
+    "pointcloudmatters_tpu.models.components.diffusion_policy.vision.multi_image_obs_encoder."
+    "MultiImageObsEncoder",
 ])
 def test_a_target_the_port_lacks_raises(target):
     with pytest.raises(NotImplementedError, match=rf"{target} is not ported yet.*ROADMAP"):

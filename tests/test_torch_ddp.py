@@ -176,7 +176,7 @@ def steps(tmp_path_factory):
         jact.reparametrize = saved
     jax_state = flax_to_torch({"params": jax.tree.map(np.asarray, state.params),
                                "batch_stats": jax.tree.map(np.asarray, state.batch_stats)},
-                              module.policy.state_dict())
+                              module.policy)
     return {"world2": world2, "world1": world1, "jax": (jax_metrics, jax_state),
             "mesh": jtrainer.mesh.devices.size}
 

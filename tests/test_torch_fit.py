@@ -225,7 +225,7 @@ def test_fit_with_accumulation_matches_jax(n_train, files, tmp_path, monkeypatch
             if key != "samples_per_sec":
                 np.testing.assert_allclose(got_m[key], ref_m[key], rtol=1e-4, atol=0,
                                            err_msg=f"epoch {epoch} {key}")
-        ref = flax_to_torch(ref, module.policy.state_dict())
+        ref = flax_to_torch(ref, module.policy)
         for name, r in ref.items():
             r = r.numpy()
             if name.endswith((".mean", ".var")):

@@ -401,7 +401,7 @@ def test_flash_step_matches_jax(precision, jax_flash_route, port_flash_calls, mo
 
     ref_grads = {k: v.numpy() for k, v in flax_to_torch(
         {"params": jgrads, "batch_stats": variables["batch_stats"]},
-        module.policy.state_dict()).items()}
+        module.policy).items()}
     g_max = max(np.abs(g).max() for g in ref_grads.values())
     for name, p in module.policy.named_parameters():
         ref = ref_grads[name]

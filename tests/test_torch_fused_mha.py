@@ -229,7 +229,7 @@ def test_parameter_tree_and_checkpoint_load():
     layers = {}
     for impl in ("fused", "dense"):
         layer = ttr.TransformerEncoderLayer(64, 4, 32, 0.0, attention_impl=impl).eval()
-        layer.load_state_dict(flax_to_torch(variables, layer.state_dict()), strict=True)
+        layer.load_state_dict(flax_to_torch(variables, layer), strict=True)
         layers[impl] = layer
     assert isinstance(layers["fused"].self_attn, ttr.FusedSelfAttention)
     with torch.no_grad():
@@ -353,7 +353,7 @@ def test_fused_bf16_step_matches_jax(jax_kernel_route, port_fused_calls, monkeyp
 
     ref_grads = {k: v.numpy() for k, v in flax_to_torch(
         {"params": jgrads, "batch_stats": variables["batch_stats"]},
-        module.policy.state_dict()).items()}
+        module.policy).items()}
     g_max = max(np.abs(g).max() for g in ref_grads.values())
     for name, p in module.policy.named_parameters():
         ref = ref_grads[name]

@@ -4,13 +4,15 @@ the package and every module of the serving and training slices import, a
 tiny ``predict``, a tiny f32 training step, tiny ``"bf16-mixed"`` steps
 of the frozen-backbone and ``pre_sample`` variants, a tiny ``predict``
 and dropout-0 step of the ``attention_impl="fused"`` encoder through its
-fused op, and a tiny ``predict`` and dropout-0.1 step of the
-``attention_impl="flash"`` encoder through its flash op run, and nothing of
+fused op, a tiny ``predict`` and dropout-0.1 step of the
+``attention_impl="flash"`` encoder through its flash op, and a tiny
+Diffusion Policy's ``predict`` and f32 and bf16 steps run, and nothing of
 the JAX package (``pointcloudmatters_tpu``) was imported (the GPU machine
 has no JAX); the training entry point composes ``configs/`` and fits with
 JAX blocked. Every CUDA source under ``csrc/`` is one the build compiles,
 and none includes a PyTorch or JAX header."""
 
+import os
 import subprocess
 import sys
 import textwrap
@@ -64,6 +66,12 @@ SLICE_MODULES = (
     "pointcloudmatters_tpu_torch.loggers",
     "pointcloudmatters_tpu_torch.train",
     "pointcloudmatters_tpu_torch.validate",
+    "pointcloudmatters_tpu_torch.utils.normalizer",
+    "pointcloudmatters_tpu_torch.models.components.diffusion_policy.diffusion.ddpm",
+    "pointcloudmatters_tpu_torch.models.components.diffusion_policy.diffusion.mask_generator",
+    "pointcloudmatters_tpu_torch.models.components.diffusion_policy.diffusion.conditional_unet1d",
+    "pointcloudmatters_tpu_torch.models.components.diffusion_policy.vision.pcd_obs_encoder",
+    "pointcloudmatters_tpu_torch.models.components.diffusion_policy.diffusion_unet_image_policy",
 )
 BLOCKED = ("jax", "flax", "optax", "orbax")
 
@@ -158,6 +166,45 @@ def test_port_imports_and_predicts_without_jax():
     """)
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO_ROOT,
                           capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
+
+
+def test_diffusion_policy_predicts_and_trains_without_jax():
+    """With jax, flax, optax and orbax blocked: a tiny Diffusion Policy
+    module predicts (the whole reverse chain) and takes an f32 and a
+    ``"bf16-mixed"`` step, and nothing of the JAX package was imported."""
+    script = textwrap.dedent(f"""
+        import sys
+        for name in {BLOCKED!r}:
+            sys.modules[name] = None
+        import torch
+        from pointcloudmatters_tpu_torch.entry import build_dp_batch, build_dp_policy
+        from pointcloudmatters_tpu_torch.models.maniskill2_modules import (
+            ManiSkill2DiffusionPolicyBCModule)
+        from pointcloudmatters_tpu_torch.trainer import Trainer
+        for precision in ("32-true", "bf16-mixed"):
+            module = ManiSkill2DiffusionPolicyBCModule(build_dp_policy(
+                npoints=8, nsample=4, hidden_dim=16, num_classes=16,
+                projector_channels=(16, 16, 16), diffusion_step_embed_dim=8,
+                down_dims=(8, 16), num_inference_steps=4, num_train_timesteps=4,
+                device="cpu"))
+            action = module.predict(build_dp_batch(1, n_points=64, with_actions=False),
+                                    torch.Generator().manual_seed(0))
+            assert tuple(action.shape) == (1, 8, 7), action.shape
+            metrics = Trainer(precision=precision, seed=0).train_step(
+                module, build_dp_batch(2, n_points=64))
+            assert bool(metrics["loss"].isfinite()), metrics
+        assert not [m for m in sys.modules if m.split(".")[0] in
+                    {BLOCKED + ("pointcloudmatters_tpu",)!r}
+                    and sys.modules[m] is not None]
+        print("ok")
+    """)
+    # one torch thread: beside the other test processes, tiny convolutions
+    # on every core run many times slower
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO_ROOT,
+                          capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("ok")
 

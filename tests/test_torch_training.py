@@ -69,7 +69,7 @@ def _bn_case(jm, tm, jargs, targs, variables, cotangent):
                         *xs, use_running_average=False, mutable=["batch_stats"])
     ref, vjp, mut = jax.vjp(f, variables["params"], *jargs, has_aux=True)
     grads = vjp(jnp.asarray(cotangent))
-    tm.load_state_dict(flax_to_torch(variables, tm.state_dict()), strict=True)
+    tm.load_state_dict(flax_to_torch(variables, tm), strict=True)
     got = tm(*targs, use_running_average=False)
     got.backward(_t(cotangent))
     _close(got, ref, what="output")
@@ -368,7 +368,7 @@ def test_train_step_matches_jax(monkeypatch, tmp_path):
 
     ref_grads = flax_to_torch({"params": jgrads,
                                "batch_stats": variables["batch_stats"]},
-                              module.policy.state_dict())
+                              module.policy)
     for name, g in grads.items():
         ref = ref_grads[name].numpy()
         if any(k in name for k in _ZERO_GRAD):
@@ -378,7 +378,7 @@ def test_train_step_matches_jax(monkeypatch, tmp_path):
 
     final = flax_to_torch({"params": jax.tree.map(np.asarray, state.params),
                            "batch_stats": jax.tree.map(np.asarray, state.batch_stats)},
-                          module.policy.state_dict())
+                          module.policy)
     state_now = module.policy.state_dict()
     for name, ref in final.items():
         ref = ref.numpy()

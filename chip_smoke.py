@@ -228,12 +228,45 @@ Phases, each of which raises on failure (exit code non-zero, no result):
    normalizer rebuilt from its extras; the checkpoint's size and save and
    restore seconds logged. ``python3 tools/dp_phase.py`` builds the kernels
    and runs this phase alone.
+14. SpUNet (``scratch_spunet_pcd``: the flagship's ACT head over SpUNet,
+   43,599,040 of its 67,426,536 parameters; B=8 clouds of 12,509-12,695
+   grid-sampled points padded to 12,800): (a) SpUNet alone: the valid slots
+   at each of its five levels and the forward's flops as the code runs and
+   on the valid slots alone; the f32 train-mode forward of one cloud on
+   the card against the CPU at the valid slots (SPUNET_CPU_TOL); two f32
+   forward + backward runs at B=8 bit-equal in outputs and every parameter
+   gradient; f32 and bf16 forward and forward + backward times and peak
+   memory; (b) ACT over SpUNet ``predict`` in f32 at B=1 and B=8, a warm-up
+   and three timed requests, FPS, kNN and f32 kernel 3 and no other; (c)
+   its ``"bf16-mixed"`` step at B=8 timed as phase 5 times it (under
+   ``set_sync_debug_mode("error")``), FPS and kNN once a step and bf16
+   kernels 3/4 once a layer, and one step on the kernels against one on the
+   plain versions (BF16_STEP_TOL); (d) the ``pre_sample`` variant:
+   ``predict`` at B=1 and two bf16 steps at B=8, kernels 5/6 launched zero
+   times; (e) ``train.main`` on scratch_spunet_pcd over phase 10's demos
+   (phase 11's overrides; 2 epochs of 2 micro-steps of B=8 x 2), a resume
+   at epoch 2 and ``validate.main`` on the best checkpoint, with the seconds
+   to the first step, ms per optimizer step and the checkpoint's size; (f)
+   ``pretrained_ponderv2_pcd`` with HOME at a temporary directory holding a
+   fake ``.ponderv2/ponderv2.pth``, loaded bit for bit by
+   ``train.instantiate_model``, and a ``predict`` at B=1; (g) the DP over
+   SpUNet from ``configs/exp_maniskill2_diffusion_policy``
+   (``scratch_spunet_pcd``): ``predict`` at B=1 and one bf16 step at
+   DP_SPUNET_BATCH, the largest batch that the reckoning of its peak
+   memory (beside the constant) puts under 60 GB. ``python3
+   tools/spunet_phase.py [part ...]`` builds the kernels and runs this
+   phase, or some of its parts, alone; ``python3 tools/profile_spunet.py``
+   profiles (c)'s step and a B=1 request.
 
 Prints a JSON line of the kernels (route, source, the TPU kernel each
 replaces, launches on each path (phase 11's: ``train_cli``,
 ``train_cli_resume``, ``validate_cli``; phase 12's: ``train_ddp``, the
 gloo ranks' and (a)'s group's steps, and ``train_cli_ddp``; phase 13's:
-``dp_predict``, ``dp_train``, ``train_cli_dp``), error, kernel, plain and library times,
+``dp_predict``, ``dp_train``, ``train_cli_dp``; phase 14's: ``spunet_predict``,
+``spunet_train``, ``spunet_presample_predict``, ``spunet_presample_train``,
+``train_cli_spunet``, ``train_cli_spunet_resume``, ``validate_cli_spunet``,
+``spunet_ponderv2``, ``dp_spunet_predict``, ``dp_spunet_train``), error,
+kernel, plain and library times,
 and the bound: the larger of the bytes over 3.35 TB/s and the flops over
 the peak of the inputs' type, 67 TFLOP/s f32 or 989 TFLOP/s bf16 (FPS and
 kNN count the flops of the valid points only: neither needs the padding); one
@@ -2561,10 +2594,10 @@ class EndState:
         pass
 
 
-def cli_argv(root: str, run: str) -> list[str]:
+def cli_argv(root: str, run: str, model: str = "scratch_pointnet_pcd") -> list[str]:
     return [
         "exp_maniskill2_act_policy=base",
-        "exp_maniskill2_act_policy/maniskill2_model@maniskill2_model=scratch_pointnet_pcd",
+        f"exp_maniskill2_act_policy/maniskill2_model@maniskill2_model={model}",
         "exp_maniskill2_act_policy/maniskill2_pcd_task@maniskill2_pcd_task=PickCube-v0",
         "data.train._target_=chip_smoke.cli_train_set",
         "data.val._target_=chip_smoke.cli_held_out_set", "data.num_workers=4",
@@ -3244,7 +3277,7 @@ def dp_point_kernels(dev) -> dict:
     return cases
 
 
-def dp_normalizer():
+def dp_normalizer(qpos_dim: int = 9):
     """A normalizer of the DP's fields fitted on seeded data: actions and
     qpos to [-1, 1] by their ranges."""
     import numpy as np
@@ -3254,7 +3287,7 @@ def dp_normalizer():
     rng = np.random.RandomState(0)
     normalizer = LinearNormalizer()
     normalizer.fit({"action": rng.randn(1000, 7).astype(np.float32),
-                    "qpos": rng.randn(1000, 9).astype(np.float32)})
+                    "qpos": rng.randn(1000, qpos_dim).astype(np.float32)})
     return normalizer
 
 
@@ -3444,11 +3477,11 @@ def held_out_dp_module(**kw):
         best_val_metrics=Metrics(["MinMetric"], ["val/loss"], ["val/loss_best"]), **kw)
 
 
-def dp_cli_argv(root: str, run: str) -> list[str]:
+def dp_cli_argv(root: str, run: str, model: str = "scratch_pointnet_pcd") -> list[str]:
     return [
         "exp_maniskill2_diffusion_policy=base",
         "exp_maniskill2_diffusion_policy/maniskill2_pcd_task@maniskill2_pcd_task=PickCube-v0",
-        "exp_maniskill2_diffusion_policy/maniskill2_model@maniskill2_model=scratch_pointnet_pcd",
+        f"exp_maniskill2_diffusion_policy/maniskill2_model@maniskill2_model={model}",
         "data.train._target_=chip_smoke.dp_cli_train_set",
         "data.val._target_=chip_smoke.dp_cli_held_out_set", "data.num_workers=4",
         "model._target_=chip_smoke.held_out_dp_module", "~model.val_metrics",
@@ -3576,6 +3609,533 @@ def train_dp(dev) -> tuple[dict, dict]:
     return paths, cases
 
 
+# phase 14: SpUNet (PR 21), the paper's sparse-voxel encoder, as
+# configs/exp_maniskill2_act_policy/maniskill2_model/scratch_spunet_pcd.yaml
+# ships it: the flagship's ACT head (hidden 512, 2048 tokens, k = 16, chunk
+# 100, B = 8 x 2, "bf16-mixed") over SpUNet (in_channels 6, 96 channels out;
+# 43,599,040 parameters); clouds of about 12,700 grid-sampled points
+# (5 mm voxels, unique a cloud) padded to 12,800 (pad_multiple 512), as
+# phase 10's demos hold after the config's GridSamplePCD. SpUNet has no
+# kernel of its own (JAX computes its sparse convolutions in XLA): its
+# paths launch kernels 1, 2 and 3/4 of the ACT head around it.
+SPUNET_BATCH, SPUNET_POINTS, SPUNET_VALID = 8, 12800, (12500, 12750)
+SPUNET_PARAMS = 43_599_040
+SPUNET_CPU_TOL = 1e-4  # of max |CPU output|, f32: summation order only (CPU tests: 1e-4 at TINY)
+SPUNET_SERVE_BATCHES = (1, SPUNET_BATCH)
+SPUNET_CLI_BATCHES = 2  # micro-steps an epoch in (e): 2 epochs of 2, B = 8 x 2
+# (g): the DP over SpUNet, one bf16 step at the largest batch that the
+# reckoning of its peak memory puts under 60 GB (55.88 GiB). PR 21's first
+# reckoning, from the tensors SpUNet saves for its backward (counted on the
+# CPU: ~136 KB a padded point in bf16, 1.75 GB a cloud of 12,800, plus
+# ~0.35 GB of recomputed gathers) and ~5.4 GB of masters, casts, gradients
+# and AdamW moments, gave B = 12 (55.8 GB); the card measured 43.60 GiB
+# there. Refitted on that: ~5.0 GiB + 3.22 GiB a sample (two clouds), so
+# B = 15 (53.3 GiB); the shipped batch of 64 would need ~211 GiB.
+DP_SPUNET_BATCH = 15
+DP_SPUNET_GIB = (5.0, 3.22)  # the reckoning: fixed GiB, GiB a sample
+
+
+def spunet_batch(batch_size: int, seed: int, with_actions: bool = True) -> dict:
+    from pointcloudmatters_tpu_torch.entry import build_grid_batch
+
+    return build_grid_batch(batch_size, SPUNET_POINTS, SPUNET_VALID, seed=seed,
+                            with_actions=with_actions)
+
+
+def spunet_levels(grid, valid) -> list:
+    """Valid slots at each of SpUNet's five levels (the input and four
+    stride-2 poolings), per cloud."""
+    from pointcloudmatters_tpu_torch.ops import sparse as S
+
+    counts = [valid.sum(1)]
+    for _ in range(4):
+        parent, _, valid = S.voxel_downsample(grid, valid)
+        grid = parent.where(valid[..., None], 0)
+        counts.append(valid.sum(1))
+    return [c.tolist() for c in counts]
+
+
+def spunet_flops(net, n_slots: list) -> list:
+    """Forward flops of ``net`` by level, each convolution 2 K Ci Co a slot
+    (``strided_downconv`` and ``inverse_upconv`` take all 8 taps' products,
+    as JAX's one-hot product does), at ``n_slots[level]`` slots; the
+    down-convolution and up-convolution of stage s count at level s (their
+    children)."""
+    import re as _re
+
+    flops = [0.0] * 5
+    for name, p in net.named_parameters(recurse=False):
+        if p.ndim != 3:
+            continue
+        k, ci, co = p.shape
+        m = _re.match(r"(down|up|enc|dec)(\d+)", name)
+        level = 0 if m is None else int(m.group(2)) + (m.group(1) == "enc")
+        flops[level] += 2.0 * k * ci * co * n_slots[level]
+    return flops
+
+
+def spunet_alone(dev) -> dict:
+    """Phase 14 (a): SpUNet at scratch_spunet_pcd's shapes, f32 and bf16:
+    valid slots by level; the f32 train-mode forward of one cloud on the card
+    against the CPU at the valid slots (SPUNET_CPU_TOL); two forward +
+    backward runs at B=8 from the same state bit-equal in outputs and
+    parameter gradients; forward and forward + backward times (CUDA events)
+    and peak memory."""
+    import copy
+
+    import torch
+
+    from pointcloudmatters_tpu_torch.entry import init_parameters
+    from pointcloudmatters_tpu_torch.models.bc_module import to_device
+    from pointcloudmatters_tpu_torch.models.components.pcd_encoder.spunet import SpUNet
+
+    net = SpUNet(in_channels=6)
+    init_parameters(net, torch.Generator().manual_seed(0))
+    if sum(p.numel() for p in net.parameters()) != SPUNET_PARAMS:
+        raise AssertionError("SpUNet: not the configs' widths")
+    pcds = to_device(spunet_batch(SPUNET_BATCH, seed=0)["pcds"], dev)
+    levels = spunet_levels(pcds["grid_coord"], pcds["valid"])
+    padded = spunet_flops(net, [SPUNET_BATCH * SPUNET_POINTS] * 5)
+    valid_flops = spunet_flops(net, [sum(c) for c in levels])
+    log(f"spunet  (a) valid slots a cloud by level (of {SPUNET_POINTS} padded): "
+        + "; ".join(f"L{i} {min(c)}-{max(c)} (mean {sum(c) / len(c):.0f})"
+                    for i, c in enumerate(levels)))
+    log(f"spunet  (a) forward flops at B={SPUNET_BATCH}, as the code runs (every level "
+        f"{SPUNET_POINTS} slots): {sum(padded) / 1e12:.3f} TFLOP, levels 3-4 "
+        f"{sum(padded[3:]) / 1e12:.3f}; on the valid slots alone {sum(valid_flops) / 1e12:.3f} "
+        f"TFLOP (" + ", ".join(f"L{i} {f / 1e9:.1f}" for i, f in enumerate(valid_flops))
+        + " GFLOP)")
+
+    # the card against the CPU, f32, one cloud
+    one = {k: v[:1] for k, v in pcds.items()}
+    cpu_net = copy.deepcopy(net)
+    with torch.no_grad():
+        ref = cpu_net({k: v.cpu() for k, v in one.items()}, train=True)
+        got = copy.deepcopy(net).to(dev)(one, train=True)
+    keep = one["valid"][0].cpu()
+    err = (got[0].cpu()[keep] - ref[0][keep]).abs().max().item()
+    scale = ref[0][keep].abs().max().item()
+    if not err <= SPUNET_CPU_TOL * scale:
+        raise AssertionError(f"spunet card vs CPU: {err:.3e} > {SPUNET_CPU_TOL} x {scale:.3e}")
+    log(f"spunet  (a) f32 train-mode forward, one cloud, card vs CPU at the valid slots: "
+        f"max abs diff {err:.3e} of max |CPU| {scale:.3e} (limit {SPUNET_CPU_TOL} of it)")
+    del cpu_net, ref, got
+
+    # two runs on the card: bit-equal
+    cot = torch.randn(SPUNET_BATCH, SPUNET_POINTS, net.num_channels,
+                      generator=torch.Generator().manual_seed(1)).to(dev)
+
+    def fwd_bwd(model, d):
+        model.zero_grad(set_to_none=True)
+        out = model(d, train=True)
+        (out.float() * cot).sum().backward()
+        return out.detach(), {n: p.grad for n, p in model.named_parameters()}
+
+    runs = [fwd_bwd(copy.deepcopy(net).to(dev), pcds) for _ in range(2)]
+    same = torch.equal(runs[0][0], runs[1][0]) and all(
+        torch.equal(g, runs[1][1][n]) for n, g in runs[0][1].items())
+    if not same:
+        raise AssertionError("spunet: two forward + backward runs on the card differ")
+    log(f"spunet  (a) two f32 forward + backward runs at B={SPUNET_BATCH}: outputs and all "
+        f"{len(runs[0][1])} parameter gradients bit-equal")
+    del runs
+
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = copy.deepcopy(net).to(dev, dtype)
+        d = dict(pcds, feat=pcds["feat"].to(dtype))
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: model(d, train=True), 3)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        both_ms = cuda_ms(lambda: fwd_bwd(model, d), 3)
+        peak = torch.cuda.max_memory_allocated(dev)
+        name = str(dtype).split(".")[-1]
+        times[name] = dict(fwd_ms=fwd_ms, fwd_bwd_ms=both_ms, peak_gib=peak / 2**30)
+        log(f"spunet  (a) {card_line()}: {name} B={SPUNET_BATCH}: forward {fwd_ms:.2f} ms, "
+            f"forward + backward {both_ms:.2f} ms, peak device memory {peak / 2**30:.2f} GiB")
+        del model, d
+        torch.cuda.empty_cache()
+    return {"levels": levels, "tflop_padded": sum(padded) / 1e12,
+            "tflop_valid": sum(valid_flops) / 1e12, **times}
+
+
+def spunet_module(dev, **kw):
+    from pointcloudmatters_tpu_torch.entry import build_flagship
+    from pointcloudmatters_tpu_torch.models.bc_module import BCModule
+
+    return BCModule(build_flagship(seed=0, backbone="spunet", device=dev, **kw),
+                    optimizer=FLAGSHIP_OPT, lr_scheduler=FLAGSHIP_SCHED)
+
+
+def spunet_serve(dev, module, what: str, batches=SPUNET_SERVE_BATCHES) -> dict:
+    """``predict`` in f32: a warm-up request at each size, then three timed
+    by the host clock; finite (B, 100, 7) actions; FPS, kNN and f32 kernel 3
+    on every request and no other kernel. Returns the launches."""
+    import torch
+
+    from pointcloudmatters_tpu_torch import ops
+
+    requests = {B: [spunet_batch(B, seed=s, with_actions=False) for s in (1, 2, 3)]
+                for B in batches}
+    for B in batches:
+        module.predict(requests[B][0])
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    times = {}
+    for B in batches:
+        for obs in requests[B]:
+            t0 = time.perf_counter()
+            a_hat = module.predict(obs)
+            torch.cuda.synchronize()
+            times.setdefault(B, []).append((time.perf_counter() - t0) * 1e3)
+            if tuple(a_hat.shape) != (B, 100, 7) or not torch.isfinite(a_hat).all():
+                raise AssertionError(f"{what} B={B}: {tuple(a_hat.shape)}, not finite (B, 100, 7)")
+    launches = ops.launch_counts()
+    n = 3 * len(batches)
+    _only(launches, {"fps": n, "knn": n, "attention_fwd": n * ENC_LAYERS}, what)
+    for B, ms in times.items():
+        log(f"spunet  {what} {card_line()}: predict B={B} (<= {SPUNET_VALID[1]} of "
+            f"{SPUNET_POINTS} points, f32): " + ", ".join(f"{t:.2f}" for t in ms) + " ms")
+    return launches
+
+
+def spunet_steps(dev, module, what: str, steps: int = TRAIN_STEPS) -> dict:
+    """``"bf16-mixed"`` steps at B=8: a warm-up, then ``steps`` under
+    ``torch.cuda.set_sync_debug_mode("error")`` timed by the host clock;
+    samples/s, peak memory, finite losses and moved parameters; FPS and kNN
+    once a step and bf16 kernels 3/4 once a layer and no other kernel.
+    Returns the launches and the batch."""
+    import numpy as np
+    import torch
+
+    from pointcloudmatters_tpu_torch import ops
+    from pointcloudmatters_tpu_torch.models.bc_module import to_device
+    from pointcloudmatters_tpu_torch.trainer import Trainer
+
+    trainer = Trainer(precision="bf16-mixed", seed=0)
+    trainer.setup(module, TOTAL_STEPS)
+    batch = to_device(spunet_batch(SPUNET_BATCH, seed=0), dev)
+    start = [p.detach().clone() for p in module.policy.parameters()]
+    trainer.train_step(module, batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")  # any host sync in a step raises
+    try:
+        t0 = time.perf_counter()
+        out = [trainer.train_step(module, batch) for _ in range(steps)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [float(m["loss"]) for m in out]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{what}: non-finite losses {losses}")
+    moved = sum(not torch.equal(a, p) for a, p in zip(start, module.policy.parameters()))
+    if moved < len(start) // 2:
+        raise AssertionError(f"{what}: {moved} of {len(start)} parameter tensors moved")
+    _only(launches, {k: steps * n for k, n in ACT_KERNELS_A_STEP.items()}, what)
+    log(f"spunet  {what} {card_line()}: B={SPUNET_BATCH} bf16-mixed {step_ms:.2f} ms/step over "
+        f"{steps} steps, {SPUNET_BATCH * 1e3 / step_ms:.2f} samples/s, peak device memory "
+        f"{peak / 2**30:.2f} GiB; loss {losses}; {moved} parameter tensors moved")
+    del trainer, start, out
+    return launches, batch
+
+
+def spunet_act(dev) -> dict:
+    """Phase 14 (b)-(d): ACT over SpUNet ``predict`` (B=1, 8) and its
+    ``"bf16-mixed"`` step at B=8, one B=8 step on the kernels against one on
+    the plain versions (BF16_STEP_TOL); then the ``pre_sample`` variant
+    (``scratch_spunet_pcd_presample``): ``predict`` at B=1 and a bf16 step
+    at B=8, the builder's kernels 5/6 launched zero times (its tokens are 6
+    wide)."""
+    import torch
+
+    module = spunet_module(dev)
+    n_params = sum(p.numel() for p in module.policy.parameters())
+    paths = {"spunet_predict": spunet_serve(dev, module, "(b)")}
+    paths["spunet_train"], batch = spunet_steps(dev, module, "(c)")
+    got = _step_grads(module, batch, module.make_rngs(5), torch.bfloat16)
+    with plain_kernels():
+        ref = _step_grads(module, batch, module.make_rngs(5), torch.bfloat16)
+    log("spunet  (c) " + _compare_step(f"bf16 B={SPUNET_BATCH} step, kernels vs plain versions",
+                                       *got, *ref, grad_rtol=BF16_STEP_TOL,
+                                       loss_rtol=BF16_STEP_TOL)
+        + f"; {n_params} parameters")
+    del module, batch, got, ref
+    torch.cuda.empty_cache()
+
+    module = spunet_module(dev, pre_sample=True)
+    paths["spunet_presample_predict"] = spunet_serve(dev, module, "(d) pre_sample", (1,))
+    paths["spunet_presample_train"], _ = spunet_steps(dev, module, "(d) pre_sample", 2)
+    for path in ("spunet_presample_predict", "spunet_presample_train"):
+        if any(paths[path][k] for k in BUILDER_KERNELS):
+            raise AssertionError(f"{path} launched a builder kernel")
+    del module
+    torch.cuda.empty_cache()
+    return paths
+
+
+def train_cli_spunet(dev) -> dict:
+    """Phase 14 (e): ``train.main`` on scratch_spunet_pcd over phase 10's
+    demos with phase 11's overrides (B = 8 x 2, 2 epochs of 2 micro-steps,
+    held-out validation after each); a run from ``last`` resuming at epoch
+    2; ``validate.main`` on the best checkpoint. Launches of kernels 1, 2,
+    bf16 3/4 (training) and f32 3 (validation) and no other; seconds to the
+    first step, ms per optimizer step, the checkpoint's size."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pointcloudmatters_tpu_torch import ops
+    from pointcloudmatters_tpu_torch import train as train_entry
+    from pointcloudmatters_tpu_torch import validate as validate_entry
+    from pointcloudmatters_tpu_torch.trainer import CHECKPOINT_FILE
+
+    sys.modules.setdefault("chip_smoke", sys.modules[__name__])  # the targets' module
+    root = tempfile.TemporaryDirectory()
+    demos = synthetic_demos(FIT_EPISODES, FIT_EPISODE_LEN, FIT_CAM_SIDE)
+    n_train = FIT_EPISODES - FIT_HELD_OUT
+    CLI_DATA.update(train=demos[:n_train], held_out=demos[n_train:],
+                    cache=os.path.join(root.name, "cache"))
+    EndState.runs.clear()
+    micro, n_val = CLI_EPOCHS * SPUNET_CLI_BATCHES, FIT_HELD_OUT * 2
+
+    def argv(run):
+        return cli_argv(root.name, run, "scratch_spunet_pcd") + [
+            f"trainer.limit_train_batches={SPUNET_CLI_BATCHES}"]
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t_main = time.perf_counter()
+    train_entry.main(argv("run1"))
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = ops.launch_counts()
+    probe = EndState.runs[-1]
+    trainer, module = probe.trainer, probe.module
+    n_eval = CLI_EPOCHS * n_val
+    _only(launches, {"fps": micro + n_eval, "knn": micro + n_eval,
+                     "attention_fwd_bf16": micro * ENC_LAYERS,
+                     "attention_bwd_bf16": micro * ENC_LAYERS,
+                     "attention_fwd": n_eval * ENC_LAYERS}, "train_cli_spunet")
+    backbone = module.policy.backbone
+    if (type(backbone).__name__, trainer.precision, trainer.global_step,
+            module.scheduler.last_epoch) != ("SpUNet", "bf16-mixed", micro, micro // FIT_ACCUMULATE):
+        raise AssertionError("train_cli_spunet: not the composition or the steps it should be")
+    losses = [m["train/loss"] for _, _, m in probe.epochs]
+    vals = [m["val/loss"] for _, _, m in probe.epochs]
+    if not np.isfinite(losses + vals).all():
+        raise AssertionError(f"train_cli_spunet: non-finite {losses} or val/loss {vals}")
+    rate = probe.epochs[-1][2]["samples_per_sec"]
+    ckpts = os.path.join(root.name, "run1", "checkpoints")
+    last, best = os.path.join(ckpts, "last"), trainer.checkpoint_callback.best_model_path
+    size = os.path.getsize(os.path.join(last, CHECKPOINT_FILE))
+    log(f"spunet  (e) {card_line()}: train.main scratch_spunet_pcd, "
+        f"{sum(p.numel() for p in module.policy.parameters())} parameters, {micro} micro-steps "
+        f"of B={FIT_BATCH} over {CLI_EPOCHS} epochs in {t_end - t_main:.2f} s; "
+        f"{probe.t_start - t_main:.2f} s from main to the first step; epoch 1 {rate:.2f} "
+        f"samples/s = {FIT_BATCH * FIT_ACCUMULATE * 1e3 / rate:.2f} ms per optimizer step; "
+        f"checkpoint {size / 1e6:.1f} MB; train/loss {losses}, val/loss {vals}; "
+        f"checkpoints {sorted(os.listdir(ckpts))}; launches {launches}")
+    del trainer, module, probe
+
+    ops.reset_launch_counts()
+    train_entry.main(argv("run2") + [f"trainer.max_epochs={CLI_EPOCHS + 1}", f"ckpt_path={last}"])
+    torch.cuda.synchronize()
+    resume_launches = ops.launch_counts()
+    resumed = EndState.runs[-1]
+    if resumed.start != (CLI_EPOCHS, micro) or [e for e, *_ in resumed.epochs] != [CLI_EPOCHS]:
+        raise AssertionError(f"train_cli_spunet: resumed at {resumed.start}, "
+                             f"epochs {resumed.epochs}")
+    ops.reset_launch_counts()
+    metrics = validate_entry.main(argv("val") + [f"ckpt_path={best}"])
+    torch.cuda.synchronize()
+    val_launches = ops.launch_counts()
+    if set(metrics) != {"val/loss", "val/loss_best"} or not np.isfinite(metrics["val/loss"]):
+        raise AssertionError(f"validate_cli_spunet: {metrics}")
+    _only(val_launches, {"fps": n_val, "knn": n_val, "attention_fwd": n_val * ENC_LAYERS},
+          "validate_cli_spunet")
+    log(f"spunet  (e) resumed at epoch {resumed.start[0]}, step {resumed.start[1]}, launches "
+        f"{resume_launches}; validate.main(best) {metrics}, launches {val_launches}")
+    root.cleanup()
+    CLI_DATA.clear()
+    EndState.runs.clear()
+    del resumed
+    torch.cuda.empty_cache()
+    return {"train_cli_spunet": launches, "train_cli_spunet_resume": resume_launches,
+            "validate_cli_spunet": val_launches}
+
+
+def spunet_ponderv2(dev) -> dict:
+    """Phase 14 (f): ``pretrained_ponderv2_pcd`` with HOME at a temporary
+    directory holding a fake ``.ponderv2/ponderv2.pth`` (a seeded SpUNet's
+    weights and random batch statistics in PonderV2's keys and spconv's
+    layout): ``train.instantiate_model`` loads it, every plane equal to the
+    file's tensor permuted from (out, k, k, k, in) and every other entry to
+    the file's; then one ``predict`` at B=1 on the card. Returns its
+    launches (path ``spunet_ponderv2``)."""
+    import tempfile
+
+    import torch
+
+    from pointcloudmatters_tpu_torch import ops
+    from pointcloudmatters_tpu_torch import train as train_entry
+    from pointcloudmatters_tpu_torch.entry import init_parameters
+    from pointcloudmatters_tpu_torch.models.components.pcd_encoder import spunet as sp
+
+    root = tempfile.TemporaryDirectory()
+    fake = sp.SpUNet(in_channels=6)
+    init_parameters(fake, torch.Generator().manual_seed(3))
+    gen = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for name, buf in fake.named_buffers():
+            buf.copy_(torch.rand(buf.shape, generator=gen) + (0.5 if name.endswith("var") else -0.5))
+    path = os.path.join(root.name, ".ponderv2", "ponderv2.pth")
+    os.makedirs(os.path.dirname(path))
+    sd = sp.to_ponderv2_state_dict(fake)
+    torch.save({"state_dict": sd, "epoch": 100}, path)
+    home = os.environ.get("HOME")
+    os.environ["HOME"] = root.name
+    try:
+        cfg = train_entry.compose_run(cli_argv(root.name, "ponderv2", "pretrained_ponderv2_pcd"))
+        module = train_entry.instantiate_model(cfg)
+    finally:
+        if home is None:
+            del os.environ["HOME"]
+        else:
+            os.environ["HOME"] = home
+    net = module.policy.backbone
+    if net.pretrained_path != path:
+        raise AssertionError(f"ponderv2: pretrained_path {net.pretrained_path!r}, not {path!r}")
+    state = net.state_dict()
+    wrong = [k for k, v in sp.ponderv2_state_dict(net, sd).items() if not torch.equal(state[k], v)]
+    w = sd["module.backbone.enc.3.block5.conv2.weight"]
+    plane = w.reshape(w.shape[0], 27, w.shape[-1]).permute(1, 2, 0)
+    if wrong or not torch.equal(net.enc3_block5_conv2.detach(), plane) or len(sd) != len(state):
+        raise AssertionError(f"ponderv2: {len(wrong)} entries differ from the file: {wrong[:5]}")
+    module.to(dev)
+    ops.reset_launch_counts()
+    a_hat = module.predict(spunet_batch(1, seed=5, with_actions=False))
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    if not torch.isfinite(a_hat).all():
+        raise AssertionError("ponderv2: non-finite actions")
+    _only(launches, {"fps": 1, "knn": 1, "attention_fwd": ENC_LAYERS}, "spunet_ponderv2")
+    launches = {"spunet_ponderv2": launches}
+    log(f"spunet  (f) pretrained_ponderv2_pcd: {len(sd)} tensors of a {os.path.getsize(path) / 1e6:.1f}"
+        f" MB fake PonderV2 file loaded bit for bit (planes permuted from spconv's layout); "
+        f"predict B=1 finite; launches {launches}")
+    root.cleanup()
+    del module
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dp_spunet_batch(batch_size: int, qpos_dim: int, seed: int,
+                    with_actions: bool = True) -> dict:
+    """A batch of the DP's scratch_spunet_pcd composition, its 2 x
+    batch_size clouds grid-sampled as phase 14's."""
+    from pointcloudmatters_tpu_torch.entry import build_dp_batch
+
+    batch = build_dp_batch(batch_size, DP_OBS_STEPS, n_points=8, qpos_dim=qpos_dim, seed=seed,
+                           with_actions=with_actions)
+    batch["obs"]["pcds"] = spunet_batch(batch_size * DP_OBS_STEPS, seed=seed)["pcds"]
+    return batch
+
+
+def dp_spunet(dev) -> dict:
+    """Phase 14 (g): the DP over SpUNet (configs/exp_maniskill2_diffusion_policy
+    scratch_spunet_pcd, instantiated by ``train.instantiate_model``, a
+    seeded normalizer): ``predict`` at B=1 (2 clouds, 100 DDPM steps), a
+    warm-up and three timed; one ``"bf16-mixed"`` step at DP_SPUNET_BATCH
+    after a warm-up, timed, with its peak memory. FPS and kNN once a
+    request and a step, no other kernel."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pointcloudmatters_tpu_torch import ops
+    from pointcloudmatters_tpu_torch import train as train_entry
+    from pointcloudmatters_tpu_torch.models.bc_module import to_device
+    from pointcloudmatters_tpu_torch.trainer import Trainer
+
+    sys.modules.setdefault("chip_smoke", sys.modules[__name__])  # the targets' module
+    root = tempfile.TemporaryDirectory()
+    cfg = train_entry.compose_run(dp_cli_argv(root.name, "dp_spunet", "scratch_spunet_pcd"))
+    module = train_entry.instantiate_model(cfg).to(dev)
+    qpos_dim = cfg.model.policy.shape_meta["obs"]["qpos"]["shape"][0]  # the task's, 9
+    module.policy.normalizer = dp_normalizer(qpos_dim)
+    n_params = sum(p.numel() for p in module.policy.parameters())
+    if type(module.policy.obs_encoder.pcd_model).__name__ != "SpUNet":
+        raise AssertionError("dp_spunet: the encoder is not SpUNet")
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    requests = [dp_spunet_batch(1, qpos_dim, seed=s, with_actions=False) for s in (1, 2, 3)]
+    module.predict(requests[0], gen(0))  # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    times = []
+    for i, obs in enumerate(requests):
+        t0 = time.perf_counter()
+        action = module.predict(obs, gen(i))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if tuple(action.shape) != (1, 8, 7) or not torch.isfinite(action).all():
+            raise AssertionError(f"dp_spunet predict: {tuple(action.shape)}, not finite (1, 8, 7)")
+    predict_launches = ops.launch_counts()
+    _only(predict_launches, {"fps": 3, "knn": 3}, "dp_spunet_predict")
+    log(f"spunet  (g) {card_line()}: DP over SpUNet, {n_params} parameters: predict B=1 "
+        f"(2 clouds, 100 DDPM steps, f32): " + ", ".join(f"{t:.2f}" for t in times) + " ms")
+
+    trainer = Trainer(precision="bf16-mixed", seed=0)
+    trainer.setup(module, TOTAL_STEPS)
+    batch = to_device(dp_spunet_batch(DP_SPUNET_BATCH, qpos_dim, seed=0), dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    trainer.train_step(module, batch)  # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss = float(trainer.train_step(module, batch)["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    train_launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not np.isfinite(loss):
+        raise AssertionError(f"dp_spunet: loss {loss}")
+    _only(train_launches, {"fps": 1, "knn": 1}, "dp_spunet_train")
+    log(f"spunet  (g) {card_line()}: bf16-mixed step B={DP_SPUNET_BATCH} "
+        f"({DP_SPUNET_BATCH * DP_OBS_STEPS} clouds): {step_ms:.2f} ms, "
+        f"{DP_SPUNET_BATCH * 1e3 / step_ms:.2f} samples/s, peak device memory "
+        f"{peak / 2**30:.2f} GiB (reckoned "
+        f"{DP_SPUNET_GIB[0] + DP_SPUNET_GIB[1] * DP_SPUNET_BATCH:.1f} GiB); loss {loss}")
+    root.cleanup()
+    del module, trainer, batch
+    torch.cuda.empty_cache()
+    return {"dp_spunet_predict": predict_launches, "dp_spunet_train": train_launches}
+
+
+def train_spunet(dev) -> tuple[dict, dict]:
+    """Phase 14: (a)-(g); the launches of its paths and (a)'s figures."""
+    t_phase = time.perf_counter()
+    alone = spunet_alone(dev)
+    paths = spunet_act(dev)
+    paths.update(train_cli_spunet(dev))
+    paths.update(spunet_ponderv2(dev))
+    paths.update(dp_spunet(dev))
+    log(f"spunet  phase 14 in {time.perf_counter() - t_phase:.1f} s")
+    return paths, alone
+
+
 def main() -> int:
     import torch
 
@@ -3632,6 +4192,8 @@ def main() -> int:
         paths.update(dp_paths)
         for name, found in dp_cases.items():
             res[name]["dp_cases"] = found
+        spunet_paths, _ = train_spunet(dev)
+        paths.update(spunet_paths)
     stray = {path: [k for k in FLASH_KERNELS if counts[k]] for path, counts in paths.items()
              if "flash" not in path and any(counts[k] for k in FLASH_KERNELS)}
     if stray:

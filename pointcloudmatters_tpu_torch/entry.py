@@ -16,6 +16,14 @@ encoder's attention backend (``model.policy.transformer.attention_impl``:
 ``"oneshot"`` as shipped, or ``"fused"``, ``"flash"`` or ``"dense"``). ``build_batch()``
 is the same numpy batch the JAX entry builds from the same seed.
 
+``build_flagship(backbone="spunet")`` is ``scratch_spunet_pcd``
+(``configs/exp_maniskill2_act_policy/maniskill2_model``): the same ACT
+head over SpUNet (in_channels 6, 96 output channels, or ``num_classes`` =
+hidden under ``pre_sample``); ``spunet`` overrides its widths (tests use
+tiny ones). ``build_grid_batch()`` is a batch whose clouds carry
+``grid_coord``, the 5 mm voxels of a table-top scene, unique a cloud, as
+``GridSamplePCD`` leaves them.
+
 ``build_dp_policy()`` is the Diffusion Policy over point clouds of
 ``configs/exp_maniskill2_diffusion_policy`` (``scratch_pointnet_pcd``,
 PickCube-v0): PointNet to 96 channels, FPS to 2048 tokens, kNN k=16, the
@@ -58,9 +66,13 @@ from pointcloudmatters_tpu_torch.models.components.pcd_encoder.pointnet import (
     WIDTHS,
     PointNet,
 )
+from pointcloudmatters_tpu_torch.models.components.pcd_encoder.spunet import SpUNet
 
-__all__ = ["build_flagship", "build_batch", "build_dp_policy", "build_dp_batch",
-           "init_parameters", "morton_order", "DP_SHAPE_META"]
+__all__ = ["build_flagship", "build_batch", "build_grid_batch", "build_dp_policy",
+           "build_dp_batch", "init_parameters", "morton_order", "DP_SHAPE_META",
+           "GRID_SIZE"]
+
+GRID_SIZE = 0.005  # m, the configs' GridSamplePCD grid
 
 # the data of the shipped DP composition (PickCube-v0's shape_meta)
 DP_SHAPE_META = {
@@ -77,12 +89,22 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     with std 1/sqrt(fan_in) (a convolution's fan-in is its input channels
     times its width), biases zero, layer and group norms one/zero, the
     learned embeddings (parameters a module owns directly, such as ACT's
-    ``query_embed``) standard normal. Batch norms keep scale 1, bias 0 and
-    their running statistics."""
+    ``query_embed``) standard normal, an ``nn.Embedding`` normal with std
+    1/sqrt(width) (flax's ``Embed``). SpUNet's convolution planes are a
+    truncated normal of std 0.02 cut at two of it (flax's
+    ``truncated_normal(0.02)``) and its ``final_bias`` zero. Batch norms keep
+    scale 1, bias 0 and their running statistics."""
     def normal(shape, std):
         return torch.randn(shape, generator=generator) * std
 
     for mod in model.modules():
+        if isinstance(mod, SpUNet):
+            for name, p in mod.named_parameters(recurse=False):
+                if name == "final_bias":
+                    p.zero_()
+                else:
+                    nn.init.trunc_normal_(p, std=0.02, a=-0.04, b=0.04, generator=generator)
+            continue
         if isinstance(mod, (nn.Linear, nn.Conv1d, nn.ConvTranspose1d)):
             w = mod.weight
             fan_in = (w.shape[0] * w.shape[2] if isinstance(mod, nn.ConvTranspose1d)
@@ -93,6 +115,8 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
+        elif isinstance(mod, nn.Embedding):
+            mod.weight.copy_(normal(mod.weight.shape, 1.0 / math.sqrt(mod.weight.shape[1])))
         elif not isinstance(mod, (MaskedBatchNorm, GroupedBNReluMax)):
             for p in mod.parameters(recurse=False):
                 p.copy_(normal(p.shape, 1.0))
@@ -102,17 +126,28 @@ def build_flagship(hidden_dim=512, npoints=2048, nsample=16, chunk=100,
                    enc_layers=4, dec_layers=7, ffn=32, action_dim=7,
                    qpos_dim=9, goal_dim=3, nhead=8, seed=0, dropout=0.1,
                    freeze_backbone=False, pre_sample=False,
-                   attention_impl="oneshot",
+                   attention_impl="oneshot", backbone="pointnet", spunet=None,
                    device: Union[str, torch.device] = "cuda") -> ACTPCD:
-    """ACTPCD + PointNet, weights from ``torch.Generator().manual_seed(seed)``,
-    on ``device`` in eval mode; ``dropout`` is the transformers' rate.
+    """ACTPCD over PointNet (``backbone="pointnet"``) or SpUNet
+    (``"spunet"``, its widths overridden by the ``spunet`` dict), weights
+    from ``torch.Generator().manual_seed(seed)``, on ``device`` in eval
+    mode; ``dropout`` is the transformers' rate.
 
-    With ``pre_sample`` the PointNet's per-token features are the
-    transformer's tokens, so below its published width of 512 a final
-    linear maps them to ``hidden_dim``."""
+    With ``pre_sample`` the backbone's per-token features are the
+    transformer's tokens: PointNet's final linear maps them to
+    ``hidden_dim`` below its published width of 512, and SpUNet's final
+    1x1 convolution maps them to ``hidden_dim`` (the configs'
+    ``num_classes: 512``)."""
+    if backbone == "pointnet":
+        net = PointNet(in_channels=6, num_classes=(
+            hidden_dim if pre_sample and hidden_dim != WIDTHS[-1] else 0))
+    elif backbone == "spunet":
+        net = SpUNet(in_channels=6, num_classes=hidden_dim if pre_sample else 0,
+                     **(spunet or {}))
+    else:
+        raise ValueError(f"backbone {backbone!r}: 'pointnet' or 'spunet'")
     policy = ACTPCD(
-        backbone=PointNet(in_channels=6, num_classes=(
-            hidden_dim if pre_sample and hidden_dim != WIDTHS[-1] else 0)),
+        backbone=net,
         transformer=Transformer(
             d_model=hidden_dim, nhead=nhead, num_encoder_layers=enc_layers,
             num_decoder_layers=dec_layers, dim_feedforward=ffn, dropout=dropout,
@@ -163,6 +198,61 @@ def build_batch(batch_size=2, n_points=4096, chunk=100, action_dim=7,
     }
     if not with_actions:
         del batch["actions"], batch["is_pad"]
+    return batch
+
+
+def _scene_voxels(rng: np.random.RandomState, side: int) -> np.ndarray:
+    """(V, 3) unique voxels of a table-top scene on a grid of ``side``
+    voxels an axis: the table's top (z = 0) and the faces of three boxes
+    standing on it."""
+    surf = [np.stack(np.meshgrid(np.arange(side), np.arange(side), [0], indexing="ij"),
+                     -1).reshape(-1, 3)]
+    for _ in range(3):
+        lo = rng.randint(0, side * 3 // 4, 2)
+        size = rng.randint(side // 10, side // 4, 3)
+        x, y, z = (np.arange(lo[0], min(lo[0] + size[0], side)),
+                   np.arange(lo[1], min(lo[1] + size[1], side)), np.arange(1, size[2] + 1))
+        for a, b, c in ((x, y, [z[-1]]), (x, [y[0], y[-1]], z), ([x[0], x[-1]], y, z)):
+            surf.append(np.stack(np.meshgrid(a, b, c, indexing="ij"), -1).reshape(-1, 3))
+    return np.unique(np.concatenate(surf), axis=0).astype(np.int32)
+
+
+def build_grid_batch(batch_size=2, n_points=12800, valid_range=None, chunk=100, action_dim=7,
+                     qpos_dim=9, goal_dim=3, seed=0, side=None,
+                     with_actions=True) -> dict:
+    """A batch in the collate layout, numpy, its clouds padded to
+    ``n_points`` and grid-sampled at ``GRID_SIZE``: each valid point one
+    voxel of a table-top scene (:func:`_scene_voxels`; unique in its cloud),
+    its ``coord`` inside its voxel, ``grid_coord`` the voxel shifted to start
+    at 0 as ``GridSamplePCD`` leaves it, ``feat`` = [color, coord]. Each
+    cloud holds a count of valid points drawn from ``valid_range``
+    (inclusive; default the top 3% below ``n_points``), in Morton order;
+    ``qpos``, ``goal_cond``, ``actions`` and ``is_pad`` as :func:`build_batch`
+    makes them. ``side`` (voxels an axis) defaults to what holds
+    ``n_points``."""
+    rng = np.random.RandomState(seed)
+    lo, hi = valid_range or (n_points - n_points * 3 // 100, n_points)
+    counts = rng.randint(lo, hi + 1, batch_size)
+    side = side or int(math.ceil(math.sqrt(n_points))) + 2
+    coord = np.zeros((batch_size, n_points, 3), np.float32)
+    grid = np.zeros((batch_size, n_points, 3), np.int32)
+    color = np.zeros((batch_size, n_points, 3), np.float32)
+    for b, c in enumerate(counts):
+        voxels = _scene_voxels(rng, side)
+        if len(voxels) < c:
+            raise ValueError(f"a scene of side {side} holds {len(voxels)} voxels, not {c}")
+        vox = voxels[rng.choice(len(voxels), c, replace=False)]
+        xyz = ((vox + rng.rand(c, 3)) * GRID_SIZE - GRID_SIZE * side / 2).astype(np.float32)
+        order = morton_order(xyz)
+        vox, xyz = vox[order], xyz[order]
+        coord[b, :c], grid[b, :c] = xyz, vox - vox.min(0)
+        color[b, :c] = rng.rand(c, 3)
+    valid = np.arange(n_points)[None] < counts[:, None]
+    batch = build_batch(batch_size, n_points=8, chunk=chunk, action_dim=action_dim,
+                        qpos_dim=qpos_dim, goal_dim=goal_dim, seed=seed,
+                        with_actions=with_actions)
+    batch["pcds"] = {"coord": coord, "grid_coord": grid,
+                     "feat": np.concatenate([color, coord], -1), "valid": valid}
     return batch
 
 

@@ -16,8 +16,9 @@ after the other under ``hydra.sweep.dir/<job>``, and ``optimized_metric``
 names the value ``main`` returns.
 
 The policy's weights are drawn from ``seed`` (``entry.init_parameters``),
-the draws the JAX package makes from ``model.seed`` in distribution, and a
-restored checkpoint then replaces them.
+the draws the JAX package makes from ``model.seed`` in distribution; a
+configured ``pretrained_path`` (SpUNet's PonderV2 file) is copied in next,
+and a restored checkpoint then replaces them.
 
 Across devices (``trainer=ddp``, the shipped default: ``devices: auto``),
 one process a device, as Lightning's DDP runs the reference: a composed
@@ -40,6 +41,7 @@ from typing import Callable, Optional
 import torch
 
 from pointcloudmatters_tpu_torch.entry import init_parameters
+from pointcloudmatters_tpu_torch.models.components.pretrained import load_pretrained_into
 from pointcloudmatters_tpu_torch.utils import config as C
 from pointcloudmatters_tpu_torch.utils import dist
 from pointcloudmatters_tpu_torch.utils.pylogger import RankedLogger
@@ -62,11 +64,13 @@ log = RankedLogger(__name__, rank_zero_only=True)
 
 
 def instantiate_model(cfg):
-    """The task module of ``cfg.model``, its ``seed`` set to the run's and
-    its policy's weights drawn from that seed."""
+    """The task module of ``cfg.model``, its ``seed`` set to the run's, its
+    policy's weights drawn from that seed and then any configured
+    ``pretrained_path`` checkpoint copied in (``load_pretrained_into``)."""
     model = C.instantiate(cfg.model)
     model.seed = cfg.get("seed") or 0
     init_parameters(model.policy, torch.Generator().manual_seed(model.seed))
+    load_pretrained_into(model.policy)
     return model
 
 

@@ -19,6 +19,12 @@ Input is the flax ``variables`` of a JAX model, ``{"params": ...,
   and ``mean``/``var`` buffers keep their names
 - top-level embeddings ``cls_embed``, ``query_embed``,
   ``additional_pos_embed`` keep theirs
+- SpUNet's convolution planes (``conv_input_weight``, ``down<s>_weight``,
+  ``up<s>_weight``, ``final_weight``, ``<enc|dec><s>_block<i>_<conv1|conv2|proj>``,
+  (K, Ci, Co)) and ``final_bias`` keep their names and layout; a
+  ``PDBatchNorm``'s branches ``bns_<i>`` become ``bns.<i>`` (an
+  ``nn.ModuleList``), and an ``Embed``'s ``embedding`` is the
+  ``nn.Embedding``'s ``weight``
 
 Anything else is an error, and so is a key or shape the target state dict
 does not have or lacks.
@@ -45,6 +51,8 @@ __all__ = ["flax_to_torch", "jax_checkpoint_to_torch", "arrays_to_tensors"]
 
 _EMBEDDINGS = ("cls_embed", "query_embed", "additional_pos_embed")
 _QKV = ("query", "key", "value")
+_PLANE = re.compile(r"(conv_input_weight|down\d+_weight|up\d+_weight|final_weight|final_bias"
+                    r"|(enc|dec)\d+_block\d+_(conv1|conv2|proj))")
 
 
 def _flatten(tree: Mapping, prefix: tuple = ()) -> dict[tuple, object]:
@@ -58,7 +66,7 @@ def _flatten(tree: Mapping, prefix: tuple = ()) -> dict[tuple, object]:
 
 
 def _key(path: tuple) -> str:
-    return re.sub(r"(^|\.)layers_(\d+)(?=\.|$)", r"\1layers.\2", ".".join(path))
+    return re.sub(r"(^|\.)(layers|bns)_(\d+)(?=\.|$)", r"\1\2.\3", ".".join(path))
 
 
 def _param(path: tuple, leaf: np.ndarray, norms: set, transposed: set
@@ -68,6 +76,10 @@ def _param(path: tuple, leaf: np.ndarray, norms: set, transposed: set
     last = mod[-1] if mod else None
     if not mod and name in _EMBEDDINGS:
         return name, leaf
+    if _PLANE.fullmatch(name):
+        return _key(path), leaf
+    if name == "embedding" and leaf.ndim == 2:
+        return _key(mod + ("weight",)), leaf
     if name == "kernel" and leaf.ndim == 2:
         return _key(mod + ("weight",)), leaf.T
     if name == "kernel" and leaf.ndim == 3 and last in _QKV:

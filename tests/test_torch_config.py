@@ -175,7 +175,7 @@ def test_composition_builds_in_the_port(model, demo_file, tmp_path):
 
 
 @pytest.mark.parametrize("target", [
-    "pointcloudmatters_tpu.models.components.pcd_encoder.spunet.SpUNet",
+    "pointcloudmatters_tpu.models.components.act.act.ACTRLBenchPCD",
     "pointcloudmatters_tpu.models.components.img_encoder.resnet.ResNetTorchVision",
     "pointcloudmatters_tpu.models.components.diffusion_policy.vision.multi_image_obs_encoder."
     "MultiImageObsEncoder",

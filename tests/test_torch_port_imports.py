@@ -5,7 +5,8 @@ tiny ``predict``, a tiny f32 training step, tiny ``"bf16-mixed"`` steps
 of the frozen-backbone and ``pre_sample`` variants, a tiny ``predict``
 and dropout-0 step of the ``attention_impl="fused"`` encoder through its
 fused op, a tiny ``predict`` and dropout-0.1 step of the
-``attention_impl="flash"`` encoder through its flash op, and a tiny
+``attention_impl="flash"`` encoder through its flash op, a tiny ACT over
+SpUNet's ``predict`` and ``"bf16-mixed"`` step, and a tiny
 Diffusion Policy's ``predict`` and f32 and bf16 steps run, and nothing of
 the JAX package (``pointcloudmatters_tpu``) was imported (the GPU machine
 has no JAX); the training entry point composes ``configs/`` and fits with
@@ -37,6 +38,9 @@ SLICE_MODULES = (
     "pointcloudmatters_tpu_torch.ops.attention",
     "pointcloudmatters_tpu_torch.models.components.nn_utils",
     "pointcloudmatters_tpu_torch.models.components.pcd_encoder.pointnet",
+    "pointcloudmatters_tpu_torch.ops.sparse",
+    "pointcloudmatters_tpu_torch.models.components.pcd_encoder.spunet",
+    "pointcloudmatters_tpu_torch.models.components.pretrained",
     "pointcloudmatters_tpu_torch.models.components.act.positional_encoding",
     "pointcloudmatters_tpu_torch.models.components.act.transformer",
     "pointcloudmatters_tpu_torch.models.components.act.act",
@@ -102,6 +106,18 @@ def test_port_imports_and_predicts_without_jax():
             metrics = Trainer(precision="bf16-mixed", seed=0).train_step(
                 module, build_batch(batch_size=2, n_points=64, chunk=5))
             assert bool(metrics["loss"].isfinite()), (variant, metrics)
+        from pointcloudmatters_tpu_torch.entry import build_grid_batch
+        spunet = dict(base_channels=8, channels=(8, 16, 16, 16, 16, 16, 12, 12),
+                      layers=(1,) * 8)
+        module = BCModule(build_flagship(hidden_dim=32, npoints=8, nsample=4, chunk=5,
+                                         enc_layers=1, dec_layers=2, nhead=4,
+                                         backbone="spunet", spunet=spunet, device="cpu"))
+        a_hat = module.predict(build_grid_batch(1, n_points=64, chunk=5, side=10,
+                                                with_actions=False))
+        assert tuple(a_hat.shape) == (1, 5, 7), a_hat.shape
+        metrics = Trainer(precision="bf16-mixed", seed=0).train_step(
+            module, build_grid_batch(2, n_points=64, chunk=5, side=10))
+        assert bool(metrics["loss"].isfinite()), metrics
         from pointcloudmatters_tpu_torch.models.components.act import transformer
         calls, op = [], transformer.fused_mha
         transformer.fused_mha = lambda *a: calls.append(1) or op(*a)

@@ -257,6 +257,33 @@ Phases, each of which raises on failure (exit code non-zero, no result):
    tools/spunet_phase.py [part ...]`` builds the kernels and runs this
    phase, or some of its parts, alone; ``python3 tools/profile_spunet.py``
    profiles (c)'s step and a B=1 request.
+15. ACT over images (the 12 image models of
+   ``configs/exp_maniskill2_act_policy/maniskill2_model``; the flagship's
+   head over ResNet-50, ViT-B/16 or the MultiViT-B trunk, 128 x 128 camera
+   images, B=16): (a) each backbone alone at full width, f32 (ResNet-50
+   and ViT-B/16 at 1, 3, 4 and 6 channels, MultiViT on RGB-D): its eval
+   forward of 2 images on the card against the CPU (IMAGE_CPU_TOL of max
+   |CPU|), forward and forward + backward ms at B=16 and peak memory, the
+   forward's flops counted on the CPU run; (b) ``predict`` in f32 of
+   scratch_resnet50_rgb, scratch_vit_rgb and scratch_multivit_rgbd at B=1
+   and B=16, a warm-up and three timed requests; (c) their
+   ``"bf16-mixed"`` step at B=16 timed as phase 5 times it (under
+   ``set_sync_debug_mode("error")``), and the f32 step of 2 samples on the
+   card against the CPU (dropout 0, the posterior noise fixed; loss and
+   each gradient within IMAGE_CPU_TOL; ResNet's gradients with its batch
+   norms at their running statistics, IMAGE_TRAIN_GRADS says why); (d) ``train.main`` on
+   scratch_resnet50_rgb (the RGB-D task) and scratch_resnet50_pointmap (the
+   point-cloud task) over phase 10's demos and their RGB-D images (2 epochs
+   of 2 micro-steps of 16, held-out validation), a resume at epoch 2 and
+   ``validate.main`` on the best checkpoint, with the seconds to the first
+   step, ms per optimizer step and the checkpoint's size; (e)
+   ``pretrained_r3m_rgb`` and ``pretrained_vc1_rgb`` with HOME at a
+   temporary directory holding fake R3M and VC-1 files, loaded bit for bit
+   by ``train.instantiate_model``, and a ``predict`` at B=1. Their rows are
+   short (at most 52 tokens), so the attention gates route them dense, as
+   in JAX: the phase fails if any kernel of #1-#13 launches on its paths.
+   ``python3 tools/image_phase.py [part ...]`` builds the kernels and runs
+   this phase, or some of its parts, alone.
 
 Prints a JSON line of the kernels (route, source, the TPU kernel each
 replaces, launches on each path (phase 11's: ``train_cli``,
@@ -265,7 +292,11 @@ gloo ranks' and (a)'s group's steps, and ``train_cli_ddp``; phase 13's:
 ``dp_predict``, ``dp_train``, ``train_cli_dp``; phase 14's: ``spunet_predict``,
 ``spunet_train``, ``spunet_presample_predict``, ``spunet_presample_train``,
 ``train_cli_spunet``, ``train_cli_spunet_resume``, ``validate_cli_spunet``,
-``spunet_ponderv2``, ``dp_spunet_predict``, ``dp_spunet_train``), error,
+``spunet_ponderv2``, ``dp_spunet_predict``, ``dp_spunet_train``; phase 15's:
+``<model>_predict`` and ``<model>_train`` of its three policies,
+``train_cli_<model>``, its ``_resume`` and ``validate_cli_<model>`` of its
+two compositions, ``pretrained_r3m_rgb``, ``pretrained_vc1_rgb``: all
+zero), error,
 kernel, plain and library times,
 and the bound: the larger of the bytes over 3.35 TB/s and the flops over
 the peak of the inputs' type, 67 TFLOP/s f32 or 989 TFLOP/s bf16 (FPS and
@@ -2175,13 +2206,16 @@ EVAL_KERNELS_A_BATCH = {"fps": 1, "knn": 1, "attention_fwd": ENC_LAYERS}
 
 def synthetic_demos(n_episodes: int, episode_len: int, cam_side: int, seed: int = 0) -> list:
     """Trajectories in the ManiSkill2 layout that ``tests/synth.py`` writes
-    (actions, agent qpos, the camera's xyzw and rgb, the goal position), held
-    in memory: its tabletop cloud, xy in [-0.2, 0.2] and z in [0, 0.3] with
-    about 20% w = 0 points and the ground band z <= 0.005 that the dataset
-    drops; the flagship's widths (qpos 9, action 7, goal 3)."""
+    (actions, agent qpos, the camera's xyzw and rgb, its RGB-D images
+    ``obs.image.base_camera.{rgb,depth}`` at cam_side x cam_side, the goal
+    position), held in memory: its tabletop cloud, xy in [-0.2, 0.2] and z in
+    [0, 0.3] with about 20% w = 0 points and the ground band z <= 0.005 that
+    the dataset drops; uint8 RGB and depth in mm below 2048; the flagship's
+    widths (qpos 9, action 7, goal 3). The images come from a stream of
+    their own, so the other arrays are those of the demos without them."""
     import numpy as np
 
-    rng = np.random.RandomState(seed)
+    rng, image_rng = np.random.RandomState(seed), np.random.RandomState(seed + 1)
     n = cam_side * cam_side
     demos = []
     for _ in range(n_episodes):
@@ -2189,6 +2223,7 @@ def synthetic_demos(n_episodes: int, episode_len: int, cam_side: int, seed: int 
         xyz[..., :2] = (xyz[..., :2] - 0.5) * 0.4
         xyz[..., 2] *= 0.3
         w = (rng.rand(episode_len + 1, n, 1) > 0.2).astype(np.float32)
+        frames = (episode_len + 1, cam_side, cam_side)
         demos.append({
             "actions": rng.randn(episode_len, 7).astype(np.float32),
             "obs": {
@@ -2196,6 +2231,9 @@ def synthetic_demos(n_episodes: int, episode_len: int, cam_side: int, seed: int 
                 "pointcloud": {
                     "xyzw": np.concatenate([xyz, w], -1),
                     "rgb": rng.randint(0, 255, (episode_len + 1, n, 3)).astype(np.uint8)},
+                "image": {"base_camera": {
+                    "rgb": image_rng.randint(0, 255, frames + (3,)).astype(np.uint8),
+                    "depth": (image_rng.rand(*frames, 1) * 2048).astype(np.float32)}},
                 "extra": {"goal_pos": rng.randn(episode_len + 1, 3).astype(np.float32)},
             },
         })
@@ -2247,33 +2285,35 @@ class StepClock:
         pass
 
 
-def in_memory_dataset(trajs, diffusion: bool = False, **kw):
-    """The port's ManiSkill2 ACT point-cloud dataset (with ``diffusion``,
-    the Diffusion Policy's) over demos held in memory, so that the run needs
-    no h5py: only the file read is replaced ("PCD" in the class name picks
-    the point-cloud collate, as the configs' class names do)."""
+ACT_PCD, DP_PCD, ACT_RGBD = ("ManiSkill2GoalPosSingleTaskACTPCDDataset",
+                             "ManiSkill2GoalPosSingleTaskDiffusionPolicyPCDDataset",
+                             "ManiSkill2GoalPosSingleTaskACTRGBDDataset")
+
+
+def in_memory_dataset(trajs, dataset: str = ACT_PCD, **kw):
+    """The port's ManiSkill2 dataset class ``dataset`` (the ACT point-cloud
+    one, the Diffusion Policy's, or the ACT RGB-D one) over demos held in
+    memory, so that the run needs no h5py: only the file read is replaced
+    (the class keeps its base's name, which picks the collate as the
+    configs' class names do)."""
     import copy
 
-    from pointcloudmatters_tpu_torch.data.components.maniskill2 import (
-        ManiSkill2GoalPosSingleTaskACTPCDDataset,
-        ManiSkill2GoalPosSingleTaskDiffusionPolicyPCDDataset,
-    )
+    from pointcloudmatters_tpu_torch.data.components import maniskill2 as ms2
 
-    base = (ManiSkill2GoalPosSingleTaskDiffusionPolicyPCDDataset if diffusion
-            else ManiSkill2GoalPosSingleTaskACTPCDDataset)
+    base = getattr(ms2, dataset)
 
-    class InMemoryPCDDataset(base):
-        def __init__(self, trajs, **kw):
-            self.trajs = trajs
-            super().__init__(dataset_file="held-in-memory.h5", **kw)
+    def __init__(self, trajs, **kw):
+        self.trajs = trajs
+        base.__init__(self, dataset_file="held-in-memory.h5", **kw)
 
-        def _read_file(self, episode_ids):
-            meta = {"episodes": [{"episode_id": i} for i in range(len(self.trajs))],
-                    "env_info": {"env_id": "PickCube-v0",
-                                 "env_kwargs": {"obs_mode": "pointcloud"}}}
-            return meta, [copy.deepcopy(self.trajs[i]) for i in episode_ids]
+    def _read_file(self, episode_ids):
+        meta = {"episodes": [{"episode_id": i} for i in range(len(self.trajs))],
+                "env_info": {"env_id": "PickCube-v0", "env_kwargs": {"obs_mode": "pointcloud"}}}
+        return meta, [copy.deepcopy(self.trajs[i]) for i in episode_ids]
 
-    return InMemoryPCDDataset(trajs, **kw)
+    cls = type(f"InMemory{base.__name__}", (base,), {"__init__": __init__,
+                                                     "_read_file": _read_file})
+    return cls(trajs, **kw)
 
 
 def fit_transforms() -> list:
@@ -3442,7 +3482,7 @@ def dp_cli_train_set(dataset_file=None, loop=DP_CLI_LOOP, **kw):
     """``data.train``'s target in phase 13 (d): the port's DP point-cloud
     dataset over phase 10's training demos, with the config's keys."""
     return in_memory_dataset(CLI_DATA["train"], loop=loop, cache_dir=CLI_DATA["cache"],
-                             diffusion=True, **kw)
+                             dataset=DP_PCD, **kw)
 
 
 def dp_cli_held_out_set(size=None):
@@ -3450,7 +3490,7 @@ def dp_cli_held_out_set(size=None):
     return in_memory_dataset(CLI_DATA["held_out"], transform_pcd=fit_transforms(), loop=2,
                              goal_cond_keys=["goal_pos"], chunk_size=16, camera_ids=[0],
                              point_num_per_cam=DP_POINTS, cache_dir=CLI_DATA["cache"],
-                             diffusion=True, n_obs_steps=DP_OBS_STEPS)
+                             dataset=DP_PCD, n_obs_steps=DP_OBS_STEPS)
 
 
 def held_out_dp_module(**kw):
@@ -4136,6 +4176,522 @@ def train_spunet(dev) -> tuple[dict, dict]:
     return paths, alone
 
 
+# phase 15: ACT over images, the 12 image models of
+# configs/exp_maniskill2_act_policy/maniskill2_model at their shipped widths:
+# the flagship's ACT head (hidden 512, 8 heads, 4 encoder layers, chunk 100,
+# the 2-D sine embedding of 256 + 256 features, one camera) over ResNet-50
+# (224 px, bilinear), ViT-B/16 or the MultiViT-B trunk (256 px bicubic,
+# centre crop 224) of 128 x 128 camera images, at the configs' batch of 16
+# ("bf16-mixed", no accumulation). Their token rows are short (ResNet: 49
+# cells + 3 tokens, the ViTs: 1 + 3), so the oneshot gate routes every
+# attention dense, as in JAX: no kernel of #1-#13 runs on these paths.
+IMAGE_BATCH = 16
+IMAGE_SIDE = 128
+IMAGE_CPU_TOL = 1e-4  # card vs CPU, f32: of max |CPU| (outputs), of max(1, max|g|) (gradients)
+IMAGE_BACKBONES = (("resnet", 1), ("resnet", 3), ("resnet", 4), ("resnet", 6),
+                   ("vit", 1), ("vit", 3), ("vit", 4), ("vit", 6), ("multivit", 4))
+IMAGE_POLICIES = {"scratch_resnet50_rgb": ("resnet", 3), "scratch_vit_rgb": ("vit", 3),
+                  "scratch_multivit_rgbd": ("multivit", 4)}
+# (c)'s card-vs-CPU step: the policies without batch norms compare the
+# train-mode step's gradients (IMAGE_CPU_TOL). ResNet-50's do not agree so:
+# its train-mode features differ by ~1.4e-4 between the card and the CPU
+# (cuDNN on or off: the single-pass batch variance of 2 images, E[x^2] -
+# mean^2 in f32, as JAX computes it), and a ReLU input within that of zero
+# routes its gradient differently on each: 4.7e-2 of a backbone tensor's
+# largest gradient (measured on an H100 80GB HBM3 at 700 W; the loss
+# 4e-7 relative). So ResNet's compare the train-mode loss, and the
+# gradients with the batch norms at their running statistics, from one
+# state on both sides (2.4e-6 in the same runs).
+IMAGE_TRAIN_GRADS = ("scratch_vit_rgb", "scratch_multivit_rgbd")
+IMAGE_CLI_BATCHES = 2  # micro-steps an epoch in (d): 2 epochs of 2, B = 16
+IMAGE_CLI_LOOP = 8  # 6 episodes x 8 = 48 samples: 3 batches of 16
+
+
+def image_backbone(kind: str, channels: int):
+    """A backbone at the configs' width: ResNet-50, ViT-B/16 or MultiViT-B."""
+    from pointcloudmatters_tpu_torch.models.components.img_encoder import multivit, resnet, vit
+
+    if kind == "resnet":
+        return resnet.ResNetTorchVision(resnet_model="resnet50", channels=channels)
+    if kind == "vit":
+        return vit.ViT(model_name="vit_base_patch16", channels=channels)
+    return multivit.MultiViTModel()
+
+
+def image_batch(batch_size: int, channels: int, seed: int, with_actions: bool = True) -> dict:
+    from pointcloudmatters_tpu_torch.entry import build_image_batch
+
+    return build_image_batch(batch_size, IMAGE_SIDE, channels, seed=seed,
+                             with_actions=with_actions)
+
+
+def image_backbones(dev) -> dict:
+    """Phase 15 (a): each backbone alone at full width, f32, seeded weights:
+    the eval forward of 2 images on the card against the CPU
+    (IMAGE_CPU_TOL); forward and forward + backward ms (train mode, CUDA
+    events) and peak memory at B=16, the forward's flops counted by
+    ``torch.utils.flop_counter`` on the CPU run. Returns the figures."""
+    import copy
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from pointcloudmatters_tpu_torch.entry import init_parameters
+
+    out = {}
+    for kind, channels in IMAGE_BACKBONES:
+        net = image_backbone(kind, channels)
+        init_parameters(net, torch.Generator().manual_seed(0))
+        images = torch.from_numpy(image_batch(IMAGE_BATCH, channels, seed=0)["image"][:, 0])
+        counter = FlopCounterMode(display=False)
+        with torch.no_grad(), counter:
+            ref = net(images[:2], train=False)
+        flops = counter.get_total_flops() / 2 * IMAGE_BATCH
+        model = copy.deepcopy(net).to(dev)
+        x = images.to(dev)
+        with torch.no_grad():
+            got = model(x[:2], train=False).cpu()
+        err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+        if not err <= IMAGE_CPU_TOL * scale:
+            raise AssertionError(f"{kind} {channels}ch card vs CPU: {err:.3e} > "
+                                 f"{IMAGE_CPU_TOL} x {scale:.3e}")
+        cot = torch.randn(got.shape[1:], generator=torch.Generator().manual_seed(1)).to(dev)
+
+        def fwd_bwd():
+            model.zero_grad(set_to_none=True)
+            (model(x, train=True) * cot).sum().backward()
+
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: model(x, train=True), 3)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        both_ms = cuda_ms(fwd_bwd, 3)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        name = f"{kind}_{channels}ch"
+        out[name] = dict(params=sum(p.numel() for p in net.parameters()), err=err / scale,
+                         fwd_ms=fwd_ms, fwd_bwd_ms=both_ms, peak_gib=peak,
+                         fwd_tflops=flops / fwd_ms / 1e9)
+        log(f"image   (a) {card_line()}: {name}, {out[name]['params']} parameters: card vs CPU "
+            f"(eval, 2 images) {err:.3e} of max |CPU| {scale:.3e}; B={IMAGE_BATCH} f32 forward "
+            f"{fwd_ms:.2f} ms ({flops / 1e9:.1f} GFLOP, {flops / fwd_ms / 1e9:.1f} TFLOP/s), "
+            f"forward + backward {both_ms:.2f} ms, peak device memory {peak:.2f} GiB")
+        del net, model, x, images
+        torch.cuda.empty_cache()
+    return out
+
+
+def image_module(dev, model: str, **kw):
+    from pointcloudmatters_tpu_torch.entry import build_image_policy
+    from pointcloudmatters_tpu_torch.models.bc_module import BCModule
+
+    kind, channels = IMAGE_POLICIES[model]
+    return BCModule(build_image_policy(kind, channels, seed=0, device=dev, **kw),
+                    optimizer=FLAGSHIP_OPT, lr_scheduler=FLAGSHIP_SCHED)
+
+
+def image_serve(dev) -> dict:
+    """Phase 15 (b): ``predict`` in f32 of the three image policies at B=1
+    and B=16: a warm-up request at each size, then three timed by the host
+    clock; finite (B, 100, 7) actions and no launch of a kernel of #1-#13.
+    Returns the launches by path."""
+    import torch
+
+    from pointcloudmatters_tpu_torch import ops
+
+    paths = {}
+    for model, (_, channels) in IMAGE_POLICIES.items():
+        module = image_module(dev, model)
+        requests = {B: [image_batch(B, channels, seed=s, with_actions=False) for s in (1, 2, 3)]
+                    for B in (1, IMAGE_BATCH)}
+        for B, reqs in requests.items():
+            module.predict(reqs[0])
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        times = {}
+        for B, reqs in requests.items():
+            for obs in reqs:
+                t0 = time.perf_counter()
+                a_hat = module.predict(obs)
+                torch.cuda.synchronize()
+                times.setdefault(B, []).append((time.perf_counter() - t0) * 1e3)
+                if tuple(a_hat.shape) != (B, 100, 7) or not torch.isfinite(a_hat).all():
+                    raise AssertionError(f"{model} B={B}: {tuple(a_hat.shape)}, not finite "
+                                         f"(B, 100, 7)")
+        paths[f"{model}_predict"] = launches = ops.launch_counts()
+        _only(launches, {}, f"{model} predict")
+        log(f"image   (b) {card_line()}: {model} predict (f32, {IMAGE_SIDE} px): "
+            + "; ".join(f"B={B} " + ", ".join(f"{t:.2f}" for t in ms) + " ms"
+                        for B, ms in times.items()))
+        del module
+        torch.cuda.empty_cache()
+    return paths
+
+
+def _fixed_posterior_noise(batch_size: int):
+    """A context in which ACT's CVAE posterior draws one fixed standard
+    normal (batch_size, 32) array on every device, so that a step on the
+    card and one on the CPU take the same latent."""
+    import torch
+
+    from pointcloudmatters_tpu_torch.models.components.act import act
+
+    eps = torch.randn(batch_size, 32, generator=torch.Generator().manual_seed(7))
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = act.reparametrize
+        act.reparametrize = lambda mu, logvar, gen: mu + torch.exp(0.5 * logvar) * eps.to(
+            mu.device, mu.dtype)
+        try:
+            yield
+        finally:
+            act.reparametrize = saved
+
+    return ctx()
+
+
+def _eval_grads(module, batch):
+    """Loss and parameter gradients of the policy's eval-mode forward over a
+    batch with actions: the batch norms at their running statistics, the
+    posterior's mean, no dropout."""
+    from pointcloudmatters_tpu_torch.models.bc_module import select_model_batch, to_device
+
+    module.policy.zero_grad(set_to_none=True)
+    out = module.policy(to_device(select_model_batch(batch), module.device), train=False)
+    out["loss"].backward()
+    grads = {n: p.grad.detach().clone() for n, p in module.policy.named_parameters()
+             if p.grad is not None}
+    return out["loss"].detach(), grads
+
+
+def image_steps(dev) -> dict:
+    """Phase 15 (c): the ``"bf16-mixed"`` step of the three image policies
+    at B=16: a warm-up, then TRAIN_STEPS steps under
+    ``torch.cuda.set_sync_debug_mode("error")`` timed by the host clock;
+    samples/s, peak memory, finite losses, moved parameters and no launch of
+    #1-#13; then the f32 step on the card against the same step on the CPU
+    at B=2 (dropout 0, the posterior noise fixed): the loss within
+    IMAGE_CPU_TOL relative and each gradient within IMAGE_CPU_TOL of
+    max(1, max|g|) of its tensor (ResNet's gradients with its batch norms
+    at their running statistics, from one state: IMAGE_TRAIN_GRADS says
+    why). Returns the launches by path."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from pointcloudmatters_tpu_torch import ops
+    from pointcloudmatters_tpu_torch.models.bc_module import to_device
+    from pointcloudmatters_tpu_torch.trainer import Trainer
+
+    paths = {}
+    for model, (_, channels) in IMAGE_POLICIES.items():
+        module = image_module(dev, model)
+        trainer = Trainer(precision="bf16-mixed", seed=0)
+        trainer.setup(module, TOTAL_STEPS)
+        batch = to_device(image_batch(IMAGE_BATCH, channels, seed=0), dev)
+        start = [p.detach().clone() for p in module.policy.parameters()]
+        trainer.train_step(module, batch)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")  # any host sync in a step raises
+        try:
+            t0 = time.perf_counter()
+            outs = [trainer.train_step(module, batch) for _ in range(TRAIN_STEPS)]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+        paths[f"{model}_train"] = launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        losses = [float(m["loss"]) for m in outs]
+        moved = sum(not torch.equal(a, p) for a, p in zip(start, module.policy.parameters()))
+        if not np.isfinite(losses).all() or moved < len(start) // 2:
+            raise AssertionError(f"{model}: losses {losses}, {moved} of {len(start)} moved")
+        _only(launches, {}, f"{model} bf16 step")
+        log(f"image   (c) {card_line()}: {model} B={IMAGE_BATCH} bf16-mixed {step_ms:.2f} ms/step "
+            f"over {TRAIN_STEPS} steps, {IMAGE_BATCH * 1e3 / step_ms:.2f} samples/s, peak device "
+            f"memory {peak:.2f} GiB; loss {losses}; "
+            f"{sum(p.numel() for p in module.policy.parameters())} parameters")
+        del module, trainer, batch, start, outs
+        torch.cuda.empty_cache()
+
+        card = image_module(dev, model, dropout=0.0)
+        cpu = copy.deepcopy(card).to("cpu")
+        small = image_batch(2, channels, seed=3)
+        with _fixed_posterior_noise(2):
+            got = _step_grads(card, to_device(small, dev), card.make_rngs(5))
+            ref = _step_grads(cpu, small, cpu.make_rngs(5))
+        what = f"{model} f32 B=2 step, card vs CPU"
+        if model in IMAGE_TRAIN_GRADS:
+            log("image   (c) " + _compare_step(what, *got, *ref, grad_rtol=IMAGE_CPU_TOL,
+                                               loss_rtol=IMAGE_CPU_TOL))
+        else:
+            log("image   (c) " + _compare_step(what + ", train-mode loss", got[0], {}, ref[0],
+                                               {}, grad_rtol=IMAGE_CPU_TOL,
+                                               loss_rtol=IMAGE_CPU_TOL))
+            # fresh copies: the steps above moved each side's running
+            # statistics by its own batch statistics
+            card = image_module(dev, model, dropout=0.0)
+            cpu = copy.deepcopy(card).to("cpu")
+            log("image   (c) " + _compare_step(
+                f"{model} f32 B=2, card vs CPU, batch norms at their running statistics",
+                *_eval_grads(card, small), *_eval_grads(cpu, small),
+                grad_rtol=IMAGE_CPU_TOL, loss_rtol=IMAGE_CPU_TOL))
+        del card, cpu, got, ref
+        torch.cuda.empty_cache()
+    return paths
+
+
+# (d): the image compositions through the port's entry point, over phase
+# 10's demos held in memory (their 128 x 128 RGB-D images; the pointmap's
+# 6-channel image from their cloud), with phase 11's overrides and these:
+# the RGB-D task (maniskill2_task) but for the pointmap, the data targets
+# below, 2 micro-steps an epoch of the configs' 16 (no accumulation).
+def _image_dataset(kw: dict) -> str:
+    """The RGB-D dataset for the configs' ``camera_names``, the point-cloud
+    one (a pointmap) for their ``camera_ids``."""
+    return ACT_RGBD if "camera_names" in kw else ACT_PCD
+
+
+def cli_image_train_set(dataset_file=None, loop=IMAGE_CLI_LOOP, **kw):
+    """``data.train``'s target in phase 15 (d): the port's RGB-D dataset
+    (the configs' ``camera_names``), or its point-cloud dataset (a
+    pointmap's ``camera_ids``), over phase 10's training demos."""
+    CLI_DATA["train_kw"] = kw
+    return in_memory_dataset(CLI_DATA["train"], _image_dataset(kw), loop=loop,
+                             cache_dir=CLI_DATA["cache"], **kw)
+
+
+def cli_image_held_out_set(size=None):
+    """``data.val``'s target in phase 15 (d): the held-out demos, twice, with
+    the training set's keys."""
+    kw = CLI_DATA["train_kw"]
+    return in_memory_dataset(CLI_DATA["held_out"], _image_dataset(kw), loop=2,
+                             cache_dir=CLI_DATA["cache"], **kw)
+
+
+def image_cli_argv(root: str, run: str, model: str) -> list[str]:
+    """Phase 11's overrides for an image model, with the task and data
+    targets above."""
+    task = "maniskill2_pcd_task" if "pointmap" in model else "maniskill2_task"
+    swap = {"exp_maniskill2_act_policy/maniskill2_pcd_task@":
+            f"exp_maniskill2_act_policy/{task}@{task}=PickCube-v0",
+            "data.train._target_=": "data.train._target_=chip_smoke.cli_image_train_set",
+            "data.val._target_=": "data.val._target_=chip_smoke.cli_image_held_out_set",
+            "trainer.limit_train_batches=": f"trainer.limit_train_batches={IMAGE_CLI_BATCHES}"}
+    return [next((new for old, new in swap.items() if arg.startswith(old)), arg)
+            for arg in cli_argv(root, run, model)]
+
+
+def train_cli_image(dev) -> dict:
+    """Phase 15 (d): ``train.main`` on scratch_resnet50_rgb (the RGB-D task)
+    and on scratch_resnet50_pointmap (the point-cloud task) over phase 10's
+    demos (2 epochs of 2 micro-steps of 16, held-out validation after
+    each); a run from ``last`` resuming at epoch 2; ``validate.main`` on the
+    best checkpoint. No kernel of #1-#13 launches; seconds to the first
+    step, ms per optimizer step, the checkpoint's size. Returns the
+    launches by path."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pointcloudmatters_tpu_torch import ops
+    from pointcloudmatters_tpu_torch import train as train_entry
+    from pointcloudmatters_tpu_torch import validate as validate_entry
+    from pointcloudmatters_tpu_torch.trainer import CHECKPOINT_FILE
+
+    sys.modules.setdefault("chip_smoke", sys.modules[__name__])  # the targets' module
+    demos = synthetic_demos(FIT_EPISODES, FIT_EPISODE_LEN, FIT_CAM_SIDE)
+    n_train = FIT_EPISODES - FIT_HELD_OUT
+    micro = CLI_EPOCHS * IMAGE_CLI_BATCHES
+    paths = {}
+    for model, channels in (("scratch_resnet50_rgb", 3), ("scratch_resnet50_pointmap", 6)):
+        root = tempfile.TemporaryDirectory()
+        CLI_DATA.update(train=demos[:n_train], held_out=demos[n_train:],
+                        cache=os.path.join(root.name, "cache"))
+        EndState.runs.clear()
+        ops.reset_launch_counts()
+        t_main = time.perf_counter()
+        train_entry.main(image_cli_argv(root.name, "run1", model))
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        paths[f"train_cli_{model}"] = launches = ops.launch_counts()
+        probe = EndState.runs[-1]
+        trainer, module = probe.trainer, probe.module
+        net = module.policy.backbone
+        if (type(net).__name__, net.channels, trainer.precision, trainer.global_step) != (
+                "ResNetTorchVision", channels, "bf16-mixed", micro):
+            raise AssertionError(f"train_cli {model}: not the composition or the steps it "
+                                 f"should be")
+        losses = [m["train/loss"] for _, _, m in probe.epochs]
+        vals = [m["val/loss"] for _, _, m in probe.epochs]
+        if not np.isfinite(losses + vals).all():
+            raise AssertionError(f"train_cli {model}: non-finite {losses} or val/loss {vals}")
+        rate = probe.epochs[-1][2]["samples_per_sec"]
+        ckpts = os.path.join(root.name, "run1", "checkpoints")
+        last, best = os.path.join(ckpts, "last"), trainer.checkpoint_callback.best_model_path
+        size = os.path.getsize(os.path.join(last, CHECKPOINT_FILE))
+        _only(launches, {}, f"train_cli {model}")
+        log(f"image   (d) {card_line()}: train.main {model}, "
+            f"{sum(p.numel() for p in module.policy.parameters())} parameters, {micro} "
+            f"micro-steps of B={IMAGE_BATCH} over {CLI_EPOCHS} epochs in {t_end - t_main:.2f} s; "
+            f"{probe.t_start - t_main:.2f} s from main to the first step; epoch 1 {rate:.2f} "
+            f"samples/s = {IMAGE_BATCH * 1e3 / rate:.2f} ms per optimizer step; checkpoint "
+            f"{size / 1e6:.1f} MB; train/loss {losses}, val/loss {vals}; "
+            f"checkpoints {sorted(os.listdir(ckpts))}")
+        del trainer, module, probe, net
+
+        ops.reset_launch_counts()
+        train_entry.main(image_cli_argv(root.name, "run2", model)
+                         + [f"trainer.max_epochs={CLI_EPOCHS + 1}", f"ckpt_path={last}"])
+        torch.cuda.synchronize()
+        paths[f"train_cli_{model}_resume"] = ops.launch_counts()
+        resumed = EndState.runs[-1]
+        if resumed.start != (CLI_EPOCHS, micro) or [e for e, *_ in resumed.epochs] != [CLI_EPOCHS]:
+            raise AssertionError(f"train_cli {model}: resumed at {resumed.start}, "
+                                 f"epochs {resumed.epochs}")
+        ops.reset_launch_counts()
+        metrics = validate_entry.main(image_cli_argv(root.name, "val", model)
+                                      + [f"ckpt_path={best}"])
+        torch.cuda.synchronize()
+        paths[f"validate_cli_{model}"] = ops.launch_counts()
+        if set(metrics) != {"val/loss", "val/loss_best"} or not np.isfinite(metrics["val/loss"]):
+            raise AssertionError(f"validate_cli {model}: {metrics}")
+        for path in (f"train_cli_{model}_resume", f"validate_cli_{model}"):
+            _only(paths[path], {}, path)
+        log(f"image   (d) {model}: resumed at epoch {resumed.start[0]}, step "
+            f"{resumed.start[1]}; validate.main(best) {metrics}")
+        root.cleanup()
+        CLI_DATA.clear()
+        EndState.runs.clear()
+        del resumed
+        torch.cuda.empty_cache()
+    return paths
+
+
+def _torchvision_keys(net) -> dict:
+    """A torchvision-named state dict of ``net``'s own entries (the inverse
+    of ``resnet_state_dict``), under R3M's ``module.convnet.`` prefix."""
+    names = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
+    sd = {}
+    for name, t in net.state_dict().items():
+        mod, leaf = name.rsplit(".", 1)
+        mod = re.sub(r"^layer(\d)_(\d+)", r"layer\1.\2", mod)
+        mod = mod.replace("downsample_conv", "downsample.0").replace("downsample_bn",
+                                                                      "downsample.1")
+        sd[f"module.convnet.{mod}.{names.get(leaf, leaf)}"] = t.clone()
+    return sd
+
+
+def _timm_keys(net) -> dict:
+    """A timm / VC-1-named state dict of a ViT's own entries (the inverse of
+    ``vit_state_dict``): the query, key and value stacked into ``qkv``."""
+    import torch
+
+    vt, sd = net.model, {}
+    for name, t in vt.state_dict().items():
+        m = re.match(r"blocks_(\d+)\.attn\.(query|key|value)\.(weight|bias)", name)
+        if m:
+            if m[2] == "query":
+                parts = [vt.state_dict()[f"blocks_{m[1]}.attn.{p}.{m[3]}"]
+                         for p in ("query", "key", "value")]
+                sd[f"blocks.{m[1]}.attn.qkv.{m[3]}"] = torch.cat(parts).clone()
+            continue
+        name = re.sub(r"^blocks_(\d+)", r"blocks.\1", name).replace("attn.out", "attn.proj")
+        name = name.replace("mlp_fc", "mlp.fc").replace("patch_embed_proj", "patch_embed.proj")
+        sd[name] = t.clone()
+    return sd
+
+
+def image_pretrained(dev) -> dict:
+    """Phase 15 (e): ``pretrained_r3m_rgb`` and ``pretrained_vc1_rgb`` with
+    HOME at a temporary directory holding fake ``.r3m/r3m_50.pt`` and
+    ``.vc1/vc1_vitb.pth`` files (a seeded backbone's weights and random
+    batch statistics in R3M's and timm's keys): ``train.instantiate_model``
+    loads each bit for bit, then one ``predict`` at B=1 on the card, no
+    kernel launched. Returns the launches by path."""
+    import tempfile
+
+    import torch
+
+    from pointcloudmatters_tpu_torch import ops
+    from pointcloudmatters_tpu_torch import train as train_entry
+    from pointcloudmatters_tpu_torch.entry import init_parameters
+    from pointcloudmatters_tpu_torch.models.components.img_encoder import resnet, vit
+
+    paths = {}
+    root = tempfile.TemporaryDirectory()
+    for model, rel, key, kind in (("pretrained_r3m_rgb", ".r3m/r3m_50.pt", "r3m", "resnet"),
+                                  ("pretrained_vc1_rgb", ".vc1/vc1_vitb.pth", "model", "vit")):
+        fake = image_backbone(kind, 3)
+        init_parameters(fake, torch.Generator().manual_seed(3))
+        gen = torch.Generator().manual_seed(4)
+        with torch.no_grad():
+            for name, buf in fake.named_buffers():
+                if name.endswith(("mean", "var")) and not name.startswith("_"):
+                    buf.copy_(torch.rand(buf.shape, generator=gen) + 0.5)
+        sd = _torchvision_keys(fake) if kind == "resnet" else _timm_keys(fake)
+        path = os.path.join(root.name, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        torch.save({key: sd}, path)
+        home = os.environ.get("HOME")
+        os.environ["HOME"] = root.name
+        try:
+            cfg = train_entry.compose_run(image_cli_argv(root.name, model, model))
+            module = train_entry.instantiate_model(cfg)
+        finally:
+            if home is None:
+                del os.environ["HOME"]
+            else:
+                os.environ["HOME"] = home
+        net = module.policy.backbone
+        want = (resnet.resnet_state_dict(net, sd) if kind == "resnet"
+                else vit.vit_state_dict(net, sd))
+        state = net.state_dict()
+        wrong = [k for k, v in fake.state_dict().items() if not torch.equal(state[k], v)]
+        wrong += [k for k, v in want.items() if not torch.equal(state[k], v)]
+        if net.pretrained_path != path or wrong or set(want) != set(state):
+            raise AssertionError(f"{model}: {len(wrong)} entries differ from the file: "
+                                 f"{wrong[:5]}")
+        module.to(dev)
+        ops.reset_launch_counts()
+        a_hat = module.predict(image_batch(1, 3, seed=5, with_actions=False))
+        torch.cuda.synchronize()
+        paths[model] = launches = ops.launch_counts()
+        if not torch.isfinite(a_hat).all():
+            raise AssertionError(f"{model}: non-finite actions")
+        _only(launches, {}, model)
+        log(f"image   (e) {model}: {len(sd)} tensors of a {os.path.getsize(path) / 1e6:.1f} MB "
+            f"fake file loaded bit for bit (frozen backbone: {module.policy.freeze_backbone}); "
+            f"predict B=1 finite")
+        del module, net, fake
+        torch.cuda.empty_cache()
+    root.cleanup()
+    return paths
+
+
+def train_images(dev) -> tuple[dict, dict]:
+    """Phase 15: (a)-(e); the launches of its paths and (a)'s figures."""
+    t_phase = time.perf_counter()
+    alone = image_backbones(dev)
+    paths = image_serve(dev)
+    paths.update(image_steps(dev))
+    paths.update(train_cli_image(dev))
+    paths.update(image_pretrained(dev))
+    stray = {path: {k: n for k, n in counts.items() if n} for path, counts in paths.items()
+             if any(counts.values())}
+    if stray:
+        raise AssertionError(f"kernels launched on the image paths: {stray}")
+    log(f"image   phase 15 in {time.perf_counter() - t_phase:.1f} s; no kernel of #1-#13 "
+        f"launched on its {len(paths)} paths")
+    return paths, alone
+
+
 def main() -> int:
     import torch
 
@@ -4194,6 +4750,8 @@ def main() -> int:
             res[name]["dp_cases"] = found
         spunet_paths, _ = train_spunet(dev)
         paths.update(spunet_paths)
+        image_paths, _ = train_images(dev)
+        paths.update(image_paths)
     stray = {path: [k for k in FLASH_KERNELS if counts[k]] for path, counts in paths.items()
              if "flash" not in path and any(counts[k] for k in FLASH_KERNELS)}
     if stray:

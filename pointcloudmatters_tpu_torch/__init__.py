@@ -6,11 +6,13 @@ hand-written CUDA kernel for Hopper (``csrc/``, built by ``_build.py`` at
 first use) with a plain PyTorch version beside it. A CPU tensor runs the
 plain version; a CUDA tensor runs the kernel or raises.
 
-Ported so far: the flagship ACT + PointNet policy (``entry.build_flagship``)
-served (``BCModule.predict``) and trained (``trainer.Trainer``: the step
-in f32 and bf16, ``fit``, ``validate``, checkpoints), its data pipeline,
-and the entry points ``python -m pointcloudmatters_tpu_torch.train`` and
-``.validate``, which compose the repository's ``configs/``. This package
+Ported so far: ACT over point clouds (PointNet, SpUNet: ``entry.build_flagship``)
+and over images (ResNet, ViT, MultiViT: ``entry.build_image_policy``) and the
+Diffusion Policy over point clouds, served (``BCModule.predict``) and trained
+(``trainer.Trainer``: the step in f32 and bf16, ``fit``, ``validate``,
+checkpoints, data parallelism), their data pipelines, and the entry points
+``python -m pointcloudmatters_tpu_torch.train`` and ``.validate``, which
+compose the repository's ``configs/``. This package
 imports neither jax nor flax, nor anything of the JAX package.
 """
 

@@ -1,6 +1,7 @@
-"""ManiSkill2 replayed-trajectory datasets for ACT and the Diffusion Policy
-over point clouds (port of ``pointcloudmatters_tpu/data/components/maniskill2.py:54-300,
-400-498``), numpy on the host.
+"""ManiSkill2 replayed-trajectory datasets for ACT over point clouds and
+images and for the Diffusion Policy over point clouds (port of
+``pointcloudmatters_tpu/data/components/maniskill2.py:54-397, 400-498``),
+numpy on the host.
 
 - A sample draws a random start timestep, takes the action chunk of
   ``chunk_size`` future actions with an ``is_pad`` tail mask, z-scores qpos
@@ -17,10 +18,14 @@ over point clouds (port of ``pointcloudmatters_tpu/data/components/maniskill2.py
   and masks the foreground), optionally zeroes all but a random 112^2 crop
   (``rand_crop``), and goes through ``transform_pcd``; with ``pointmap`` it
   is a 6-channel image instead.
+- An RGB-D sample stacks each camera's image at the start step (k, h, w, c)
+  under ``image``: RGB scaled by 1/255, with ``include_depth`` the depth
+  channel after it scaled by 2^-10 (unless ``scale_rgb_only``), with
+  ``only_depth`` the scaled depth alone; a camera named ``base_*`` that the
+  demo lacks is read from ``front_*``.
 
 Every read of the demo file (``h5py`` and the json beside it) is
-:meth:`_ManiSkill2TrajectoryDataset._read_file`. The RGB-D datasets are not
-ported yet.
+:meth:`_ManiSkill2TrajectoryDataset._read_file`.
 """
 
 from __future__ import annotations
@@ -41,6 +46,8 @@ from pointcloudmatters_tpu_torch.utils.normalizer import (
 
 __all__ = ["ManiSkill2GoalPosSingleTaskACTPCDDataset",
            "ManiSkill2NullGoalSingleTaskACTPCDDataset",
+           "ManiSkill2GoalPosSingleTaskACTRGBDDataset",
+           "ManiSkill2NullGoalSingleTaskACTRGBDDataset",
            "ManiSkill2GoalPosSingleTaskDiffusionPolicyPCDDataset",
            "ManiSkill2NullGoalSingleTaskDiffusionPolicyPCDDataset"]
 
@@ -291,6 +298,97 @@ class ManiSkill2NullGoalSingleTaskACTPCDDataset(ManiSkill2GoalPosSingleTaskACTPC
             transform_pcd=transform_pcd, cache_dir=cache_dir, camera_ids=camera_ids,
             point_num_per_cam=point_num_per_cam, include_ground=include_ground,
             loop=loop, **kwargs,
+        )
+
+    def get_goal(self, obs):
+        n = len(obs["agent"]["qpos"])
+        return np.zeros((n, 1000), np.float32)
+
+
+class ManiSkill2GoalPosSingleTaskACTRGBDDataset(_ManiSkill2TrajectoryDataset):
+    """The ACT RGB(-D) dataset (reference
+    ``maniskill2_single_task_rgbd_act.py:17``); images stay channel-last."""
+
+    def __init__(
+        self,
+        dataset_file: str,
+        load_count=-1,
+        camera_names=("base_camera",),
+        include_depth=False,
+        scale_rgb_only=False,
+        goal_cond_keys=("goal_pos", "obj_start_pos"),
+        chunk_size=100,
+        cache_dir=_DEFAULT_CACHE,
+        only_depth=False,
+        cache_traj=True,
+        loop=1,
+    ):
+        self.camera_names = camera_names
+        self.include_depth = include_depth
+        self.scale_rgb_only = scale_rgb_only
+        self.only_depth = only_depth
+        super().__init__(
+            dataset_file=dataset_file, load_count=load_count,
+            goal_cond_keys=goal_cond_keys, chunk_size=chunk_size,
+            cache_dir=cache_dir, cache_traj=cache_traj, loop=loop,
+        )
+
+    def _camera_image(self, trajectory, camera_name, ts):
+        images = trajectory["obs"]["image"]
+        data_cam = camera_name if camera_name in images else camera_name.replace("base", "front")
+        assert data_cam in images, f"Camera {camera_name} not found; have {list(images)}"
+        cam = images[data_cam]
+        ts = min(ts, len(cam["depth" if self.only_depth else "rgb"]) - 1)
+        if self.only_depth:
+            return cam["depth"].astype(np.float32)[ts]
+        rgb = cam["rgb"].astype(np.float32)
+        if self.include_depth:
+            return np.concatenate([rgb, cam["depth"].astype(np.float32)], axis=-1)[ts]
+        return rgb[ts]
+
+    def _scale_image(self, image_khwc: np.ndarray) -> np.ndarray:
+        img = image_khwc.astype(np.float32).copy()
+        if self.only_depth:
+            img[..., :1] = img[..., :1] / (2**10)
+        else:
+            img[..., :3] = img[..., :3] / 255.0
+            if self.include_depth and not self.scale_rgb_only:
+                img[..., 3:] = img[..., 3:] / (2**10)
+        return img
+
+    def __getitem__(self, idx):
+        idx = idx % self.load_count
+        trajectory = self._trajectory(idx)
+        episode_len = trajectory["actions"].shape[0]
+        start_ts = np.random.choice(episode_len)
+
+        images = np.stack(
+            [self._camera_image(trajectory, cam, start_ts) for cam in self.camera_names])
+        qpos = trajectory["obs"]["agent"]["qpos"][start_ts].astype(np.float32)
+        qpos = (qpos - self.norm_stats["qpos_mean"]) / self.norm_stats["qpos_std"]
+        padded_action, is_pad = self._action_chunk_with_pad(trajectory, start_ts)
+        action = (padded_action - self.norm_stats["action_mean"]) / self.norm_stats["action_std"]
+        goal_cond = np.asarray(self.get_goal(trajectory["obs"])[start_ts], np.float32)
+        return dict(
+            image=self._scale_image(images),
+            qpos=qpos.astype(np.float32),
+            actions=action.astype(np.float32),
+            is_pad=is_pad,
+            goal_cond=goal_cond,
+        )
+
+
+class ManiSkill2NullGoalSingleTaskACTRGBDDataset(ManiSkill2GoalPosSingleTaskACTRGBDDataset):
+    """A zero goal vector of width 1000."""
+
+    def __init__(self, dataset_file, load_count=-1, camera_names=("base_camera",),
+                 include_depth=False, scale_rgb_only=False, goal_cond_keys=None,
+                 only_depth=False, chunk_size=20, loop=1, **kwargs):
+        super().__init__(
+            dataset_file=dataset_file, load_count=load_count, camera_names=camera_names,
+            include_depth=include_depth, scale_rgb_only=scale_rgb_only,
+            goal_cond_keys=goal_cond_keys, chunk_size=chunk_size,
+            only_depth=only_depth, loop=loop, **kwargs,
         )
 
     def get_goal(self, obs):

@@ -24,6 +24,16 @@ tiny ones). ``build_grid_batch()`` is a batch whose clouds carry
 ``grid_coord``, the 5 mm voxels of a table-top scene, unique a cloud, as
 ``GridSamplePCD`` leaves them.
 
+``build_image_policy()`` is ACT over camera images, the policy of the
+image configs of ``configs/exp_maniskill2_act_policy/maniskill2_model``
+(``configs/model/maniskill2_act_model.yaml``: the same head, the 2-D sine
+position embedding of 256 + 256 features, one camera) over ResNet-50
+(``backbone="resnet"``, 1, 3, 4 or 6 ``channels``: depth-only, RGB, RGB-D,
+pointmap), ViT-B/16 (``"vit"``) or the MultiViT-B trunk (``"multivit"``,
+RGB-D); ``backbone_kw`` overrides the backbone's arguments (tests use tiny
+widths). ``build_image_batch()`` is a batch of (B, 1, side, side,
+channels) images as the RGB-D and pointmap datasets scale them.
+
 ``build_dp_policy()`` is the Diffusion Policy over point clouds of
 ``configs/exp_maniskill2_diffusion_policy`` (``scratch_pointnet_pcd``,
 PickCube-v0): PointNet to 96 channels, FPS to 2048 tokens, kNN k=16, the
@@ -44,7 +54,13 @@ import torch
 from torch import nn
 
 from pointcloudmatters_tpu_torch.data.collate import morton_order
-from pointcloudmatters_tpu_torch.models.components.act.act import ACTPCD
+from pointcloudmatters_tpu_torch.models.components.act.act import ACT, ACTPCD
+from pointcloudmatters_tpu_torch.models.components.act.positional_encoding import (
+    PositionEmbeddingSine,
+)
+from pointcloudmatters_tpu_torch.models.components.img_encoder.multivit import MultiViTModel
+from pointcloudmatters_tpu_torch.models.components.img_encoder.resnet import ResNetTorchVision
+from pointcloudmatters_tpu_torch.models.components.img_encoder.vit import ViT
 from pointcloudmatters_tpu_torch.models.components.diffusion_policy.diffusion.ddpm import (
     DDPMScheduler,
 )
@@ -68,9 +84,9 @@ from pointcloudmatters_tpu_torch.models.components.pcd_encoder.pointnet import (
 )
 from pointcloudmatters_tpu_torch.models.components.pcd_encoder.spunet import SpUNet
 
-__all__ = ["build_flagship", "build_batch", "build_grid_batch", "build_dp_policy",
-           "build_dp_batch", "init_parameters", "morton_order", "DP_SHAPE_META",
-           "GRID_SIZE"]
+__all__ = ["build_flagship", "build_batch", "build_grid_batch", "build_image_policy",
+           "build_image_batch", "build_dp_policy", "build_dp_batch", "init_parameters",
+           "morton_order", "DP_SHAPE_META", "GRID_SIZE"]
 
 GRID_SIZE = 0.005  # m, the configs' GridSamplePCD grid
 
@@ -92,8 +108,11 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     ``query_embed``) standard normal, an ``nn.Embedding`` normal with std
     1/sqrt(width) (flax's ``Embed``). SpUNet's convolution planes are a
     truncated normal of std 0.02 cut at two of it (flax's
-    ``truncated_normal(0.02)``) and its ``final_bias`` zero. Batch norms keep
-    scale 1, bias 0 and their running statistics."""
+    ``truncated_normal(0.02)``) and its ``final_bias`` zero. A module with a
+    ``draw_parameters(generator)`` method draws the parameters it owns
+    itself (the ViT's sincos ``pos_embed`` and ``cls_token``, MultiViT's
+    global tokens, the learned position table). Batch norms keep scale 1,
+    bias 0 and their running statistics."""
     def normal(shape, std):
         return torch.randn(shape, generator=generator) * std
 
@@ -105,7 +124,10 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
                 else:
                     nn.init.trunc_normal_(p, std=0.02, a=-0.04, b=0.04, generator=generator)
             continue
-        if isinstance(mod, (nn.Linear, nn.Conv1d, nn.ConvTranspose1d)):
+        if hasattr(mod, "draw_parameters"):
+            mod.draw_parameters(generator)
+            continue
+        if isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.ConvTranspose1d)):
             w = mod.weight
             fan_in = (w.shape[0] * w.shape[2] if isinstance(mod, nn.ConvTranspose1d)
                       else w[0].numel())
@@ -146,18 +168,10 @@ def build_flagship(hidden_dim=512, npoints=2048, nsample=16, chunk=100,
                      **(spunet or {}))
     else:
         raise ValueError(f"backbone {backbone!r}: 'pointnet' or 'spunet'")
+    transformer, encoder = _act_head(hidden_dim, enc_layers, dec_layers, ffn, nhead, dropout,
+                                     attention_impl)
     policy = ACTPCD(
-        backbone=net,
-        transformer=Transformer(
-            d_model=hidden_dim, nhead=nhead, num_encoder_layers=enc_layers,
-            num_decoder_layers=dec_layers, dim_feedforward=ffn, dropout=dropout,
-            normalize_before=False, return_intermediate_dec=True,
-            attention_impl=attention_impl,
-        ),
-        encoder=TransformerEncoder(
-            d_model=hidden_dim, nhead=8, dim_feedforward=ffn,
-            num_layers=enc_layers, dropout=dropout,
-        ),
+        backbone=net, transformer=transformer, encoder=encoder,
         hidden_dim=hidden_dim, num_queries=chunk,
         action_dim=action_dim, qpos_dim=qpos_dim, goal_cond_dim=goal_dim,
         kl_weight=10.0, pcd_nsample=nsample, pcd_npoints=npoints,
@@ -253,6 +267,69 @@ def build_grid_batch(batch_size=2, n_points=12800, valid_range=None, chunk=100, 
                         with_actions=with_actions)
     batch["pcds"] = {"coord": coord, "grid_coord": grid,
                      "feat": np.concatenate([color, coord], -1), "valid": valid}
+    return batch
+
+
+def _act_head(hidden_dim, enc_layers, dec_layers, ffn, nhead, dropout, attention_impl="oneshot"):
+    """The ACT configs' transformer and CVAE posterior encoder."""
+    return (Transformer(d_model=hidden_dim, nhead=nhead, num_encoder_layers=enc_layers,
+                        num_decoder_layers=dec_layers, dim_feedforward=ffn, dropout=dropout,
+                        normalize_before=False, return_intermediate_dec=True,
+                        attention_impl=attention_impl),
+            TransformerEncoder(d_model=hidden_dim, nhead=8, dim_feedforward=ffn,
+                               num_layers=enc_layers, dropout=dropout))
+
+
+def build_image_policy(backbone="resnet", channels=3, hidden_dim=512, chunk=100, enc_layers=4,
+                       dec_layers=7, ffn=32, action_dim=7, qpos_dim=9, goal_dim=3, nhead=8,
+                       seed=0, dropout=0.1, freeze_backbone=False, backbone_kw=None,
+                       device: Union[str, torch.device] = "cuda") -> ACT:
+    """ACT over images (module doc): ``backbone`` ``"resnet"`` (ResNet-50
+    unless ``backbone_kw`` names another), ``"vit"`` (ViT-B/16) or
+    ``"multivit"`` (4 channels only), weights from
+    ``torch.Generator().manual_seed(seed)``, on ``device`` in eval mode."""
+    kw = dict(backbone_kw or {})
+    if backbone == "resnet":
+        net = ResNetTorchVision(**{"resnet_model": "resnet50", "channels": channels, **kw})
+    elif backbone == "vit":
+        net = ViT(**{"model_name": "vit_base_patch16", "channels": channels, **kw})
+    elif backbone == "multivit":
+        if channels != 4:
+            raise ValueError(f"MultiViT takes RGB-D (4 channels), not {channels}")
+        net = MultiViTModel(**kw)
+    else:
+        raise ValueError(f"backbone {backbone!r}: 'resnet', 'vit' or 'multivit'")
+    transformer, encoder = _act_head(hidden_dim, enc_layers, dec_layers, ffn, nhead, dropout)
+    policy = ACT(
+        backbone=net, transformer=transformer, encoder=encoder, hidden_dim=hidden_dim,
+        num_queries=chunk, action_dim=action_dim, qpos_dim=qpos_dim, goal_cond_dim=goal_dim,
+        kl_weight=10.0, num_cameras=1, freeze_backbone=freeze_backbone,
+        obs_feature_pos_embedding=PositionEmbeddingSine(hidden_dim // 2, normalize=True))
+    init_parameters(policy, torch.Generator().manual_seed(seed))
+    return policy.to(device).eval()
+
+
+def build_image_batch(batch_size=2, side=128, channels=3, chunk=100, action_dim=7, qpos_dim=9,
+                      goal_dim=3, seed=0, with_actions=True) -> dict:
+    """A batch of one camera's (B, 1, side, side, channels) images, numpy,
+    scaled as the datasets scale them: RGB in [0, 1), depth in metres over
+    1.024 (mm / 2^10, up to 2), a pointmap's coordinates in [-0.2, 0.2);
+    ``channels`` 1 is depth, 3 RGB, 4 RGB-D, 6 a pointmap's colours and
+    coordinates. ``qpos``, ``goal_cond``, ``actions`` and ``is_pad`` as
+    :func:`build_batch` makes them."""
+    rng = np.random.RandomState(seed + 1)
+    shape = (batch_size, 1, side, side)
+    rgb = rng.rand(*shape, 3).astype(np.float32)
+    depth = (rng.rand(*shape, 1) * 2).astype(np.float32)
+    xyz = (rng.rand(*shape, 3) * 0.4 - 0.2).astype(np.float32)
+    parts = {1: [depth], 3: [rgb], 4: [rgb, depth], 6: [rgb, xyz]}
+    if channels not in parts:
+        raise ValueError(f"channels {channels}: 1, 3, 4 or 6")
+    batch = build_batch(batch_size, n_points=8, chunk=chunk, action_dim=action_dim,
+                        qpos_dim=qpos_dim, goal_dim=goal_dim, seed=seed,
+                        with_actions=with_actions)
+    del batch["pcds"]
+    batch["image"] = np.concatenate(parts[channels], axis=-1)
     return batch
 
 

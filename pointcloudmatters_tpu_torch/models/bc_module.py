@@ -161,8 +161,8 @@ class BCModule:
 
     def make_rngs(self, seed: int, rank: int = 0, world_size: int = 1,
                    step: int = 0) -> dict[str, torch.Generator]:
-        """One generator per stream of ``train_rng_streams`` and
-        ``"bits"``, on the policy's device (``"seed"`` on the CPU).
+        """One generator per stream of ``train_rng_streams``, ``"bits"``
+        and ``"mask"``, on the policy's device (``"seed"`` on the CPU).
 
         Under GSPMD every draw is one global draw: a mask shared over the
         batch is shared across the devices, and a row's draws are its own.
@@ -172,7 +172,9 @@ class BCModule:
         ``BitsDropout``'s bits) from ``(seed, rank)``, and ``step``, the
         optimizer steps a resumed run starts from. A world of one draws as
         the single-device trainer: ``"bits"`` is the ``"dropout"``
-        generator itself."""
+        generator itself. Where the streams hold no ``"mask"`` (ACT's), an
+        MAE backbone's masking, drawn a row at a time, takes the ``"vae"``
+        generator (JAX draws it from a stream of its own)."""
         n = len(self.train_rng_streams)
 
         def generator(name: str, s: int) -> torch.Generator:
@@ -182,10 +184,12 @@ class BCModule:
                 for i, name in enumerate(self.train_rng_streams)}
         if world_size == 1:
             rngs["bits"] = rngs["dropout"]
-            return rngs
-        for i, name in enumerate(self.rank_rng_streams):
-            entropy = np.random.SeedSequence(seed % 2 ** 63, spawn_key=(rank, i, step))
-            rngs[name] = generator(name, int(entropy.generate_state(1, np.uint64)[0]))
+        else:
+            for i, name in enumerate(self.rank_rng_streams):
+                entropy = np.random.SeedSequence(seed % 2 ** 63, spawn_key=(rank, i, step))
+                rngs[name] = generator(name, int(entropy.generate_state(1, np.uint64)[0]))
+        if "mask" not in rngs:  # MAE's masking draws a row at a time, as the CVAE noise
+            rngs["mask"] = rngs["vae"]
         return rngs
 
     def forward_train(self, batch: dict, rngs: Mapping,

@@ -1,4 +1,4 @@
-"""ACT over point clouds (port of
+"""ACT over images and point clouds (port of
 ``pointcloudmatters_tpu/models/components/act/act.py:59-396``).
 
 Call protocol as in JAX: ``policy(data_dict, train=..., rngs=...)`` returns
@@ -9,11 +9,13 @@ merged in, and when actions are present ``loss``, ``action_loss`` and
 over ``[CLS, qpos, actions]``, sampled in training and its mean otherwise.
 
 ``train=True`` needs ``rngs``, the step's random streams: ``"vae"`` (the
-posterior noise), ``"dropout"`` and ``"bits"`` (generators on the batch's
-device, ``BCModule.make_rngs``) and ``"seed"`` (a CPU generator seeding the
-oneshot attention kernel's mask).
-The image and state-only observation paths come with later slices and
-raise ``NotImplementedError``.
+posterior noise), ``"dropout"``, ``"bits"`` and ``"mask"`` (an MAE
+backbone's token masking, the ``"vae"`` generator itself; generators on
+the batch's device, ``BCModule.make_rngs``) and ``"seed"`` (a CPU
+generator seeding the oneshot attention kernel's mask).
+``ACT`` embeds camera images (``data_dict["image"]``, (B, cameras, H, W,
+C)) through an image backbone, ``ACTPCD`` point clouds; the state-only
+path (no backbone) is not ported and raises ``NotImplementedError``.
 
 The module runs in the type of its parameters and inputs: f32, or bf16
 when the trainer's mixed precision casts both (``trainer.py``).
@@ -53,16 +55,28 @@ __all__ = ["ACT", "ACTPCD"]
 
 
 class ACT(nn.Module):
-    """Action Chunking Transformer: the parameters and the CVAE / decoder /
-    head stages shared by the observation variants. Parameter names are the
-    JAX module's."""
+    """Action Chunking Transformer over camera images, and the parameters
+    and CVAE / decoder / head stages that the point-cloud variant shares.
+    Parameter names are the JAX module's.
+
+    The image backbone maps (B, H, W, C) images to (B, h, w, C') features or
+    pooled (B, C') ones and has a ``num_channels`` property; each camera's
+    cells become tokens through ``input_proj``, placed by
+    ``obs_feature_pos_embedding``. With ``freeze_backbone`` no gradient
+    reaches the backbone, which still runs in the step's mode (its batch
+    statistics move in training) and whose parameters the optimizer still
+    decays, as in JAX. A backbone whose ``masks_tokens`` is true (MAE's
+    ViT) draws its training mask from ``rngs["mask"]``. ``feature_mode`` is
+    the configs' key, not read, as in JAX."""
 
     def __init__(self, backbone: Optional[nn.Module], transformer: Transformer,
                  encoder: Optional[TransformerEncoder], hidden_dim: int,
                  num_queries: int, action_dim: int = 8, qpos_dim: int = 9,
                  latent_dim: int = 32, action_loss=None, kl_weight: float = 20.0,
                  goal_cond_dim: int = 0, num_cameras: int = 0, env_state_dim: int = 0,
-                 klloss=None):
+                 klloss=None, freeze_backbone: bool = False,
+                 obs_feature_pos_embedding: Optional[nn.Module] = None,
+                 feature_mode: str = "cls"):
         super().__init__()
         if backbone is None:
             raise NotImplementedError(
@@ -78,12 +92,15 @@ class ACT(nn.Module):
         self.latent_dim = latent_dim
         self.kl_weight = kl_weight
         self.goal_cond_dim = goal_cond_dim
-        # the configs' keys: the cameras of the image path (not ported) and
-        # the state width, which the JAX module keeps and never reads
         self.num_cameras = num_cameras
+        # the state width, which the JAX module keeps and never reads
         self.env_state_dim = env_state_dim
+        self.freeze_backbone = freeze_backbone
+        self.feature_mode = feature_mode
         self._klloss = klloss if callable(klloss) else KLDivergence()
         self._action_loss = build_action_loss(action_loss)
+        self.input_proj = nn.Linear(backbone.num_channels, D)
+        self.obs_feature_pos_embedding = obs_feature_pos_embedding
         self.input_proj_robot_state = nn.Linear(qpos_dim, D)
         self.cls_embed = nn.Parameter(torch.zeros(1, D))
         self.encoder_action_proj = nn.Linear(action_dim, D)
@@ -140,10 +157,34 @@ class ACT(nn.Module):
             goal = goal.reshape(goal.shape[0], -1)
         return self.proj_goal_cond_emb(goal)
 
-    def forward_obs_embed(self, data_dict: dict, train: bool) -> dict:
-        raise NotImplementedError(
-            "the image-observation ACT path is not ported yet; use ACTPCD"
-        )
+    def _proprio_input(self, data_dict: dict) -> torch.Tensor:
+        """``[robot state, goal]`` tokens (B, 1 or 2, D)."""
+        proprio = self.input_proj_robot_state(data_dict["qpos"])[:, None, :]
+        goal_cond = self._goal_embed(data_dict)
+        if goal_cond is not None:
+            proprio = torch.cat([proprio, goal_cond[:, None, :]], dim=1)
+        return proprio
+
+    def forward_obs_embed(self, data_dict: dict, train: bool,
+                          rngs: Optional[Mapping] = None) -> dict:
+        """Each camera's backbone features as tokens (JAX ``act.py:173-
+        198``): a pooled feature is one cell (B, 1, 1, C); the cells are
+        projected by ``input_proj`` and placed by
+        ``obs_feature_pos_embedding`` (one table for the batch)."""
+        image = data_dict["image"]  # (B, cameras, H, W, C)
+        masks = train and getattr(self.backbone, "masks_tokens", False)
+        kw = {"generator": rngs["mask"]} if masks else {}
+        tokens, positions = [], []
+        for cam in range(self.num_cameras):
+            feats = self.backbone(image[:, cam], train=train, **kw)
+            if self.freeze_backbone:
+                feats = feats.detach()
+            if feats.ndim == 2:
+                feats = feats[:, None, None, :]
+            positions.append(self.obs_feature_pos_embedding(feats))
+            tokens.append(self.input_proj(feats).reshape(feats.shape[0], -1, self.hidden_dim))
+        return dict(data_dict, src=torch.cat(tokens, dim=1), pos=torch.cat(positions, dim=1),
+                    proprio_input=self._proprio_input(data_dict))
 
     def _decode(self, data_dict: dict, train: bool,
                 rngs: Optional[Mapping] = None) -> torch.Tensor:
@@ -178,9 +219,9 @@ class ACT(nn.Module):
     def forward(self, data_dict: dict, train: bool = False,
                 rngs: Optional[Mapping] = None) -> dict:
         if train and rngs is None:
-            raise ValueError("ACT training needs rngs ('vae', 'dropout', 'bits', 'seed')")
+            raise ValueError("ACT training needs rngs ('vae', 'dropout', 'bits', 'seed', 'mask')")
         data_dict = self.forward_encoder(data_dict, train, rngs)
-        data_dict = self.forward_obs_embed(data_dict, train)
+        data_dict = self.forward_obs_embed(data_dict, train, rngs)
         data_dict = self.forward_decoder(data_dict, train, rngs)
         if not data_dict["is_training"]:
             return data_dict
@@ -198,16 +239,16 @@ class ACTPCD(ACT):
                  encoder: Optional[TransformerEncoder], hidden_dim: int,
                  num_queries: int, pcd_nsample: int = 16,
                  pcd_npoints: int = 1024, use_mask: bool = False,
-                 pre_sample: bool = False, freeze_backbone: bool = False,
-                 **kwargs):
+                 pre_sample: bool = False, **kwargs):
         super().__init__(backbone, transformer, encoder, hidden_dim,
                          num_queries, **kwargs)
+        # the tokens come from the point-cloud builder (JAX act.py:276-278)
+        self.input_proj = self.obs_feature_pos_embedding = None
         if use_mask:
             raise NotImplementedError("ACTPCD use_mask is not ported yet")
         self.pcd_nsample = pcd_nsample
         self.pcd_npoints = pcd_npoints
         self.pre_sample = pre_sample
-        self.freeze_backbone = freeze_backbone
         # pre_sample projects the raw cloud to the backbone's input width
         # (JAX act.py:279-283), else the backbone's features to hidden_dim
         proj_dim = backbone.in_channels if pre_sample else hidden_dim
@@ -274,10 +315,7 @@ class ACTPCD(ACT):
                 feat_is_data=self.freeze_backbone)
         return features, coord_embedding_sine(coords_out, self.hidden_dim)
 
-    def forward_obs_embed(self, data_dict: dict, train: bool) -> dict:
+    def forward_obs_embed(self, data_dict: dict, train: bool,
+                          rngs: Optional[Mapping] = None) -> dict:
         src, pos = self.forward_pcd_embed(data_dict["pcds"], train)
-        proprio = self.input_proj_robot_state(data_dict["qpos"])[:, None, :]
-        goal_cond = self._goal_embed(data_dict)
-        if goal_cond is not None:
-            proprio = torch.cat([proprio, goal_cond[:, None, :]], dim=1)
-        return dict(data_dict, src=src, pos=pos, proprio_input=proprio)
+        return dict(data_dict, src=src, pos=pos, proprio_input=self._proprio_input(data_dict))

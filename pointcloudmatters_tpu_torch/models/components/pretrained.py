@@ -5,9 +5,12 @@
 (``train.instantiate_model``): it walks the policy's modules, and for each
 one whose ``pretrained_path`` is set it reads that local file (no download)
 and copies the checkpoint in with its family's mapping. A path that does not
-exist logs a warning and keeps the drawn weights, as in JAX. The port maps
-the SpUNet family (PonderV2 checkpoints); the image encoders' families come
-with their backbones (ROADMAP.md §1 item 11).
+exist logs a warning and keeps the drawn weights, as in JAX. The families:
+SpUNet (PonderV2 checkpoints), ``ResNetTorchVision`` / ``R3MResNet``
+(torchvision and R3M state dicts), ``ViT`` / ``MAEViT`` / ``VC1ViT`` (timm,
+MAE and VC-1 ones) and ``MultiViTModel`` / ``MultiMAEModel`` (EPFL
+MultiMAE). As in JAX, only ``pretrained_path`` is read: the MultiViT
+configs' ``ckpt_path`` is not (``img_encoder/multivit.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +20,18 @@ import os
 import torch
 from torch import nn
 
+from pointcloudmatters_tpu_torch.models.components.img_encoder.multivit import (
+    MultiViTModel,
+    load_torch_multimae_state_dict,
+)
+from pointcloudmatters_tpu_torch.models.components.img_encoder.resnet import (
+    ResNetTorchVision,
+    load_torch_state_dict,
+)
+from pointcloudmatters_tpu_torch.models.components.img_encoder.vit import (
+    ViT,
+    load_torch_vit_state_dict,
+)
 from pointcloudmatters_tpu_torch.models.components.pcd_encoder.spunet import (
     SpUNet,
     load_ponderv2_weights,
@@ -38,13 +53,18 @@ def _load_torch_file(path: str) -> dict:
     return state
 
 
+_FAMILIES = ((SpUNet, load_ponderv2_weights), (ResNetTorchVision, load_torch_state_dict),
+             (ViT, load_torch_vit_state_dict), (MultiViTModel, load_torch_multimae_state_dict))
+
+
 def _port(module: nn.Module, state_dict: dict) -> None:
-    if isinstance(module, SpUNet):
-        load_ponderv2_weights(module, state_dict)
-        return
+    for family, load in _FAMILIES:
+        if isinstance(module, family):
+            load(module, state_dict)
+            return
     raise NotImplementedError(
-        f"no pretrained weights for {type(module).__name__} in the port yet "
-        f"(ROADMAP.md §1 item 11: the image encoders' checkpoints)")
+        f"no pretrained-weight family for {type(module).__name__}: the port loads "
+        + ", ".join(f.__name__ for f, _ in _FAMILIES) + " and their subclasses")
 
 
 def load_pretrained_into(policy: nn.Module) -> nn.Module:

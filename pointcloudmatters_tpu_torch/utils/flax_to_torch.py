@@ -11,6 +11,8 @@ Input is the flax ``variables`` of a JAX model, ``{"params": ...,
                                             -> Linear weight (H*dh, D), bias (H*dh,)
 - attention ``out`` kernel (H, dh, D)      -> Linear weight (D, H*dh)
 - Conv ``kernel`` (k, in, out)             -> Conv1d ``weight`` (out, in, k)
+- Conv ``kernel`` (kh, kw, in, out)        -> Conv2d ``weight`` (out, in, kh, kw)
+  (the image encoders' convolutions and patch embeddings)
 - ConvTranspose ``kernel`` (k, in, out)    -> ConvTranspose1d ``weight`` (in, out, k),
   flipped in time (flax's ``transpose_kernel=False`` correlates where torch
   convolves): the modules of the target that are ``nn.ConvTranspose1d``
@@ -18,7 +20,9 @@ Input is the flax ``variables`` of a JAX model, ``{"params": ...,
 - batch norms (modules with ``batch_stats``): ``scale``/``bias`` parameters
   and ``mean``/``var`` buffers keep their names
 - top-level embeddings ``cls_embed``, ``query_embed``,
-  ``additional_pos_embed`` keep theirs
+  ``additional_pos_embed`` keep theirs, and so do the image encoders'
+  parameters owned by a module itself at any depth (``pos_embed``,
+  ``cls_token``, ``global_tokens``, ``row_embed``, ``col_embed``)
 - SpUNet's convolution planes (``conv_input_weight``, ``down<s>_weight``,
   ``up<s>_weight``, ``final_weight``, ``<enc|dec><s>_block<i>_<conv1|conv2|proj>``,
   (K, Ci, Co)) and ``final_bias`` keep their names and layout; a
@@ -50,6 +54,7 @@ from torch import nn
 __all__ = ["flax_to_torch", "jax_checkpoint_to_torch", "arrays_to_tensors"]
 
 _EMBEDDINGS = ("cls_embed", "query_embed", "additional_pos_embed")
+_OWN = ("pos_embed", "cls_token", "global_tokens", "row_embed", "col_embed")
 _QKV = ("query", "key", "value")
 _PLANE = re.compile(r"(conv_input_weight|down\d+_weight|up\d+_weight|final_weight|final_bias"
                     r"|(enc|dec)\d+_block\d+_(conv1|conv2|proj))")
@@ -76,8 +81,10 @@ def _param(path: tuple, leaf: np.ndarray, norms: set, transposed: set
     last = mod[-1] if mod else None
     if not mod and name in _EMBEDDINGS:
         return name, leaf
-    if _PLANE.fullmatch(name):
+    if _PLANE.fullmatch(name) or name in _OWN:
         return _key(path), leaf
+    if name == "kernel" and leaf.ndim == 4:
+        return _key(mod + ("weight",)), leaf.transpose(3, 2, 0, 1)
     if name == "embedding" and leaf.ndim == 2:
         return _key(mod + ("weight",)), leaf
     if name == "kernel" and leaf.ndim == 2:

@@ -393,3 +393,88 @@ def test_datamodule_collate_choice_matches_jax(which, h5file, tmp_path):
             return [list(dm.train_dataloader()) for _ in range(2)] + [list(dm.val_dataloader())]
 
         _both(lambda _: batches(ref), lambda _: batches(got), lambda: None)
+
+
+RGBD_DATASETS = [
+    ("ManiSkill2GoalPosSingleTaskACTRGBDDataset", dict(goal_cond_keys=["goal_pos"])),
+    ("ManiSkill2GoalPosSingleTaskACTRGBDDataset",
+     dict(goal_cond_keys=["goal_pos", "obj_start_pos"], include_depth=True)),
+    ("ManiSkill2GoalPosSingleTaskACTRGBDDataset",
+     dict(goal_cond_keys=["goal_pos"], include_depth=True, scale_rgb_only=True, load_count=2,
+          loop=3)),
+    ("ManiSkill2GoalPosSingleTaskACTRGBDDataset",
+     dict(goal_cond_keys=["goal_pos"], include_depth=True, only_depth=True, cache_traj=False)),
+    ("ManiSkill2NullGoalSingleTaskACTRGBDDataset",
+     dict(include_depth=True, load_count=3, chunk_size=4)),
+]
+
+
+@pytest.fixture(scope="module")
+def front_camera_file(h5file, tmp_path_factory):
+    """The demo file with its camera renamed ``front_camera`` (ManiSkill2's
+    name in some tasks), which a ``base_camera`` dataset falls back to."""
+    import shutil
+
+    import h5py
+
+    path = str(tmp_path_factory.mktemp("front") / "trajectory.rgbd.h5")
+    shutil.copy(h5file, path)
+    shutil.copy(h5file.replace(".h5", ".json"), path.replace(".h5", ".json"))
+    with h5py.File(path, "a") as f:
+        for traj in f:
+            f.move(f"{traj}/obs/image/base_camera", f"{traj}/obs/image/front_camera")
+    return path
+
+
+@pytest.mark.parametrize("camera", ["base_camera", "front_camera"])
+@pytest.mark.parametrize("name, kw", RGBD_DATASETS, ids=[
+    f"{n[11:].split('SingleTask')[0]}-{i}" for i, (n, _) in enumerate(RGBD_DATASETS)])
+def test_maniskill2_rgbd_dataset_matches_jax(name, kw, camera, h5file, front_camera_file,
+                                             tmp_path):
+    """The ACT RGB-D datasets in each mode (RGB; RGB-D; depth unscaled with
+    ``scale_rgb_only``; depth only; the zero goal), on the demo's
+    ``base_camera`` and on a demo whose camera is ``front_camera``: length,
+    statistics and 6 samples bit-equal; images channel-last (k, h, w, c)."""
+    path = h5file if camera == "base_camera" else front_camera_file
+
+    def build(mod, cache):
+        return getattr(mod, name)(path, camera_names=["base_camera"],
+                                  cache_dir=str(tmp_path / cache), **{"chunk_size": 6, **kw})
+
+    ref, got = build(jms2, "jax"), build(tms2, "torch")
+    assert len(got) == len(ref)
+    _equal(got.norm_stats, ref.norm_stats)
+    samples = _both(lambda _: [ref[i] for i in range(6)], lambda _: [got[i] for i in range(6)],
+                    lambda: None)
+    channels = 1 if kw.get("only_depth") else 4 if kw.get("include_depth") else 3
+    assert samples[0]["image"].shape == (1, 32, 32, channels)
+
+
+@pytest.mark.parametrize("which", ["rgbd", "pointmap"])
+def test_image_batches_collate_as_jax(which, h5file, tmp_path):
+    """The datamodule's batches of the RGB-D dataset (the default collate)
+    and of the point-cloud dataset's pointmap (the point-cloud collate,
+    which has no cloud to pad): two epochs and a validation pass bit-equal,
+    ``image`` (B, 1, h, w, C) among them."""
+    def datamodule(jax_side):
+        ms2, pkg, DM = (jms2, JT, JDataModule) if jax_side else (tms2, T, BaseDataModule)
+        cache = str(tmp_path / ("jax" if jax_side else "torch"))
+        if which == "rgbd":
+            data = ms2.ManiSkill2GoalPosSingleTaskACTRGBDDataset(
+                h5file, goal_cond_keys=["goal_pos"], include_depth=True, chunk_size=6,
+                cache_dir=cache)
+        else:
+            data = ms2.ManiSkill2GoalPosSingleTaskACTPCDDataset(
+                h5file, goal_cond_keys=["goal_pos"], chunk_size=6, pointmap=True,
+                transform_pcd=_flagship_transforms(pkg), point_num_per_cam=CAM_SIDE ** 2,
+                cache_dir=cache)
+        return DM(train=data, val=data, batch_size_train=2, batch_size_val=3, pad_multiple=128,
+                  pin_memory=False, seed=3)
+
+    def batches(dm):
+        return [list(dm.train_dataloader()) for _ in range(2)] + [list(dm.val_dataloader())]
+
+    out = _both(lambda _: batches(datamodule(True)), lambda _: batches(datamodule(False)),
+                lambda: None)
+    side, channels = (32, 4) if which == "rgbd" else (CAM_SIDE, 6)
+    assert out[0][0]["image"].shape == (2, 1, side, side, channels)

@@ -6,8 +6,9 @@ of the frozen-backbone and ``pre_sample`` variants, a tiny ``predict``
 and dropout-0 step of the ``attention_impl="fused"`` encoder through its
 fused op, a tiny ``predict`` and dropout-0.1 step of the
 ``attention_impl="flash"`` encoder through its flash op, a tiny ACT over
-SpUNet's ``predict`` and ``"bf16-mixed"`` step, and a tiny
-Diffusion Policy's ``predict`` and f32 and bf16 steps run, and nothing of
+SpUNet's ``predict`` and ``"bf16-mixed"`` step, a tiny
+Diffusion Policy's ``predict`` and f32 and bf16 steps, and a tiny ACT over
+images' (ResNet-18, MultiViT) run, and nothing of
 the JAX package (``pointcloudmatters_tpu``) was imported (the GPU machine
 has no JAX); the training entry point composes ``configs/`` and fits with
 JAX blocked. Every CUDA source under ``csrc/`` is one the build compiles,
@@ -76,6 +77,10 @@ SLICE_MODULES = (
     "pointcloudmatters_tpu_torch.models.components.diffusion_policy.diffusion.conditional_unet1d",
     "pointcloudmatters_tpu_torch.models.components.diffusion_policy.vision.pcd_obs_encoder",
     "pointcloudmatters_tpu_torch.models.components.diffusion_policy.diffusion_unet_image_policy",
+    "pointcloudmatters_tpu_torch.utils.image",
+    "pointcloudmatters_tpu_torch.models.components.img_encoder.resnet",
+    "pointcloudmatters_tpu_torch.models.components.img_encoder.vit",
+    "pointcloudmatters_tpu_torch.models.components.img_encoder.multivit",
 )
 BLOCKED = ("jax", "flax", "optax", "orbax")
 
@@ -218,6 +223,42 @@ def test_diffusion_policy_predicts_and_trains_without_jax():
     """)
     # one torch thread: beside the other test processes, tiny convolutions
     # on every core run many times slower
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO_ROOT,
+                          capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, OMP_NUM_THREADS="1"))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
+
+
+def test_image_policy_predicts_and_trains_without_jax():
+    """With jax, flax, optax and orbax blocked: ACT over a tiny ResNet-18 on
+    RGB-D and over a tiny MultiViT predicts and takes an f32 and a
+    ``"bf16-mixed"`` step, and nothing of the JAX package was imported."""
+    script = textwrap.dedent(f"""
+        import sys
+        for name in {BLOCKED!r}:
+            sys.modules[name] = None
+        import torch
+        from pointcloudmatters_tpu_torch.entry import build_image_batch, build_image_policy
+        from pointcloudmatters_tpu_torch.models.bc_module import BCModule
+        from pointcloudmatters_tpu_torch.trainer import Trainer
+        for backbone, kw in (("resnet", dict(resnet_model="resnet18", resize_to=32)),
+                             ("multivit", dict(img_size=32, dim_tokens=32, depth=1,
+                                               num_heads=4))):
+            module = BCModule(build_image_policy(backbone, 4, hidden_dim=32, chunk=5,
+                                                 enc_layers=1, dec_layers=2, nhead=4,
+                                                 backbone_kw=kw, device="cpu"))
+            a_hat = module.predict(build_image_batch(1, 24, 4, chunk=5, with_actions=False))
+            assert tuple(a_hat.shape) == (1, 5, 7), a_hat.shape
+            for precision in ("32-true", "bf16-mixed"):
+                metrics = Trainer(precision=precision, seed=0).train_step(
+                    module, build_image_batch(4, 24, 4, chunk=5))
+                assert bool(metrics["loss"].isfinite()), metrics
+        assert not [m for m in sys.modules if m.split(".")[0] in
+                    {BLOCKED + ("pointcloudmatters_tpu",)!r}
+                    and sys.modules[m] is not None]
+        print("ok")
+    """)
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO_ROOT,
                           capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, OMP_NUM_THREADS="1"))

@@ -279,7 +279,7 @@ def test_other_pretrained_families_raise(tmp_path):
     torch.save({"w": torch.zeros(1)}, path)
     encoder = nn.Linear(2, 2)
     encoder.pretrained_path = str(path)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="no pretrained-weight family for Linear"):
         tpretrained.load_pretrained_into(nn.Sequential(encoder))
 
 

@@ -284,6 +284,30 @@ Phases, each of which raises on failure (exit code non-zero, no result):
    in JAX: the phase fails if any kernel of #1-#13 launches on its paths.
    ``python3 tools/image_phase.py [part ...]`` builds the kernels and runs
    this phase, or some of its parts, alone.
+16. The Diffusion Policy over images (the 12 image models of
+   ``configs/exp_maniskill2_diffusion_policy``): (a) ``MultiImageObsEncoder``
+   over ResNet-50 (1, 3, 4, 6 channels), ViT-B/16 and MultiViT-B alone, f32,
+   on 64 images of 128 x 128 (the RGB-D task's B=32 of two frames): card
+   against CPU on 2 rows within IMAGE_DP_CPU_TOL, forward and forward +
+   backward ms; (b) ``predict`` (100 DDPM steps, f32) of
+   scratch_resnet50_rgb, scratch_vit_rgb and scratch_multivit_rgbd at B=1
+   and B=8; (c) their ``"bf16-mixed"`` step at B=32 (ms, samples/s, peak)
+   and the f32 step of 2 samples on the card against the CPU, the draws
+   fixed (ResNet's gradients at its running statistics, in f32 within
+   IMAGE_DP_RESNET_F32_TOL, which a TF32 control must exceed, with a count
+   of the ReLU inputs on opposite sides of zero, and in f64 within
+   IMAGE_DP_CPU_TOL);
+   (d) ``train.main`` on scratch_resnet50_rgbd (RGB-D task) and
+   scratch_resnet50_pointmap (point-cloud task), both at the shipped width,
+   a resume and ``validate.main``; (e) ``pretrained_r3m_rgb`` from
+   a fake R3M file into the shared ``rgb_model``, ``pretrained_vc1_rgb``
+   kept at its seeded weights as shipped and loaded by override; (f) fake
+   reference checkpoints of scratch_resnet50_rgb and the ACT
+   scratch_pointnet_pcd through ``python -m
+   pointcloudmatters_tpu_torch.port_reference_ckpt``, restored by
+   ``validate.main(ckpt_path=)`` bit for bit, then a ``predict``. The phase
+   fails if a kernel of #1-#13 launches on an image DP path.
+   ``python3 tools/image_dp_phase.py [part ...]`` runs it alone.
 
 Prints a JSON line of the kernels (route, source, the TPU kernel each
 replaces, launches on each path (phase 11's: ``train_cli``,
@@ -296,7 +320,12 @@ gloo ranks' and (a)'s group's steps, and ``train_cli_ddp``; phase 13's:
 ``<model>_predict`` and ``<model>_train`` of its three policies,
 ``train_cli_<model>``, its ``_resume`` and ``validate_cli_<model>`` of its
 two compositions, ``pretrained_r3m_rgb``, ``pretrained_vc1_rgb``: all
-zero), error,
+zero; phase 16's: ``dp_<model>_predict``, ``dp_<model>_train``,
+``train_cli_dp_<model>``, its ``_resume``, ``validate_cli_dp_<model>``,
+``dp_pretrained_r3m_rgb``, ``converter_validate_<model>`` and
+``converter_predict_<model>``: all zero but the ACT's
+``scratch_pointnet_pcd`` converter paths, which run FPS, kNN and the
+attention forward), error,
 kernel, plain and library times,
 and the bound: the larger of the bytes over 3.35 TB/s and the flops over
 the peak of the inputs' type, 67 TFLOP/s f32 or 989 TFLOP/s bf16 (FPS and
@@ -2285,9 +2314,11 @@ class StepClock:
         pass
 
 
-ACT_PCD, DP_PCD, ACT_RGBD = ("ManiSkill2GoalPosSingleTaskACTPCDDataset",
-                             "ManiSkill2GoalPosSingleTaskDiffusionPolicyPCDDataset",
-                             "ManiSkill2GoalPosSingleTaskACTRGBDDataset")
+ACT_PCD, DP_PCD, ACT_RGBD, DP_RGBD = (
+    "ManiSkill2GoalPosSingleTaskACTPCDDataset",
+    "ManiSkill2GoalPosSingleTaskDiffusionPolicyPCDDataset",
+    "ManiSkill2GoalPosSingleTaskACTRGBDDataset",
+    "ManiSkill2GoalPosSingleTaskDiffusionPolicyRGBDDataset")
 
 
 def in_memory_dataset(trajs, dataset: str = ACT_PCD, **kw):
@@ -4692,6 +4723,796 @@ def train_images(dev) -> tuple[dict, dict]:
     return paths, alone
 
 
+# phase 16: the Diffusion Policy over images, the 12 image models of
+# configs/exp_maniskill2_diffusion_policy/maniskill2_model at their shipped
+# widths: the DP's UNet (down_dims [512, 1024, 2048], step embedding 128,
+# horizon 16, 8 executed steps, 100 DDPM steps) conditioned on two frames of
+# one 128 x 128 camera through MultiImageObsEncoder (resize 256, centre crop
+# 224, one shared model) over ResNet-50, ViT-B/16 or the MultiViT-B trunk,
+# at the RGB-D task's batch of 32 (64 images a step). The condition is
+# (backbone width + 9) x 2 + 3 wide: the UNet's FiLM linears grow with it
+# (28,672 weights a unit). No kernel of #1-#13 runs (the backbones' rows are
+# dense attention or convolutions, as in JAX).
+IMAGE_DP_BATCH, IMAGE_DP_OBS_STEPS = 32, 2
+IMAGE_DP_ROWS = IMAGE_DP_BATCH * IMAGE_DP_OBS_STEPS  # images a step
+IMAGE_DP_SERVE_BATCHES = (1, 8)
+IMAGE_DP_CPU_TOL = 1e-4  # card vs CPU, f32: of max |CPU| (features), of max(1, max|g|) (gradients)
+# ResNet's f32 gradients at its seeded running statistics, card vs CPU, of
+# max(1, max|g|): 1.13e-4 in four runs on an H100 80GB HBM3 at 700 W, the
+# same with cuDNN off; 7 of 38.4 M ReLU inputs land on the other side of
+# zero, the largest 2.3e-7 of its call's largest; in f64 they agree within
+# 1.6e-8. The same step with TF32 on the card read 7.7e-4: (c) fails unless
+# its TF32 control stays above this limit, so the limit tells f32 from TF32
+IMAGE_DP_RESNET_F32_TOL = 3e-4
+IMAGE_DP_ENCODERS = (("resnet", 3), ("resnet", 4), ("resnet", 1), ("resnet", 6), ("vit", 3),
+                     ("multivit", 4))
+IMAGE_DP_POLICIES = {"scratch_resnet50_rgb": ("resnet", 3), "scratch_vit_rgb": ("vit", 3),
+                     "scratch_multivit_rgbd": ("multivit", 4)}
+IMAGE_DP_PARAMS = {"scratch_resnet50_rgb": 389_295_815, "scratch_vit_rgb": 378_186_119,
+                   "scratch_multivit_rgbd": 378_230_663}  # JAX's counts (tests/test_torch_config.py)
+IMAGE_DP_CLI_BATCHES = 2  # micro-steps an epoch in (d)
+# the tasks' batches (the RGB-D task's 32, the point-cloud task's 64) and the
+# loops over the six training demos that give 2 of them
+IMAGE_DP_CLI_BATCH = {"scratch_resnet50_rgbd": 32, "scratch_resnet50_pointmap": 64}
+IMAGE_DP_CLI_LOOP = {"scratch_resnet50_rgbd": 12, "scratch_resnet50_pointmap": 24}
+
+
+def image_dp_encoder(kind: str, channels: int):
+    """The configs' MultiImageObsEncoder over a full-width backbone."""
+    from pointcloudmatters_tpu_torch.entry import image_backbone, image_dp_shape_meta
+    from pointcloudmatters_tpu_torch.models.components.diffusion_policy.vision.multi_image_obs_encoder import (  # noqa: E501
+        MultiImageObsEncoder,
+    )
+
+    pool = {"avg_pool": True} if kind == "resnet" else {}
+    return MultiImageObsEncoder(
+        shape_meta=image_dp_shape_meta(channels), rgb_model=image_backbone(kind, channels, pool),
+        resize_shape=(256, 256), crop_shape=(224, 224), random_crop=False,
+        share_rgb_model=True, use_depth=channels in (1, 4), only_depth=channels == 1)
+
+
+def image_dp_obs(rows: int, channels: int, seed: int) -> dict:
+    """One frame a row of each key, as the policy hands the encoder."""
+    from pointcloudmatters_tpu_torch.entry import build_image_dp_batch
+
+    batch = build_image_dp_batch(rows, IMAGE_SIDE, channels, n_obs_steps=1, horizon=1,
+                                 seed=seed)
+    return {k: v[:, 0] for k, v in batch["obs"].items()}
+
+
+def image_dp_encoders(dev) -> dict:
+    """Phase 16 (a): each encoder alone at full width, f32, seeded weights:
+    the eval features of 2 rows on the card against the CPU
+    (IMAGE_DP_CPU_TOL of max |CPU|); the train-mode forward and forward +
+    backward ms (CUDA events) and peak memory over the 64 images of a
+    B=32 step. Returns the figures."""
+    import copy
+
+    import torch
+
+    from pointcloudmatters_tpu_torch.entry import init_parameters
+    from pointcloudmatters_tpu_torch.models.bc_module import to_device
+
+    out = {}
+    for kind, channels in IMAGE_DP_ENCODERS:
+        enc = image_dp_encoder(kind, channels)
+        init_parameters(enc, torch.Generator().manual_seed(0))
+        obs = to_device(image_dp_obs(IMAGE_DP_ROWS, channels, 0), "cpu")
+        small = {k: v[:2] for k, v in obs.items()}
+        with torch.no_grad():
+            ref = enc(small, train=False)
+        model = copy.deepcopy(enc).to(dev)
+        x = to_device(obs, dev)
+        with torch.no_grad():
+            got = model(to_device(small, dev), train=False).cpu()
+        err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+        if not err <= IMAGE_DP_CPU_TOL * scale:
+            raise AssertionError(f"image dp encoder {kind} {channels}ch card vs CPU: {err:.3e} "
+                                 f"> {IMAGE_DP_CPU_TOL} x {scale:.3e}")
+        cot = torch.randn(model.feature_dim, generator=torch.Generator().manual_seed(1)).to(dev)
+
+        def fwd_bwd():
+            model.zero_grad(set_to_none=True)
+            (model(x, train=True) * cot).sum().backward()
+
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: model(x, train=True), 3)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        both_ms = cuda_ms(fwd_bwd, 3)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        name = f"{kind}_{channels}ch"
+        out[name] = dict(params=sum(p.numel() for p in enc.parameters()), err=err / scale,
+                         fwd_ms=fwd_ms, fwd_bwd_ms=both_ms, peak_gib=peak)
+        log(f"imagedp (a) {card_line()}: MultiImageObsEncoder over {name} "
+            f"({out[name]['params']} parameters, {model.feature_dim} features a frame): card "
+            f"vs CPU (eval, 2 rows) {err:.3e} of max |CPU| {scale:.3e}; {IMAGE_DP_ROWS} images "
+            f"of {IMAGE_SIDE} px, f32 train-mode forward {fwd_ms:.2f} ms, forward + backward "
+            f"{both_ms:.2f} ms, peak device memory {peak:.2f} GiB")
+        del enc, model, x, obs
+        torch.cuda.empty_cache()
+    return out
+
+
+def image_dp_normalizer(channels: int):
+    """``dp_normalizer`` with identity entries for the image keys, as the DP
+    RGB-D datasets build theirs (the images stay f32 under bf16-mixed)."""
+    from pointcloudmatters_tpu_torch.entry import image_dp_shape_meta
+    from pointcloudmatters_tpu_torch.utils.normalizer import SingleFieldLinearNormalizer
+
+    normalizer = dp_normalizer()
+    for key in image_dp_shape_meta(channels)["obs"]:
+        if key != "qpos":
+            normalizer[key] = SingleFieldLinearNormalizer.create_identity()
+    return normalizer
+
+
+def image_dp_task(policy):
+    """The DP task module over ``policy`` with its config's AdamW + OneCycleLR."""
+    from pointcloudmatters_tpu_torch.models.maniskill2_modules import (
+        ManiSkill2DiffusionPolicyBCModule,
+    )
+
+    return ManiSkill2DiffusionPolicyBCModule(policy, optimizer=DP_OPT, lr_scheduler=DP_SCHED,
+                                             env_id="PickCube-v0")
+
+
+def image_dp_module(dev, model: str, seed: int = 0):
+    """:func:`image_dp_task` over a full-width image policy of ``model``."""
+    from pointcloudmatters_tpu_torch.entry import build_image_dp_policy
+
+    kind, channels = IMAGE_DP_POLICIES[model]
+    policy = build_image_dp_policy(kind, channels, seed=seed,
+                                   normalizer=image_dp_normalizer(channels), device=dev)
+    n = sum(p.numel() for p in policy.parameters())
+    if n != IMAGE_DP_PARAMS[model]:
+        raise AssertionError(f"{model}: {n} parameters, not JAX's {IMAGE_DP_PARAMS[model]}")
+    return image_dp_task(policy)
+
+
+def image_dp_batch(batch_size: int, channels: int, seed: int, with_actions: bool = True):
+    from pointcloudmatters_tpu_torch.entry import build_image_dp_batch
+
+    return build_image_dp_batch(batch_size, IMAGE_SIDE, channels, seed=seed,
+                                with_actions=with_actions)
+
+
+SERVED: dict = {}  # (b)'s modules by model, which (c) trains next
+
+
+def image_dp_serve(dev) -> dict:
+    """Phase 16 (b): ``predict`` in f32 (the whole 100-step chain) of the
+    three image policies at B=1 and B=8: a warm-up request, then two timed
+    by the host clock at each size; finite (B, 8, 7) actions and no launch
+    of #1-#13. Keeps each module for (c). Returns the launches by path."""
+    import torch
+
+    from pointcloudmatters_tpu_torch import ops
+
+    paths = {}
+    for model, (_, channels) in IMAGE_DP_POLICIES.items():
+        module = SERVED[model] = image_dp_module(dev, model)
+        requests = {B: [image_dp_batch(B, channels, s, with_actions=False) for s in (1, 2)]
+                    for B in IMAGE_DP_SERVE_BATCHES}
+        module.predict(image_dp_batch(1, channels, 0, with_actions=False),
+                       torch.Generator(device=dev).manual_seed(0))  # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        times = {}
+        for B, reqs in requests.items():
+            for i, obs in enumerate(reqs):
+                t0 = time.perf_counter()
+                action = module.predict(obs, torch.Generator(device=dev).manual_seed(i))
+                torch.cuda.synchronize()
+                times.setdefault(B, []).append((time.perf_counter() - t0) * 1e3)
+                if tuple(action.shape) != (B, 8, 7) or not torch.isfinite(action).all():
+                    raise AssertionError(f"{model} predict B={B}: {tuple(action.shape)}, not "
+                                         f"a finite (B, 8, 7)")
+        paths[f"dp_{model}_predict"] = launches = ops.launch_counts()
+        _only(launches, {}, f"dp {model} predict")
+        log(f"imagedp (b) {card_line()}: {model} predict (f32, 100 DDPM steps, "
+            f"{IMAGE_DP_OBS_STEPS} frames of {IMAGE_SIDE} px a sample): "
+            + "; ".join(f"B={B} " + ", ".join(f"{t:.2f}" for t in ms) + " ms"
+                        for B, ms in times.items()))
+        del module
+        torch.cuda.empty_cache()
+    return paths
+
+
+@contextlib.contextmanager
+def fixed_dp_draws(seed: int):
+    """The DP loss's noise and timesteps drawn once on the CPU from
+    ``seed`` and handed to every device, so that a step on the card and one
+    on the CPU take the same draws."""
+    import torch
+
+    from pointcloudmatters_tpu_torch.models.components.diffusion_policy import (
+        diffusion_unet_image_policy as dp,
+    )
+
+    saved = dp.training_draws
+
+    def draws(generator, shape, dtype, batch, num_train_timesteps):
+        noise, ts = saved(torch.Generator().manual_seed(seed), shape, dtype, batch,
+                          num_train_timesteps)
+        return noise.to(generator.device), ts.to(generator.device)
+
+    dp.training_draws = draws
+    try:
+        yield
+    finally:
+        dp.training_draws = saved
+
+
+def _dp_eval_grads(module, batch):
+    """Loss and gradients of the eval-mode loss (batch norms at their
+    running statistics) from one state; the draws as ``fixed_dp_draws``."""
+    import torch
+
+    from pointcloudmatters_tpu_torch.models.bc_module import select_model_batch, to_device
+
+    module.policy.zero_grad(set_to_none=True)
+    out = module.policy(to_device(select_model_batch(batch), module.device), train=False,
+                        rngs={"noise": torch.Generator(device=module.device)})
+    out["loss"].backward()
+    return out["loss"].detach(), {n: p.grad.detach().clone()
+                                  for n, p in module.policy.named_parameters()
+                                  if p.grad is not None}
+
+
+@contextlib.contextmanager
+def relu_inputs(into: list):
+    """Every ResNet ReLU's input, in call order, appended to ``into``."""
+    import torch.nn.functional as F
+
+    from pointcloudmatters_tpu_torch.models.components.img_encoder import resnet
+
+    class Recording:
+        def __getattr__(self, name):
+            return getattr(F, name)
+
+        @staticmethod
+        def relu(x, *args, **kwargs):
+            into.append(x.detach())
+            return F.relu(x, *args, **kwargs)
+
+    saved, resnet.F = resnet.F, Recording()
+    try:
+        yield
+    finally:
+        resnet.F = saved
+
+
+def relu_flips(card: list, cpu: list) -> str:
+    """Where the card's and the CPU's ReLU inputs fall on different sides of
+    zero: how many elements, the first call that has one, and the largest
+    |input| of a flipped element over the largest |input| of its call."""
+    import torch
+
+    if len(card) != len(cpu):
+        raise AssertionError(f"{len(card)} ReLU calls on the card, {len(cpu)} on the CPU")
+    flips, first, worst = 0, None, 0.0
+    for i, (x, ref) in enumerate(zip(card, cpu)):
+        ref = ref.to(x.device)
+        flipped = (x > 0) != (ref > 0)
+        n = int(flipped.sum())
+        if n:
+            flips += n
+            first = i if first is None else first
+            size = torch.maximum(x.abs(), ref.abs())[flipped].max().item()
+            worst = max(worst, size / max(ref.abs().max().item(), 1e-30))
+    return (f"{flips} ReLU inputs of {sum(x.numel() for x in card)} on opposite sides of zero"
+            + (f", the first in call {first} of {len(card)}; the largest flipped |input| "
+               f"{worst:.3e} of its call's largest" if flips else ""))
+
+
+def image_dp_steps(dev) -> dict:
+    """Phase 16 (c): the ``"bf16-mixed"`` step of the three image policies
+    at B=32 (64 images; (b)'s modules where (b) ran): a warm-up, then
+    TRAIN_STEPS steps under ``torch.cuda.set_sync_debug_mode("error")``
+    timed by the host clock; samples/s, peak memory, finite losses, moved
+    parameters, no launch of #1-#13. Then, from the seeded state again, the
+    f32 step on the card against the CPU at B=2, the draws fixed: the loss
+    within IMAGE_DP_CPU_TOL relative and each gradient within
+    IMAGE_DP_CPU_TOL of max(1, max|g|). ResNet's train-mode loss is held
+    and its gradients are held at its running statistics: in f32 within
+    IMAGE_DP_RESNET_F32_TOL (a TF32 control on the card must exceed it; the
+    ReLU inputs that land on opposite sides of zero counted), in f64 within
+    IMAGE_DP_CPU_TOL. Returns the launches by path."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from pointcloudmatters_tpu_torch import ops
+    from pointcloudmatters_tpu_torch.models.bc_module import to_device
+    from pointcloudmatters_tpu_torch.trainer import Trainer
+
+    paths = {}
+    for model, (kind, channels) in IMAGE_DP_POLICIES.items():
+        module = SERVED.pop(model, None) or image_dp_module(dev, model)
+        seeded = {k: v.detach().clone() for k, v in module.policy.state_dict().items()}
+        trainer = Trainer(precision="bf16-mixed", seed=0)
+        trainer.setup(module, TOTAL_STEPS)
+        batch = to_device(image_dp_batch(IMAGE_DP_BATCH, channels, 0), dev)
+        start = [p.detach().clone() for p in module.policy.parameters()]
+        trainer.train_step(module, batch)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            outs = [trainer.train_step(module, batch) for _ in range(TRAIN_STEPS)]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+        paths[f"dp_{model}_train"] = launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        losses = [float(m["loss"]) for m in outs]
+        moved = sum(not torch.equal(a, p) for a, p in zip(start, module.policy.parameters()))
+        if not np.isfinite(losses).all() or moved < len(start) // 2:
+            raise AssertionError(f"{model}: losses {losses}, {moved} of {len(start)} moved")
+        _only(launches, {}, f"dp {model} bf16 step")
+        log(f"imagedp (c) {card_line()}: {model} B={IMAGE_DP_BATCH} ({IMAGE_DP_ROWS} images) "
+            f"bf16-mixed {step_ms:.2f} ms/step over {TRAIN_STEPS} steps, "
+            f"{IMAGE_DP_BATCH * 1e3 / step_ms:.2f} samples/s, peak device memory {peak:.2f} "
+            f"GiB; loss {losses}; {sum(p.numel() for p in module.policy.parameters())} "
+            f"parameters")
+        policy = module.policy
+        del module, trainer, batch, start, outs
+        policy.load_state_dict(seeded)  # the seeded weights and statistics again
+        policy.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+
+        card = image_dp_task(policy)
+        cpu = image_dp_task(copy.deepcopy(policy).to("cpu"))
+        small = image_dp_batch(2, channels, 3)
+        what = f"dp {model} f32 B=2 step, card vs CPU"
+        with fixed_dp_draws(5):
+            got = _step_grads(card, to_device(small, dev), card.make_rngs(5))
+            ref = _step_grads(cpu, small, cpu.make_rngs(5))
+            if kind != "resnet":
+                log("imagedp (c) " + _compare_step(what, *got, *ref, grad_rtol=IMAGE_DP_CPU_TOL,
+                                                   loss_rtol=IMAGE_DP_CPU_TOL))
+            else:
+                gap = max(((g - ref[1][n].to(g.device)).abs().max().item()
+                           / max(1.0, ref[1][n].abs().max().item()), n)
+                          for n, g in got[1].items())
+                log("imagedp (c) " + _compare_step(what + ", train-mode loss", got[0], {},
+                                                   ref[0], {}, grad_rtol=IMAGE_DP_CPU_TOL,
+                                                   loss_rtol=IMAGE_DP_CPU_TOL)
+                    + f"; train-mode gradients {gap[0]:.3e} of max(1, max|g|) at {gap[1]} "
+                    f"(batch statistics: not held)")
+                for m in (card, cpu):  # the train-mode step moved the statistics
+                    m.policy.load_state_dict(seeded)
+                card_relu, cpu_relu = [], []
+                with relu_inputs(card_relu):
+                    got = _dp_eval_grads(card, small)
+                with relu_inputs(cpu_relu):
+                    ref = _dp_eval_grads(cpu, small)
+                flips = relu_flips(card_relu, cpu_relu)
+                del card_relu, cpu_relu
+                tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+                torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+                try:
+                    control = _dp_eval_grads(card, small)
+                finally:
+                    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+                control_gap = max(((g - ref[1][n].to(g.device)).abs().max().item()
+                                   / max(1.0, ref[1][n].abs().max().item()), n)
+                                  for n, g in control[1].items())
+                if not control_gap[0] > IMAGE_DP_RESNET_F32_TOL:
+                    raise AssertionError(f"dp {model}: the TF32 control's gradients "
+                                         f"{control_gap[0]:.3e} of max(1, max|g|) are within "
+                                         f"the f32 limit {IMAGE_DP_RESNET_F32_TOL}")
+                log("imagedp (c) " + _compare_step(
+                    f"dp {model} f32 B=2, card vs CPU, batch norms at their running "
+                    f"statistics", *got, *ref, grad_rtol=IMAGE_DP_RESNET_F32_TOL,
+                    loss_rtol=IMAGE_DP_CPU_TOL)
+                    + f" (limit {IMAGE_DP_RESNET_F32_TOL}); {flips}; TF32 control on the card "
+                    f"{control_gap[0]:.3e} of max(1, max|g|) at {control_gap[1]}")
+                del control
+                card.policy.double()
+                cpu.policy.double()
+                log("imagedp (c) " + _compare_step(
+                    f"dp {model} f64 B=2, card vs CPU, batch norms at their running "
+                    f"statistics", *_dp_eval_grads(card, _f64(small)),
+                    *_dp_eval_grads(cpu, _f64(small)),
+                    grad_rtol=IMAGE_DP_CPU_TOL, loss_rtol=IMAGE_DP_CPU_TOL))
+        del card, cpu, got, ref, policy, seeded
+        torch.cuda.empty_cache()
+    return paths
+
+
+def _f64(tree):
+    """A numpy batch with its floating arrays in f64, for (c)'s f64 hold of
+    ResNet's gradients."""
+    if isinstance(tree, dict):
+        return {k: _f64(v) for k, v in tree.items()}
+    return tree.astype("float64") if tree.dtype.kind == "f" else tree
+
+
+# (d), (e), (f): the image DP compositions through the port's entry points,
+# over phase 10's demos held in memory (their 128 x 128 RGB-D images; the
+# pointmap's 6-channel image from their cloud), with phase 13's overrides
+# (dp_cli_argv) and these: the RGB-D task (maniskill2_task) but for the
+# pointmap, the data targets below; 2 micro-steps an epoch of the configs'
+# 32 (RGB-D task) or 64 (the point-cloud task's pointmap).
+def _image_dp_dataset(kw: dict) -> str:
+    return DP_RGBD if "camera_names" in kw else DP_PCD
+
+
+def dp_image_cli_train_set(dataset_file=None, **kw):
+    """``data.train``'s target in phase 16: the port's DP RGB-D dataset (the
+    configs' ``camera_names``) or its DP point-cloud dataset (a pointmap's
+    ``camera_ids``) over phase 10's training demos."""
+    CLI_DATA["train_kw"] = kw
+    return in_memory_dataset(CLI_DATA["train"], _image_dp_dataset(kw), loop=CLI_DATA["loop"],
+                             cache_dir=CLI_DATA["cache"], **kw)
+
+
+def dp_image_cli_held_out_set(size=None):
+    """``data.val``'s target in phase 16: the held-out demos, twice, with
+    the training set's keys."""
+    kw = CLI_DATA["train_kw"]
+    return in_memory_dataset(CLI_DATA["held_out"], _image_dp_dataset(kw), loop=2,
+                             cache_dir=CLI_DATA["cache"], **kw)
+
+
+PROBED: list = []  # the task modules phase 16's targets built, latest last
+
+
+def probed_held_out_dp_module(**kw):
+    """``held_out_dp_module``, kept in PROBED."""
+    PROBED.append(held_out_dp_module(**kw))
+    return PROBED[-1]
+
+
+def probed_bc_module(**kw):
+    """The base ``BCModule`` (phase 11's held-out-loss module), kept in PROBED."""
+    from pointcloudmatters_tpu_torch.models.bc_module import BCModule
+
+    PROBED.append(BCModule(**kw))
+    return PROBED[-1]
+
+
+def image_dp_cli_argv(root: str, run: str, model: str) -> list[str]:
+    """Phase 13's overrides for an image model of the DP, with the task and
+    data targets above and the probed module."""
+    task = "maniskill2_pcd_task" if "pointmap" in model else "maniskill2_task"
+    swap = {"exp_maniskill2_diffusion_policy/maniskill2_pcd_task@":
+            f"exp_maniskill2_diffusion_policy/{task}@{task}=PickCube-v0",
+            "data.train._target_=": "data.train._target_=chip_smoke.dp_image_cli_train_set",
+            "data.val._target_=": "data.val._target_=chip_smoke.dp_image_cli_held_out_set",
+            "model._target_=": "model._target_=chip_smoke.probed_held_out_dp_module",
+            "trainer.limit_train_batches=":
+                f"trainer.limit_train_batches={IMAGE_DP_CLI_BATCHES}"}
+    return [next((new for old, new in swap.items() if arg.startswith(old)), arg)
+            for arg in dp_cli_argv(root, run, model)] + [
+        "callbacks.model_checkpoint.save_weights_only=true"]  # top-k: weights alone
+
+
+def _cli_demos(root: str, model: str) -> None:
+    demos = synthetic_demos(FIT_EPISODES, FIT_EPISODE_LEN, FIT_CAM_SIDE)
+    n_train = FIT_EPISODES - FIT_HELD_OUT
+    CLI_DATA.update(train=demos[:n_train], held_out=demos[n_train:],
+                    cache=os.path.join(root, "cache"), loop=IMAGE_DP_CLI_LOOP.get(model, 12))
+
+
+def train_cli_image_dp(dev) -> dict:
+    """Phase 16 (d): ``train.main`` on scratch_resnet50_rgbd (the RGB-D task,
+    depth on) and on scratch_resnet50_pointmap (the point-cloud task) over
+    phase 10's demos (2 epochs of 2 micro-steps, held-out validation after
+    each; the dataset's normalizer wired), a run from ``last`` resuming at
+    epoch 2, ``validate.main`` on the best checkpoint. No kernel of #1-#13
+    launches; seconds to the first step, ms an optimizer step, the
+    checkpoint's size. Returns the launches by path."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pointcloudmatters_tpu_torch import ops
+    from pointcloudmatters_tpu_torch import train as train_entry
+    from pointcloudmatters_tpu_torch import validate as validate_entry
+    from pointcloudmatters_tpu_torch.trainer import CHECKPOINT_FILE
+
+    sys.modules.setdefault("chip_smoke", sys.modules[__name__])  # the targets' module
+    micro = CLI_EPOCHS * IMAGE_DP_CLI_BATCHES
+    paths = {}
+    for model, channels, keys in (
+            ("scratch_resnet50_rgbd", 4, {"action", "qpos", "base_camera_rgb",
+                                          "base_camera_depth"}),
+            ("scratch_resnet50_pointmap", 6, {"action", "qpos", "base_camera_rgb"})):
+        root = tempfile.TemporaryDirectory()
+        _cli_demos(root.name, model)
+        EndState.runs.clear()
+        ops.reset_launch_counts()
+        t_main = time.perf_counter()
+        argv = image_dp_cli_argv(root.name, "run1", model)
+        train_entry.main(argv)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        paths[f"train_cli_dp_{model}"] = launches = ops.launch_counts()
+        probe = EndState.runs[-1]
+        trainer, module = probe.trainer, probe.module
+        enc = module.policy.obs_encoder
+        if (type(enc).__name__, enc.rgb_model.channels, trainer.precision,
+                trainer.global_step) != ("MultiImageObsEncoder", channels, "bf16-mixed", micro):
+            raise AssertionError(f"train_cli_dp {model}: not the composition or the steps it "
+                                 f"should be")
+        if set(module.state_dict_extras().get("normalizer", {})) != keys:
+            raise AssertionError(f"train_cli_dp {model}: the dataset's normalizer was not "
+                                 f"wired: {sorted(module.state_dict_extras())}")
+        losses = [m["train/loss"] for _, _, m in probe.epochs]
+        vals = [m["val/loss"] for _, _, m in probe.epochs]
+        if not np.isfinite(losses + vals).all():
+            raise AssertionError(f"train_cli_dp {model}: non-finite {losses} or {vals}")
+        batch = IMAGE_DP_CLI_BATCH[model]
+        rate = probe.epochs[-1][2]["samples_per_sec"]
+        ckpts = os.path.join(root.name, "run1", "checkpoints")
+        last, best = os.path.join(ckpts, "last"), trainer.checkpoint_callback.best_model_path
+        size = os.path.getsize(os.path.join(last, CHECKPOINT_FILE))
+        _only(launches, {}, f"train_cli_dp {model}")
+        log(f"imagedp (d) {card_line()}: train.main {model}, "
+            f"{sum(p.numel() for p in module.policy.parameters())} parameters, {micro} "
+            f"micro-steps of B={batch} over {CLI_EPOCHS} epochs in {t_end - t_main:.2f} s; "
+            f"{probe.t_start - t_main:.2f} s from main to the first step; epoch 1 {rate:.2f} "
+            f"samples/s = {batch * 1e3 / rate:.2f} ms per optimizer step; checkpoint "
+            f"{size / 1e9:.3f} GB; train/loss {losses}, val/loss {vals}; checkpoints "
+            f"{sorted(os.listdir(ckpts))}")
+        del trainer, module, probe, enc
+        PROBED.clear()
+
+        ops.reset_launch_counts()
+        train_entry.main(image_dp_cli_argv(root.name, "run2", model)
+                         + [f"trainer.max_epochs={CLI_EPOCHS + 1}", f"ckpt_path={last}"])
+        torch.cuda.synchronize()
+        paths[f"train_cli_dp_{model}_resume"] = ops.launch_counts()
+        resumed = EndState.runs[-1]
+        if resumed.start != (CLI_EPOCHS, micro) or [e for e, *_ in resumed.epochs] != [CLI_EPOCHS]:
+            raise AssertionError(f"train_cli_dp {model}: resumed at {resumed.start}, epochs "
+                                 f"{resumed.epochs}")
+        del resumed
+        PROBED.clear()
+        ops.reset_launch_counts()
+        metrics = validate_entry.main(image_dp_cli_argv(root.name, "val", model)
+                                      + [f"ckpt_path={best}"])
+        torch.cuda.synchronize()
+        paths[f"validate_cli_dp_{model}"] = ops.launch_counts()
+        if set(metrics) != {"val/loss", "val/loss_best"} or not np.isfinite(metrics["val/loss"]):
+            raise AssertionError(f"validate_cli_dp {model}: {metrics}")
+        for path in (f"train_cli_dp_{model}_resume", f"validate_cli_dp_{model}"):
+            _only(paths[path], {}, path)
+        log(f"imagedp (d) {model}: resumed at epoch {CLI_EPOCHS}, step {micro}; "
+            f"validate.main(best) {metrics}")
+        root.cleanup()
+        CLI_DATA.clear()
+        EndState.runs.clear()
+        PROBED.clear()
+        torch.cuda.empty_cache()
+    return paths
+
+
+def image_dp_pretrained(dev) -> dict:
+    """Phase 16 (e): ``pretrained_r3m_rgb`` as shipped, with HOME at a
+    temporary directory holding a fake ``.r3m/r3m_50.pt`` (a seeded
+    ResNet-50's weights and random statistics in R3M's keys): the shared
+    ``rgb_model`` loads it bit for bit, then a ``predict`` at B=1 on the
+    card. ``pretrained_vc1_rgb`` names no ``pretrained_path``: as shipped its
+    ViT keeps the seed's weights though a fake ``.vc1/vc1_vitb.pth`` is
+    there (as in JAX); with the path given as an override it loads the file
+    bit for bit. Returns the launches by path."""
+    import tempfile
+
+    import torch
+
+    from pointcloudmatters_tpu_torch import ops
+    from pointcloudmatters_tpu_torch import train as train_entry
+    from pointcloudmatters_tpu_torch.entry import init_parameters
+    from pointcloudmatters_tpu_torch.models.components.img_encoder import resnet, vit
+
+    sys.modules.setdefault("chip_smoke", sys.modules[__name__])
+    paths = {}
+    root = tempfile.TemporaryDirectory()
+    _cli_demos(root.name, "pretrained")
+    files = {}
+    for rel, key, kind in ((".r3m/r3m_50.pt", "r3m", "resnet"),
+                           (".vc1/vc1_vitb.pth", "model", "vit")):
+        fake = image_backbone(kind, 3)
+        init_parameters(fake, torch.Generator().manual_seed(3))
+        gen = torch.Generator().manual_seed(4)
+        with torch.no_grad():
+            for name, buf in fake.named_buffers():
+                if name.endswith(("mean", "var")) and not name.startswith("_"):
+                    buf.copy_(torch.rand(buf.shape, generator=gen) + 0.5)
+        sd = _torchvision_keys(fake) if kind == "resnet" else _timm_keys(fake)
+        path = os.path.join(root.name, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        torch.save({key: sd}, path)
+        files[kind] = (path, sd, fake)
+
+    def build(model, extra=()):
+        home = os.environ.get("HOME")
+        os.environ["HOME"] = root.name
+        try:
+            cfg = train_entry.compose_run(image_dp_cli_argv(root.name, model, model)
+                                          + list(extra))
+            return train_entry.instantiate_model(cfg)
+        finally:
+            if home is None:
+                del os.environ["HOME"]
+            else:
+                os.environ["HOME"] = home
+
+    for model, kind, extra in (
+            ("pretrained_r3m_rgb", "resnet", ()),
+            ("pretrained_vc1_rgb", "vit", ()),
+            ("pretrained_vc1_rgb", "vit", (
+                f"+model.policy.obs_encoder.rgb_model.pretrained_path={files['vit'][0]}",))):
+        path, sd, fake = files[kind]
+        module = build(model, extra)
+        net = module.policy.obs_encoder.rgb_model
+        state = net.state_dict()
+        loads = model == "pretrained_r3m_rgb" or any("pretrained_path" in e for e in extra)
+        if loads:
+            want = (resnet.resnet_state_dict(net, sd) if kind == "resnet"
+                    else vit.vit_state_dict(net, sd))
+            wrong = [k for k, v in fake.state_dict().items() if not torch.equal(state[k], v)]
+            wrong += [k for k, v in want.items() if not torch.equal(state[k], v)]
+            if net.pretrained_path != path or wrong or set(want) != set(state):
+                raise AssertionError(f"{model} {extra}: {len(wrong)} entries differ from the "
+                                     f"file: {wrong[:5]}")
+        else:
+            seeded = build(model, extra).policy.obs_encoder.rgb_model.state_dict()
+            if net.pretrained_path is not None or any(
+                    not torch.equal(state[k], v) for k, v in seeded.items()) or all(
+                    torch.equal(state[k], v) for k, v in fake.state_dict().items()):
+                raise AssertionError(f"{model}: as shipped it must keep the seed's weights")
+        name = model + ("_path" if loads and model != "pretrained_r3m_rgb" else "")
+        if model == "pretrained_r3m_rgb":
+            module.policy.normalizer = image_dp_normalizer(3)
+            module.to(dev)
+            ops.reset_launch_counts()
+            action = module.predict(image_dp_batch(1, 3, 5, with_actions=False),
+                                    torch.Generator(device=dev).manual_seed(0))
+            torch.cuda.synchronize()
+            paths[f"dp_{name}"] = launches = ops.launch_counts()
+            if not torch.isfinite(action).all():
+                raise AssertionError(f"{model}: non-finite actions")
+            _only(launches, {}, name)
+        log(f"imagedp (e) {name}: " + (f"{len(sd)} tensors of a "
+                                       f"{os.path.getsize(path) / 1e6:.1f} MB fake file loaded "
+                                       f"bit for bit" if loads else
+                                       "no pretrained_path, the seed's weights kept (as JAX)")
+            + ("; predict B=1 finite" if model == "pretrained_r3m_rgb" else ""))
+        del module, net
+        torch.cuda.empty_cache()
+    root.cleanup()
+    CLI_DATA.clear()
+    PROBED.clear()
+    return paths
+
+
+def _converted(root: str, name: str, policy, normalizer=None) -> tuple[str, float]:
+    """A reference ``.ckpt`` of ``policy`` (``tools/reference_ckpt.py``)
+    through ``python -m pointcloudmatters_tpu_torch.port_reference_ckpt``:
+    the converted directory and the command's seconds."""
+    sys.path.insert(0, REPO)
+    from tools.reference_ckpt import reference_state_dict, save_lightning_ckpt
+
+    ckpt, out = os.path.join(root, f"{name}.ckpt"), os.path.join(root, f"{name}_ported")
+    save_lightning_ckpt(ckpt, reference_state_dict(policy, normalizer))
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "pointcloudmatters_tpu_torch.port_reference_ckpt",
+                          ckpt, out], cwd=REPO, capture_output=True, text=True, timeout=600)
+    if run.returncode != 0:
+        raise AssertionError(f"port_reference_ckpt {name}: {run.stderr[-2000:]}")
+    os.remove(ckpt)
+    return out, time.perf_counter() - t0
+
+
+def image_dp_converter(dev) -> dict:
+    """Phase 16 (f): fake reference checkpoints of the DP scratch_resnet50_rgb
+    and of the ACT scratch_pointnet_pcd (seeded policies of their
+    compositions, renamed to the reference's keys by
+    ``tools/reference_ckpt.py``), each converted by the port's command,
+    restored through ``validate.main ckpt_path=`` bit for bit in every
+    tensor (and the DP's normalizer), then one ``predict`` on the card.
+    Returns the launches by path (the ACT's run kernels 1, 2 and 3)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pointcloudmatters_tpu_torch import ops
+    from pointcloudmatters_tpu_torch import train as train_entry
+    from pointcloudmatters_tpu_torch import validate as validate_entry
+
+    sys.modules.setdefault("chip_smoke", sys.modules[__name__])
+    paths = {}
+    root = tempfile.TemporaryDirectory()
+    for model, family in (("scratch_resnet50_rgb", "dp"), ("scratch_pointnet_pcd", "act")):
+        _cli_demos(root.name, model)
+        if family == "dp":
+            argv = image_dp_cli_argv(root.name, "conv", model)
+        else:
+            argv = [a.replace("pointcloudmatters_tpu.models.bc_module.BCModule",
+                              "chip_smoke.probed_bc_module") for a in cli_argv(root.name, "conv")]
+        source = train_entry.instantiate_model(train_entry.compose_run(argv + ["seed=11"]))
+        normalizer = image_dp_normalizer(3) if family == "dp" else None
+        out, seconds = _converted(root.name, model, source.policy,
+                                  None if normalizer is None else normalizer.state_dict())
+        PROBED.clear()
+        ops.reset_launch_counts()
+        metrics = validate_entry.main(argv + [f"ckpt_path={out}"])
+        torch.cuda.synchronize()
+        paths[f"converter_validate_{model}"] = ops.launch_counts()
+        module = PROBED[-1]
+        state, want = module.policy.state_dict(), source.policy.state_dict()
+        wrong = [k for k, v in want.items() if not torch.equal(state[k].cpu(), v)]
+        if wrong or set(state) != set(want) or not np.isfinite(metrics["val/loss"]):
+            raise AssertionError(f"converter {model}: {len(wrong)} tensors differ "
+                                 f"({wrong[:5]}), or val/loss {metrics}")
+        if family == "dp":
+            got = module.policy.normalizer.state_dict()
+            if set(got) != set(normalizer.state_dict()) or any(
+                    not np.array_equal(got[k]["scale"], normalizer[k].scale) for k in got):
+                raise AssertionError(f"converter {model}: the normalizer differs")
+        module.to(dev)
+        ops.reset_launch_counts()
+        if family == "dp":
+            action = module.predict(image_dp_batch(1, 3, 6, with_actions=False),
+                                    torch.Generator(device=dev).manual_seed(0))
+        else:
+            from pointcloudmatters_tpu_torch.entry import build_batch
+
+            action = module.predict(build_batch(1, N_POINTS, seed=6, with_actions=False))
+        torch.cuda.synchronize()
+        paths[f"converter_predict_{model}"] = launches = ops.launch_counts()
+        if not torch.isfinite(action).all():
+            raise AssertionError(f"converter {model}: non-finite actions")
+        if family == "dp":
+            for path in (f"converter_validate_{model}", f"converter_predict_{model}"):
+                _only(paths[path], {}, path)
+        log(f"imagedp (f) {card_line()}: {model} ({family}, "
+            f"{sum(v.numel() for v in want.values())} values): reference .ckpt converted by "
+            f"the command in {seconds:.2f} s, validate.main(ckpt_path=) restored every tensor "
+            f"bit for bit, val/loss {metrics['val/loss']:.4f}; predict B=1 finite on the card; "
+            f"launches {({k: n for k, n in launches.items() if n})}")
+        del source, module, state, want
+        PROBED.clear()
+        CLI_DATA.clear()
+        shutil.rmtree(out)
+        torch.cuda.empty_cache()
+    root.cleanup()
+    return paths
+
+
+def train_image_dp(dev) -> tuple[dict, dict]:
+    """Phase 16: (a)-(f); the launches of its paths and (a)'s figures. The
+    image DP's paths launch no kernel of #1-#13 (the converter's ACT paths
+    run FPS, kNN and attention, as phase 4's ``predict``)."""
+    t_phase = time.perf_counter()
+    alone = image_dp_encoders(dev)
+    paths = image_dp_serve(dev)
+    paths.update(image_dp_steps(dev))
+    paths.update(train_cli_image_dp(dev))
+    paths.update(image_dp_pretrained(dev))
+    paths.update(image_dp_converter(dev))
+    stray = {path: {k: n for k, n in counts.items() if n} for path, counts in paths.items()
+             if "pointnet" not in path and any(counts.values())}
+    if stray:
+        raise AssertionError(f"kernels launched on the image DP paths: {stray}")
+    log(f"imagedp phase 16 in {time.perf_counter() - t_phase:.1f} s; no kernel of #1-#13 "
+        f"launched on its {sum('pointnet' not in p for p in paths)} image DP paths")
+    return paths, alone
+
+
 def main() -> int:
     import torch
 
@@ -4752,6 +5573,8 @@ def main() -> int:
         paths.update(spunet_paths)
         image_paths, _ = train_images(dev)
         paths.update(image_paths)
+        image_dp_paths, _ = train_image_dp(dev)
+        paths.update(image_dp_paths)
     stray = {path: [k for k in FLASH_KERNELS if counts[k]] for path, counts in paths.items()
              if "flash" not in path and any(counts[k] for k in FLASH_KERNELS)}
     if stray:

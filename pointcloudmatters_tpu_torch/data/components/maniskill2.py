@@ -1,7 +1,7 @@
-"""ManiSkill2 replayed-trajectory datasets for ACT over point clouds and
-images and for the Diffusion Policy over point clouds (port of
-``pointcloudmatters_tpu/data/components/maniskill2.py:54-397, 400-498``),
-numpy on the host.
+"""ManiSkill2 replayed-trajectory datasets for ACT and for the Diffusion
+Policy over point clouds and images (port of
+``pointcloudmatters_tpu/data/components/maniskill2.py:54-553``), numpy on
+the host.
 
 - A sample draws a random start timestep, takes the action chunk of
   ``chunk_size`` future actions with an ``is_pad`` tail mask, z-scores qpos
@@ -12,7 +12,9 @@ numpy on the host.
   actions, unnormalized (the policy normalizes them: :meth:`get_normalizer`,
   from min/max statistics cached beside the ACT ones with the tag
   ``_dp``), and ``n_obs_steps`` clouds from the start step on under
-  ``obs.pcds`` (the last frame repeated past the episode's end).
+  ``obs.pcds`` (the last frame repeated past the episode's end), or, over
+  images, ``n_obs_steps`` scaled frames of each camera under
+  ``<camera>_rgb`` / ``<camera>_depth`` (T, h, w, c).
 - The point cloud merges the selected cameras, drops ``w <= 0`` points and
   the ground (``z <= 0.005``; with ``include_ground`` it keeps the ground
   and masks the foreground), optionally zeroes all but a random 112^2 crop
@@ -483,6 +485,61 @@ class ManiSkill2GoalPosSingleTaskDiffusionPolicyPCDDataset(
 
 class ManiSkill2NullGoalSingleTaskDiffusionPolicyPCDDataset(
         ManiSkill2GoalPosSingleTaskDiffusionPolicyPCDDataset):
+    """No goal."""
+
+    def get_goal(self, obs):
+        return None
+
+
+class ManiSkill2GoalPosSingleTaskDiffusionPolicyRGBDDataset(
+        _DPStatsMixin, ManiSkill2GoalPosSingleTaskACTRGBDDataset):
+    """The Diffusion Policy RGB(-D) dataset (reference
+    ``maniskill2_single_task_rgbd_dp.py:18``): ``n_obs_steps`` frames of
+    each camera from the sampled step (the last frame repeated past the
+    episode's end), scaled as the ACT RGB-D dataset scales them, under
+    ``<camera>_rgb`` and, with ``include_depth``, ``<camera>_depth``
+    (``only_depth``: the depth alone), channel-last (T, h, w, c); ``qpos``
+    and ``action`` the edge-padded chunk from that step."""
+
+    pointmap = False
+
+    def __init__(self, n_obs_steps=2, **kwargs):
+        self.n_obs_steps = n_obs_steps
+        super().__init__(**kwargs)
+        self.obs_keys = ["qpos"]
+        for cam_name in self.camera_names:
+            self.obs_keys.append(f"{cam_name}_rgb")
+            if self.include_depth:
+                self.obs_keys.append(f"{cam_name}_depth")
+
+    def __getitem__(self, idx):
+        idx = idx % self.load_count
+        trajectory = self._trajectory(idx)
+        episode_len = trajectory["actions"].shape[0]
+        start_ts = np.random.choice(episode_len)
+
+        obs_dict = {"qpos": self._chunk_edge_padded(trajectory["obs"]["agent"]["qpos"], start_ts)}
+        for cam in self.camera_names:
+            frames = np.stack([self._camera_image(trajectory, cam, start_ts + s)
+                               for s in range(self.n_obs_steps)])
+            scaled = self._scale_image(frames)
+            if self.only_depth:
+                obs_dict[f"{cam}_depth"] = scaled
+            elif self.include_depth:
+                obs_dict[f"{cam}_rgb"] = scaled[..., :3]
+                obs_dict[f"{cam}_depth"] = scaled[..., 3:]
+            else:
+                obs_dict[f"{cam}_rgb"] = scaled
+
+        out = {"obs": obs_dict, "action": self._chunk_edge_padded(trajectory["actions"], start_ts)}
+        goal_cond = self.get_goal(trajectory["obs"])
+        if goal_cond is not None:
+            out["goal"] = dict(task_emb=np.asarray(goal_cond[start_ts], np.float32))
+        return out
+
+
+class ManiSkill2NullGoalSingleTaskDiffusionPolicyRGBDDataset(
+        ManiSkill2GoalPosSingleTaskDiffusionPolicyRGBDDataset):
     """No goal."""
 
     def get_goal(self, obs):

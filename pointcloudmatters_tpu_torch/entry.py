@@ -42,6 +42,19 @@ steps, a DDPM of 100 steps (``squaredcos_cap_v2``), and the
 ConditionalUnet1D with step embedding 128, ``down_dims`` [512, 1024, 2048],
 kernel 5, 8 groups and FiLM scales: 255,687,303 UNet parameters.
 ``build_dp_batch()`` is a batch of its data in the collate layout.
+
+``build_image_dp_policy()`` is the Diffusion Policy over camera images, the
+policy of the image configs of ``configs/exp_maniskill2_diffusion_policy``
+(PickCube-v0's RGB-D task): the same UNet and scheduler over the
+``MultiImageObsEncoder`` of ``configs/model/maniskill2_diffusion_policy_model.yaml``
+(resize to 256, centre crop 224, one shared model) with ResNet-50
+(``backbone="resnet"``: 1, 3, 4 or 6 ``channels``, depth-only, RGB,
+RGB-D, pointmap), ViT-B/16 (``"vit"``) or the MultiViT-B trunk
+(``"multivit"``, RGB-D); ``share_rgb_model=False`` gives each camera its
+own copy, ``cameras`` names the cameras, and ``backbone_kw`` /
+``encoder_kw`` override the backbone's and the encoder's arguments (tests
+use tiny widths). ``build_image_dp_batch()`` is a batch of its data as the
+DP RGB-D datasets and the default collate give it.
 """
 
 from __future__ import annotations
@@ -67,6 +80,9 @@ from pointcloudmatters_tpu_torch.models.components.diffusion_policy.diffusion.dd
 from pointcloudmatters_tpu_torch.models.components.diffusion_policy.diffusion_unet_image_policy import (  # noqa: E501
     DiffusionUnetImagePolicy,
 )
+from pointcloudmatters_tpu_torch.models.components.diffusion_policy.vision.multi_image_obs_encoder import (  # noqa: E501
+    MultiImageObsEncoder,
+)
 from pointcloudmatters_tpu_torch.models.components.diffusion_policy.vision.pcd_obs_encoder import (  # noqa: E501
     PCDObsEncoder,
 )
@@ -85,8 +101,9 @@ from pointcloudmatters_tpu_torch.models.components.pcd_encoder.pointnet import (
 from pointcloudmatters_tpu_torch.models.components.pcd_encoder.spunet import SpUNet
 
 __all__ = ["build_flagship", "build_batch", "build_grid_batch", "build_image_policy",
-           "build_image_batch", "build_dp_policy", "build_dp_batch", "init_parameters",
-           "morton_order", "DP_SHAPE_META", "GRID_SIZE"]
+           "build_image_batch", "build_dp_policy", "build_dp_batch", "build_image_dp_policy",
+           "build_image_dp_batch", "image_dp_shape_meta", "init_parameters", "morton_order",
+           "DP_SHAPE_META", "GRID_SIZE"]
 
 GRID_SIZE = 0.005  # m, the configs' GridSamplePCD grid
 
@@ -280,6 +297,21 @@ def _act_head(hidden_dim, enc_layers, dec_layers, ffn, nhead, dropout, attention
                                num_layers=enc_layers, dropout=dropout))
 
 
+def image_backbone(backbone: str, channels: int, backbone_kw=None) -> nn.Module:
+    """ResNet-50, ViT-B/16 or the MultiViT-B trunk (RGB-D) of ``channels``
+    input channels, ``backbone_kw`` overriding their arguments."""
+    kw = dict(backbone_kw or {})
+    if backbone == "resnet":
+        return ResNetTorchVision(**{"resnet_model": "resnet50", "channels": channels, **kw})
+    if backbone == "vit":
+        return ViT(**{"model_name": "vit_base_patch16", "channels": channels, **kw})
+    if backbone == "multivit":
+        if channels != 4:
+            raise ValueError(f"MultiViT takes RGB-D (4 channels), not {channels}")
+        return MultiViTModel(**kw)
+    raise ValueError(f"backbone {backbone!r}: 'resnet', 'vit' or 'multivit'")
+
+
 def build_image_policy(backbone="resnet", channels=3, hidden_dim=512, chunk=100, enc_layers=4,
                        dec_layers=7, ffn=32, action_dim=7, qpos_dim=9, goal_dim=3, nhead=8,
                        seed=0, dropout=0.1, freeze_backbone=False, backbone_kw=None,
@@ -288,17 +320,7 @@ def build_image_policy(backbone="resnet", channels=3, hidden_dim=512, chunk=100,
     unless ``backbone_kw`` names another), ``"vit"`` (ViT-B/16) or
     ``"multivit"`` (4 channels only), weights from
     ``torch.Generator().manual_seed(seed)``, on ``device`` in eval mode."""
-    kw = dict(backbone_kw or {})
-    if backbone == "resnet":
-        net = ResNetTorchVision(**{"resnet_model": "resnet50", "channels": channels, **kw})
-    elif backbone == "vit":
-        net = ViT(**{"model_name": "vit_base_patch16", "channels": channels, **kw})
-    elif backbone == "multivit":
-        if channels != 4:
-            raise ValueError(f"MultiViT takes RGB-D (4 channels), not {channels}")
-        net = MultiViTModel(**kw)
-    else:
-        raise ValueError(f"backbone {backbone!r}: 'resnet', 'vit' or 'multivit'")
+    net = image_backbone(backbone, channels, backbone_kw)
     transformer, encoder = _act_head(hidden_dim, enc_layers, dec_layers, ffn, nhead, dropout)
     policy = ACT(
         backbone=net, transformer=transformer, encoder=encoder, hidden_dim=hidden_dim,
@@ -380,4 +402,80 @@ def build_dp_batch(batch_size=2, n_obs_steps=2, n_points=4096, horizon=16, actio
     }
     if not with_actions:
         del batch["action"]
+    return batch
+
+
+def image_dp_shape_meta(channels: int = 3, cameras=("base_camera",), side: int = 128,
+                        qpos_dim: int = 9, action_dim: int = 7, goal_dim: int = 3) -> dict:
+    """The image DP's ``shape_meta``: each camera's ``<camera>_rgb`` (3
+    channels, or a pointmap's 6) and, for depth-only (1) and RGB-D (4), its
+    ``<camera>_depth``; ``qpos``; the goal's ``task_emb``."""
+    if channels not in (1, 3, 4, 6):
+        raise ValueError(f"channels {channels}: 1, 3, 4 or 6")
+    obs = {}
+    for cam in cameras:
+        obs[f"{cam}_rgb"] = {"shape": [side, side, 6 if channels == 6 else 3], "type": "rgb"}
+        if channels in (1, 4):
+            obs[f"{cam}_depth"] = {"shape": [side, side, 1], "type": "depth"}
+    obs["qpos"] = {"shape": [qpos_dim], "type": "low_dim"}
+    return {"action": {"shape": [action_dim]}, "obs": obs,
+            "goal": {"task_emb": {"shape": [goal_dim]}}}
+
+
+def build_image_dp_policy(backbone="resnet", channels=3, share_rgb_model=True,
+                          cameras=("base_camera",), horizon=16, n_action_steps=8, n_obs_steps=2,
+                          num_train_timesteps=100, num_inference_steps=100,
+                          diffusion_step_embed_dim=128, down_dims=(512, 1024, 2048),
+                          kernel_size=5, n_groups=8, seed=0, normalizer=None, backbone_kw=None,
+                          encoder_kw=None, device: Union[str, torch.device] = "cuda"
+                          ) -> DiffusionUnetImagePolicy:
+    """The image Diffusion Policy (module doc; the defaults are the shipped
+    widths), weights from ``torch.Generator().manual_seed(seed)``, on
+    ``device`` in eval mode. ``normalizer`` is set on the policy (None: the
+    identity)."""
+    shape_meta = image_dp_shape_meta(channels, cameras)
+    pool = {"avg_pool": True} if backbone == "resnet" else {}  # the configs' ResNets pool
+    encoder = MultiImageObsEncoder(**{
+        "shape_meta": shape_meta,
+        "rgb_model": image_backbone(backbone, channels, {**pool, **(backbone_kw or {})}),
+        "resize_shape": (256, 256), "crop_shape": (224, 224), "random_crop": False,
+        "share_rgb_model": share_rgb_model, "use_depth": channels in (1, 4),
+        "only_depth": channels == 1, **(encoder_kw or {})})
+    policy = DiffusionUnetImagePolicy(
+        shape_meta=shape_meta,
+        noise_scheduler=DDPMScheduler(
+            num_train_timesteps=num_train_timesteps, beta_start=0.0001, beta_end=0.02,
+            beta_schedule="squaredcos_cap_v2", clip_sample=True, prediction_type="epsilon"),
+        obs_encoder=encoder, horizon=horizon, n_action_steps=n_action_steps,
+        n_obs_steps=n_obs_steps, num_inference_steps=num_inference_steps,
+        diffusion_step_embed_dim=diffusion_step_embed_dim, down_dims=tuple(down_dims),
+        kernel_size=kernel_size, n_groups=n_groups, cond_predict_scale=True,
+        normalizer=normalizer)
+    init_parameters(policy, torch.Generator().manual_seed(seed))
+    return policy.to(device).eval()
+
+
+def build_image_dp_batch(batch_size=2, side=128, channels=3, cameras=("base_camera",),
+                         n_obs_steps=2, horizon=16, action_dim=7, qpos_dim=9, goal_dim=3, seed=0,
+                         with_actions=True) -> dict:
+    """An image DP batch, numpy: each camera's ``n_obs_steps`` frames
+    (B, T, side, side, c) under the keys of :func:`image_dp_shape_meta`,
+    scaled as :func:`build_image_batch` scales them (RGB in [0, 1), depth
+    in [0, 2), a pointmap's coordinates in [-0.2, 0.2)); ``qpos`` (B,
+    horizon, qpos_dim), ``goal.task_emb`` and, unless ``with_actions`` is
+    False, ``action`` (B, horizon, action_dim)."""
+    rng = np.random.RandomState(seed)
+    shape = (batch_size, n_obs_steps, side, side)
+    obs = {}
+    for key, meta in image_dp_shape_meta(channels, cameras, side)["obs"].items():
+        if meta["type"] == "depth":
+            obs[key] = (rng.rand(*shape, 1) * 2).astype(np.float32)
+        elif meta["type"] == "rgb":
+            rgb = rng.rand(*shape, 3).astype(np.float32)
+            xyz = (rng.rand(*shape, 3) * 0.4 - 0.2).astype(np.float32)
+            obs[key] = np.concatenate([rgb, xyz], axis=-1) if channels == 6 else rgb
+    obs["qpos"] = rng.randn(batch_size, horizon, qpos_dim).astype(np.float32)
+    batch = {"obs": obs, "goal": {"task_emb": rng.randn(batch_size, goal_dim).astype(np.float32)}}
+    if with_actions:
+        batch["action"] = rng.randn(batch_size, horizon, action_dim).astype(np.float32)
     return batch

@@ -10,7 +10,8 @@ Call protocol as in JAX: ``policy(data_dict, train=..., rngs=...)``. With
 ``"action"`` present it returns the dict with ``loss``, drawing the noise
 and the timesteps from ``rngs["noise"]``; without, ``action``,
 ``action_pred`` and ``a_hat`` (the executed window), drawing the initial
-trajectory and every step's noise from ``rngs["sample"]``. The generators
+trajectory and every step's noise from ``rngs["sample"]``. The image
+encoder's random crops in training draw from ``rngs["crop"]``. The generators
 are on the batch's device. All draws go through :func:`training_draws` and
 :func:`sampling_noise`, so that a test can hand both packages the same
 draws.
@@ -18,9 +19,11 @@ draws.
 ``normalizer`` is a ``LinearNormalizer`` (``utils/normalizer.py``) or None
 (the identity); the task module sets it from the dataset. Its f32 constants
 make the normalized ``qpos`` and ``action`` f32 whatever their type, so
-under the trainer's ``"bf16-mixed"`` the observation encoder runs in bf16 up
+under the trainer's ``"bf16-mixed"`` the point-cloud encoder runs in bf16 up
 to the concatenation with ``qpos`` and the condition, the trajectory and the
-UNet's products are f32 (on bf16-rounded weights), as in the JAX step.
+UNet's products are f32 (on bf16-rounded weights), as in the JAX step. The
+images, normalized by identity entries, are f32 too, and the image encoder's
+backbone runs in f32 on bf16-rounded weights, as flax promotes them.
 """
 
 from __future__ import annotations
@@ -122,10 +125,12 @@ class DiffusionUnetImagePolicy(nn.Module):
         return self.normalizer["action"].unnormalize(action)
 
     # -- conditioning ----------------------------------------------------
-    def _global_cond(self, data_dict: dict, train: bool) -> tuple[torch.Tensor, int]:
+    def _global_cond(self, data_dict: dict, train: bool,
+                     rngs: Optional[Mapping] = None) -> tuple[torch.Tensor, int]:
         """(B, global_cond_dim): the first ``n_obs_steps`` frames' features
         (the clouds already ``(B * To, N, ...)`` from the collate) and the
-        goal's task embedding."""
+        goal's task embedding. ``rngs`` go on to the observation encoder
+        (the image encoder's random crops draw from ``"crop"``)."""
         obs = dict(data_dict["obs"])
         pcds = obs.pop("pcds", None)
         nobs = self._normalize_obs(obs)
@@ -135,7 +140,7 @@ class DiffusionUnetImagePolicy(nn.Module):
                      for k, v in nobs.items()}
         if pcds is not None:
             this_nobs["pcds"] = pcds
-        global_cond = self.obs_encoder(this_nobs, train=train).reshape(B, -1)
+        global_cond = self.obs_encoder(this_nobs, train=train, rngs=rngs).reshape(B, -1)
         goal = data_dict.get("goal")
         if goal is not None and "task_emb" in goal:
             global_cond = torch.cat([global_cond, goal["task_emb"].reshape(B, -1)], dim=-1)
@@ -170,8 +175,9 @@ class DiffusionUnetImagePolicy(nn.Module):
                     is_training=False)
 
     # -- training --------------------------------------------------------
-    def compute_loss(self, data_dict: dict, train: bool, generator: torch.Generator) -> dict:
-        global_cond, B = self._global_cond(data_dict, train=train)
+    def compute_loss(self, data_dict: dict, train: bool, rngs: Mapping) -> dict:
+        global_cond, B = self._global_cond(data_dict, train=train, rngs=rngs)
+        generator = rngs["noise"]
         trajectory = self._normalize_action(data_dict["action"])
         condition_mask = self.mask_generator(trajectory.shape, device=trajectory.device)
         noise, timesteps = training_draws(generator, trajectory.shape, trajectory.dtype, B,
@@ -194,7 +200,7 @@ class DiffusionUnetImagePolicy(nn.Module):
         if "action" in data_dict:
             if rngs is None or "noise" not in rngs:
                 raise ValueError("the diffusion loss needs rngs['noise']")
-            return self.compute_loss(data_dict, train, rngs["noise"])
+            return self.compute_loss(data_dict, train, rngs)
         if rngs is None or "sample" not in rngs:
             raise ValueError("diffusion sampling needs rngs['sample']")
         return self.predict_action(data_dict, rngs["sample"])

@@ -19,6 +19,7 @@ the rest from the background. Parameter names are the JAX module's.
 from __future__ import annotations
 
 import math
+from collections.abc import Mapping
 from typing import Any, Optional, Sequence
 
 import torch
@@ -152,7 +153,10 @@ class PCDObsEncoder(nn.Module):
         x = self.projector_out(x)
         return self.projector_out_bn(x, use_running_average=not train)
 
-    def forward(self, obs_dict: dict, train: bool = False) -> torch.Tensor:
+    def forward(self, obs_dict: dict, train: bool = False,
+                rngs: Optional[Mapping] = None) -> torch.Tensor:
+        """``rngs`` is taken as every observation encoder of the policy takes
+        it; this one draws nothing."""
         features = []
         batch_size: Optional[int] = None
         for key in self.pcd_keys:

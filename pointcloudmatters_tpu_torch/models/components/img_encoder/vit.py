@@ -127,7 +127,7 @@ class VisionTransformer(nn.Module):
         self.classifier_feature = classifier_feature
         self.mask_ratio = mask_ratio
         self.patch_embed_proj = nn.Conv2d(channels, embed_dim, patch_size, patch_size)
-        self.pos_embed = nn.Parameter(torch.from_numpy(
+        self.pos_embed = nn.Parameter(torch.tensor(  # on the default device (meta too)
             get_2d_sincos_pos_embed(embed_dim, self.grid_size, cls_token=True)[None]))
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         for i in range(depth):

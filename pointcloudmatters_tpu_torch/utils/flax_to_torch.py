@@ -29,6 +29,10 @@ Input is the flax ``variables`` of a JAX model, ``{"params": ...,
   ``PDBatchNorm``'s branches ``bns_<i>`` become ``bns.<i>`` (an
   ``nn.ModuleList``), and an ``Embed``'s ``embedding`` is the
   ``nn.Embedding``'s ``weight``
+- the Diffusion Policy's image encoder: a shared ``rgb_model`` keeps its
+  name; a per-key copy, ``key_models_<key>`` in JAX's tree (flax names a
+  module held in a dict by the attribute, not by its ``clone`` name), is
+  ``model_<key>``, the name ``scripts/port_reference_ckpt.py`` gives it too
 
 Anything else is an error, and so is a key or shape the target state dict
 does not have or lacks.
@@ -71,7 +75,8 @@ def _flatten(tree: Mapping, prefix: tuple = ()) -> dict[tuple, object]:
 
 
 def _key(path: tuple) -> str:
-    return re.sub(r"(^|\.)(layers|bns)_(\d+)(?=\.|$)", r"\1\2.\3", ".".join(path))
+    key = re.sub(r"(^|\.)(layers|bns)_(\d+)(?=\.|$)", r"\1\2.\3", ".".join(path))
+    return re.sub(r"(^|\.)key_models_", r"\1model_", key)
 
 
 def _param(path: tuple, leaf: np.ndarray, norms: set, transposed: set

@@ -241,24 +241,86 @@ def test_image_composition_builds_in_the_port(model, demo_file, tmp_path, monkey
 
 
 @pytest.mark.parametrize("model", DP_IMAGE_MODELS)
-def test_image_dp_configs_raise_on_their_missing_target(model, tmp_path, monkeypatch):
-    """The Diffusion Policy's image configs build the image encoders now,
-    and raise ``NotImplementedError`` naming the image observation encoder
-    the port still lacks (ROADMAP item 11)."""
+def test_image_dp_composition_equals_jax(model):
+    """The Diffusion Policy's image configs compose and resolve as JAX's,
+    and every target (the task module, the policy, the image encoder, the
+    backbone, the RGB-D or point-cloud dataset) is the port's counterpart."""
+    _check_composition(_image_overrides(model, DP_FAMILY))
+
+
+def _jax_param_count(cfg) -> int:
+    """The JAX policy's parameters, from its ``init`` traced (not compiled)
+    over one sample of its ``shape_meta``."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    policy = JC.instantiate(cfg.model.policy)
+    meta = cfg.model.policy.shape_meta
+    obs = {}
+    for key, attr in meta["obs"].items():
+        kind = attr.get("type", "low_dim")
+        if kind in ("rgb", "depth"):
+            obs[key] = jnp.zeros((1, 2, 16, 16, min(attr["shape"])))
+        elif kind == "low_dim":
+            obs[key] = jnp.zeros((1, 16, attr["shape"][0]))
+    batch = {"obs": obs, "action": jnp.zeros((1, 16, meta["action"]["shape"][0])),
+             "goal": {"task_emb": jnp.zeros((1, meta["goal"]["task_emb"]["shape"][0]))}}
+    key = jax.random.PRNGKey(0)
+    shapes = jax.eval_shape(lambda b: policy.init(
+        {"params": key, "noise": key, "crop": key, "dropout": key}, b, train=True), batch)
+    return sum(int(np.prod(x.shape)) for x in jax.tree.leaves(shapes["params"]))
+
+
+@pytest.mark.parametrize("model", DP_IMAGE_MODELS)
+def test_image_dp_composition_builds_in_the_port(model, demo_file, tmp_path, monkeypatch):
+    """The image DP at the published width (on the meta device): the
+    config's backbone, channels and encoder, JAX's parameter count (the
+    UNet's condition (backbone width + 9) x 2 + 3 wide), the DP task
+    module; and the datamodule over a demo file, whose samples carry the
+    frames the encoder takes."""
     monkeypatch.setenv("HOME", str(tmp_path))
-    cfg = _compose(TC, _image_overrides(model, DP_FAMILY, out=str(tmp_path)), out=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="is not ported yet") as err, \
-            torch.device("meta"):
-        TC.instantiate(cfg.model)
-    assert "diffusion_policy.vision" in str(err.value), err.value
+    extra = [f"data.train.dataset_file={demo_file}", f"data.train.cache_dir={tmp_path}/cache"]
+    if "pointmap" in model:
+        extra.append("data.train.point_num_per_cam=64")
+    cfg = _compose(TC, _image_overrides(model, DP_FAMILY, out=str(tmp_path)) + extra,
+                   out=str(tmp_path))
+    with torch.device("meta"):
+        module = TC.instantiate(cfg.model)
+    policy = module.policy
+    assert type(module).__name__ == "ManiSkill2DiffusionPolicyBCModule"
+    assert type(policy).__module__ == ("pointcloudmatters_tpu_torch.models.components."
+                                       "diffusion_policy.diffusion_unet_image_policy")
+    enc = policy.obs_encoder
+    assert type(enc).__name__ == "MultiImageObsEncoder" and enc.share_rgb_model
+    assert (enc.resize_shape, enc.crop_shape, enc.random_crop) == ((256, 256), (224, 224), False)
+    net = enc.rgb_model
+    kinds = {"multivit": "MultiViTModel", "multimae": "MultiViTModel", "resnet50":
+             "ResNetTorchVision", "r3m": "R3MResNet", "vit": "ViT", "vc1": "VC1ViT"}
+    assert type(net).__name__ == kinds[next(k for k in kinds if k in model)]
+    width = 2048 if "resnet" in type(net).__name__.lower() else 768
+    assert policy.global_cond_dim == (width + 9) * 2 + 3
+    jcfg = _compose(JC, _image_overrides(model, DP_FAMILY, out=str(tmp_path)) + extra,
+                    out=str(tmp_path))
+    assert sum(p.numel() for p in policy.parameters()) == _jax_param_count(jcfg)
+    data = TC.instantiate(cfg.data)
+    sample = data.data_train[0]["obs"]
+    channels = (6 if "pointmap" in model else 1 if "depth_only" in model else
+                4 if "rgbd" in model else 3)
+    rgb = sample["base_camera_rgb"]
+    assert rgb.ndim == 4 and rgb.shape[0] == 2 and rgb.shape[-1] == (6 if channels == 6 else 3)
+    assert ("base_camera_depth" in sample) == (channels in (1, 4))
+    assert type(data.data_train).__name__ == (
+        "ManiSkill2GoalPosSingleTaskDiffusionPolicyPCDDataset" if "pointmap" in model
+        else "ManiSkill2GoalPosSingleTaskDiffusionPolicyRGBDDataset")
 
 
 @pytest.mark.parametrize("target", [
     "pointcloudmatters_tpu.models.components.act.act.ACTRLBenchPCD",
-    "pointcloudmatters_tpu.models.components.diffusion_policy.vision.crop_randomizer."
-    "CropRandomizer",
-    "pointcloudmatters_tpu.models.components.diffusion_policy.vision.multi_image_obs_encoder."
-    "MultiImageObsEncoder",
+    "pointcloudmatters_tpu.data.components.rlbench.datasets."
+    "RLBenchSingleTaskDiffusionPolicyRGBDDataset",
+    "pointcloudmatters_tpu.models.components.diffusion_policy.diffusion."
+    "transformer_for_diffusion.TransformerForDiffusion",
 ])
 def test_a_target_the_port_lacks_raises(target):
     with pytest.raises(NotImplementedError, match=rf"{target} is not ported yet.*ROADMAP"):

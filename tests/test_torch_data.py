@@ -478,3 +478,83 @@ def test_image_batches_collate_as_jax(which, h5file, tmp_path):
                 lambda: None)
     side, channels = (32, 4) if which == "rgbd" else (CAM_SIDE, 6)
     assert out[0][0]["image"].shape == (2, 1, side, side, channels)
+
+
+DP_RGBD_DATASETS = [
+    ("ManiSkill2GoalPosSingleTaskDiffusionPolicyRGBDDataset", dict(goal_cond_keys=["goal_pos"])),
+    ("ManiSkill2GoalPosSingleTaskDiffusionPolicyRGBDDataset",
+     dict(goal_cond_keys=["goal_pos", "obj_start_pos"], include_depth=True, n_obs_steps=3)),
+    ("ManiSkill2GoalPosSingleTaskDiffusionPolicyRGBDDataset",
+     dict(goal_cond_keys=["goal_pos"], include_depth=True, scale_rgb_only=True, load_count=2,
+          loop=3)),
+    ("ManiSkill2GoalPosSingleTaskDiffusionPolicyRGBDDataset",
+     dict(goal_cond_keys=["goal_pos"], include_depth=True, only_depth=True, cache_traj=False)),
+    ("ManiSkill2NullGoalSingleTaskDiffusionPolicyRGBDDataset",
+     dict(include_depth=True, load_count=3, chunk_size=4)),
+]
+
+
+@pytest.mark.parametrize("name, kw", DP_RGBD_DATASETS, ids=[
+    f"{n[11:].split('SingleTask')[0]}-{i}" for i, (n, _) in enumerate(DP_RGBD_DATASETS)])
+def test_maniskill2_dp_rgbd_dataset_matches_jax(name, kw, h5file, tmp_path):
+    """The Diffusion Policy RGB-D datasets in each mode (RGB; RGB-D over 3
+    frames; depth unscaled with ``scale_rgb_only``; depth only; no goal):
+    length, ``obs_keys``, the min/max statistics (computed, then read from
+    each side's cache), the normalizer's state and 12 samples, bit-equal;
+    frames channel-last (T, h, w, c)."""
+    def build(mod, cache):
+        return getattr(mod, name)(dataset_file=h5file, camera_names=["base_camera"],
+                                  cache_dir=str(tmp_path / cache), **{"chunk_size": 6, **kw})
+
+    for _ in range(2):  # the second round reads the statistics from the caches
+        ref, got = build(jms2, "jax"), build(tms2, "torch")
+        assert len(got) == len(ref) and got.obs_keys == ref.obs_keys
+        _equal(got.get_norm_stats(), ref.get_norm_stats())
+        _equal(got.get_normalizer().state_dict(), ref.get_normalizer().state_dict())
+        samples = _both(lambda _: [ref[i] for i in range(12)],
+                        lambda _: [got[i] for i in range(12)], lambda: None)
+    frames = kw.get("n_obs_steps", 2)
+    key = "base_camera_depth" if kw.get("only_depth") else "base_camera_rgb"
+    want = (frames, 32, 32, 1 if kw.get("only_depth") else 3)
+    assert samples[0]["obs"][key].shape == want
+    assert ("base_camera_depth" in samples[0]["obs"]) == bool(kw.get("include_depth"))
+    assert ("goal" in samples[0]) == ("GoalPos" in name)
+
+
+@pytest.mark.parametrize("which", ["rgbd", "pointmap"])
+def test_dp_image_batches_collate_as_jax(which, h5file, tmp_path):
+    """The datamodule's batches of the DP RGB-D dataset (the default
+    collate) and of the DP point-cloud dataset's pointmap (the point-cloud
+    collate): two epochs and a validation pass bit-equal to JAX's; the
+    frames (B, T, h, w, c) under ``obs`` survive ``select_model_batch``
+    and the copy to a device (``to_device``), bit for bit."""
+    from pointcloudmatters_tpu_torch.models.bc_module import select_model_batch, to_device
+
+    def datamodule(jax_side):
+        ms2, pkg, DM = (jms2, JT, JDataModule) if jax_side else (tms2, T, BaseDataModule)
+        cache = str(tmp_path / ("jax" if jax_side else "torch"))
+        if which == "rgbd":
+            data = ms2.ManiSkill2GoalPosSingleTaskDiffusionPolicyRGBDDataset(
+                dataset_file=h5file, goal_cond_keys=["goal_pos"], include_depth=True, chunk_size=6,
+                cache_dir=cache)
+        else:
+            data = ms2.ManiSkill2GoalPosSingleTaskDiffusionPolicyPCDDataset(
+                dataset_file=h5file, goal_cond_keys=["goal_pos"], chunk_size=6, pointmap=True,
+                transform_pcd=_flagship_transforms(pkg), point_num_per_cam=CAM_SIDE ** 2,
+                cache_dir=cache)
+        return DM(train=data, val=data, batch_size_train=2, batch_size_val=3, pad_multiple=128,
+                  pin_memory=False, seed=3)
+
+    def batches(dm):
+        return [list(dm.train_dataloader()) for _ in range(2)] + [list(dm.val_dataloader())]
+
+    out = _both(lambda _: batches(datamodule(True)), lambda _: batches(datamodule(False)),
+                lambda: None)
+    batch = out[0][0]
+    side, channels = (32, 3) if which == "rgbd" else (CAM_SIDE, 6)
+    assert batch["obs"]["base_camera_rgb"].shape == (2, 2, side, side, channels)
+    moved = to_device(select_model_batch(batch), "cpu")
+    keys = {"base_camera_rgb", "qpos"} | ({"base_camera_depth"} if which == "rgbd" else set())
+    assert set(moved["obs"]) == keys and set(moved) == {"obs", "action", "goal"}
+    for key in keys:
+        assert torch.equal(moved["obs"][key], torch.from_numpy(np.asarray(batch["obs"][key])))

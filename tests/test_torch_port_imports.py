@@ -8,7 +8,10 @@ fused op, a tiny ``predict`` and dropout-0.1 step of the
 ``attention_impl="flash"`` encoder through its flash op, a tiny ACT over
 SpUNet's ``predict`` and ``"bf16-mixed"`` step, a tiny
 Diffusion Policy's ``predict`` and f32 and bf16 steps, and a tiny ACT over
-images' (ResNet-18, MultiViT) run, and nothing of
+images' (ResNet-18, MultiViT) run, a tiny image Diffusion Policy's
+``predict`` and steps and a reference checkpoint of it through the
+converter (``tools/reference_ckpt.py``, ``port_reference_ckpt``), and
+nothing of
 the JAX package (``pointcloudmatters_tpu``) was imported (the GPU machine
 has no JAX); the training entry point composes ``configs/`` and fits with
 JAX blocked. Every CUDA source under ``csrc/`` is one the build compiles,
@@ -81,6 +84,10 @@ SLICE_MODULES = (
     "pointcloudmatters_tpu_torch.models.components.img_encoder.resnet",
     "pointcloudmatters_tpu_torch.models.components.img_encoder.vit",
     "pointcloudmatters_tpu_torch.models.components.img_encoder.multivit",
+    "pointcloudmatters_tpu_torch.models.components.diffusion_policy.vision.multi_image_obs_encoder",
+    "pointcloudmatters_tpu_torch.models.components.diffusion_policy.vision.crop_randomizer",
+    "pointcloudmatters_tpu_torch.port_reference_ckpt",
+    "tools.reference_ckpt",
 )
 BLOCKED = ("jax", "flax", "optax", "orbax")
 
@@ -254,6 +261,59 @@ def test_image_policy_predicts_and_trains_without_jax():
                 metrics = Trainer(precision=precision, seed=0).train_step(
                     module, build_image_batch(4, 24, 4, chunk=5))
                 assert bool(metrics["loss"].isfinite()), metrics
+        assert not [m for m in sys.modules if m.split(".")[0] in
+                    {BLOCKED + ("pointcloudmatters_tpu",)!r}
+                    and sys.modules[m] is not None]
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO_ROOT,
+                          capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, OMP_NUM_THREADS="1"))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
+
+
+def test_image_dp_and_the_converter_run_without_jax(tmp_path):
+    """With jax, flax, optax and orbax blocked: a tiny image Diffusion
+    Policy (ResNet-18, RGB-D, random crops on) predicts and takes an f32
+    and a ``"bf16-mixed"`` step; a reference ``.ckpt`` of it goes through
+    the converter's command and restores bit for bit; nothing of the JAX
+    package was imported."""
+    script = textwrap.dedent(f"""
+        import sys
+        for name in {BLOCKED!r}:
+            sys.modules[name] = None
+        import torch
+        from pointcloudmatters_tpu_torch import port_reference_ckpt
+        from pointcloudmatters_tpu_torch.entry import (build_image_dp_batch,
+                                                       build_image_dp_policy)
+        from pointcloudmatters_tpu_torch.models.maniskill2_modules import (
+            ManiSkill2DiffusionPolicyBCModule)
+        from pointcloudmatters_tpu_torch.trainer import Trainer
+        from tools.reference_ckpt import reference_state_dict, save_lightning_ckpt
+
+        def policy(seed):
+            return build_image_dp_policy(
+                "resnet", 4, backbone_kw=dict(resnet_model="resnet18", resize_to=32),
+                encoder_kw=dict(resize_shape=(40, 40), crop_shape=(32, 32), random_crop=True),
+                down_dims=(8, 16), diffusion_step_embed_dim=8, horizon=8, n_action_steps=4,
+                num_inference_steps=3, num_train_timesteps=3, seed=seed, device="cpu")
+
+        module = ManiSkill2DiffusionPolicyBCModule(policy(0))
+        action = module.predict(build_image_dp_batch(1, 24, 4, horizon=8, with_actions=False),
+                                torch.Generator().manual_seed(0))
+        assert tuple(action.shape) == (1, 4, 7), action.shape
+        for precision in ("32-true", "bf16-mixed"):
+            metrics = Trainer(precision=precision, seed=0).train_step(
+                module, build_image_dp_batch(4, 24, 4, horizon=8))
+            assert bool(metrics["loss"].isfinite()), metrics
+        save_lightning_ckpt({str(tmp_path / "ref.ckpt")!r},
+                            reference_state_dict(module.policy))
+        port_reference_ckpt.main([{str(tmp_path / "ref.ckpt")!r}, {str(tmp_path / "out")!r}])
+        fresh = ManiSkill2DiffusionPolicyBCModule(policy(1))
+        Trainer(accelerator="cpu", seed=0).restore_checkpoint({str(tmp_path / "out")!r}, fresh)
+        want = module.policy.state_dict()
+        assert all(torch.equal(v, want[k]) for k, v in fresh.policy.state_dict().items())
         assert not [m for m in sys.modules if m.split(".")[0] in
                     {BLOCKED + ("pointcloudmatters_tpu",)!r}
                     and sys.modules[m] is not None]

@@ -308,6 +308,29 @@ Phases, each of which raises on failure (exit code non-zero, no result):
    ``validate.main(ckpt_path=)`` bit for bit, then a ``predict``. The phase
    fails if a kernel of #1-#13 launches on an image DP path.
    ``python3 tools/image_dp_phase.py [part ...]`` runs it alone.
+17. RLBench (the paper's second simulator) over episodes the phase writes
+   in the processed layout (6 + 2 held out, 30 steps, one 128 x 128 front
+   camera: ~16,320 of 16,384 points after the crop and the 5 mm grid, padded
+   to 16,384, kNN's v3 route): (a) ``scratch_pointnet_pcd`` of
+   ``exp_rlbench_act_policy`` (24,391,212 parameters, seeded): ``predict``
+   f32 at B=1 and B=8 (unit quaternions), the ``"bf16-mixed"`` step at B=8,
+   kernels 1-4 on the tensors those paths gave them against their plain
+   versions (each call recorded or the phase fails; the attention within
+   1e-4 or BF16_TOL of max |plain| itself, no floor of 1, the backward on
+   the step's upstream gradient and on a random one of unit size; timed,
+   with bounds), the card against the CPU within
+   RLBENCH_CPU_TOL; (b) the RLBench DP (270,575,467): ``predict`` B=1, the
+   bf16 step at B=32, FPS and kNN against their plain versions, a
+   checkpoint; (c) ``train.main`` on scratch_pointnet_pcd (2 epochs of 2
+   micro-steps of 8, held-out ``val/loss`` after each), scratch_spunet_pcd
+   and scratch_resnet50_rgb (one epoch each); (d) ``test_rlbench_act`` and
+   ``test_rlbench_dp`` on (c)'s and (b)'s checkpoints against a fake task
+   (an IK error at each episode's first try), the goal from a
+   ``CachedTextEncoder`` cache; the result lines and a loop step's ms; (e)
+   the flagship's ManiSkill2 module validating by rollouts at ``num_envs``
+   1 and 4 (the same ``val/mean_success``); (f) a ``profiler="simple"``
+   fit, its trace read back. ``python3 tools/rlbench_phase.py [part ...]``
+   runs it alone.
 
 Prints a JSON line of the kernels (route, source, the TPU kernel each
 replaces, launches on each path (phase 11's: ``train_cli``,
@@ -325,7 +348,11 @@ zero; phase 16's: ``dp_<model>_predict``, ``dp_<model>_train``,
 ``dp_pretrained_r3m_rgb``, ``converter_validate_<model>`` and
 ``converter_predict_<model>``: all zero but the ACT's
 ``scratch_pointnet_pcd`` converter paths, which run FPS, kNN and the
-attention forward), error,
+attention forward; phase 17's: ``rlbench_predict``, ``rlbench_train``,
+``rlbench_dp_predict``, ``rlbench_dp_train``, ``train_cli_rlbench`` (+
+``_scratch_spunet_pcd``, ``_scratch_resnet50_rgb``, the last all zero),
+``rlbench_eval``, ``rlbench_dp_eval``, ``rollouts_1_envs``,
+``rollouts_4_envs``, ``rlbench_profiled_fit``), error,
 kernel, plain and library times,
 and the bound: the larger of the bytes over 3.35 TB/s and the flops over
 the peak of the inputs' type, 67 TFLOP/s f32 or 989 TFLOP/s bf16 (FPS and
@@ -653,6 +680,37 @@ FPS_CASES = (("random", 4, N_POINTS), ("random", 1, N_POINTS), ("random", BIG_BA
              ("ties", 1, STREAMED_CLOUD), ("masked", 4, STREAMED_CLOUD))
 
 
+def hold_fps(what: str, xyz, mask, n: int):
+    """Kernel 1's ``n`` samples of (xyz, mask), failing unless index-exact
+    against its plain version."""
+    import torch
+
+    from pointcloudmatters_tpu_torch.ops import fps, pointops
+
+    idx = fps.farthest_point_sampling_padded_cuda(xyz, mask, n)
+    ref = pointops.farthest_point_sampling_padded_plain(xyz, mask, n)
+    if not torch.equal(idx, ref):
+        raise AssertionError(f"{what} disagrees with its plain version at "
+                             f"{(idx != ref).sum().item()} indices")
+    return idx
+
+
+def fps_bound(xyz, mask, n: int) -> dict:
+    """Kernel 1's bound: n - 1 rounds of ~8 flops a valid point (the padding
+    needs none); xyz and mask read, the indices written."""
+    return bound(8.0 * int(mask.sum()) * (n - 1),
+                 xyz.numel() * 4 + mask.numel() + xyz.shape[0] * n * 4, "f32")
+
+
+def knn_bound(q, xyz, mask, k: int, pruned: float = 0.0) -> dict:
+    """A kNN kernel's bound: ~8 flops a (query, valid point) distance, but
+    for the ``pruned`` points of each query's scan; the inputs read, idx and
+    d2 written."""
+    B, M = q.shape[:2]
+    return bound(8.0 * M * max(0.0, int(mask.sum()) - pruned),
+                 (q.numel() + xyz.numel()) * 4 + mask.numel() + B * M * k * 8, "f32")
+
+
 def check_fps(dev) -> dict:
     """Phase 3, FPS (kernel 1, one thread-block cluster a cloud) at each of
     FPS_CASES, 2048 samples: index-exact against its plain version; its
@@ -686,11 +744,7 @@ def check_fps(dev) -> dict:
             valid[1, 1000:] = False
             mask = torch.from_numpy(valid).to(dev)
         run = lambda: fps.farthest_point_sampling_padded_cuda(xyz, mask, 2048)  # noqa: E731
-        idx = run()
-        ref = pointops.farthest_point_sampling_padded_plain(xyz, mask, 2048)
-        if not torch.equal(idx, ref):
-            raise AssertionError(f"FPS kernel ({what}, B={B}, N={N}) disagrees with its plain "
-                                 f"version at {(idx != ref).sum().item()} indices")
+        hold_fps(f"FPS kernel ({what}, B={B}, N={N})", xyz, mask, 2048)
         C, T = fps.launch_shape(B, N, dev.index)
         ms = cuda_ms(run, 5)
         streamed = fps.cluster_slice(N, C) > fps.MAX_SLICE
@@ -705,12 +759,7 @@ def check_fps(dev) -> dict:
                 max_abs_err=0.0, ms=ms,
                 plain_ms=cuda_ms(lambda: pointops.farthest_point_sampling_padded_plain(
                     xyz, mask, 2048), 2),
-                library_ms=None,
-                # 2047 steps of ~8 flops a valid point (the padding needs none);
-                # xyz and mask read, indices written
-                **bound(8.0 * int(mask.sum()) * 2047,
-                        xyz.numel() * 4 + mask.numel() + idx.numel() * 4,
-                        "f32"))
+                library_ms=None, **fps_bound(xyz, mask, 2048))
             log(f"fps     B={B} N={N}: plain {res['plain_ms']:.3f} ms, bound "
                 f"{res['bound_ms']:.4f} ms")
     res["cases"] = cases
@@ -843,15 +892,12 @@ def check_knn(dev) -> dict:
         if (what, B, N, k) == KNN_CASES[0]:
             for name, (kernel, plain) in kernels.items():
                 qq = q_sorted if name == "knn_chunkskip" else q
-                # ~8 flops a (query, valid point) distance; kernel 12 computes
-                # none for the (tile, chunk) pairs its boxes prune, a share of
-                # all B * M * N; inputs read, idx and d2 written
+                # kernel 12 computes no distance for the (tile, chunk) pairs
+                # its boxes prune, a share of all B * M * N
                 pruned = B * N * (prune_share if name == "knn_chunkskip" else 0.0)
                 res[name].update(
                     ms=times[name], plain_ms=cuda_ms(lambda: plain(qq, xyz, mask, 16), 2),
-                    **bound(8.0 * M * max(0.0, int(mask.sum()) - pruned),
-                            (q.numel() + xyz.numel()) * 4 + mask.numel() + B * M * 16 * 8,
-                            "f32"))
+                    **knn_bound(q, xyz, mask, 16, pruned))
                 log(f"{name} B={B} M=2048 N={N} k=16: kernel {res[name]['ms']:.3f} ms, "
                     f"plain {res[name]['plain_ms']:.3f} ms")
             res["knn_chunkskip"].update(skipped_share=skip_share, pruned_share=prune_share)
@@ -871,6 +917,21 @@ def check_knn(dev) -> dict:
 
 def _max_err(got, ref) -> float:
     return (got.float() - ref.float()).abs().max().item()
+
+
+def hold(what: str, got, ref, tol: float, floor: bool = True) -> tuple[float, float]:
+    """(max abs error, max |plain|) of a kernel's ``got`` against its plain
+    version's ``ref``; fails past tol * max(1, max |plain|), or tol * max
+    |plain| without the ``floor``, where the limit must also be one a zeroed
+    output would exceed."""
+    err, scale = _max_err(got, ref), ref.float().abs().max().item()
+    limit = tol * (max(1.0, scale) if floor else scale)
+    if not err <= limit:
+        raise AssertionError(f"{what} off by {err:.3e} > {limit:.3e} (max |plain| "
+                             f"{scale:.3e})")
+    if not floor and not scale > limit:
+        raise AssertionError(f"{what}: the limit {limit:.3e} passes a zeroed output")
+    return err, scale
 
 
 def _attention_bounds(B, H, L, dh, dtype: str) -> tuple[dict, dict]:
@@ -1050,13 +1111,6 @@ def check_attention_bf16(dev) -> dict:
     def arr(*shape):
         return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev, bf16)
 
-    def check(what, got, ref):
-        err = _max_err(got, ref)
-        limit = BF16_TOL * max(1.0, ref.float().abs().max().item())
-        if not err <= limit:
-            raise AssertionError(f"bf16 attention {what} off by {err:.3e} > {limit:.3e}")
-        return err
-
     def fwd_bwd_case(q, k, v, dout, scale, l_actual, rate, what):
         """Forward (with statistics) and backward against the plain versions
         -> (fwd err, statistics err, bwd errs, backward args, kernel grads)."""
@@ -1064,7 +1118,7 @@ def check_attention_bf16(dev) -> dict:
                                                with_stats=True)
         ref, m_p, r_p = one.oneshot_attention_plain(q, k, v, scale, l_actual, rate, 11,
                                                     with_stats=True)
-        err = check(f"fwd {what}", out, ref)
+        err = hold(f"bf16 attention fwd {what}", out, ref, BF16_TOL)[0]
         stat_err = max(_max_err(m, m_p) / max(1.0, m_p.abs().max().item()),
                        _max_err(r, r_p) / r_p.abs().max().item())
         if not stat_err <= 1e-5:
@@ -1073,7 +1127,7 @@ def check_attention_bf16(dev) -> dict:
         args = (q, k, v, out, dout, m, r, scale, l_actual, rate, 11)
         got_b = one.oneshot_attention_bwd_cuda(*args)
         ref_b = one.oneshot_attention_plain_bwd(*args)
-        errs = [check(f"bwd {n} {what}", g, p)
+        errs = [hold(f"bf16 attention bwd {n} {what}", g, p, BF16_TOL)[0]
                 for n, g, p in zip(("dq", "dk", "dv"), got_b, ref_b)]
         log(f"attn    bf16 {what}: fwd max abs err {err:.3e} (max |plain| "
             f"{ref.float().abs().max().item():.3e}), statistics {stat_err:.3e}; bwd "
@@ -5513,6 +5567,710 @@ def train_image_dp(dev) -> tuple[dict, dict]:
     return paths, alone
 
 
+# ---------------------------------------------------------------------------
+# phase 17: RLBench, the paper's second simulator, under both heads,
+# over episodes the phase writes in the processed layout
+# (``entry.write_rlbench_episodes``: one 128 x 128 front camera, the cloud
+# uniform in SCENE_BOUNDS but for RLBENCH_OUTSIDE points past it, so each
+# frame keeps ~16,320 of 16,384 points after the crop and the 5 mm grid,
+# padded to 16,384: kNN's v3 route, kernel 2, at its boundary). The
+# configs' own datasets read them (the card needs no h5py for RLBench).
+RLBENCH_TASK = "close_jar"
+RLBENCH_SIDE = 128
+RLBENCH_OUTSIDE = 64
+RLBENCH_EPISODES, RLBENCH_HELD_OUT, RLBENCH_EPISODE_LEN = 6, 2, 30
+RLBENCH_BATCH, RLBENCH_DP_BATCH = 8, 32  # the configs' batch_size_train
+RLBENCH_LOOP = 8  # 6 episodes x 8 = 48 samples: 6 batches of 8, 1 of 32
+RLBENCH_ACT_PARAMS, RLBENCH_DP_PARAMS = 24_391_212, 270_575_467  # JAX's (tests/test_torch_config.py)
+RLBENCH_CPU_TOL = 1e-4  # card vs CPU, f32: of max(1, max |CPU|)
+RLBENCH_STEPS = 3  # timed steps of (a) and (b)
+RLBENCH_CLI_BATCHES, RLBENCH_CLI_EPOCHS = 2, 2  # (c): micro-steps of 8 an epoch, epochs
+RLBENCH_EVAL_EPISODES, RLBENCH_EVAL_STEPS, RLBENCH_EVAL_SUCCESS = 2, 10, 7  # (d)
+ROLLOUT_EPISODES, ROLLOUT_STEPS = 8, 6  # (e)
+RLBENCH: dict = {}  # the phase's episode root and checkpoints
+
+
+def rlbench_argv(root: str, run: str, family: str = "exp_rlbench_act_policy",
+                 model: str = "scratch_pointnet_pcd") -> list[str]:
+    """The README's RLBench composition over the phase's episodes (each
+    RLBENCH_LOOP times an epoch), with a probe callback (``EndState``), the
+    CSV logger and 4 loader workers."""
+    return [f"{family}=base", f"{family}/rlbench_model@rlbench_model={model}",
+            f"rlbench_task={RLBENCH_TASK}", f"data.train.root={root}/data/train",
+            f"data.val.root={root}/data/val", f"data.train.loop={RLBENCH_LOOP}",
+            "data.num_workers=4", "logger=csv",
+            "+callbacks.end_state._target_=chip_smoke.EndState", f"paths.log_dir={root}/logs",
+            f"hydra.run.dir={root}/{run}", "extras.print_config=false"]
+
+
+def rlbench_data(root: str) -> None:
+    """The phase's episodes under ``root/data``: RLBENCH_EPISODES to train
+    on, RLBENCH_HELD_OUT held out (``val``), RLBENCH_EPISODE_LEN steps."""
+    from pointcloudmatters_tpu_torch.entry import write_rlbench_episodes
+
+    t0 = time.perf_counter()
+    for stage, n, seed in (("train", RLBENCH_EPISODES, 0), ("val", RLBENCH_HELD_OUT, 1)):
+        write_rlbench_episodes(os.path.join(root, "data"), RLBENCH_TASK, n, RLBENCH_EPISODE_LEN,
+                               RLBENCH_SIDE, stages=(stage,), n_outside=RLBENCH_OUTSIDE,
+                               seed=seed)
+    RLBENCH["root"] = root
+    log(f"rlbench {RLBENCH_EPISODES} + {RLBENCH_HELD_OUT} episodes of {RLBENCH_EPISODE_LEN} "
+        f"steps, {RLBENCH_SIDE} x {RLBENCH_SIDE} front camera, written in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def rlbench_composed(family: str, model: str = "scratch_pointnet_pcd", extra=()):
+    """(config, task module with seeded weights on the CPU, datamodule) of a
+    composition over the phase's episodes."""
+    from pointcloudmatters_tpu_torch import train as train_entry
+    from pointcloudmatters_tpu_torch.utils import config as C
+
+    sys.modules.setdefault("chip_smoke", sys.modules[__name__])
+    cfg = train_entry.compose_run(rlbench_argv(RLBENCH["root"], f"{family}_{model}", family,
+                                               model) + list(extra))
+    return cfg, train_entry.instantiate_model(cfg), C.instantiate(cfg.data)
+
+
+def rlbench_batch(dataset, batch_size: int, seed: int, pad_multiple: int = 512,
+                  with_actions: bool = True) -> dict:
+    """``batch_size`` samples of ``dataset`` (their draws from numpy's and
+    Python's streams seeded ``seed``) collated as the datamodule collates."""
+    import random
+
+    import numpy as np
+
+    from pointcloudmatters_tpu_torch.data.collate import padded_pcd_collate_fn
+
+    np.random.seed(seed)
+    random.seed(seed)
+    batch = padded_pcd_collate_fn([dataset[i % len(dataset)] for i in range(batch_size)],
+                                  pad_multiple=pad_multiple)
+    if not with_actions:  # ACT's actions and is_pad, the DP's action
+        for key in ("actions", "is_pad", "action"):
+            batch.pop(key, None)
+    return batch
+
+
+@contextlib.contextmanager
+def recorded_kernel_calls(into: dict):
+    """The arguments of the first call of each of kernels 1-4's wrappers
+    inside, by kernel name (the type of the attention's inputs picks f32 or
+    bf16); the wrappers run as they do."""
+    import torch
+
+    from pointcloudmatters_tpu_torch.ops import fps, knn
+    from pointcloudmatters_tpu_torch.ops import oneshot_attention as one
+
+    saved = []
+    for mod, attr, name in ((fps, "farthest_point_sampling_padded_cuda", "fps"),
+                            (knn, "knn_query_padded_cuda", "knn"),
+                            (one, "oneshot_attention_cuda", "attention_fwd"),
+                            (one, "oneshot_attention_bwd_cuda", "attention_bwd")):
+        fn = getattr(mod, attr)
+        saved.append((mod, attr, fn))
+
+        def wrapper(*args, _fn=fn, _name=name, **kw):
+            bf16 = _name.startswith("attention") and args[0].dtype == torch.bfloat16
+            into.setdefault(_name + ("_bf16" if bf16 else ""), (args, kw))
+            return _fn(*args, **kw)
+
+        setattr(mod, attr, wrapper)
+    try:
+        yield into
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+# the kernel calls each part of phase 17 must record on its path
+RLBENCH_KERNEL_CALLS = {"(a)": {"fps", "knn", "attention_fwd", "attention_fwd_bf16",
+                                "attention_bwd_bf16"},
+                        "(b)": {"fps", "knn"}}
+
+
+def rlbench_kernel_checks(dev, calls: dict, what: str) -> None:
+    """Each recorded kernel call of the path (every one RLBENCH_KERNEL_CALLS
+    names for ``what``, or it fails) against its plain version on the same
+    tensors: FPS index-exact; kNN on the v3 route, index-exact, d2
+    bit-equal; the attention within 1e-4 (f32) or BF16_TOL (bf16) of max
+    |plain| itself, with no floor of 1 (the path's gradients are far below
+    1), and a limit a zeroed output would exceed; the backward once on the
+    step's own upstream gradient and once on a random one of unit size. Each
+    kernel and plain version timed (CUDA events), the f32 attention beside
+    ``scaled_dot_product_attention``, each with its bound; all logged."""
+    import torch
+
+    from pointcloudmatters_tpu_torch.ops import fps, knn, pointops
+    from pointcloudmatters_tpu_torch.ops import oneshot_attention as one
+
+    if set(calls) != RLBENCH_KERNEL_CALLS[what]:
+        raise AssertionError(f"{what}: recorded kernel calls {sorted(calls)}, want "
+                             f"{sorted(RLBENCH_KERNEL_CALLS[what])}")
+    out = {}
+    if "fps" in calls:
+        (xyz, mask, n), _ = calls["fps"]
+        hold_fps(f"{what} FPS", xyz, mask, n)
+        out["fps"] = dict(
+            B=xyz.shape[0], N=xyz.shape[1], valid=int(mask.sum()),
+            ms=cuda_ms(lambda: fps.farthest_point_sampling_padded_cuda(xyz, mask, n), 3),
+            plain_ms=cuda_ms(lambda: pointops.farthest_point_sampling_padded_plain(
+                xyz, mask, n), 1), **fps_bound(xyz, mask, n))
+    if "knn" in calls:
+        (q, xyz, mask, k), _ = calls["knn"]
+        route = pointops.knn_route("v3", xyz.shape[1], k, "cuda")
+        gi, gd = knn.knn_query_padded_cuda(q, xyz, mask, k)
+        pi, pd = pointops.knn_query_padded_plain(q, xyz, mask, k)
+        if route != "v3" or not (torch.equal(gi, pi) and torch.equal(gd, pd)):
+            raise AssertionError(f"{what}: kNN at N={xyz.shape[1]} (route {route}): indices "
+                                 f"differ at {(gi != pi).sum().item()} places, d2 max diff "
+                                 f"{_max_err(gd, pd):.3e}")
+        out["knn"] = dict(
+            B=xyz.shape[0], N=xyz.shape[1], queries=q.shape[1], k=k, route=route,
+            ms=cuda_ms(lambda: knn.knn_query_padded_cuda(q, xyz, mask, k), 3),
+            plain_ms=cuda_ms(lambda: pointops.knn_query_padded_plain(q, xyz, mask, k), 1),
+            **knn_bound(q, xyz, mask, k))
+    for name in ("attention_fwd", "attention_fwd_bf16"):
+        if name not in calls:
+            continue
+        args, kw = calls[name]
+        q, k, v = args[:3]
+        rest = dict(kw, with_stats=False)
+        tol, dtype = (1e-4, "f32") if name == "attention_fwd" else (BF16_TOL, "bf16")
+        err, scale = hold(f"{what} {name}", one.oneshot_attention_cuda(*args, **rest),
+                          one.oneshot_attention_plain(*args, **rest), tol, floor=False)
+        B, H, L, dh = q.shape
+        out[name] = dict(
+            shape=[B, H, L, dh], max_abs_err=err, max_plain=scale,
+            ms=cuda_ms(lambda: one.oneshot_attention_cuda(*args, **rest), 3),
+            plain_ms=cuda_ms(lambda: one.oneshot_attention_plain(*args, **rest), 3),
+            library_ms=sdpa_ms(q, k, v)[0] if dtype == "f32" else None,
+            **_attention_bounds(B, H, L, dh, dtype)[0])
+    if "attention_bwd_bf16" in calls:
+        args, kw = calls["attention_bwd_bf16"]
+        dout = args[4]
+        unit = torch.randn(dout.shape, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(0)).to(dout.dtype)
+        figures = {}
+        for which, d in (("step's upstream gradient", dout), ("unit upstream gradient", unit)):
+            a = args[:4] + (d,) + args[5:]
+            for n, g, p in zip(("dq", "dk", "dv"), one.oneshot_attention_bwd_cuda(*a, **kw),
+                               one.oneshot_attention_plain_bwd(*a, **kw)):
+                figures[f"{n} ({which})"] = hold(f"{what} attention_bwd_bf16 {n} ({which})",
+                                                 g, p, BF16_TOL, floor=False)
+        B, H, L, dh = args[0].shape
+        out["attention_bwd_bf16"] = dict(
+            shape=[B, H, L, dh],
+            max_abs_err_of_max_plain=", ".join(f"{n} {e:.3e} of {m:.3e}"
+                                               for n, (e, m) in figures.items()),
+            ms=cuda_ms(lambda: one.oneshot_attention_bwd_cuda(*args, **kw), 3),
+            plain_ms=cuda_ms(lambda: one.oneshot_attention_plain_bwd(*args, **kw), 3),
+            **_attention_bounds(B, H, L, dh, "bf16")[1])
+    for name, figures in out.items():
+        log(f"rlbench {what} {card_line()}: {name} vs plain on the path's tensors: "
+            + ", ".join(f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+                        for k, v in figures.items()))
+
+
+def _rlbench_requests(dataset, sizes=(1, RLBENCH_BATCH)) -> dict:
+    return {B: [rlbench_batch(dataset, B, seed, with_actions=False) for seed in (1, 2, 3)]
+            for B in sizes}
+
+
+def rlbench_act(dev) -> dict:
+    """Phase 17 (a): ACT over PointNet on RLBench (``scratch_pointnet_pcd``
+    of ``exp_rlbench_act_policy``, 24,391,212 parameters, seeded weights):
+    ``predict`` in f32 at B=1 and B=8 (three timed requests each), unit
+    quaternions; the ``"bf16-mixed"`` step at B=8, RLBENCH_STEPS under
+    ``set_sync_debug_mode("error")``; kernels 1-4 of those paths against
+    their plain versions on the tensors the path gave them; the card
+    against the port's CPU (predict, and the f32 loss and gradients at the
+    running statistics) within RLBENCH_CPU_TOL. Returns the launches by
+    path."""
+    import numpy as np
+    import torch
+
+    from pointcloudmatters_tpu_torch import ops
+    from pointcloudmatters_tpu_torch.models.bc_module import to_device
+    from pointcloudmatters_tpu_torch.trainer import Trainer
+
+    cfg, module, data = rlbench_composed("exp_rlbench_act_policy")
+    n_params = sum(p.numel() for p in module.policy.parameters())
+    if (type(module.policy).__name__, n_params) != ("ACTRLBenchPCD", RLBENCH_ACT_PARAMS):
+        raise AssertionError(f"rlbench ACT: {type(module.policy).__name__} of {n_params}")
+    cpu_state = {k: v.clone() for k, v in module.policy.state_dict().items()}
+    ds = data.data_train
+    requests = _rlbench_requests(ds)
+    counts = requests[RLBENCH_BATCH][0]["pcds"]["count"]
+    N = requests[RLBENCH_BATCH][0]["pcds"]["coord"].shape[1]
+    module.to(dev)
+    for B, reqs in requests.items():
+        module.predict(reqs[0])
+    torch.cuda.synchronize()
+    paths, times = {}, {}
+    ops.reset_launch_counts()
+    for B, reqs in requests.items():
+        for obs in reqs:
+            t0 = time.perf_counter()
+            a_hat = module.predict(obs)
+            torch.cuda.synchronize()
+            times.setdefault(B, []).append((time.perf_counter() - t0) * 1e3)
+            quat = a_hat[..., 3:7]
+            if (tuple(a_hat.shape) != (B, 100, 9) or not torch.isfinite(a_hat).all()
+                    or (quat.norm(dim=-1) - 1).abs().max().item() > 1e-5
+                    or (quat[..., 0] < 0).any()):
+                raise AssertionError(f"rlbench predict B={B}: {tuple(a_hat.shape)}, not "
+                                     f"finite (B, 100, 9) with unit quaternions")
+    paths["rlbench_predict"] = launches = ops.launch_counts()
+    n_req = sum(len(r) for r in requests.values())
+    _only(launches, {k: n * n_req for k, n in EVAL_KERNELS_A_BATCH.items()}, "rlbench_predict")
+    for B, ms in times.items():
+        log(f"rlbench (a) {card_line()}: predict f32 B={B} (<= {N} points a cloud, valid "
+            f"{int(counts.min())}-{int(counts.max())} at B=8): "
+            + ", ".join(f"{t:.2f}" for t in ms) + " ms")
+
+    trainer = Trainer(precision="bf16-mixed", seed=0)
+    trainer.setup(module, TOTAL_STEPS)
+    batch = to_device(rlbench_batch(ds, RLBENCH_BATCH, 4), dev)
+    trainer.train_step(module, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        steps = [trainer.train_step(module, batch) for _ in range(RLBENCH_STEPS)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / RLBENCH_STEPS
+    paths["rlbench_train"] = launches = ops.launch_counts()
+    losses = [float(m["loss"]) for m in steps]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"rlbench_train: non-finite losses {losses}")
+    _only(launches, {k: n * RLBENCH_STEPS for k, n in ACT_KERNELS_A_STEP.items()},
+          "rlbench_train")
+    log(f"rlbench (a) {card_line()}: train bf16-mixed B={RLBENCH_BATCH}: {step_ms:.2f} "
+        f"ms/step over {RLBENCH_STEPS} steps, {RLBENCH_BATCH * 1e3 / step_ms:.2f} samples/s, "
+        f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
+        f"loss {losses}")
+
+    calls = {}
+    with recorded_kernel_calls(calls):
+        module.predict(requests[RLBENCH_BATCH][0])
+        trainer.train_step(module, batch)
+    torch.cuda.synchronize()
+    rlbench_kernel_checks(dev, calls, "(a)")
+    del trainer, batch, steps, calls
+
+    # the card against the CPU, f32: a request, and the loss and gradients
+    # of a batch with actions at the running statistics (the same weights)
+    module.policy.load_state_dict(cpu_state)
+    cpu = rlbench_composed("exp_rlbench_act_policy")[1]
+    cpu.policy.load_state_dict(cpu_state)
+    request, with_actions = requests[1][1], rlbench_batch(ds, 1, 5)
+    ref, got = cpu.predict(request), module.predict(request).cpu()
+    err = _max_err(got, ref)
+    if not err <= RLBENCH_CPU_TOL * max(1.0, ref.abs().max().item()):
+        raise AssertionError(f"rlbench predict card vs CPU: {err:.3e}")
+    line = _compare_step("f32 loss and gradients at the running statistics, card vs CPU",
+                         *_eval_grads(module, with_actions), *_eval_grads(cpu, with_actions),
+                         grad_rtol=RLBENCH_CPU_TOL, loss_rtol=RLBENCH_CPU_TOL)
+    log(f"rlbench (a) predict card vs CPU max abs diff {err:.3e}; {line}")
+    del module, cpu
+    torch.cuda.empty_cache()
+    return paths
+
+
+def rlbench_dp(dev) -> dict:
+    """Phase 17 (b): the RLBench Diffusion Policy (``scratch_pointnet_pcd``
+    of ``exp_rlbench_diffusion_policy``, 270,575,467 parameters, the
+    dataset's identity normalizer wired by ``setup_module``): ``predict``
+    (100 DDPM steps, f32) at B=1, three timed; the ``"bf16-mixed"`` step at
+    the config's B=32 (64 clouds), RLBENCH_STEPS timed; FPS and kNN once a
+    request and a step and no other kernel, each against its plain version
+    on the path's tensors; then a checkpoint for (d). Returns the launches
+    by path."""
+    import numpy as np
+    import torch
+
+    from pointcloudmatters_tpu_torch import ops
+    from pointcloudmatters_tpu_torch.models.bc_module import to_device
+    from pointcloudmatters_tpu_torch.trainer import Trainer
+
+    family = "exp_rlbench_diffusion_policy"
+    cfg, module, data = rlbench_composed(family)
+    n_params = sum(p.numel() for p in module.policy.parameters())
+    if n_params != RLBENCH_DP_PARAMS:
+        raise AssertionError(f"rlbench DP: {n_params} parameters")
+    trainer = Trainer(default_root_dir=os.path.join(RLBENCH["root"], "dp"),
+                      precision="bf16-mixed", seed=0)
+    data.setup("fit")
+    trainer._start(module, data, data.train_dataloader(), dev)
+    if "normalizer" not in module.state_dict_extras():
+        raise AssertionError("rlbench DP: the dataset's normalizer was not wired")
+    trainer.setup(module, TOTAL_STEPS)
+    ds = data.data_train
+    requests = [rlbench_batch(ds, 1, s, with_actions=False) for s in (1, 2, 3, 4)]
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    module.predict(requests[0], gen(0))
+    torch.cuda.synchronize()
+    paths, ms = {}, []
+    ops.reset_launch_counts()
+    for i, obs in enumerate(requests[1:]):
+        t0 = time.perf_counter()
+        action = module.predict(obs, gen(i))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if tuple(action.shape) != (1, 8, 11) or not torch.isfinite(action).all():
+            raise AssertionError(f"rlbench DP predict: {tuple(action.shape)}, not a finite "
+                                 f"(1, 8, 11)")
+    paths["rlbench_dp_predict"] = launches = ops.launch_counts()
+    _only(launches, {"fps": 3, "knn": 3}, "rlbench_dp_predict")
+    batch = to_device(rlbench_batch(ds, RLBENCH_DP_BATCH, 6), dev)
+    trainer.train_step(module, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        steps = [trainer.train_step(module, batch) for _ in range(RLBENCH_STEPS)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / RLBENCH_STEPS
+    paths["rlbench_dp_train"] = launches = ops.launch_counts()
+    losses = [float(m["loss"]) for m in steps]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"rlbench_dp_train: non-finite losses {losses}")
+    _only(launches, {"fps": RLBENCH_STEPS, "knn": RLBENCH_STEPS}, "rlbench_dp_train")
+    log(f"rlbench (b) {card_line()}: DP predict B=1 (2 clouds, 100 DDPM steps, f32): "
+        + ", ".join(f"{t:.2f}" for t in ms) + f" ms; train bf16-mixed B={RLBENCH_DP_BATCH} "
+        f"({2 * RLBENCH_DP_BATCH} clouds): {step_ms:.2f} ms/step over {RLBENCH_STEPS} steps, "
+        f"{RLBENCH_DP_BATCH * 1e3 / step_ms:.2f} samples/s, peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; loss {losses}")
+    calls = {}
+    with recorded_kernel_calls(calls):
+        trainer.train_step(module, batch)
+    torch.cuda.synchronize()
+    rlbench_kernel_checks(dev, calls, "(b)")
+    RLBENCH["dp_ckpt"] = os.path.join(RLBENCH["root"], "dp", "checkpoint")
+    trainer.save_checkpoint(RLBENCH["dp_ckpt"])
+    del module, trainer, batch, calls
+    torch.cuda.empty_cache()
+    return paths
+
+
+def _cli_run(argv: list[str], what: str, want_steps: int, want_launches: dict):
+    """``train.main(argv)``: checks the run's micro-steps, finite train and
+    held-out losses after each epoch, a ``last`` checkpoint and the exact
+    launches; returns (launches, the probe, seconds)."""
+    import numpy as np
+    import torch
+
+    from pointcloudmatters_tpu_torch import ops
+    from pointcloudmatters_tpu_torch import train as train_entry
+    from pointcloudmatters_tpu_torch.trainer import CHECKPOINT_FILE
+
+    EndState.runs.clear()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    train_entry.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    probe = EndState.runs[-1]
+    trainer = probe.trainer
+    losses = [m["train/loss"] for _, _, m in probe.epochs]
+    vals = [m["val/loss"] for _, _, m in probe.epochs]
+    last = os.path.join(trainer.checkpoint_callback.dirpath, "last")
+    if (trainer.global_step != want_steps or not np.isfinite(losses + vals).all()
+            or not os.path.isfile(os.path.join(last, CHECKPOINT_FILE))):
+        raise AssertionError(f"{what}: {trainer.global_step} micro-steps, train/loss {losses}, "
+                             f"val/loss {vals}, last {os.listdir(os.path.dirname(last))}")
+    _only(launches, want_launches, what)
+    size = os.path.getsize(os.path.join(last, CHECKPOINT_FILE))
+    log(f"rlbench (c) {card_line()}: {what}: {trainer.global_step} micro-steps of "
+        f"B={RLBENCH_BATCH} in {seconds:.2f} s ({probe.t_start - t0:.2f} s to the first step;"
+        f" last epoch {probe.epochs[-1][2]['samples_per_sec']:.2f} samples/s); train/loss "
+        f"{losses}, val/loss {vals}; checkpoint {size / 1e6:.1f} MB; launches "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    return launches, probe, last
+
+
+def train_cli_rlbench(dev) -> dict:
+    """Phase 17 (c): ``train.main`` on ``exp_rlbench_act_policy=base`` over
+    the phase's episodes: ``scratch_pointnet_pcd`` for RLBENCH_CLI_EPOCHS
+    epochs of RLBENCH_CLI_BATCHES micro-steps of 8 (two a optimizer step),
+    held-out validation (``val/loss``) after each, checkpoints (``last``
+    kept for (d)); ``scratch_spunet_pcd`` and ``scratch_resnet50_rgb`` for
+    one epoch each. Returns the launches by path."""
+    root = RLBENCH["root"]
+    common = [f"trainer.limit_train_batches={RLBENCH_CLI_BATCHES}",
+              "trainer.accumulate_grad_batches=2", "trainer.check_val_every_n_epoch=1",
+              f"trainer.limit_val_batches={RLBENCH_HELD_OUT}"]
+    paths = {}
+    for model, epochs in (("scratch_pointnet_pcd", RLBENCH_CLI_EPOCHS),
+                          ("scratch_spunet_pcd", 1), ("scratch_resnet50_rgb", 1)):
+        micro, val_batches = epochs * RLBENCH_CLI_BATCHES, epochs * RLBENCH_HELD_OUT
+        want = {} if "rgb" in model else {
+            k: n * micro for k, n in ACT_KERNELS_A_STEP.items()}
+        for k, n in ({} if "rgb" in model else EVAL_KERNELS_A_BATCH).items():
+            want[k] = want.get(k, 0) + n * val_batches
+        name = "train_cli_rlbench" + ("" if model == "scratch_pointnet_pcd" else f"_{model}")
+        argv = rlbench_argv(root, f"cli_{model}", model=model) + common + [
+            f"trainer.max_epochs={epochs}"]
+        paths[name], probe, last = _cli_run(argv, name, micro, want)
+        if model == "scratch_pointnet_pcd":
+            RLBENCH["act_ckpt"], RLBENCH["act_argv"] = last, argv
+        del probe
+        EndState.runs.clear()
+    import torch
+
+    torch.cuda.empty_cache()
+    return paths
+
+
+class RLBenchEvalTask:
+    """The RLBench task the evaluation entry points see in (d): a held-out
+    episode's frames as observations, one IK error (``RuntimeError``, the
+    loops' error type without PyRep) at the first try of each episode,
+    success at step RLBENCH_EVAL_SUCCESS of episode 0; the host clock at
+    each step."""
+
+    def __init__(self, frames):
+        self.frames, self.clock, self.widths = frames, [], set()
+
+    def reset(self, ep):
+        self.ep, self.t, self.failed = ep, 0, False
+        return "close the jar", self.frames[0]
+
+    def step(self, action):
+        if not self.failed:
+            self.failed = True
+            raise RuntimeError("IK failed")
+        self.clock.append((self.ep, time.perf_counter()))
+        self.widths.add(len(action))
+        self.t += 1
+        success = self.ep == 0 and self.t == RLBENCH_EVAL_SUCCESS
+        return self.frames[self.t % len(self.frames)], float(success), False
+
+    def shutdown(self):
+        pass
+
+
+def rlbench_eval(dev) -> dict:
+    """Phase 17 (d): ``python -m pointcloudmatters_tpu_torch.test_rlbench_act``
+    (its ``main``) on (c)'s ``last`` checkpoint and ``test_rlbench_dp`` on
+    (b)'s, with the port's ``rlbench_utils.build_env_and_task`` /
+    ``reset_task`` patched to RLBenchEvalTask (RLBENCH_EVAL_EPISODES
+    episodes of at most RLBENCH_EVAL_STEPS steps) and the goal from a
+    ``CachedTextEncoder`` over a ``clip_cache.npz`` the phase writes. Reads
+    the line each appends to the result file, and times a loop step at
+    B=1. Returns the launches by path."""
+    import numpy as np
+
+    from pointcloudmatters_tpu_torch import ops, test_rlbench_act, test_rlbench_dp
+    from pointcloudmatters_tpu_torch.utils import rlbench_utils as RU
+
+    root = RLBENCH["root"]
+    frames = np.load(os.path.join(root, "data", "val", RLBENCH_TASK, "ep0.npy"),
+                     allow_pickle=True).item()["demo"]
+    cache = RU.CachedTextEncoder(os.path.join(root, "clip_cache.npz"))
+    cache.put("close the jar", np.random.RandomState(0).randn(512).astype(np.float32))
+    cache.save()
+    saved = RU.build_env_and_task, RU.reset_task
+    paths = {}
+    try:
+        for name, entry, argv, width, predicts in (
+                ("rlbench_eval", test_rlbench_act, RLBENCH["act_argv"], 9,
+                 RLBENCH_EVAL_SUCCESS + RLBENCH_EVAL_STEPS),
+                ("rlbench_dp_eval", test_rlbench_dp,
+                 rlbench_argv(root, "dp_eval", "exp_rlbench_diffusion_policy"), 11,
+                 1 + 2)):  # 8 actions a prediction: 7 steps take 1, 10 take 2
+            task = RLBenchEvalTask(frames)
+            RU.build_env_and_task = lambda cfg: (task, task)
+            RU.reset_task = lambda t, cfg, ep: (t, None, [t.reset(ep)[0]], t.frames[0])
+            ckpt = RLBENCH["act_ckpt"] if width == 9 else RLBENCH["dp_ckpt"]
+            result = os.path.join(root, f"{name}_results")
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            metrics = entry.main(argv + [
+                f"ckpt_path={ckpt}", f"episodes_num={RLBENCH_EVAL_EPISODES}",
+                f"max_steps={RLBENCH_EVAL_STEPS}", f"result_path={result}",
+                f"clip_cache_path={root}/clip_cache.npz"])
+            seconds = time.perf_counter() - t0
+            paths[name] = launches = ops.launch_counts()
+            with open(os.path.join(result, "test_result.txt")) as f:
+                lines = f.read().splitlines()
+            if metrics != {"success_rate": 0.5} or lines != [f"{ckpt}: 0.5"] \
+                    or task.widths != {width}:
+                raise AssertionError(f"{name}: {metrics}, result file {lines}, action widths "
+                                     f"{task.widths}")
+            want = ({k: n * predicts for k, n in EVAL_KERNELS_A_BATCH.items()} if width == 9
+                    else {"fps": predicts, "knn": predicts})
+            _only(launches, want, name)
+            gaps = [b - a for (ea, a), (eb, b) in zip(task.clock, task.clock[1:]) if ea == eb]
+            log(f"rlbench (d) {card_line()}: {name}: result line {lines[0]!r}; "
+                f"{len(task.clock)} steps, {predicts} predictions at B=1 in {seconds:.2f} s "
+                f"(composition, restore and episodes); a loop step "
+                f"{1e3 * float(np.mean(gaps)):.2f} ms mean, {1e3 * float(np.median(gaps)):.2f} "
+                f"median, {1e3 * max(gaps):.2f} most (a prediction, its conversions, the step)")
+    finally:
+        RU.build_env_and_task, RU.reset_task = saved
+    return paths
+
+
+class RolloutEnv:
+    """A ManiSkill2 env for (e): a 128 x 128 camera's cloud following the
+    seed and the step (as phase 10's demos: a fifth of it w = 0),
+    success on seeds divisible by 3 after ROLLOUT_STEPS steps."""
+
+    def reset(self, seed=None, options=None):
+        self.seed, self.t = seed, 0
+        return self.obs(), {}
+
+    def obs(self):
+        import numpy as np
+
+        rng = np.random.RandomState(self.seed * 100 + self.t)
+        n = FIT_CAM_SIDE ** 2
+        xyz = rng.rand(n, 3).astype(np.float32)
+        xyz[:, :2] = (xyz[:, :2] - 0.5) * 0.4
+        xyz[:, 2] *= 0.3
+        w = (rng.rand(n, 1) > 0.2).astype(np.float32)
+        return {"agent": {"qpos": rng.randn(9).astype(np.float32)},
+                "pointcloud": {"xyzw": np.concatenate([xyz, w], -1),
+                               "rgb": rng.randint(0, 255, (n, 3)).astype(np.uint8)},
+                "extra": {"goal_pos": rng.randn(3).astype(np.float32)}}
+
+    def step(self, action):
+        if len(action) != 7:
+            raise AssertionError(f"rollout action of width {len(action)}")
+        self.t += 1
+        done = self.t >= ROLLOUT_STEPS
+        return self.obs(), 0.0, done, False, {"success": done and self.seed % 3 == 0}
+
+    def close(self):
+        pass
+
+
+def rlbench_rollouts(dev) -> dict:
+    """Phase 17 (e): the flagship's ManiSkill2 task module validating by
+    rollouts (``run_validation`` with an ``env_factory`` of RolloutEnv),
+    ROLLOUT_EPISODES episodes at ``num_envs`` 1 and 4: the same
+    ``val/mean_success`` (2 of 8 seeds succeed), the wall seconds of each.
+    Returns the launches by path."""
+    import tempfile
+
+    import torch
+
+    from pointcloudmatters_tpu_torch import ops
+    from pointcloudmatters_tpu_torch.data.base_datamodule import BaseDataModule
+    from pointcloudmatters_tpu_torch.data.components.misc import DummyDataset
+    from pointcloudmatters_tpu_torch.entry import build_flagship
+    from pointcloudmatters_tpu_torch.models.maniskill2_modules import ManiSkill2ACTBCModule
+    from pointcloudmatters_tpu_torch.trainer import Trainer
+
+    tmp = tempfile.TemporaryDirectory()
+    ds = in_memory_dataset(synthetic_demos(2, 10, FIT_CAM_SIDE), transform_pcd=fit_transforms(),
+                           goal_cond_keys=["goal_pos"], chunk_size=100, camera_ids=[0],
+                           point_num_per_cam=FIT_CAM_SIDE ** 2, cache_dir=tmp.name)
+    data = BaseDataModule(train=ds, val=DummyDataset(size=ROLLOUT_EPISODES), batch_size_train=8)
+    policy = build_flagship(seed=0, device=dev)
+    paths, outs, seconds = {}, [], []
+    for num_envs in (1, 4):
+        module = ManiSkill2ACTBCModule(policy, env_id="PickCube-v0", num_envs=num_envs,
+                                       env_factory=lambda m: RolloutEnv())
+        trainer = Trainer(default_root_dir=tmp.name, seed=0)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs.append(module.run_validation(trainer, data))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        paths[f"rollouts_{num_envs}_envs"] = launches = ops.launch_counts()
+        n = ROLLOUT_EPISODES * ROLLOUT_STEPS
+        _only(launches, {k: c * n for k, c in EVAL_KERNELS_A_BATCH.items()},
+              f"rollouts at num_envs {num_envs}")
+    if outs[0] != outs[1] or outs[0] != {"val/mean_success": 0.25}:
+        raise AssertionError(f"rollouts: val/mean_success {outs[0]} at 1 env, {outs[1]} at 4")
+    log(f"rlbench (e) {card_line()}: flagship rollout validation, {ROLLOUT_EPISODES} episodes "
+        f"of {ROLLOUT_STEPS} steps (B=1 requests of <= {FIT_CAM_SIDE ** 2} points): "
+        f"{outs[0]} at num_envs 1 in {seconds[0]:.2f} s and at num_envs 4 in "
+        f"{seconds[1]:.2f} s")
+    tmp.cleanup()
+    del policy
+    torch.cuda.empty_cache()
+    return paths
+
+
+def rlbench_profiled_fit(dev) -> dict:
+    """Phase 17 (f): one ``Trainer(profiler="simple")`` fit of the RLBench
+    ACT (bf16-mixed, 2 micro-steps of 8, no validation): the trace it
+    writes (``<root>/torch_trace/trace.json``) read back, the device kernels
+    by total time. Returns the launches by path."""
+    import collections
+
+    import torch
+
+    from pointcloudmatters_tpu_torch import ops
+    from pointcloudmatters_tpu_torch.trainer import Trainer
+    from pointcloudmatters_tpu_torch.utils import profiling
+
+    _, module, data = rlbench_composed("exp_rlbench_act_policy")
+    root = os.path.join(RLBENCH["root"], "profiled")
+    trainer = Trainer(default_root_dir=root, precision="bf16-mixed", max_epochs=1,
+                      limit_train_batches=2, check_val_every_n_epoch=0, profiler="simple",
+                      seed=0)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.fit(module, data)
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    _only(launches, {k: 2 * n for k, n in ACT_KERNELS_A_STEP.items()}, "rlbench_profiled_fit")
+    with open(os.path.join(root, "torch_trace", profiling.TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    by_kernel = collections.Counter()
+    for e in events:
+        if e.get("cat") == "kernel":
+            by_kernel[e["name"]] += float(e.get("dur", 0.0))
+    if not by_kernel:
+        raise AssertionError("the profiled fit's trace holds no device kernel")
+    total = sum(by_kernel.values())
+    top = by_kernel.most_common(5)
+    log(f"rlbench (f) {card_line()}: profiled fit (2 micro-steps) in {seconds:.2f} s; trace "
+        f"{os.path.getsize(os.path.join(root, 'torch_trace', profiling.TRACE_FILE)) / 1e6:.1f} "
+        f"MB, {len(by_kernel)} kernels, {total / 1e3:.2f} ms of kernel time; top: "
+        + "; ".join(f"{name[:60]} {us / 1e3:.2f} ms ({100 * us / total:.1f}%)"
+                    for name, us in top))
+    del module, trainer
+    torch.cuda.empty_cache()
+    return {"rlbench_profiled_fit": launches}
+
+
+def train_rlbench(dev) -> dict:
+    """Phase 17: (a)-(f) over the phase's episodes; the launches of its
+    paths."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    rlbench_data(tmp.name)
+    paths = rlbench_act(dev)
+    paths.update(rlbench_dp(dev))
+    paths.update(train_cli_rlbench(dev))
+    paths.update(rlbench_eval(dev))
+    paths.update(rlbench_rollouts(dev))
+    paths.update(rlbench_profiled_fit(dev))
+    tmp.cleanup()
+    RLBENCH.clear()
+    log(f"rlbench phase 17 in {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -5575,6 +6333,7 @@ def main() -> int:
         paths.update(image_paths)
         image_dp_paths, _ = train_image_dp(dev)
         paths.update(image_dp_paths)
+        paths.update(train_rlbench(dev))
     stray = {path: [k for k in FLASH_KERNELS if counts[k]] for path, counts in paths.items()
              if "flash" not in path and any(counts[k] for k in FLASH_KERNELS)}
     if stray:

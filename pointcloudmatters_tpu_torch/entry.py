@@ -67,6 +67,7 @@ import torch
 from torch import nn
 
 from pointcloudmatters_tpu_torch.data.collate import morton_order
+from pointcloudmatters_tpu_torch.data.components.rlbench.constants import SCENE_BOUNDS, loc_bounds
 from pointcloudmatters_tpu_torch.models.components.act.act import ACT, ACTPCD
 from pointcloudmatters_tpu_torch.models.components.act.positional_encoding import (
     PositionEmbeddingSine,
@@ -103,7 +104,7 @@ from pointcloudmatters_tpu_torch.models.components.pcd_encoder.spunet import SpU
 __all__ = ["build_flagship", "build_batch", "build_grid_batch", "build_image_policy",
            "build_image_batch", "build_dp_policy", "build_dp_batch", "build_image_dp_policy",
            "build_image_dp_batch", "image_dp_shape_meta", "init_parameters", "morton_order",
-           "DP_SHAPE_META", "GRID_SIZE"]
+           "write_rlbench_episodes", "DP_SHAPE_META", "GRID_SIZE"]
 
 GRID_SIZE = 0.005  # m, the configs' GridSamplePCD grid
 
@@ -479,3 +480,44 @@ def build_image_dp_batch(batch_size=2, side=128, channels=3, cameras=("base_came
     if with_actions:
         batch["action"] = rng.randn(batch_size, horizon, action_dim).astype(np.float32)
     return batch
+
+
+def write_rlbench_episodes(root: str, task_name: str = "close_jar", n_episodes: int = 3,
+                           episode_len: int = 8, side: int = 16, stages=("train", "val"),
+                           n_outside: int = 2, seed: int = 0) -> str:
+    """Synthetic RLBench episodes in the processed layout that
+    ``scripts/preprocess_rlbench.py`` writes (``<root>/<stage>/<task>/ep<i>.npy``:
+    ``{"demo": [frame dicts], "task_goal": (512,)}``), numpy only, as
+    ``tests/synth.make_synthetic_rlbench`` makes them: one front camera of
+    ``side`` x ``side`` RGB, depth, mask and a cloud uniform in
+    ``SCENE_BOUNDS`` but for ``n_outside`` points of its first row past the
+    upper bounds (the crop drops them); the gripper inside the task's
+    ``loc_bounds`` with a random unit quaternion. Returns ``root``."""
+    import os
+
+    rng = np.random.RandomState(seed)
+    lo, hi = np.array(SCENE_BOUNDS[:3]), np.array(SCENE_BOUNDS[3:])
+    pos_lo, pos_hi = (np.array(b) for b in loc_bounds[task_name])
+    for stage in stages:
+        out_dir = os.path.join(root, stage, task_name)
+        os.makedirs(out_dir, exist_ok=True)
+        for ep in range(n_episodes):
+            demo = []
+            for _ in range(episode_len):
+                quat = rng.randn(4)
+                pose = np.concatenate([rng.uniform(pos_lo, pos_hi), quat / np.linalg.norm(quat)])
+                cloud = rng.uniform(lo, hi, (side, side, 3)).astype(np.float32)
+                cloud[0, :n_outside] = hi + 1.0
+                demo.append({
+                    "ignore_collisions": float(rng.rand() > 0.5),
+                    "front_rgb": rng.randint(0, 255, (side, side, 3)).astype(np.uint8),
+                    "front_depth": rng.rand(side, side).astype(np.float32),
+                    "front_point_cloud": cloud,
+                    "front_mask": rng.randint(0, 250, (side, side)).astype(np.float32),
+                    "gripper_pose": pose.astype(np.float32),
+                    "gripper_open": float(rng.rand() > 0.5),
+                })
+            np.save(os.path.join(out_dir, f"ep{ep}.npy"),
+                    dict(demo=demo, task_goal=rng.randn(512).astype(np.float32)),
+                    allow_pickle=True)
+    return root

@@ -1,5 +1,5 @@
-"""ACT over images and point clouds (port of
-``pointcloudmatters_tpu/models/components/act/act.py:59-396``).
+"""ACT over images and point clouds, and their RLBench heads (port of
+``pointcloudmatters_tpu/models/components/act/act.py:59-455``).
 
 Call protocol as in JAX: ``policy(data_dict, train=..., rngs=...)`` returns
 a new dict with ``a_hat`` (B, num_queries, action_dim) and ``is_pad_hat``
@@ -16,6 +16,9 @@ generator seeding the oneshot attention kernel's mask).
 ``ACT`` embeds camera images (``data_dict["image"]``, (B, cameras, H, W,
 C)) through an image backbone, ``ACTPCD`` point clouds; the state-only
 path (no backbone) is not ported and raises ``NotImplementedError``.
+``ACTRLBench`` and ``ACTRLBenchPCD`` act in gripper poses: sigmoid gripper
+(and collision) channels, a 6D rotation in training that becomes a
+quaternion otherwise, and a loss weighting the xyz channels.
 
 The module runs in the type of its parameters and inputs: f32, or bf16
 when the trainer's mixed precision casts both (``trainer.py``).
@@ -50,8 +53,12 @@ from pointcloudmatters_tpu_torch.ops.pointops import (
     farthest_point_sampling_padded,
     knn_query_padded,
 )
+from pointcloudmatters_tpu_torch.utils.rotation_conversions import (
+    matrix_to_quaternion,
+    rotation_6d_to_matrix,
+)
 
-__all__ = ["ACT", "ACTPCD"]
+__all__ = ["ACT", "ACTPCD", "ACTRLBench", "ACTRLBenchPCD"]
 
 
 class ACT(nn.Module):
@@ -89,6 +96,8 @@ class ACT(nn.Module):
         self.encoder = encoder
         self.hidden_dim = hidden_dim
         self.num_queries = num_queries
+        self.action_dim = action_dim
+        self.qpos_dim = qpos_dim
         self.latent_dim = latent_dim
         self.kl_weight = kl_weight
         self.goal_cond_dim = goal_cond_dim
@@ -319,3 +328,60 @@ class ACTPCD(ACT):
                           rngs: Optional[Mapping] = None) -> dict:
         src, pos = self.forward_pcd_embed(data_dict["pcds"], train)
         return dict(data_dict, src=src, pos=pos, proprio_input=self._proprio_input(data_dict))
+
+
+class _RLBenchHeadMixin:
+    """The gripper-pose head of the RLBench variants (JAX ``act.py:399-440``):
+    the action is ``[xyz, rotation, gripper (, collision)]``, its last one or
+    two channels through a sigmoid; the rotation is 6D while ``is_training``
+    (actions given) and a quaternion otherwise. The loss weights each xyz
+    element by ``position_loss_weight`` before the mean over every element,
+    padded slots included."""
+
+    def __init__(self, *args, rot_type: str = "6d", collision: bool = False,
+                 position_loss_weight: float = 1.0, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.rot_type = rot_type
+        self.collision = collision
+        self.position_loss_weight = position_loss_weight
+
+    def forward_decoder(self, data_dict: dict, train: bool,
+                        rngs: Optional[Mapping] = None) -> dict:
+        hs = self._decode(data_dict, train, rngs)
+        a_hat = self.action_head(hs)
+        position = a_hat[..., :3]
+        if self.collision:
+            gripper = torch.sigmoid(a_hat[..., -2:])
+            rot = a_hat[..., 3:-2]
+        else:
+            gripper = torch.sigmoid(a_hat[..., -1:])
+            rot = a_hat[..., 3:-1]
+        if not data_dict["is_training"]:
+            if self.rot_type != "6d":
+                raise NotImplementedError(self.rot_type)
+            rot = matrix_to_quaternion(rotation_6d_to_matrix(rot))
+        return dict(data_dict, a_hat=torch.cat([position, rot, gripper], dim=-1),
+                    is_pad_hat=self.is_pad_head(hs))
+
+    def forward_loss(self, data_dict: dict) -> dict:
+        total_kld = self._klloss(data_dict["mu"], data_dict["logvar"])
+        a_hat = data_dict["a_hat"]
+        # an f32 weight, as JAX's jnp.ones: a bf16 loss is weighted in f32
+        weight = torch.ones(a_hat.shape[-1], device=a_hat.device)
+        weight[:3] = self.position_loss_weight
+
+        def weighted(pred, target):
+            return self._action_loss(pred, target) * weight
+
+        action_loss = masked_action_loss(weighted, a_hat, data_dict["actions"],
+                                         data_dict["is_pad"].to(torch.bool))
+        return dict(data_dict, action_loss=action_loss, kl_loss=total_kld,
+                    loss=action_loss + total_kld * self.kl_weight)
+
+
+class ACTRLBench(_RLBenchHeadMixin, ACT):
+    """ACT over camera images with the RLBench head (JAX ``act.py:443``)."""
+
+
+class ACTRLBenchPCD(_RLBenchHeadMixin, ACTPCD):
+    """ACT over point clouds with the RLBench head (JAX ``act.py:451``)."""

@@ -125,10 +125,11 @@ def _resolve_dir_template(cfg, template: str) -> str:
     return os.path.abspath(str(C._Resolver(probe).resolve_str(str(template))))
 
 
-def compose_run(argv: list[str], output_dir: Optional[str] = None):
-    """The resolved config of one run of ``argv``, its output directory
-    made (``hydra.run.dir`` unless ``output_dir`` is given)."""
-    cfg = C.compose(CONFIG_DIR, "train", argv)
+def compose_run(argv: list[str], output_dir: Optional[str] = None, config_name: str = "train"):
+    """The resolved config of one run of ``argv`` over ``configs/<config_name>.yaml``,
+    its output directory made (``hydra.run.dir`` unless ``output_dir`` is
+    given)."""
+    cfg = C.compose(CONFIG_DIR, config_name, argv)
     C.set_runtime(cwd=os.getcwd(), output_dir="<pending>")
     if output_dir is None:
         run_dir_tpl = C.select(cfg.get("hydra") or {}, "run.dir") or "outputs"

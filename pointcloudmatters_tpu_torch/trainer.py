@@ -39,7 +39,10 @@ running statistics), ``step`` and ``epoch``; unless ``weights_only``,
 state) and ``rng`` (the state of each of the step's generators); and
 ``extras`` when the module has any. ``fit(ckpt_path=)`` restores after the
 optimizer is built and ``validate(ckpt_path=)`` before validating, as in
-JAX. The profiler comes with a later slice.
+JAX. ``profiler`` (``simple``, ``advanced``, ``pytorch``, ``torch`` or
+true) runs ``fit``'s loop under ``torch.profiler`` and writes the trace
+into ``<default_root_dir>/torch_trace`` (``utils/profiling.py``); another
+value raises ``ValueError``.
 
 Data parallelism (the JAX trainer's ``"data"`` mesh, ``trainer.py:6-12``),
 one process a device joined by ``torch.distributed``
@@ -83,6 +86,7 @@ from pointcloudmatters_tpu_torch.models.bc_module import BCModule, select_model_
 from pointcloudmatters_tpu_torch.utils import dist
 from pointcloudmatters_tpu_torch.utils.loggers import as_multi_logger
 from pointcloudmatters_tpu_torch.utils.optimizer import clip_by_global_norm, global_norm
+from pointcloudmatters_tpu_torch.utils.profiling import make_profiler
 from pointcloudmatters_tpu_torch.utils.pylogger import RankedLogger
 
 __all__ = ["Trainer", "CHECKPOINT_FILE", "write_checkpoint", "read_checkpoint"]
@@ -136,10 +140,6 @@ def read_checkpoint(path: str) -> dict:
                       weights_only=True)
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md §1 item {item})")
-
-
 class Trainer:
     """Trains and validates a ``BCModule``; takes the JAX trainer's keys
     (``configs/trainer/*.yaml``), of which ``strategy``, ``sync_batchnorm``
@@ -181,10 +181,9 @@ class Trainer:
             raise ValueError(f"unknown precision {precision!r}")
         if accelerator not in _ON_CARD + ("cpu",):
             raise ValueError(f"unknown accelerator {accelerator!r}")
-        if profiler:
-            raise _not_ported("the profiler", 12)
         self.default_root_dir = os.path.abspath(default_root_dir)
         os.makedirs(self.default_root_dir, exist_ok=True)
+        self.profiler = make_profiler(profiler, self.default_root_dir)
         self.min_epochs = min_epochs or 1
         self.fast_dev_run = fast_dev_run
         self.max_epochs = 1 if fast_dev_run else max_epochs
@@ -501,25 +500,31 @@ class Trainer:
                 model.val_metrics.reset()
                 model.best_val_metrics.reset()
 
-        for epoch in range(self.current_epoch, self.max_epochs):
-            self.current_epoch = epoch
-            epoch_metrics = self._train_epoch(model, train_loader, n_train)
-            self.log_metrics(epoch_metrics)
+        if self.profiler is not None:
+            self.profiler.start()
+        try:
+            for epoch in range(self.current_epoch, self.max_epochs):
+                self.current_epoch = epoch
+                epoch_metrics = self._train_epoch(model, train_loader, n_train)
+                self.log_metrics(epoch_metrics)
 
-            val_metrics: dict = {}
-            if (self.check_val_every_n_epoch
-                    and (epoch + 1) % self.check_val_every_n_epoch == 0
-                    and self.limit_val_batches not in (0, 0.0)):
-                val_metrics = model.run_validation(self, datamodule)
-                self.log_metrics(val_metrics)
+                val_metrics: dict = {}
+                if (self.check_val_every_n_epoch
+                        and (epoch + 1) % self.check_val_every_n_epoch == 0
+                        and self.limit_val_batches not in (0, 0.0)):
+                    val_metrics = model.run_validation(self, datamodule)
+                    self.log_metrics(val_metrics)
+                    for cb in self.callbacks:
+                        cb.on_validation_end(self, model, val_metrics, epoch)
                 for cb in self.callbacks:
-                    cb.on_validation_end(self, model, val_metrics, epoch)
-            for cb in self.callbacks:
-                cb.on_train_epoch_end(self, model, {**epoch_metrics, **val_metrics}, epoch)
-            self.should_stop = dist.broadcast_flag(self.should_stop)
-            if self.should_stop and epoch + 1 >= self.min_epochs:
-                log.info(f"early stop at epoch {epoch}")
-                break
+                    cb.on_train_epoch_end(self, model, {**epoch_metrics, **val_metrics}, epoch)
+                self.should_stop = dist.broadcast_flag(self.should_stop)
+                if self.should_stop and epoch + 1 >= self.min_epochs:
+                    log.info(f"early stop at epoch {epoch}")
+                    break
+        finally:
+            if self.profiler is not None:
+                self.profiler.stop()
 
         for cb in self.callbacks:
             cb.on_fit_end(self, model)

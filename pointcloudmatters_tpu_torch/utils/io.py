@@ -1,5 +1,6 @@
 """File reading of the data layer (port of ``pointcloudmatters_tpu/utils/io.py``'s
-``load_json``, ``load_h5_data``, ``save_npz_dict`` and ``load_npz_dict``)."""
+``load_json``, ``load_h5_data``, ``save_npz_dict``, ``load_npz_dict`` and
+``load_numpy_pickle``)."""
 
 from __future__ import annotations
 
@@ -7,7 +8,7 @@ import json
 
 import numpy as np
 
-__all__ = ["load_json", "load_h5_data", "save_npz_dict", "load_npz_dict"]
+__all__ = ["load_json", "load_h5_data", "save_npz_dict", "load_npz_dict", "load_numpy_pickle"]
 
 
 def load_json(path: str):
@@ -48,3 +49,12 @@ def load_npz_dict(path: str) -> dict:
                 node = node.setdefault(p, {})
             node[leaf] = data[key]
     return out
+
+
+def load_numpy_pickle(path: str):
+    """An object saved by ``np.save`` with pickling (the RLBench processed
+    episodes)."""
+    obj = np.load(path, allow_pickle=True)
+    if isinstance(obj, np.ndarray) and obj.dtype == object:
+        return obj.item()
+    return obj

@@ -164,6 +164,13 @@ class TensorBoardLogger(BaseLogger):
             return
         self._writer.add_text("hparams", json.dumps(params, default=str))
 
+    @rank_zero_only
+    def log_figure(self, tag: str, figure, step: int) -> None:
+        """A matplotlib figure (a rollout's reward curve); none under the CSV
+        fallback."""
+        if self._writer is not None:
+            self._writer.add_figure(tag, figure, step)
+
     def finalize(self) -> None:
         if self._writer is not None:
             self._writer.flush()

@@ -315,10 +315,90 @@ def test_image_dp_composition_builds_in_the_port(model, demo_file, tmp_path, mon
         else "ManiSkill2GoalPosSingleTaskDiffusionPolicyRGBDDataset")
 
 
+RLBENCH_FAMILIES = ("exp_rlbench_act_policy", "exp_rlbench_diffusion_policy")
+RLBENCH_CONFIGS = [(family, p.stem) for family in RLBENCH_FAMILIES
+                   for p in sorted((pathlib.Path(CONFIG_DIR) / family / "rlbench_model")
+                                   .glob("*.yaml"))]
+
+
+def _rlbench_overrides(family, model, out="/out"):
+    return [f"{family}=base", f"{family}/rlbench_model@rlbench_model={model}",
+            "rlbench_task=close_jar", f"hydra.run.dir={out}", f"hydra.sweep.dir={out}/sweep"]
+
+
+def _jax_rlbench_param_count(cfg, family) -> int:
+    """The JAX policy's parameters, from its ``init`` traced (not compiled)
+    over one small sample of the composition's inputs."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    policy = JC.instantiate(cfg.model.policy)
+    n = 4096  # points a cloud, above the configs' 2048 tokens
+    cloud = {"coord": jnp.zeros((2, n, 3)), "feat": jnp.zeros((2, n, 6)),
+             "valid": jnp.ones((2, n), bool), "grid_coord": jnp.zeros((2, n, 3), jnp.int32)}
+    key = jax.random.PRNGKey(0)
+    if "diffusion" in family:
+        meta, obs = cfg.model.policy.shape_meta, {}
+        for name, attr in meta["obs"].items():
+            kind = attr.get("type", "low_dim")
+            if kind in ("rgb", "depth"):
+                obs[name] = jnp.zeros((1, 2, 16, 16, min(attr["shape"])))
+            elif kind == "low_dim":
+                obs[name] = jnp.zeros((1, 16, attr["shape"][0]))
+            else:
+                obs[name] = cloud
+        batch = {"obs": obs, "action": jnp.zeros((1, 16, meta["action"]["shape"][0])),
+                 "goal": {"task_emb": jnp.zeros((1, 512))}}
+    else:
+        nq, ad = cfg.model.policy.num_queries, cfg.model.policy.action_dim
+        batch = {"qpos": jnp.zeros((1, ad)), "actions": jnp.zeros((1, nq, ad)),
+                 "is_pad": jnp.zeros((1, nq), bool), "goal_cond": jnp.zeros((1, 512))}
+        if "pcd" in cfg.model.policy._target_.lower():
+            batch["pcds"] = jax.tree.map(lambda a: a[:1], cloud)
+        else:
+            batch["image"] = jnp.zeros((1, 1, 224, 224, 4 if cfg.data.train.include_depth
+                                        else 3))
+    rngs = {name: key for name in ("params", "vae", "dropout", "mask", "noise", "crop")}
+    shapes = jax.eval_shape(lambda b: policy.init(rngs, b, train=True), batch)
+    return sum(int(np.prod(x.shape)) for x in jax.tree.leaves(shapes["params"]))
+
+
+def test_the_rlbench_model_configs_are_the_twenty_two():
+    assert len(RLBENCH_CONFIGS) == 22
+    assert sum(f == RLBENCH_FAMILIES[0] for f, _ in RLBENCH_CONFIGS) == 11
+
+
+@pytest.mark.parametrize("family,model", RLBENCH_CONFIGS, ids=lambda v: str(v))
+def test_rlbench_composition_equals_jax_and_builds(family, model, tmp_path, monkeypatch):
+    """Each RLBench model config (ACT's and the Diffusion Policy's, 11 each)
+    composes and resolves as JAX's, every target the port's counterpart;
+    its task module builds on the meta device at the shipped width with
+    JAX's parameter count (``pretrained_multimae_rgbd`` of the DP keeps the
+    reference's ``task_name``)."""
+    monkeypatch.setenv("HOME", str(tmp_path))
+    _check_composition(_rlbench_overrides(family, model))
+    cfg = _compose(TC, _rlbench_overrides(family, model, out=str(tmp_path)), out=str(tmp_path))
+    with torch.device("meta"):
+        module = TC.instantiate(cfg.model)
+    act = family == RLBENCH_FAMILIES[0]
+    assert type(module).__name__ == ("RLBenchACTBCModule" if act
+                                     else "RLBenchDiffusionPolicyBCModule")
+    want = ("ACTRLBenchPCD" if "pcd" in model else "ACTRLBench") if act \
+        else "DiffusionUnetImagePolicy"
+    assert type(module.policy).__name__ == want
+    if act:
+        policy = module.policy
+        assert (policy.rot_type, policy.collision, policy.position_loss_weight,
+                policy.goal_cond_dim) == ("6d", True, 10.0, 512)
+    jcfg = _compose(JC, _rlbench_overrides(family, model, out=str(tmp_path)), out=str(tmp_path))
+    assert sum(p.numel() for p in module.policy.parameters()) == _jax_rlbench_param_count(
+        jcfg, family)
+
+
 @pytest.mark.parametrize("target", [
-    "pointcloudmatters_tpu.models.components.act.act.ACTRLBenchPCD",
-    "pointcloudmatters_tpu.data.components.rlbench.datasets."
-    "RLBenchSingleTaskDiffusionPolicyRGBDDataset",
+    "pointcloudmatters_tpu.models.components.nn_utils.FrozenBatchNorm",
+    "pointcloudmatters_tpu.models.components.act.transformer.EfficientMHA",
     "pointcloudmatters_tpu.models.components.diffusion_policy.diffusion."
     "transformer_for_diffusion.TransformerForDiffusion",
 ])

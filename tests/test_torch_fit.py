@@ -319,7 +319,9 @@ class Stub(torch.nn.Module):
         if train:
             self.mean.mul_(0.9).add_(0.1 * q.mean(0))
         loss = ((self.w * q - 1.0) ** 2).mean()
-        return dict(batch, loss=loss, action_loss=loss, kl_loss=0.0 * loss)
+        # a_hat: two copies of w q, the chunk a rollout executes
+        return dict(batch, loss=loss, action_loss=loss, kl_loss=0.0 * loss,
+                    a_hat=(self.w * q)[:, None].expand(-1, 2, -1))
 
 
 class Rows:
@@ -440,7 +442,10 @@ def test_validate_returns_the_held_out_loss(tmp_path):
 def test_maniskill2_module_validates_to_nothing_on_a_dummy_dataset(tmp_path, caplog):
     """The flagship's task module, its configs' validation set (a
     ``DummyDataset``) and no simulator: the JAX module's warning and ``{}``,
-    from ``fit`` too; an ``env_factory`` (rollouts) raises."""
+    from ``fit`` too, and from an ``env_factory`` that cannot build an env;
+    an ``env_factory`` that builds one validates by rollouts, one episode
+    an item of the validation set (``limit_val_batches`` of them), scored
+    by ``val/mean_success`` and its maximum."""
     module = ManiSkill2ACTBCModule(Stub(), optimizer=OPT, lr_scheduler=SCHED,
                                    env_id="PickCube-v0")
     assert module.val_metric_keys == []
@@ -455,9 +460,41 @@ def test_maniskill2_module_validates_to_nothing_on_a_dummy_dataset(tmp_path, cap
                       callbacks=[rec])
     trainer.fit(module, dm)
     assert rec.val == [{}]
-    module.env_factory = lambda m: None
-    with pytest.raises(NotImplementedError, match="item 12"):
-        module.run_validation(trainer, dm)
+
+    def no_simulator(m):
+        raise RuntimeError("no simulator here")
+
+    module.env_factory = no_simulator
+    caplog.clear()
+    with caplog.at_level(logging.WARNING):
+        assert module.run_validation(trainer, dm) == {}
+    assert "RuntimeError: no simulator here" in caplog.text
+
+    class Env:  # success on even seeds, after two steps
+        def obs(self):
+            return {"agent": {"qpos": np.full(3, self.seed % 5 + 1, np.float32)}}
+
+        def reset(self, seed=None, options=None):
+            self.seed, self.t = seed, 0
+            return self.obs(), {}
+
+        def step(self, action):
+            assert np.asarray(action).shape == (3,)
+            self.t += 1
+            done = self.t >= 2
+            return self.obs(), 0.0, done, False, {"success": self.seed % 2 == 0}
+
+        def close(self):
+            pass
+
+    dm.data_train.norm_stats = {k: np.full(3, v, np.float32) for k, v in (
+        ("qpos_mean", 0.0), ("qpos_std", 1.0), ("action_mean", 0.5), ("action_std", 2.0))}
+    dm.data_train.goal_cond_keys = None
+    module.policy.action_dim, module.policy.num_queries = 3, 2
+    module.env_factory = lambda m: Env()
+    trainer.limit_val_batches = 5  # episodes 10240 .. 10244: 3 even seeds
+    # the port's metrics keep f32 states
+    assert module.run_validation(trainer, dm) == {"val/mean_success": np.float32(0.6).item()}
 
 
 def test_refit_logs_the_schedule_of_the_previous_fit(tmp_path):
@@ -520,12 +557,15 @@ def test_detect_anomaly_reads_the_loss(tmp_path):
 
 
 def test_what_is_not_ported_raises(tmp_path, monkeypatch):
+    """The profiler is ported: its names build one, another raises as in
+    JAX; a card asked for where there is none raises."""
     dm = _stub_data(4)
-    for kw in ({"profiler": "simple"},):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            Trainer(default_root_dir=str(tmp_path), **kw)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        Trainer(default_root_dir=str(tmp_path), profiler="advanced")
+    for kind in ("simple", "advanced", "pytorch", True):
+        assert Trainer(default_root_dir=str(tmp_path), profiler=kind).profiler is not None
+    for kind in (None, False, "", "none"):
+        assert Trainer(default_root_dir=str(tmp_path), profiler=kind).profiler is None
+    with pytest.raises(ValueError, match="unknown profiler 'nvprof'"):
+        Trainer(default_root_dir=str(tmp_path), profiler="nvprof")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for accelerator in ("tpu", "auto", "gpu", "cuda"):
         with pytest.raises(RuntimeError, match="no"):

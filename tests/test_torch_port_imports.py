@@ -14,7 +14,8 @@ converter (``tools/reference_ckpt.py``, ``port_reference_ckpt``), and
 nothing of
 the JAX package (``pointcloudmatters_tpu``) was imported (the GPU machine
 has no JAX); the training entry point composes ``configs/`` and fits with
-JAX blocked. Every CUDA source under ``csrc/`` is one the build compiles,
+JAX blocked, and RLBench's ACT trains from ``configs/`` and is evaluated by
+``test_rlbench_act`` against a fake task with JAX blocked. Every CUDA source under ``csrc/`` is one the build compiles,
 and none includes a PyTorch or JAX header."""
 
 import os
@@ -88,6 +89,19 @@ SLICE_MODULES = (
     "pointcloudmatters_tpu_torch.models.components.diffusion_policy.vision.crop_randomizer",
     "pointcloudmatters_tpu_torch.port_reference_ckpt",
     "tools.reference_ckpt",
+    "pointcloudmatters_tpu_torch.utils.rotation_conversions",
+    "pointcloudmatters_tpu_torch.utils.misc",
+    "pointcloudmatters_tpu_torch.utils.rlbench_utils",
+    "pointcloudmatters_tpu_torch.utils.profiling",
+    "pointcloudmatters_tpu_torch.data.components.rlbench",
+    "pointcloudmatters_tpu_torch.data.components.rlbench.constants",
+    "pointcloudmatters_tpu_torch.data.components.rlbench.datasets",
+    "pointcloudmatters_tpu_torch.envs",
+    "pointcloudmatters_tpu_torch.envs.rollout",
+    "pointcloudmatters_tpu_torch.envs.rlbench_eval",
+    "pointcloudmatters_tpu_torch.envs.custom_maniskill2",
+    "pointcloudmatters_tpu_torch.test_rlbench_act",
+    "pointcloudmatters_tpu_torch.test_rlbench_dp",
 )
 BLOCKED = ("jax", "flax", "optax", "orbax")
 
@@ -351,6 +365,69 @@ def test_cli_trains_without_jax(tmp_path):
               "model.policy.transformer.nhead=4", "hydra.run.dir={tmp_path}/run",
               "paths.log_dir={tmp_path}/logs"])
         assert os.path.isfile("{tmp_path}/run/checkpoints/last/checkpoint.pt")
+        assert not [m for m in sys.modules if m.split(".")[0] in
+                    {BLOCKED + ("pointcloudmatters_tpu",)!r}
+                    and sys.modules[m] is not None]
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO_ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
+
+
+def test_rlbench_trains_and_evaluates_without_jax(tmp_path):
+    """With jax, flax, optax and orbax blocked: RLBench episodes written by
+    ``entry.write_rlbench_episodes``, ``train.main`` on the RLBench ACT
+    composition (tiny widths, the CPU, one epoch, profiled), then
+    ``test_rlbench_act.main`` on its checkpoint against a fake task with a
+    ``CachedTextEncoder`` goal; nothing of the JAX package imported."""
+    script = textwrap.dedent(f"""
+        import os, sys
+        for name in {BLOCKED!r}:
+            sys.modules[name] = None
+        import numpy as np
+        from pointcloudmatters_tpu_torch import test_rlbench_act
+        from pointcloudmatters_tpu_torch.entry import write_rlbench_episodes
+        from pointcloudmatters_tpu_torch.train import main
+        from pointcloudmatters_tpu_torch.utils import rlbench_utils as RU
+        root = write_rlbench_episodes({str(tmp_path / "data")!r}, n_episodes=2,
+                                      episode_len=5)
+        argv = ["exp_rlbench_act_policy=base",
+                "exp_rlbench_act_policy/rlbench_model@rlbench_model=scratch_pointnet_pcd",
+                "rlbench_task=close_jar", "data.train.root=" + root + "/train",
+                "data.val.root=" + root + "/val", "trainer.accelerator=cpu",
+                "trainer.max_epochs=1", "trainer.check_val_every_n_epoch=1",
+                "+trainer.profiler=simple", "logger=csv", "extras.print_config=false",
+                "data.train.chunk_size=4", "data.batch_size_train=2", "data.batch_size_val=2",
+                "data.pad_multiple=64", "data.num_workers=0", "model.policy.hidden_dim=32",
+                "model.policy.pcd_npoints=16", "model.policy.pcd_nsample=4",
+                "model.policy.transformer.num_encoder_layers=1",
+                "model.policy.transformer.num_decoder_layers=1",
+                "model.policy.transformer.nhead=4", "hydra.run.dir={tmp_path}/run",
+                "paths.log_dir={tmp_path}/logs"]
+        main(argv)
+        assert os.path.isfile("{tmp_path}/run/torch_trace/trace.json")
+        frame = np.load(root + "/train/close_jar/ep0.npy", allow_pickle=True).item()["demo"][0]
+
+        class Task:
+            def step(self, action):
+                assert action.shape == (9,)
+                return frame, 1.0, False
+
+            def shutdown(self):
+                pass
+
+        task = Task()
+        RU.build_env_and_task = lambda cfg: (task, task)
+        RU.reset_task = lambda t, cfg, ep: (t, None, ["close the jar"], frame)
+        cache = RU.CachedTextEncoder("{tmp_path}/clip.npz")
+        cache.put("close the jar", np.ones(512, np.float32))
+        cache.save()
+        out = test_rlbench_act.main(argv + [
+            "ckpt_path={tmp_path}/run/checkpoints/last", "episodes_num=1", "max_steps=2",
+            "result_path={tmp_path}/results", "clip_cache_path={tmp_path}/clip.npz"])
+        assert out == {{"success_rate": 1.0}}, out
         assert not [m for m in sys.modules if m.split(".")[0] in
                     {BLOCKED + ("pointcloudmatters_tpu",)!r}
                     and sys.modules[m] is not None]

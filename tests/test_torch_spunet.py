@@ -316,6 +316,8 @@ def _spunet_configs():
 
 
 CONFIGS = _spunet_configs()
+# the RLBench SpUNet configs' parameters (scratch and PonderV2 alike), JAX's
+RLBENCH_SPUNET_PARAMS = {"act": 67_693_292, "dp": 314_058_059}
 
 
 def test_eighteen_configs_name_spunet():
@@ -335,28 +337,31 @@ def _compose(family, bench, model, tmp_path):
 
 @pytest.mark.parametrize("family,bench,model", CONFIGS, ids=lambda v: str(v))
 def test_spunet_configs_build_in_the_port(family, bench, model, tmp_path, monkeypatch):
-    """Each ManiSkill2 config that names SpUNet composes and instantiates
-    its policy at the shipped widths (on the meta device: shapes, no
-    memory, no forward), its SpUNet the port's with the config's widths;
-    the RLBench ones raise ``NotImplementedError`` on their RLBench target
-    (ROADMAP item 12), not on SpUNet."""
+    """Each config that names SpUNet, ManiSkill2's and RLBench's, composes
+    and instantiates its policy at the shipped widths (on the meta device:
+    shapes, no memory, no forward), its SpUNet the port's with the config's
+    widths; the RLBench ones with JAX's parameter counts
+    (``RLBENCH_SPUNET_PARAMS``, which ``tests/test_torch_config.py`` holds
+    against JAX's traced ``init``)."""
     monkeypatch.setenv("PROJECT_ROOT", str(tmp_path))
     monkeypatch.setenv("HOME", str(tmp_path))
     cfg = _compose(family, bench, model, tmp_path)
-    if bench == "rlbench":
-        with pytest.raises(NotImplementedError, match="RLBench") as err, torch.device("meta"):
-            TC.instantiate(cfg.model)
-        assert "spunet" not in str(err.value).lower()
-        return
     with torch.device("meta"):
         module = TC.instantiate(cfg.model)
+    if bench == "rlbench":
+        kind = "act" if "act" in family else "dp"
+        assert sum(p.numel() for p in module.policy.parameters()) == RLBENCH_SPUNET_PARAMS[kind]
     nets = [m for m in module.policy.modules() if isinstance(m, tspunet.SpUNet)]
     assert len(nets) == 1
     net = nets[0]
     assert net.in_channels == (3 if model.endswith(("wo_rgb", "wo_xyz")) else 6)
     assert net.channels == (32, 64, 128, 256, 256, 128, 96, 96)
     assert net.num_classes == (512 if "presample" in model and "act" in family else 0)
-    if "ponderv2" in model:
+    if "ponderv2" in model and (bench, "diffusion" in family) == ("rlbench", True):
+        # the RLBench DP config names the reference's relative path
+        assert net.pretrained_path == ("checkpoints/ponderv2-ppt-pretrain-scannet-s3dis-"
+                                       "structured3d.pth")
+    elif "ponderv2" in model:
         assert net.pretrained_path == f"{tmp_path}/.ponderv2/ponderv2.pth"
     else:
         assert net.pretrained_path is None

@@ -331,6 +331,33 @@ Phases, each of which raises on failure (exit code non-zero, no result):
    1 and 4 (the same ``val/mean_success``); (f) a ``profiler="simple"``
    fit, its trace read back. ``python3 tools/rlbench_phase.py [part ...]``
    runs it alone.
+18. The last modules, in under 90 s: (a) ``train.main`` on the
+   flagship's composition with ``callbacks=stochastic_weight_averaging``
+   at the shipped widths (B=8 x 2, 4 epochs of 2 optimizer steps,
+   ``swa_lrs`` 5e-4, ``swa_epoch_start`` 0.5, ``annealing_epochs`` 1): two
+   epochs averaged, the rate at the last step ``swa_lrs``, the swapped
+   weights bit-equal to the mean of the epoch-end snapshots the phase
+   keeps, the refreshed statistics within 1e-5 of max|stat| of the
+   per-batch mean the phase recomputes over the same batches (JAX's probe
+   from zeros and ones), the exact launches (#1, #2, bf16 #3/#4, f32 #3 in
+   the refresh); (b) the state-only ACT at ``maniskill2_act_model.yaml``'s
+   widths (``env_state_dim`` 42): ``predict`` at B=1 and 32 and a bf16 step
+   at B=32, card vs CPU, no kernel launched (rows of 2-3 keys take the
+   dense attention, JAX's gate), and kernels 3/4 at L = 2 and 3, f32 and
+   bf16, rates 0 and 0.1, against their plain versions (1e-4 / BF16_TOL of
+   max|plain|, no floor); (c) ``ACTPCD(use_mask=True)`` at the flagship's
+   widths, ``bg_ratio`` 0 and 0.25, on clouds whose point 0 is background,
+   one with 100 foreground points and one with none: FPS index-exact,
+   ``predict`` and a bf16 step with their launches; (d) the library point
+   ops at phase 3's shapes and a packed batch of ragged clouds under each
+   ``PCM_KNN_IMPL`` (#1, #2, #12, #13) index-exact and within 1e-6 of
+   their plain versions, the ball queries deterministic, two
+   ``attention_fusion_step`` launches bit-identical; (e) the flagship's bf16
+   steps with ``param_dicts`` under ``CosineLRScheduler``, then on
+   ``build_optimizer_v2`` with layer decay, each step's rates equal to the
+   CPU's, and ``TransformerForDiffusion`` at its default width, forward
+   and gradients card vs CPU within 1e-4 and a step.
+   ``python3 tools/phase18.py [part ...]`` runs it alone.
 
 Prints a JSON line of the kernels (route, source, the TPU kernel each
 replaces, launches on each path (phase 11's: ``train_cli``,
@@ -352,7 +379,11 @@ attention forward; phase 17's: ``rlbench_predict``, ``rlbench_train``,
 ``rlbench_dp_predict``, ``rlbench_dp_train``, ``train_cli_rlbench`` (+
 ``_scratch_spunet_pcd``, ``_scratch_resnet50_rgb``, the last all zero),
 ``rlbench_eval``, ``rlbench_dp_eval``, ``rollouts_1_envs``,
-``rollouts_4_envs``, ``rlbench_profiled_fit``), error,
+``rollouts_4_envs``, ``rlbench_profiled_fit``; phase 18's:
+``swa_train_cli``, ``state_predict``, ``state_train`` (both zero),
+``masked_predict_bg0`` / ``_bg25``, ``masked_train_bg0`` / ``_bg25``,
+``pointops_v3``, ``pointops_chunkskip``, ``pointops_baseline``,
+``groups_train``, ``optimizer_v2_train``, ``tfd`` (zero)), error,
 kernel, plain and library times,
 and the bound: the larger of the bytes over 3.35 TB/s and the flops over
 the peak of the inputs' type, 67 TFLOP/s f32 or 989 TFLOP/s bf16 (FPS and
@@ -6271,6 +6302,656 @@ def train_rlbench(dev) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 18: SWA, the state-only and masked ACT, the library surface
+# ---------------------------------------------------------------------------
+
+SWA_EPOCHS, SWA_TRAIN_BATCHES = 4, 4  # micro-batches an epoch: 2 optimizer steps at k = 2
+SWA_LRS = 5e-4  # tests/test_training.py's SWA run
+SWA_STAT_TOL = 1e-5  # of max|stat|: the probe's division by 1 - momentum
+STATE_ENV_DIM = 42  # the phase's env_state width: no shipped config sets one
+STATE_PARAMS = 23_799_336
+STATE_STEPS = 3
+STATE_CPU_TOL = 1e-4  # card vs CPU, f32: of max(1, max |CPU|)
+MASK_BATCH = 4
+MASK_FEW = 100  # foreground points of the cloud with fewer than n_fg
+LIB_BATCH, LIB_QUERIES, LIB_K = 4, 2048, 16  # phase 3's shapes
+LIB_OFFSETS = (10240, 16000, 22113, 30720)  # a packed batch of ragged clouds
+LIB_TOL = 1e-6  # distances and values: of max(1, max |plain|)
+GROUPS = [{"keyword": "backbone", "lr": 1e-5}]
+GROUP_STEPS = 3
+TFD_BATCH = 8
+TFD_CPU_TOL = 1e-4  # card vs CPU, f32: of max(1, max |CPU|)
+PHASE18_SELECTOR_PATHS = ("pointops_chunkskip", "pointops_baseline")
+
+
+class SWASnapshots:
+    """A probe callback of phase 18 (a): each epoch's end parameters (on the
+    card) and numpy's global state after the last epoch, which the SWA
+    refresh's loader then draws from."""
+
+    runs: list = []
+
+    def __init__(self):
+        self.params, self.np_state = {}, None
+        SWASnapshots.runs.append(self)
+
+    def setup(self, trainer, module):
+        pass
+
+    def on_fit_start(self, trainer, module):
+        pass
+
+    def on_validation_end(self, trainer, module, metrics, epoch):
+        pass
+
+    def on_train_epoch_end(self, trainer, module, metrics, epoch):
+        import numpy as np
+
+        self.params[epoch] = {n: p.detach().clone() for n, p in module.policy.named_parameters()}
+        self.np_state = np.random.get_state()
+
+    def on_fit_end(self, trainer, module):
+        pass
+
+
+def swa_argv(root: str) -> list[str]:
+    return [
+        "exp_maniskill2_act_policy=base",
+        "exp_maniskill2_act_policy/maniskill2_model@maniskill2_model=scratch_pointnet_pcd",
+        "exp_maniskill2_act_policy/maniskill2_pcd_task@maniskill2_pcd_task=PickCube-v0",
+        "data.train._target_=chip_smoke.cli_train_set",
+        "data.val._target_=chip_smoke.cli_held_out_set", "data.num_workers=0",
+        "callbacks=stochastic_weight_averaging",
+        f"callbacks.stochastic_weight_averaging.swa_lrs={SWA_LRS}",
+        "callbacks.stochastic_weight_averaging.swa_epoch_start=0.5",
+        "callbacks.stochastic_weight_averaging.annealing_epochs=1",
+        "+callbacks.end_state._target_=chip_smoke.EndState",
+        "+callbacks.snapshots._target_=chip_smoke.SWASnapshots",
+        f"trainer.max_epochs={SWA_EPOCHS}", f"trainer.limit_train_batches={SWA_TRAIN_BATCHES}",
+        "trainer.check_val_every_n_epoch=0", "trainer.num_sanity_val_steps=0",
+        f"paths.log_dir={root}/logs", f"hydra.run.dir={root}/swa", "extras.print_config=false",
+    ]
+
+
+def probed_batch_stats(module, loader, n: int) -> dict:
+    """The uniform mean of the per-batch statistics over ``n`` batches of
+    ``loader``, recovered as the JAX callback recovers them (a forward from
+    zeroed statistics and one from ones give the momentum, then each
+    batch's statistics from zeros), in f32 train mode; the module's
+    buffers are left as they were."""
+    import torch
+
+    policy = module.policy
+    names = {k for k, _ in policy.named_parameters()}
+    stats = {k: b for k, b in policy.state_dict().items() if k not in names}
+    saved = {k: b.clone() for k, b in stats.items()}
+    acc, momentum = None, None
+
+    def run(fill, batch, i):
+        for b in stats.values():
+            b.fill_(fill)
+        module.forward_train(batch, module.make_rngs(i))
+        return {k: b.clone() for k, b in stats.items()}
+
+    with torch.no_grad():
+        for i, batch in enumerate(loader):
+            if i >= n:
+                break
+            a = run(0.0, batch, i)
+            if momentum is None:
+                b = run(1.0, batch, i)
+                momentum = {k: b[k] - a[k] for k in a}
+            x = {k: a[k] / torch.clamp_min(1.0 - momentum[k], 1e-6) for k in a}
+            acc = x if acc is None else {k: acc[k] + (x[k] - acc[k]) / (i + 1.0) for k in acc}
+        for k, b in stats.items():
+            b.copy_(saved[k])
+    return acc
+
+
+def swa_fit(dev) -> dict:
+    """Phase 18 (a): ``train.main`` on the flagship's composition with
+    ``callbacks=stochastic_weight_averaging`` at the shipped widths, B=8 x
+    2, 4 epochs of 2 optimizer steps (``swa_lrs`` 5e-4, ``swa_epoch_start``
+    0.5, ``annealing_epochs`` 1): two epochs averaged; the rate at the last
+    step is ``swa_lrs``; the swapped weights bit-equal to the mean of the
+    epoch-end snapshots the phase keeps; the refreshed statistics within
+    SWA_STAT_TOL of max|stat| of the per-batch mean the phase recomputes
+    over the same batches (JAX's probe); the exact launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pointcloudmatters_tpu_torch import callbacks as tcb
+    from pointcloudmatters_tpu_torch import ops
+    from pointcloudmatters_tpu_torch import train as train_entry
+
+    sys.modules.setdefault("chip_smoke", sys.modules[__name__])  # the targets' module
+    t_part = time.perf_counter()
+    root = tempfile.TemporaryDirectory()
+    demos = synthetic_demos(FIT_EPISODES, FIT_EPISODE_LEN, FIT_CAM_SIDE)
+    n_train = FIT_EPISODES - FIT_HELD_OUT
+    CLI_DATA.update(train=demos[:n_train], held_out=demos[n_train:],
+                    cache=os.path.join(root.name, "cache"))
+    EndState.runs.clear()
+    SWASnapshots.runs.clear()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    train_entry.main(swa_argv(root.name))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    probe, snaps = EndState.runs[-1], SWASnapshots.runs[-1]
+    trainer, module = probe.trainer, probe.module
+    swa = next(cb for cb in trainer.callbacks if isinstance(cb, tcb.StochasticWeightAveraging))
+    micro = SWA_EPOCHS * SWA_TRAIN_BATCHES
+    total = micro // FIT_ACCUMULATE
+    n_refresh = len(trainer.datamodule.train_dataloader())
+    _only(launches, {"fps": micro + n_refresh, "knn": micro + n_refresh,
+                     "attention_fwd_bf16": micro * ENC_LAYERS,
+                     "attention_bwd_bf16": micro * ENC_LAYERS,
+                     "attention_fwd": n_refresh * ENC_LAYERS}, "swa_train_cli")
+    rates = [trainer._schedule.lr_at(s) for s in range(total + 1)]
+    lr = [g["lr"] for g in module.optimizer.param_groups]
+    if (swa.n_averaged, swa._swa_start_epoch, trainer.global_step,
+            module.scheduler.last_epoch) != (2, 2, micro, total):
+        raise AssertionError(f"swa: n_averaged {swa.n_averaged}, start epoch "
+                             f"{swa._swa_start_epoch}, {trainer.global_step} micro-steps, "
+                             f"{module.scheduler.last_epoch} optimizer steps")
+    if rates[-1] != float(np.float32(SWA_LRS)) or lr != [rates[-1]]:
+        raise AssertionError(f"swa: the rate at step {total} is {rates[-1]} (groups {lr}), "
+                             f"not swa_lrs {SWA_LRS}")
+    # the mean of the snapshots, as the average is taken: a + (p - a) / (n + 1)
+    mean = {k: v.clone() for k, v in snaps.params[2].items()}
+    n1 = torch.full((), 2.0, device=dev)
+    for k, a in mean.items():
+        a.add_((snaps.params[3][k] - a) / n1)
+    differ = [k for k, p in module.policy.named_parameters() if not torch.equal(p, mean[k])]
+    if differ:
+        raise AssertionError(f"swa: the swapped weights differ from the snapshots' mean at "
+                             f"{differ[:5]}")
+    np.random.set_state(snaps.np_state)
+    t_probe = time.perf_counter()
+    want = probed_batch_stats(module, trainer.datamodule.train_dataloader(), n_refresh)
+    probe_s = time.perf_counter() - t_probe
+    state = module.policy.state_dict()
+    worst = 0.0
+    for k, w in want.items():
+        err = _max_err(state[k], w)
+        scale = w.abs().max().item()
+        if not err <= SWA_STAT_TOL * scale:
+            raise AssertionError(f"swa: refreshed {k} off by {err:.3e} (max |stat| {scale:.3e})")
+        worst = max(worst, err / max(scale, 1e-30))
+    losses = [m["train/loss"] for _, _, m in probe.epochs]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"swa: non-finite losses {losses}")
+    log(f"phase18 (a) {card_line()}: SWA train.main {micro} micro-steps of B={FIT_BATCH} x "
+        f"{FIT_ACCUMULATE} over {SWA_EPOCHS} epochs in {seconds:.2f} s ({probe.t_start - t0:.2f}"
+        f" s to the first step); n_averaged {swa.n_averaged}; rates by optimizer step "
+        + ", ".join(f"{r:.6g}" for r in rates) + f"; weights bit-equal to the mean of epochs "
+        f"2-3; {len(want)} statistics over {n_refresh} refresh batches within "
+        f"{worst:.3e} of max|stat| of the probe's mean (its recompute {probe_s:.2f} s); "
+        f"train/loss {losses}; launches { {k: n for k, n in launches.items() if n} }; part "
+        f"{time.perf_counter() - t_part:.1f} s")
+    CLI_DATA.clear()
+    root.cleanup()
+    del trainer, module, swa, snaps, probe
+    EndState.runs.clear()
+    SWASnapshots.runs.clear()
+    torch.cuda.empty_cache()
+    return {"swa_train_cli": launches}
+
+
+def hold_oneshot_short_rows(dev) -> dict:
+    """Kernels 3 and 4 at L = 2 and 3 (the state-only ACT's encoder rows;
+    B=32, 8 heads, dh 64), f32 and bf16, rates 0 and 0.1, against their
+    plain versions: within 1e-4 (f32) and BF16_TOL (bf16) of max |plain|
+    with no floor, a limit a zeroed output would exceed; the backward on a
+    unit upstream gradient. Returns the worst error of each."""
+    import torch
+
+    from pointcloudmatters_tpu_torch.ops import oneshot_attention as one
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    worst = {}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, BF16_TOL)):
+        for L in (2, 3):
+            for rate in (0.0, ATTN_DROPOUT):
+                q, k, v, dout = (torch.randn((BIG_BATCH, 8, L, 64), generator=gen,
+                                             device=dev).to(dtype) for _ in range(4))
+                args = (q, k, v, 64 ** -0.5, None, rate, 7)
+                out, m, r = one.oneshot_attention_cuda(*args, with_stats=True)
+                ref, m_p, r_p = one.oneshot_attention_plain(*args, with_stats=True)
+                what = f"{str(dtype)[6:]} L={L} rate={rate}"
+                errs = [hold(f"oneshot fwd {what}", out, ref, tol, floor=False)[0] / max(
+                    ref.float().abs().max().item(), 1e-30)]
+                bargs = (q, k, v, out, dout, m, r, 64 ** -0.5, None, rate, 7)
+                for n, g, p in zip(("dq", "dk", "dv"), one.oneshot_attention_bwd_cuda(*bargs),
+                                   one.oneshot_attention_plain_bwd(*bargs)):
+                    errs.append(hold(f"oneshot bwd {n} {what}", g, p, tol, floor=False)[0]
+                                / max(p.float().abs().max().item(), 1e-30))
+                worst[what] = max(errs)
+    return worst
+
+
+def state_only_act(dev) -> dict:
+    """Phase 18 (b): the state-only ACT at ``maniskill2_act_model.yaml``'s
+    widths (hidden 512, 4 + 7 layers, 8 heads; ``backbone: null``,
+    ``env_state_dim`` STATE_ENV_DIM): ``predict`` f32 at B=1 and B=32, a
+    ``"bf16-mixed"`` step at B=32, card against the CPU. Its encoder rows
+    hold 2-3 tokens, under the oneshot gate's 512 keys (JAX
+    ``attention.py:112``), so the path takes the dense attention and
+    launches none of kernels 1-13; kernels 3 and 4 are held at L = 2 and 3
+    directly (:func:`hold_oneshot_short_rows`)."""
+    import numpy as np
+    import torch
+
+    from pointcloudmatters_tpu_torch import entry, ops
+    from pointcloudmatters_tpu_torch.models.bc_module import BCModule, to_device
+    from pointcloudmatters_tpu_torch.trainer import Trainer
+
+    t_part = time.perf_counter()
+    worst = hold_oneshot_short_rows(dev)
+    policy = entry.build_state_policy(env_state_dim=STATE_ENV_DIM, device="cpu")
+    n_params = sum(p.numel() for p in policy.parameters())
+    if n_params != STATE_PARAMS:
+        raise AssertionError(f"state-only ACT: {n_params} parameters, not {STATE_PARAMS}")
+    cpu_state = {k: v.clone() for k, v in policy.state_dict().items()}
+    module = BCModule(policy.to(dev), optimizer=FLAGSHIP_OPT, lr_scheduler=FLAGSHIP_SCHED)
+    requests = {B: [entry.build_state_batch(B, STATE_ENV_DIM, seed=s, with_actions=False)
+                    for s in (1, 2, 3)] for B in (1, BIG_BATCH)}
+    for reqs in requests.values():
+        module.predict(reqs[0])
+    torch.cuda.synchronize()
+    paths, times = {}, {}
+    ops.reset_launch_counts()
+    for B, reqs in requests.items():
+        for obs in reqs:
+            t0 = time.perf_counter()
+            a_hat = module.predict(obs)
+            torch.cuda.synchronize()
+            times.setdefault(B, []).append((time.perf_counter() - t0) * 1e3)
+            if tuple(a_hat.shape) != (B, 100, 7) or not torch.isfinite(a_hat).all():
+                raise AssertionError(f"state-only predict B={B}: {tuple(a_hat.shape)}")
+    paths["state_predict"] = launches = ops.launch_counts()
+    _only(launches, {}, "state_predict")
+    trainer = Trainer(precision="bf16-mixed", seed=0)
+    trainer.setup(module, TOTAL_STEPS)
+    batch = to_device(entry.build_state_batch(BIG_BATCH, STATE_ENV_DIM, seed=4), dev)
+    trainer.train_step(module, batch)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [float(trainer.train_step(module, batch)["loss"]) for _ in range(STATE_STEPS)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / STATE_STEPS
+    paths["state_train"] = launches = ops.launch_counts()
+    _only(launches, {}, "state_train")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"state-only step: non-finite losses {losses}")
+    module.policy.load_state_dict(cpu_state)
+    cpu = BCModule(entry.build_state_policy(env_state_dim=STATE_ENV_DIM, device="cpu"))
+    cpu.policy.load_state_dict(cpu_state)
+    ref, got = cpu.predict(requests[BIG_BATCH][1]), module.predict(requests[BIG_BATCH][1]).cpu()
+    err = _max_err(got, ref)
+    if not err <= STATE_CPU_TOL * max(1.0, ref.abs().max().item()):
+        raise AssertionError(f"state-only predict card vs CPU: {err:.3e}")
+    log(f"phase18 (b) {card_line()}: state-only ACT {n_params} parameters, env_state "
+        f"{STATE_ENV_DIM}: predict f32 " + "; ".join(
+            f"B={B} " + ", ".join(f"{t:.2f}" for t in ms) + " ms" for B, ms in times.items())
+        + f"; bf16 step B={BIG_BATCH} {step_ms:.2f} ms ({BIG_BATCH * 1e3 / step_ms:.2f} "
+        f"samples/s), loss {losses}; predict card vs CPU {err:.3e}; no kernel launched "
+        f"(rows of 2-3 keys take the dense attention); kernels 3/4 at L = 2, 3 against "
+        f"their plain versions, worst of max|plain|: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f"; part {time.perf_counter() - t_part:.1f} s")
+    del module, cpu, trainer, batch
+    torch.cuda.empty_cache()
+    return paths
+
+
+def masked_clouds(dev):
+    """The flagship's padded batch of MASK_BATCH clouds with a foreground
+    ``mask``: point 0 background in every cloud; cloud 1 with MASK_FEW
+    foreground points (fewer than any n_fg), cloud 2 with none."""
+    import numpy as np
+
+    from pointcloudmatters_tpu_torch import entry
+
+    batch = entry.build_batch(MASK_BATCH, n_points=N_POINTS, chunk=100, seed=18)
+    rng = np.random.RandomState(18)
+    mask = rng.rand(MASK_BATCH, N_POINTS) < 0.5
+    mask[:, 0] = False
+    mask[1] = False
+    mask[1, 1 + rng.choice(N_POINTS // 2 - 1, MASK_FEW, replace=False)] = True
+    mask[2] = False
+    batch["pcds"]["mask"] = mask
+    return batch
+
+
+def masked_act(dev) -> dict:
+    """Phase 18 (c): ``ACTPCD(use_mask=True)`` at the flagship's widths,
+    ``bg_ratio`` 0 and 0.25, on :func:`masked_clouds`: kernel 1 index-exact
+    against its plain version on the foreground and background masks (the
+    seed at index 0 outside the mask, the few-point cloud repeating, the
+    empty one all 0); ``predict`` f32 at B=4 and a ``"bf16-mixed"`` step;
+    their launches."""
+    import numpy as np
+    import torch
+
+    from pointcloudmatters_tpu_torch import entry, ops
+    from pointcloudmatters_tpu_torch.models.bc_module import BCModule, to_device
+    from pointcloudmatters_tpu_torch.trainer import Trainer
+
+    t_part = time.perf_counter()
+    batch = masked_clouds(dev)
+    obs = {k: v for k, v in batch.items() if k not in ("actions", "is_pad")}
+    coord = torch.from_numpy(batch["pcds"]["coord"]).to(dev)
+    valid = torch.from_numpy(batch["pcds"]["valid"]).to(dev)
+    fg = torch.from_numpy(batch["pcds"]["mask"]).to(dev)
+    npoints = 2048
+    paths, lines = {}, []
+    for bg_ratio in (0.0, 0.25):
+        tag = f"bg{int(bg_ratio * 100)}"
+        n_bg = int(npoints * bg_ratio)
+        idx = hold_fps(f"masked FPS fg {tag}", coord, (valid & fg).contiguous(), npoints - n_bg)
+        if not ((idx[2] == 0).all() and len(set(idx[1].tolist())) <= MASK_FEW + 1):
+            raise AssertionError(f"masked FPS {tag}: the empty cloud gave {idx[2][:8]}, the "
+                                 f"few-point one {len(set(idx[1].tolist()))} distinct indices")
+        if n_bg:
+            hold_fps(f"masked FPS bg {tag}", coord, (valid & ~fg).contiguous(), n_bg)
+        module = BCModule(entry.build_flagship(use_mask=True, bg_ratio=bg_ratio, device=dev),
+                          optimizer=FLAGSHIP_OPT, lr_scheduler=FLAGSHIP_SCHED)
+        module.predict(obs)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        a_hat = module.predict(obs)
+        torch.cuda.synchronize()
+        predict_ms = (time.perf_counter() - t0) * 1e3
+        fps_calls = 2 if n_bg else 1
+        paths[f"masked_predict_{tag}"] = launches = ops.launch_counts()
+        _only(launches, {"fps": fps_calls, "knn": 1, "attention_fwd": ENC_LAYERS},
+              f"masked_predict_{tag}")
+        if tuple(a_hat.shape) != (MASK_BATCH, 100, 7) or not torch.isfinite(a_hat).all():
+            raise AssertionError(f"masked predict {tag}: {tuple(a_hat.shape)}")
+        trainer = Trainer(precision="bf16-mixed", seed=0)
+        trainer.setup(module, TOTAL_STEPS)
+        dev_batch = to_device(batch, dev)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = float(trainer.train_step(module, dev_batch)["loss"])
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        paths[f"masked_train_{tag}"] = launches = ops.launch_counts()
+        _only(launches, {"fps": fps_calls, "knn": 1, "attention_fwd_bf16": ENC_LAYERS,
+                         "attention_bwd_bf16": ENC_LAYERS}, f"masked_train_{tag}")
+        if not np.isfinite(loss):
+            raise AssertionError(f"masked step {tag}: loss {loss}")
+        lines.append(f"bg_ratio {bg_ratio}: FPS index-exact ({npoints - n_bg} foreground"
+                     f"{f', {n_bg} background' if n_bg else ''}), predict B={MASK_BATCH} "
+                     f"{predict_ms:.2f} ms, bf16 step (first) {step_ms:.2f} ms, loss {loss:.4g}")
+        del module, trainer, dev_batch
+        torch.cuda.empty_cache()
+    log(f"phase18 (c) {card_line()}: use_mask ACTPCD over {N_POINTS} points, point 0 "
+        f"background, a cloud of {MASK_FEW} foreground points, one of none: "
+        + "; ".join(lines) + f"; part {time.perf_counter() - t_part:.1f} s")
+    return paths
+
+
+def _hold_values(what: str, got, ref) -> float:
+    err = _max_err(got, ref)
+    limit = LIB_TOL * max(1.0, ref.float().abs().max().item())
+    if not err <= limit:
+        raise AssertionError(f"{what} off by {err:.3e} > {limit:.3e}")
+    return err
+
+
+def _hold_index(what: str, got, ref) -> None:
+    import torch
+
+    if not torch.equal(got, ref):
+        raise AssertionError(f"{what}: indices differ at {(got != ref).sum().item()} places")
+
+
+def library_pointops(dev) -> dict:
+    """Phase 18 (d): the library point ops at phase 3's shapes (B=4,
+    N=10240, M=2048 FPS centres, k=16) and one packed batch of ragged
+    clouds: the ops that reach kernels 1, 2, 12 and 13 (``interpolation``,
+    ``knn_query_and_group``, the packed ``knn_query``, ``query_and_group``
+    and FPS), under each ``PCM_KNN_IMPL``, index-exact and within LIB_TOL
+    of their plain versions on the card; the ball queries (plain torch)
+    run twice alike, their candidates within the radius and in order; two
+    launches of ``attention_fusion_step`` bit-identical."""
+    import torch
+
+    from pointcloudmatters_tpu_torch import entry, ops
+    from pointcloudmatters_tpu_torch.ops import pointops as P
+
+    t_part = time.perf_counter()
+    b = entry.build_batch(LIB_BATCH, n_points=N_POINTS, chunk=5, seed=18)
+    xyz = torch.from_numpy(b["pcds"]["coord"]).to(dev)
+    mask = torch.from_numpy(b["pcds"]["valid"]).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    feat = torch.randn((LIB_BATCH, N_POINTS, 32), generator=gen, device=dev)
+    centres = P.farthest_point_sampling_padded(xyz, mask, LIB_QUERIES)
+    new_xyz = torch.gather(xyz, 1, centres.long()[..., None].expand(-1, -1, 3))
+    ends = torch.tensor(LIB_OFFSETS, device=dev)
+    counts = torch.diff(ends, prepend=ends.new_zeros(1))
+    pxyz = torch.rand((LIB_OFFSETS[-1], 3), generator=gen, device=dev) * 0.4
+    pfeat = torch.randn((LIB_OFFSETS[-1], 16), generator=gen, device=dev)
+    new_ends = torch.cumsum(counts // 5, 0)
+
+    def packed_and_padded():
+        fps_idx = P.farthest_point_sampling(pxyz, ends, new_ends)
+        pnew = pxyz[fps_idx.long()]
+        return dict(
+            interp=P.interpolation_padded(xyz, new_xyz, feat, mask, k=3),
+            group=P.knn_query_and_group_padded(feat, xyz, mask, new_xyz, LIB_K, with_xyz=True),
+            fps=fps_idx, knn=P.knn_query(LIB_K, pxyz, ends, pnew, new_ends),
+            qg=P.query_and_group(LIB_K, pxyz, pnew, pfeat, None, ends, new_ends, dilation=1),
+            pinterp=P.interpolation(pxyz, pnew, pfeat, ends, new_ends))
+
+    paths, lines = {}, []
+    for impl, name in ((None, "pointops_v3"), ("chunkskip", "pointops_chunkskip"),
+                       ("baseline", "pointops_baseline")):
+        with knn_impl(impl):
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            got = packed_and_padded()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            paths[name] = launches = ops.launch_counts()
+            with plain_kernels():
+                ref = packed_and_padded()
+        kernel = {"pointops_v3": "knn"}.get(name, SELECTOR_KERNEL.get(impl))
+        # v3 at N = 10240 takes kernel 2 on the padded clouds, and on the
+        # packed ones (<= 8,607 points a cloud) too
+        _only(launches, {"fps": 1, kernel: 5}, name)
+        _hold_index(f"{name} packed FPS", got["fps"], ref["fps"])
+        _hold_index(f"{name} knn_query_and_group idx", got["group"][1], ref["group"][1])
+        _hold_index(f"{name} knn_query idx", got["knn"][0], ref["knn"][0])
+        _hold_index(f"{name} query_and_group idx", got["qg"][1], ref["qg"][1])
+        errs = [_hold_values(f"{name} interpolation", got["interp"], ref["interp"]),
+                _hold_values(f"{name} knn_query_and_group", got["group"][0], ref["group"][0]),
+                _hold_values(f"{name} knn_query dist", got["knn"][1], ref["knn"][1]),
+                _hold_values(f"{name} query_and_group", got["qg"][0], ref["qg"][0]),
+                _hold_values(f"{name} packed interpolation", got["pinterp"], ref["pinterp"])]
+        lines.append(f"{name}: {ms:.2f} ms, worst {max(errs):.3e}, launches "
+                     f"{ {k: n for k, n in launches.items() if n} }")
+
+    ops.reset_launch_counts()
+    radius = 0.02
+    t0 = time.perf_counter()
+    bi, bd = P.ball_query_padded(new_xyz, xyz, mask, LIB_K, radius)
+    torch.cuda.synchronize()
+    ball_ms = (time.perf_counter() - t0) * 1e3
+    bi2, bd2 = P.ball_query_padded(new_xyz, xyz, mask, LIB_K, radius)
+    rgen = lambda: torch.Generator(device=dev).manual_seed(3)  # noqa: E731
+    ri, rd = P.random_ball_query_padded(rgen(), new_xyz, xyz, mask, LIB_K, radius)
+    ri2, rd2 = P.random_ball_query_padded(rgen(), new_xyz, xyz, mask, LIB_K, radius)
+    if not all(torch.equal(a, c) for a, c in ((bi, bi2), (bd, bd2), (ri, ri2), (rd, rd2))):
+        raise AssertionError("ball queries differ between two runs")
+    found = bi >= 0
+    if not (bd[found] < radius ** 2).all() or not (bd.diff(dim=-1)[found[..., 1:]] >= 0).all():
+        raise AssertionError("ball query: a candidate outside the radius or out of order")
+    if any(ops.launch_counts().values()):
+        raise AssertionError("the ball queries launched a kernel")
+    idx = P.knn_query_padded(new_xyz, xyz, mask, LIB_K)[0].long()
+    offs = (torch.arange(LIB_BATCH, device=dev) * N_POINTS)[:, None, None]
+    tgt = (torch.arange(LIB_BATCH * LIB_QUERIES, device=dev)[:, None]
+           .expand(-1, LIB_K).reshape(-1))
+    ref_ = (idx + offs).reshape(-1) % (LIB_BATCH * LIB_QUERIES)
+    value = torch.randn((LIB_BATCH * LIB_QUERIES, 8, 32), generator=gen, device=dev)
+    weight = torch.randn((tgt.numel(), 8), generator=gen, device=dev)
+    fused = [P.attention_fusion_step(weight, value, tgt, ref_) for _ in range(2)]
+    if not torch.equal(fused[0], fused[1]):
+        raise AssertionError("attention_fusion_step: two launches differ")
+    fusion_ms = cuda_ms(lambda: P.attention_fusion_step(weight, value, tgt, ref_), 3)
+    log(f"phase18 (d) {card_line()}: library point ops at B={LIB_BATCH}, N={N_POINTS}, "
+        f"M={LIB_QUERIES}, k={LIB_K} and packed clouds {list(LIB_OFFSETS)}: "
+        + "; ".join(lines) + f"; ball queries r={radius} {ball_ms:.2f} ms, "
+        f"{found.float().mean().item():.3f} of slots filled, deterministic; "
+        f"attention_fusion_step over {tgt.numel()} edges {fusion_ms:.3f} ms, two launches "
+        f"bit-identical; part {time.perf_counter() - t_part:.1f} s")
+    return paths
+
+
+def _rates(optimizer) -> list:
+    return [g["lr"] for g in optimizer.param_groups]
+
+
+def groups_and_tfd(dev) -> dict:
+    """Phase 18 (e): the flagship's bf16 steps with ``param_dicts`` (the
+    backbone at 1e-5) under timm's ``CosineLRScheduler``, then on
+    ``build_optimizer_v2`` with layer decay: each step's rate of each group
+    equal to the CPU's, the groups' sizes alike, the launches;
+    ``TransformerForDiffusion`` at its default width (12 layers of 768, 12
+    heads), f32 forward and the loss's gradients card against CPU within
+    TFD_CPU_TOL, and an AdamW step."""
+    import numpy as np
+    import torch
+
+    from pointcloudmatters_tpu_torch import entry, ops
+    from pointcloudmatters_tpu_torch.models.bc_module import BCModule, to_device
+    from pointcloudmatters_tpu_torch.models.components.diffusion_policy.diffusion import (
+        transformer_for_diffusion as tfd,
+    )
+    from pointcloudmatters_tpu_torch.trainer import Trainer
+    from pointcloudmatters_tpu_torch.utils import optimizer as topt
+    from pointcloudmatters_tpu_torch.utils import scheduler as tsched
+
+    t_part = time.perf_counter()
+    sched = {"scheduler": {"type": "CosineLRScheduler", "warmup_t": 1,
+                           "warmup_lr_init": 1e-6, "lr_min": 1e-6}}
+
+    def grouped(device):
+        return BCModule(entry.build_flagship(device=device), optimizer=FLAGSHIP_OPT,
+                        lr_scheduler=sched, param_dicts=GROUPS)
+
+    module, cpu = grouped(dev), grouped("cpu")
+    trainer = Trainer(precision="bf16-mixed", seed=0)
+    trainer.setup(module, GROUP_STEPS * 2)
+    cpu.configure_optimizers(GROUP_STEPS * 2)
+    sizes = [len(g["params"]) for g in module.optimizer.param_groups]
+    if sizes != [len(g["params"]) for g in cpu.optimizer.param_groups]:
+        raise AssertionError(f"param_dicts: group sizes {sizes} differ from the CPU's")
+    batch = to_device(entry.build_batch(FIT_BATCH, n_points=N_POINTS, seed=18), dev)
+    ops.reset_launch_counts()
+    rates, losses = [], []
+    for _ in range(GROUP_STEPS):
+        losses.append(float(trainer.train_step(module, batch)["loss"]))
+        cpu.optimizer.step()
+        cpu.scheduler.step()
+        rates.append(_rates(module.optimizer))
+        if rates[-1] != _rates(cpu.optimizer):
+            raise AssertionError(f"param_dicts: rates {rates[-1]} on the card, "
+                                 f"{_rates(cpu.optimizer)} on the CPU")
+    paths = {"groups_train": ops.launch_counts()}
+    per_step = {"fps": GROUP_STEPS, "knn": GROUP_STEPS,
+                "attention_fwd_bf16": GROUP_STEPS * ENC_LAYERS,
+                "attention_bwd_bf16": GROUP_STEPS * ENC_LAYERS}
+    _only(paths["groups_train"], per_step, "groups_train")
+    v2 = {"type": "AdamW", "lr": 5e-5, "weight_decay": 0.05, "layer_decay": 0.75}
+    module.optimizer, module.scheduler = topt.build_optimizer_v2(
+        v2, module.policy, lr_schedule=tsched.cosine_lr_scheduler(5e-5, GROUP_STEPS * 2,
+                                                                  warmup_t=1))
+    cpu_opt, cpu_sched = topt.build_optimizer_v2(
+        v2, cpu.policy, lr_schedule=tsched.cosine_lr_scheduler(5e-5, GROUP_STEPS * 2,
+                                                               warmup_t=1))
+    ops.reset_launch_counts()
+    v2_rates = []
+    for _ in range(GROUP_STEPS):
+        losses.append(float(trainer.train_step(module, batch)["loss"]))
+        cpu_opt.step()
+        cpu_sched.step()
+        v2_rates.append(_rates(module.optimizer))
+        if v2_rates[-1] != _rates(cpu_opt):
+            raise AssertionError("build_optimizer_v2: rates differ from the CPU's")
+    paths["optimizer_v2_train"] = ops.launch_counts()
+    _only(paths["optimizer_v2_train"], per_step, "optimizer_v2_train")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"grouped steps: losses {losses}")
+    n_v2 = len(module.optimizer.param_groups)
+    del module, cpu, trainer, batch
+    torch.cuda.empty_cache()
+
+    net = tfd.TransformerForDiffusion(input_dim=7, output_dim=7, horizon=16, n_obs_steps=2,
+                                      cond_dim=64, p_drop_emb=0.0, p_drop_attn=0.0)
+    entry.init_parameters(net, torch.Generator().manual_seed(18))
+    gen = torch.Generator().manual_seed(19)
+    sample, cond = torch.randn(TFD_BATCH, 16, 7, generator=gen), torch.randn(
+        TFD_BATCH, 2, 64, generator=gen)
+    t = torch.randint(0, 100, (TFD_BATCH,), generator=gen)
+    card = tfd.TransformerForDiffusion(input_dim=7, output_dim=7, horizon=16, n_obs_steps=2,
+                                       cond_dim=64, p_drop_emb=0.0, p_drop_attn=0.0).to(dev)
+    card.load_state_dict(net.state_dict())
+    ops.reset_launch_counts()
+    out_cpu, out = net(sample, t, cond), card(sample.to(dev), t.to(dev), cond.to(dev))
+    err = _max_err(out.cpu(), out_cpu)
+    if not err <= TFD_CPU_TOL * max(1.0, out_cpu.abs().max().item()):
+        raise AssertionError(f"TransformerForDiffusion card vs CPU: {err:.3e}")
+    (out_cpu ** 2).mean().backward()
+    (out ** 2).mean().backward()
+    grad_err = 0.0
+    for (n, p), q in zip(net.named_parameters(), card.parameters()):
+        e = _max_err(q.grad.cpu(), p.grad)
+        if not e <= TFD_CPU_TOL * max(1.0, p.grad.abs().max().item()):
+            raise AssertionError(f"TransformerForDiffusion gradient {n}: {e:.3e}")
+        grad_err = max(grad_err, e)
+    opt = topt.build_optimizer({"type": "AdamW", "lr": 1e-4}, card)
+    opt.step()
+    torch.cuda.synchronize()
+    fwd_ms = cuda_ms(lambda: card(sample.to(dev), t.to(dev), cond.to(dev)), 3)
+    paths["tfd"] = ops.launch_counts()
+    _only(paths["tfd"], {}, "tfd")
+    if not all(torch.isfinite(p).all() for p in card.parameters()):
+        raise AssertionError("TransformerForDiffusion: a non-finite parameter after a step")
+    log(f"phase18 (e) {card_line()}: param_dicts {sizes} tensors by group under "
+        f"CosineLRScheduler, rates by step {rates}; build_optimizer_v2 with layer decay "
+        f"{n_v2} groups, rates by step (first 3 groups) {[r[:3] for r in v2_rates]}: all "
+        f"equal to the CPU's; losses {[round(x, 4) for x in losses]}; "
+        f"TransformerForDiffusion {sum(p.numel() for p in net.parameters())} parameters, "
+        f"B={TFD_BATCH}: card vs CPU output {err:.3e}, worst gradient {grad_err:.3e}, "
+        f"forward {fwd_ms:.2f} ms; part {time.perf_counter() - t_part:.1f} s")
+    del card, net, opt
+    torch.cuda.empty_cache()
+    return paths
+
+
+def phase18(dev) -> dict:
+    """Phase 18: (a)-(e); the launches of its paths."""
+    t_phase = time.perf_counter()
+    paths = swa_fit(dev)
+    paths.update(state_only_act(dev))
+    paths.update(masked_act(dev))
+    paths.update(library_pointops(dev))
+    paths.update(groups_and_tfd(dev))
+    log(f"phase 18 in {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -6334,13 +7015,15 @@ def main() -> int:
         image_dp_paths, _ = train_image_dp(dev)
         paths.update(image_dp_paths)
         paths.update(train_rlbench(dev))
+        paths.update(phase18(dev))
     stray = {path: [k for k in FLASH_KERNELS if counts[k]] for path, counts in paths.items()
              if "flash" not in path and any(counts[k] for k in FLASH_KERNELS)}
     if stray:
         raise AssertionError(f"flash kernels launched off the flash paths: {stray}")
     stray = {path: [k for k in SELECTOR_KERNEL.values() if counts[k]]
              for path, counts in paths.items()
-             if path not in selector_paths and any(counts[k] for k in SELECTOR_KERNEL.values())}
+             if path not in selector_paths and path not in PHASE18_SELECTOR_PATHS
+             and any(counts[k] for k in SELECTOR_KERNEL.values())}
     if stray:
         raise AssertionError(f"kernels 12/13 launched off the selector paths: {stray}")
 

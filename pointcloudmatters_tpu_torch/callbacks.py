@@ -10,9 +10,11 @@ metrics, so ModelCheckpoint and EarlyStopping decide alike on every rank;
 rank 0 alone writes and deletes files (``Trainer.save_checkpoint``), and
 every rank holds the same ``best_model_path``.
 
-``StochasticWeightAveraging`` is in no shipped composition (only
-``configs/callbacks/stochastic_weight_averaging.yaml`` names it) and is not
-ported yet: it raises.
+``StochasticWeightAveraging`` (opt-in:
+``configs/callbacks/stochastic_weight_averaging.yaml``, ``callbacks=
+stochastic_weight_averaging``) wraps the learning rate's schedule, averages
+the epoch-end parameters and swaps the average in, with refreshed batch-norm
+statistics, when the fit ends.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import re
 import shutil
 from typing import Optional
 
+import numpy as np
 import torch
 
 from pointcloudmatters_tpu_torch.utils import dist
@@ -256,12 +259,160 @@ ProgressBar = RichProgressBar
 
 
 class StochasticWeightAveraging(Callback):
-    """Not ported yet (``configs/callbacks/stochastic_weight_averaging.yaml``,
-    in no shipped composition)."""
+    """Stochastic Weight Averaging (``configs/callbacks/
+    stochastic_weight_averaging.yaml``; the JAX callback's semantics,
+    ``callbacks.py:248-425`` of the JAX package, quirks included):
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "StochasticWeightAveraging is not ported yet (ROADMAP.md §1 item 5)")
+    - ``setup`` (after a resume, before the first step) rebuilds the
+      optimizer and its schedule with the learning rate wrapped: from
+      ``start_epoch * steps_per_epoch`` (``steps_per_epoch = total //
+      max_epochs``) it anneals, cos or linear, from the base schedule's rate
+      at that step to ``swa_lrs`` over ``annealing_epochs * steps_per_epoch``
+      steps and then holds. Without a scheduler the whole run is at
+      ``swa_lrs``, before the start too. OneCycleLR's beta1 cycle stays as
+      built. The optimizer starts from a fresh state even after a resume
+      (ROADMAP.md §3, both kept alike); the trainer then logs the wrapped
+      rate.
+    - From ``swa_epoch_start`` (a fraction of ``max_epochs`` when a float
+      below 1, else an epoch) each epoch's end parameters enter the average,
+      ``a + (p - a) / (n + 1)`` in f32, or ``avg_fn(a, p, n)``.
+    - ``on_fit_end`` swaps the average into the policy and refreshes every
+      running statistic to the uniform mean of the per-batch statistics
+      that the running update takes (the unbiased variance of
+      ``MaskedBatchNorm``, the hole-counting statistics of
+      ``GroupedBNReluMax``, every branch of SpUNet's ``PDBatchNorm``) over
+      ``bn_update_steps`` batches of the train loader (-1: a whole epoch),
+      from train-mode f32 forwards of the averaged weights: each norm's
+      momentum is set to 1 for the pass, so its buffers hold that batch's
+      statistics exactly. A buffer that no forward moves becomes 0, as
+      JAX's probe from zeros and ones leaves it. Under data parallelism the
+      statistics are the global batch's, as in the step. Checkpoints
+      written at epoch ends keep the weights that were not averaged.
+    """
+
+    def __init__(self, swa_lrs, swa_epoch_start: float = 0.8, annealing_epochs: int = 10,
+                 annealing_strategy: str = "cos", avg_fn=None, device=None,
+                 bn_update_steps: int = -1):
+        del device  # Lightning's key; the average lives beside the parameters
+        if annealing_strategy not in ("cos", "linear"):
+            raise ValueError(f"annealing_strategy={annealing_strategy!r}")
+        self.swa_lrs = float(swa_lrs[0] if isinstance(swa_lrs, (list, tuple)) else swa_lrs)
+        self.swa_epoch_start = swa_epoch_start
+        self.annealing_epochs = int(annealing_epochs)
+        self.annealing_strategy = annealing_strategy
+        self.avg_fn = avg_fn
+        self.bn_update_steps = bn_update_steps
+        self.n_averaged = 0
+        self._avg: Optional[dict[str, torch.Tensor]] = None
+        self._swa_start_epoch: Optional[int] = None
+
+    def swa_schedule(self, base, swa_start_step: float, anneal_steps: float):
+        """The learning rate of step ``s``: ``base(s)`` (``swa_lrs`` without
+        a base) before ``swa_start_step``, then the anneal to ``swa_lrs``;
+        in f32, as the JAX schedule."""
+        f32 = np.float32
+        swa_lr = f32(self.swa_lrs)
+        lr0 = f32(base(swa_start_step)) if base is not None else swa_lr
+        start, span = f32(swa_start_step), f32(max(anneal_steps, 1.0))
+        cos = self.annealing_strategy == "cos"
+
+        def schedule(step) -> float:
+            s = f32(step)
+            if s < start:
+                return float(swa_lr) if base is None else float(f32(base(step)))
+            t = min(max((s - start) / span, f32(0)), f32(1))
+            frac = (f32(1) - np.cos(f32(np.pi) * t, dtype=f32)) / f32(2) if cos else t
+            return float(lr0 + (swa_lr - lr0) * frac)
+
+        return schedule
+
+    def setup(self, trainer, module) -> None:
+        if isinstance(self.swa_epoch_start, float) and self.swa_epoch_start < 1:
+            self._swa_start_epoch = int(trainer.max_epochs * self.swa_epoch_start)
+        else:
+            self._swa_start_epoch = int(self.swa_epoch_start)
+        total = trainer.estimated_stepping_batches or 1
+        steps_per_epoch = max(1, total // max(trainer.max_epochs, 1))
+        swa_start_step = float(self._swa_start_epoch * steps_per_epoch)
+        anneal_steps = float(self.annealing_epochs * steps_per_epoch)
+        module.configure_optimizers(
+            total, trainer.gradient_clip_val, trainer.accumulate_grad_batches,
+            schedule_transform=lambda base: self.swa_schedule(base, swa_start_step,
+                                                              anneal_steps))
+        trainer._schedule = module.scheduler
+
+    @torch.no_grad()
+    def on_train_epoch_end(self, trainer, module, metrics: dict, epoch: int) -> None:
+        if epoch < (self._swa_start_epoch or 0):
+            return
+        params = {name: p.detach() for name, p in module.policy.named_parameters()}
+        if self._avg is None:
+            self._avg = {name: p.clone() for name, p in params.items()}
+        elif self.avg_fn is not None:
+            self._avg = {name: self.avg_fn(a, params[name], self.n_averaged)
+                         for name, a in self._avg.items()}
+        else:
+            # a true division by a device tensor, as JAX divides
+            n1 = torch.full((), self.n_averaged + 1.0, device=next(iter(params.values())).device)
+            for name, a in self._avg.items():
+                a.add_((params[name] - a) / n1.to(a.dtype))
+        self.n_averaged += 1
+
+    @torch.no_grad()
+    def refresh_batch_stats(self, trainer, module) -> Optional[dict[str, torch.Tensor]]:
+        """The refreshed running statistics of the policy as it stands
+        (class doc), or None where there are none or no train loader."""
+        from pointcloudmatters_tpu_torch.models.components.nn_utils import _RunningNorm
+
+        policy = module.policy
+        params = {name for name, _ in policy.named_parameters()}
+        stats = {name: b for name, b in policy.state_dict().items()
+                 if name not in params and b.is_floating_point()}
+        dm = getattr(trainer, "datamodule", None)
+        if not stats or dm is None:
+            return None
+        loader = dm.train_dataloader()
+        limit = self.bn_update_steps if self.bn_update_steps != -1 else len(loader)
+        norms = [m for m in policy.modules() if isinstance(m, _RunningNorm)]
+        momenta = [m.momentum for m in norms]
+        acc, count = None, 0
+        try:
+            for m in norms:
+                m.momentum = 1.0
+            for i, batch in enumerate(loader):
+                if i >= limit:
+                    break
+                for b in stats.values():
+                    b.zero_()
+                module.forward_train(batch, module.make_rngs(i, dist.get_rank(),
+                                                             dist.get_world_size()))
+                if acc is None:
+                    acc = {name: b.clone() for name, b in stats.items()}
+                else:
+                    n1 = torch.full((), count + 1.0, device=module.device)
+                    for name, a in acc.items():
+                        a.add_((stats[name] - a) / n1.to(a.dtype))
+                count += 1
+        finally:
+            for m, momentum in zip(norms, momenta):
+                m.momentum = momentum
+        return acc
+
+    @torch.no_grad()
+    def on_fit_end(self, trainer, module) -> None:
+        if self._avg is None or self.n_averaged == 0:
+            return
+        log.info(f"SWA: swapping in the average of {self.n_averaged} epoch-end parameter "
+                 "snapshots and refreshing BN statistics")
+        policy = module.policy
+        saved = {name: b.clone() for name, b in policy.state_dict().items()
+                 if name not in self._avg}
+        for name, p in policy.named_parameters():
+            p.copy_(self._avg[name])
+        fresh = self.refresh_batch_stats(trainer, module)
+        state = policy.state_dict()
+        for name, b in saved.items():  # None: the statistics stay as they were
+            state[name].copy_(b if fresh is None or name not in fresh else fresh[name])
 
 
 class DeviceStatsMonitor(Callback):

@@ -1,5 +1,7 @@
 """Batch collation of the data layer (port of
-``pointcloudmatters_tpu/data/collate.py``'s padded collate).
+``pointcloudmatters_tpu/data/collate.py``): the padded collate the configs
+use, and the packed-layout collates ``point_collate_fn`` / ``pcd_collate_fn``
+(points of every cloud concatenated, with cumulative ``offset`` counts).
 
 Point clouds are padded to a length rounded up to ``pad_multiple`` and
 stacked to dense ``(P, N, ...)`` arrays with a validity mask, each cloud's
@@ -144,4 +146,54 @@ def padded_pcd_collate_fn(batch: Sequence[dict], pad_multiple: int = 512,
         out["obs"]["pcds"] = padded
     else:
         out["pcds"] = padded
+    return out
+
+
+def point_collate_fn(batch: Sequence):
+    """Concatenate packed point dicts along the points: arrays concatenate,
+    a key holding ``offset`` becomes the cumulative sum of its parts
+    (int64); a sequence sample collates element-wise, with the cumulative
+    counts of its first array's rows appended (int32)."""
+    if not isinstance(batch, Sequence):
+        raise TypeError(f"{type(batch)} is not supported.")
+    elem = batch[0]
+    if isinstance(elem, np.ndarray):
+        return np.concatenate(list(batch), axis=0)
+    if isinstance(elem, str):
+        return list(batch)
+    if isinstance(elem, Mapping):
+        out = {k: point_collate_fn([d[k] for d in batch]) for k in elem}
+        for k in out:
+            if "offset" in k:
+                out[k] = np.cumsum(out[k]).astype(np.int64)
+        return out
+    if isinstance(elem, Sequence):
+        lists = [list(d) + [np.array([d[0].shape[0]])] for d in batch]
+        merged = [point_collate_fn(samples) for samples in zip(*lists)]
+        merged[-1] = np.cumsum(merged[-1]).astype(np.int32)
+        return merged
+    return default_collate(list(batch))
+
+
+def pcd_collate_fn(batch: Sequence[dict]):
+    """Samples whose ``pcds`` (or ``obs["pcds"]``) is a list of packed
+    clouds: the rest stacks (``default_collate``) and every cloud of every
+    sample packs into one ``point_collate_fn`` dict."""
+    batch = [dict(b) for b in batch]
+    nested = ("obs" in batch[0] and isinstance(batch[0]["obs"], Mapping)
+              and "pcds" in batch[0]["obs"])
+    if "pcds" not in batch[0] and not nested:
+        return default_collate(batch)
+    if nested:
+        for b in batch:
+            b["obs"] = dict(b["obs"])
+        pcds = [b["obs"].pop("pcds") for b in batch]
+    else:
+        pcds = [b.pop("pcds") for b in batch]
+    out = default_collate(batch)
+    packed = point_collate_fn([p for sample in pcds for p in sample])
+    if nested:
+        out["obs"]["pcds"] = packed
+    else:
+        out["pcds"] = packed
     return out

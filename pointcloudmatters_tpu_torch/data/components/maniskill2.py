@@ -46,7 +46,7 @@ from pointcloudmatters_tpu_torch.utils.normalizer import (
     get_range_normalizer_from_stat,
 )
 
-__all__ = ["ManiSkill2GoalPosSingleTaskACTPCDDataset",
+__all__ = ["Dataset", "ManiSkill2GoalPosSingleTaskACTPCDDataset",
            "ManiSkill2NullGoalSingleTaskACTPCDDataset",
            "ManiSkill2GoalPosSingleTaskACTRGBDDataset",
            "ManiSkill2NullGoalSingleTaskACTRGBDDataset",
@@ -58,7 +58,17 @@ log = logging.getLogger(__name__)
 _DEFAULT_CACHE = os.path.join(expanduser("~"), ".cache", "pcm_tpu")
 
 
-class _ManiSkill2TrajectoryDataset:
+class Dataset:
+    """The map-style dataset protocol: ``len`` and ``getitem``."""
+
+    def __len__(self):  # pragma: no cover
+        raise NotImplementedError
+
+    def __getitem__(self, idx):  # pragma: no cover
+        raise NotImplementedError
+
+
+class _ManiSkill2TrajectoryDataset(Dataset):
     """Trajectory loading and caching, and the z-score statistics."""
 
     def __init__(

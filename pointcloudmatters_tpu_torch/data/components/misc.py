@@ -1,9 +1,11 @@
-"""Index-only dataset (port of ``pointcloudmatters_tpu/data/components/misc.py``'s
-``DummyDataset``)."""
+"""Misc datasets (port of ``pointcloudmatters_tpu/data/components/misc.py``):
+``DummyDataset`` and ``ExperienceSourceDataset``."""
 
 from __future__ import annotations
 
-__all__ = ["DummyDataset"]
+from typing import Callable, Iterator
+
+__all__ = ["DummyDataset", "ExperienceSourceDataset"]
 
 
 class DummyDataset:
@@ -18,3 +20,14 @@ class DummyDataset:
 
     def __getitem__(self, idx):
         return idx
+
+
+class ExperienceSourceDataset:
+    """An iterable dataset over what ``generate_batch()`` yields, a new
+    generator at every ``iter``."""
+
+    def __init__(self, generate_batch: Callable[[], Iterator]):
+        self.generate_batch = generate_batch
+
+    def __iter__(self) -> Iterator:
+        return self.generate_batch()

@@ -77,6 +77,11 @@ class DataLoader:
             return dist.get_rank(), dist.get_world_size()
         return 0, 1
 
+    def set_epoch(self, epoch: int) -> None:
+        """The next ``__iter__`` shuffles with ``RandomState(seed + epoch)``
+        (and then counts on from ``epoch + 1``)."""
+        self.epoch = epoch
+
     def __len__(self) -> int:
         _, world = self._proc()
         if world > 1:

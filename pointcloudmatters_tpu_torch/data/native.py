@@ -25,7 +25,7 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["route", "fnv_hash", "grid_subsample_train", "grid_segments"]
+__all__ = ["available", "route", "fnv_hash", "grid_subsample_train", "grid_segments"]
 
 log = logging.getLogger(__name__)
 
@@ -100,6 +100,11 @@ def get_lib() -> Optional[ctypes.CDLL]:
         lib.pcm_grid_segments.restype = ctypes.c_int64
         _lib = lib
         return _lib
+
+
+def available() -> bool:
+    """Whether the native library built and loaded."""
+    return get_lib() is not None
 
 
 def route() -> str:

@@ -102,7 +102,7 @@ from pointcloudmatters_tpu_torch.models.components.pcd_encoder.pointnet import (
 from pointcloudmatters_tpu_torch.models.components.pcd_encoder.spunet import SpUNet
 
 __all__ = ["build_flagship", "build_batch", "build_grid_batch", "build_image_policy",
-           "build_image_batch", "build_dp_policy", "build_dp_batch", "build_image_dp_policy",
+           "build_image_batch", "build_state_policy", "build_state_batch", "build_dp_policy", "build_dp_batch", "build_image_dp_policy",
            "build_image_dp_batch", "image_dp_shape_meta", "init_parameters", "morton_order",
            "write_rlbench_episodes", "DP_SHAPE_META", "GRID_SIZE"]
 
@@ -167,6 +167,7 @@ def build_flagship(hidden_dim=512, npoints=2048, nsample=16, chunk=100,
                    qpos_dim=9, goal_dim=3, nhead=8, seed=0, dropout=0.1,
                    freeze_backbone=False, pre_sample=False,
                    attention_impl="oneshot", backbone="pointnet", spunet=None,
+                   use_mask=False, bg_ratio=0.0,
                    device: Union[str, torch.device] = "cuda") -> ACTPCD:
     """ACTPCD over PointNet (``backbone="pointnet"``) or SpUNet
     (``"spunet"``, its widths overridden by the ``spunet`` dict), weights
@@ -177,7 +178,9 @@ def build_flagship(hidden_dim=512, npoints=2048, nsample=16, chunk=100,
     transformer's tokens: PointNet's final linear maps them to
     ``hidden_dim`` below its published width of 512, and SpUNet's final
     1x1 convolution maps them to ``hidden_dim`` (the configs'
-    ``num_classes: 512``)."""
+    ``num_classes: 512``). With ``use_mask`` FPS draws ``1 - bg_ratio`` of
+    the tokens from the foreground (the cloud's ``mask``) and the rest from
+    the background."""
     if backbone == "pointnet":
         net = PointNet(in_channels=6, num_classes=(
             hidden_dim if pre_sample and hidden_dim != WIDTHS[-1] else 0))
@@ -193,7 +196,8 @@ def build_flagship(hidden_dim=512, npoints=2048, nsample=16, chunk=100,
         hidden_dim=hidden_dim, num_queries=chunk,
         action_dim=action_dim, qpos_dim=qpos_dim, goal_cond_dim=goal_dim,
         kl_weight=10.0, pcd_nsample=nsample, pcd_npoints=npoints,
-        freeze_backbone=freeze_backbone, pre_sample=pre_sample,
+        freeze_backbone=freeze_backbone, pre_sample=pre_sample, use_mask=use_mask,
+        bg_ratio=bg_ratio,
     )
     init_parameters(policy, torch.Generator().manual_seed(seed))
     return policy.to(device).eval()
@@ -330,6 +334,39 @@ def build_image_policy(backbone="resnet", channels=3, hidden_dim=512, chunk=100,
         obs_feature_pos_embedding=PositionEmbeddingSine(hidden_dim // 2, normalize=True))
     init_parameters(policy, torch.Generator().manual_seed(seed))
     return policy.to(device).eval()
+
+
+def build_state_policy(env_state_dim=16, hidden_dim=512, chunk=100, enc_layers=4, dec_layers=7,
+                       ffn=32, action_dim=7, qpos_dim=9, goal_dim=3, nhead=8, seed=0,
+                       dropout=0.1, attention_impl="oneshot",
+                       device: Union[str, torch.device] = "cuda") -> ACT:
+    """The state-only ACT (no backbone; ``configs/model/
+    maniskill2_act_model.yaml``'s widths by default, with ``backbone:
+    null``): robot state, ``env_state`` of ``env_state_dim`` and the goal
+    as the encoder's tokens, weights from ``torch.Generator().manual_seed(
+    seed)``, on ``device`` in eval mode."""
+    transformer, encoder = _act_head(hidden_dim, enc_layers, dec_layers, ffn, nhead, dropout,
+                                     attention_impl)
+    policy = ACT(
+        backbone=None, transformer=transformer, encoder=encoder, hidden_dim=hidden_dim,
+        num_queries=chunk, action_dim=action_dim, qpos_dim=qpos_dim, goal_cond_dim=goal_dim,
+        env_state_dim=env_state_dim, kl_weight=10.0)
+    init_parameters(policy, torch.Generator().manual_seed(seed))
+    return policy.to(device).eval()
+
+
+def build_state_batch(batch_size=2, env_state_dim=16, chunk=100, action_dim=7, qpos_dim=9,
+                      goal_dim=3, seed=0, with_actions=True) -> dict:
+    """A state-only batch, numpy: ``env_state`` (B, env_state_dim) beside
+    :func:`build_batch`'s ``qpos``, ``goal_cond``, ``actions`` and
+    ``is_pad``."""
+    batch = build_batch(batch_size, n_points=8, chunk=chunk, action_dim=action_dim,
+                        qpos_dim=qpos_dim, goal_dim=goal_dim, seed=seed,
+                        with_actions=with_actions)
+    del batch["pcds"]
+    batch["env_state"] = np.random.RandomState(seed + 2).randn(
+        batch_size, env_state_dim).astype(np.float32)
+    return batch
 
 
 def build_image_batch(batch_size=2, side=128, channels=3, chunk=100, action_dim=7, qpos_dim=9,

@@ -94,13 +94,11 @@ class BCModule:
                  **hparams):
         if device is None:
             device = next(policy.parameters()).device
-        if param_dicts:
-            raise NotImplementedError(
-                "keyword-matched parameter groups (param_dicts) are not ported yet")
         self.device = torch.device(device)
         self.policy = policy.to(self.device).eval()
         self.optimizer_cfg = dict(optimizer or {"type": "AdamW", "lr": 1e-4})
         self.lr_scheduler_cfg = lr_scheduler
+        self.param_dicts = param_dicts
         # the config's other keys, kept as the JAX module keeps them
         self.hparams = dict(hparams)
         self.compile = compile
@@ -143,18 +141,25 @@ class BCModule:
 
     def configure_optimizers(self, total_steps: int,
                              gradient_clip_val: Optional[float] = None,
-                             accumulate_grad_batches: int = 1) -> None:
+                             accumulate_grad_batches: int = 1,
+                             schedule_transform=None) -> None:
         """Optimizer and schedule over ``total_steps`` optimizer steps
-        (the JAX ``configure_optimizers``); a global-norm clip of the
-        gradients when ``gradient_clip_val`` is set; with
-        ``accumulate_grad_batches`` k > 1 the clip and the optimizer act on
-        the mean gradient of every k micro-batches (``optax.MultiSteps``
-        around the clip and the optimizer, as there)."""
-        self.optimizer = build_optimizer(self.optimizer_cfg, self.policy.parameters())
-        self.scheduler = None
+        (the JAX ``configure_optimizers``), with the keyword-matched
+        ``param_dicts`` groups; a global-norm clip of the gradients when
+        ``gradient_clip_val`` is set; with ``accumulate_grad_batches`` k > 1
+        the clip and the optimizer act on the mean gradient of every k
+        micro-batches (``optax.MultiSteps`` around the clip and the
+        optimizer, as there). ``schedule_transform`` wraps the learning
+        rate's schedule (the SWA callback's; it gets None without a
+        scheduler config); beta1's cycle stays as built. A new optimizer
+        starts from a fresh state."""
+        self.optimizer = build_optimizer(self.optimizer_cfg, self.policy,
+                                         param_dicts=self.param_dicts)
+        sched_cfg = None
         if self.lr_scheduler_cfg:
             sched_cfg = self.lr_scheduler_cfg.get("scheduler", self.lr_scheduler_cfg)
-            self.scheduler = build_scheduler(self.optimizer, sched_cfg, total_steps)
+        self.scheduler = build_scheduler(self.optimizer, sched_cfg, total_steps,
+                                         schedule_transform=schedule_transform)
         self.gradient_clip_val = gradient_clip_val
         self.gradient_mean = (GradientMean(accumulate_grad_batches)
                               if accumulate_grad_batches > 1 else None)

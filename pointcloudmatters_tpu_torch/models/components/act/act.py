@@ -14,8 +14,8 @@ backbone's token masking, the ``"vae"`` generator itself; generators on
 the batch's device, ``BCModule.make_rngs``) and ``"seed"`` (a CPU
 generator seeding the oneshot attention kernel's mask).
 ``ACT`` embeds camera images (``data_dict["image"]``, (B, cameras, H, W,
-C)) through an image backbone, ``ACTPCD`` point clouds; the state-only
-path (no backbone) is not ported and raises ``NotImplementedError``.
+C)) through an image backbone, or without one the state alone
+(``data_dict["env_state"]``), ``ACTPCD`` point clouds.
 ``ACTRLBench`` and ``ACTRLBenchPCD`` act in gripper poses: sigmoid gripper
 (and collision) channels, a 6D rotation in training that becomes a
 quaternion otherwise, and a loss weighting the xyz channels.
@@ -47,11 +47,8 @@ from pointcloudmatters_tpu_torch.models.components.loss.misc import (
 from pointcloudmatters_tpu_torch.models.components.nn_utils import (
     GroupedBNReluMax,
     get_sinusoid_encoding_table,
+    group_tokens,
     reparametrize,
-)
-from pointcloudmatters_tpu_torch.ops.pointops import (
-    farthest_point_sampling_padded,
-    knn_query_padded,
 )
 from pointcloudmatters_tpu_torch.utils.rotation_conversions import (
     matrix_to_quaternion,
@@ -69,7 +66,13 @@ class ACT(nn.Module):
     The image backbone maps (B, H, W, C) images to (B, h, w, C') features or
     pooled (B, C') ones and has a ``num_channels`` property; each camera's
     cells become tokens through ``input_proj``, placed by
-    ``obs_feature_pos_embedding``. With ``freeze_backbone`` no gradient
+    ``obs_feature_pos_embedding``. Without a backbone (the state-only
+    ACT, JAX ``act.py:86-92, 197-207``) the source tokens are the robot
+    state, ``env_state`` (through ``input_proj_env_state``, of width
+    ``env_state_dim``) and the goal, placed by ``state_pos_embed``; the
+    decoder then gets no latent and no proprio tokens, although the CVAE
+    posterior still runs in training and its KL enters the loss, as in JAX.
+    With ``freeze_backbone`` no gradient
     reaches the backbone, which still runs in the step's mode (its batch
     statistics move in training) and whose parameters the optimizer still
     decays, as in JAX. A backbone whose ``masks_tokens`` is true (MAE's
@@ -85,10 +88,9 @@ class ACT(nn.Module):
                  obs_feature_pos_embedding: Optional[nn.Module] = None,
                  feature_mode: str = "cls"):
         super().__init__()
-        if backbone is None:
-            raise NotImplementedError(
-                "the state-only ACT path is not ported yet; pass a backbone"
-            )
+        if backbone is None and env_state_dim <= 0:
+            raise ValueError("the state-only ACT (no backbone) needs env_state_dim, the "
+                             "width of data_dict['env_state']")
         D = hidden_dim
         n_add = 2 + int(goal_cond_dim > 0)
         self.backbone = backbone
@@ -102,13 +104,17 @@ class ACT(nn.Module):
         self.kl_weight = kl_weight
         self.goal_cond_dim = goal_cond_dim
         self.num_cameras = num_cameras
-        # the state width, which the JAX module keeps and never reads
+        # the state width: the state-only ACT's input_proj_env_state's
         self.env_state_dim = env_state_dim
         self.freeze_backbone = freeze_backbone
         self.feature_mode = feature_mode
         self._klloss = klloss if callable(klloss) else KLDivergence()
         self._action_loss = build_action_loss(action_loss)
-        self.input_proj = nn.Linear(backbone.num_channels, D)
+        if backbone is not None:
+            self.input_proj = nn.Linear(backbone.num_channels, D)
+        else:
+            self.input_proj_env_state = nn.Linear(env_state_dim, D)
+            self.state_pos_embed = nn.Parameter(torch.zeros(n_add, D))
         self.obs_feature_pos_embedding = obs_feature_pos_embedding
         self.input_proj_robot_state = nn.Linear(qpos_dim, D)
         self.cls_embed = nn.Parameter(torch.zeros(1, D))
@@ -179,7 +185,18 @@ class ACT(nn.Module):
         """Each camera's backbone features as tokens (JAX ``act.py:173-
         198``): a pooled feature is one cell (B, 1, 1, C); the cells are
         projected by ``input_proj`` and placed by
-        ``obs_feature_pos_embedding`` (one table for the batch)."""
+        ``obs_feature_pos_embedding`` (one table for the batch). Without a
+        backbone: ``[robot state, env_state, goal]`` tokens at
+        ``state_pos_embed``, and no latent or proprio tokens for the decoder
+        (JAX ``act.py:197-207``)."""
+        if self.backbone is None:
+            tokens = [self.input_proj_robot_state(data_dict["qpos"])[:, None, :],
+                      self.input_proj_env_state(data_dict["env_state"])[:, None, :]]
+            goal_cond = self._goal_embed(data_dict)
+            if goal_cond is not None:
+                tokens.append(goal_cond[:, None, :])
+            return dict(data_dict, src=torch.cat(tokens, dim=1), pos=self.state_pos_embed[None],
+                        latent_input=None, proprio_input=None)
         image = data_dict["image"]  # (B, cameras, H, W, C)
         masks = train and getattr(self.backbone, "masks_tokens", False)
         kw = {"generator": rngs["mask"]} if masks else {}
@@ -248,15 +265,15 @@ class ACTPCD(ACT):
                  encoder: Optional[TransformerEncoder], hidden_dim: int,
                  num_queries: int, pcd_nsample: int = 16,
                  pcd_npoints: int = 1024, use_mask: bool = False,
-                 pre_sample: bool = False, **kwargs):
+                 bg_ratio: float = 0.0, pre_sample: bool = False, **kwargs):
         super().__init__(backbone, transformer, encoder, hidden_dim,
                          num_queries, **kwargs)
         # the tokens come from the point-cloud builder (JAX act.py:276-278)
         self.input_proj = self.obs_feature_pos_embedding = None
-        if use_mask:
-            raise NotImplementedError("ACTPCD use_mask is not ported yet")
         self.pcd_nsample = pcd_nsample
         self.pcd_npoints = pcd_npoints
+        self.use_mask = use_mask
+        self.bg_ratio = bg_ratio
         self.pre_sample = pre_sample
         # pre_sample projects the raw cloud to the backbone's input width
         # (JAX act.py:279-283), else the backbone's features to hidden_dim
@@ -266,46 +283,25 @@ class ACTPCD(ACT):
         self.pcd_bn = GroupedBNReluMax(proj_dim)
 
     def pcd_sampling(self, coord: torch.Tensor, feat: torch.Tensor,
-                     valid: torch.Tensor, train: bool = False,
-                     feat_is_data: bool = False):
-        """-> (new_xyz (B, m, 3), tokens (B, m, proj_dim), idx (B, m)).
-
-        ``pcd_linear`` is bias-free, so projecting each gathered neighbour
-        ``[xyz[nn] - new_xyz, feat[nn]]`` equals
-        ``pcd_linear([xyz, feat])[nn] - pcd_linear([new_xyz, 0])``: the N
-        source points are projected once (JAX ``act.py:305-350``). With
-        ``feat_is_data`` (a raw ``pre_sample`` cloud, a frozen backbone's
-        features) the builder may take the data-source kernels, as
-        ``GroupedBNReluMax.resolve_impl`` decides; learned features stay on
-        the plain chain (their backward needs the dense dg)."""
-        idx = farthest_point_sampling_padded(coord, valid, self.pcd_npoints)
-        new_xyz = torch.gather(
-            coord, 1, idx.to(torch.long)[..., None].expand(-1, -1, 3))
-        nn_idx, _ = knn_query_padded(new_xyz, coord, valid, self.pcd_nsample)
-        zeros_f = feat.new_zeros(new_xyz.shape[:-1] + (feat.shape[-1],))
-        src_cat = torch.cat([coord, feat], dim=-1)
-        h = self.pcd_linear(torch.cat([new_xyz, zeros_f], dim=-1))
-        impl = GroupedBNReluMax.resolve_impl(
-            coord.shape[1], nn_idx.shape[1], nn_idx.shape[2], h.shape[-1],
-            h.dtype, h.device,
-        ) if feat_is_data else "xla"
-        if impl == "fused":
-            W = self.pcd_linear.weight.t().to(h.dtype)  # (Cin, D)
-            x = self.pcd_bn(None, h, nn_idx, use_running_average=not train,
-                            src=src_cat.detach(), W=W, impl="fused_data")
-        else:
-            g = self.pcd_linear(src_cat)
-            x = self.pcd_bn(g, h, nn_idx, use_running_average=not train)
-        return new_xyz, x, idx
+                     valid: torch.Tensor, fg_mask: Optional[torch.Tensor] = None,
+                     train: bool = False, feat_is_data: bool = False):
+        """-> (new_xyz (B, m, 3), tokens (B, m, proj_dim), idx (B, m)): the
+        token builder ``nn_utils.group_tokens``, with ``use_mask``'s
+        foreground split of FPS (``bg_ratio`` of the tokens from the
+        background)."""
+        return group_tokens(self.pcd_linear, self.pcd_bn, coord, feat, valid, self.pcd_npoints,
+                            self.pcd_nsample, fg_mask if self.use_mask else None, self.bg_ratio,
+                            train=train, feat_is_data=feat_is_data)
 
     def forward_pcd_embed(self, pcd_dict: dict, train: bool):
         coord = pcd_dict["coord"]
         valid = pcd_dict["valid"].to(torch.bool)
+        fg_mask = pcd_dict.get("mask") if self.use_mask else None
         if self.pre_sample:
             # raw cloud -> tokens -> backbone over the sampled tokens
             # (JAX act.py:357-373)
             new_xyz, feat, idx = self.pcd_sampling(
-                coord, pcd_dict["feat"], valid, train=train, feat_is_data=True)
+                coord, pcd_dict["feat"], valid, fg_mask, train=train, feat_is_data=True)
             sampled = dict(pcd_dict, coord=new_xyz, feat=feat,
                            valid=torch.ones(idx.shape, dtype=torch.bool,
                                             device=idx.device))
@@ -320,7 +316,7 @@ class ACTPCD(ACT):
             if self.freeze_backbone:
                 features = features.detach()
             coords_out, features, _ = self.pcd_sampling(
-                coord, features, valid, train=train,
+                coord, features, valid, fg_mask, train=train,
                 feat_is_data=self.freeze_backbone)
         return features, coord_embedding_sine(coords_out, self.hidden_dim)
 

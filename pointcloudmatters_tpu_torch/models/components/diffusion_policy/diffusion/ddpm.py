@@ -56,6 +56,11 @@ class DDPMScheduler:
         return self._tables[name]
 
     @property
+    def config(self) -> "DDPMScheduler":
+        """The scheduler itself (diffusers' ``scheduler.config`` reads)."""
+        return self
+
+    @property
     def alphas_cumprod(self) -> np.ndarray:
         return self._table("alphas_cumprod")
 

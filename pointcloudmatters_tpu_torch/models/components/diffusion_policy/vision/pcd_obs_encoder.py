@@ -29,10 +29,7 @@ from torch import nn
 from pointcloudmatters_tpu_torch.models.components.nn_utils import (
     GroupedBNReluMax,
     MaskedBatchNorm,
-)
-from pointcloudmatters_tpu_torch.ops.pointops import (
-    farthest_point_sampling_padded,
-    knn_query_padded,
+    group_tokens,
 )
 
 __all__ = ["PCDObsEncoder"]
@@ -95,40 +92,15 @@ class PCDObsEncoder(nn.Module):
         """Features an observation frame: every cloud's and the low-dim keys'."""
         return len(self.pcd_keys) * self.output_dim + self.low_dim_width
 
-    def _fps_indices(self, coord, valid, fg_mask):
-        if not self.use_mask or fg_mask is None:
-            return farthest_point_sampling_padded(coord, valid, self.pcd_npoints)
-        fg = fg_mask.to(torch.bool)
-        n_bg = int(self.pcd_npoints * self.bg_ratio)
-        fg_idx = farthest_point_sampling_padded(coord, valid & fg, self.pcd_npoints - n_bg)
-        if n_bg > 0:
-            bg_idx = farthest_point_sampling_padded(coord, valid & ~fg, n_bg)
-            return torch.cat([fg_idx, bg_idx], dim=1)
-        return fg_idx
-
     def pcd_sampling(self, coord: torch.Tensor, feat: torch.Tensor, valid: torch.Tensor,
                      fg_mask: Optional[torch.Tensor] = None, train: bool = False,
                      feat_is_data: bool = False):
-        """-> (new_xyz (B, m, 3), tokens (B, m, D), idx (B, m)); the
-        bias-free ``linear`` of each grouped ``[xyz[nn] - new_xyz,
-        feat[nn]]`` is ``linear([xyz, feat])[nn] - linear([new_xyz, 0])``,
-        as in ``ACTPCD.pcd_sampling``, whose builder routing this shares."""
-        idx = self._fps_indices(coord, valid, fg_mask)
-        new_xyz = _gather_points(coord, idx)
-        nn_idx, _ = knn_query_padded(new_xyz, coord, valid, self.pcd_nsample)
-        zeros_f = feat.new_zeros(new_xyz.shape[:-1] + (feat.shape[-1],))
-        src_cat = torch.cat([coord, feat], dim=-1)
-        h = self.linear(torch.cat([new_xyz, zeros_f], dim=-1))
-        impl = GroupedBNReluMax.resolve_impl(
-            coord.shape[1], nn_idx.shape[1], nn_idx.shape[2], h.shape[-1], h.dtype, h.device,
-        ) if feat_is_data else "xla"
-        if impl == "fused":
-            W = self.linear.weight.t().to(h.dtype)  # (Cin, D)
-            x = self.bn(None, h, nn_idx, use_running_average=not train,
-                        src=src_cat.detach(), W=W, impl="fused_data")
-        else:
-            x = self.bn(self.linear(src_cat), h, nn_idx, use_running_average=not train)
-        return new_xyz, x, idx
+        """-> (new_xyz (B, m, 3), tokens (B, m, D), idx (B, m)): the token
+        builder ``nn_utils.group_tokens`` that ``ACTPCD`` shares, with
+        ``use_mask``'s foreground split."""
+        return group_tokens(self.linear, self.bn, coord, feat, valid, self.pcd_npoints,
+                            self.pcd_nsample, fg_mask if self.use_mask else None,
+                            self.bg_ratio, train=train, feat_is_data=feat_is_data)
 
     def encode_pcd(self, pcd_dict: dict, train: bool) -> torch.Tensor:
         coord = pcd_dict["coord"]

@@ -44,7 +44,11 @@ from pointcloudmatters_tpu_torch.ops.fused_builder import (
     sum_sq_f32,
 )
 from pointcloudmatters_tpu_torch.ops.oneshot_attention import rounded_scalar
-from pointcloudmatters_tpu_torch.ops.pointops import gather_rows_padded
+from pointcloudmatters_tpu_torch.ops.pointops import (
+    farthest_point_sampling_padded,
+    gather_rows_padded,
+    knn_query_padded,
+)
 from pointcloudmatters_tpu_torch.utils import dist
 
 __all__ = [
@@ -53,7 +57,11 @@ __all__ = [
     "activation_fn",
     "MaskedBatchNorm",
     "GroupedBNReluMax",
+    "fps_indices",
+    "group_tokens",
+    "FrozenBatchNorm",
     "BitsDropout",
+    "MLP",
 ]
 
 
@@ -247,6 +255,81 @@ class GroupedBNReluMax(_RunningNorm):
         return F.relu(sel * eff_scale + eff_bias)
 
 
+def fps_indices(coord: torch.Tensor, valid: torch.Tensor, npoints: int,
+                fg_mask: Optional[torch.Tensor] = None, bg_ratio: float = 0.0) -> torch.Tensor:
+    """(B, npoints) token centres by FPS over the valid points (JAX
+    ``act.py:289-303``); with a foreground ``fg_mask``, ``npoints -
+    int(npoints * bg_ratio)`` from the valid foreground, then the rest from
+    the valid background. FPS keeps its semantics under any mask: it seeds
+    at index 0 whether or not point 0 is in the mask, a mask of fewer
+    points than asked repeats indices, and an empty one yields 0 throughout."""
+    if fg_mask is None:
+        return farthest_point_sampling_padded(coord, valid, npoints)
+    fg = fg_mask.to(torch.bool)
+    n_bg = int(npoints * bg_ratio)
+    fg_idx = farthest_point_sampling_padded(coord, valid & fg, npoints - n_bg)
+    if n_bg > 0:
+        bg_idx = farthest_point_sampling_padded(coord, valid & ~fg, n_bg)
+        return torch.cat([fg_idx, bg_idx], dim=1)
+    return fg_idx
+
+
+def group_tokens(linear: nn.Linear, bn: GroupedBNReluMax, coord: torch.Tensor,
+                 feat: torch.Tensor, valid: torch.Tensor, npoints: int, nsample: int,
+                 fg_mask: Optional[torch.Tensor] = None, bg_ratio: float = 0.0,
+                 train: bool = False, feat_is_data: bool = False):
+    """The point-cloud token builder of ``ACTPCD`` and ``PCDObsEncoder``
+    (their ``pcd_sampling``): FPS centres (:func:`fps_indices`), kNN groups
+    of ``nsample`` and ``max_k(relu(bn(linear([xyz[nn] - xyz_c, feat[nn]]))))``
+    -> (new_xyz (B, m, 3), tokens (B, m, D), idx (B, m)).
+
+    ``linear`` is bias-free, so the grouped projection is
+    ``linear([xyz, feat])[nn] - linear([new_xyz, 0])``: the N source points
+    are projected once (JAX ``act.py:305-350``). With ``feat_is_data`` (a
+    raw ``pre_sample`` cloud, a frozen backbone's features) the builder may
+    take the data-source kernels, as ``GroupedBNReluMax.resolve_impl``
+    decides; learned features stay on the plain chain (their backward needs
+    the dense dg)."""
+    idx = fps_indices(coord, valid, npoints, fg_mask, bg_ratio)
+    new_xyz = torch.gather(coord, 1, idx.to(torch.long)[..., None].expand(-1, -1, 3))
+    nn_idx, _ = knn_query_padded(new_xyz, coord, valid, nsample)
+    zeros_f = feat.new_zeros(new_xyz.shape[:-1] + (feat.shape[-1],))
+    src_cat = torch.cat([coord, feat], dim=-1)
+    h = linear(torch.cat([new_xyz, zeros_f], dim=-1))
+    impl = GroupedBNReluMax.resolve_impl(
+        coord.shape[1], nn_idx.shape[1], nn_idx.shape[2], h.shape[-1], h.dtype, h.device,
+    ) if feat_is_data else "xla"
+    if impl == "fused":
+        W = linear.weight.t().to(h.dtype)  # (Cin, D)
+        x = bn(None, h, nn_idx, use_running_average=not train, src=src_cat.detach(), W=W,
+               impl="fused_data")
+    else:
+        x = bn(linear(src_cat), h, nn_idx, use_running_average=not train)
+    return new_xyz, x, idx
+
+
+class FrozenBatchNorm(nn.Module):
+    """A batch norm whose statistics and affine never train or move (the
+    reference's ``FrozenBatchNorm2d``): f32 buffers ``mean``, ``var``,
+    ``scale`` and ``bias`` (JAX keeps them in ``batch_stats``, so no
+    optimizer sees them), ``y = (x - mean) * rsqrt(var + eps) * scale +
+    bias`` in f32, cast to ``dtype`` or to the input's type."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.register_buffer("mean", torch.zeros(num_features))
+        self.register_buffer("var", torch.ones(num_features))
+        self.register_buffer("scale", torch.ones(num_features))
+        self.register_buffer("bias", torch.zeros(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = (x.to(torch.float32) - self.mean) * torch.rsqrt(self.var + self.eps)
+        return (y * self.scale + self.bias).to(self.dtype or x.dtype)
+
+
 class BitsDropout(nn.Module):
     """Dropout from uint8 random bits (the JAX module's, ``nn_utils.py:331-368``):
     the rate is quantised to ``threshold = max(1, round(rate * 256))`` of 256,
@@ -271,3 +354,27 @@ class BitsDropout(nn.Module):
                              device=x.device, dtype=torch.uint8)
         scale = rounded_scalar(1.0 / keep_prob, x.dtype)
         return torch.where(bits >= threshold, x * scale, 0.0)
+
+
+class MLP(nn.Module):
+    """A ReLU MLP head (DETR's): ``num_layers`` linears, ``Dense_<i>`` as
+    flax names them, ReLU between. Each computes in ``dtype`` when given,
+    else in the promoted type of its input and weights, as flax's ``Dense``."""
+
+    def __init__(self, input_dim: int, hidden_dim: int, output_dim: int, num_layers: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.num_layers = num_layers
+        self.dtype = dtype
+        widths = [input_dim] + [hidden_dim] * (num_layers - 1) + [output_dim]
+        for i in range(num_layers):
+            self.add_module(f"Dense_{i}", nn.Linear(widths[i], widths[i + 1]))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.num_layers):
+            layer = getattr(self, f"Dense_{i}")
+            dt = self.dtype or torch.promote_types(x.dtype, layer.weight.dtype)
+            x = F.linear(x.to(dt), layer.weight.to(dt), layer.bias.to(dt))
+            if i < self.num_layers - 1:
+                x = F.relu(x)
+        return x

@@ -35,9 +35,8 @@ differ: ``nn.MultiheadAttention``'s ``in_proj`` splits into the port's
 ``query`` / ``key`` / ``value`` linears, spconv k = 1 planes
 ``(out, 1, 1, 1, in)`` and Conv1d k = 1 weights become linears, SpUNet's
 planes become ``(k^3, in, out)`` (``pcd_encoder/spunet.py``), a 1 x 1
-``input_proj`` convolution becomes a linear. The state-only ACT's entries
-(``pos.weight``, ``input_proj_env_state.*``) have no port model (ROADMAP.md
-§1 item 8) and raise ``NotImplementedError``. ``--nhead`` is accepted for
+``input_proj`` convolution becomes a linear, and the state-only ACT's
+``pos.weight`` becomes ``state_pos_embed``. ``--nhead`` is accepted for
 the JAX script's command line and not needed: a split by rows is the same
 for every head count.
 """
@@ -321,18 +320,18 @@ def any_backbone(t: Tree, dst: str, bsd: SD) -> None:
 
 def act_policy(sd: SD) -> Tree:
     """ACT and ACTPCD (reference ``act/act.py``)."""
-    state_only = [k for k in sd.keys() if k == "pos.weight"
-                  or k.startswith("input_proj_env_state.")]
-    if state_only:
-        raise NotImplementedError(
-            f"the state-only ACT ({', '.join(sorted(state_only))}) is not ported yet "
-            "(ROADMAP.md §1 item 8): no port model loads this checkpoint")
     t = Tree()
     for name in ("cls_embed", "query_embed", "additional_pos_embed"):
         if f"{name}.weight" in sd.keys():
             t.params[name] = sd[f"{name}.weight"]
+    # the reference names the state-only ACT's position table ``pos``
+    # (its ``act/act.py:244`` reads ``self.pos.weight``); the port's is
+    # ``state_pos_embed``
+    if "pos.weight" in sd.keys():
+        t.params["state_pos_embed"] = sd["pos.weight"]
     for name in ("encoder_action_proj", "encoder_joint_proj", "latent_proj", "latent_out_proj",
-                 "input_proj_robot_state", "action_head", "is_pad_head", "proj_goal_cond_emb"):
+                 "input_proj_robot_state", "action_head", "is_pad_head", "proj_goal_cond_emb",
+                 "input_proj_env_state"):
         if f"{name}.weight" in sd.keys():
             linear(t, name, sd, name)
     transformer(t, "transformer", sd, "transformer")

@@ -663,8 +663,8 @@ def _locate(target: str) -> Any:
         return obj
     if ported:
         raise NotImplementedError(
-            f"{_JAX_PACKAGE}{target[len(_PORT_PACKAGE):]} is not ported yet "
-            f"(ROADMAP.md §1 lists what the port lacks)")
+            f"{_JAX_PACKAGE}{target[len(_PORT_PACKAGE):]} is not in the port "
+            f"(ROADMAP.md §1, \"Do not port\")")
     raise ImportError(f"Cannot locate target: {target}")
 
 

@@ -18,9 +18,11 @@ Input is the flax ``variables`` of a JAX model, ``{"params": ...,
   convolves): the modules of the target that are ``nn.ConvTranspose1d``
 - LayerNorm and GroupNorm ``scale``/``bias`` -> ``weight``/``bias``
 - batch norms (modules with ``batch_stats``): ``scale``/``bias`` parameters
-  and ``mean``/``var`` buffers keep their names
+  and ``mean``/``var`` buffers keep their names; a ``FrozenBatchNorm``'s
+  four ``batch_stats`` (its affine included) are buffers of those names
 - top-level embeddings ``cls_embed``, ``query_embed``,
-  ``additional_pos_embed`` keep theirs, and so do the image encoders'
+  ``additional_pos_embed``, the state-only ACT's ``state_pos_embed`` and
+  ``TransformerForDiffusion``'s ``pos_emb`` / ``cond_pos_emb`` keep theirs, and so do the image encoders'
   parameters owned by a module itself at any depth (``pos_embed``,
   ``cls_token``, ``global_tokens``, ``row_embed``, ``col_embed``)
 - SpUNet's convolution planes (``conv_input_weight``, ``down<s>_weight``,
@@ -55,9 +57,10 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["flax_to_torch", "jax_checkpoint_to_torch", "arrays_to_tensors"]
+__all__ = ["flax_to_torch", "jax_param_paths", "jax_checkpoint_to_torch", "arrays_to_tensors"]
 
-_EMBEDDINGS = ("cls_embed", "query_embed", "additional_pos_embed")
+_EMBEDDINGS = ("cls_embed", "query_embed", "additional_pos_embed", "state_pos_embed",
+               "pos_emb", "cond_pos_emb")
 _OWN = ("pos_embed", "cls_token", "global_tokens", "row_embed", "col_embed")
 _QKV = ("query", "key", "value")
 _PLANE = re.compile(r"(conv_input_weight|down\d+_weight|up\d+_weight|final_weight|final_bias"
@@ -77,6 +80,39 @@ def _flatten(tree: Mapping, prefix: tuple = ()) -> dict[tuple, object]:
 def _key(path: tuple) -> str:
     key = re.sub(r"(^|\.)(layers|bns)_(\d+)(?=\.|$)", r"\1\2.\3", ".".join(path))
     return re.sub(r"(^|\.)key_models_", r"\1model_", key)
+
+
+def _unkey(key: str) -> str:
+    """The JAX module path of a torch module path (``_key``'s inverse)."""
+    key = re.sub(r"(^|\.)(layers|bns)\.(\d+)(?=\.|$)", r"\1\2_\3", key)
+    return re.sub(r"(^|\.)model_", r"\1key_models_", key)
+
+
+_KERNELS = (nn.Linear, nn.Conv1d, nn.Conv2d, nn.ConvTranspose1d)
+
+
+def jax_param_paths(model: nn.Module) -> dict[str, str]:
+    """``{torch parameter name: JAX path string}`` of the port's model: the
+    path ``jax.tree_util`` gives the parameter in the JAX model's params
+    tree, ``/``-joined (``transformer/encoder/layers_0/self_attn/query/
+    kernel``), which keyword-matched parameter groups and layer decay read
+    (``utils/optimizer.py``). The inverse of :func:`flax_to_torch`'s name
+    map: a Linear's or convolution's ``weight`` is ``kernel``, a LayerNorm's
+    or GroupNorm's ``scale``, an Embedding's ``embedding``; every other
+    leaf keeps its name."""
+    out = {}
+    for name, _ in model.named_parameters():
+        mod_name, _, leaf = name.rpartition(".")
+        module = model.get_submodule(mod_name) if mod_name else model
+        if leaf == "weight":
+            if isinstance(module, _KERNELS):
+                leaf = "kernel"
+            elif isinstance(module, (nn.LayerNorm, nn.GroupNorm)):
+                leaf = "scale"
+            elif isinstance(module, nn.Embedding):
+                leaf = "embedding"
+        out[name] = "/".join(filter(None, _unkey(mod_name).split(".") + [leaf]))
+    return out
 
 
 def _param(path: tuple, leaf: np.ndarray, norms: set, transposed: set
@@ -129,7 +165,8 @@ def flax_to_torch(variables: Mapping, model: nn.Module) -> dict[str, torch.Tenso
     norms = {p[:-1] for p in stats}
     out: dict[str, np.ndarray] = {}
     for path, leaf in stats.items():
-        if path[-1] not in ("mean", "var"):
+        # a FrozenBatchNorm keeps its affine in batch_stats too
+        if path[-1] not in ("mean", "var", "scale", "bias"):
             raise KeyError(f"unmapped JAX batch statistic {'/'.join(path)}")
         out[_key(path)] = leaf
     for path, leaf in _flatten(variables["params"]).items():
@@ -188,6 +225,26 @@ def _one(tree: Any, keys: set, what: str) -> dict | None:
     return found[0] if found else None
 
 
+def _present(tree: Any) -> Any:
+    """``tree`` without the leaves an ``optax.masked`` group leaves out
+    (``MaskedNode``: an empty dict once restored, or None), and without the
+    dicts that held only those."""
+    if isinstance(tree, dict):
+        kept = {k: _present(v) for k, v in tree.items()}
+        return {k: v for k, v in kept.items()
+                if not (v is None or (isinstance(v, dict) and not v))}
+    return tree
+
+
+def _merge(trees: list) -> dict:
+    """One nested dict of the disjoint nested dicts ``trees``."""
+    out: dict = {}
+    for tree in trees:
+        for k, v in tree.items():
+            out[k] = _merge([out[k], v]) if isinstance(v, dict) and k in out else v
+    return out
+
+
 def jax_checkpoint_to_torch(restored: Mapping, module) -> dict:
     """The port's checkpoint dict (``trainer.py``) of a JAX checkpoint.
 
@@ -199,7 +256,10 @@ def jax_checkpoint_to_torch(restored: Mapping, module) -> dict:
     parameter groups. AdamW's ``mu``/``nu``/``count`` become the optimizer's
     ``exp_avg``/``exp_avg_sq``/``step`` (through the same layout rules as
     the parameters), the schedule's count its ``last_epoch``, and
-    ``MultiSteps``' ``acc_grads``/``mini_step`` the gradient mean's. The
+    ``MultiSteps``' ``acc_grads``/``mini_step`` the gradient mean's. Under
+    keyword-matched ``param_dicts`` (``optax.multi_transform``) each group
+    holds an Adam state over its own parameters, which the optimizer's
+    group of the same index takes; the groups' schedules count alike. The
     JAX ``rng`` key has no counterpart (the port draws its dropout bits
     another way) and is left out, so the restoring trainer keeps the streams
     it seeded from ``module.seed``."""
@@ -222,17 +282,30 @@ def jax_checkpoint_to_torch(restored: Mapping, module) -> dict:
     opt = restored.get("opt_state")
     if opt is None:
         return out
-    adam = _one(opt, {"count", "mu", "nu"}, "Adam")
-    if adam is None:
+    adams = _nodes(opt, {"count", "mu", "nu"})
+    if not adams:
         raise NotImplementedError("only Adam-family optimizer states convert (AdamW, Adam)")
-    mu, nu, count = as_torch(adam["mu"]), as_torch(adam["nu"]), float(adam["count"])
+    groups = module.optimizer.param_groups
+    if len(adams) != len(groups):
+        raise ValueError(f"the JAX optimizer state holds {len(adams)} Adam states and the "
+                         f"module's optimizer {len(groups)} parameter groups")
+    mu = as_torch(_merge([_present(a["mu"]) for a in adams]))
+    nu = as_torch(_merge([_present(a["nu"]) for a in adams]))
+    name_of = {id(p): n for n, p in policy.named_parameters()}
     optimizer = copy.deepcopy(module.optimizer.state_dict())
-    optimizer["state"] = {
-        i: {"step": torch.tensor(count, dtype=torch.float32), "exp_avg": mu[n],
-            "exp_avg_sq": nu[n]}
-        for i, n in enumerate(names)}
-    schedule = _one(opt, {"count"}, "schedule")
-    if (schedule is None) != (module.scheduler is None):
+    optimizer["state"] = {}
+    i = 0
+    for group, adam in zip(groups, adams):
+        for p in group["params"]:
+            n = name_of[id(p)]
+            optimizer["state"][i] = {"step": torch.tensor(float(adam["count"]),
+                                                          dtype=torch.float32),
+                                     "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+            i += 1
+    schedules = _nodes(opt, {"count"})
+    if len({int(s["count"]) for s in schedules}) > 1:
+        raise ValueError("the JAX optimizer state's schedules disagree on their count")
+    if (not schedules) != (module.scheduler is None):
         raise ValueError("the JAX checkpoint and the module disagree on a learning-rate schedule")
     multi = _one(opt, {"mini_step", "gradient_step", "inner_opt_state", "acc_grads",
                        "skip_state"}, "MultiSteps")
@@ -241,7 +314,7 @@ def jax_checkpoint_to_torch(restored: Mapping, module) -> dict:
     trainable = [n for n, p in policy.named_parameters() if p.requires_grad]
     out["opt_state"] = {
         "optimizer": optimizer,
-        "scheduler": None if schedule is None else {"last_epoch": int(schedule["count"])},
+        "scheduler": None if not schedules else {"last_epoch": int(schedules[0]["count"])},
         "gradient_mean": None if multi is None else {
             "mini_step": int(multi["mini_step"]),
             "acc": [as_torch(multi["acc_grads"])[n] for n in trainable]},

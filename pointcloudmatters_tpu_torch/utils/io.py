@@ -1,19 +1,46 @@
-"""File reading of the data layer (port of ``pointcloudmatters_tpu/utils/io.py``'s
-``load_json``, ``load_h5_data``, ``save_npz_dict``, ``load_npz_dict`` and
-``load_numpy_pickle``)."""
+"""File reading and writing (port of ``pointcloudmatters_tpu/utils/io.py``):
+json, HDF5, pickle, npy and npz."""
 
 from __future__ import annotations
 
 import json
+import os
+import pickle
 
 import numpy as np
 
-__all__ = ["load_json", "load_h5_data", "save_npz_dict", "load_npz_dict", "load_numpy_pickle"]
+__all__ = ["load_json", "save_json", "load_h5_data", "load_pickle", "save_pickle", "load_npy",
+           "save_npz_dict", "load_npz_dict", "load_numpy_pickle", "listdir"]
 
 
 def load_json(path: str):
     with open(path) as f:
         return json.load(f)
+
+
+def save_json(obj, path: str, **kwargs) -> None:
+    """``obj`` as JSON; ``kwargs`` go to ``json.dump`` (``indent=``...)."""
+    with open(path, "w") as f:
+        json.dump(obj, f, **kwargs)
+
+
+def load_pickle(path: str):
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def save_pickle(obj, path: str) -> None:
+    with open(path, "wb") as f:
+        pickle.dump(obj, f)
+
+
+def load_npy(path: str, allow_pickle: bool = True):
+    return np.load(path, allow_pickle=allow_pickle)
+
+
+def listdir(path: str) -> list[str]:
+    """The names in the directory ``path``, sorted."""
+    return sorted(os.listdir(path))
 
 
 def load_h5_data(data) -> dict:

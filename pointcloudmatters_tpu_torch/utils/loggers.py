@@ -19,6 +19,8 @@ import os
 from typing import Any, Optional
 from urllib.parse import urlparse
 
+import torch
+
 from pointcloudmatters_tpu_torch.utils.dist import is_main_process, rank_zero_only
 
 __all__ = ["BaseLogger", "CSVLogger", "OfflineBackendLogger", "WandbLogger", "CometLogger",
@@ -170,6 +172,13 @@ class TensorBoardLogger(BaseLogger):
         fallback."""
         if self._writer is not None:
             self._writer.add_figure(tag, figure, step)
+
+    @rank_zero_only
+    def log_video(self, tag: str, frames, step: int, fps: int = 20) -> None:
+        """``frames`` (T, C, H, W), uint8 or floats in [0, 1], as one video
+        of a batch of one; none under the CSV fallback."""
+        if self._writer is not None:
+            self._writer.add_video(tag, torch.as_tensor(frames)[None], step, fps=fps)
 
     def finalize(self) -> None:
         if self._writer is not None:

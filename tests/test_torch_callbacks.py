@@ -179,8 +179,14 @@ def test_progress_bar_logs_the_epoch(tmp_path, caplog):
 
 
 def test_stochastic_weight_averaging_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tcb.StochasticWeightAveraging(swa_lrs=1e-3)
+    """Ported (``tests/test_torch_swa.py`` holds it against JAX): it takes
+    the JAX callback's keys, the first of a list of rates, and refuses an
+    unknown anneal as JAX does."""
+    swa = tcb.StochasticWeightAveraging(swa_lrs=[1e-3, 2e-3], device="cuda")
+    assert (swa.swa_lrs, swa.swa_epoch_start, swa.annealing_epochs, swa.n_averaged) == (
+        1e-3, 0.8, 10, 0)
+    with pytest.raises(ValueError, match="annealing_strategy"):
+        tcb.StochasticWeightAveraging(swa_lrs=1e-3, annealing_strategy="exp")
 
 
 @pytest.mark.parametrize("name, kwargs", [

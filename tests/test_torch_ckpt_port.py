@@ -18,16 +18,15 @@ MultiMAE's names, the DP's ``Sequential`` indices and ``key_model_map``,
   own state; the model loads it with ``strict=True``. The families: ACT /
   ACTPCD over PointNet, SpUNet, ResNet (a DETR ``Joiner`` and direct),
   ViT-B/16 (the JAX script takes base/16 and large/16 only, so this one is
-  at full width) and MultiViT (width 768, as the JAX script requires, one
-  block); the DP over PointNet and over images (one shared ResNet, a
+  at full width), MultiViT (width 768, as the JAX script requires, one
+  block) and no backbone (the state-only ACT); the DP over PointNet and over images (one shared ResNet, a
   ResNet a camera).
 - The command line round trip: a saved ``.ckpt``, ``python -m
   pointcloudmatters_tpu_torch.port_reference_ckpt``, ``Trainer.restore_checkpoint``
   into a fresh DP module, then ``predict`` with JAX's draws within 1e-4 ·
   max(1, max|JAX|) of JAX's policy on the JAX script's trees.
 - The refusals: an unknown ResNet depth, ViT or MultiViT width (as JAX's),
-  the state-only ACT's entries (``NotImplementedError`` naming ROADMAP.md
-  §1 item 8), an unknown ``--policy``.
+  an unknown ``--policy``. The state-only ACT's entries convert.
 """
 
 import importlib.util
@@ -117,6 +116,7 @@ FAMILIES = {
     "act-vit-b16": lambda: (tentry.build_image_policy("vit", 3, **ACT_TINY), {}),
     "act-multivit": lambda: (tentry.build_image_policy(
         "multivit", 4, backbone_kw=dict(depth=1), **ACT_TINY), {}),
+    "act-state": lambda: (tentry.build_state_policy(env_state_dim=5, **ACT_TINY), {}),
     "dp-pointnet": lambda: (tentry.build_dp_policy(
         npoints=16, nsample=4, hidden_dim=32, projector_channels=(32, 48, 48), num_classes=32,
         device="cpu", **UNET), {"normalizer": _normalizer().state_dict()}),
@@ -255,12 +255,19 @@ def test_unknown_architectures_are_refused_as_in_jax(case, traced_init):
 
 
 def test_the_state_only_act_and_an_unknown_policy_are_refused():
+    """The state-only ACT's entries convert (``pos.weight`` is the port's
+    ``state_pos_embed``; the family is held bit for bit above); an unknown
+    ``--policy`` is refused, as by the JAX script."""
     sd = _act_resnet_sd()
-    for extra in ({"policy.pos.weight": torch.zeros(2, 32)},
-                  {"policy.input_proj_env_state.weight": torch.zeros(32, 10),
-                   "policy.input_proj_env_state.bias": torch.zeros(32)}):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 8"):
-            tport.port_state_dict({**sd, **extra})
+    extra = {"policy.pos.weight": torch.randn(3, 32),
+             "policy.input_proj_env_state.weight": torch.randn(32, 10),
+             "policy.input_proj_env_state.bias": torch.randn(32)}
+    got = tport.port_state_dict({**sd, **extra})["params"]
+    assert torch.equal(got["state_pos_embed"], extra["policy.pos.weight"])
+    assert torch.equal(got["input_proj_env_state.weight"],
+                       extra["policy.input_proj_env_state.weight"])
+    ref = JPORT.port_state_dict({k: v.numpy() for k, v in {**sd, **extra}.items()}, nhead=4)
+    np.testing.assert_array_equal(ref["params"]["state_pos_embed"], extra["policy.pos.weight"])
     with pytest.raises(ValueError, match="unknown policy"):
         tport.port_state_dict(sd, policy="transformer")
     assert tport.port_state_dict(sd, policy="act")["params"].keys() == \

@@ -7,8 +7,8 @@ every target resolves in the port, through the prefix map
 ``pointcloudmatters_tpu.`` -> ``pointcloudmatters_tpu_torch.``, to the
 counterpart of the JAX object.
 The compositions build in the port (model at full width, data, trainer,
-callbacks, loggers); a target the port lacks raises ``NotImplementedError``
-naming ROADMAP; an ``ImportError`` inside a module propagates as itself.
+callbacks, loggers); a target the port lacks (ROADMAP's "Do not port") raises
+``NotImplementedError`` naming ROADMAP; an ``ImportError`` inside a module propagates as itself.
 The card has PyYAML, so the port reads YAML with ``yaml.safe_load`` as the
 JAX composer does and has no reader of its own to test.
 """
@@ -397,13 +397,13 @@ def test_rlbench_composition_equals_jax_and_builds(family, model, tmp_path, monk
 
 
 @pytest.mark.parametrize("target", [
-    "pointcloudmatters_tpu.models.components.nn_utils.FrozenBatchNorm",
+    "pointcloudmatters_tpu.utils.registry.Registry",
     "pointcloudmatters_tpu.models.components.act.transformer.EfficientMHA",
-    "pointcloudmatters_tpu.models.components.diffusion_policy.diffusion."
-    "transformer_for_diffusion.TransformerForDiffusion",
+    "pointcloudmatters_tpu.utils.pytree_utils.dict_apply",
 ])
 def test_a_target_the_port_lacks_raises(target):
-    with pytest.raises(NotImplementedError, match=rf"{target} is not ported yet.*ROADMAP"):
+    """What ROADMAP.md's "Do not port" list names: nothing composes it."""
+    with pytest.raises(NotImplementedError, match=rf"{target} is not in the port.*ROADMAP"):
         TC._locate(target)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TC.instantiate({"_target_": target})

@@ -15,9 +15,13 @@ nothing of
 the JAX package (``pointcloudmatters_tpu``) was imported (the GPU machine
 has no JAX); the training entry point composes ``configs/`` and fits with
 JAX blocked, and RLBench's ACT trains from ``configs/`` and is evaluated by
-``test_rlbench_act`` against a fake task with JAX blocked. Every CUDA source under ``csrc/`` is one the build compiles,
+``test_rlbench_act`` against a fake task with JAX blocked; SWA from
+``configs/``, the state-only and masked ACT, ``TransformerForDiffusion``, the
+timm-style builder, the schedulers and the library point ops run with JAX
+blocked. Every CUDA source under ``csrc/`` is one the build compiles,
 and none includes a PyTorch or JAX header."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -102,6 +106,8 @@ SLICE_MODULES = (
     "pointcloudmatters_tpu_torch.envs.custom_maniskill2",
     "pointcloudmatters_tpu_torch.test_rlbench_act",
     "pointcloudmatters_tpu_torch.test_rlbench_dp",
+    "pointcloudmatters_tpu_torch.models.components.diffusion_policy.diffusion."
+    "transformer_for_diffusion",
 )
 BLOCKED = ("jax", "flax", "optax", "orbax")
 
@@ -439,6 +445,84 @@ def test_rlbench_trains_and_evaluates_without_jax(tmp_path):
     assert proc.stdout.strip().endswith("ok")
 
 
+def test_swa_and_the_library_surface_run_without_jax(tmp_path):
+    """With jax, flax, optax and orbax blocked: the composer instantiates
+    ``configs/callbacks/stochastic_weight_averaging.yaml`` as the port's
+    class; ``train.main`` fits the flagship composition with
+    ``callbacks=stochastic_weight_averaging`` (tiny widths, the CPU, 2
+    epochs) and swaps the average in; the state-only ACT predicts and
+    steps; ``ACTPCD(use_mask=True)`` predicts; ``TransformerForDiffusion``,
+    the timm-style builder, the schedulers and the library point ops run;
+    nothing of the JAX package is imported."""
+    script = textwrap.dedent(f"""
+        import os, sys
+        for name in {BLOCKED!r}:
+            sys.modules[name] = None
+        import numpy as np
+        import torch
+        from tests.synth import make_synthetic_maniskill2
+        from pointcloudmatters_tpu_torch import callbacks, entry
+        from pointcloudmatters_tpu_torch.models.bc_module import BCModule
+        from pointcloudmatters_tpu_torch.models.components.diffusion_policy.diffusion import (
+            transformer_for_diffusion as tfd)
+        from pointcloudmatters_tpu_torch.ops import pointops
+        from pointcloudmatters_tpu_torch.train import main
+        from pointcloudmatters_tpu_torch.trainer import Trainer
+        from pointcloudmatters_tpu_torch.utils import config as C, optimizer, scheduler
+        from pointcloudmatters_tpu_torch.utils.utils import instantiate_callbacks
+        cfg = C.compose("configs", "train", ["callbacks=stochastic_weight_averaging"])
+        (swa,) = instantiate_callbacks(cfg.callbacks)
+        assert type(swa) is callbacks.StochasticWeightAveraging and swa.swa_lrs == 0.05
+        demo = make_synthetic_maniskill2({str(tmp_path / "demo.h5")!r}, n_episodes=2,
+                                         episode_len=6, cam_side=16)
+        main(["exp_maniskill2_act_policy=base",
+              "exp_maniskill2_act_policy/maniskill2_pcd_task@maniskill2_pcd_task=PickCube-v0",
+              "exp_maniskill2_act_policy/maniskill2_model@maniskill2_model=scratch_pointnet_pcd",
+              "trainer=cpu", "debug=default", "trainer.max_epochs=2", "logger=csv",
+              "callbacks=stochastic_weight_averaging", "extras.print_config=false",
+              "callbacks.stochastic_weight_averaging.swa_epoch_start=0.5",
+              "callbacks.stochastic_weight_averaging.annealing_epochs=1",
+              "data.train.dataset_file=" + demo, "data.train.point_num_per_cam=256",
+              "data.train.chunk_size=5", "data.train.cache_dir={tmp_path}/cache",
+              "data.batch_size_train=2", "data.pad_multiple=64",
+              "model.policy.hidden_dim=32", "model.policy.pcd_npoints=16",
+              "model.policy.pcd_nsample=4", "model.policy.transformer.num_encoder_layers=1",
+              "model.policy.transformer.num_decoder_layers=1",
+              "model.policy.transformer.nhead=4", "hydra.run.dir={tmp_path}/run",
+              "paths.log_dir={tmp_path}/logs"])
+        tiny = dict(hidden_dim=32, chunk=5, enc_layers=1, dec_layers=1, nhead=4, device="cpu")
+        module = BCModule(entry.build_state_policy(env_state_dim=6, **tiny))
+        batch = entry.build_state_batch(2, env_state_dim=6, chunk=5)
+        assert module.predict(batch).shape == (2, 5, 7)
+        Trainer(accelerator="cpu").train_step(
+            module, {{k: torch.as_tensor(v) for k, v in batch.items()}})
+        masked = BCModule(entry.build_flagship(npoints=16, nsample=4, use_mask=True,
+                                               bg_ratio=0.25, **tiny))
+        pcd = entry.build_batch(2, n_points=64, chunk=5, with_actions=False)
+        pcd["pcds"]["mask"] = np.arange(64)[None].repeat(2, 0) % 3 == 1
+        assert masked.predict(pcd).shape == (2, 5, 7)
+        net = tfd.TransformerForDiffusion(input_dim=4, output_dim=4, horizon=6, n_layer=1,
+                                          n_head=2, n_emb=8, n_obs_steps=2, cond_dim=3)
+        assert net(torch.zeros(2, 6, 4), 3, torch.zeros(2, 2, 3)).shape == (2, 6, 4)
+        opt, sched = optimizer.build_optimizer_v2(
+            {{"type": "AdamW", "lr": 1e-3, "weight_decay": 0.05, "layer_decay": 0.75}}, net,
+            lr_schedule=scheduler.cosine_lr_scheduler(1e-3, 10, warmup_t=2))
+        opt.step(); sched.step()
+        xyz = torch.rand(40, 3)
+        idx, _ = pointops.ball_query(4, 0.3, 0.0, xyz, torch.tensor([25, 40]))
+        assert idx.shape == (40, 4)
+        assert not [m for m in sys.modules if m.split(".")[0] in
+                    {BLOCKED + ("pointcloudmatters_tpu",)!r}
+                    and sys.modules[m] is not None]
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO_ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
+    assert "SWA: swapping in the average of 1 epoch-end" in proc.stdout + proc.stderr
+
+
 def test_cuda_sources_are_built_and_stand_alone():
     from pointcloudmatters_tpu_torch import _build
 
@@ -447,3 +531,84 @@ def test_cuda_sources_are_built_and_stand_alone():
     for path in pathlib.Path(_build.CSRC).iterdir():
         text = path.read_text()
         assert "torch/" not in text and "jax" not in text.lower(), path.name
+
+
+# ROADMAP.md §1 "Do not port": JAX-only plumbing, TPU toolchain pieces and
+# names nothing composes, by the JAX package's file; the Pallas kernels'
+# files are ported under the port's names (ops/fps.py, ops/knn*.py)
+DO_NOT_PORT = {
+    "models/components/act/transformer.py": {"EfficientMHA"},
+    "models/components/diffusion_policy/diffusion/conditional_unet1d.py": {"port_torch_state"},
+    "models/components/nn_utils.py": {"Dtype"},
+    "ops/flash_attention.py": {"BlockSizes", "MIN_BLOCK_SIZE", "NUM_LANES", "NUM_SUBLANES",
+                               "TRANS_B_DIM_NUMBERS", "below_or_on_diag", "mha_reference",
+                               "mha_reference_bwd", "mha_reference_no_custom_vjp"},
+    "ops/fused_builder.py": {"grouped_stats_core"},
+    "trainer.py": {"TrainState", "Trainer.mesh", "Trainer.shard_batch"},
+    "models/bc_module.py": {"BCModule.apply_train", "BCModule.initial_state"},
+    "utils/optimizer.py": {"ScalarOrSchedule", "scale_by_adam_b1_schedule"},
+    "utils/profiling.py": {"JaxProfiler"},
+    "ops/pallas_fps.py": "ops/fps.py",
+    "ops/pallas_knn.py": "ops/knn_baseline.py",
+    "ops/pallas_knn2.py": "ops/knn_chunkskip.py",
+    "ops/pallas_knn3.py": "ops/knn.py",
+    "utils/pytree_utils.py": "*",
+    "utils/registry.py": "*",
+    "utils/torch_layouts.py": "*",
+}
+
+
+def _public_names(path: pathlib.Path) -> tuple[set, dict]:
+    """Top-level public names of a module, and each class's public
+    methods (flax's ``setup`` is the modules' constructor, not API)."""
+    names, methods = set(), {}
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)) and not node.name.startswith("_"):
+            names.add(node.name)
+            if isinstance(node, ast.ClassDef):
+                methods[node.name] = {
+                    m.name for m in node.body
+                    if isinstance(m, ast.FunctionDef) and not m.name.startswith("_")
+                    and m.name != "setup"}
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets
+                      if isinstance(t, ast.Name) and not t.id.startswith("_")}
+        elif (isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name)
+              and not node.target.id.startswith("_")):
+            names.add(node.target.id)
+    return names - {"log"}, methods  # module loggers are not API
+
+
+def test_every_public_jax_name_has_a_counterpart():
+    """Each public name of each module of the JAX package (functions,
+    classes, constants, classes' public methods) is in the port's module of
+    the same path, or on ROADMAP.md's "Do not port" list."""
+    import importlib
+
+    jax_root, port_root = REPO_ROOT / "pointcloudmatters_tpu", REPO_ROOT / \
+        "pointcloudmatters_tpu_torch"
+    missing = []
+    for path in sorted(jax_root.rglob("*.py")):
+        rel = str(path.relative_to(jax_root))
+        skip = DO_NOT_PORT.get(rel, set())
+        if skip == "*":
+            continue
+        port = port_root / (skip if isinstance(skip, str) else rel)
+        if isinstance(skip, str):
+            assert port.is_file(), rel
+            continue
+        if not port.is_file():
+            missing.append(rel)
+            continue
+        names, methods = _public_names(path)
+        port_names, _ = _public_names(port)
+        missing += [f"{rel}:{n}" for n in sorted(names - port_names - skip)]
+        module = importlib.import_module(
+            "pointcloudmatters_tpu_torch." + rel[:-3].replace("/", ".").replace(
+                ".__init__", ""))
+        for cls, ms in methods.items():
+            if cls in skip or not hasattr(module, cls):
+                continue
+            missing += [f"{rel}:{cls}.{m}" for m in sorted(ms)
+                        if f"{cls}.{m}" not in skip and not hasattr(getattr(module, cls), m)]
+    assert not missing, missing

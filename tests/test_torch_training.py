@@ -231,22 +231,32 @@ def test_coupled_decay_optimizers_match_jax(cfg):
 
 
 def test_unported_training_options_raise():
+    """What JAX refuses the port refuses; keyword-matched groups and the
+    other schedulers are ported (``tests/test_torch_schedules_groups.py``)."""
     tw = torch.zeros(2, requires_grad=True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="names"):  # groups match on the paths
         build_optimizer({"type": "AdamW", "lr": 1e-3}, [tw],
                         param_dicts=[{"keyword": "w", "lr": 1e-4}])
+    opt = build_optimizer({"type": "AdamW", "lr": 1e-3}, {"w": tw},
+                          param_dicts=[{"keyword": "w", "lr": 1e-4}])
+    assert [g["lr_scale"] for g in opt.param_groups] == [1.0, pytest.approx(0.1)]
     with pytest.raises(NotImplementedError):
         build_optimizer({"type": "LAMB", "lr": 1e-3}, [tw])
     opt = build_optimizer({"type": "AdamW", "lr": 1e-3}, [tw])
-    for kind in ("CosineAnnealingLR", "MultiStepLR", "PolyLR"):
+    for kind in ("CosineAnnealingLR", "PolyLR", "ExpLR", "CosineLRScheduler"):
+        assert build_scheduler(opt, {"type": kind}, 10).lr_at(0) > 0
+    with pytest.raises(KeyError):
+        build_scheduler(opt, {"type": "StepLR"}, 10)
+    for extra in ({"three_phase": True}, {"anneal_strategy": "linear"}):  # JAX raises too
         with pytest.raises(NotImplementedError):
-            build_scheduler(opt, {"type": kind}, 10)
+            build_scheduler(opt, {"type": "OneCycleLR", **extra}, 10)
     for precision in ("bf16-mixed", "16-mixed"):  # ported: bf16 compute
         assert Trainer(precision=precision).compute_dtype == torch.bfloat16
     with pytest.raises(ValueError):
         Trainer(precision="64-true")
-    with pytest.raises(NotImplementedError):
-        BCModule(torch.nn.Linear(2, 2), param_dicts=[{"keyword": "w"}])
+    module = BCModule(torch.nn.Linear(2, 2), param_dicts=[{"keyword": "kernel"}])
+    module.configure_optimizers(4)
+    assert [len(g["params"]) for g in module.optimizer.param_groups] == [1, 1]
     assert isinstance(Metrics(["MaxMetric"], ["loss"], ["best"]).metrics[0], MaxMetric)
     with pytest.raises(KeyError):
         Metrics(["MedianMetric"], ["loss"], ["median"])

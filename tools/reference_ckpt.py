@@ -145,6 +145,8 @@ def _act(policy: ACT, resnet_prefix: str) -> dict:
     for key, v in _mha_and_names(sd).items():
         if key in ("cls_embed", "query_embed", "additional_pos_embed"):
             out[f"{key}.weight"] = v
+        elif key == "state_pos_embed":
+            out["pos.weight"] = v  # the reference's state-only position table
         elif key == "input_proj.weight":
             out[key] = v[:, :, None, None]  # the reference's 1 x 1 convolution
         elif key.startswith("pcd_linear."):
@@ -154,8 +156,9 @@ def _act(policy: ACT, resnet_prefix: str) -> dict:
                 _bn(out, "bn", sd, "pcd_bn")
         else:
             out[key] = v
-    for key, v in backbone_state_dict(policy.backbone, resnet_prefix).items():
-        out[f"backbone.{key}"] = v
+    if policy.backbone is not None:
+        for key, v in backbone_state_dict(policy.backbone, resnet_prefix).items():
+            out[f"backbone.{key}"] = v
     return out
 
 

@@ -32,11 +32,15 @@ PARTS = {"a": chip_smoke.rlbench_act, "b": chip_smoke.rlbench_dp,
          "e": chip_smoke.rlbench_rollouts, "f": chip_smoke.rlbench_profiled_fit}
 
 
-def main(argv: list[str]) -> int:
+def run_parts(name: str, parts: dict, argv: list[str], before=None) -> int:
+    """Build the kernels, call ``before(dir)`` with a temporary directory
+    where given, then each part of ``parts`` that ``argv`` names (all by
+    default) on the card, each even where an earlier one failed; print each
+    path's launches; 1 if a part failed."""
     import torch
 
     if not torch.cuda.is_available():
-        print("rlbench_phase: no CUDA device; this run needs the GPU", file=sys.stderr)
+        print(f"{name}: no CUDA device; this run needs the GPU", file=sys.stderr)
         return 1
     from pointcloudmatters_tpu_torch import _build
 
@@ -48,23 +52,30 @@ def main(argv: list[str]) -> int:
     chip_smoke.log(f"built {sorted(built) or 'nothing (cached)'} in "
                    f"{time.perf_counter() - t0:.1f} s")
     tmp = tempfile.TemporaryDirectory()
-    chip_smoke.rlbench_data(tmp.name)
+    if before is not None:
+        before(tmp.name)
     results, failed = {}, []
+    t_all = time.perf_counter()
     with chip_smoke.knn_impl(None):
-        for part in argv or list(PARTS):
+        for part in argv or list(parts):
             t0 = time.perf_counter()
             try:
-                results[part] = PARTS[part](dev)
+                results[part] = parts[part](dev)
             except Exception:  # report every part's failure, then exit non-zero
                 traceback.print_exc()
                 failed.append(part)
-            chip_smoke.log(f"rlbench part {part}: {time.perf_counter() - t0:.1f} s"
+            chip_smoke.log(f"{name} part {part}: {time.perf_counter() - t0:.1f} s"
                            + (" FAILED" if part in failed else ""))
             torch.cuda.empty_cache()
+    chip_smoke.log(f"{name} parts in {time.perf_counter() - t_all:.1f} s")
     tmp.cleanup()
     print(json.dumps({part: {path: {k: n for k, n in counts.items() if n}
                              for path, counts in r.items()} for part, r in results.items()}))
     return 1 if failed else 0
+
+
+def main(argv: list[str]) -> int:
+    return run_parts("rlbench", PARTS, argv, before=chip_smoke.rlbench_data)
 
 
 if __name__ == "__main__":

@@ -358,6 +358,36 @@ Phases, each of which raises on failure (exit code non-zero, no result):
    CPU's, and ``TransformerForDiffusion`` at its default width, forward
    and gradients card vs CPU within 1e-4 and a step.
    ``python3 tools/phase18.py [part ...]`` runs it alone.
+19. The reference's scripts on the port, in under 60 s: (a)
+   ``preprocess_rlbench.main`` against the fake ``rlbench``
+   (``tools/fake_rlbench.py``: 3 + 2 raw episodes of 8 frames, one 128 x 128
+   front camera, ``--text-encoder hash``), then ``train.main`` on the
+   episodes it wrote (``exp_rlbench_act_policy``, ``scratch_pointnet_pcd``,
+   B=8 x 2, ``"bf16-mixed"``, one optimizer step, held-out ``val/loss``),
+   kernels 1-4 on the path's own tensors against their plain versions as
+   phase 17 holds them; (b) the first two commands of
+   ``pointcloudmatters_tpu_torch/scripts/run_rlbench_camera_view.sh`` (5
+   degrees about y, then z), recorded under a stub ``python``, through
+   ``test_rlbench_act.main`` on (a)'s checkpoint with the fake ``rlbench``
+   (the front camera must receive ``perturb_camera_matrix``'s matrix; goals
+   from (a)'s ``clip_cache.npz``); (c) both ManiSkill2 sweep scripts under
+   the stub, their env ids against ``iter_env_ids()``, one command of each
+   through ``validate.main`` with ``gym.make`` recording (env id, shader,
+   ray-tracing samples and denoiser; the cloud only on the swept camera of
+   8); (d) the image DP with a ResNet-18 a camera that does not pool (two
+   cameras, resized to 64, the UNet at 256/512/1024, 16 reverse steps):
+   ``predict`` B=1 and a bf16 step at B=8, card vs CPU, no kernel of #1-#13;
+   (e) an SGD flagship after 2 bf16 steps, written in JAX's restored form
+   (``tools/jax_form.py``'s ``torch_to_flax``), converted by
+   ``jax_checkpoint_to_torch``, resumed and stepped once: bit-equal to the
+   source's step; (f) (d)'s model at the shipped widths on the card alone
+   (224 px crops: 25,088 features a camera, the UNet at 512/1024/2048, 100
+   reverse steps, 3.15 billion parameters): ``predict`` B=1 and two bf16
+   steps at B=8, finite, the parameters moved, peak memory logged.
+   ``python3 tools/phase19.py [part ...]`` runs it alone.
+
+Prints the seconds of each phase as one JSON line (``phase_seconds``) just
+before the kernels line.
 
 Prints a JSON line of the kernels (route, source, the TPU kernel each
 replaces, launches on each path (phase 11's: ``train_cli``,
@@ -383,7 +413,11 @@ attention forward; phase 17's: ``rlbench_predict``, ``rlbench_train``,
 ``swa_train_cli``, ``state_predict``, ``state_train`` (both zero),
 ``masked_predict_bg0`` / ``_bg25``, ``masked_train_bg0`` / ``_bg25``,
 ``pointops_v3``, ``pointops_chunkskip``, ``pointops_baseline``,
-``groups_train``, ``optimizer_v2_train``, ``tfd`` (zero)), error,
+``groups_train``, ``optimizer_v2_train``, ``tfd`` (zero); phase 19's:
+``preprocessed_rlbench_train``, ``rlbench_camera_view``,
+``sweep_camera_view``, ``sweep_visual_changes``, ``unpooled_dp_predict``,
+``unpooled_dp_train``, ``unpooled_full_predict``, ``unpooled_full_train``
+(all four zero), ``sgd_round_trip``), error,
 kernel, plain and library times,
 and the bound: the larger of the bytes over 3.35 TB/s and the flops over
 the peak of the inputs' type, 67 TFLOP/s f32 or 989 TFLOP/s bf16 (FPS and
@@ -563,6 +597,17 @@ BF16_STEP_TOL = 5e-2
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+PHASE_SECONDS: dict = {}  # seconds by phase, printed on one line before the kernels line
+
+
+def timed(phase: str, fn, *args):
+    """``fn(*args)``, its seconds kept under ``phase`` in PHASE_SECONDS."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[phase] = round(time.perf_counter() - t0, 1)
+    return out
 
 
 def card_line() -> str:
@@ -5995,10 +6040,12 @@ def rlbench_dp(dev) -> dict:
     return paths
 
 
-def _cli_run(argv: list[str], what: str, want_steps: int, want_launches: dict):
+def _cli_run(argv: list[str], what: str, want_steps: int, want_launches: dict,
+             part: str = "rlbench (c)"):
     """``train.main(argv)``: checks the run's micro-steps, finite train and
     held-out losses after each epoch, a ``last`` checkpoint and the exact
-    launches; returns (launches, the probe, seconds)."""
+    launches; logs under ``part``; returns (launches, the probe, the
+    ``last`` checkpoint)."""
     import numpy as np
     import torch
 
@@ -6024,7 +6071,7 @@ def _cli_run(argv: list[str], what: str, want_steps: int, want_launches: dict):
                              f"val/loss {vals}, last {os.listdir(os.path.dirname(last))}")
     _only(launches, want_launches, what)
     size = os.path.getsize(os.path.join(last, CHECKPOINT_FILE))
-    log(f"rlbench (c) {card_line()}: {what}: {trainer.global_step} micro-steps of "
+    log(f"{part} {card_line()}: {what}: {trainer.global_step} micro-steps of "
         f"B={RLBENCH_BATCH} in {seconds:.2f} s ({probe.t_start - t0:.2f} s to the first step;"
         f" last epoch {probe.epochs[-1][2]['samples_per_sec']:.2f} samples/s); train/loss "
         f"{losses}, val/loss {vals}; checkpoint {size / 1e6:.1f} MB; launches "
@@ -6952,6 +6999,701 @@ def phase18(dev) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the reference's scripts on the port (RLBench preprocessing and the
+# three generalization sweeps), a per-key image DP that does not pool, and a
+# JAX SGD checkpoint converted and resumed
+# ---------------------------------------------------------------------------
+
+P19_EPISODES = {"train": 3, "val": 2}  # raw episodes preprocessed in (a)
+P19_FRAMES = 8  # frames an episode
+P19_TRAIN_BATCHES, P19_VAL_BATCHES = 2, 2  # (a): micro-steps of 8 (one optimizer step), held out
+P19_EVAL_EPISODES, P19_SUCCESS_AT = 2, 3  # (b): episodes a command, the step that succeeds
+P19_SWEEP_EPISODES = 2  # (c): rollout episodes a command
+STANDARD_ENV_IDS = {"PickCube-v0", "LiftCube-v0", "StackCube-v0", "PegInsertionSide-v0",
+                    "TurnFaucet-v0", "Hang-v0", "Pour-v0", "Fill-v0", "Excavate-v0"}
+SWEEP_CAMERAS = 8  # a MultiView rig
+# (d): two cameras, each through its own ResNet-18 without avg_pool (resizing
+# to 64: a 2 x 2 x 512 map a camera, flattened), the UNet at half the
+# shipped widths and 16 reverse steps, so that the CPU's answer fits the phase
+UNPOOLED_CAMERAS = ("base_camera", "hand_camera")
+UNPOOLED_BACKBONE = {"resnet_model": "resnet18", "avg_pool": False, "resize_to": 64}
+UNPOOLED_UNET = {"down_dims": (256, 512, 1024), "num_inference_steps": 16}
+UNPOOLED_BATCH = 8
+# (f): (d)'s model at the shipped widths, on the card alone (the CPU could not
+# run it within the phase): the configs' resize 256 and crop 224, so a 7 x 7 x
+# 512 map a camera (25,088 features), the UNet at down_dims 512/1024/2048
+# (FiLM linears of 100,501 inputs) and 100 reverse steps
+UNPOOLED_FULL_BACKBONE = {"resnet_model": "resnet18", "avg_pool": False}
+UNPOOLED_FULL_PARAMS = 3_147_992_839  # counted on the meta device
+SGD_OPT = {"type": "SGD", "lr": 5e-3, "momentum": 0.9, "weight_decay": 1e-4}  # (e)
+SGD_BATCH = 8
+P19: dict = {}  # the phase's root, raw episodes and checkpoint
+SWEEP: dict = {}  # (c)'s demos and dataset class
+RLBENCH_KERNEL_CALLS["p19 (a)"] = RLBENCH_KERNEL_CALLS["(a)"]
+
+
+def recorded_sweep(script: str, args: list[str], tmp: str) -> list[list[str]]:
+    """The argument lists of every ``python`` call that the port's sweep
+    script ``script`` makes with ``args``, under a stub ``python`` that
+    records them (in ``tmp``)."""
+    import shlex
+
+    bindir = os.path.join(tmp, "stub_bin")
+    os.makedirs(bindir, exist_ok=True)
+    record = os.path.join(tmp, "record.txt")
+    if os.path.exists(record):
+        os.remove(record)
+    stub = os.path.join(bindir, "python")
+    with open(stub, "w") as f:
+        f.write(f'#!/usr/bin/env bash\nprintf "%q " "$@" >> {record}\necho >> {record}\n')
+    os.chmod(stub, 0o755)
+    env = dict(os.environ, PATH=f"{bindir}:{os.environ['PATH']}")
+    proc = subprocess.run(["bash", os.path.join(REPO, "pointcloudmatters_tpu_torch", "scripts",
+                                                script), *args],
+                          env=env, cwd=REPO, capture_output=True, text=True, timeout=60)
+    if proc.returncode != 0 or not os.path.exists(record):
+        raise AssertionError(f"{script}: exit {proc.returncode}, {proc.stderr[-2000:]}")
+    with open(record) as f:
+        return [shlex.split(line) for line in f.read().splitlines()]
+
+
+def p19_root(root: str) -> None:
+    P19.clear()
+    P19["root"] = root
+
+
+def preprocessed_rlbench(dev) -> dict:
+    """Phase 19 (a): ``preprocess_rlbench.main`` against the fake ``rlbench``
+    (``tools/fake_rlbench.py``: one 128 x 128 front camera, P19_FRAMES
+    frames) with ``--text-encoder hash`` over P19_EPISODES raw episodes,
+    then ``train.main`` on the episodes it wrote (``exp_rlbench_act_policy``,
+    ``scratch_pointnet_pcd``, B=8 x 2, ``"bf16-mixed"``, one epoch of
+    P19_TRAIN_BATCHES micro-steps, held-out ``val/loss``): the exact
+    launches (#1, #2, bf16 #3/#4, f32 #3 in validation), and each kernel on
+    the tensors the path gave it against its plain version
+    (``rlbench_kernel_checks``). Returns the launches by path."""
+    import numpy as np
+
+    from pointcloudmatters_tpu_torch import preprocess_rlbench
+    from tools import fake_rlbench
+
+    sys.modules.setdefault("chip_smoke", sys.modules[__name__])  # the probe's module
+    root = P19["root"]
+    raw = P19["raw"] = fake_rlbench.write_raw(os.path.join(root, "raw"), (RLBENCH_TASK,),
+                                              P19_EPISODES)
+    saved = preprocess_rlbench.EPISODES
+    preprocess_rlbench.EPISODES = dict(P19_EPISODES)
+    t0 = time.perf_counter()
+    try:
+        with fake_rlbench.installed(side=RLBENCH_SIDE, frames=P19_FRAMES):
+            preprocess_rlbench.main(["--task_names", RLBENCH_TASK, "--root", raw,
+                                     "--save_root", os.path.join(root, "data"),
+                                     "--text-encoder", "hash"])
+    finally:
+        preprocess_rlbench.EPISODES = saved
+    seconds = time.perf_counter() - t0
+    for stage, n in P19_EPISODES.items():
+        folder = os.path.join(root, "data", stage, RLBENCH_TASK)
+        names = sorted(os.listdir(folder))
+        if names != sorted(f"ep{i}.npy" for i in range(n)):
+            raise AssertionError(f"preprocess_rlbench wrote {names} for {stage}")
+        episode = np.load(os.path.join(folder, "ep0.npy"), allow_pickle=True).item()
+        frame = episode["demo"][0]
+        if len(episode["demo"]) != P19_FRAMES or episode["task_goal"].shape != (512,) \
+                or frame["front_point_cloud"].shape != (RLBENCH_SIDE, RLBENCH_SIDE, 3):
+            raise AssertionError(f"preprocess_rlbench {stage}/ep0.npy: {len(episode['demo'])} "
+                                 f"frames, goal {episode['task_goal'].shape}")
+    cache = dict(np.load(os.path.join(root, "data", "clip_cache.npz")))
+    if len(cache) != 3:  # episode i is in variation i % 3
+        raise AssertionError(f"clip_cache.npz holds {len(cache)} descriptions, not 3")
+    log(f"p19 (a) {card_line()}: preprocess_rlbench of {sum(P19_EPISODES.values())} episodes "
+        f"of {P19_FRAMES} frames ({RLBENCH_SIDE} x {RLBENCH_SIDE} front camera) in "
+        f"{seconds:.2f} s")
+    argv = rlbench_argv(root, "p19_train") + [
+        f"trainer.limit_train_batches={P19_TRAIN_BATCHES}", "trainer.accumulate_grad_batches=2",
+        "trainer.max_epochs=1", "trainer.check_val_every_n_epoch=1",
+        f"trainer.limit_val_batches={P19_VAL_BATCHES}"]
+    want = {k: n * P19_TRAIN_BATCHES for k, n in ACT_KERNELS_A_STEP.items()}
+    for k, n in EVAL_KERNELS_A_BATCH.items():
+        want[k] = want.get(k, 0) + n * P19_VAL_BATCHES
+    calls: dict = {}
+    with recorded_kernel_calls(calls):
+        launches, probe, last = _cli_run(argv, "preprocessed_rlbench_train", P19_TRAIN_BATCHES,
+                                         want, "p19 (a)")
+    if probe.trainer.precision != "bf16-mixed":
+        raise AssertionError(f"p19 (a): precision {probe.trainer.precision}")
+    P19["act_ckpt"] = last
+    del probe
+    EndState.runs.clear()
+    rlbench_kernel_checks(dev, calls, "p19 (a)")
+    return {"preprocessed_rlbench_train": launches}
+
+
+def rlbench_camera_view(dev) -> dict:
+    """Phase 19 (b): the first two commands of the port's RLBench sweep
+    (``run_rlbench_camera_view.sh``, recorded under a stub ``python``: the
+    front camera rotated 5 degrees about y, then about z) through
+    ``test_rlbench_act.main`` on (a)'s checkpoint, with the fake ``rlbench``
+    installed (``rlbench_utils.build_env_and_task`` and ``reset_task`` run
+    as they are): the goals from (a)'s ``clip_cache.npz``, P19_EVAL_EPISODES
+    held-out episodes each, success at step P19_SUCCESS_AT. The front
+    camera must have received ``perturb_camera_matrix``'s matrix, the result
+    file the command's line, and each prediction FPS, kNN and the f32
+    attention forward. Returns the launches by path."""
+    import tempfile
+
+    import numpy as np
+
+    from pointcloudmatters_tpu_torch import ops, test_rlbench_act
+    from pointcloudmatters_tpu_torch.utils import rlbench_utils as RU
+    from tools import fake_rlbench
+
+    root, ckpt = P19["root"], P19["act_ckpt"]
+    with tempfile.TemporaryDirectory() as tmp:
+        commands = recorded_sweep("run_rlbench_camera_view.sh",
+                                  ["scratch_pointnet_pcd", RLBENCH_TASK, ckpt], tmp)
+    if len(commands) != 8 or {tuple(c[:2]) for c in commands} != {
+            ("-m", "pointcloudmatters_tpu_torch.test_rlbench_act")}:
+        raise AssertionError(f"run_rlbench_camera_view.sh: {len(commands)} commands")
+    result_path = os.path.join(root, "camera_view_results")
+    extra = [f"data.train.root={root}/data/train", f"data.val.root={root}/data/val",
+             f"data.train.loop={RLBENCH_LOOP}", f"data_root={P19['raw']}/val", f"episodes_num={P19_EVAL_EPISODES}",
+             f"max_steps={2 * P19_SUCCESS_AT}", f"result_path={result_path}",
+             f"clip_cache_path={root}/data/clip_cache.npz", "data.num_workers=0",
+             f"paths.log_dir={root}/logs", f"hydra.run.dir={root}/camera_view",
+             "extras.print_config=false"]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for argv in commands[:2]:
+        view = dict(a.split("=", 1) for a in argv[2:] if a.startswith("camera_view_test."))
+        with fake_rlbench.installed(side=RLBENCH_SIDE, frames=P19_FRAMES,
+                                    success_at=P19_SUCCESS_AT) as fake:
+            metrics = test_rlbench_act.main(argv[2:] + extra)
+            matrices = list(fake.RECORD["camera_matrices"])
+        want = RU.perturb_camera_matrix(fake_rlbench.FRONT_MATRIX,
+                                        float(view["camera_view_test.rot_angle"]),
+                                        view["camera_view_test.rot_axis"], [0, 0, 0])
+        if metrics != {"success_rate": 1.0} or len(matrices) != 1 \
+                or not np.array_equal(matrices[0], want):
+            raise AssertionError(f"p19 (b) {view}: {metrics}, camera matrices {matrices}")
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    with open(os.path.join(result_path, "test_result.txt")) as f:
+        lines = f.read().splitlines()
+    if lines != ["scratch_pointnet_pcd_y_5: 1.0", "scratch_pointnet_pcd_z_5: 1.0"]:
+        raise AssertionError(f"p19 (b): result file {lines}")
+    predictions = 2 * P19_EVAL_EPISODES * P19_SUCCESS_AT
+    _only(launches, {k: n * predictions for k, n in EVAL_KERNELS_A_BATCH.items()},
+          "rlbench_camera_view")
+    log(f"p19 (b) {card_line()}: run_rlbench_camera_view.sh's first two commands (rotations "
+        f"of 5 degrees about y and z) through test_rlbench_act.main: the front camera "
+        f"perturbed, success 1.0 each, {predictions} predictions at B=1 in {seconds:.2f} s "
+        f"(composition, restore and episodes); result lines {lines}")
+    return {"rlbench_camera_view": launches}
+
+
+class SweepEnv(RolloutEnv):
+    """(c)'s env: RolloutEnv's cloud on camera ``camera`` of SWEEP_CAMERAS
+    and every other camera's points invalid (w = 0), so that a cloud
+    reaches the policy only through the swept camera id."""
+
+    def __init__(self, camera: int):
+        self.camera = camera
+        self.successes = 0
+
+    def obs(self):
+        import numpy as np
+
+        obs = super().obs()
+        pc = obs["pointcloud"]
+        n = len(pc["xyzw"])
+        xyzw = np.zeros((SWEEP_CAMERAS * n, 4), np.float32)
+        xyzw[self.camera * n:(self.camera + 1) * n] = pc["xyzw"]
+        pc["xyzw"], pc["rgb"] = xyzw, np.tile(pc["rgb"], (SWEEP_CAMERAS, 1))
+        return obs
+
+    def step(self, action):
+        out = super().step(action)
+        self.successes += bool(out[4]["success"])
+        return out
+
+
+def sweep_train_set(dataset_file=None, cache_dir=None, loop=None, **kw):
+    """``data.train``'s target in (c): the composition's ManiSkill2 dataset
+    class (SWEEP["dataset"]) over synthetic demos of SWEEP_CAMERAS cameras,
+    FIT_LOOP times, with the config's other keys; the data config's
+    transforms where the composition lost them (StackCube's NullGoal task,
+    ROADMAP.md §3)."""
+    kw.setdefault("transform_pcd", fit_transforms())
+    return in_memory_dataset(SWEEP["demos"], SWEEP["dataset"], cache_dir=SWEEP["cache"],
+                             loop=FIT_LOOP, **kw)
+
+
+@contextlib.contextmanager
+def recorded_gym_make(made: list, camera: int):
+    """``gymnasium`` and ``mani_skill2.envs`` as stub modules inside (the
+    card's machine has neither): ``make_maniskill2_env``'s ``gym.make``
+    records (env_id, keywords) in ``made`` and returns a SweepEnv of
+    ``camera``."""
+    import types
+
+    import pointcloudmatters_tpu_torch.envs.custom_maniskill2  # noqa: F401  (before the stubs)
+
+    gym, ms2, ms2_envs = (types.ModuleType(n) for n in ("gymnasium", "mani_skill2",
+                                                         "mani_skill2.envs"))
+    gym.make = lambda env_id, **kw: made.append((env_id, kw, SweepEnv(camera))) or made[-1][2]
+    ms2.envs = ms2_envs
+    saved = {n: sys.modules.get(n) for n in ("gymnasium", "mani_skill2", "mani_skill2.envs")}
+    sys.modules.update({"gymnasium": gym, "mani_skill2": ms2, "mani_skill2.envs": ms2_envs})
+    try:
+        yield made
+    finally:
+        for name, module in saved.items():
+            if module is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = module
+
+
+def maniskill2_sweeps(dev) -> dict:
+    """Phase 19 (c): each ManiSkill2 sweep script of the port run under a
+    stub ``python`` (``run_maniskill2_camera_view.sh`` on PickCube-v0 and
+    ``run_maniskill2_visual_changes.sh``, ``scratch_pointnet_pcd``), its
+    env ids checked against ``iter_env_ids()`` (and ManiSkill2's own); then
+    one recorded command of each through ``validate.main`` in-process (the
+    camera view's first, camera id 4 of PickCube-MultiView; the visual
+    changes' first ray-tracing one: StackCube-v0, ``shader_dir=rt``, 2
+    samples a pixel, no denoiser), on a weights-only checkpoint of the composition's
+    seeded flagship, over synthetic demos of SWEEP_CAMERAS cameras, with
+    ``make_maniskill2_env``'s ``gym.make`` recording into a SweepEnv of the
+    command's camera: ``env_id``, ``shader_dir``, ``rt_samples_per_pixel``
+    and ``rt_use_denoiser`` reached it, every prediction's cloud came from
+    the swept camera, P19_SWEEP_EPISODES rollouts of ROLLOUT_STEPS steps,
+    each prediction FPS, kNN and the f32 attention forward. The visual
+    changes' commands name StackCube's point-cloud task, whose composition
+    keeps only the task's own keys of ``data.train`` in both packages
+    (ROADMAP.md §3): the phase adds back the data config's ``chunk_size``
+    (100) and transforms. Returns the launches by path."""
+    import tempfile
+
+    import torch
+
+    from pointcloudmatters_tpu_torch import ops
+    from pointcloudmatters_tpu_torch import train as train_entry
+    from pointcloudmatters_tpu_torch import validate as validate_entry
+    from pointcloudmatters_tpu_torch.envs.custom_maniskill2 import iter_env_ids
+    from pointcloudmatters_tpu_torch.trainer import Trainer
+
+    sys.modules.setdefault("chip_smoke", sys.modules[__name__])  # the dataset's module
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+    demos = synthetic_demos(2, 10, FIT_CAM_SIDE)
+    for demo in demos:
+        pc = demo["obs"]["pointcloud"]
+        pc["xyzw"], pc["rgb"] = _tile_cameras(pc["xyzw"]), _tile_cameras(pc["rgb"])
+    SWEEP.update(demos=demos, cache=os.path.join(root, "cache"))
+    registered = set(iter_env_ids()) | STANDARD_ENV_IDS
+    runs = {"sweep_camera_view": ("run_maniskill2_camera_view.sh",
+                                  ["PickCube-v0", "scratch_pointnet_pcd", "0"], 0),
+            "sweep_visual_changes": ("run_maniskill2_visual_changes.sh",
+                                     ["scratch_pointnet_pcd", "0"], 6)}
+    paths = {}
+    for path, (script, args, pick) in runs.items():
+        ckpt = os.path.join(root, f"{path}_ckpt")
+        commands = recorded_sweep(script, [ckpt, *args], os.path.join(root, path))
+        ids = {a.split("=", 1)[1] for c in commands for a in c if a.startswith("model.env_id=")}
+        if not ids or ids - registered:
+            raise AssertionError(f"{script}: env ids {sorted(ids - registered)} not registered")
+        entry, argv = commands[pick][:2], commands[pick][2:]
+        given = dict(a.split("=", 1) for a in argv if "@" not in a.split("=", 1)[0])
+        if entry != ["-m", "pointcloudmatters_tpu_torch.validate"]:
+            raise AssertionError(f"{script}: entry point {entry}")
+        camera = int(given.get("data.train.camera_ids", "[0]").strip("[]"))
+        extra = ["data.train._target_=chip_smoke.sweep_train_set", "data.num_workers=0",
+                 f"trainer.limit_val_batches={P19_SWEEP_EPISODES}", "logger=csv",
+                 f"paths.log_dir={root}/logs", f"hydra.run.dir={root}/{path}_run",
+                 "extras.print_config=false"]
+        if "StackCube" in given["model.env_id"]:  # the NullGoal task dropped the data config's
+            extra.append("data.train.chunk_size=100")
+        composed = train_entry.compose_run(argv + extra[1:], output_dir=os.path.join(
+            root, f"{path}_composed"))
+        SWEEP["dataset"] = composed.data.train._target_.rsplit(".", 1)[1]
+        module = train_entry.instantiate_model(composed)
+        trainer = Trainer(default_root_dir=os.path.join(root, f"{path}_save"), seed=0,
+                          accumulate_grad_batches=composed.trainer.accumulate_grad_batches)
+        trainer.setup(module, 1)
+        trainer.save_checkpoint(ckpt, weights_only=True)  # the module's streams are the CPU's
+        del module, trainer
+        made: list = []
+        calls: dict = {}
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with recorded_gym_make(made, camera), recorded_kernel_calls(calls):
+            metrics = validate_entry.main(argv + extra)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        paths[path] = launches = ops.launch_counts()
+        env_id, kw, env = made[0] if len(made) == 1 else (None, {}, None)
+        render = kw.get("render_config", {})
+        want = {"env_id": given["model.env_id"], "shader_dir": given.get("model.shader_dir", "ibl"),
+                "rt_samples_per_pixel": int(given.get("model.rt_samples_per_pixel", 32)),
+                "rt_use_denoiser": given.get("model.rt_use_denoiser", "true") == "true"}
+        got = {"env_id": env_id, "shader_dir": kw.get("shader_dir"),
+               "rt_samples_per_pixel": render.get("rt_samples_per_pixel"),
+               "rt_use_denoiser": render.get("rt_use_denoiser")}
+        if got != want:
+            raise AssertionError(f"{path}: gym.make got {got}, want {want} ({len(made)} envs)")
+        (xyz, mask, _), _ = calls["fps"]
+        valid = int(mask.sum())
+        if not valid:
+            raise AssertionError(f"{path}: the first request's cloud is empty (camera "
+                                 f"{camera} did not reach the observation)")
+        _only(launches, {k: n * P19_SWEEP_EPISODES * ROLLOUT_STEPS
+                         for k, n in EVAL_KERNELS_A_BATCH.items()}, path)
+        if metrics.get("val/mean_success") != env.successes / P19_SWEEP_EPISODES:
+            raise AssertionError(f"{path}: validation metrics {metrics}, {env.successes} of "
+                                 f"{P19_SWEEP_EPISODES} rollouts succeeded")
+        log(f"p19 (c) {card_line()}: {script} ({len(commands)} commands, {len(ids)} env ids, "
+            f"all registered); command {pick + 1} ({' '.join(a for a in argv if a.startswith(('model.', 'data.train.camera')))}) "
+            f"through validate.main in {seconds:.2f} s: gym.make({env_id!r}, {kw}); "
+            f"{P19_SWEEP_EPISODES} rollouts, {valid} valid points from camera {camera} in the "
+            f"first request, {metrics}")
+    tmp.cleanup()
+    SWEEP.clear()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def _tile_cameras(a):
+    """A camera's (frames, n, c) array as SWEEP_CAMERAS cameras of it."""
+    import numpy as np
+
+    return np.concatenate([a] * SWEEP_CAMERAS, axis=1)
+
+
+@contextlib.contextmanager
+def fixed_sampling_draws(seed: int):
+    """The reverse chain's draws made on the CPU from ``seed`` (one
+    generator a call, ``step`` folded in) and handed to every device, so
+    that a chain on the card and one on the CPU take the same draws."""
+    import torch
+
+    from pointcloudmatters_tpu_torch.models.components.diffusion_policy import (
+        diffusion_unet_image_policy as dp,
+    )
+
+    saved = dp.sampling_noise
+
+    def draws(generator, shape, dtype, step):
+        gen = torch.Generator().manual_seed(seed * 1000 + (0 if step is None else step + 1))
+        return saved(gen, shape, dtype, step).to(generator.device)
+
+    dp.sampling_noise = draws
+    try:
+        yield
+    finally:
+        dp.sampling_noise = saved
+
+
+def unpooled_image_dp(dev) -> dict:
+    """Phase 19 (d): the image DP with a ResNet-18 a camera that does not
+    pool (``share_rgb_model`` false, ``avg_pool`` false; UNPOOLED_*: each
+    camera's 2 x 2 x 512 map flattened into the condition, which sizes the
+    UNet), seeded on the CPU and copied to the card: ``predict`` at B=1 in
+    f32 against the CPU's from the same draws within IMAGE_DP_CPU_TOL of
+    max(1, max|CPU|); one ``"bf16-mixed"`` step at B=UNPOOLED_BATCH on each
+    from the same draws, the losses within BF16_TOL relative, finite, and
+    the card's parameters moved. No kernel of #1-#13 runs on this path (the
+    image DP's layers are convolutions and linears, as in JAX). Returns the
+    launches by path."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from pointcloudmatters_tpu_torch import ops
+    from pointcloudmatters_tpu_torch.entry import (
+        build_image_dp_batch,
+        build_image_dp_policy,
+        image_dp_shape_meta,
+    )
+    from pointcloudmatters_tpu_torch.models.bc_module import to_device
+    from pointcloudmatters_tpu_torch.trainer import Trainer
+    from pointcloudmatters_tpu_torch.utils.normalizer import SingleFieldLinearNormalizer
+
+    normalizer = dp_normalizer()
+    for key in image_dp_shape_meta(3, UNPOOLED_CAMERAS)["obs"]:
+        if key != "qpos":
+            normalizer[key] = SingleFieldLinearNormalizer.create_identity()
+    t0 = time.perf_counter()
+    policy = build_image_dp_policy("resnet", 3, share_rgb_model=False, cameras=UNPOOLED_CAMERAS,
+                                   backbone_kw=UNPOOLED_BACKBONE, normalizer=normalizer,
+                                   device="cpu", **UNPOOLED_UNET)
+    encoder = policy.obs_encoder
+    width = len(UNPOOLED_CAMERAS) * 2 * 2 * 512 + 9
+    if encoder.feature_dim != width or policy.global_cond_dim != width * 2 + 3:
+        raise AssertionError(f"unpooled DP: {encoder.feature_dim} features a frame, condition "
+                             f"{policy.global_cond_dim}")
+    cpu, card = image_dp_task(policy), image_dp_task(copy.deepcopy(policy).to(dev))
+    n_params = sum(p.numel() for p in policy.parameters())
+    seeded = {k: v.clone() for k, v in policy.state_dict().items()}
+    request = build_image_dp_batch(1, IMAGE_SIDE, 3, UNPOOLED_CAMERAS, seed=1,
+                                   with_actions=False)
+    with fixed_sampling_draws(3):
+        ref = cpu.predict(request, torch.Generator().manual_seed(0))
+        card.predict(request, torch.Generator(device=dev).manual_seed(0))  # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        got = card.predict(request, torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        predict_ms = (time.perf_counter() - t1) * 1e3
+    paths = {"unpooled_dp_predict": ops.launch_counts()}
+    _only(paths["unpooled_dp_predict"], {}, "unpooled dp predict")
+    err, scale = (got.float().cpu() - ref.float()).abs().max().item(), ref.abs().max().item()
+    if not (tuple(got.shape) == (1, 8, 7) and err <= IMAGE_DP_CPU_TOL * max(1.0, scale)):
+        raise AssertionError(f"unpooled dp predict card vs CPU: {tuple(got.shape)}, {err:.3e} "
+                             f"> {IMAGE_DP_CPU_TOL} x max(1, {scale:.3e})")
+    batch = build_image_dp_batch(UNPOOLED_BATCH, IMAGE_SIDE, 3, UNPOOLED_CAMERAS, seed=2)
+    losses = {}
+    for name, module in (("cpu", cpu), ("card", card)):
+        trainer = Trainer(precision="bf16-mixed", seed=0,
+                          accelerator="cpu" if name == "cpu" else "auto")
+        trainer.setup(module, TOTAL_STEPS)
+        ops.reset_launch_counts()
+        with fixed_dp_draws(5):
+            t1 = time.perf_counter()
+            losses[name] = float(trainer.train_step(
+                module, to_device(batch, module.device))["loss"])
+            if name == "card":
+                torch.cuda.synchronize()
+                step_ms = (time.perf_counter() - t1) * 1e3
+                paths["unpooled_dp_train"] = ops.launch_counts()
+    _only(paths["unpooled_dp_train"], {}, "unpooled dp bf16 step")
+    moved = sum(not torch.equal(seeded[n].to(dev), p) for n, p in card.policy.named_parameters())
+    rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    if not (np.isfinite(list(losses.values())).all() and rel <= BF16_TOL
+            and moved > len(seeded) // 2):
+        raise AssertionError(f"unpooled dp bf16 step: losses {losses} ({rel:.3e} relative), "
+                             f"{moved} parameters moved")
+    log(f"p19 (d) {card_line()}: image DP, a ResNet-18 a camera without avg_pool "
+        f"({len(UNPOOLED_CAMERAS)} cameras, {encoder.feature_dim} features a frame, condition "
+        f"{policy.global_cond_dim}, {n_params} parameters): predict B=1 ({UNPOOLED_UNET['num_inference_steps']} "
+        f"steps) {predict_ms:.2f} ms, card vs CPU {err:.3e} of max(1, {scale:.3e}); bf16 step "
+        f"B={UNPOOLED_BATCH} {step_ms:.2f} ms (first step), loss card {losses['card']:.6f} vs "
+        f"CPU {losses['cpu']:.6f} ({rel:.3e} relative); no kernel of #1-#13 launched; "
+        f"{time.perf_counter() - t0:.1f} s in all")
+    del cpu, card, policy
+    torch.cuda.empty_cache()
+    return paths
+
+
+def unpooled_image_dp_full(dev) -> dict:
+    """Phase 19 (f): (d)'s model at the shipped widths (UNPOOLED_FULL_*:
+    ResNet-18 a camera without ``avg_pool`` at the configs' resize 256 /
+    crop 224, the UNet at 512/1024/2048, 100 reverse steps; 3.15 billion
+    parameters, most of them in the FiLM linears of the 100,373-wide
+    condition), built and drawn on the card (``init_device``): ``predict``
+    at B=1 after a warm-up, finite (1, 8, 7) actions; two ``"bf16-mixed"``
+    steps at B=UNPOOLED_BATCH under the configs' AdamW + OneCycleLR, finite
+    losses, every parameter finite and most of them moved; the peak memory
+    after each. No kernel of #1-#13 runs on this path. Returns the launches
+    by path."""
+    import gc
+    import math
+
+    import torch
+
+    from pointcloudmatters_tpu_torch import ops
+    from pointcloudmatters_tpu_torch.entry import build_image_dp_batch, build_image_dp_policy
+    from pointcloudmatters_tpu_torch.models.bc_module import to_device
+    from pointcloudmatters_tpu_torch.trainer import Trainer
+    from pointcloudmatters_tpu_torch.utils.normalizer import SingleFieldLinearNormalizer
+
+    gib = 2 ** 30
+    gc.collect()  # the earlier phases' tensors that only cycles still hold
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    normalizer = dp_normalizer()
+    for key in ("base_camera_rgb", "hand_camera_rgb"):
+        normalizer[key] = SingleFieldLinearNormalizer.create_identity()
+    t0 = time.perf_counter()
+    policy = build_image_dp_policy("resnet", 3, share_rgb_model=False, cameras=UNPOOLED_CAMERAS,
+                                   backbone_kw=UNPOOLED_FULL_BACKBONE, normalizer=normalizer,
+                                   device=dev, init_device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    encoder = policy.obs_encoder
+    n_params = sum(p.numel() for p in policy.parameters())
+    width = len(UNPOOLED_CAMERAS) * 7 * 7 * 512 + 9
+    if (encoder.feature_dim, policy.global_cond_dim, n_params) != (
+            width, width * 2 + 3, UNPOOLED_FULL_PARAMS):
+        raise AssertionError(f"full-width unpooled DP: {encoder.feature_dim} features a frame, "
+                             f"condition {policy.global_cond_dim}, {n_params} parameters")
+    peaks = {"build": torch.cuda.max_memory_allocated() / gib}
+    task = image_dp_task(policy)
+    request = build_image_dp_batch(1, IMAGE_SIDE, 3, UNPOOLED_CAMERAS, seed=1,
+                                   with_actions=False)
+    task.predict(request, torch.Generator(device=dev).manual_seed(0))  # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t1 = time.perf_counter()
+    actions = task.predict(request, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    predict_ms = (time.perf_counter() - t1) * 1e3
+    paths = {"unpooled_full_predict": ops.launch_counts()}
+    _only(paths["unpooled_full_predict"], {}, "full-width unpooled dp predict")
+    if tuple(actions.shape) != (1, 8, 7) or not torch.isfinite(actions).all():
+        raise AssertionError(f"full-width unpooled dp predict: {tuple(actions.shape)}, "
+                             f"finite {bool(torch.isfinite(actions).all())}")
+    peaks["predict"] = torch.cuda.max_memory_allocated() / gib
+    del actions, request
+    sums = [p.detach().double().sum() for p in policy.parameters()]
+    batch = to_device(build_image_dp_batch(UNPOOLED_BATCH, IMAGE_SIDE, 3, UNPOOLED_CAMERAS,
+                                           seed=2), task.device)
+    trainer = Trainer(precision="bf16-mixed", seed=0)
+    trainer.setup(task, TOTAL_STEPS)
+    ops.reset_launch_counts()
+    losses, step_ms = [], []
+    for _ in range(2):
+        t1 = time.perf_counter()
+        losses.append(float(trainer.train_step(task, batch)["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    paths["unpooled_full_train"] = ops.launch_counts()
+    _only(paths["unpooled_full_train"], {}, "full-width unpooled dp bf16 step")
+    peaks["train"] = torch.cuda.max_memory_allocated() / gib
+    params = list(policy.parameters())
+    moved = sum(not torch.equal(p.detach().double().sum(), s) for p, s in zip(params, sums))
+    finite = all(bool(torch.isfinite(p).all()) for p in params)
+    if not (all(map(math.isfinite, losses)) and finite and moved > len(params) // 2):
+        raise AssertionError(f"full-width unpooled dp bf16 steps: losses {losses}, parameters "
+                             f"finite {finite}, {moved} of {len(params)} moved")
+    total = torch.cuda.get_device_properties(dev).total_memory / gib
+    log(f"p19 (f) {card_line()}: image DP at the shipped widths, a ResNet-18 a camera without "
+        f"avg_pool ({len(UNPOOLED_CAMERAS)} cameras at 224 px, {encoder.feature_dim} features "
+        f"a frame, condition {policy.global_cond_dim}, {n_params} parameters, built on the "
+        f"card in {build_s:.2f} s): predict B=1 (100 steps) {predict_ms:.2f} ms, finite; bf16 "
+        f"steps B={UNPOOLED_BATCH} {step_ms[0]:.2f} ms (first) and {step_ms[1]:.2f} ms, "
+        f"losses {losses[0]:.6f}, {losses[1]:.6f}, {moved} of {len(params)} parameters moved; "
+        f"peak allocated after build / predict / steps {peaks['build']:.2f} / "
+        f"{peaks['predict']:.2f} / {peaks['train']:.2f} GiB of {total:.2f} (the phase started "
+        f"at {before / gib:.2f}); no kernel of #1-#13 launched; "
+        f"{time.perf_counter() - t0:.1f} s in all")
+    del task, policy, trainer, batch, params, sums
+    torch.cuda.empty_cache()
+    return paths
+
+
+def sgd_round_trip(dev) -> dict:
+    """Phase 19 (e): the flagship (seeded) on SGD_OPT (momentum 0.9,
+    Nesterov off, coupled decay) under the flagship's OneCycleLR, two
+    ``"bf16-mixed"`` steps at B=SGD_BATCH on the card; its state written in
+    the form a JAX checkpoint restored without a template has
+    (``torch_to_flax``: the parameters, the batch statistics, and the
+    optimizer state as JAX's SGD chain holds it, ``[{}, {"trace": ...},
+    {"count": 2}]``), converted by ``jax_checkpoint_to_torch`` into a
+    flagship of other seeded weights and resumed on the card: every tensor
+    bit-equal to the source's; then one more step's gradients (one
+    forward/backward of the source) applied by both optimizers, the
+    parameters and momentum buffers after it bit-equal. Returns the
+    launches by path."""
+    import numpy as np
+    import torch
+
+    from pointcloudmatters_tpu_torch import ops
+    from pointcloudmatters_tpu_torch.entry import build_batch, build_flagship
+    from pointcloudmatters_tpu_torch.models.bc_module import BCModule, to_device
+    from pointcloudmatters_tpu_torch.trainer import Trainer
+    from pointcloudmatters_tpu_torch.utils.flax_to_torch import jax_checkpoint_to_torch
+    from tools.jax_form import torch_to_flax
+
+    t0 = time.perf_counter()
+    batch = to_device(build_batch(batch_size=SGD_BATCH, n_points=N_POINTS), dev)
+    source = BCModule(build_flagship(seed=0, device=dev), optimizer=SGD_OPT,
+                      lr_scheduler=FLAGSHIP_SCHED)
+    trainer = Trainer(precision="bf16-mixed", seed=0)
+    trainer.setup(source, TOTAL_STEPS)
+    ops.reset_launch_counts()
+    for _ in range(2):
+        trainer.train_step(source, batch)
+    policy = source.policy
+    names = [n for n, _ in policy.named_parameters()]
+    state = source.optimizer.state_dict()["state"]
+    buffers = {n: state[i]["momentum_buffer"] for i, n in enumerate(names)}
+    variables = torch_to_flax(policy)
+    restored = {"params": variables["params"], "batch_stats": variables["batch_stats"],
+                "step": np.asarray(2), "epoch": np.asarray(0),
+                "opt_state": [{}, {"trace": torch_to_flax(policy, buffers)},
+                              {"count": np.asarray(2, np.int32)}]}
+    resumed = BCModule(build_flagship(seed=1, device=dev), optimizer=SGD_OPT,
+                       lr_scheduler=FLAGSHIP_SCHED)
+    Trainer(precision="bf16-mixed", seed=0).setup(resumed, TOTAL_STEPS)
+    ckpt = jax_checkpoint_to_torch(restored, resumed)
+    resumed.policy.load_state_dict({**ckpt["params"], **ckpt["batch_stats"]}, strict=True)
+    resumed.optimizer.load_state_dict(ckpt["opt_state"]["optimizer"])
+    resumed.scheduler.load_state_dict(ckpt["opt_state"]["scheduler"])
+    differ = [k for k, v in policy.state_dict().items()
+              if not torch.equal(v, resumed.policy.state_dict()[k])]
+    differ += [n for i, n in enumerate(names) if not torch.equal(
+        buffers[n], resumed.optimizer.state_dict()["state"][i]["momentum_buffer"])]
+    if differ or resumed.scheduler.last_epoch != 2:
+        raise AssertionError(f"sgd round trip: {len(differ)} tensors differ after the "
+                             f"conversion ({differ[:3]}), schedule at "
+                             f"{resumed.scheduler.last_epoch}")
+    source.optimizer.zero_grad(set_to_none=False)
+    out = source.forward_train(batch, trainer.rngs, trainer.compute_dtype)
+    out["loss"].to(torch.float32).backward()
+    for p, q in zip(policy.parameters(), resumed.policy.parameters()):
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        q.grad = p.grad.clone()
+    for module in (source, resumed):
+        module.optimizer.step()
+        module.scheduler.step()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    _only(launches, {k: 3 * n for k, n in ACT_KERNELS_A_STEP.items()}, "sgd_round_trip")
+    after = resumed.optimizer.state_dict()["state"]
+    differ = [n for (n, p), q in zip(policy.named_parameters(), resumed.policy.parameters())
+              if not torch.equal(p, q)]
+    differ += [n for i, n in enumerate(names) if not torch.equal(
+        source.optimizer.state_dict()["state"][i]["momentum_buffer"],
+        after[i]["momentum_buffer"])]
+    if differ:
+        raise AssertionError(f"sgd round trip: the resumed step differs at {differ[:5]}")
+    log(f"p19 (e) {card_line()}: flagship on SGD (momentum 0.9, coupled decay, OneCycleLR), "
+        f"2 bf16 steps at B={SGD_BATCH}, written in JAX's form and converted: "
+        f"{len(policy.state_dict())} tensors and {len(names)} momentum buffers bit-equal; "
+        f"the next step bit-equal to the source's; {time.perf_counter() - t0:.1f} s")
+    del source, resumed, trainer, batch
+    torch.cuda.empty_cache()
+    return {"sgd_round_trip": launches}
+
+
+def phase19(dev) -> dict:
+    """Phase 19: (a)-(e); the launches of its paths."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    p19_root(tmp.name)
+    paths = {}
+    for tag, part in zip("abcdef", (preprocessed_rlbench, rlbench_camera_view,
+                                    maniskill2_sweeps, unpooled_image_dp, sgd_round_trip,
+                                    unpooled_image_dp_full)):
+        t0 = time.perf_counter()
+        paths.update(part(dev))
+        PHASE_SECONDS[f"19 ({tag})"] = round(time.perf_counter() - t0, 1)
+        log(f"phase 19 {part.__name__}: {PHASE_SECONDS[f'19 ({tag})']:.1f} s")
+    tmp.cleanup()
+    P19.clear()
+    log(f"phase 19 in {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -6968,10 +7710,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
-    t0 = time.perf_counter()
-    logs = _build.build()
-    log(f"built {sorted(logs) or 'nothing (cached)'} in "
-        f"{time.perf_counter() - t0:.1f} s")
+    t_main = time.perf_counter()
+    logs = timed("2 build", _build.build)
+    log(f"built {sorted(logs) or 'nothing (cached)'} in {PHASE_SECONDS['2 build']:.1f} s")
     usage = ptxas_usage(logs)
     for fn, u in sorted(usage.items()):
         log(f"  {fn}: {u.get('registers')} registers, stack frame {u.get('stack')} B, "
@@ -6985,37 +7726,39 @@ def main() -> int:
         raise AssertionError(f"ptxas reported no usage for a tensor-core kernel: {ptxas}")
 
     with knn_impl(None):  # phases 3-8 on the default kNN route, whatever the caller set
-        res = check_kernels(dev)
+        res = timed("3 kernels", check_kernels, dev)
         if full_build:  # a build that found libraries cached prints no record of theirs
             for name, record in ptxas.items():
                 res[name]["ptxas"] = record
         torch.cuda.empty_cache()  # the serving phase starts from an empty pool, as before
-        paths = {"predict": serve(dev), "train_step": train(dev)}
-        paths.update(train_bf16(dev))
-        paths["predict_fused"] = serve(dev, "fused")
-        paths.update(train_fused(dev))
-        paths["predict_flash"] = serve(dev, "flash")
-        paths.update(train_flash(dev))
+        paths = {"predict": timed("4 predict", serve, dev),
+                 "train_step": timed("5 train", train, dev)}
+        paths.update(timed("6 bf16", train_bf16, dev))
+        paths["predict_fused"] = timed("7 predict fused", serve, dev, "fused")
+        paths.update(timed("7 train fused", train_fused, dev))
+        paths["predict_flash"] = timed("8 predict flash", serve, dev, "flash")
+        paths.update(timed("8 train flash", train_flash, dev))
     torch.cuda.empty_cache()
-    selector_paths = serve_selectors(dev)
+    selector_paths = timed("9 selectors", serve_selectors, dev)
     paths.update(selector_paths)
     with knn_impl(None):
-        fit_paths, fit_times = fit_flagship(dev)
+        fit_paths, fit_times = timed("10 fit", fit_flagship, dev)
         paths.update(fit_paths)
-        paths.update(train_cli(dev, fit_times))
-        paths.update(train_ddp(dev))
-        dp_paths, dp_cases = train_dp(dev)
+        paths.update(timed("11 train_cli", train_cli, dev, fit_times))
+        paths.update(timed("12 ddp", train_ddp, dev))
+        dp_paths, dp_cases = timed("13 dp", train_dp, dev)
         paths.update(dp_paths)
         for name, found in dp_cases.items():
             res[name]["dp_cases"] = found
-        spunet_paths, _ = train_spunet(dev)
+        spunet_paths, _ = timed("14 spunet", train_spunet, dev)
         paths.update(spunet_paths)
-        image_paths, _ = train_images(dev)
+        image_paths, _ = timed("15 images", train_images, dev)
         paths.update(image_paths)
-        image_dp_paths, _ = train_image_dp(dev)
+        image_dp_paths, _ = timed("16 image dp", train_image_dp, dev)
         paths.update(image_dp_paths)
-        paths.update(train_rlbench(dev))
-        paths.update(phase18(dev))
+        paths.update(timed("17 rlbench", train_rlbench, dev))
+        paths.update(timed("18", phase18, dev))
+        paths.update(timed("19", phase19, dev))
     stray = {path: [k for k in FLASH_KERNELS if counts[k]] for path, counts in paths.items()
              if "flash" not in path and any(counts[k] for k in FLASH_KERNELS)}
     if stray:
@@ -7034,6 +7777,8 @@ def main() -> int:
              **res[name])
         for name, (src, tpu) in KERNELS.items()
     ]
+    PHASE_SECONDS["all"] = round(time.perf_counter() - t_main, 1)
+    print(json.dumps({"phase_seconds": PHASE_SECONDS}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -59,6 +59,7 @@ DP RGB-D datasets and the default collate give it.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Union
 
@@ -465,31 +466,36 @@ def build_image_dp_policy(backbone="resnet", channels=3, share_rgb_model=True,
                           num_train_timesteps=100, num_inference_steps=100,
                           diffusion_step_embed_dim=128, down_dims=(512, 1024, 2048),
                           kernel_size=5, n_groups=8, seed=0, normalizer=None, backbone_kw=None,
-                          encoder_kw=None, device: Union[str, torch.device] = "cuda"
+                          encoder_kw=None, device: Union[str, torch.device] = "cuda",
+                          init_device: Union[str, torch.device, None] = None
                           ) -> DiffusionUnetImagePolicy:
     """The image Diffusion Policy (module doc; the defaults are the shipped
     widths), weights from ``torch.Generator().manual_seed(seed)``, on
     ``device`` in eval mode. ``normalizer`` is set on the policy (None: the
-    identity)."""
-    shape_meta = image_dp_shape_meta(channels, cameras)
-    pool = {"avg_pool": True} if backbone == "resnet" else {}  # the configs' ResNets pool
-    encoder = MultiImageObsEncoder(**{
-        "shape_meta": shape_meta,
-        "rgb_model": image_backbone(backbone, channels, {**pool, **(backbone_kw or {})}),
-        "resize_shape": (256, 256), "crop_shape": (224, 224), "random_crop": False,
-        "share_rgb_model": share_rgb_model, "use_depth": channels in (1, 4),
-        "only_depth": channels == 1, **(encoder_kw or {})})
-    policy = DiffusionUnetImagePolicy(
-        shape_meta=shape_meta,
-        noise_scheduler=DDPMScheduler(
-            num_train_timesteps=num_train_timesteps, beta_start=0.0001, beta_end=0.02,
-            beta_schedule="squaredcos_cap_v2", clip_sample=True, prediction_type="epsilon"),
-        obs_encoder=encoder, horizon=horizon, n_action_steps=n_action_steps,
-        n_obs_steps=n_obs_steps, num_inference_steps=num_inference_steps,
-        diffusion_step_embed_dim=diffusion_step_embed_dim, down_dims=tuple(down_dims),
-        kernel_size=kernel_size, n_groups=n_groups, cond_predict_scale=True,
-        normalizer=normalizer)
-    init_parameters(policy, torch.Generator().manual_seed(seed))
+    identity). With ``init_device`` the policy is built and drawn there,
+    from a generator of that device seeded alike (other values than the
+    CPU's): for widths the host would draw slowly, such as per-key image
+    models that do not pool (several GB of condition weights)."""
+    with torch.device(init_device) if init_device is not None else contextlib.nullcontext():
+        shape_meta = image_dp_shape_meta(channels, cameras)
+        pool = {"avg_pool": True} if backbone == "resnet" else {}  # the configs' ResNets pool
+        encoder = MultiImageObsEncoder(**{
+            "shape_meta": shape_meta,
+            "rgb_model": image_backbone(backbone, channels, {**pool, **(backbone_kw or {})}),
+            "resize_shape": (256, 256), "crop_shape": (224, 224), "random_crop": False,
+            "share_rgb_model": share_rgb_model, "use_depth": channels in (1, 4),
+            "only_depth": channels == 1, **(encoder_kw or {})})
+        policy = DiffusionUnetImagePolicy(
+            shape_meta=shape_meta,
+            noise_scheduler=DDPMScheduler(
+                num_train_timesteps=num_train_timesteps, beta_start=0.0001, beta_end=0.02,
+                beta_schedule="squaredcos_cap_v2", clip_sample=True, prediction_type="epsilon"),
+            obs_encoder=encoder, horizon=horizon, n_action_steps=n_action_steps,
+            n_obs_steps=n_obs_steps, num_inference_steps=num_inference_steps,
+            diffusion_step_embed_dim=diffusion_step_embed_dim, down_dims=tuple(down_dims),
+            kernel_size=kernel_size, n_groups=n_groups, cond_predict_scale=True,
+            normalizer=normalizer)
+        init_parameters(policy, torch.Generator(init_device or "cpu").manual_seed(seed))
     return policy.to(device).eval()
 
 

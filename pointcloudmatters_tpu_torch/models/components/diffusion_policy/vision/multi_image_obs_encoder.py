@@ -13,16 +13,21 @@ random crop a row in training with ``random_crop``, drawn from
 first three channels with ``imagenet_norm``.
 
 With ``share_rgb_model`` one ``rgb_model`` encodes every key's images,
-stacked along the batch; otherwise each rgb key has its own copy,
-``model_<key>``, drawn on its own; as in JAX, where the copies are not
-module fields, no pretrained weights reach them: their ``pretrained_path``
-is cleared, with one warning. The model must pool each image to (B,
-D) (:func:`pooled_width`). ``use_group_norm`` is accepted and not read, as
-in JAX.
+stacked along the batch, and must pool each image to (B, D)
+(:func:`pooled_width`; JAX's ``ValueError``, raised here at construction);
+otherwise each rgb key has its own copy, ``model_<key>``, drawn on its own,
+and its features are flattened to (B, -1) whatever their shape (ResNet
+without ``avg_pool`` gives (B, h, w, C), ViT's ``reshape_embedding`` (B,
+g, g, D)); as in JAX, where the copies are not module fields, no
+pretrained weights reach them: their ``pretrained_path`` is cleared, with
+one warning. ``use_group_norm`` is accepted and not read, as in JAX.
 
 :attr:`MultiImageObsEncoder.feature_dim` is the width of one frame's
 features, which the policy needs before its UNet is built (JAX infers it at
-``init``).
+``init``): the sum over the rgb keys of :attr:`key_widths`, a pooling
+model's ``num_channels``, or for an unpooled per-key model the flattened
+width of its output at the image shape the encoder feeds that key
+(:func:`unpooled_width`), plus the low-dim keys' widths.
 
 Under ``"bf16-mixed"`` the normalizer's f32 constants make the images f32,
 and flax's layers promote their bf16 weights to the input's type: the
@@ -33,6 +38,7 @@ calls a backbone so.
 from __future__ import annotations
 
 import copy
+import itertools
 import math
 from collections.abc import Mapping
 from typing import Any, Optional, Sequence
@@ -49,7 +55,7 @@ from pointcloudmatters_tpu_torch.utils.image import resize
 from pointcloudmatters_tpu_torch.utils.pylogger import RankedLogger
 
 __all__ = ["MultiImageObsEncoder", "center_crop", "random_crop", "crop_offsets",
-           "pooled_width", "run_promoted"]
+           "pools", "pooled_width", "unpooled_width", "run_promoted"]
 
 log = RankedLogger(__name__, rank_zero_only=True)
 
@@ -80,17 +86,41 @@ def random_crop(x: torch.Tensor, h: int, w: int, generator: torch.Generator) -> 
     return crop_image_from_indices(x, torch.stack([tops, lefts], dim=-1)[:, None], h, w)[:, 0]
 
 
+def pools(model: nn.Module) -> bool:
+    """Whether ``model`` gives one (D,) vector an image: not a ResNet
+    without ``avg_pool``, nor a ViT with ``reshape_embedding``."""
+    return not (isinstance(model, ResNetTorchVision) and not model.avg_pool
+                or isinstance(model, ViT) and model.model.classifier_feature == "reshape_embedding")
+
+
 def pooled_width(model: nn.Module) -> int:
-    """The width of one image's features: the rgb model's ``num_channels``
-    (ResNet's 2048 or 512 with ``avg_pool``, the ViTs' and MultiViT's token
-    width). JAX takes the width of an unpooled map at ``init``; the port
-    sizes the UNet before any image, so it refuses a model that does not
-    pool (no config has one)."""
-    if isinstance(model, ResNetTorchVision) and not model.avg_pool or isinstance(
-            model, ViT) and model.model.classifier_feature == "reshape_embedding":
-        raise NotImplementedError(f"a {type(model).__name__} rgb_model that does not pool "
-                                  f"to (B, D): set avg_pool / a pooled feature_mode")
+    """The width of one image's features from a model that pools: its
+    ``num_channels`` (ResNet's 2048 or 512 with ``avg_pool``, the ViTs' and
+    MultiViT's token width). A model that does not pool raises JAX's
+    ``ValueError`` (a shared model must pool)."""
+    if not pools(model):
+        raise ValueError("shared rgb_model must pool to (B, D); set avg_pool=True")
     return model.num_channels
+
+
+def unpooled_width(model: nn.Module, shape: Sequence[int]) -> int:
+    """The flattened width of ``model``'s output for one (H, W, C) image of
+    ``shape``: a forward in eval mode on meta copies of its parameters and
+    buffers, or, where a layer cannot run on the meta device, a batch-1
+    forward on CPU copies under ``torch.no_grad()``. Either way the model's
+    own tensors (batch-norm running statistics too) are not touched and no
+    generator is drawn from."""
+    tensors = dict(itertools.chain(model.named_parameters(), model.named_buffers()))
+    try:
+        out = torch.func.functional_call(
+            model, {n: torch.empty_like(t, device="meta") for n, t in tensors.items()},
+            (torch.empty((1, *shape), device="meta"),), {"train": False})
+    except (NotImplementedError, RuntimeError):
+        with torch.no_grad():
+            out = torch.func.functional_call(
+                model, {n: t.detach().to("cpu", copy=True) for n, t in tensors.items()},
+                (torch.zeros((1, *shape), device="cpu"),), {"train": False})
+    return math.prod(out.shape[1:])
 
 
 def run_promoted(model: nn.Module, x: torch.Tensor, **kwargs) -> torch.Tensor:
@@ -136,7 +166,11 @@ class MultiImageObsEncoder(nn.Module):
         self.rgb_keys, self.depth_keys, self.low_dim_keys = (
             keys("rgb"), keys("depth"), keys("low_dim"))
         self.low_dim_width = sum(math.prod(meta[k]["shape"]) for k in self.low_dim_keys)
-        self.image_width = pooled_width(rgb_model)
+        if share_rgb_model and self.rgb_keys or pools(rgb_model):
+            self.key_widths = dict.fromkeys(self.rgb_keys, pooled_width(rgb_model))
+        else:  # each key's map at the shape the encoder feeds that key's copy
+            self.key_widths = {k: unpooled_width(rgb_model, self._model_input_shape(k))
+                               for k in self.rgb_keys}
         if share_rgb_model:
             self.rgb_model = rgb_model
         else:  # an independent copy a key; the template itself is not kept
@@ -160,12 +194,30 @@ class MultiImageObsEncoder(nn.Module):
     @property
     def feature_dim(self) -> int:
         """Features an observation frame: every rgb key's and the low-dim keys'."""
-        return len(self.rgb_keys) * self.image_width + self.low_dim_width
+        return sum(self.key_widths.values()) + self.low_dim_width
 
     def key_models(self) -> dict[str, nn.Module]:
         """The per-key copies by rgb key (none with a shared model)."""
         return {} if self.share_rgb_model else {
             k: getattr(self, f"model_{k}") for k in self.rgb_keys}
+
+    def _model_input_shape(self, key: str) -> tuple[int, int, int]:
+        """The (H, W, C) image the encoder feeds the model for ``key``: the
+        obs shape of ``shape_meta`` (channel-last, or channel-first as the
+        RLBench configs write it), with its depth key's channels merged
+        (alone with ``only_depth``), resized and cropped."""
+        meta = self.shape_meta["obs"]
+
+        def hwc(k: str) -> tuple:
+            s = tuple(int(d) for d in meta[k]["shape"])
+            return s if s[-1] <= s[0] else s[1:] + s[:1]
+
+        h, w, c = hwc(key)
+        depth_key = key.replace("rgb", "depth")
+        if (self.use_depth or self.only_depth) and depth_key in self.depth_keys:
+            c = hwc(depth_key)[-1] + (0 if self.only_depth else c)
+        h, w = self.crop_shape or self.resize_shape or (h, w)
+        return h, w, c
 
     def _transform(self, img: torch.Tensor, train: bool,
                    rngs: Optional[Mapping]) -> torch.Tensor:
@@ -210,7 +262,7 @@ class MultiImageObsEncoder(nn.Module):
                 img = self._merge_depth(key, obs_dict[key], obs_dict)
                 feat = run_promoted(model, self._transform(img, train, rngs), train=train)
                 batch_size = feat.shape[0]
-                features.append(feat)
+                features.append(feat.reshape(batch_size, -1))
         for key in self.low_dim_keys:
             data = obs_dict[key]
             if batch_size is not None and data.shape[0] != batch_size:

@@ -245,6 +245,61 @@ def _merge(trees: list) -> dict:
     return out
 
 
+def _optimizer_state(opt: Any, optimizer, name_of: dict, as_torch, param_keys: set) -> dict:
+    """The torch ``optimizer``'s per-parameter state (indexed over its
+    groups' parameters in order) of the JAX optimizer state ``opt``: Adam's
+    moments, SGD's momentum traces, or nothing for SGD without momentum.
+    ``param_keys`` are the top-level keys of the parameter tree, which tell
+    a parameter tree inside ``opt`` from the optimizer's own nodes."""
+    groups = optimizer.param_groups
+    adams = _nodes(opt, {"count", "mu", "nu"})
+    traces = _nodes(opt, {"trace"})
+    if isinstance(optimizer, torch.optim.SGD):
+        found, kind = traces, "momentum trace"
+        if not any(g["momentum"] for g in groups) and not adams:
+            if traces:
+                raise ValueError("the JAX optimizer state holds momentum traces and the "
+                                 "module's SGD has no momentum")
+            return {}
+    else:
+        found, kind = adams, "Adam"
+    if not found:
+        held = sorted({"/".join(sorted(k)) for k in _state_nodes(opt, param_keys) if k})
+        raise NotImplementedError(
+            f"only Adam-family (AdamW, Adam) and SGD optimizer states convert: the JAX state "
+            f"holds nodes of {held or 'no state'} and the module's optimizer is "
+            f"{type(optimizer).__name__}")
+    if len(found) != len(groups):
+        raise ValueError(f"the JAX optimizer state holds {len(found)} {kind} states and the "
+                         f"module's optimizer {len(groups)} parameter groups")
+    if kind == "Adam":
+        mu = as_torch(_merge([_present(a["mu"]) for a in found]))
+        nu = as_torch(_merge([_present(a["nu"]) for a in found]))
+    else:
+        trace = as_torch(_merge([_present(t["trace"]) for t in found]))
+    state, i = {}, 0
+    for group, node in zip(groups, found):
+        for p in group["params"]:
+            n = name_of[id(p)]
+            state[i] = ({"step": torch.tensor(float(node["count"]), dtype=torch.float32),
+                         "exp_avg": mu[n], "exp_avg_sq": nu[n]} if kind == "Adam"
+                        else {"momentum_buffer": trace[n]})
+            i += 1
+    return state
+
+
+def _state_nodes(tree: Any, param_keys: set) -> list[frozenset]:
+    """The key sets of the optimizer's own dicts in ``tree``, not descending
+    into a parameter tree (a dict with a key of ``param_keys``)."""
+    if isinstance(tree, dict):
+        if set(tree) & param_keys:
+            return []
+        return [frozenset(tree)] + [k for v in tree.values() for k in _state_nodes(v, param_keys)]
+    if isinstance(tree, list):
+        return [k for v in tree for k in _state_nodes(v, param_keys)]
+    return []
+
+
 def jax_checkpoint_to_torch(restored: Mapping, module) -> dict:
     """The port's checkpoint dict (``trainer.py``) of a JAX checkpoint.
 
@@ -256,10 +311,16 @@ def jax_checkpoint_to_torch(restored: Mapping, module) -> dict:
     parameter groups. AdamW's ``mu``/``nu``/``count`` become the optimizer's
     ``exp_avg``/``exp_avg_sq``/``step`` (through the same layout rules as
     the parameters), the schedule's count its ``last_epoch``, and
-    ``MultiSteps``' ``acc_grads``/``mini_step`` the gradient mean's. Under
-    keyword-matched ``param_dicts`` (``optax.multi_transform``) each group
-    holds an Adam state over its own parameters, which the optimizer's
-    group of the same index takes; the groups' schedules count alike. The
+    ``MultiSteps``' ``acc_grads``/``mini_step`` the gradient mean's. SGD's
+    ``optax.trace`` (``{"trace": ...}``) becomes torch SGD's
+    ``momentum_buffer`` by the same rules: with dampening 0 torch's ``buf =
+    m buf + g`` is optax's ``t = g + m t``, Nesterov's update ``g + m buf``
+    alike in both, coupled weight decay added to ``g`` before both, and a
+    zero trace steps as torch's first ``buf = g``; SGD without momentum has
+    no state in either package. Under keyword-matched ``param_dicts``
+    (``optax.multi_transform``) each group holds an Adam state, or a trace,
+    over its own parameters, which the optimizer's group of the same index
+    takes; the groups' schedules count alike. The
     JAX ``rng`` key has no counterpart (the port draws its dropout bits
     another way) and is left out, so the restoring trainer keeps the streams
     it seeded from ``module.seed``."""
@@ -282,26 +343,10 @@ def jax_checkpoint_to_torch(restored: Mapping, module) -> dict:
     opt = restored.get("opt_state")
     if opt is None:
         return out
-    adams = _nodes(opt, {"count", "mu", "nu"})
-    if not adams:
-        raise NotImplementedError("only Adam-family optimizer states convert (AdamW, Adam)")
-    groups = module.optimizer.param_groups
-    if len(adams) != len(groups):
-        raise ValueError(f"the JAX optimizer state holds {len(adams)} Adam states and the "
-                         f"module's optimizer {len(groups)} parameter groups")
-    mu = as_torch(_merge([_present(a["mu"]) for a in adams]))
-    nu = as_torch(_merge([_present(a["nu"]) for a in adams]))
     name_of = {id(p): n for n, p in policy.named_parameters()}
     optimizer = copy.deepcopy(module.optimizer.state_dict())
-    optimizer["state"] = {}
-    i = 0
-    for group, adam in zip(groups, adams):
-        for p in group["params"]:
-            n = name_of[id(p)]
-            optimizer["state"][i] = {"step": torch.tensor(float(adam["count"]),
-                                                          dtype=torch.float32),
-                                     "exp_avg": mu[n], "exp_avg_sq": nu[n]}
-            i += 1
+    optimizer["state"] = _optimizer_state(opt, module.optimizer, name_of, as_torch,
+                                          set(restored["params"]))
     schedules = _nodes(opt, {"count"})
     if len({int(s["count"]) for s in schedules}) > 1:
         raise ValueError("the JAX optimizer state's schedules disagree on their count")

@@ -18,7 +18,9 @@ JAX blocked, and RLBench's ACT trains from ``configs/`` and is evaluated by
 ``test_rlbench_act`` against a fake task with JAX blocked; SWA from
 ``configs/``, the state-only and masked ACT, ``TransformerForDiffusion``, the
 timm-style builder, the schedulers and the library point ops run with JAX
-blocked. Every CUDA source under ``csrc/`` is one the build compiles,
+blocked; ``preprocess_rlbench`` writes episodes from a fake ``rlbench``, which
+the RLBench dataset reads, and a per-key unpooled image encoder sizes itself
+and encodes, with JAX blocked. Every CUDA source under ``csrc/`` is one the build compiles,
 and none includes a PyTorch or JAX header."""
 
 import ast
@@ -108,6 +110,9 @@ SLICE_MODULES = (
     "pointcloudmatters_tpu_torch.test_rlbench_dp",
     "pointcloudmatters_tpu_torch.models.components.diffusion_policy.diffusion."
     "transformer_for_diffusion",
+    "pointcloudmatters_tpu_torch.preprocess_rlbench",
+    "tools.fake_rlbench",
+    "tools.jax_form",
 )
 BLOCKED = ("jax", "flax", "optax", "orbax")
 
@@ -521,6 +526,59 @@ def test_swa_and_the_library_surface_run_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("ok")
     assert "SWA: swapping in the average of 1 epoch-end" in proc.stdout + proc.stderr
+
+
+def test_preprocessing_and_unpooled_encoders_run_without_jax(tmp_path):
+    """With jax, flax, optax and orbax blocked: ``preprocess_rlbench.main``
+    against ``tools/fake_rlbench.py`` (2 + 1 episodes, ``--text-encoder
+    hash``) writes episodes that the RLBench ACT dataset of ``configs/``
+    reads; a per-key ResNet-18 without ``avg_pool`` sizes the encoder and
+    encodes two cameras; nothing of the JAX package is imported."""
+    script = textwrap.dedent(f"""
+        import os, sys
+        for name in {BLOCKED!r}:
+            sys.modules[name] = None
+        import numpy as np
+        import torch
+        from tools import fake_rlbench
+        from pointcloudmatters_tpu_torch import entry, preprocess_rlbench
+        from pointcloudmatters_tpu_torch.models.components.diffusion_policy.vision import (
+            multi_image_obs_encoder as mio)
+        from pointcloudmatters_tpu_torch.models.components.img_encoder.resnet import (
+            ResNetTorchVision)
+        from pointcloudmatters_tpu_torch.train import compose_run
+        from pointcloudmatters_tpu_torch.utils import config as C
+        raw = fake_rlbench.write_raw({str(tmp_path / "raw")!r}, episodes={{"train": 2, "val": 1}})
+        preprocess_rlbench.EPISODES = {{"train": 2, "val": 1}}
+        with fake_rlbench.installed(side=16, frames=4):
+            preprocess_rlbench.main(["--task_names", "close_jar", "--root", raw,
+                                     "--save_root", "{tmp_path}/out", "--text-encoder", "hash"])
+        assert sorted(os.listdir("{tmp_path}/out/train/close_jar")) == ["ep0.npy", "ep1.npy"]
+        cfg = compose_run(["exp_rlbench_act_policy=base",
+                           "exp_rlbench_act_policy/rlbench_model@rlbench_model=scratch_pointnet_pcd",
+                           "rlbench_task=close_jar", "data.train.root={tmp_path}/out/train",
+                           "data.val.root={tmp_path}/out/val", "data.num_workers=0",
+                           "extras.print_config=false"], output_dir="{tmp_path}/run")
+        data = C.instantiate(cfg.data)
+        data.setup("fit")
+        assert len(data.data_train) > 0 and data.data_train[0]
+        meta = entry.image_dp_shape_meta(3, ("base_camera", "hand_camera"), side=32)
+        enc = mio.MultiImageObsEncoder(
+            meta, ResNetTorchVision("resnet18", channels=3, resize_to=64, avg_pool=False))
+        assert enc.feature_dim == 2 * 2 * 2 * 512 + 9
+        batch = entry.build_image_dp_batch(2, 32, 3, ("base_camera", "hand_camera"),
+                                           n_obs_steps=1, horizon=1)
+        out = enc({{k: torch.from_numpy(v[:, 0]) for k, v in batch["obs"].items()}})
+        assert tuple(out.shape) == (2, enc.feature_dim)
+        assert not [m for m in sys.modules if m.split(".")[0] in
+                    {BLOCKED + ("pointcloudmatters_tpu",)!r}
+                    and sys.modules[m] is not None]
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO_ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
 
 
 def test_cuda_sources_are_built_and_stand_alone():
